@@ -1,0 +1,6 @@
+from .modeling import (  # noqa: F401
+    LlamaConfig,
+    LlamaDecoderLayer,
+    LlamaForCausalLM,
+    LlamaModel,
+)

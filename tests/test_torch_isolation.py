@@ -1,0 +1,95 @@
+"""The port stands alone: nothing under paddle_tpu_torch/, and neither
+chip_smoke.py nor profile_serving.py, imports JAX or the JAX package;
+importing the whole port loads no JAX; and entry points never fall back to
+the CPU silently."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops import _build
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+    return files
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 8 and all(f.exists() for f in files)
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_the_whole_port_loads_no_jax():
+    code = (
+        "import pkgutil, sys, paddle_tpu_torch\n"
+        "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,"
+        " 'paddle_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([k for k in sys.modules"
+        " if k.startswith('paddle_tpu_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = LlamaConfig.tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model._init_paged_caches(2, 32, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatchingEngine(model, max_batch=2, max_len=32, page_size=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(cfg, device="cuda")
+
+
+def test_kernel_build_raises_without_nvcc():
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present: the kernels build here")
+    if all(p.exists() for p in map(_build._library_path, _build.KERNELS)):
+        pytest.skip("kernel libraries already built in this checkout")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
