@@ -11,18 +11,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with kernel, plain and SDPA times and the roofline bound.
   3. K4 (paged decode, csrc/paged_decode.cu) the same way, with lengths
      0, 1, one page, one 4-page chunk and up to 640.
-  4. serving: the llama-750M-class config at full width (12 layers), random
+  4. K1 with its lse output (the training forward) against its plain
+     version at the K1 cases and the training shape [2, 4096, 16/4, 128]
+     (lse max abs error <= 5e-3 bf16 / 1e-4 fp32, out as in 2), timed
+     beside the no-lse path.
+  5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
+     on the same (q, k, v, o, lse, dout): the training shape (bf16), MHA,
+     ragged 77 (not causal) and end-aligned 200/520 at head_dim 64, each
+     also in fp32; max abs error <= tol x max(1, max |plain|); K2 and K3
+     times beside their bounds, the plain backward and SDPA's backward.
+  6. serving: the llama-750M-class config at full width (12 layers), random
      weights from seed 0, through the legacy ContinuousBatchingEngine: a
      wave of 16 greedy requests with both exact and re-stepped prompts and
      one eos request. Checks token counts, that both kernels carried the
-     wave (launch counts), and a teacher-forced check of every emitted token
-     against the dense forward.
+     wave (launch counts), that no training kernel ran (no autograd graph),
+     and a teacher-forced check of every emitted token against the dense
+     forward.
+  7. training parity: a small fp32 Llama (hidden 512, 4/2 heads of 128, 2
+     layers, vocab 1024, seq 200) takes 3 Engine steps on the card and on
+     the CPU from the same weights; losses, parameters and AdamW moments
+     must agree.
+  8. training at full width and depth: the headline config of bench.py
+     (bench_llama, llama_pretrain_tokens_per_sec_per_chip: 853M params,
+     seq 4096, batch 2, bf16, fused CE, no remat), random weights from
+     seed 0, Engine(lr=1e-4, clip 1.0): 2 warm-up and 8 timed steps on
+     fresh batches (tokens/s, MFU, ms per step, peak memory), then 6 steps
+     at lr 1e-3 on one batch whose loss must fall. The K1-lse, K2 and K3
+     counters must show 16 launches a step, the serving K1 counter none.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
 """
 
+import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +72,16 @@ K1_CASES = [
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
 ]
+# the train step's attention shape (bench.py:2013-2019 at batch 2)
+TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
+LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
+# K2/K3 cases; the training shape runs in bf16 only
+BWD_CASES = [
+    TRAIN_SHAPE,
+    ("mha", 2, 1024, 1024, 16, 16, 128, True),
+    ("ragged", 2, 77, 77, 16, 16, 128, False),
+    ("end_aligned", 2, 200, 520, 16, 4, 64, True),
+]
 # K4 case: rows, q heads, head_dim, page, pages per row, lengths
 K4_CASE = (8, 16, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640])
 # the repo's serving design point (bench.py bench_serving, llama-750M
@@ -62,6 +95,20 @@ ENGINE = dict(max_batch=8, max_len=640, page_size=16, block_size=16,
 # the wave: 4 prompts of exactly the bucket length and 12 of 3/4 bucket to
 # bucket - 1 (re-stepped), max_new_tokens cycling through WAVE_NEW
 WAVE_NEW = (32, 64, 96, 128)
+# the headline training config (bench.py:2013-2019) at full width and
+# depth; bench_llama's batch, sequence and step counts
+TRAIN_CONFIG = dict(vocab_size=32000, hidden_size=2048,
+                    intermediate_size=5632, num_hidden_layers=16,
+                    num_attention_heads=16, num_key_value_heads=4,
+                    max_position_embeddings=4096, dtype="bfloat16",
+                    recompute=False, fused_ce=True, fused_ce_chunk=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 2, 4096, 2, 8
+# the card-vs-CPU parity config (fp32; seq 200 is ragged against 64-row
+# tiles)
+PARITY_CONFIG = dict(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                     num_hidden_layers=2, num_attention_heads=4,
+                     num_key_value_heads=2, max_position_embeddings=256)
+PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_LR = 2, 200, 3, 1e-3
 
 
 def card_line():
@@ -70,6 +117,40 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def _kernel_name(mangled):
+    """'_ZN<n><namespace><n>dkv_bf16_kernelILi128EEEv...' ->
+    'dkv_bf16_kernel<128>' (a kernel inside a namespace, as nvcc mangles
+    the anonymous one; anything else is returned cut to 60 characters)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    i = m.end() + int(m.group(1)) if m else 0
+    n = re.match(r"(\d+)", mangled[i:]) if m else None
+    if n is None:
+        return mangled[:60]
+    j = i + n.end()
+    name, rest = mangled[j:j + int(n.group(1))], mangled[j + int(n.group(1)):]
+    args = (["float"] if rest.startswith("If") else []) + \
+        (["bf16"] if rest.startswith("I13__nv_bfloat16") else []) + \
+        re.findall(r"Li(\d+)E", rest.split("EEv")[0])
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_summary(log):
+    """(kernel, registers, spill-store bytes) for each function in an nvcc
+    -Xptxas -v log."""
+    out, fn, spill = [], "?", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((fn, int(m.group(1)), spill))
+    return out
 
 
 def sync():
@@ -102,6 +183,33 @@ def bound(flops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def causal_pairs(s_q, s_kv, causal):
+    """(q, k) pairs a head attends: end-aligned causal rows see
+    min(row + s_kv - s_q + 1, s_kv) columns."""
+    if not causal:
+        return float(s_q * s_kv)
+    return float(sum(min(max(r + s_kv - s_q + 1, 0), s_kv)
+                     for r in range(s_q)))
+
+
+def sdpa(F, q, k, v, causal):
+    """torch's SDPA on [b, s, h, d] tensors (the timed yardstick; the port
+    never calls it), with the end-aligned causal mask."""
+    import torch
+
+    s_q, s_kv = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if causal and s_q != s_kv:
+        # SDPA's is_causal is top-left aligned; pass the end-aligned mask
+        mask = torch.ones(s_q, s_kv, dtype=torch.bool,
+                          device=q.device).tril(s_kv - s_q)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=gqa)
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=gqa)
+
+
 def phase_k1(torch, F, ops):
     """K1 against its plain version; returns the main-path (prefill) row."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -119,23 +227,8 @@ def phase_k1(torch, F, ops):
             ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
             plain_ms = cuda_ms(
                 lambda: ops.flash_attention_reference(q, k, v, causal), 5, 1)
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            if causal and s_q != s_kv:
-                # SDPA's is_causal is top-left aligned; pass the end-aligned
-                # mask explicitly
-                mask = torch.ones(s_q, s_kv, dtype=torch.bool,
-                                  device=DEVICE).tril(s_kv - s_q)
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask, enable_gqa=hq != hkv)
-            else:
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv)
-            library_ms = cuda_ms(lib)
-            rows = torch.arange(s_q, dtype=torch.float64)
-            if causal:
-                pairs = (rows + s_kv - s_q + 1).clamp(0, s_kv).sum().item()
-            else:
-                pairs = float(s_q * s_kv)
+            library_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal))
+            pairs = causal_pairs(s_q, s_kv, causal)
             flops = 4 * d * hq * b * pairs
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             bound_ms, bound_by = bound(flops, nbytes, dname)
@@ -202,6 +295,262 @@ def phase_k4(torch, ops):
     return row
 
 
+def _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d):
+    def rnd(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen).to(dtype)
+    return (rnd(b, s_q, hq, d), rnd(b, s_kv, hkv, d), rnd(b, s_kv, hkv, d))
+
+
+def phase_k1_lse(torch, F, ops):
+    """K1 with its lse output against the plain forward-with-lse; returns
+    the main-path (training shape) row."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    row = None
+    cases = [(c, dn) for dn in ("bfloat16", "float32") for c in K1_CASES]
+    cases.append((TRAIN_SHAPE, "bfloat16"))
+    for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
+        dtype = getattr(torch, dname)
+        q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+        out, lse = ops.flash_attention_forward(q, k, v, causal=causal)
+        ref, ref_lse = ops.flash_attention_reference_lse(q, k, v, causal)
+        sync()
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse
+        ms = cuda_ms(lambda: ops.flash_attention_forward(q, k, v, causal=causal))
+        nolse_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        plain_ms = cuda_ms(
+            lambda: ops.flash_attention_reference_lse(q, k, v, causal), 5, 1)
+        library_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal))
+        flops = 4 * d * hq * b * causal_pairs(s_q, s_kv, causal)
+        nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+                  + lse.numel() * 4)
+        bound_ms, bound_by = bound(flops, nbytes, dname)
+        print(f"k1_lse case={name} dtype={dname} shape=[{b},{s_q}/{s_kv},"
+              f"{hq}/{hkv},{d}] causal={causal} max_abs_err={err:.3e} "
+              f"lse_max_abs_err={lse_err:.3e} ms={ms:.4f} "
+              f"no_lse_ms={nolse_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+              f"bound_by={bound_by}", flush=True)
+        if not (err <= TOL[dname] and lse_err <= LSE_TOL[dname]):
+            raise AssertionError(f"K1-lse {name} {dname}: out error {err} "
+                                 f"(tol {TOL[dname]}), lse error {lse_err} "
+                                 f"(tol {LSE_TOL[dname]})")
+        if name == "train":
+            row = dict(max_abs_err=max(err, lse_err), ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)
+        del q, k, v, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_k2k3(torch, F, ops):
+    """K2 and K3 against the plain backward on the same (q, k, v, o, lse,
+    dout); returns the main-path (training shape, bf16) rows."""
+    # the module (the package attribute of that name is the function)
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rows = None
+    cases = [(c, dn) for c in BWD_CASES for dn in ("bfloat16", "float32")
+             if not (c is TRAIN_SHAPE and dn == "float32")]
+    for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
+        dtype = getattr(torch, dname)
+        q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+        do = torch.randn(b, s_q, hq, d, device=DEVICE, generator=gen).to(dtype)
+        o, lse = ops.flash_attention_forward(q, k, v, causal=causal)
+        grads = ops.flash_attention_backward(q, k, v, o, lse, do,
+                                             causal=causal)
+        refs = ops.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                      causal)
+        sync()
+        errs = {}
+        for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            raw = (a.float() - r.float()).abs().max().item()
+            scale_ = max(1.0, r.float().abs().max().item())
+            errs[gname] = (raw, raw / scale_)
+        del grads, refs
+        scale = d ** -0.5
+        _, delta = fa._launch_dq(q, k, v, o, lse, do, causal, scale)
+        dq_ms = cuda_ms(lambda: fa._launch_dq(q, k, v, o, lse, do, causal,
+                                              scale))
+        dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta,
+                                                causal, scale))
+        plain_ms = cuda_ms(lambda: ops.flash_attention_backward_reference(
+            q, k, v, o, lse, do, causal), 3, 1)
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        lib_out = sdpa(F, qg, kg, vg, causal)
+        do_t = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: lib_out.backward(do_t,
+                                                      retain_graph=True))
+        del qg, kg, vg, lib_out
+        pairs = causal_pairs(s_q, s_kv, causal)
+        es = q.element_size()
+        row_bytes = b * hq * s_q * 4          # lse or delta, fp32
+        dq_bytes = ((4 * q.numel() + k.numel() + v.numel()) * es
+                    + 2 * row_bytes)          # q, o, dO, dQ; k, v; lse, d
+        dkv_bytes = ((2 * q.numel() + 4 * k.numel()) * es
+                     + 2 * row_bytes)         # q, dO; k, v, dK, dV
+        dq_bound = bound(6 * d * pairs * hq * b, dq_bytes, dname)
+        dkv_bound = bound(8 * d * pairs * hq * b, dkv_bytes, dname)
+        err_text = " ".join(f"{g}_err={r:.3e} {g}_rel={rel:.3e}"
+                            for g, (r, rel) in errs.items())
+        print(f"k2k3 case={name} dtype={dname} shape=[{b},{s_q}/{s_kv},"
+              f"{hq}/{hkv},{d}] causal={causal} {err_text} "
+              f"dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_ms={plain_ms:.4f}"
+              f" library_ms={library_ms:.4f} (SDPA backward, dq+dk+dv) "
+              f"dq_bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}) "
+              f"dkv_bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]})", flush=True)
+        worst = max(rel for _, rel in errs.values())
+        if not worst <= TOL[dname]:
+            raise AssertionError(f"K2/K3 {name} {dname}: relative max abs "
+                                 f"error {worst} > {TOL[dname]}")
+        if name == "train":
+            rows = (dict(max_abs_err=errs["dq"][0], ms=dq_ms,
+                         plain_ms=plain_ms, bound_ms=dq_bound[0],
+                         bound_by=dq_bound[1], library_ms=library_ms),
+                    dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                         ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                         bound_by=dkv_bound[1], library_ms=library_ms))
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _engine_steps(torch, Engine, model, batches, lr):
+    eng = Engine(model, lr=lr)
+    losses = [eng.step(ids, ids) for ids in batches]
+    return eng, torch.stack(losses).cpu()
+
+
+def phase_train_parity(torch, np, ops):
+    """The same 3 Engine steps on the card and on the CPU from the same
+    weights (fp32): the card path runs K1-lse, K2 and K3, the CPU path
+    their plain versions."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**PARITY_CONFIG)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    card = LlamaForCausalLM(cfg, device=DEVICE, seed=5)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    rng = np.random.default_rng(5)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ)))
+        for _ in range(PARITY_STEPS)]
+    counts0 = (ops.flash_attention_forward.launches,
+               ops.flash_attention_backward.launches_dq,
+               ops.flash_attention_backward.launches_dkv)
+    ec, lc = _engine_steps(torch, Engine, cpu, batches, PARITY_LR)
+    eg, lg = _engine_steps(torch, Engine, card,
+                           [x.to(DEVICE) for x in batches], PARITY_LR)
+    sync()
+    counts = (ops.flash_attention_forward.launches - counts0[0],
+              ops.flash_attention_backward.launches_dq - counts0[1],
+              ops.flash_attention_backward.launches_dkv - counts0[2])
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    sc, sg = ec.state_dict(), eg.state_dict()
+    worst = {}
+    for key in ("model", "m", "v"):
+        w = (0.0, "")
+        for name, a in sc[key].items():
+            err = (sg[key][name].cpu() - a).abs().max().item()
+            if key != "model":   # moments: relative to their magnitude
+                err /= max(a.abs().max().item(), 1e-30)
+            w = max(w, (err, name))
+        worst[key] = w
+    # Adam normalises each update: an element whose gradient is rounding
+    # noise can move by up to lr per step either way, so 2 * lr * steps
+    # bounds a parameter's difference; the moments are linear in the
+    # gradients and must agree to fp32 reduction order (relative 1e-3)
+    p_tol = 2 * PARITY_LR * PARITY_STEPS
+    print(f"train parity (card vs CPU, fp32, {PARITY_STEPS} steps, hidden "
+          f"{cfg.hidden_size}, seq {PARITY_SEQ}): losses card "
+          f"{[round(x, 6) for x in lg.tolist()]} cpu "
+          f"{[round(x, 6) for x in lc.tolist()]} max_rel={loss_rel:.3e}; "
+          f"params worst abs {worst['model'][0]:.3e} ({worst['model'][1]}, "
+          f"tol {p_tol}); m worst rel {worst['m'][0]:.3e} "
+          f"({worst['m'][1]}); v worst rel {worst['v'][0]:.3e} "
+          f"({worst['v'][1]}); card launches k1_lse/k2/k3={counts}",
+          flush=True)
+    L = cfg.num_hidden_layers * PARITY_STEPS
+    if not (loss_rel <= 1e-4 and worst["model"][0] <= p_tol
+            and worst["m"][0] <= 1e-3 and worst["v"][0] <= 1e-3
+            and min(counts) >= L):
+        raise AssertionError("training parity card vs CPU failed")
+
+
+def phase_train_full(torch, np, ops, card):
+    """The headline config trained at full width and depth; returns the
+    main-path launch counts (K1-lse, K2, K3)."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**TRAIN_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = Engine(model, lr=1e-4, clip_norm=1.0)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
+            DEVICE) for _ in range(TRAIN_STEPS)]
+    sync()
+    print(f"train setup: {cfg.num_params() / 1e6:.1f}M params, "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    losses = [eng.step(batches[0], batches[0]) for _ in range(TRAIN_WARMUP)]
+    sync()
+    ops.flash_attention.launches = 0
+    ops.flash_attention_forward.launches = 0
+    ops.flash_attention_backward.launches_dq = 0
+    ops.flash_attention_backward.launches_dkv = 0
+    t0 = time.perf_counter()
+    for ids in batches:
+        losses.append(eng.step(ids, ids))
+    last = losses[-1].item()    # one host read fences the chain
+    wall = time.perf_counter() - t0
+    counts = (ops.flash_attention_forward.launches,
+              ops.flash_attention_backward.launches_dq,
+              ops.flash_attention_backward.launches_dkv)
+    serving_k1 = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = torch.stack(losses).float().cpu()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    L, H, Q = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+    flops_per_token = 6.0 * cfg.num_params() + 6.0 * L * (H * Q) * TRAIN_SEQ
+    mfu = tok_s * flops_per_token / PEAK_FLOPS["bfloat16"]
+    print(f"train [{card}]: tokens_per_s={tok_s:.1f} mfu={mfu:.4f} "
+          f"ms_per_step={wall / TRAIN_STEPS * 1e3:.2f} peak_mem_gb="
+          f"{peak_gb:.2f} ({cfg.num_params() / 1e6:.1f}M params, batch "
+          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {cfg.dtype}, fused CE, no remat); "
+          f"losses {[round(x, 4) for x in vals.tolist()]}; launches "
+          f"k1_lse/k2/k3={counts} serving_k1={serving_k1}", flush=True)
+    need = TRAIN_STEPS * L
+    if not torch.isfinite(vals).all():
+        raise AssertionError(f"non-finite training loss: {vals.tolist()}")
+    if not 9.0 <= vals[0].item() <= 12.5:
+        raise AssertionError(f"first loss {vals[0].item()} outside [9, 12.5]"
+                             f" (ln {cfg.vocab_size} = 10.37)")
+    if min(counts) < need or serving_k1 != 0:
+        raise AssertionError(f"kernels did not carry the train step: "
+                             f"{counts} < {need} or serving K1 ran "
+                             f"{serving_k1} times")
+    # learning: 6 steps at lr 1e-3 on one batch
+    eng.lr = 1e-3
+    fixed = [eng.step(batches[0], batches[0]) for _ in range(6)]
+    first, final = fixed[0].item(), fixed[-1].item()
+    print(f"train fixed batch (lr 1e-3, 6 steps): first loss {first:.4f} "
+          f"last loss {final:.4f} (last {last:.4f} before)", flush=True)
+    if not final < first:
+        raise AssertionError(f"loss did not fall on a fixed batch: {first} "
+                             f"-> {final}")
+    del eng, model, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_serving(torch, np, ops, card):
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
@@ -235,6 +584,7 @@ def phase_serving(torch, np, ops, card):
     eng.stats.update(prefill_groups=0, decode_steps=0)
     ops.flash_attention.launches = 0
     ops.paged_decode_attention.launches = 0
+    ops.flash_attention_forward.launches = 0
     sync()
     t0 = time.perf_counter()
     for r in reqs:
@@ -264,6 +614,10 @@ def phase_serving(torch, np, ops, card):
         raise AssertionError(
             f"kernels did not carry the wave: K1 {k1_launches} < "
             f"{groups}x{L} or K4 {k4_launches} < {steps}x{L}")
+    if ops.flash_attention_forward.launches != 0:
+        raise AssertionError(
+            f"serving built an autograd graph: the training forward (K1 with "
+            f"lse) ran {ops.flash_attention_forward.launches} times")
     useful = sum(len(r.output) for r in reqs)
 
     # teacher-forced check against the dense forward (flash kernel path)
@@ -330,19 +684,36 @@ def main():
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f}s", flush=True)
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for fn, regs, spill in ptxas_summary(_build.build_log(name)):
+            print(f"  {name}: {fn} registers={regs} spill_store_bytes="
+                  f"{spill}", flush=True)
 
     k1 = phase_k1(torch, F, ops)
     k4 = phase_k4(torch, ops)
+    k1_lse = phase_k1_lse(torch, F, ops)
+    k2, k3 = phase_k2k3(torch, F, ops)
     k1_launches, k4_launches = phase_serving(torch, np, ops, card)
+    phase_train_parity(torch, np, ops)
+    lse_launches, k2_launches, k3_launches = phase_train_full(torch, np, ops,
+                                                              card)
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="paddle_tpu_torch/ops/csrc/flash_fwd.cu",
              replaces="paddle_tpu/ops/flash_attention.py:117",
              launches=k1_launches, **k1),
+        dict(name="flash_fwd_lse", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/flash_fwd.cu",
+             replaces="paddle_tpu/ops/flash_attention.py:117",
+             launches=lse_launches, **k1_lse),
+        dict(name="flash_bwd_dq", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+             replaces="paddle_tpu/ops/flash_attention.py:337",
+             launches=k2_launches, **k2),
+        dict(name="flash_bwd_dkv", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+             replaces="paddle_tpu/ops/flash_attention.py:420",
+             launches=k3_launches, **k3),
         dict(name="paged_decode", route="cuda",
              source="paddle_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="paddle_tpu/ops/paged_attention.py:174",

@@ -8,7 +8,8 @@ from ``ops/csrc`` at first use). It imports ``torch`` and never ``jax`` or
 
 Entry points (model construction, ``_init_paged_caches`` and the serving
 engine) run on the CUDA device unless the caller passes ``device="cpu"``,
-which runs every kernel's plain PyTorch version instead.
+which runs every kernel's plain PyTorch version instead; the training
+``distributed.Engine`` runs where its model lives.
 """
 
 from __future__ import annotations

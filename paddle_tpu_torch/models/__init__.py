@@ -1,3 +1,3 @@
-"""Model families of the port (Llama serving in this slice)."""
+"""Model families of the port (Llama: serving and training)."""
 
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel  # noqa: F401

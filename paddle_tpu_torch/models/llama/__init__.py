@@ -3,4 +3,5 @@ from .modeling import (  # noqa: F401
     LlamaDecoderLayer,
     LlamaForCausalLM,
     LlamaModel,
+    LlamaPretrainingCriterion,
 )

@@ -1,4 +1,5 @@
-"""Llama for serving, in PyTorch — port of ``paddle_tpu/models/llama/modeling.py``.
+"""Llama for serving and training, in PyTorch — port of
+``paddle_tpu/models/llama/modeling.py``.
 
 Parameter names and layouts are the JAX package's: every projection is an
 ``[in, out]`` matrix and the model computes ``x @ W``, so a JAX
@@ -13,9 +14,13 @@ cast to the activation dtype, RMSNorm normalises in fp32, casts back, then
 multiplies the weight in the activation dtype, and logits come from a
 model-dtype matmul cast to fp32.
 
-This slice serves: parameters are created without gradients, and the
-training pieces (loss, remat, fused cross-entropy, MoE) arrive with later
-slices.
+Parameters are trainable (``requires_grad=True``, as the JAX package's
+are): ``loss_fn`` computes the shifted causal-LM loss through the fused,
+chunked cross-entropy (``ops.fused_ce``) and ``forward(ids, labels)`` the
+unfused criterion; gradients flow through the flash kernels' backward
+(K2/K3). The serving hooks (``_decode_chunk``, ``paged_token_step``) run
+under ``torch.no_grad()`` and build no graph. Remat (``recompute=True``)
+and MoE layers arrive with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 
 from ...device import resolve_device, resolve_dtype
 from ...ops.flash_attention import flash_attention
+from ...ops.fused_ce import fused_linear_cross_entropy
 from ...ops.paged_attention import append_paged_kv, paged_decode_attention
 from ..generation_utils import GenerationMixin
 
@@ -47,7 +53,12 @@ class LlamaConfig:
         initializer_range: float = 0.02,
         tie_word_embeddings: bool = False,
         dtype: str = "float32",
+        recompute: bool = False,
+        remat_policy: str = "flash",
+        remat_every: int = 1,
         num_experts: int = 1,
+        fused_ce: bool = True,
+        fused_ce_chunk: int = 1024,
     ):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -61,7 +72,19 @@ class LlamaConfig:
         self.initializer_range = initializer_range
         self.tie_word_embeddings = tie_word_embeddings
         self.dtype = dtype
+        self.recompute = recompute
+        if remat_policy not in ("flash", "flash_qkv", "flash_mlp", "full"):
+            raise ValueError(f"remat_policy must be 'flash', 'flash_qkv', "
+                             f"'flash_mlp' or 'full', got {remat_policy!r}")
+        self.remat_policy = remat_policy
+        if remat_every < 1:
+            raise ValueError(f"remat_every must be >= 1 (got {remat_every}); "
+                             "use recompute=False to disable remat")
+        self.remat_every = remat_every
         self.num_experts = num_experts
+        # chunked lm-head + CE (ops/fused_ce.py) in the training loss
+        self.fused_ce = fused_ce
+        self.fused_ce_chunk = fused_ce_chunk
 
     @property
     def head_dim(self) -> int:
@@ -120,7 +143,7 @@ def apply_rotary_pos_emb(q, k, cos, sin):
 def _normal(shape, config, device, gen):
     t = torch.empty(shape, dtype=resolve_dtype(config.dtype), device=device)
     t.normal_(0.0, config.initializer_range, generator=gen)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class LlamaAttention(nn.Module):
@@ -217,7 +240,7 @@ class LlamaRMSNorm(nn.Module):
         self.eps = config.rms_norm_eps
         self.weight = nn.Parameter(
             torch.ones(config.hidden_size, dtype=resolve_dtype(config.dtype),
-                       device=device), requires_grad=False)
+                       device=device))
 
     def forward(self, x):
         dt = x.dtype
@@ -261,6 +284,11 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
+        if config.recompute:
+            raise NotImplementedError(
+                "recompute=True (remat, remat_policy_of) is not ported yet: "
+                "it arrives with the remat slice (torch.utils.checkpoint "
+                "saving flash_out/flash_lse); use recompute=False")
         self.config = config
         self.embed_tokens_weight = _normal(
             (config.vocab_size, config.hidden_size), config, device, gen)
@@ -339,12 +367,27 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         return hidden @ self._lm_head_w()
 
     def forward(self, input_ids, labels=None):
-        """Logits [b, s, vocab] in the model dtype."""
-        if labels is not None:
-            raise NotImplementedError(
-                "the training loss arrives with the training slice")
-        return self.logits(self.model(input_ids))
+        """Logits [b, s, vocab] in the model dtype; with ``labels``, the
+        unfused shifted cross-entropy of those logits (fp32 scalar)."""
+        logits = self.logits(self.model(input_ids))
+        if labels is None:
+            return logits
+        return LlamaPretrainingCriterion.compute(logits, labels)
 
+    def loss_fn(self, input_ids, labels):
+        """The training loss (``Engine.step`` differentiates it)."""
+        return self._lm_loss(self.model(input_ids), labels)
+
+    def _lm_loss(self, hidden, labels):
+        """Shifted CE from final hidden states; fused and chunked by
+        default."""
+        if self.config.fused_ce:
+            return fused_linear_cross_entropy(
+                hidden, self._lm_head_w(), labels,
+                chunk=self.config.fused_ce_chunk)
+        return LlamaPretrainingCriterion.compute(self.logits(hidden), labels)
+
+    @torch.no_grad()
     def paged_token_step(self, toks, caches, pos_vec):
         """Continuous-batching hook: ONE token per row at per-row positions.
         toks [b] int, pos_vec [b] int32, caches from _init_paged_caches.
@@ -369,6 +412,7 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         logits = self.logits(hidden[:, -1:])
         return logits[:, -1].float(), {"kv": new_kv, "tables": tables}
 
+    @torch.no_grad()
     def _decode_chunk(self, ids, caches, pos, pad_bias, pos_offset):
         """Run a chunk at absolute positions [pos, pos+s) through the paged
         cache; returns (last-position logits [b, vocab] fp32, caches). Only
@@ -383,3 +427,20 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         # lm head only on the position we sample from
         logits = self.logits(hidden[:, -1:])
         return logits[:, -1].float(), caches
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted causal-LM cross entropy with an fp32 softmax."""
+
+    @staticmethod
+    def compute(logits, labels, ignore_index: int = -100):
+        lg = logits[:, :-1, :].float()
+        lb = labels[:, 1:].long()
+        logz = torch.logsumexp(lg, dim=-1)
+        mask = lb != ignore_index
+        picked = lg.gather(-1, torch.where(mask, lb, 0)[..., None])[..., 0]
+        nll = torch.where(mask, logz - picked, 0.0)
+        return nll.sum() / mask.sum().float().clamp_min(1.0)
+
+    def forward(self, prediction_scores, masked_lm_labels):
+        return self.compute(prediction_scores, masked_lm_labels)

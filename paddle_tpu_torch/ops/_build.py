@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: every kernel source of the port, built by :func:`build_all`
-KERNELS = ("flash_fwd", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd", "paged_decode")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,14 +1,18 @@
 // FlashAttention forward for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernel `_fa_fwd_kernel`
-// (paddle_tpu/ops/flash_attention.py:117, driven by `_pallas_forward` :221)
-// on its primal path (no logsumexp output).
+// (paddle_tpu/ops/flash_attention.py:117, driven by `_pallas_forward` :221):
+// the primal path (no logsumexp output, serving) and the training path,
+// which also writes the logsumexp of every q row (:203-212).
 //
 // What it computes: out[b, i, h, :] = softmax_j(scale * q[b,i,h,:].k[b,j,h/g,:])
 // . v[b,j,h/g,:] with an END-aligned causal mask (q row i sees k columns
 // j <= i + s_kv - s_q), GQA mapping q head h -> kv head h / group, an fp32
 // online softmax, the finite mask value -1e30 for causally masked scores and
 // zeros for a row that attends nothing (l == 0), as the TPU kernel does.
+// When `lse` is not null it also writes lse[b, h, i] = m + log(l) of the
+// SCALED logits in fp32, NEG_INF (-1e30) for a row with l == 0 (the TPU
+// kernel's [b, h, 8, s] lane axis is a tiling artefact and is dropped).
 //
 // What bounds it on the H100: at the serving prefill shape (s = 512,
 // head_dim 128) attention does about 4 * head_dim operations per (q, k) pair
@@ -57,7 +61,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int s_kv, int hq, int group, long long q_sb, long long q_ss,
                  long long q_sh, long long k_sb, long long k_ss,
                  long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, float scale, int causal) {
+                 long long v_sh, float scale, int causal,
+                 float* __restrict__ lse) {
   constexpr int LD = D + 1;     // padded shared row
   constexpr int LP = BK + 1;
   constexpr int DPT = D / 16;   // output columns per thread
@@ -195,6 +200,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* ob = out + ((static_cast<long long>(b) * s_q + qr) * hq + h) * D;
 #pragma unroll
     for (int d = 0; d < DPT; ++d) ob[tx + 16 * d] = pt::from_f<T>(acc[i][d] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * hq + h) * s_q + qr] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : pt::kNegInf;
   }
 }
 
@@ -237,7 +245,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       long long q_ss, long long q_sh, long long k_sb,
                       long long k_ss, long long k_sh, long long v_sb,
                       long long v_ss, long long v_sh, float scale,
-                      int causal) {
+                      int causal, float* __restrict__ lse) {
   using Lay = TcLayout<D>;
   constexpr int LDH = Lay::LDH, LDP = Lay::LDP, LDS = Lay::LDS,
                 LDO = Lay::LDO;
@@ -372,13 +380,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* ob = out + ((static_cast<long long>(b) * s_q + qr) * hq + h) * D;
     for (int c = lane; c < D; c += 32)
       ob[c] = __float2bfloat16(os[row * LDO + c] * inv);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<long long>(b) * hq + h) * s_q + qr] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : pt::kNegInf;
   }
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
-                int s_q, int s_kv, int hq, int hkv, const long long* st,
-                float scale, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int s_q, int s_kv, int hq, int hkv,
+                const long long* st, float scale, int causal,
+                cudaStream_t stream) {
   const size_t smem = TcLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,14 +401,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), s_q, s_kv, hq,
       hq / hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale, causal);
+      st[8], scale, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- fp32: FMAs ------------------------------------------------------------
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s_q, int s_kv, int hq, int hkv, const long long* st,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int b, int s_q, int s_kv, int hq, int hkv, const long long* st,
            float scale, int causal, cudaStream_t stream) {
   const size_t smem = (BQ * (D + 1) + BK * (D + 1) + BQ * (BK + 1)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -408,18 +420,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), s_q, s_kv, hq,
       hq / hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale, causal);
+      st[8], scale, causal, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [b, s_q, hq, d], k/v [b, s_kv, hkv, d] with the given element strides
-// (batch, seq, head; head_dim contiguous); out [b, s_q, hq, d] contiguous.
+// (batch, seq, head; head_dim contiguous); out [b, s_q, hq, d] contiguous;
+// lse [b, hq, s_q] fp32 contiguous, or null to skip it (the primal path).
 // dtype: 0 = float32, 1 = bfloat16 (then the pointers are 16-byte aligned
 // and the strides multiples of 8). Returns the launch's cudaError_t.
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
-                                void* out, int dtype, int b, int s_q,
+                                void* out, void* lse_ptr, int dtype, int b,
+                                int s_q,
                                 int s_kv, int hq, int hkv, int d,
                                 long long q_sb, long long q_ss, long long q_sh,
                                 long long k_sb, long long k_ss, long long k_sh,
@@ -427,13 +441,14 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
                                 float scale, int causal, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, out, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
+    return launch<float, 64>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
   if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, out, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
+    return launch<float, 128>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
   if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, out, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
+    return launch_bf16<64>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
   if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, out, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
+    return launch_bf16<128>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,7 +2,9 @@
 
 Both packages name parameters alike (``model.layers.0.self_attn.
 q_proj_weight`` ...) and store projections as ``[in, out]``, so a JAX
-state dict loads as it is: no renames, no transposes.
+state dict loads as it is: no renames, no transposes. The JAX training
+engine keys its AdamW moments by the same names, so its optimizer state
+crosses over by name too (:func:`engine_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -31,12 +33,25 @@ def load_jax_state(model: torch.nn.Module,
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"shape mismatch for {name}: {arr.shape} vs "
                              f"{tuple(p.shape)}")
-        if arr.dtype.name == "bfloat16":   # ml_dtypes: torch cannot wrap it
-            arr = arr.astype(np.float32)
-        arrays[name] = arr
+        arrays[name] = _torch_wrappable(arr)
     with torch.no_grad():
         for name, p in own.items():
             p.copy_(torch.from_numpy(arrays[name]))
+
+
+def _torch_wrappable(arr: np.ndarray) -> np.ndarray:
+    if arr.dtype.name == "bfloat16":   # ml_dtypes: torch cannot wrap it
+        return arr.astype(np.float32)
+    return arr
+
+
+def _host(x) -> np.ndarray:
+    """A JAX array, a ``paddle_tpu`` Tensor or a torch tensor as a numpy
+    array torch can wrap."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.is_floating_point() else x).numpy()
+    return _torch_wrappable(np.array(getattr(x, "_data", x)))
 
 
 def state_from_jax_layer(jax_model) -> Dict[str, np.ndarray]:
@@ -45,3 +60,27 @@ def state_from_jax_layer(jax_model) -> Dict[str, np.ndarray]:
     layer's ``state_dict()`` without importing the JAX package."""
     return {name: np.asarray(getattr(p, "_data", p))
             for name, p in jax_model.state_dict().items()}
+
+
+def engine_state_from_jax(jax_engine) -> Dict[str, object]:
+    """A JAX ``Engine.state_dict()`` (built-in AdamW path) as host arrays:
+    ``{"model": {name: array}, "m": {name: array}, "v": {name: array},
+    "step": int}``. Names are the parameter names of both packages, so the
+    result feeds the port's ``Engine.set_state_dict`` and compares with its
+    ``state_dict()`` by name (:func:`engine_state_to_host`). Test-side
+    helper: it imports nothing of the JAX package."""
+    sd = jax_engine.state_dict()
+    return {"model": {n: _host(a) for n, a in sd["model"].items()},
+            "m": {n: _host(a) for n, a in sd["m"].items()},
+            "v": {n: _host(a) for n, a in sd["v"].items()},
+            "step": int(_host(sd["step"]))}
+
+
+def engine_state_to_host(engine) -> Dict[str, object]:
+    """The port's ``Engine.state_dict()`` in the same host form as
+    :func:`engine_state_from_jax` (fp32 numpy arrays by name, int step)."""
+    sd = engine.state_dict()
+    return {"model": {n: _host(a) for n, a in sd["model"].items()},
+            "m": {n: _host(a) for n, a in sd["m"].items()},
+            "v": {n: _host(a) for n, a in sd["v"].items()},
+            "step": int(sd["step"].item())}

@@ -29,7 +29,7 @@ import chip_smoke
 STEPS = 20
 
 
-def measure(torch, name, fn, n):
+def measure(torch, name, fn, n, top=8):
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -61,7 +61,7 @@ def measure(torch, name, fn, n):
           f"{enqueue_ms:.4f} {busy} kernels_per_call={launches:.0f}",
           flush=True)
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    for e in kernels[:8]:
+    for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3 / n:9.4f} ms/call "
               f"x{e.count / n:5.0f}  {e.key[:90]}", flush=True)
 

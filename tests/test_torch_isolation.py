@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under paddle_tpu_torch/, and neither
-chip_smoke.py nor profile_serving.py, imports JAX or the JAX package;
+"""The port stands alone: nothing under paddle_tpu_torch/, and none of
+chip_smoke.py, profile_serving.py and profile_training.py, imports JAX or
+the JAX package;
 importing the whole port loads no JAX; and entry points never fall back to
 the CPU silently."""
 
@@ -25,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
+              ROOT / "profile_training.py"]
     return files
 
 
