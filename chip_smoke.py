@@ -38,6 +38,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      fresh batches (tokens/s, MFU, ms per step, peak memory), then 6 steps
      at lr 1e-3 on one batch whose loss must fall. The K1-lse, K2 and K3
      counters must show 16 launches a step, the serving K1 counter none.
+  9. K5 (padded grouped matmul, csrc/grouped_matmul.cu), forward and its
+     trans_w (dx) mode, and K6 (its dw) against their plain versions on a
+     seeded skewed routing that leaves one expert without a token: the MoE
+     step's shapes (x [36864, 1024] against w [8, 1024, 2816], [36864,
+     2816] against [8, 2816, 1024], bf16), a small case (fp32 and bf16) and
+     one whose k and n a 128 tile does not divide; error <= tol x max
+     |plain|, the tileless expert's dw exactly 0; kernel, plain and
+     library (torch._grouped_mm, or a per-expert torch.mm loop) times and
+     the bound.
+ 10. MoE training parity: a small fp32 MoE Llama (4 experts, top-2, pgmm)
+     takes 3 Engine steps on the card and on the CPU from the same
+     weights; the same expert choices, and losses, parameters and moments
+     within phase 7's tolerances.
+ 11. MoE training at full width and depth: the Mixtral-class config of
+     bench.py bench_moe (640M params, 225M activated: 8 layers, hidden 1024,
+     8 swiglu experts of 2816, top-2 GShard, batch 8 x seq 2048, bf16) with
+     moe_dispatch="pgmm", Engine(lr=1e-4, clip 1.0): 2 warm-up and 8 timed
+     steps on fresh batches (tokens/s, activated MFU, ms per step, peak
+     memory, launches per step: K5 48, K6 24, K1-lse/K2/K3 8 each, serving
+     K1 0), one step under set_sync_debug_mode (no synchronizing
+     operation), then 6 steps at lr 1e-3 on one batch whose loss must fall.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -109,6 +130,28 @@ PARITY_CONFIG = dict(vocab_size=1024, hidden_size=512, intermediate_size=1024,
                      num_hidden_layers=2, num_attention_heads=4,
                      num_key_value_heads=2, max_position_embeddings=256)
 PARITY_BATCH, PARITY_SEQ, PARITY_STEPS, PARITY_LR = 2, 200, 3, 1e-3
+# the Mixtral-class MoE train step of bench.py bench_moe (:1749-1754) at
+# full width and depth, with the dropless pgmm dispatch (docs/MOE_AB.md's
+# pgmm arm): 8 swiglu experts, top-2 GShard gate; batch 8 x seq 2048
+MOE_CONFIG = dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                  num_hidden_layers=8, num_attention_heads=16,
+                  num_key_value_heads=4, max_position_embeddings=2048,
+                  dtype="bfloat16", num_experts=8, moe_topk=2,
+                  moe_dispatch="pgmm")
+MOE_BATCH, MOE_SEQ, MOE_WARMUP, MOE_STEPS = 8, 2048, 2, 8
+# K5/K6 cases: name, routed rows, experts, k, n, tile_m, dtypes; "main" is
+# the train step's: 8 x 2048 tokens x top-2 = 32768 rows, padded to 36864
+PGMM_CASES = [
+    ("main", MOE_BATCH * MOE_SEQ * 2, 8, 1024, 2816, 512, ("bfloat16",)),
+    ("small", 3000, 4, 256, 384, 512, ("float32", "bfloat16")),
+    ("edge", 1000, 4, 136, 200, 256, ("float32", "bfloat16")),
+]
+# the MoE card-vs-CPU parity config (fp32, 4 experts, seq 200)
+MOE_PARITY_CONFIG = dict(vocab_size=1024, hidden_size=256,
+                         intermediate_size=512, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         max_position_embeddings=256, num_experts=4,
+                         moe_dispatch="pgmm")
 
 
 def card_line():
@@ -551,6 +594,331 @@ def phase_train_full(torch, np, ops, card):
     return counts
 
 
+def _skewed_routing(torch, np, n_rows, e, k, empty, seed):
+    """Top-k expert ids [n_rows] for n_rows / k tokens, k distinct experts
+    a token from a seeded skewed draw (Gumbel top-k over probabilities
+    falling from 2 to 1 across the experts) that gives expert ``empty`` no
+    token. (The layout gives the pad tail to the last expert, so ``empty``
+    must be another one for it to own no tile.)"""
+    rng = np.random.default_rng(seed)
+    p = np.linspace(2.0, 1.0, e)
+    p[empty] = 0.0
+    with np.errstate(divide="ignore"):
+        logp = np.log(p / p.sum())
+    g = logp + rng.gumbel(size=(n_rows // k, e))
+    top = np.argsort(-g, axis=1)[:, :k].reshape(-1)
+    return torch.from_numpy(top.astype(np.int64)).to(DEVICE)
+
+
+def _grouped_mm_library(torch, x, w, dout, gids, e, tile_m):
+    """One PyTorch call computing each of K5, K5 over w^T and K6 on the
+    same inputs (the timed yardstick; the port never calls it):
+    torch._grouped_mm (bf16 only; its dw comes out in bf16) where this
+    torch has it, else a loop of per-expert torch.mm. Returns (name, fwd,
+    dx, dw) callables. Each expert's rows run to the end of its tiles, the
+    last expert's through the pad tail, as in the layout."""
+    p = x.shape[0]
+    counts = torch.bincount(gids.long(), minlength=e) * tile_m
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    if hasattr(torch, "_grouped_mm") and x.dtype == torch.bfloat16:
+        return ("torch._grouped_mm",
+                lambda: torch._grouped_mm(x, w, offs=ends),
+                lambda: torch._grouped_mm(dout, w.transpose(1, 2),
+                                          offs=ends),
+                lambda: torch._grouped_mm(x.t(), dout, offs=ends))
+    bounds = [0] + ends.tolist()
+    spans = [(i, bounds[i], bounds[i + 1]) for i in range(e)]
+    assert bounds[-1] == p
+
+    def loop(fn):
+        return lambda: [fn(i, a, b) for i, a, b in spans]
+    return ("per-expert torch.mm loop",
+            loop(lambda i, a, b: torch.mm(x[a:b], w[i])),
+            loop(lambda i, a, b: torch.mm(dout[a:b], w[i].t())),
+            loop(lambda i, a, b: torch.mm(x[a:b].t(), dout[a:b])))
+
+
+def phase_pgmm(torch, np, ops):
+    """K5 (forward and its trans_w dx mode) and K6 against their plain
+    versions on a skewed padded layout with a tileless expert; returns the
+    main-path rows (bf16, x [36864, 1024] against w [8, 1024, 2816])."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    rows = {}
+    for name, n_rows, e, k, n, tile_m, dnames in PGMM_CASES:
+        empty = e // 2
+        flat_e = _skewed_routing(torch, np, n_rows, e, 2, empty, 7)
+        order, pos_sorted, gids, p = ops.padded_group_layout(flat_e, e,
+                                                             n_rows, tile_m)
+        pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+        if (gids == empty).any().item():
+            raise AssertionError(f"pgmm {name}: expert {empty} owns a tile")
+        shapes = [(k, n)] if name != "main" else [(k, n), (n, k)]
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            for kk, nn in shapes:
+                def rnd(*shape):
+                    return torch.randn(*shape, device=DEVICE,
+                                       generator=gen).to(dtype)
+                # pad rows are zero, as the MoE layer's x_pad
+                x = torch.zeros(p, kk, device=DEVICE, dtype=dtype)
+                x[pos] = rnd(n_rows, kk)
+                dout = torch.zeros(p, nn, device=DEVICE, dtype=dtype)
+                dout[pos] = rnd(n_rows, nn)
+                w = (rnd(e, kk, nn) * kk ** -0.5).to(dtype)
+                calls = {
+                    "k5": (lambda: ops.pgmm_raw(x, w, gids, tile_m),
+                           lambda: ops.pgmm_reference(x, w, gids, tile_m)),
+                    "k5_dx": (lambda: ops.pgmm_raw(dout, w, gids, tile_m,
+                                                   trans_w=True),
+                              lambda: ops.pgmm_reference(dout, w, gids,
+                                                         tile_m, True)),
+                    "k6": (lambda: ops.pgmm_dw(x, dout, gids, e, tile_m),
+                           lambda: ops.pgmm_dw_reference(x, dout, gids, e,
+                                                         tile_m)),
+                }
+                lib_name, *lib = _grouped_mm_library(torch, x, w, dout, gids,
+                                                     e, tile_m)
+                es = x.element_size()
+                work = {  # (flops, bytes): each input read once, output once
+                    "k5": (2 * p * kk * nn,
+                           (p * kk + e * kk * nn + p * nn) * es + gids.numel() * 4),
+                    "k5_dx": (2 * p * kk * nn,
+                              (p * nn + e * kk * nn + p * kk) * es
+                              + gids.numel() * 4),
+                    "k6": (2 * p * kk * nn, (p * kk + p * nn) * es
+                           + e * kk * nn * 4 + gids.numel() * 4),
+                }
+                for (cname, (kern, plain)), lib_fn in zip(calls.items(), lib):
+                    out = kern()
+                    ref = plain()
+                    sync()
+                    abs_err = (out.float() - ref.float()).abs().max().item()
+                    err = abs_err / ref.float().abs().max().item()
+                    zero_ok = True
+                    if cname == "k6":
+                        zero_ok = bool((out[empty] == 0).all().item())
+                    del out, ref
+                    ms = cuda_ms(kern, 10, 2)
+                    plain_ms = cuda_ms(plain, 3, 1)
+                    library_ms = cuda_ms(lib_fn, 10, 2)
+                    bound_ms, bound_by = bound(*work[cname], dname)
+                    print(f"pgmm {cname} case={name} dtype={dname} P={p} "
+                          f"k={kk} n={nn} experts={e} tile_m={tile_m} "
+                          f"max_abs_err={abs_err:.3e} rel_err={err:.3e} "
+                          f"ms={ms:.4f} "
+                          f"plain_ms={plain_ms:.4f} library_ms="
+                          f"{library_ms:.4f} ({lib_name}) bound_ms="
+                          f"{bound_ms:.5f} bound_by={bound_by}"
+                          + (f" tileless_expert_zero={zero_ok}"
+                             if cname == "k6" else ""), flush=True)
+                    if not (err <= TOL[dname] and zero_ok):
+                        raise AssertionError(
+                            f"pgmm {cname} {name} {dname}: relative error "
+                            f"{err} (tol {TOL[dname]}), tileless expert "
+                            f"zero: {zero_ok}")
+                    if name == "main" and (kk, nn) == (k, n) \
+                            and cname in ("k5", "k6"):
+                        rows[cname] = dict(max_abs_err=abs_err, ms=ms,
+                                           plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by,
+                                           library_ms=library_ms)
+                del x, dout, w, calls, lib
+                torch.cuda.empty_cache()
+    return rows["k5"], rows["k6"]
+
+
+def _recording_routes(mod, seen):
+    """Patch routed_ffn to append, for every forward, its top-k expert ids
+    (on the host) and the smallest gap between rank-1/rank-2 and
+    rank-k/rank-k+1 gate probabilities; returns the real function."""
+    real = mod.routed_ffn
+
+    def spy(tokens, probs, expert_fn, k, *a, **kw):
+        s = probs.detach().float().sort(dim=-1, descending=True)
+        gap = min((s.values[:, 0] - s.values[:, 1]).min().item(),
+                  (s.values[:, k - 1] - s.values[:, k]).min().item())
+        seen.append((s.indices[:, :k].cpu(), gap))
+        return real(tokens, probs, expert_fn, k, *a, **kw)
+    mod.routed_ffn = spy
+    return real
+
+
+def phase_moe_parity(torch, np, ops):
+    """3 Engine steps of a tiny fp32 MoE Llama on the card and on the CPU
+    from the same weights: the card path runs K5/K6 (and K1-lse/K2/K3), the
+    CPU path their plain versions."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    moe_mod = importlib.import_module(
+        "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer")
+    cfg = LlamaConfig(**MOE_PARITY_CONFIG)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=8)
+    card = LlamaForCausalLM(cfg, device=DEVICE, seed=8)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    rng = np.random.default_rng(8)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ)))
+        for _ in range(PARITY_STEPS)]
+    routes = {"cpu": [], "card": []}
+    real = _recording_routes(moe_mod, routes["cpu"])
+    ec, lc = _engine_steps(torch, Engine, cpu, batches, PARITY_LR)
+    n5, n6 = ops.pgmm.launches, ops.pgmm_dw.launches
+    moe_mod.routed_ffn = real
+    _recording_routes(moe_mod, routes["card"])
+    eg, lg = _engine_steps(torch, Engine, card,
+                           [x.to(DEVICE) for x in batches], PARITY_LR)
+    sync()
+    counts = (ops.pgmm.launches - n5, ops.pgmm_dw.launches - n6)
+    moe_mod.routed_ffn = real
+    # the gates' fp32 matmuls round differently on the two devices, so a
+    # near-tie could route a token elsewhere: count the choices that differ
+    flips = sum(int((a != b).sum()) for (a, _), (b, _) in
+                zip(routes["cpu"], routes["card"]))
+    gap = min(g for _, g in routes["cpu"])
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    sc, sg = ec.state_dict(), eg.state_dict()
+    worst = {}
+    for key in ("model", "m", "v"):
+        w = (0.0, "")
+        for name, a in sc[key].items():
+            err = (sg[key][name].cpu() - a).abs().max().item()
+            if key != "model":
+                err /= max(a.abs().max().item(), 1e-30)
+            w = max(w, (err, name))
+        worst[key] = w
+    p_tol = 2 * PARITY_LR * PARITY_STEPS   # as phase_train_parity derives
+    L = cfg.num_hidden_layers * PARITY_STEPS
+    print(f"moe parity (card vs CPU, fp32, {PARITY_STEPS} steps, "
+          f"{cfg.num_experts} experts top-2 pgmm, hidden {cfg.hidden_size}, "
+          f"seq {PARITY_SEQ}): losses card {[round(x, 6) for x in lg.tolist()]}"
+          f" cpu {[round(x, 6) for x in lc.tolist()]} max_rel={loss_rel:.3e};"
+          f" params worst abs {worst['model'][0]:.3e} ({worst['model'][1]}, "
+          f"tol {p_tol}); m worst rel {worst['m'][0]:.3e} ({worst['m'][1]}); "
+          f"v worst rel {worst['v'][0]:.3e} ({worst['v'][1]}); routing: "
+          f"{flips} of {sum(a.numel() for a, _ in routes['cpu'])} expert "
+          f"choices differ, smallest top-k gap (CPU) {gap:.3e}; card "
+          f"launches k5/k6={counts}", flush=True)
+    if not (loss_rel <= 1e-4 and worst["model"][0] <= p_tol
+            and worst["m"][0] <= 1e-3 and worst["v"][0] <= 1e-3
+            and counts == (6 * L, 3 * L) and flips == 0
+            and len(routes["card"]) == len(routes["cpu"]) == L):
+        raise AssertionError("MoE training parity card vs CPU failed")
+
+
+def _sync_count(torch, fn):
+    """Run fn under torch.cuda.set_sync_debug_mode("warn"); returns the
+    messages of the synchronizing operations PyTorch reported."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in seen
+            if "synchroniz" in str(w.message).lower()
+            and "prototype" not in str(w.message)]
+
+
+def moe_flops_per_token(cfg, model, seq):
+    """bench.py:1773-1778: activated parameters (expert weights counted at
+    their top-k share) and 6 n_act + 6 L hidden seq FLOPs a token."""
+    n_total = sum(p.numel() for p in model.parameters())
+    n_exp = sum(p.numel() for name, p in model.named_parameters()
+                if ".experts." in name)
+    n_act = n_total - n_exp * (1.0 - cfg.moe_topk / cfg.num_experts)
+    fpt = 6.0 * n_act + 6.0 * cfg.num_hidden_layers * cfg.hidden_size * seq
+    return n_total, n_act, fpt
+
+
+def phase_moe_train(torch, np, ops, card):
+    """The Mixtral-class MoE step trained at full width and depth; returns
+    the main-path launch counts (K5, K6) of the timed steps."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**MOE_CONFIG)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = Engine(model, lr=1e-4, clip_norm=1.0)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)).astype(np.int32)).to(
+            DEVICE) for _ in range(MOE_STEPS)]
+    n_total, n_act, fpt = moe_flops_per_token(cfg, model, MOE_SEQ)
+    sync()
+    print(f"moe train setup: {n_total / 1e6:.1f}M params, "
+          f"{n_act / 1e6:.1f}M activated, "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    losses = [eng.step(batches[0], batches[0]) for _ in range(MOE_WARMUP)]
+    sync()
+    for fn in (ops.flash_attention, ops.flash_attention_forward, ops.pgmm,
+               ops.pgmm_dw):
+        fn.launches = 0
+    ops.flash_attention_backward.launches_dq = 0
+    ops.flash_attention_backward.launches_dkv = 0
+    t0 = time.perf_counter()
+    for ids in batches:
+        losses.append(eng.step(ids, ids))
+    last = losses[-1].item()    # one host read fences the chain
+    wall = time.perf_counter() - t0
+    k5, k6 = ops.pgmm.launches, ops.pgmm_dw.launches
+    attn = (ops.flash_attention_forward.launches,
+            ops.flash_attention_backward.launches_dq,
+            ops.flash_attention_backward.launches_dkv)
+    serving_k1 = ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = torch.stack(losses).float().cpu()
+    tok_s = MOE_BATCH * MOE_SEQ * MOE_STEPS / wall
+    mfu = tok_s * fpt / PEAK_FLOPS["bfloat16"]
+    per_step = [c / MOE_STEPS for c in (k5, k6, *attn)]
+    print(f"moe train [{card}]: tokens_per_s={tok_s:.1f} "
+          f"activated_mfu={mfu:.4f} ms_per_step={wall / MOE_STEPS * 1e3:.2f} "
+          f"peak_mem_gb={peak_gb:.2f} ({n_total / 1e6:.1f}M params, "
+          f"{n_act / 1e6:.1f}M activated, {cfg.num_experts} experts top-"
+          f"{cfg.moe_topk} pgmm, batch {MOE_BATCH} x seq {MOE_SEQ}, "
+          f"{cfg.dtype}); losses {[round(x, 4) for x in vals.tolist()]}; "
+          f"launches per step k5/k6/k1_lse/k2/k3={per_step} "
+          f"serving_k1={serving_k1}", flush=True)
+    L = cfg.num_hidden_layers
+    if per_step != [6 * L, 3 * L, L, L, L] or serving_k1 != 0:
+        raise AssertionError(f"kernels did not carry the MoE step: per step "
+                             f"{per_step} != {[6 * L, 3 * L, L, L, L]} or "
+                             f"serving K1 ran {serving_k1} times")
+    if not torch.isfinite(vals).all():
+        raise AssertionError(f"non-finite MoE loss: {vals.tolist()}")
+    if not 9.0 <= vals[0].item() <= 12.5:
+        raise AssertionError(f"first MoE loss {vals[0].item()} outside "
+                             f"[9, 12.5]")
+    syncs = _sync_count(torch, lambda: eng.step(batches[1], batches[1]))
+    print(f"moe step under set_sync_debug_mode: {len(syncs)} synchronizing "
+          f"operations", flush=True)
+    for msg in syncs[:5]:
+        print(f"  {msg[:160]}", flush=True)
+    if syncs:
+        raise AssertionError(f"the MoE step synchronized {len(syncs)} times")
+    eng.lr = 1e-3
+    fixed = [eng.step(batches[0], batches[0]) for _ in range(6)]
+    first, final = fixed[0].item(), fixed[-1].item()
+    print(f"moe fixed batch (lr 1e-3, 6 steps): first loss {first:.4f} "
+          f"last loss {final:.4f} (last {last:.4f} before)", flush=True)
+    if not final < first:
+        raise AssertionError(f"MoE loss did not fall on a fixed batch: "
+                             f"{first} -> {final}")
+    del eng, model, batches
+    torch.cuda.empty_cache()
+    return k5, k6
+
+
 def phase_serving(torch, np, ops, card):
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     Request)
@@ -696,6 +1064,9 @@ def main():
     phase_train_parity(torch, np, ops)
     lse_launches, k2_launches, k3_launches = phase_train_full(torch, np, ops,
                                                               card)
+    k5, k6 = phase_pgmm(torch, np, ops)
+    phase_moe_parity(torch, np, ops)
+    k5_launches, k6_launches = phase_moe_train(torch, np, ops, card)
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -718,6 +1089,14 @@ def main():
              source="paddle_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="paddle_tpu/ops/paged_attention.py:174",
              launches=k4_launches, **k4),
+        dict(name="pgmm", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/grouped_matmul.cu",
+             replaces="paddle_tpu/ops/grouped_matmul.py:38",
+             launches=k5_launches, **k5),
+        dict(name="pgmm_dw", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/grouped_matmul.cu",
+             replaces="paddle_tpu/ops/grouped_matmul.py:93",
+             launches=k6_launches, **k6),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -163,6 +163,9 @@ class ContinuousBatchingEngine:
                  mesh=None,
                  tracer=None,
                  device=None):
+        if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
+            raise _later_slice("serving an MoE model (num_experts > 1)",
+                               "MoE-serving")
         if prefix_cache:
             raise _later_slice("prefix_cache", "prefix-cache")
         if speculative:

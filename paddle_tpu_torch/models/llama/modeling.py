@@ -19,8 +19,14 @@ are): ``loss_fn`` computes the shifted causal-LM loss through the fused,
 chunked cross-entropy (``ops.fused_ce``) and ``forward(ids, labels)`` the
 unfused criterion; gradients flow through the flash kernels' backward
 (K2/K3). The serving hooks (``_decode_chunk``, ``paged_token_step``) run
-under ``torch.no_grad()`` and build no graph. Remat (``recompute=True``)
-and MoE layers arrive with later slices and raise here.
+under ``torch.no_grad()`` and build no graph.
+
+With ``num_experts > 1`` each layer's MLP is the Mixtral-class MoE layer
+(``incubate.distributed.models.moe.MoELayer`` over ``SwiGLUExpertFFN``,
+dispatch ``pgmm``: grouped matmuls K5/K6) and ``loss_fn`` adds
+``moe_aux_weight`` times the layers' summed load-balance loss. Remat
+(``recompute=True``), the other MoE dispatches and MoE serving arrive with
+later slices and raise here.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import resolve_device, resolve_dtype
+from ...incubate.distributed.models.moe import MoELayer, SwiGLUExpertFFN
 from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_linear_cross_entropy
 from ...ops.paged_attention import append_paged_kv, paged_decode_attention
@@ -56,7 +63,14 @@ class LlamaConfig:
         recompute: bool = False,
         remat_policy: str = "flash",
         remat_every: int = 1,
+        use_flash_attention: bool = True,
+        sequence_parallel: bool = False,
         num_experts: int = 1,
+        moe_topk: int = 2,
+        moe_dispatch: str = "auto",
+        moe_gate: str = "gshard",
+        moe_aux_weight: float = 0.01,
+        moe_capacity_factor: float = 1.25,
         fused_ce: bool = True,
         fused_ce_chunk: int = 1024,
     ):
@@ -81,7 +95,22 @@ class LlamaConfig:
             raise ValueError(f"remat_every must be >= 1 (got {remat_every}); "
                              "use recompute=False to disable remat")
         self.remat_every = remat_every
+        if not use_flash_attention:
+            raise NotImplementedError(
+                "use_flash_attention=False (the XLA attention path) is not "
+                "ported: the port's attention is the flash kernels")
+        if sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel=True is not ported yet: it arrives with "
+                "the distributed-training slice")
+        self.use_flash_attention = use_flash_attention
+        self.sequence_parallel = sequence_parallel
         self.num_experts = num_experts
+        self.moe_topk = moe_topk
+        self.moe_dispatch = moe_dispatch
+        self.moe_gate = moe_gate
+        self.moe_aux_weight = moe_aux_weight
+        self.moe_capacity_factor = moe_capacity_factor
         # chunked lm-head + CE (ops/fused_ce.py) in the training loss
         self.fused_ce = fused_ce
         self.fused_ce_chunk = fused_ce_chunk
@@ -252,15 +281,25 @@ class LlamaRMSNorm(nn.Module):
 class LlamaDecoderLayer(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
-        if config.num_experts > 1:
-            raise NotImplementedError(
-                "MoE layers (num_experts > 1) are not ported yet: they "
-                "arrive with the MoE slice (grouped-matmul kernels K5/K6)")
         self.config = config
         self.input_layernorm = LlamaRMSNorm(config, device)
         self.self_attn = LlamaAttention(config, device, gen)
         self.post_attention_layernorm = LlamaRMSNorm(config, device)
-        self.mlp = LlamaMLP(config, device, gen)
+        if config.num_experts > 1:
+            # Mixtral-class MoE FFN: swiglu experts
+            self.mlp = MoELayer(
+                config.hidden_size, config.num_experts,
+                experts=SwiGLUExpertFFN(
+                    config.num_experts, config.hidden_size,
+                    config.intermediate_size, dtype=config.dtype,
+                    initializer_range=config.initializer_range,
+                    device=device, generator=gen),
+                gate=config.moe_gate, top_k=config.moe_topk,
+                capacity_factor=config.moe_capacity_factor,
+                dispatch_mode=config.moe_dispatch, device=device,
+                generator=gen)
+        else:
+            self.mlp = LlamaMLP(config, device, gen)
 
     def forward(self, x, cos, sin):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin)
@@ -316,6 +355,10 @@ class LlamaModel(nn.Module):
         cos, sin = self.rope_tables(input_ids.shape[1], x.dtype, x.device)
         for layer in self.layers:
             x = layer(x, cos, sin)
+        if self.config.num_experts > 1:
+            # each layer's gate keeps the aux loss of its last forward
+            self._moe_aux = torch.stack([layer.mlp.get_loss()
+                                         for layer in self.layers]).sum()
         return self.norm(x)
 
 
@@ -374,9 +417,21 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             return logits
         return LlamaPretrainingCriterion.compute(logits, labels)
 
+    def moe_aux_loss(self):
+        """Sum of the layers' gate load-balance losses from the last
+        forward (0 for a dense model)."""
+        if self.config.num_experts <= 1:
+            return 0.0
+        return getattr(self.model, "_moe_aux", 0.0)
+
     def loss_fn(self, input_ids, labels):
-        """The training loss (``Engine.step`` differentiates it)."""
-        return self._lm_loss(self.model(input_ids), labels)
+        """The training loss (``Engine.step`` differentiates it): the
+        shifted CE, plus ``moe_aux_weight`` times the aux loss of an MoE
+        model."""
+        loss = self._lm_loss(self.model(input_ids), labels)
+        if self.config.num_experts > 1:
+            loss = loss + self.config.moe_aux_weight * self.moe_aux_loss()
+        return loss
 
     def _lm_loss(self, hidden, labels):
         """Shifted CE from final hidden states; fused and chunked by

@@ -8,5 +8,8 @@ from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_reference,
                               flash_attention_reference_lse)
 from .fused_ce import fused_linear_cross_entropy  # noqa: F401
+from .grouped_matmul import (padded_group_layout, pgmm,  # noqa: F401
+                             pgmm_dw, pgmm_dw_reference, pgmm_raw,
+                             pgmm_reference)
 from .paged_attention import (append_paged_kv,  # noqa: F401
                               paged_decode_attention, paged_decode_reference)

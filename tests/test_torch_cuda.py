@@ -9,10 +9,12 @@ a machine without JAX:
 
 Tolerances (max abs error): 1e-4 in fp32 (fp32 math, other summation
 order) and 2e-2 in bf16 (the output's bf16 rounding of O(1) values); the
-backward's gradients are held to tol x max(1, max |plain|). The train step
-on the card is held against the same step on the CPU (fp32, TF32 off).
+backward's gradients are held to tol x max(1, max |plain|) and the grouped
+matmuls (K5, K6) to tol x max |plain|. The dense and MoE train steps on
+the card are held against the same steps on the CPU (fp32, TF32 off).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,8 +25,11 @@ from paddle_tpu_torch.ops import (flash_attention, flash_attention_backward,
                                   flash_attention_forward,
                                   flash_attention_reference,
                                   flash_attention_reference_lse,
+                                  padded_group_layout,
                                   paged_decode_attention,
-                                  paged_decode_reference)
+                                  paged_decode_reference, pgmm, pgmm_dw,
+                                  pgmm_dw_reference, pgmm_raw,
+                                  pgmm_reference)
 
 torch.set_num_threads(1)
 
@@ -145,6 +150,83 @@ def test_engine_step_on_card_matches_cpu(cuda):
     assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
     # one Adam step moves an element by at most ~lr: 2 * lr bounds the
     # difference of an element whose gradient is rounding noise
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        err = (pg.detach().cpu() - pc.detach()).abs().max().item()
+        assert err <= 2e-3, (name, err)
+
+
+def _pgmm_case(cuda, dtype, k, n, tile_m, n_rows=700, e=4):
+    """A skewed routing that leaves expert 2 with no row, its padded layout
+    and seeded operands on the card."""
+    rng = np.random.default_rng(0)
+    flat_e = torch.from_numpy(rng.choice([0, 1, 3], size=n_rows,
+                                         p=[0.6, 0.3, 0.1])).to(cuda)
+    _, _, gids, p = padded_group_layout(flat_e, e, n_rows, tile_m)
+    assert 2 not in gids.tolist()
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    return gids, rnd(p, k), rnd(e, k, n), rnd(p, n)
+
+
+def _rel_err(a, r):
+    return ((a.float() - r.float()).abs().max()
+            / r.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("k,n,tile_m", [(256, 384, 128), (200, 136, 256)])
+def test_pgmm_kernels_match_plain_on_card(cuda, dtype, tol, k, n, tile_m):
+    gids, x, w, dout = _pgmm_case(cuda, dtype, k, n, tile_m)
+    n5, n6 = pgmm.launches, pgmm_dw.launches
+    out = pgmm_raw(x, w, gids, tile_m)
+    dx = pgmm_raw(dout, w, gids, tile_m, trans_w=True)
+    dw = pgmm_dw(x, dout, gids, 4, tile_m)
+    torch.cuda.synchronize()
+    assert (pgmm.launches, pgmm_dw.launches) == (n5 + 2, n6 + 1)
+    assert out.dtype == dx.dtype == dtype and dw.dtype == torch.float32
+    assert _rel_err(out, pgmm_reference(x, w, gids, tile_m)) <= tol
+    assert _rel_err(dx, pgmm_reference(dout, w, gids, tile_m,
+                                       trans_w=True)) <= tol
+    assert _rel_err(dw, pgmm_dw_reference(x, dout, gids, 4, tile_m)) <= tol
+    assert (dw[2] == 0).all()   # the tileless expert, zeroed in the kernel
+
+
+@pytest.mark.cuda
+def test_pgmm_kernels_refuse_what_they_cannot_take(cuda):
+    gids, x, w, _ = _pgmm_case(cuda, torch.bfloat16, 256, 384, 128)
+    with pytest.raises(ValueError, match="multiple"):
+        pgmm_raw(x[:, :252].contiguous(), w[:, :252].contiguous(), gids, 128)
+    with pytest.raises(ValueError, match="row tile"):
+        pgmm_raw(x, w, torch.cat([gids, gids]), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        pgmm_raw(x, w.transpose(1, 2).contiguous().transpose(1, 2), gids, 128)
+
+
+@pytest.mark.cuda
+def test_moe_engine_step_on_card_matches_cpu(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=384,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256,
+                      num_experts=4, moe_dispatch="pgmm")
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    card = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    ids = torch.randint(0, cfg.vocab_size, (2, 100),
+                        generator=torch.Generator().manual_seed(0))
+    ec, eg = Engine(cpu, lr=1e-3), Engine(card, lr=1e-3)
+    n5, n6 = pgmm.launches, pgmm_dw.launches
+    lc = ec.step(ids, ids)
+    lg = eg.step(ids.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert (pgmm.launches - n5, pgmm_dw.launches - n6) == (12, 6)
+    assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
     for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
         err = (pg.detach().cpu() - pc.detach()).abs().max().item()
         assert err <= 2e-3, (name, err)
