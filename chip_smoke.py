@@ -16,10 +16,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (lse max abs error <= 5e-3 bf16 / 1e-4 fp32, out as in 2), timed
      beside the no-lse path.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
-     on the same (q, k, v, o, lse, dout): the training shape (bf16), MHA,
-     ragged 77 (not causal) and end-aligned 200/520 at head_dim 64, each
-     also in fp32; max abs error <= tol x max(1, max |plain|); K2 and K3
-     times beside their bounds, the plain backward and SDPA's backward.
+     on the same (q, k, v, o, lse, dout): the training shape and the MoE
+     step's [8, 2048, 16/4, 64] (bf16), MHA, ragged 77 (not causal),
+     end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
+     [b, s, 3, h, d] buffer, each also in fp32; max abs error <= tol x
+     max(1, max |plain|); at the training shape two runs must be bitwise
+     equal; K2 and K3 times beside their bounds, the plain backward and
+     SDPA's backward.
   6. serving: the llama-750M-class config at full width (12 layers), random
      weights from seed 0, through the legacy ContinuousBatchingEngine: a
      wave of 16 greedy requests with both exact and re-stepped prompts and
@@ -96,12 +99,18 @@ K1_CASES = [
 # the train step's attention shape (bench.py:2013-2019 at batch 2)
 TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
 LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
-# K2/K3 cases; the training shape runs in bf16 only
+# the MoE step's attention shape (MOE_CONFIG below: batch 8 x seq 2048, 16 q
+# / 4 kv heads of 64)
+MOE_ATTN_SHAPE = ("moe", 8, 2048, 2048, 16, 4, 64, True)
+# K2/K3 cases; the training and MoE shapes run in bf16 only. "strided"
+# takes q, k and v as strided views of one [b, s, 3, h, d] buffer.
 BWD_CASES = [
     TRAIN_SHAPE,
+    MOE_ATTN_SHAPE,
     ("mha", 2, 1024, 1024, 16, 16, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
+    ("strided", 2, 1024, 1024, 16, 16, 128, True),
 ]
 # K4 case: rows, q heads, head_dim, page, pages per row, lengths
 K4_CASE = (8, 16, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640])
@@ -163,8 +172,8 @@ def card_line():
 
 
 def _kernel_name(mangled):
-    """'_ZN<n><namespace><n>dkv_bf16_kernelILi128EEEv...' ->
-    'dkv_bf16_kernel<128>' (a kernel inside a namespace, as nvcc mangles
+    """'_ZN<n><namespace><n>dkv_tc_kernelILi128EEEv...' ->
+    'dkv_tc_kernel<128>' (a kernel inside a namespace, as nvcc mangles
     the anonymous one; anything else is returned cut to 60 characters)."""
     m = re.match(r"_ZN(\d+)", mangled)
     i = m.end() + int(m.group(1)) if m else 0
@@ -396,10 +405,16 @@ def phase_k2k3(torch, F, ops):
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     rows = None
     cases = [(c, dn) for c in BWD_CASES for dn in ("bfloat16", "float32")
-             if not (c is TRAIN_SHAPE and dn == "float32")]
+             if not (c in (TRAIN_SHAPE, MOE_ATTN_SHAPE) and dn == "float32")]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
-        q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+        if name == "strided":
+            qkv = torch.randn(b, s_q, 3, hq, d, device=DEVICE,
+                              generator=gen).to(dtype)
+            q, k, v = qkv.unbind(2)
+            del qkv
+        else:
+            q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
         do = torch.randn(b, s_q, hq, d, device=DEVICE, generator=gen).to(dtype)
         o, lse = ops.flash_attention_forward(q, k, v, causal=causal)
         grads = ops.flash_attention_backward(q, k, v, o, lse, do,
@@ -407,6 +422,12 @@ def phase_k2k3(torch, F, ops):
         refs = ops.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                       causal)
         sync()
+        same = None
+        if name == "train":   # K2 and K3 again on the same inputs: bitwise
+            again = ops.flash_attention_backward(q, k, v, o, lse, do,
+                                                 causal=causal)
+            same = all(torch.equal(a, r) for a, r in zip(grads, again))
+            del again
         errs = {}
         for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
             raw = (a.float() - r.float()).abs().max().item()
@@ -443,11 +464,16 @@ def phase_k2k3(torch, F, ops):
               f"dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_ms={plain_ms:.4f}"
               f" library_ms={library_ms:.4f} (SDPA backward, dq+dk+dv) "
               f"dq_bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}) "
-              f"dkv_bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]})", flush=True)
+              f"dkv_bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]})"
+              + ("" if same is None else f" bitwise_deterministic={same}"),
+              flush=True)
         worst = max(rel for _, rel in errs.values())
         if not worst <= TOL[dname]:
             raise AssertionError(f"K2/K3 {name} {dname}: relative max abs "
                                  f"error {worst} > {TOL[dname]}")
+        if same is False:
+            raise AssertionError(f"K2/K3 {name}: two runs on the same inputs "
+                                 f"differ")
         if name == "train":
             rows = (dict(max_abs_err=errs["dq"][0], ms=dq_ms,
                          plain_ms=plain_ms, bound_ms=dq_bound[0],

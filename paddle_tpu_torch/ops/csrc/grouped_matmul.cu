@@ -50,18 +50,20 @@
 //    must be multiples of 8 (TMA's 16-byte strides), the wrapper checks.
 //  - A barrier wait that never completes traps (a launch error) instead of
 //    hanging the card.
+//  - The mbarrier, TMA, tensor-map, descriptor and wgmma helpers live in
+//    hopper.cuh, shared with the flash backward kernels (flash_bwd.cu).
 // fp32 runs on FMAs (128 x 128 tiles, an 8 x 8 register tile a thread),
 // exact to fp32 rounding; it serves the fp32 parity checks.
 // Later work: a persistent schedule over tiles (the epilogue does not yet
 // overlap the next tile's loads) and clusters that share operand loads.
 #include <stdint.h>
 
-#include <cuda.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 // ---- bf16: TMA + wgmma -----------------------------------------------------
@@ -75,115 +77,6 @@ constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int PANEL = 64 * TBK * 2;  // one 64-wide MN-major panel, 8 KB
 // stages, the mbarriers, and slack to align the tiles to 1024 bytes
 constexpr int TC_SMEM = TST * STAGE_BYTES + 2 * TST * 8 + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count));
-}
-__device__ __forceinline__ void bar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(b)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
-               : "memory");
-}
-// Wait for the phase of parity `parity` to complete; bounded, so that a
-// phase that never completes traps instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred P;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(done) : "r"(smem_u32(b)), "r"(parity) : "memory");
-    if (done) return;
-    if (spins > (1ll << 22)) __trap();
-  }
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(smem_u32(bar)) : "memory");
-}
-
-// Pins the accumulators in order around the asynchronous wgmma.
-__device__ __forceinline__ void fence_acc(float (&acc)[TBN / 2]) {
-#pragma unroll
-  for (int i = 0; i < TBN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
-                                              int sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-// K-major operand: 128-byte rows, 8-row groups 1024 bytes apart (the
-// leading offset is unused); a 16-deep step advances 32 bytes in the row.
-__device__ __forceinline__ uint64_t kmajor_desc(const unsigned char* p,
-                                                int kk) {
-  return smem_desc(p + kk * 32, 16, 1024);
-}
-// MN-major operand: 64-wide panels PANEL bytes apart, 8-row groups 1024
-// bytes apart; a 16-deep step advances 16 rows of 128 bytes.
-__device__ __forceinline__ uint64_t mnmajor_desc(const unsigned char* p,
-                                                 int kk) {
-  return smem_desc(p + kk * 2048, PANEL, 1024);
-}
-
-// acc += A B over one 16-deep step for a 64 x 256 tile; TA / TB = 1 reads
-// that operand MN-major.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
-}
 
 // [t_lo, t_hi): the tiles that the monotone gids give expert e
 __device__ __forceinline__ void expert_tiles(const int* __restrict__ gids,
@@ -242,7 +135,7 @@ pgmm_tc_kernel(const __grid_constant__ CUtensorMap ma,
       bar_init(&full[s], 1);   // the producer's arrive + the tile bytes
       bar_init(&empty[s], 2);  // one arrive per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -288,24 +181,24 @@ pgmm_tc_kernel(const __grid_constant__ CUtensorMap ma,
     bar_wait(&full[s], (it / TST) & 1);
     const unsigned char* as = smem + s * STAGE_BYTES;
     const unsigned char* bs = as + A_BYTES;
-    fence_acc(acc);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TBK / 16; ++kk) {
       if constexpr (MODE == 2) {
-        wgmma_256<1, 1>(acc, mnmajor_desc(as + cw * PANEL, kk),
-                        mnmajor_desc(bs, kk));
+        wgmma_ss_n256<1, 1>(acc, mnmajor_desc(as + cw * PANEL, kk, PANEL),
+                            mnmajor_desc(bs, kk, PANEL));
       } else if constexpr (MODE == 1) {
-        wgmma_256<0, 0>(acc, kmajor_desc(as + cw * 64 * 128, kk),
-                        kmajor_desc(bs, kk));
+        wgmma_ss_n256<0, 0>(acc, kmajor_desc(as + cw * 64 * 128, kk),
+                            kmajor_desc(bs, kk));
       } else {
-        wgmma_256<0, 1>(acc, kmajor_desc(as + cw * 64 * 128, kk),
-                        mnmajor_desc(bs, kk));
+        wgmma_ss_n256<0, 1>(acc, kmajor_desc(as + cw * 64 * 128, kk),
+                            mnmajor_desc(bs, kk, PANEL));
       }
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(acc);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
     if (t == 0) bar_arrive(&empty[s]);  // this stage may be refilled
   }
 
@@ -332,46 +225,6 @@ pgmm_tc_kernel(const __grid_constant__ CUtensorMap ma,
               __floats2bfloat162_rn(v0, v1);
       }
     }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda); null if the driver does not offer it.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
-// of dimensions 1..), 128-byte swizzle, out-of-range elements read as 0.
-// Returns 0, or an error code the wrapper reports.
-int make_map(CUtensorMap* m, const void* base, int rank,
-             const cuuint64_t* dims, const cuuint64_t* strides,
-             const cuuint32_t* box) {
-  const cuuint32_t unit[3] = {1, 1, 1};
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int MODE>

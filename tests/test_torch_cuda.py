@@ -116,16 +116,82 @@ def test_flash_lse_and_backward_match_plain_on_card(cuda, dtype, tol, s_q,
     assert (lse - ref_lse).abs().max().item() <= lse_tol
     nq, nk = (flash_attention_backward.launches_dq,
               flash_attention_backward.launches_dkv)
-    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
-    torch.cuda.synchronize()
+    _check_bwd(q, k, v, do, causal, tol, out, lse)
     assert flash_attention_backward.launches_dq == nq + 1
     assert flash_attention_backward.launches_dkv == nk + 1
+
+
+def _bwd_inputs(cuda, dtype, b, s_q, s_kv, hq, hkv, d, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g).to(dtype)
+    return (rnd(b, s_q, hq, d), rnd(b, s_kv, hkv, d), rnd(b, s_kv, hkv, d),
+            rnd(b, s_q, hq, d))
+
+
+def _check_bwd(q, k, v, do, causal, tol, out=None, lse=None):
+    """K2/K3 against the plain backward on the same (q, k, v, o, lse, do),
+    o and lse from the forward kernel unless given; returns the kernels'
+    (dq, dk, dv)."""
+    if out is None:
+        out, lse = flash_attention_forward(q, k, v, causal=causal)
+    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
     refs = flash_attention_backward_reference(q, k, v, out, lse, do, causal)
     for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
         assert a.shape == r.shape and a.dtype == r.dtype
         err = (a.float() - r.float()).abs().max().item()
         assert err <= tol * max(1.0, r.float().abs().max().item()), (name,
                                                                      err)
+    return grads
+
+
+# the bf16 kernels' tiles: 128 rows a block (two 64-row warpgroups), 64-row
+# streamed tiles; these lengths sit on and beside every edge
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_tile_edges_on_card(cuda, s, d, causal):
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, s, s, 8, 2, d)
+    _check_bwd(q, k, v, do, causal, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (16, 4), (16, 2)])  # group 1/4/8
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s_q,s_kv", [(300, 300), (200, 520), (300, 100)])
+def test_flash_backward_groups_on_card(cuda, hq, hkv, d, s_q, s_kv):
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, s_q, s_kv, hq, hkv, d)
+    dq, _, _ = _check_bwd(q, k, v, do, True, 2e-2)
+    if s_q > s_kv:   # rows that see no key get no gradient
+        assert not dq[:, : s_q - s_kv].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_strided_views_on_card(cuda, d):
+    # q, k and v as strided views of one [b, s, 3, h, d] buffer: the tensor
+    # maps follow the strides
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 200, 3, 8, d, device=cuda, generator=g).to(
+        torch.bfloat16)
+    do = torch.randn(2, 200, 8, d, device=cuda, generator=g).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous()
+    _check_bwd(q, k, v, do, True, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_is_deterministic_on_card(cuda, d):
+    q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 1000, 1000, 16, 4, d)
+    out, lse = flash_attention_forward(q, k, v, causal=True)
+    first = flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    second = flash_attention_backward(q, k, v, out, lse, do, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

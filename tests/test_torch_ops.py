@@ -129,19 +129,26 @@ def test_wrappers_refuse_what_this_slice_does_not_port():
         flash_attention_backward(x, x, x, x, torch.zeros(1, 2, 3), x)
 
 
-# (s_q, s_kv, hq, hkv, causal): MHA and GQA 4/2, causal and not, s_kv > s_q
+# (s_q, s_kv, hq, hkv, causal, d): MHA and GQA 4/2 at head_dim 16, causal
+# and not, s_kv > s_q; then the CUDA backward's widths: head_dim 64 with
+# 16 q / 4 kv heads (group 4, the MoE step's attention) and 16 / 2 (group
+# 8), and head_dim 128 at group 4. Sequence lengths divide the Pallas
+# kernel's blocks (block_q = s_q, block_k = 16) in interpret mode.
 _BWD_CASES = [
-    (32, 32, 4, 4, True),
-    (32, 32, 4, 2, True),
-    (32, 32, 4, 2, False),
-    (16, 48, 4, 2, True),
+    pytest.param(32, 32, 4, 4, True, 16, id="32-32-4-4-True"),
+    pytest.param(32, 32, 4, 2, True, 16, id="32-32-4-2-True"),
+    pytest.param(32, 32, 4, 2, False, 16, id="32-32-4-2-False"),
+    pytest.param(16, 48, 4, 2, True, 16, id="16-48-4-2-True"),
+    pytest.param(64, 64, 16, 4, True, 64, id="64-64-16-4-True-d64"),
+    pytest.param(32, 64, 16, 2, True, 64, id="32-64-16-2-True-d64"),
+    pytest.param(32, 32, 16, 2, False, 64, id="32-32-16-2-False-d64"),
+    pytest.param(32, 32, 8, 2, True, 128, id="32-32-8-2-True-d128"),
 ]
 
 
-@pytest.mark.parametrize("s_q,s_kv,hq,hkv,causal", _BWD_CASES)
-def test_plain_lse_and_backward_match_pallas(s_q, s_kv, hq, hkv, causal):
+@pytest.mark.parametrize("s_q,s_kv,hq,hkv,causal,d", _BWD_CASES)
+def test_plain_lse_and_backward_match_pallas(s_q, s_kv, hq, hkv, causal, d):
     rng = np.random.default_rng(100 + s_q + s_kv + hkv + causal)
-    d = 16
     q, k, v = (_np(rng, (2, s_q, hq, d)), _np(rng, (2, s_kv, hkv, d)),
                _np(rng, (2, s_kv, hkv, d)))
     do = _np(rng, (2, s_q, hq, d))
