@@ -6,15 +6,20 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
   1. the card's name and power limit; build every kernel from ops/csrc.
   2. K1 (flash attention forward, csrc/flash_fwd.cu) against its plain
-     PyTorch version at the serving prefill shape and at GQA, ragged and
-     end-aligned shapes, in bf16 (max abs error <= 2e-2) and fp32 (<= 1e-4),
-     with kernel, plain and SDPA times and the roofline bound.
+     PyTorch version at the serving prefill shape and at GQA, ragged,
+     end-aligned and strided (q, k, v as views of one [b, s, 3, h, d]
+     buffer) shapes, in bf16 (max abs error <= 2e-2) and fp32 (<= 1e-4),
+     with kernel, plain and SDPA times, the roofline bound and the
+     kernel's own device time (device_ms: the chained calls queued behind
+     a spin kernel and timed by CUDA events, so without the host's gaps).
   3. K4 (paged decode, csrc/paged_decode.cu) the same way, with lengths
-     0, 1, one page, one 4-page chunk and up to 640.
+     0, 1, one page, one 4-page chunk and up to 640, and device_ms of its
+     split and merge kernels.
   4. K1 with its lse output (the training forward) against its plain
-     version at the K1 cases and the training shape [2, 4096, 16/4, 128]
-     (lse max abs error <= 5e-3 bf16 / 1e-4 fp32, out as in 2), timed
-     beside the no-lse path.
+     version at the K1 cases, the training shape [2, 4096, 16/4, 128] and
+     the MoE step's [8, 2048, 16/4, 64] (lse max abs error <= 5e-3 bf16 /
+     1e-4 fp32, out as in 2), timed beside the no-lse path and SDPA's
+     forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
      on the same (q, k, v, o, lse, dout): the training shape and the MoE
      step's [8, 2048, 16/4, 64] (bf16), MHA, ragged 77 (not causal),
@@ -95,6 +100,7 @@ K1_CASES = [
     ("gqa", 2, 1024, 1024, 16, 4, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
+    ("strided", 2, 1024, 1024, 16, 16, 128, True),
 ]
 # the train step's attention shape (bench.py:2013-2019 at batch 2)
 TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
@@ -102,8 +108,9 @@ LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
 # the MoE step's attention shape (MOE_CONFIG below: batch 8 x seq 2048, 16 q
 # / 4 kv heads of 64)
 MOE_ATTN_SHAPE = ("moe", 8, 2048, 2048, 16, 4, 64, True)
-# K2/K3 cases; the training and MoE shapes run in bf16 only. "strided"
-# takes q, k and v as strided views of one [b, s, 3, h, d] buffer.
+# K2/K3 cases; the training and MoE shapes run in bf16 only. "strided" (here
+# and in K1_CASES) takes q, k and v as strided views of one [b, s, 3, h, d]
+# buffer.
 BWD_CASES = [
     TRAIN_SHAPE,
     MOE_ATTN_SHAPE,
@@ -229,6 +236,31 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters=20, warmup=3):
+    """The device time of ``fn`` per call, in ms, without the host's gaps
+    between calls (which cuda_ms counts): a spin kernel holds the stream
+    (about 0.1 s) while the host queues ``iters`` calls between two CUDA
+    events, so the card runs them back to back. Raises if the card had
+    reached the calls before the host had queued them all, since the time
+    would then include the host again."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    queued = not start.query()
+    torch.cuda.synchronize()
+    if not queued:
+        raise AssertionError("device_ms: the spin kernel ended before the "
+                             "host had queued every call")
+    return start.elapsed_time(end) / iters
+
+
 def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -269,14 +301,15 @@ def phase_k1(torch, F, ops):
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
         for name, b, s_q, s_kv, hq, hkv, d, causal in K1_CASES:
-            q = torch.randn(b, s_q, hq, d, device=DEVICE, generator=gen).to(dtype)
-            k = torch.randn(b, s_kv, hkv, d, device=DEVICE, generator=gen).to(dtype)
-            v = torch.randn(b, s_kv, hkv, d, device=DEVICE, generator=gen).to(dtype)
+            q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
+                                   hkv, d)
             out = ops.flash_attention(q, k, v, causal=causal)
             ref = ops.flash_attention_reference(q, k, v, causal)
             sync()
             err = (out.float() - ref.float()).abs().max().item()
             ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+            dev_ms = device_ms(
+                torch, lambda: ops.flash_attention(q, k, v, causal=causal))
             plain_ms = cuda_ms(
                 lambda: ops.flash_attention_reference(q, k, v, causal), 5, 1)
             library_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal))
@@ -288,14 +321,14 @@ def phase_k1(torch, F, ops):
                   f"{hq}/{hkv},{d}] causal={causal} max_abs_err={err:.3e} "
                   f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"bound_by={bound_by}", flush=True)
+                  f"bound_by={bound_by} device_ms={dev_ms:.4f}", flush=True)
             if not err <= TOL[dname]:
                 raise AssertionError(f"K1 {name} {dname}: max abs error "
                                      f"{err} > {TOL[dname]}")
             if name == "prefill" and dname == "bfloat16":
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms)
+                           library_ms=library_ms, device_ms=dev_ms)
             del q, k, v, out, ref
     return row
 
@@ -326,6 +359,8 @@ def phase_k4(torch, ops):
             if out[0].abs().max().item() != 0.0:
                 raise AssertionError("K4: a length-0 row is not zero")
             ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 50, 5)
+            dev_ms = device_ms(torch, lambda: ops.paged_decode_attention(*args),
+                               50, 5)
             plain_ms = cuda_ms(lambda: ops.paged_decode_reference(*args), 5, 1)
             ntok = sum(lens_list)
             flops = 4 * d * hq * ntok
@@ -335,15 +370,16 @@ def phase_k4(torch, ops):
             bound_ms, bound_by = bound(flops, nbytes, dname)
             print(f"k4 dtype={dname} rows={b} heads={hq}/{hkv} d={d} "
                   f"page={page} lens={lens_list} max_abs_err={err:.3e} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=null "
-                  f"bound_ms={bound_ms:.5f} bound_by={bound_by}", flush=True)
+                  f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} library_ms=null bound_ms={bound_ms:.5f} "
+                  f"bound_by={bound_by}", flush=True)
             if not err <= TOL[dname]:
                 raise AssertionError(f"K4 {dname} hkv={hkv}: max abs error "
                                      f"{err} > {TOL[dname]}")
             if dname == "bfloat16" and hkv == 16:
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
+                           library_ms=None, device_ms=dev_ms)
     return row
 
 
@@ -353,16 +389,27 @@ def _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d):
     return (rnd(b, s_q, hq, d), rnd(b, s_kv, hkv, d), rnd(b, s_kv, hkv, d))
 
 
+def _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq, hkv, d):
+    """q, k, v of a kernel case; "strided" takes them as strided views of
+    one [b, s, 3, h, d] buffer (s_q = s_kv, hq = hkv)."""
+    if name == "strided":
+        qkv = torch.randn(b, s_q, 3, hq, d, device=DEVICE,
+                          generator=gen).to(dtype)
+        return qkv.unbind(2)
+    return _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+
+
 def phase_k1_lse(torch, F, ops):
     """K1 with its lse output against the plain forward-with-lse; returns
     the main-path (training shape) row."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     row = None
     cases = [(c, dn) for dn in ("bfloat16", "float32") for c in K1_CASES]
-    cases.append((TRAIN_SHAPE, "bfloat16"))
+    cases += [(TRAIN_SHAPE, "bfloat16"), (MOE_ATTN_SHAPE, "bfloat16")]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
-        q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+        q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
+                               hkv, d)
         out, lse = ops.flash_attention_forward(q, k, v, causal=causal)
         ref, ref_lse = ops.flash_attention_reference_lse(q, k, v, causal)
         sync()
@@ -370,6 +417,8 @@ def phase_k1_lse(torch, F, ops):
         lse_err = (lse - ref_lse).abs().max().item()
         del ref, ref_lse
         ms = cuda_ms(lambda: ops.flash_attention_forward(q, k, v, causal=causal))
+        dev_ms = device_ms(
+            torch, lambda: ops.flash_attention_forward(q, k, v, causal=causal))
         nolse_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
         plain_ms = cuda_ms(
             lambda: ops.flash_attention_reference_lse(q, k, v, causal), 5, 1)
@@ -383,7 +432,7 @@ def phase_k1_lse(torch, F, ops):
               f"lse_max_abs_err={lse_err:.3e} ms={ms:.4f} "
               f"no_lse_ms={nolse_ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-              f"bound_by={bound_by}", flush=True)
+              f"bound_by={bound_by} device_ms={dev_ms:.4f}", flush=True)
         if not (err <= TOL[dname] and lse_err <= LSE_TOL[dname]):
             raise AssertionError(f"K1-lse {name} {dname}: out error {err} "
                                  f"(tol {TOL[dname]}), lse error {lse_err} "
@@ -391,7 +440,8 @@ def phase_k1_lse(torch, F, ops):
         if name == "train":
             row = dict(max_abs_err=max(err, lse_err), ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)
+                       bound_by=bound_by, library_ms=library_ms,
+                       device_ms=dev_ms)
         del q, k, v, out, lse
     torch.cuda.empty_cache()
     return row
@@ -408,13 +458,8 @@ def phase_k2k3(torch, F, ops):
              if not (c in (TRAIN_SHAPE, MOE_ATTN_SHAPE) and dn == "float32")]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
-        if name == "strided":
-            qkv = torch.randn(b, s_q, 3, hq, d, device=DEVICE,
-                              generator=gen).to(dtype)
-            q, k, v = qkv.unbind(2)
-            del qkv
-        else:
-            q, k, v = _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d)
+        q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
+                               hkv, d)
         do = torch.randn(b, s_q, hq, d, device=DEVICE, generator=gen).to(dtype)
         o, lse = ops.flash_attention_forward(q, k, v, causal=causal)
         grads = ops.flash_attention_backward(q, k, v, o, lse, do,

@@ -404,11 +404,6 @@ struct TcLayout {
   static_assert(RB * 4 <= VEC, "K2's row vector fits");
 };
 
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // lse as the exponent base-2 offset; +inf for a row that saw no key (or
@@ -465,22 +460,6 @@ __device__ __forceinline__ void product_reg_tile(float (&d)[D / 2],
     else
       wgmma_rs_n128(d, a[j], db);
   }
-}
-
-// Store a warpgroup's 64 x D fp32 accumulator as bf16 rows of a contiguous
-// [b, s, h, D] output (row stride rs elements).
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
-                                           bf16* out, const int (&rows)[2],
-                                           int n, long long rs, int lane) {
-#pragma unroll
-  for (int bb = 0; bb < D / 8; ++bb)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (rows[e] < n)
-        *reinterpret_cast<__nv_bfloat162*>(out + rows[e] * rs + 8 * bb +
-                                           2 * (lane % 4)) =
-            __floats2bfloat162_rn(acc[4 * bb + 2 * e], acc[4 * bb + 2 * e + 1]);
 }
 
 // K2. Grid: one block per (RB-row q tile, q head, batch), flattened with the
@@ -799,21 +778,6 @@ int set_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-// A tensor map over one [b, s, h, D] bf16 operand read through its element
-// strides; a box is 64 head_dim columns of `rows` sequence rows of one
-// (batch, head).
-int map_bshd(CUtensorMap* m, const void* base, int b, int s, int h, int d,
-             const Strides& st, int rows) {
-  using u64 = cuuint64_t;
-  const u64 dims[4] = {static_cast<u64>(d), static_cast<u64>(h),
-                       static_cast<u64>(s), static_cast<u64>(b)};
-  const u64 strides[3] = {static_cast<u64>(st.h) * 2,
-                          static_cast<u64>(st.s) * 2,
-                          static_cast<u64>(st.b) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  return make_map(m, base, 4, dims, strides, box);
-}
-
 template <int D>
 int launch_dq(int dtype, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, void* dq,
@@ -834,10 +798,14 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v,
   } else {
     CUtensorMap mq, mk, mv, mdo;
     int err;
-    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0], RB))) return err;
-    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1], SB))) return err;
-    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2], SB))) return err;
-    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4], RB))) return err;
+    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0].b, st[0].s,
+                        st[0].h, RB))) return err;
+    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s,
+                        st[1].h, SB))) return err;
+    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s,
+                        st[2].h, SB))) return err;
+    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
+                        st[4].h, RB))) return err;
     const size_t smem = TcLayout<D>::kBytes;
     if ((err = set_smem(dq_tc_kernel<D>, smem))) return err;
     const int blocks = (s_q + RB - 1) / RB * hq * b;
@@ -868,10 +836,14 @@ int launch_dkv(int dtype, const void* q, const void* k, const void* v,
   } else {
     CUtensorMap mq, mk, mv, mdo;
     int err;
-    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0], SB))) return err;
-    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1], RB))) return err;
-    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2], RB))) return err;
-    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4], SB))) return err;
+    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0].b, st[0].s,
+                        st[0].h, SB))) return err;
+    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s,
+                        st[1].h, RB))) return err;
+    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s,
+                        st[2].h, RB))) return err;
+    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
+                        st[4].h, SB))) return err;
     const size_t smem = TcLayout<D>::kBytes;
     if ((err = set_smem(dkv_tc_kernel<D>, smem))) return err;
     const int blocks = (s_kv + RB - 1) / RB * hkv * b;

@@ -1,9 +1,10 @@
-// FlashAttention forward for Hopper (sm_90a), CUDA C++.
+// FlashAttention forward for Hopper (sm_90a), CUDA C++: K1.
 //
 // Replaces the Pallas TPU kernel `_fa_fwd_kernel`
 // (paddle_tpu/ops/flash_attention.py:117, driven by `_pallas_forward` :221):
 // the primal path (no logsumexp output, serving) and the training path,
-// which also writes the logsumexp of every q row (:203-212).
+// which also writes the logsumexp of every q row (:203-212). One kernel
+// does both; a null lse pointer picks the primal path.
 //
 // What it computes: out[b, i, h, :] = softmax_j(scale * q[b,i,h,:].k[b,j,h/g,:])
 // . v[b,j,h/g,:] with an END-aligned causal mask (q row i sees k columns
@@ -11,40 +12,60 @@
 // online softmax, the finite mask value -1e30 for causally masked scores and
 // zeros for a row that attends nothing (l == 0), as the TPU kernel does.
 // When `lse` is not null it also writes lse[b, h, i] = m + log(l) of the
-// SCALED logits in fp32, NEG_INF (-1e30) for a row with l == 0 (the TPU
-// kernel's [b, h, 8, s] lane axis is a tiling artefact and is dropped).
+// SCALED logits in fp32 (natural log: K2/K3 read it back), NEG_INF (-1e30)
+// for a row with l == 0 or one that saw no key (the TPU kernel's [b, h, 8, s]
+// lane axis is a tiling artefact and is dropped).
 //
-// What bounds it on the H100: at the serving prefill shape (s = 512,
-// head_dim 128) attention does about 4 * head_dim operations per (q, k) pair
-// for a few bytes per row: in bf16 it sits near the line where the tensor
-// cores and HBM take equal time, and in fp32 (no tensor-core path kept
-// exact) it is bounded by arithmetic.
+// What bounds it on the H100: 4 * head_dim operations per visible (q, k)
+// pair and head against each input read once and the output written once.
+// At the main-path shapes (989 TFLOP/s bf16, 3.35 TB/s):
+//   serving prefill [8, 512, 16, 128] causal        0.0200 ms (bytes)
+//   dense training  [2, 4096, 16 q / 4 kv, 128]     0.1390 ms (operations)
+//   MoE training    [8, 2048, 16 q / 4 kv, 64]      0.0695 ms (operations)
+//   GQA prefill     [2, 1024, 16 q / 4 kv, 128]     0.0087 ms (operations)
+// so training is bounded by the tensor cores and short prefills by HBM.
 //
-// What the design does about it:
-//  - One block per (q tile of 64 rows, q head, batch); the kv loop runs
-//    inside the block, so nothing carries across blocks (the TPU grid's
-//    sequential kv axis becomes this loop).
-//  - bf16 runs on the tensor cores (WMMA 16x16x16, fp32 accumulation). Each
-//    of the 4 warps owns 16 q rows: it computes its strip of S = Q K^T,
-//    the online softmax of its rows (scores and statistics in fp32, P
-//    rounded to bf16 for the product) and its strip of O += P V, with O
-//    kept in shared memory between kv tiles. Tiles are staged with 16-byte
-//    loads.
-//  - fp32 runs on FMAs, so it stays exact to fp32 rounding: Q, K and V
-//    tiles are staged as fp32 with a padded row (head_dim + 1 words), and
-//    each thread holds an 8 x 4 tile of scores and an 8 x (head_dim / 16)
-//    tile of the output in registers.
-//  - kv tiles wholly in the causal future are never loaded; ragged tails
-//    (s not a multiple of 64) are masked in the kernel, so any length runs.
-//  - The public [b, s, h, d] layout is read through its strides: no
-//    transpose copy.
-// Loads are not overlapped with math (no cp.async/TMA pipeline) and the
-// products use WMMA rather than wgmma; both are later work.
+// What the bf16 design does about it (TMA + wgmma; helpers in hopper.cuh):
+//  - One block per (64 NCW q rows, q head, batch) over a flattened grid
+//    that launches the heaviest causal tiles (the last q rows) first:
+//    128 (NCW + 1) threads, a producer warpgroup, one thread of which
+//    issues every load, and NCW consumer warpgroups of 64 q rows each (NCW
+//    = 2 at head_dim 128, 3 at head_dim 64, where each kv tile then feeds
+//    more rows against the same exp work); setmaxnreg gives the consumers
+//    the registers (24 for the producer, 240 / 160 for a consumer).
+//  - Q is loaded once by TMA; K and V tiles of 64 kv rows stream through a
+//    ring of NST stages (4 at head_dim 128, 6 at 64) behind full/empty
+//    mbarriers. Each operand has one 4-D tensor map over [b, s, h, d]
+//    built from its strides, as 128-byte-swizzled panels of 64 head_dim
+//    columns (head_dim 128 is two panels); a box past a sequence's end
+//    reads zeros. Every barrier wait is bounded and traps.
+//  - S = Q K^T on wgmma (K K-major) into fp32 registers; the online softmax
+//    runs on them: row maxima over the 4 threads of a quad by shuffles, the
+//    scale folded into the exp2 argument (no bf16 pre-scaling of Q), per-
+//    thread partial row sums reduced once at the end, O rescaled by alpha in
+//    registers. P, rounded to bf16, becomes the register A operand of
+//    O += P V, with V read MN-major from the same TMA tile. S, P and O never
+//    touch shared or device memory.
+//  - Tile it's S is issued together with tile it - 1's P V, so the softmax
+//    of tile it runs while P V is still on the tensor cores, and the
+//    warpgroups interleave on the tensor cores as they come (turns enforced
+//    by named barriers, "ping-pong", were slower on the card, as were 128-row
+//    kv tiles).
+//  - A warpgroup skips a kv tile wholly in its causal future but still
+//    releases the stage; the mask is applied only on tiles that cross the
+//    diagonal and on the ragged last kv tile (a zero-filled K row would give
+//    a score of 0, not a masked one): causally masked scores get NEG_INF,
+//    columns past s_kv weight 0. Rows past s_q are not stored.
+//  - No atomics and no carry across blocks: results are identical run to
+//    run, and the primal and lse paths give the same out bit for bit.
+// fp32 runs on FMAs (128 threads, 64-row tiles, Q, K and V staged as fp32
+// with a padded row, an 8 x 4 score tile and an 8 x (head_dim / 16) output
+// tile per thread in registers), so it stays exact to fp32 rounding and
+// carries the card-vs-CPU parity checks; its grid is (q tile, head, batch).
 #include <stdint.h>
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -206,183 +227,316 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor cores (WMMA) -------------------------------------------
-namespace wmma = nvcuda::wmma;
+// ---- bf16: TMA + wgmma ------------------------------------------------------
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-// Row strides of the shared tiles, padded so that every 16-row fragment
-// starts 32-byte aligned (WMMA's requirement) and rows fall on other banks.
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int BN = 64;  // kv rows a streamed tile
+
+// Stages of the ring (NST) and consumer warpgroups (NCW) by head_dim, as
+// timed fastest on the card (PERF.md). At head_dim 128 a third warpgroup
+// spills: 512 threads cap ptxas at 128 registers a thread.
 template <int D>
-struct TcLayout {
-  static constexpr int LDH = D + 8;    // bf16 Q/K/V rows
-  static constexpr int LDP = BK + 8;   // bf16 P rows
-  static constexpr int LDS = BK + 4;   // fp32 S rows
-  static constexpr int LDO = D + 4;    // fp32 O rows
-  static constexpr size_t kBytes =
-      (BQ * LDH + 2 * BK * LDH + BQ * LDP) * sizeof(bf16) +
-      (BQ * LDS + BQ * LDO) * sizeof(float);
+struct TcTile;
+template <>
+struct TcTile<64> {
+  static constexpr int NST = 6, NCW = 3;
+};
+template <>
+struct TcTile<128> {
+  static constexpr int NST = 4, NCW = 2;
 };
 
+// Shared memory: resident Q (D / 64 panels of RB 128-byte rows), NST stages
+// of a K and a V tile (D / 64 panels of BN rows each), the mbarriers, and
+// slack to align the panels to 1024 bytes. NCW consumer warpgroups of 64 q
+// rows each own the block's RB = 64 NCW q rows; a producer warpgroup issues
+// the loads.
+template <int D, int NST, int NCW>
+struct TcLayout {
+  static constexpr int RB = 64 * NCW;
+  static constexpr int THREADS = 128 * (NCW + 1);
+  // a consumer thread's registers: the SM's 65536 less the producer
+  // warpgroup's 24 a thread, shared by the consumer warpgroups
+  static constexpr int CONSUMER_REGS = (65536 / 128 - 24) / NCW / 8 * 8;
+  static constexpr int Q_PANEL = RB * 128;
+  static constexpr int QBYTES = (D / 64) * Q_PANEL;
+  static constexpr int TILE_PANEL = BN * 128;
+  static constexpr int TILE = (D / 64) * TILE_PANEL;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int BARS = 2 * NST + 1;  // full, empty, Q
+  static constexpr int kBytes = QBYTES + NST * STAGE + BARS * 8 + 1024;
+  static_assert(NST >= 2, "a tile's P V overlaps the next tile's load");
+  static_assert(kBytes <= 232448, "fits a block's shared memory");
+};
+
+// Number of BN-row kv tiles that q rows up to q_last can see.
+__device__ __forceinline__ int kv_tiles(int q_last, int s_kv, int offset,
+                                        int causal) {
+  int n = (s_kv + BN - 1) / BN;
+  if (causal) {
+    const int lk = q_last + offset;
+    n = lk < 0 ? 0 : min(n, lk / BN + 1);
+  }
+  return n;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T for a warpgroup's 64 q rows against a BN-row K tile, issued
+// (not waited for): Q rows of warpgroup cw of a block of RB, both operands
+// K-major.
+template <int D, int RB>
+__device__ __forceinline__ void issue_qk(float (&s)[BN / 2],
+                                         const unsigned char* qs,
+                                         const unsigned char* ks, int cw) {
+  constexpr int QP = RB * 128, KP = BN * 128;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(s, kmajor_desc(qs + (kk / 4) * QP + cw * 64 * 128, kk % 4),
+                 kmajor_desc(ks + (kk / 4) * KP, kk % 4), kk > 0);
+}
+
+// O += P V over a BN-row V tile read MN-major, P the register A operand.
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int r0, int n) {
-  constexpr int LDH = TcLayout<D>::LDH;
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < BK * VPR; i += NT) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[BN / 16][4],
+                                         const unsigned char* vs) {
+#pragma unroll
+  for (int j = 0; j < BN / 16; ++j) {
+    const uint64_t db = mnmajor_desc(vs, j, BN * 128);
+    if constexpr (D == 64)
+      wgmma_rs_n64(o, a[j], db);
+    else
+      wgmma_rs_n128(o, a[j], db);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int s_q, int s_kv, int hq, int group, long long q_sb,
-                      long long q_ss, long long q_sh, long long k_sb,
-                      long long k_ss, long long k_sh, long long v_sb,
-                      long long v_ss, long long v_sh, float scale,
-                      int causal, float* __restrict__ lse) {
-  using Lay = TcLayout<D>;
-  constexpr int LDH = Lay::LDH, LDP = Lay::LDP, LDS = Lay::LDS,
-                LDO = Lay::LDO;
-  constexpr int NJ = D / 16;   // 16-column output fragments per warp
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);   // [BQ][LDH]
-  bf16* ks = qs + BQ * LDH;                      // [BK][LDH]
-  bf16* vs = ks + BK * LDH;                      // [BK][LDH]
-  bf16* ps = vs + BK * LDH;                      // [BQ][LDP]
-  float* ss = reinterpret_cast<float*>(ps + BQ * LDP);  // [BQ][LDS]
-  float* os = ss + BQ * LDS;                     // [BQ][LDO]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group;
-  const int offset = s_kv - s_q;
-  const int r0 = warp * 16;   // this warp's rows within the tile
-
-  load_tile<D>(qs, q + b * q_sb + h * q_sh, q_ss, q0, s_q);
-  for (int i = tid; i < BQ * LDO; i += NT) os[i] = 0.f;
-  float m[16], l[16];
+// The online softmax of one 64 x BN tile of raw scores s (q . k, fp32) in
+// hopper.cuh's accumulator layout: updates each of the thread's two rows'
+// maximum m (raw units, the quad's) and partial sum l (this thread's
+// columns), turns s into P = exp(scale (s - m)) and returns in alpha the
+// factor that row's O must be rescaled by. MASK: the tile crosses the
+// causal diagonal or the end of the sequence.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float sc2, int k0, int s_kv,
+                                             const int (&rows)[2], int offset,
+                                             int causal, int lane) {
+  if constexpr (MASK) {
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m[r] = pt::kNegInf;
-    l[r] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) {
+      const int kc = k0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+      if (kc >= s_kv)
+        s[i] = -INFINITY;  // past the end: weight exactly 0
+      else if (causal && rows[(i >> 1) & 1] + offset < kc)
+        s[i] = pt::kNegInf;
+    }
   }
-
-  int last = (s_kv + BK - 1) / BK - 1;
-  if (causal) {
-    const int lk = q0 + BQ - 1 + offset;
-    last = lk < 0 ? -1 : min(last, lk / BK);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int e = (i >> 1) & 1;
+    mx[e] = fmaxf(mx[e], s[i]);
   }
-  const bf16* kb = k + b * k_sb + hk * k_sh;
-  const bf16* vb = v + b * v_sb + hk * v_sh;
+  float mb[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+    // unfused products, so that equal maxima give alpha = 1 exactly
+    mb[e] = __fmul_rn(mx[e], sc2);
+    alpha[e] = fast_exp2(__fmul_rn(m[e], sc2) - mb[e]);
+    m[e] = mx[e];
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int e = (i >> 1) & 1;
+    float p = fast_exp2(fmaf(s[i], sc2, -mb[e]));
+    // a row that has seen only masked scores so far: uniform weights over
+    // them, exp(NEG_INF - NEG_INF), as the TPU kernel gives
+    if (MASK && s[i] == pt::kNegInf && mx[e] == pt::kNegInf) p = 1.f;
+    s[i] = p;
+    sum[e] += p;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) l[e] = l[e] * alpha[e] + sum[e];
+}
 
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(ks, kb, k_ss, k0, s_kv);
-    load_tile<D>(vs, vb, v_ss, k0, s_kv);
-    __syncthreads();
+// Grid: one block per (RB-row q tile, q head, batch), flattened with the
+// last q tiles first. Tensor maps: mq box {64, 1, RB, 1}; mk, mv box
+// {64, 1, BN, 1}. lse may be null (the primal path).
+template <int D, int NST, int NCW>
+__global__ void __launch_bounds__(128 * (NCW + 1), 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    bf16* __restrict__ out, float* __restrict__ lse,
+                    int batch, int s_q, int s_kv, int hq, int group,
+                    float scale, int causal) {
+  using L = TcLayout<D, NST, NCW>;
+  constexpr int RB = L::RB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);  // resident Q
+  unsigned char* ring = qs + L::QBYTES;      // stages of (K, V)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NST * L::STAGE);
+  uint64_t* empty = full + NST;
+  uint64_t* res = empty + NST;
 
-    {  // S strip = Q strip . K^T
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, qs + r0 * LDH + kk * 16, LDH);
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, ks + j * 16 * LDH + kk * 16, LDH);
-          wmma::mma_sync(sacc[j], a, bt, sacc[j]);
+  const int per = hq * batch;
+  const int qt = (s_q + RB - 1) / RB - 1 - static_cast<int>(blockIdx.x) / per;
+  const int h = blockIdx.x % per % hq, b = blockIdx.x % per / hq;
+  const int hk = h / group, offset = s_kv - s_q, q0 = qt * RB;
+  const int nk = kv_tiles(min(q0 + RB, s_q) - 1, s_kv, offset, causal);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      bar_init(&full[s], 1);   // the producer's arrive + the tile bytes
+      bar_init(&empty[s], NCW);  // one arrive per consumer warpgroup
+    }
+    bar_init(res, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer: one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      bar_expect_tx(res, L::QBYTES);
+      for (int j = 0; j < D / 64; ++j)
+        tma_4d(qs + j * L::Q_PANEL, &mq, 64 * j, h, q0, b, res);
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % NST;
+        bar_wait(&empty[s], ((it / NST) & 1) ^ 1);
+        unsigned char* ks = ring + s * L::STAGE;
+        bar_expect_tx(&full[s], L::STAGE);
+        for (int j = 0; j < D / 64; ++j) {
+          tma_4d(ks + j * L::TILE_PANEL, &mk, 64 * j, hk, it * BN, b,
+                 &full[s]);
+          tma_4d(ks + L::TILE + j * L::TILE_PANEL, &mv, 64 * j, hk, it * BN,
+                 b, &full[s]);
         }
       }
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j)
-        wmma::store_matrix_sync(ss + r0 * LDS + j * 16, sacc[j], LDS,
-                                wmma::mem_row_major);
     }
-    __syncwarp();
-
-    // online softmax of the warp's 16 rows; lane owns columns lane, lane+32
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qr = q0 + row;
-      float sv[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = k0 + lane + 32 * e;
-        float x = ss[row * LDS + lane + 32 * e] * scale;
-        if (kc >= s_kv) {
-          x = -INFINITY;  // past the end: weight exactly 0
-        } else if (causal && qr + offset < kc) {
-          x = pt::kNegInf;
-        }
-        sv[e] = x;
-      }
-      float mx = fmaxf(pt::kNegInf, fmaxf(sv[0], sv[1]));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[r], mx);
-      const float alpha = __expf(m[r] - m_new);
-      const float p0 = __expf(sv[0] - m_new), p1 = __expf(sv[1] - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[r] = l[r] * alpha + sum;
-      m[r] = m_new;
-      ps[row * LDP + lane] = __float2bfloat16(p0);
-      ps[row * LDP + lane + 32] = __float2bfloat16(p1);
-#pragma unroll
-      for (int c = lane; c < D; c += 32) os[row * LDO + c] *= alpha;
-    }
-    __syncwarp();
-
-    {  // O strip += P strip . V
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        wmma::load_matrix_sync(oacc[j], os + r0 * LDO + j * 16, LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, ps + r0 * LDP + kk * 16, LDP);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, vs + kk * 16 * LDH + j * 16, LDH);
-          wmma::mma_sync(oacc[j], a, vf, oacc[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        wmma::store_matrix_sync(os + r0 * LDO + j * 16, oacc[j], LDO,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
   }
-  __syncwarp();
+
+  // consumers: warpgroup 1 + cw owns q rows r0 .. r0 + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      L::CONSUMER_REGS));
+  // the warpgroup index broadcast from lane 0, so that the compiler knows
+  // it (and every branch on it) to be uniform across a warp
+  const int cw = __shfl_sync(0xffffffffu, tid / 128, 0) - 1;
+  const int t = tid % 128, w = t / 32, l = t % 32;
+  const int r0 = q0 + 64 * cw;
+  const int rows[2] = {r0 + 16 * w + l / 4, r0 + 16 * w + l / 4 + 8};
+  // the tiles this warpgroup's real rows see (the others: skipped)
+  const int nkw =
+      r0 < s_q ? kv_tiles(min(r0 + 63, s_q - 1), s_kv, offset, causal) : 0;
+  const float sc2 = scale * kLog2e;
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {pt::kNegInf, pt::kNegInf}, lsum[2] = {0.f, 0.f};
+  uint32_t a[BN / 16][4];  // P of the previous tile, bf16
+
+  // does kv tile `it` cross this warpgroup's diagonal or the sequence end?
+  auto masked = [&](int it) {
+    const int k0 = it * BN;
+    return (causal && r0 + offset < k0 + BN - 1) || k0 + BN > s_kv;
+  };
+  auto softmax = [&](float (&sv)[BN / 2], int it, float (&alpha)[2]) {
+    if (masked(it))
+      softmax_tile<true>(sv, m, lsum, alpha, sc2, it * BN, s_kv, rows,
+                         offset, causal, l);
+    else
+      softmax_tile<false>(sv, m, lsum, alpha, sc2, it * BN, s_kv, rows,
+                          offset, causal, l);
+  };
+
+  bar_wait(res, 0);
+  if (nkw > 0) {
+    {  // tile 0: S only (O is still 0)
+      bar_wait(&full[0], 0);
+      float sv[BN / 2];
+      fence_regs(sv);
+      wgmma_fence();
+      issue_qk<D, RB>(sv, qs, ring, cw);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sv);
+      float alpha[2];
+      softmax(sv, 0, alpha);
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) pack_a(sv, j, a[j]);
+    }
+    for (int it = 1; it < nkw; ++it) {
+      // S of tile it runs beside O += P V of tile it - 1
+      const int s = it % NST, sp = (it - 1) % NST;
+      bar_wait(&full[s], (it / NST) & 1);
+      float sv[BN / 2];
+      fence_regs(sv);
+      fence_regs(o);
+      wgmma_fence();
+      issue_qk<D, RB>(sv, qs, ring + s * L::STAGE, cw);
+      wgmma_commit();
+      issue_pv<D>(o, a, ring + sp * L::STAGE + L::TILE);
+      wgmma_commit();
+      wgmma_wait1();  // S is done
+      fence_regs(sv);
+      float alpha[2];
+      softmax(sv, it, alpha);
+      wgmma_wait0();  // P V is done
+      fence_regs(o);
+      if (t == 0) bar_arrive(&empty[sp]);  // stage of tile it - 1 is free
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) pack_a(sv, j, a[j]);
+    }
+    {  // the last tile's P V
+      const int sp = (nkw - 1) % NST;
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<D>(o, a, ring + sp * L::STAGE + L::TILE);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      if (t == 0) bar_arrive(&empty[sp]);
+    }
+  }
+  for (int it = nkw; it < nk; ++it) {  // tiles only later warpgroups see
+    const int s = it % NST;
+    bar_wait(&full[s], (it / NST) & 1);
+    if (t == 0) bar_arrive(&empty[s]);
+  }
 
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r, qr = q0 + row;
-    if (qr >= s_q) continue;
-    const float inv = 1.f / (l[r] > 0.f ? l[r] : 1.f);
-    bf16* ob = out + ((static_cast<long long>(b) * s_q + qr) * hq + h) * D;
-    for (int c = lane; c < D; c += 32)
-      ob[c] = __float2bfloat16(os[row * LDO + c] * inv);
-    if (lse != nullptr && lane == 0)
-      lse[(static_cast<long long>(b) * hq + h) * s_q + qr] =
-          l[r] > 0.f ? m[r] + logf(l[r]) : pt::kNegInf;
+  for (int e = 0; e < 2; ++e) {
+    lsum[e] += __shfl_xor_sync(0xffffffffu, lsum[e], 1);
+    lsum[e] += __shfl_xor_sync(0xffffffffu, lsum[e], 2);
+  }
+  const float inv[2] = {1.f / (lsum[0] > 0.f ? lsum[0] : 1.f),
+                        1.f / (lsum[1] > 0.f ? lsum[1] : 1.f)};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= inv[(i >> 1) & 1];
+  store_rows<D>(o, out + (static_cast<long long>(b) * s_q * hq + h) * D, rows,
+                s_q, static_cast<long long>(hq) * D, l);
+  if (lse != nullptr && l % 4 == 0) {
+    const long long bh = static_cast<long long>(b) * hq + h;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (rows[e] < s_q)
+        lse[bh * s_q + rows[e]] = (lsum[e] > 0.f && m[e] != pt::kNegInf)
+                                      ? m[e] * scale + logf(lsum[e])
+                                      : pt::kNegInf;
   }
 }
 
@@ -391,17 +545,34 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int s_q, int s_kv, int hq, int hkv,
                 const long long* st, float scale, int causal,
                 cudaStream_t stream) {
-  const size_t smem = TcLayout<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((s_q + BQ - 1) / BQ, hq, b);
-  flash_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), s_q, s_kv, hq,
-      hq / hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale, causal, lse);
+  constexpr int NST = TcTile<D>::NST, NCW = TcTile<D>::NCW;
+  using L = TcLayout<D, NST, NCW>;
+  constexpr int RB = L::RB;
+  CUtensorMap mq, mk, mv;
+  int err;
+  if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0], st[1], st[2], RB)))
+    return err;
+  if (s_kv == 0) {
+    // no key: no tile is loaded, but a map needs extents > 0; map q's
+    // memory, which is never read through these maps
+    if ((err = map_bshd(&mk, q, b, s_q, hq, D, st[0], st[1], st[2], BN)))
+      return err;
+    mv = mk;
+  } else {
+    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[3], st[4], st[5], BN)))
+      return err;
+    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[6], st[7], st[8], BN)))
+      return err;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D, NST, NCW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (s_q + RB - 1) / RB * hq * b;
+  flash_fwd_tc_kernel<D, NST, NCW>
+      <<<blocks, L::THREADS, L::kBytes, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), lse, b, s_q, s_kv, hq, hq / hkv,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -430,7 +601,9 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 // (batch, seq, head; head_dim contiguous); out [b, s_q, hq, d] contiguous;
 // lse [b, hq, s_q] fp32 contiguous, or null to skip it (the primal path).
 // dtype: 0 = float32, 1 = bfloat16 (then the pointers are 16-byte aligned
-// and the strides multiples of 8). Returns the launch's cudaError_t.
+// and the strides multiples of 8). Returns the launch's cudaError_t (bf16:
+// cudaErrorNotSupported without the driver's tensor-map encoder,
+// cudaErrorInvalidValue if it refuses an operand's strides).
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
                                 void* out, void* lse_ptr, int dtype, int b,
                                 int s_q,

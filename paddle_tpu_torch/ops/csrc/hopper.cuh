@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (grouped_matmul.cu: K5/K6; flash_bwd.cu: K2/K3): mbarriers whose waits
-// are bounded, TMA tile loads, the driver's tensor-map encoder, shared-memory
-// matrix descriptors for the 128-byte swizzle, and the wgmma instructions.
+// (grouped_matmul.cu: K5/K6; flash_fwd.cu: K1; flash_bwd.cu: K2/K3):
+// mbarriers whose waits are bounded, TMA tile loads, the driver's tensor-map
+// encoder, shared-memory matrix descriptors for the 128-byte swizzle, the
+// wgmma instructions, and the [b, s, h, d] tensor maps and row stores of the
+// flash kernels.
 //
 // Layout facts the kernels rely on (128-byte swizzle, bf16):
 //  - TMA writes a box whose inner dimension is 64 elements (128 bytes) as
@@ -127,6 +129,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most the last committed group is still running.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Register A operand of 16-deep step j from the accumulator columns 16 j ..
@@ -279,6 +285,46 @@ inline int make_map(CUtensorMap* m, const void* base, int rank,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- flash attention's [b, s, h, d] operands (flash_fwd.cu, flash_bwd.cu)
+
+// A tensor map over one [b, s, h, d] bf16 operand read through its element
+// strides (batch, seq, head; d contiguous); a box is 64 head_dim columns of
+// `rows` sequence rows of one (batch, head).
+inline int map_bshd(CUtensorMap* m, const void* base, int b, int s, int h,
+                    int d, long long sb, long long ss, long long sh,
+                    int rows) {
+  using u64 = cuuint64_t;
+  const u64 dims[4] = {static_cast<u64>(d), static_cast<u64>(h),
+                       static_cast<u64>(s), static_cast<u64>(b)};
+  const u64 strides[3] = {static_cast<u64>(sh) * 2, static_cast<u64>(ss) * 2,
+                          static_cast<u64>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  return make_map(m, base, 4, dims, strides, box);
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Store a warpgroup's 64 x D fp32 accumulator as bf16 rows of a contiguous
+// [b, s, h, D] output (row stride rs elements); rows[e] are this thread's
+// two rows, those >= n are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           __nv_bfloat16* out,
+                                           const int (&rows)[2], int n,
+                                           long long rs, int lane) {
+#pragma unroll
+  for (int bb = 0; bb < D / 8; ++bb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (rows[e] < n)
+        *reinterpret_cast<__nv_bfloat162*>(out + rows[e] * rs + 8 * bb +
+                                           2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * bb + 2 * e], acc[4 * bb + 2 * e + 1]);
 }
 
 }  // namespace hopper

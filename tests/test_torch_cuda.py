@@ -8,10 +8,13 @@ a machine without JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances (max abs error): 1e-4 in fp32 (fp32 math, other summation
-order) and 2e-2 in bf16 (the output's bf16 rounding of O(1) values); the
-backward's gradients are held to tol x max(1, max |plain|) and the grouped
-matmuls (K5, K6) to tol x max |plain|. The dense and MoE train steps on
-the card are held against the same steps on the CPU (fp32, TF32 off).
+order) and 2e-2 in bf16 (the output's bf16 rounding of O(1) values, and P
+rounded to bf16 before P V); the forward's lse to 1e-4 in fp32 and 5e-3 in
+bf16 (it is computed in fp32 from bf16 inputs, so only the order of the
+sums differs); the backward's gradients are held to tol x max(1, max
+|plain|) and the grouped matmuls (K5, K6) to tol x max |plain|. The dense
+and MoE train steps on the card are held against the same steps on the CPU
+(fp32, TF32 off).
 """
 
 import numpy as np
@@ -33,6 +36,7 @@ from paddle_tpu_torch.ops import (flash_attention, flash_attention_backward,
 
 torch.set_num_threads(1)
 
+NEG_INF = -1e30   # the kernels' finite mask value
 
 
 @pytest.fixture
@@ -130,6 +134,26 @@ def _bwd_inputs(cuda, dtype, b, s_q, s_kv, hq, hkv, d, seed=2):
             rnd(b, s_q, hq, d))
 
 
+def _check_fwd(q, k, v, causal):
+    """K1 in both modes against the plain forward with lse: out within tol
+    on the rows that see a key (q longer than kv: the first s_q - s_kv rows
+    see none, see test_flash_lse_and_backward_match_plain_on_card), lse
+    within its tolerance on every row, and the primal path's out equal to
+    the lse path's bit for bit; returns the lse path's (out, lse)."""
+    out, lse = flash_attention_forward(q, k, v, causal=causal)
+    primal = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_reference_lse(q, k, v, causal)
+    bf16 = q.dtype == torch.bfloat16
+    seen = max(0, q.shape[1] - k.shape[1]) if causal else 0
+    err = (out[:, seen:].float() - ref[:, seen:].float()).abs().max().item()
+    assert err <= (2e-2 if bf16 else 1e-4), err
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= (5e-3 if bf16 else 1e-4), lse_err
+    assert torch.equal(primal, out)
+    return out, lse
+
+
 def _check_bwd(q, k, v, do, causal, tol, out=None, lse=None):
     """K2/K3 against the plain backward on the same (q, k, v, o, lse, do),
     o and lse from the forward kernel unless given; returns the kernels'
@@ -147,15 +171,18 @@ def _check_bwd(q, k, v, do, causal, tol, out=None, lse=None):
     return grads
 
 
-# the bf16 kernels' tiles: 128 rows a block (two 64-row warpgroups), 64-row
-# streamed tiles; these lengths sit on and beside every edge
+# the bf16 kernels' tiles: 128 rows a block (two 64-row warpgroups; K1 at
+# head_dim 64: 192, three), 64-row streamed tiles; these lengths sit on and
+# beside every edge. The forward (both modes) and the backward on the
+# forward's (out, lse).
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 192, 193])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_tile_edges_on_card(cuda, s, d, causal):
     q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, s, s, 8, 2, d)
-    _check_bwd(q, k, v, do, causal, 2e-2)
+    out, lse = _check_fwd(q, k, v, causal)
+    _check_bwd(q, k, v, do, causal, 2e-2, out, lse)
 
 
 @pytest.mark.cuda
@@ -164,8 +191,10 @@ def test_flash_backward_tile_edges_on_card(cuda, s, d, causal):
 @pytest.mark.parametrize("s_q,s_kv", [(300, 300), (200, 520), (300, 100)])
 def test_flash_backward_groups_on_card(cuda, hq, hkv, d, s_q, s_kv):
     q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, s_q, s_kv, hq, hkv, d)
-    dq, _, _ = _check_bwd(q, k, v, do, True, 2e-2)
-    if s_q > s_kv:   # rows that see no key get no gradient
+    out, lse = _check_fwd(q, k, v, True)
+    dq, _, _ = _check_bwd(q, k, v, do, True, 2e-2, out, lse)
+    if s_q > s_kv:   # rows that see no key: lse ~ NEG_INF, no gradient
+        assert (lse[:, :, : s_q - s_kv] <= NEG_INF / 2).all()
         assert not dq[:, : s_q - s_kv].any()
 
 
@@ -180,7 +209,8 @@ def test_flash_backward_strided_views_on_card(cuda, d):
     do = torch.randn(2, 200, 8, d, device=cuda, generator=g).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
     assert not q.is_contiguous()
-    _check_bwd(q, k, v, do, True, 2e-2)
+    out, lse = _check_fwd(q, k, v, True)
+    _check_bwd(q, k, v, do, True, 2e-2, out, lse)
 
 
 @pytest.mark.cuda
@@ -188,6 +218,8 @@ def test_flash_backward_strided_views_on_card(cuda, d):
 def test_flash_backward_is_deterministic_on_card(cuda, d):
     q, k, v, do = _bwd_inputs(cuda, torch.bfloat16, 2, 1000, 1000, 16, 4, d)
     out, lse = flash_attention_forward(q, k, v, causal=True)
+    out2, lse2 = flash_attention_forward(q, k, v, causal=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     first = flash_attention_backward(q, k, v, out, lse, do, causal=True)
     second = flash_attention_backward(q, k, v, out, lse, do, causal=True)
     for a, b in zip(first, second):
