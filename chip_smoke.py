@@ -12,9 +12,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      with kernel, plain and SDPA times, the roofline bound and the
      kernel's own device time (device_ms: the chained calls queued behind
      a spin kernel and timed by CUDA events, so without the host's gaps).
-  3. K4 (paged decode, csrc/paged_decode.cu) the same way, with lengths
-     0, 1, one page, one 4-page chunk and up to 640, and device_ms of its
-     split and merge kernels.
+  3. K4 (paged decode, csrc/paged_decode.cu) the same way, in bf16 and
+     fp32: 8 rows of lengths 0 to 640 at 16/16 and 16/4 heads of 128 (the
+     main-path row is 16/16 bf16), the serving wave's decode shape (8 rows
+     of 384 to 640 tokens) and a long GQA case (4 rows of up to 4096
+     tokens, 32/8 heads); each with device_ms and its share of the bound,
+     also with the pages cold in L2 (cold_ms: calls cycle through input
+     sets that need twice the L2 cache), zero rows exactly zero and two
+     calls bitwise equal. Then 12 launches at the wave's shape captured in
+     a CUDA graph and replayed after the lengths and tables are rewritten
+     in place: bitwise equal to eager calls, with the replay's device time
+     per launch.
   4. K1 with its lse output (the training forward) against its plain
      version at the K1 cases, the training shape [2, 4096, 16/4, 128] and
      the MoE step's [8, 2048, 16/4, 64] (lse max abs error <= 5e-3 bf16 /
@@ -26,8 +34,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
      [b, s, 3, h, d] buffer, each also in fp32; max abs error <= tol x
      max(1, max |plain|); at the training shape two runs must be bitwise
-     equal; K2 and K3 times beside their bounds, the plain backward and
-     SDPA's backward.
+     equal; K2 and K3 times (chained and device_ms) beside their bounds,
+     the plain backward and SDPA's backward.
   6. serving: the llama-750M-class config at full width (12 layers), random
      weights from seed 0, through the legacy ContinuousBatchingEngine: a
      wave of 16 greedy requests with both exact and re-stepped prompts and
@@ -52,9 +60,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step's shapes (x [36864, 1024] against w [8, 1024, 2816], [36864,
      2816] against [8, 2816, 1024], bf16), a small case (fp32 and bf16) and
      one whose k and n a 128 tile does not divide; error <= tol x max
-     |plain|, the tileless expert's dw exactly 0; kernel, plain and
-     library (torch._grouped_mm, or a per-expert torch.mm loop) times and
-     the bound.
+     |plain|, the tileless expert's dw exactly 0; kernel (chained and
+     device_ms), plain and library (torch._grouped_mm, or a per-expert
+     torch.mm loop) times and the bound.
  10. MoE training parity: a small fp32 MoE Llama (4 experts, top-2, pgmm)
      takes 3 Engine steps on the card and on the CPU from the same
      weights; the same expert choices, and losses, parameters and moments
@@ -73,6 +81,7 @@ of the repository, it exits non-zero before printing any result.
 """
 
 import importlib
+import itertools
 import json
 import re
 import subprocess
@@ -82,6 +91,7 @@ import time
 DEVICE = "cuda"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
+L2_BYTES = 50 * 2 ** 20                               # H100 SXM L2 cache
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Teacher-forced check: every emitted token's logit must lie within this
 # margin of the maximum logit at its position. Greedy decode picks the
@@ -119,8 +129,16 @@ BWD_CASES = [
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
     ("strided", 2, 1024, 1024, 16, 16, 128, True),
 ]
-# K4 case: rows, q heads, head_dim, page, pages per row, lengths
-K4_CASE = (8, 16, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640])
+# K4 cases: name, q heads, kv heads, head_dim, page, pages per row, lengths.
+# "main" is the main-path row's; "wave" the serving wave's decode (prompts
+# of 384-512 tokens and up to 128 new ones, ENGINE's max_len 640).
+K4_CASES = [
+    ("main", 16, 16, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640]),
+    ("main_gqa", 16, 4, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640]),
+    ("wave", 16, 16, 128, 16, 40, [384, 421, 457, 494, 530, 567, 603, 640]),
+    ("long_gqa", 32, 8, 128, 16, 256, [1, 1000, 2500, 4096]),
+]
+K4_GRAPH_LAYERS = 12   # one decode step of the serving config's 12 layers
 # the repo's serving design point (bench.py bench_serving, llama-750M
 # class) at full width and depth
 SERVE_CONFIG = dict(vocab_size=32000, hidden_size=2048,
@@ -333,31 +351,39 @@ def phase_k1(torch, F, ops):
     return row
 
 
-def phase_k4(torch, ops):
-    """K4 against its plain version; returns the main-path row (bf16, 16 kv
-    heads, the serving shape)."""
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
-    b, hq, d, page, maxp, lens_list = K4_CASE
+def _k4_inputs(torch, gen, dtype, hq, hkv, d, page, maxp, lens_list):
+    b = len(lens_list)
     npages = b * maxp
+    q = torch.randn(b, hq, d, device=DEVICE, generator=gen).to(dtype)
+    kc = torch.randn(npages, hkv, page, d, device=DEVICE,
+                     generator=gen).to(dtype)
+    vc = torch.randn(npages, hkv, page, d, device=DEVICE,
+                     generator=gen).to(dtype)
+    tables = torch.randperm(npages, device=DEVICE, generator=gen)
+    tables = tables.reshape(b, maxp).to(torch.int32)
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=DEVICE)
+    return q, kc, vc, tables, lens
+
+
+def phase_k4(torch, ops):
+    """K4 against its plain version at K4_CASES, then replayed from a CUDA
+    graph; returns the main-path row (bf16, "main")."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
     row = None
     for dname in ("bfloat16", "float32"):
         dtype = getattr(torch, dname)
-        for hkv in (16, 4):
-            q = torch.randn(b, hq, d, device=DEVICE, generator=gen).to(dtype)
-            kc = torch.randn(npages, hkv, page, d, device=DEVICE,
-                             generator=gen).to(dtype)
-            vc = torch.randn(npages, hkv, page, d, device=DEVICE,
-                             generator=gen).to(dtype)
-            tables = torch.randperm(npages, device=DEVICE, generator=gen)
-            tables = tables.reshape(b, maxp).to(torch.int32)
-            lens = torch.tensor(lens_list, dtype=torch.int32, device=DEVICE)
-            args = (q, kc, vc, tables, lens)
+        for name, hq, hkv, d, page, maxp, lens_list in K4_CASES:
+            args = _k4_inputs(torch, gen, dtype, hq, hkv, d, page, maxp,
+                              lens_list)
+            q, kc = args[0], args[1]
             out = ops.paged_decode_attention(*args)
+            again = ops.paged_decode_attention(*args)
             ref = ops.paged_decode_reference(*args)
             sync()
             err = (out.float() - ref.float()).abs().max().item()
-            if out[0].abs().max().item() != 0.0:
-                raise AssertionError("K4: a length-0 row is not zero")
+            same = torch.equal(out, again)
+            zero_ok = all(out[i].abs().max().item() == 0.0
+                          for i, n in enumerate(lens_list) if n == 0)
             ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 50, 5)
             dev_ms = device_ms(torch, lambda: ops.paged_decode_attention(*args),
                                50, 5)
@@ -366,21 +392,79 @@ def phase_k4(torch, ops):
             flops = 4 * d * hq * ntok
             nbytes = (2 * ntok * hkv * d * kc.element_size()
                       + 2 * q.numel() * q.element_size()
-                      + tables.numel() * 4 + lens.numel() * 4)
+                      + args[3].numel() * 4 + args[4].numel() * 4)
             bound_ms, bound_by = bound(flops, nbytes, dname)
-            print(f"k4 dtype={dname} rows={b} heads={hq}/{hkv} d={d} "
-                  f"page={page} lens={lens_list} max_abs_err={err:.3e} "
-                  f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
-                  f"{plain_ms:.4f} library_ms=null bound_ms={bound_ms:.5f} "
-                  f"bound_by={bound_by}", flush=True)
-            if not err <= TOL[dname]:
-                raise AssertionError(f"K4 {dname} hkv={hkv}: max abs error "
-                                     f"{err} > {TOL[dname]}")
-            if dname == "bfloat16" and hkv == 16:
+            # device_ms re-reads the same pages, which stay in the 50 MB L2
+            # cache; a decode step reads each layer's pages once, after
+            # other work: cold_ms cycles through input sets that together
+            # need more than twice the L2 cache
+            sets = [args] + [
+                _k4_inputs(torch, gen, dtype, hq, hkv, d, page, maxp,
+                           lens_list) for _ in range(-(-L2_BYTES * 2 // nbytes))]
+            turn = itertools.cycle(sets)
+            cold_ms = device_ms(torch, lambda: ops.paged_decode_attention(
+                *next(turn)), 50, 5)
+            del sets
+            print(f"k4 case={name} dtype={dname} rows={len(lens_list)} "
+                  f"heads={hq}/{hkv} d={d} page={page} pages_per_row={maxp} "
+                  f"lens={lens_list} max_abs_err={err:.3e} ms={ms:.4f} "
+                  f"device_ms={dev_ms:.4f} cold_ms={cold_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} "
+                  f"library_ms=null bound_ms={bound_ms:.5f} "
+                  f"bound_by={bound_by} share_of_bound="
+                  f"{bound_ms / dev_ms:.3f} cold_share_of_bound="
+                  f"{bound_ms / cold_ms:.3f} zero_rows_zero={zero_ok} "
+                  f"bitwise_repeat={same}", flush=True)
+            if not (err <= TOL[dname] and zero_ok and same):
+                raise AssertionError(f"K4 {name} {dname}: max abs error "
+                                     f"{err} (tol {TOL[dname]}), zero rows "
+                                     f"zero {zero_ok}, bitwise repeat {same}")
+            if dname == "bfloat16" and name == "main":
                 row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=None, device_ms=dev_ms)
+            del args, q, kc, out, again, ref
+    phase_k4_graph(torch, ops, gen)
     return row
+
+
+def phase_k4_graph(torch, ops, gen):
+    """K4_GRAPH_LAYERS launches at the wave's decode shape captured in a CUDA
+    graph, replayed after the lengths and tables are rewritten in place;
+    each replayed output must equal an eager call's bit for bit."""
+    name, hq, hkv, d, page, maxp, lens_list = next(c for c in K4_CASES
+                                                   if c[0] == "wave")
+    q, kc, vc, tables, lens = _k4_inputs(torch, gen, torch.bfloat16, hq, hkv,
+                                         d, page, maxp, lens_list)
+    qs = [torch.randn(q.shape, device=DEVICE, generator=gen).to(q.dtype)
+          for _ in range(K4_GRAPH_LAYERS)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in qs:
+            ops.paged_decode_attention(x, kc, vc, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.paged_decode_attention(x, kc, vc, tables, lens)
+                for x in qs]
+    lens.copy_(lens.flip(0) - 1)   # new lengths and tables, in place
+    tables.copy_(tables.flip(0))
+    graph.replay()
+    eager = [ops.paged_decode_attention(x, kc, vc, tables, lens) for x in qs]
+    sync()
+    same = all(torch.equal(o, e) for o, e in zip(outs, eager))
+    replay_ms = device_ms(torch, graph.replay, 20, 3) / K4_GRAPH_LAYERS
+    eager_ms = device_ms(torch, lambda: [
+        ops.paged_decode_attention(x, kc, vc, tables, lens) for x in qs],
+        20, 3) / K4_GRAPH_LAYERS
+    print(f"k4_graph case={name} launches={K4_GRAPH_LAYERS} "
+          f"lens_after_rewrite={lens.tolist()} replay_bitwise_equal={same} "
+          f"replay_device_ms_per_launch={replay_ms:.4f} "
+          f"eager_device_ms_per_launch={eager_ms:.4f}", flush=True)
+    if not same:
+        raise AssertionError("K4: the CUDA graph's replay differs from eager "
+                             "calls")
 
 
 def _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d):
@@ -485,6 +569,11 @@ def phase_k2k3(torch, F, ops):
                                               scale))
         dkv_ms = cuda_ms(lambda: fa._launch_dkv(q, k, v, do, lse, delta,
                                                 causal, scale))
+        dq_dev = device_ms(torch, lambda: fa._launch_dq(q, k, v, o, lse, do,
+                                                        causal, scale))
+        dkv_dev = device_ms(torch, lambda: fa._launch_dkv(q, k, v, do, lse,
+                                                          delta, causal,
+                                                          scale))
         plain_ms = cuda_ms(lambda: ops.flash_attention_backward_reference(
             q, k, v, o, lse, do, causal), 3, 1)
         qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -506,7 +595,8 @@ def phase_k2k3(torch, F, ops):
                             for g, (r, rel) in errs.items())
         print(f"k2k3 case={name} dtype={dname} shape=[{b},{s_q}/{s_kv},"
               f"{hq}/{hkv},{d}] causal={causal} {err_text} "
-              f"dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} plain_ms={plain_ms:.4f}"
+              f"dq_ms={dq_ms:.4f} dkv_ms={dkv_ms:.4f} dq_device_ms="
+              f"{dq_dev:.4f} dkv_device_ms={dkv_dev:.4f} plain_ms={plain_ms:.4f}"
               f" library_ms={library_ms:.4f} (SDPA backward, dq+dk+dv) "
               f"dq_bound_ms={dq_bound[0]:.5f} ({dq_bound[1]}) "
               f"dkv_bound_ms={dkv_bound[0]:.5f} ({dkv_bound[1]})"
@@ -522,10 +612,12 @@ def phase_k2k3(torch, F, ops):
         if name == "train":
             rows = (dict(max_abs_err=errs["dq"][0], ms=dq_ms,
                          plain_ms=plain_ms, bound_ms=dq_bound[0],
-                         bound_by=dq_bound[1], library_ms=library_ms),
+                         bound_by=dq_bound[1], library_ms=library_ms,
+                         device_ms=dq_dev),
                     dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                          ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
-                         bound_by=dkv_bound[1], library_ms=library_ms))
+                         bound_by=dkv_bound[1], library_ms=library_ms,
+                         device_ms=dkv_dev))
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
     return rows
@@ -770,13 +862,14 @@ def phase_pgmm(torch, np, ops):
                         zero_ok = bool((out[empty] == 0).all().item())
                     del out, ref
                     ms = cuda_ms(kern, 10, 2)
+                    dev_ms = device_ms(torch, kern, 10, 2)
                     plain_ms = cuda_ms(plain, 3, 1)
                     library_ms = cuda_ms(lib_fn, 10, 2)
                     bound_ms, bound_by = bound(*work[cname], dname)
                     print(f"pgmm {cname} case={name} dtype={dname} P={p} "
                           f"k={kk} n={nn} experts={e} tile_m={tile_m} "
                           f"max_abs_err={abs_err:.3e} rel_err={err:.3e} "
-                          f"ms={ms:.4f} "
+                          f"ms={ms:.4f} device_ms={dev_ms:.4f} "
                           f"plain_ms={plain_ms:.4f} library_ms="
                           f"{library_ms:.4f} ({lib_name}) bound_ms="
                           f"{bound_ms:.5f} bound_by={bound_by}"
@@ -793,7 +886,8 @@ def phase_pgmm(torch, np, ops):
                                            plain_ms=plain_ms,
                                            bound_ms=bound_ms,
                                            bound_by=bound_by,
-                                           library_ms=library_ms)
+                                           library_ms=library_ms,
+                                           device_ms=dev_ms)
                 del x, dout, w, calls, lib
                 torch.cuda.empty_cache()
     return rows["k5"], rows["k6"]

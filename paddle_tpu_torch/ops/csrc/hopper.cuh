@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels
-// (grouped_matmul.cu: K5/K6; flash_fwd.cu: K1; flash_bwd.cu: K2/K3):
-// mbarriers whose waits are bounded, TMA tile loads, the driver's tensor-map
-// encoder, shared-memory matrix descriptors for the 128-byte swizzle, the
-// wgmma instructions, and the [b, s, h, d] tensor maps and row stores of the
-// flash kernels.
+// (grouped_matmul.cu: K5/K6; flash_fwd.cu: K1; flash_bwd.cu: K2/K3) and of
+// the paged decode (paged_decode.cu: K4): mbarriers whose waits are
+// bounded, split cluster barriers, TMA tile loads and plain bulk copies,
+// cuTensorMapEncodeTiled, shared-memory matrix descriptors for the
+// 128-byte swizzle, the wgmma instructions, and the [b, s, h, d] tensor
+// maps and row stores of the flash kernels.
 //
 // Layout facts the kernels rely on (128-byte swizzle, bf16):
 //  - TMA writes a box whose inner dimension is 64 elements (128 bytes) as
@@ -65,9 +66,35 @@ __device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
     if (spins > (1ll << 22)) __trap();
   }
 }
+// Split cluster barrier: every thread of every block of the cluster
+// arrives, then waits. `cluster_arrive` releases this thread's earlier
+// writes (distributed shared memory included) to the threads that
+// `cluster_wait` (acquire) after the barrier; `cluster_arrive_relaxed`
+// orders nothing (it only marks that this block has started).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 // Barrier `id` (1-15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Copy `bytes` contiguous bytes from device memory to this block's shared
+// memory (1-D bulk copy, no tensor map); completion counts `bytes` on
+// `bar`. Both addresses and `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,

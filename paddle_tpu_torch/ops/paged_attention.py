@@ -114,23 +114,23 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens,
                          f"{tuple(context_lens.shape)} do not match batch {b}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode kernel needs contiguous tensors")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("paged decode kernel reads the pools as 16-byte "
-                         "vectors: their storage must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("paged decode kernel reads q and the pools as "
+                         "16-byte vectors: their storage must be 16-byte "
+                         "aligned")
+    if page * d * q.element_size() % 16:
+        raise ValueError(f"paged decode kernel bulk-copies pages of "
+                         f"page * head_dim * itemsize bytes, which must be a "
+                         f"multiple of 16 (page {page}, head_dim {d})")
     if b > 65535:
         raise ValueError(f"paged decode kernel grid limit: batch {b}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _paged_lib()
-    maxp = block_tables.shape[1]
-    # per-chunk partial outputs, maxima and sums of the split-K pass
-    part = torch.empty((b, hq, lib.paddle_paged_decode_chunks(page, maxp),
-                        d + 2), dtype=torch.float32, device=q.device)
-    err = lib.paddle_paged_decode(
+    err = _paged_lib().paddle_paged_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), part.data_ptr(),
-        out.data_ptr(), _KERNEL_DTYPES[q.dtype], b, hq, hkv, d, page, maxp,
+        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+        _KERNEL_DTYPES[q.dtype], b, hq, hkv, d, page, block_tables.shape[1],
         float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
@@ -147,11 +147,9 @@ def _paged_lib():
     lib = _build.load("paged_decode")
     fn = lib.paddle_paged_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.paddle_paged_decode_chunks.argtypes = [ctypes.c_int] * 2
-        lib.paddle_paged_decode_chunks.restype = ctypes.c_int
     return lib
 
 

@@ -89,6 +89,116 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, tol, hkv):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _paged_case(cuda, dtype, hq, hkv, d, page, maxp, lens):
+    """Seeded q and pools on the card, rows' tables a permutation of the
+    pool's pages with -1 past each row's last page, and the lengths."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = len(lens)
+    npages = b * maxp
+    q = torch.randn(b, hq, d, device=cuda, generator=g).to(dtype)
+    kc = torch.randn(npages, hkv, page, d, device=cuda, generator=g).to(dtype)
+    vc = torch.randn(npages, hkv, page, d, device=cuda, generator=g).to(dtype)
+    tables = torch.randperm(npages, device=cuda, generator=g).reshape(
+        b, maxp).to(torch.int32)
+    for row, n in enumerate(lens):
+        tables[row, -(-n // page):] = -1     # unassigned past the length
+    return q, kc, vc, tables, torch.tensor(lens, device=cuda,
+                                           dtype=torch.int32)
+
+
+def _check_paged(args, tol):
+    n0 = paged_decode_attention.launches
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == n0 + 1
+    ref = paged_decode_reference(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    for row, n in enumerate(args[4].tolist()):
+        if n == 0:
+            assert (out[row] == 0).all()       # parked rows stay inert
+    return out
+
+
+# lengths 0, 1, page - 1, page, page + 1, 8 pages (the end of a block's
+# page range at every cluster size, 1 to 8), 8 pages + 1 and the full table
+_PAGE, _MAXP = 16, 24
+_EDGE_LENS = [0, 1, _PAGE - 1, _PAGE, _PAGE + 1, 8 * _PAGE, 8 * _PAGE + 1,
+              _MAXP * _PAGE]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+# groups 1, 4 and 8; 16 takes two clusters of 8 q heads per kv head
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (16, 4), (16, 2), (32, 2)])
+def test_paged_kernel_edges_on_card(cuda, dtype, tol, d, hq, hkv):
+    _check_paged(_paged_case(cuda, dtype, hq, hkv, d, _PAGE, _MAXP,
+                             _EDGE_LENS), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_all_rows_empty_on_card(cuda, dtype):
+    args = _paged_case(cuda, dtype, 16, 4, 128, _PAGE, 4, [0] * 6)
+    out = _check_paged(args, 0.0)
+    assert (out == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_long_gqa_on_card(cuda, dtype, tol):
+    # 4 rows, 32 q / 8 kv heads of 128, 256 pages of 16 a row: the ring
+    # turns many times in the blocks of the long rows
+    _check_paged(_paged_case(cuda, dtype, 32, 8, 128, 16, 256,
+                             [1, 1000, 2500, 4096]), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic_on_card(cuda, dtype):
+    args = _paged_case(cuda, dtype, 16, 4, 128, 16, 40,
+                       [0, 1, 16, 64, 100, 333, 512, 640])
+    assert torch.equal(paged_decode_attention(*args),
+                       paged_decode_attention(*args))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_replays_in_a_cuda_graph(cuda):
+    # 12 launches (one decode step of 12 layers) captured once, replayed
+    # after the lengths and tables are rewritten in place: the grid does
+    # not depend on them, so the replay equals eager calls bit for bit
+    layers, page, maxp = 12, 16, 40
+    q, kc, vc, tables, lens = _paged_case(cuda, torch.bfloat16, 16, 16, 128,
+                                          page, maxp, [5, 17, 64, 100, 200,
+                                                       333, 512, 640])
+    qs = [torch.randn_like(q, dtype=torch.float32).to(q.dtype)
+          for _ in range(layers)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in qs:                          # warm-up off the capture
+            paged_decode_attention(x, kc, vc, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [paged_decode_attention(x, kc, vc, tables, lens) for x in qs]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for new_lens in ([640, 0, 1, 333, 17, 512, 64, 100],
+                     [0, 0, 0, 0, 0, 0, 0, 0]):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        tables.copy_(torch.randperm(tables.numel(), device=cuda,
+                                    generator=g).reshape(tables.shape))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, o in zip(qs, outs):
+            assert torch.equal(o, paged_decode_attention(x, kc, vc, tables,
+                                                         lens))
+        ref = paged_decode_reference(qs[0], kc, vc, tables, lens)
+        assert (outs[0].float() - ref.float()).abs().max().item() <= 2e-2
+
+
 _BWD_SHAPES = [(128, 128, 4, 4, 128, True), (77, 77, 4, 2, 64, False),
                (40, 100, 8, 2, 128, True), (100, 40, 4, 2, 64, True)]
 

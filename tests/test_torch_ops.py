@@ -88,6 +88,34 @@ def test_paged_decode_matches_jax(group):
     assert not out[1].any()                 # length-0 row writes zeros
 
 
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_paged_decode_edges_match_jax(group, d):
+    # lengths 0, 1, page - 1, page, page + 1 and the full table; every
+    # table entry past a row's last page unassigned (-1)
+    rng = np.random.default_rng(10 * group + d)
+    hkv, page, maxp = 2, 8, 6
+    lens = np.asarray([0, 1, page - 1, page, page + 1, maxp * page],
+                      np.int32)
+    b = len(lens)
+    q = _np(rng, (b, hkv * group, d))
+    kc = _np(rng, (b * maxp, hkv, page, d))
+    vc = _np(rng, (b * maxp, hkv, page, d))
+    tables = rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)
+    for row, n in enumerate(lens):
+        tables[row, -(-n // page):] = -1
+    jargs = [jnp.asarray(a) for a in (q, kc, vc, tables, lens)]
+    kernel = np.asarray(jpa.paged_decode_attention(*jargs, interpret=True,
+                                                   pages_per_chunk=2))
+    ref = np.asarray(jpa.paged_decode_reference(*jargs))
+    targs = [torch.from_numpy(a) for a in (q, kc, vc, tables, lens)]
+    out = paged_decode_attention(*targs).numpy()
+    plain = paged_decode_reference(*targs).numpy()
+    np.testing.assert_allclose(out, kernel, atol=ATOL)
+    np.testing.assert_allclose(plain, ref, atol=ATOL)
+    assert not out[0].any() and not kernel[0].any()   # length 0: zeros
+
+
 def test_append_paged_kv_matches_jax_exactly():
     rng = np.random.default_rng(5)
     npages, hkv, page, d, b, maxp = 12, 2, 4, 8, 3, 4
