@@ -15,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   3. K4 (paged decode, csrc/paged_decode.cu) the same way, in bf16 and
      fp32: 8 rows of lengths 0 to 640 at 16/16 and 16/4 heads of 128 (the
      main-path row is 16/16 bf16), the serving wave's decode shape (8 rows
-     of 384 to 640 tokens) and a long GQA case (4 rows of up to 4096
-     tokens, 32/8 heads); each with device_ms and its share of the bound,
+     of 384 to 640 tokens), a long GQA case (4 rows of up to 4096 tokens,
+     32/8 heads) and the fused engine's decode shape (128 rows of 49 to 128
+     tokens, 8 pages each); each with device_ms and its share of the bound,
      also with the pages cold in L2 (cold_ms: calls cycle through input
      sets that need twice the L2 cache), zero rows exactly zero and two
      calls bitwise equal. Then 12 launches at the wave's shape captured in
@@ -43,18 +44,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      wave (launch counts), that no training kernel ran (no autograd graph),
      and a teacher-forced check of every emitted token against the dense
      forward.
-  7. training parity: a small fp32 Llama (hidden 512, 4/2 heads of 128, 2
+  7. fused serving: the JAX package's big-batch arm (bench.py
+     bench_serving_large_batch) on the same model: ContinuousBatchingEngine
+     with 128 slots, max_len 128, page 16, the fused mega-step and the
+     radix prefix cache (1153 pages); 256 greedy requests of 64-token
+     prompts sharing a 48-token system prompt, 16-64 new tokens each, run
+     cold and then warm. The decode step is captured once as a CUDA graph
+     at construction; every decode block must replay it (no eager step, no
+     recapture, K4 launches >= 12 a replay), every request must finish
+     with its token count, and every emitted token must pass the
+     teacher-forced check (batched), cold and in each warm stream that
+     differs from its cold one. Prints tokens/s, prefill calls and packed
+     rows, cached tokens matched, and the decode step's time replayed and
+     eager at 128 rows (CUDA events).
+  8. training parity: a small fp32 Llama (hidden 512, 4/2 heads of 128, 2
      layers, vocab 1024, seq 200) takes 3 Engine steps on the card and on
      the CPU from the same weights; losses, parameters and AdamW moments
      must agree.
-  8. training at full width and depth: the headline config of bench.py
+  9. training at full width and depth: the headline config of bench.py
      (bench_llama, llama_pretrain_tokens_per_sec_per_chip: 853M params,
      seq 4096, batch 2, bf16, fused CE, no remat), random weights from
      seed 0, Engine(lr=1e-4, clip 1.0): 2 warm-up and 8 timed steps on
      fresh batches (tokens/s, MFU, ms per step, peak memory), then 6 steps
      at lr 1e-3 on one batch whose loss must fall. The K1-lse, K2 and K3
      counters must show 16 launches a step, the serving K1 counter none.
-  9. K5 (padded grouped matmul, csrc/grouped_matmul.cu), forward and its
+ 10. K5 (padded grouped matmul, csrc/grouped_matmul.cu), forward and its
      trans_w (dx) mode, and K6 (its dw) against their plain versions on a
      seeded skewed routing that leaves one expert without a token: the MoE
      step's shapes (x [36864, 1024] against w [8, 1024, 2816], [36864,
@@ -63,11 +77,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      |plain|, the tileless expert's dw exactly 0; kernel (chained and
      device_ms), plain and library (torch._grouped_mm, or a per-expert
      torch.mm loop) times and the bound.
- 10. MoE training parity: a small fp32 MoE Llama (4 experts, top-2, pgmm)
+ 11. MoE training parity: a small fp32 MoE Llama (4 experts, top-2, pgmm)
      takes 3 Engine steps on the card and on the CPU from the same
      weights; the same expert choices, and losses, parameters and moments
-     within phase 7's tolerances.
- 11. MoE training at full width and depth: the Mixtral-class config of
+     within phase 8's tolerances.
+ 12. MoE training at full width and depth: the Mixtral-class config of
      bench.py bench_moe (640M params, 225M activated: 8 layers, hidden 1024,
      8 swiglu experts of 2816, top-2 GShard, batch 8 x seq 2048, bf16) with
      moe_dispatch="pgmm", Engine(lr=1e-4, clip 1.0): 2 warm-up and 8 timed
@@ -75,6 +89,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      memory, launches per step: K5 48, K6 24, K1-lse/K2/K3 8 each, serving
      K1 0), one step under set_sync_debug_mode (no synchronizing
      operation), then 6 steps at lr 1e-3 on one batch whose loss must fall.
+K4's "launches" in the kernels line counts both serving phases' waves.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -137,6 +152,9 @@ K4_CASES = [
     ("main_gqa", 16, 4, 128, 16, 40, [0, 1, 16, 64, 100, 333, 512, 640]),
     ("wave", 16, 16, 128, 16, 40, [384, 421, 457, 494, 530, 567, 603, 640]),
     ("long_gqa", 32, 8, 128, 16, 256, [1, 1000, 2500, 4096]),
+    # the fused engine's decode (FUSED_ENGINE): 128 rows at the wave's
+    # contexts, 49 (first decode step) to 128 (max_len)
+    ("fused", 16, 16, 128, 16, 8, [49 + i * 79 // 127 for i in range(128)]),
 ]
 K4_GRAPH_LAYERS = 12   # one decode step of the serving config's 12 layers
 # the repo's serving design point (bench.py bench_serving, llama-750M
@@ -150,6 +168,17 @@ ENGINE = dict(max_batch=8, max_len=640, page_size=16, block_size=16,
 # the wave: 4 prompts of exactly the bucket length and 12 of 3/4 bucket to
 # bucket - 1 (re-stepped), max_new_tokens cycling through WAVE_NEW
 WAVE_NEW = (32, 64, 96, 128)
+# the JAX package's big-batch serving arm (bench.py
+# bench_serving_large_batch, :371-379 and :396-401) at its TPU widths: the
+# SERVE_CONFIG model, 128 slots, fused mega-step, prefix cache with 128
+# extra blocks (1153 pages); 256 requests of 64-token prompts whose first 48
+# tokens are one shared system prompt, max_new_tokens (i % 4 + 1) * 16
+FUSED_ENGINE = dict(max_batch=128, max_len=128, page_size=16, block_size=16,
+                    fused=True)
+FUSED_EXTRA_BLOCKS = 128
+FUSED_REQUESTS, FUSED_PROMPT, FUSED_SHARED, FUSED_MAX_NEW = 256, 64, 48, 64
+# context of the decode-step timing: the wave's mean (64 + 40 / 2 ~ 84-96)
+FUSED_STEP_CTX = 88
 # the headline training config (bench.py:2013-2019) at full width and
 # depth; bench_llama's batch, sequence and step counts
 TRAIN_CONFIG = dict(vocab_size=32000, hidden_size=2048,
@@ -1195,6 +1224,163 @@ def phase_serving(torch, np, ops, card):
     return k1_launches, k4_launches
 
 
+def _fused_wave(np, vocab):
+    """FUSED_REQUESTS prompts (a shared system prompt and a random tail,
+    from seed 0) and their max_new_tokens, as bench.py's arm makes them."""
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, (FUSED_SHARED,)).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(
+        0, vocab, (FUSED_PROMPT - FUSED_SHARED,)).astype(np.int32)])
+        for _ in range(FUSED_REQUESTS)]
+    news = [(i % 4 + 1) * FUSED_MAX_NEW // 4 for i in range(FUSED_REQUESTS)]
+    return prompts, news
+
+
+def _teacher_forced(torch, np, model, prompts, outputs):
+    """Worst (max logit - emitted token's logit) over every emitted token,
+    the dense forward run over prompt + output, batched by length."""
+    worst, top1, n = 0.0, 0, 0
+    by_len = {}
+    for p, out in zip(prompts, outputs):
+        by_len.setdefault(len(out), []).append((p, out))
+    with torch.no_grad():
+        for k, rows in sorted(by_len.items()):
+            seqs = np.stack([np.concatenate([p, np.asarray(o, np.int32)])
+                             for p, o in rows])
+            ids = torch.from_numpy(seqs[:, :-1]).to(DEVICE)
+            start = len(rows[0][0]) - 1
+            logits = model(ids)[:, start:].float()       # [g, k, vocab]
+            emitted = torch.from_numpy(seqs[:, start + 1:].astype(
+                np.int64)).to(DEVICE)
+            got = logits.gather(2, emitted[..., None])[..., 0]
+            best = logits.max(dim=-1).values
+            worst = max(worst, (best - got).max().item())
+            top1 += (got >= best).sum().item()
+            n += got.numel()
+    return worst, top1, n
+
+
+def phase_serving_fused(torch, np, ops, card):
+    """The fused 128-slot engine at FUSED_ENGINE: a cold wave, then the same
+    wave warm (the radix cache primed). Returns K4's launches in the two
+    waves."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SERVE_CONFIG)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = ContinuousBatchingEngine(
+        model, device=DEVICE,
+        prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+        **FUSED_ENGINE)
+    sync()
+    pool_gb = sum(k.numel() * k.element_size() * 2
+                  for k, _ in eng.caches["kv"]) / 1e9
+    print(f"fused serving setup: {eng._park + 1} pages ({pool_gb:.2f} GB of "
+          f"K/V), graph_captures={eng.stats['graph_captures']}, "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    if eng.stats["graph_captures"] != 1 or eng._graph_k4 != \
+            cfg.num_hidden_layers:
+        raise AssertionError(f"the decode step was not captured once with "
+                             f"{cfg.num_hidden_layers} K4 launches")
+    prompts, news = _fused_wave(np, cfg.vocab_size)
+    # warm-up on prompts that share nothing with the wave (first launches
+    # at the prefill shapes), then an empty radix cache: the wave runs cold
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        eng.add_request(Request(rng.integers(0, cfg.vocab_size, (
+            FUSED_PROMPT,)).astype(np.int32), max_new_tokens=4))
+    eng.run_until_done()
+    eng._radix.evict_lru(eng._alloc.num_blocks)
+
+    L = cfg.num_hidden_layers
+    waves = {}
+    for name in ("cold", "warm"):
+        for k in eng.stats:
+            if k not in ("graph_captures", "compile_cache_entries"):
+                eng.stats[k] = 0.0 if k.endswith("_s") else 0
+        reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+        ops.paged_decode_attention.launches = 0
+        ops.flash_attention.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        done = eng.run_until_done()
+        sync()
+        wall = time.perf_counter() - t0
+        k4 = ops.paged_decode_attention.launches
+        st = dict(eng.stats)
+        useful = sum(len(r.output) for r in reqs)
+        print(f"fused serving {name} [{card}]: useful_tokens_per_s="
+              f"{useful / wall:.1f} ({useful} tokens in {wall:.3f}s, "
+              f"{len(reqs)} requests, {FUSED_ENGINE['max_batch']} slots) "
+              f"prefill_groups={st['prefill_groups']} packed_rows="
+              f"{st['packed_rows']} cached_tokens_matched={st['hit_tokens']} "
+              f"miss_tokens={st['miss_tokens']} cow_copies={st['cow_copies']} "
+              f"decode_steps={st['decode_steps']} graph_captures="
+              f"{st['graph_captures']} graph_replays={st['graph_replays']} "
+              f"eager_decode_steps={st['eager_decode_steps']} "
+              f"k4_launches={k4} k1_launches={ops.flash_attention.launches} "
+              f"host_s admit={st['admit_host_s']:.3f} decode="
+              f"{st['decode_host_s']:.3f} prefill={st['prefill_host_s']:.3f}",
+              flush=True)
+        if len(done) != len(reqs) or any(
+                r.failed or len(r.output) != r.max_new_tokens for r in reqs):
+            raise AssertionError(f"fused {name}: {len(done)} of {len(reqs)} "
+                                 "requests finished with their token counts")
+        if (st["eager_decode_steps"] != 0 or st["graph_captures"] != 1
+                or st["graph_replays"] != st["decode_steps"]
+                or k4 < st["graph_replays"] * L):
+            raise AssertionError(
+                f"fused {name}: greedy blocks must replay the one captured "
+                f"graph with {L} K4 launches each: {st}, k4 {k4}")
+        if name == "warm" and st["hit_tokens"] < len(reqs) * FUSED_SHARED:
+            raise AssertionError(f"warm wave matched {st['hit_tokens']} "
+                                 "cached tokens")
+        waves[name] = ([list(r.output) for r in reqs], k4)
+
+    cold, warm = waves["cold"][0], waves["warm"][0]
+    differ = [i for i, (c, w) in enumerate(zip(cold, warm)) if c != w]
+    worst, top1, n = _teacher_forced(torch, np, model, prompts, cold)
+    worst_w, _, _ = _teacher_forced(
+        torch, np, model, [prompts[i] for i in differ],
+        [warm[i] for i in differ]) if differ else (0.0, 0, 0)
+    print(f"fused teacher-forced: worst (max logit - emitted logit) = "
+          f"{worst:.4f} cold, {worst_w:.4f} over the {len(differ)} warm "
+          f"streams that differ from cold (margin {MARGIN}); the emitted "
+          f"token is the dense argmax for {top1} of {n}", flush=True)
+    if not (worst <= MARGIN and worst_w <= MARGIN):
+        raise AssertionError(f"fused teacher-forced check: an emitted token "
+                             f"trails the maximum logit by "
+                             f"{max(worst, worst_w)} > {MARGIN}")
+
+    # the decode step at the wave's shape: every row active at context
+    # FUSED_STEP_CTX over its own pages, replayed and eager (the engine's
+    # cache contents are no longer needed)
+    maxp = eng._maxp
+    for i in range(eng.max_batch):
+        eng._queue_update(i, np.arange(i * maxp, (i + 1) * maxp),
+                          FUSED_STEP_CTX, True)
+    eng._flush_updates()
+
+    def timed(fn):
+        eng._dev_pos.fill_(FUSED_STEP_CTX)
+        eng._step_i.zero_()
+        with torch.no_grad():
+            return cuda_ms(fn, 20, 3)
+
+    replay_ms = timed(eng._graph.replay)
+    eager_ms = timed(eng._fused_step)
+    print(f"fused decode step [{card}]: replayed_ms={replay_ms:.4f} "
+          f"eager_ms={eager_ms:.4f} ({eng.max_batch} rows from context "
+          f"{FUSED_STEP_CTX}, {L} layers)", flush=True)
+    return waves["cold"][1] + waves["warm"][1]
+
+
 def main():
     import torch
 
@@ -1209,6 +1395,7 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1226,6 +1413,7 @@ def main():
     k1_lse = phase_k1_lse(torch, F, ops)
     k2, k3 = phase_k2k3(torch, F, ops)
     k1_launches, k4_launches = phase_serving(torch, np, ops, card)
+    k4_launches += phase_serving_fused(torch, np, ops, card)
     phase_train_parity(torch, np, ops)
     lse_launches, k2_launches, k3_launches = phase_train_full(torch, np, ops,
                                                               card)
@@ -1263,6 +1451,8 @@ def main():
              replaces="paddle_tpu/ops/grouped_matmul.py:93",
              launches=k6_launches, **k6),
     ]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-"""Serving for the port (the legacy continuous-batching engine in this
-slice)."""
+"""Serving for the port: the continuous-batching engine with its prefix
+cache and fused mega-step."""
 
 from .serving import (ContinuousBatchingEngine, EngineSaturated,  # noqa: F401
-                      Request, RequestShed)
+                      PrefixCacheConfig, Request, RequestShed)

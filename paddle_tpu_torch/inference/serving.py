@@ -1,43 +1,61 @@
-"""Continuous-batching serving engine over paged KV caches — port of the
-legacy path of ``paddle_tpu/inference/serving.py``.
+"""Continuous-batching serving engine over paged KV caches — port of
+``paddle_tpu/inference/serving.py`` (the legacy engine, the prefix cache
+with chunked prefill, and the fused mega-step).
 
-Design (the JAX engine's legacy programs, run eagerly on the device):
+Design (the JAX engine's programs, run on the device):
   - ``max_batch`` slots share per-layer page pools sized
-    ``max_batch * ceil(max_len / page)`` pages; slot i statically owns
-    pages ``[i * maxp, (i + 1) * maxp)`` (``_init_paged_caches``).
-  - ADMIT: queued requests prefill their slots in one batched call per
-    (prompt bucket, padded?) group. With ``prompt_buckets`` the prompt is
-    right-padded to the nearest bucket; the padded chunk fills the cache,
-    then the last REAL token is re-stepped at its true position so the
-    first sampled token sees exactly the real prompt. Exact-length rows
-    take the no-restep path.
-  - STEP: a block of ``n`` decode steps advances EVERY slot — a Python loop
-    of ``paged_token_step`` calls over all ``max_batch`` rows, per-row
-    positions flowing into the paged decode kernel; inactive slots decode
-    at position 0 over their own pages and their output is ignored.
-    Without eos the schedule is deterministic, so the engine runs toward
-    the next completion event (block lengths ``block_size * 2^k``), chains
-    the last-token carry on the device and reads tokens back lazily
-    (``_drain_pending``): the decode loop makes no host round trip.
+    ``max_batch * ceil(max_len / page)`` pages; without a prefix cache slot
+    i statically owns pages ``[i * maxp, (i + 1) * maxp)``.
+  - ADMIT (legacy): queued requests prefill their slots in one batched call
+    per (prompt bucket, padded?) group. With ``prompt_buckets`` the prompt
+    is right-padded to the nearest bucket; the padded chunk fills the
+    cache, then the last REAL token is re-stepped at its true position so
+    the first sampled token sees exactly the real prompt.
+  - ADMIT (``prefix_cache=PrefixCacheConfig(...)``): a radix prefix cache
+    over a refcounted block pool. A prompt maps the already-filled blocks
+    of its longest cached prefix into its table and prefills only the
+    uncached suffix, one chunk per step interleaved with the decode batch;
+    a full-prompt hit copies its last block (copy-on-write) before the
+    first-token re-step. FIFO with head-of-line blocking when the pool
+    cannot serve the queue head. Warm and cold admissions of a prompt emit
+    the same tokens (greedy and seeded): prefill attention masks by
+    absolute position (``ops.paged_prefill_attention``).
+  - STEP: a block of ``n`` decode steps advances EVERY slot, per-row
+    positions flowing into the paged decode kernel; inactive rows decode
+    at position 0 and their output is ignored. Without eos the schedule is
+    deterministic, so the engine runs toward the next completion event
+    (block lengths ``block_size * 2^k``), chains the last-token carry on
+    the device and reads tokens back lazily (``_drain_pending``).
     eos-carrying batches pace at ``block_size`` and read each block back.
+  - FUSED (``fused=True``; on by itself at ``max_batch >= 32``, as in the
+    JAX engine): block tables, positions, the active mask and the sampling
+    parameters live on the device and change only in place, through
+    ``_queue_update`` -> ``_flush_updates`` (``index_copy_`` from a fresh
+    pinned buffer each flush). One greedy token step over all rows is
+    captured once as a CUDA graph (``_capture``) and a block of ``n``
+    tokens is ``n`` replays: admission and release never recapture. On the
+    CPU the same step runs eagerly; on the card a block with a sampled row
+    runs it eagerly too (the sampler seeds a host generator per row).
+    Packed prefill (``_run_pack``) advances several (slot, chunk) rows in
+    one call.
   - SAMPLE: per-request temperature / top-p / top-k / seed. Each sampled
     row draws with a generator seeded from ``(seed, token position)``, so
     a request's stream is independent of batching and arrival order.
     temperature == 0 is greedy.
-  - FINISH: eos or max_new_tokens frees the slot; its pages are reused by
-    the next admission.
+  - FINISH: eos or max_new_tokens frees the slot; with a prefix cache its
+    blocks are decref'd (a block another table or the radix cache still
+    references is never freed).
 
 Greedy token streams equal the JAX engine's on the same weights (fp32, CPU
-tests). The prefix cache, the fused mega-step, speculative decode, int8 KV,
-the tp mesh, brownout and tracing are later slices: asking for any of them
-raises ``NotImplementedError``, and so does a configuration where the JAX
-engine would turn the fused mega-step on by itself (``max_batch >= 32``) —
-the port never serves a different path than the JAX engine would.
+tests), with and without the prefix cache and the fused step. Speculative
+decode, int8 KV, the tp mesh, brownout and tracing are later slices:
+asking for any of them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time as _time
 import warnings
 import weakref
@@ -49,9 +67,11 @@ import torch
 from ..device import resolve_device
 from ..models.generation_utils import fold_keys, sample_rows, \
     validate_sampling
+from ..ops.paged_attention import (BlockAllocator, RadixPrefixCache,
+                                   copy_pages, paged_decode_attention)
 
-__all__ = ["ContinuousBatchingEngine", "EngineSaturated", "Request",
-           "RequestShed"]
+__all__ = ["BlockAllocator", "ContinuousBatchingEngine", "EngineSaturated",
+           "PrefixCacheConfig", "RadixPrefixCache", "Request", "RequestShed"]
 
 
 class EngineSaturated(RuntimeError):
@@ -65,6 +85,24 @@ class RequestShed(RuntimeError):
     ``deadline_s`` cannot be met at the engine's measured decode
     throughput. Shedding happens before the request touches any engine
     state, so running requests' streams are unchanged."""
+
+
+@dataclasses.dataclass
+class PrefixCacheConfig:
+    """Knobs for the paged-KV prefix cache and chunked prefill
+    (``ContinuousBatchingEngine(prefix_cache=...)``).
+
+    - ``prefill_chunk``: tokens prefilled per engine step per admitted slot
+      (rounded up to a page multiple; default ``min(max_len, 8 * page)``).
+    - ``extra_blocks``: pool headroom beyond the ``max_batch *
+      pages_per_seq`` working set, kept for cached prefixes.
+    - ``pack_rows``: fused-mode packing budget, the most (slot, chunk) rows
+      a packed prefill call carries (default ``max(8, min(max_batch,
+      32))``; a pack always covers one chunk of every mid-prefill slot)."""
+
+    prefill_chunk: Optional[int] = None
+    extra_blocks: int = 0
+    pack_rows: Optional[int] = None
 
 
 class Request:
@@ -140,13 +178,12 @@ class Request:
 def _later_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} slice "
-        "of the port (ROADMAP Queue 1, serving engine); this slice serves "
-        "the legacy continuous-batching path only")
+        "of the port (ROADMAP Queue 1, serving engine)")
 
 
 class ContinuousBatchingEngine:
-    """Legacy continuous batching (module docstring) on ``device`` (default:
-    the CUDA device; raises without one unless ``device="cpu"``). The model
+    """Continuous batching (module docstring) on ``device`` (default: the
+    CUDA device; raises without one unless ``device="cpu"``). The model
     must already live on that device."""
 
     def __init__(self, model, max_batch: int = 8, max_len: int = 512,
@@ -162,12 +199,11 @@ class ContinuousBatchingEngine:
                  kv_cache=None,
                  mesh=None,
                  tracer=None,
-                 device=None):
+                 device=None,
+                 _unsafe_overcommit: bool = False):
         if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
             raise _later_slice("serving an MoE model (num_experts > 1)",
                                "MoE-serving")
-        if prefix_cache:
-            raise _later_slice("prefix_cache", "prefix-cache")
         if speculative:
             raise _later_slice("speculative decoding", "speculative-decode")
         kv_dtype = getattr(kv_cache, "dtype", kv_cache)
@@ -178,16 +214,9 @@ class ContinuousBatchingEngine:
         if mesh is not None:
             raise _later_slice("mesh-sharded serving", "tp-sharded serving")
         if brownout:
-            raise _later_slice("brownout", "prefix-cache")
+            raise _later_slice("brownout", "brownout")
         if tracer is not None:
             raise _later_slice("request tracing", "serving observability")
-        # the JAX engine turns the fused mega-step on by itself at
-        # max_batch >= 32; refusing here keeps the port from silently
-        # serving a different path than the reference would
-        if (max_batch >= 32) if fused is None else bool(fused):
-            raise _later_slice(
-                "the fused mega-step (fused=True, or the default at "
-                "max_batch >= 32)", "fused mega-step")
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device != self.device:
@@ -206,9 +235,16 @@ class ContinuousBatchingEngine:
         if self.prompt_buckets and self.prompt_buckets[-1] > max_len:
             raise ValueError(f"prompt bucket {self.prompt_buckets[-1]} "
                              f"exceeds max_len {max_len}")
-        # bound on distinct dispatch shapes (prefill groups, decode blocks)
-        # — the programs a captured-graph engine compiles one each of;
-        # warned past, as the JAX engine warns on its compile cache
+        if prefix_cache is True:
+            prefix_cache = PrefixCacheConfig()
+        elif not prefix_cache:
+            prefix_cache = None
+        self.prefix_cache = prefix_cache
+        # the JAX engine's default: the fused mega-step at big batch
+        self._fused = (max_batch >= 32) if fused is None else bool(fused)
+        # bound on distinct dispatch shapes (prefill groups, chunk widths,
+        # decode blocks), warned past, as the JAX engine warns on its
+        # compile cache
         self.compile_cache_cap = max(1, int(compile_cache_cap))
         self._programs: set = set()
         # deadline-feasibility shedding (PT-SRV-003): armed once the engine
@@ -218,16 +254,51 @@ class ContinuousBatchingEngine:
         # steps that scheduled tokens)
         self._ema_tok_s: Optional[float] = None
         self._sched_tokens = 0
-        self.caches = model._init_paged_caches(max_batch, max_len, page_size,
-                                               device=self.device)
+        self._maxp = -(-max_len // page_size)
+        # test-only knob: allocate past pool capacity by taking blocks out
+        # of the radix cache while live tables still map them — the
+        # corruption the refcounted path exists to prevent. Never enable.
+        self._overcommit = bool(_unsafe_overcommit)
+        if prefix_cache is not None:
+            c = prefix_cache.prefill_chunk or min(max_len, 8 * page_size)
+            self._chunk_tokens = -(-int(c) // page_size) * page_size
+            n_blocks = (max_batch * self._maxp
+                        + max(0, int(prefix_cache.extra_blocks)))
+            # +1 page: parked decode rows (free or still-prefilling slots)
+            # write their dummy token into a parking page, never into a
+            # block another request may share
+            self.caches = model._init_paged_caches(
+                max_batch, max_len, page_size, num_blocks=n_blocks + 1,
+                device=self.device)
+            self._park = n_blocks
+            self._alloc = BlockAllocator(n_blocks)
+            self._radix = RadixPrefixCache(page_size, self._alloc)
+            if not self._fused:
+                # legacy engines upload this table when it changed
+                self._tables_host = np.full((max_batch, self._maxp),
+                                            self._park, np.int32)
+                self._tables_dirty = True
+            self._slot_rows: List[Optional[np.ndarray]] = [None] * max_batch
+            self._slot_blocks: List[Optional[List[int]]] = [None] * max_batch
+            # slot -> next uncached prompt position (mid-prefill slots)
+            self._prefill_next: Dict[int, int] = {}
+            self._pack_rows = (max(8, min(max_batch, 32))
+                               if prefix_cache.pack_rows is None
+                               else max(1, int(prefix_cache.pack_rows)))
+        else:
+            self.caches = model._init_paged_caches(max_batch, max_len,
+                                                   page_size,
+                                                   device=self.device)
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._occupied: Dict[int, Request] = {}
         self._free_slots: collections.deque = collections.deque(
             range(max_batch))
-        # per-slot NEXT write position (== tokens currently in the cache)
+        # per-slot NEXT write position (== tokens in the cache + 1 once the
+        # first token is out: the carry token is written at pos - 1)
         self._pos = np.zeros(max_batch, np.int32)
         # last emitted token per slot, on the device: the decode chain never
-        # round-trips token values through the host
+        # round-trips token values through the host. The fused engine
+        # updates it only in place (its captured graph reads it).
         self._last_tok = torch.zeros(max_batch, dtype=torch.long,
                                      device=self.device)
         self._pending: List[tuple] = []
@@ -235,19 +306,50 @@ class ContinuousBatchingEngine:
         self._tops = np.ones(max_batch, np.float32)
         self._topks = np.zeros(max_batch, np.int32)
         self._seeds = np.zeros(max_batch, np.int64)
-        # device copies of the sampling params, re-uploaded only when an
-        # admission changes them
-        self._samp_dev = None
+        self._graph = None
+        if self._fused:
+            # device-resident step state, changed only in place by
+            # _flush_updates: positions, active mask, sampling params (and,
+            # with a prefix cache, the block table, all parked at first)
+            dev = self.device
+            self._dev_pos = torch.zeros(max_batch, dtype=torch.int32,
+                                        device=dev)
+            self._dev_act = torch.zeros(max_batch, dtype=torch.bool,
+                                        device=dev)
+            self._dev_samp = (torch.zeros(max_batch, dtype=torch.float32,
+                                          device=dev),
+                              torch.ones(max_batch, dtype=torch.float32,
+                                         device=dev),
+                              torch.zeros(max_batch, dtype=torch.int32,
+                                          device=dev))
+            self._upd: Dict[int, tuple] = {}
+            if prefix_cache is not None:
+                self.caches["tables"] = torch.full(
+                    (max_batch, self._maxp), self._park, dtype=torch.int32,
+                    device=dev)
+            # the step's token output [max_batch, max_len] and the in-graph
+            # step index it writes at
+            self._out = torch.zeros((max_batch, max_len), dtype=torch.long,
+                                    device=dev)
+            self._step_i = torch.zeros(1, dtype=torch.long, device=dev)
         self._queue: collections.deque = collections.deque()
         self._finished: Dict[int, Request] = {}
         # deadline-carrying requests in the system: the expiry scan is a
         # single int check when zero
         self._n_deadlined = 0
         # host-side accounting (admission vs decode dispatch time) and work
-        # counts: prefill groups dispatched and decode steps run
+        # counts. decode_steps == graph_replays + eager_decode_steps.
         self.stats = {"admit_host_s": 0.0, "decode_host_s": 0.0,
                       "compile_cache_entries": 0, "shed": 0,
-                      "prefill_groups": 0, "decode_steps": 0}
+                      "prefill_groups": 0, "decode_steps": 0,
+                      "fused_updates": 0, "graph_captures": 0,
+                      "graph_replays": 0, "eager_decode_steps": 0}
+        if prefix_cache is not None:
+            self.stats.update(hit_tokens=0, miss_tokens=0, cow_copies=0,
+                              evictions=0, prefill_host_s=0.0,
+                              packed_rows=0)
+        if self._fused and self.device.type == "cuda":
+            self._capture()
 
     # ---- public API ----
     def add_request(self, req: Request) -> int:
@@ -310,13 +412,15 @@ class ContinuousBatchingEngine:
         return bool(self._queue) or bool(self._occupied)
 
     def active_slots(self) -> int:
-        """Occupied slots."""
+        """Occupied slots (decoding and mid-prefill)."""
         return len(self._occupied)
 
     def step(self):
         """Advance active slots by one decode block, then admit new
         requests (decode-first, so admission's host work overlaps the
-        in-flight block). When all slots are idle, admission runs first."""
+        in-flight block). When all slots are idle, admission runs first.
+        With a prefix cache every mid-prefill slot also advances one chunk
+        and newly complete prompts take their first token."""
         t0 = _time.perf_counter()
         sched0 = self._sched_tokens
         try:
@@ -332,6 +436,17 @@ class ContinuousBatchingEngine:
 
     def _step_inner(self):
         self._evict_expired()
+        if self.prefix_cache is not None:
+            decoding = len(self._occupied) > len(self._prefill_next)
+            if decoding:
+                self._decode_block()
+            t0 = _time.perf_counter()
+            self._admit_prefix()
+            self._prefill_tick()
+            self.stats["admit_host_s"] += _time.perf_counter() - t0
+            if not decoding:
+                self._decode_block()
+            return
         if not self._occupied:
             t0 = _time.perf_counter()
             self._admit_legacy()
@@ -345,8 +460,8 @@ class ContinuousBatchingEngine:
 
     def _evict_expired(self):
         """Deadline enforcement: fail-and-free requests past ``deadline_s``
-        (active slots AND queued requests). Tokens already scheduled for an
-        evicted slot stay in the pending readbacks."""
+        (active and mid-prefill slots, and queued requests). Tokens already
+        scheduled for an evicted slot stay in the pending readbacks."""
         if not self._n_deadlined:
             return
         now = _time.monotonic()
@@ -365,6 +480,8 @@ class ContinuousBatchingEngine:
         for i, req in sorted(self._occupied.items()):
             if expired(req):
                 fail(req)
+                # prefix mode: decrefs (never frees) blocks other tables or
+                # the radix cache still reference
                 self._release_slot(i)
         if any(expired(r) for r in self._queue):
             keep = collections.deque()
@@ -383,7 +500,20 @@ class ContinuousBatchingEngine:
             self.stats["decode_host_s"] += _time.perf_counter() - t0
 
     def _decode_block_inner(self):
-        live = sorted(self._occupied.items())
+        if self._fused:
+            # every admission and release queued since the last block lands
+            # in the device state in place
+            self._flush_updates()
+        elif self.prefix_cache is not None and self._tables_dirty:
+            # decode-ready rows map their (possibly shared) pages; free and
+            # mid-prefill rows point at the parking page. _to_device copies
+            # the host table, which later releases mutate.
+            self.caches = {"kv": self.caches["kv"],
+                           "tables": self._to_device(self._tables_host)}
+            self._tables_dirty = False
+        live = [(i, r) for i, r in sorted(self._occupied.items())
+                if not (self.prefix_cache is not None
+                        and i in self._prefill_next)]
         if not live:
             return
         # block length: never decode past a request's max_new_tokens or the
@@ -403,9 +533,13 @@ class ContinuousBatchingEngine:
         active = np.zeros(self.max_batch, bool)
         for i, _ in live:
             active[i] = True
-        # parked rows decode at position 0 over their own slot's pages
+        # parked rows decode at position 0 (their own slot's pages, or the
+        # parking page with a prefix cache)
         pos_np = (np.where(active, self._pos, 1) - 1).astype(np.int32)
-        out = self._run_decode(pos_np, n, do_sample)
+        if self._fused:
+            out = self._run_fused(pos_np, n, do_sample)
+        else:
+            out = self._run_decode(pos_np, n, do_sample)
         if async_ok:
             entries = []
             for i, req in live:
@@ -441,14 +575,14 @@ class ContinuousBatchingEngine:
                 self._release_slot(i)
 
     def _run_decode(self, pos_np, n: int, do_sample: bool):
-        """``n`` decode steps over every slot; returns the tokens
-        [max_batch, n] on the device and advances the last-token carry."""
+        """Legacy engines: ``n`` decode steps over every slot, eagerly;
+        returns the tokens [max_batch, n] on the device and advances the
+        last-token carry."""
         self._note_program(("decode", n, do_sample))
         self.stats["decode_steps"] += n
-        if do_sample and self._samp_dev is None:
-            self._samp_dev = (self._to_device(self._temps),
-                              self._to_device(self._tops),
-                              self._to_device(self._topks))
+        self.stats["eager_decode_steps"] += n
+        if do_sample:
+            params = self._slot_params(range(self.max_batch))
         toks = self._last_tok
         pos = self._to_device(pos_np)
         outs = []
@@ -456,7 +590,7 @@ class ContinuousBatchingEngine:
             logits, self.caches = self.model.paged_token_step(
                 toks, self.caches, pos)
             if do_sample:
-                toks = self._sample(logits, pos_np + j + 1)
+                toks = self._sample(logits, pos_np + j + 1, params)
             else:
                 toks = logits.argmax(-1)
             outs.append(toks)
@@ -464,20 +598,134 @@ class ContinuousBatchingEngine:
         self._last_tok = toks
         return torch.stack(outs, dim=1)
 
-    def _sample(self, logits, positions, slots=None):
-        """Sample the next token of each row (greedy rows take the argmax);
-        ``positions`` are the sampled tokens' positions, ``slots`` the rows'
-        slots (default: every slot)."""
-        temps, tops, topks = self._samp_dev
-        if slots is not None:
-            idx = self._to_device(np.asarray(slots, np.int64))
-            temps, tops, topks = temps[idx], tops[idx], topks[idx]
+    # -- fused mega-step -------------------------------------------------
+    def _fused_step(self, positions=None):
+        """One token step over all ``max_batch`` rows on the device-resident
+        state, entirely in place: the step a CUDA graph captures. Inactive
+        rows step position 0 (the parking page with a prefix cache).
+        ``positions`` (host, the sampled tokens' positions) switches the
+        argmax for the sampler, which cannot be captured."""
+        pos_vec = torch.where(self._dev_act, self._dev_pos, 1) - 1
+        logits, _ = self.model.paged_token_step(self._last_tok, self.caches,
+                                                pos_vec)
+        if positions is None:
+            nxt = logits.argmax(-1)
         else:
+            nxt = self._sample(logits, positions, self._dev_samp)
+        self._last_tok.copy_(nxt)
+        self._out.index_copy_(1, self._step_i, nxt[:, None])
+        self._dev_pos.add_(self._dev_act.to(torch.int32))
+        self._step_i.add_(1)
+
+    def _capture(self):
+        """Capture the greedy ``_fused_step`` as a CUDA graph, once. Runs
+        at construction, while every row is inactive, so the warm-up steps
+        (cuBLAS handles, the rope tables, K4's once-per-instantiation
+        cluster query) write only dummy tokens at position 0 of parked rows.
+        A capture that fails raises."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    self._fused_step()
+            cur.wait_stream(side)
+            k4 = paged_decode_attention.launches
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self._fused_step()
+        # the capture recorded these launches without running them: the
+        # count moves by them at each replay instead
+        self._graph_k4 = paged_decode_attention.launches - k4
+        paged_decode_attention.launches = k4
+        self._last_tok.zero_()
+        self._step_i.zero_()
+        self._graph = graph
+        self.stats["graph_captures"] += 1
+
+    def _run_fused(self, pos_np, n: int, do_sample: bool):
+        """``n`` steps of the fused engine: ``n`` replays of the captured
+        graph, or the same step run eagerly (on the CPU, or for a block with
+        a sampled row). Returns the tokens [max_batch, n]."""
+        self._note_program(("fused_step", do_sample))
+        self.stats["decode_steps"] += n
+        self._step_i.zero_()
+        if self._graph is not None and not do_sample:
+            for _ in range(n):
+                self._graph.replay()
+            paged_decode_attention.launches += n * self._graph_k4
+            self.stats["graph_replays"] += n
+        else:
+            for j in range(n):
+                self._fused_step(pos_np + j + 1 if do_sample else None)
+            self.stats["eager_decode_steps"] += n
+        return self._out[:, :n].clone()
+
+    def _queue_update(self, slot: int, row, pos: int, act: bool,
+                      temp: float = 0.0, top_p: float = 1.0, top_k: int = 0):
+        """Queue one slot's device-state change (activation or release).
+        The latest update per slot wins; all land at the next
+        ``_flush_updates``. ``row=None`` is the parking row with a prefix
+        cache (release) and leaves a static slot-owned table unchanged
+        without one."""
+        self._upd[slot] = (row, int(pos), bool(act), float(temp),
+                           float(top_p), int(top_k))
+
+    def _flush_updates(self):
+        """Apply the queued slot updates to the device-resident state in
+        place (``index_copy_``), so a captured graph keeps its pointers. The
+        values travel in one fresh pinned buffer per flush: a host buffer
+        reused while its copy is in flight would let the device read
+        values a later update already changed."""
+        if not self._upd:
+            return
+        items = sorted(self._upd.items())
+        self._upd.clear()
+        tables = self.prefix_cache is not None
+        width = 4 + (self._maxp if tables else 0)
+        ints = np.zeros((len(items), width), np.int32)
+        floats = np.zeros((len(items), 2), np.float32)
+        for j, (slot, (row, pos, act, temp, top_p, top_k)) in \
+                enumerate(items):
+            ints[j, :4] = (slot, pos, act, top_k)
+            if tables:
+                ints[j, 4:] = self._park if row is None else row
+            floats[j] = (temp, top_p)
+        ints_d = self._to_device(ints)
+        floats_d = self._to_device(floats)
+        idx = ints_d[:, 0].long()
+        self._dev_pos.index_copy_(0, idx, ints_d[:, 1].contiguous())
+        self._dev_act.index_copy_(0, idx, ints_d[:, 2] != 0)
+        temps, tops, topks = self._dev_samp
+        temps.index_copy_(0, idx, floats_d[:, 0].contiguous())
+        tops.index_copy_(0, idx, floats_d[:, 1].contiguous())
+        topks.index_copy_(0, idx, ints_d[:, 3].contiguous())
+        if tables:
+            self.caches["tables"].index_copy_(0, idx,
+                                              ints_d[:, 4:].contiguous())
+        self.stats["fused_updates"] += len(items)
+
+    # -- sampling ----------------------------------------------------------
+    def _sample(self, logits, positions, params, slots=None):
+        """Sample the next token of each row (greedy rows take the argmax).
+        ``positions`` are the sampled tokens' positions; ``params`` the
+        rows' (temperatures, top-p, top-k) on the device; ``slots`` the
+        rows' slots (default: every slot)."""
+        if slots is None:
             slots = range(self.max_batch)
         keys = fold_keys([self._seeds[s] for s in slots], positions)
         keys = [k if self._temps[s] > 0.0 else None
                 for k, s in zip(keys, slots)]
-        return sample_rows(logits, keys, temps, tops, topks)
+        return sample_rows(logits, keys, *params)
+
+    def _slot_params(self, slots):
+        """(temperatures, top-p, top-k) of ``slots`` on the device, from the
+        host arrays."""
+        idx = np.asarray(list(slots), np.int64)
+        return (self._to_device(self._temps[idx]),
+                self._to_device(self._tops[idx]),
+                self._to_device(self._topks[idx]))
 
     def run_until_done(self, max_steps: int = 100000):
         steps = 0
@@ -488,6 +736,10 @@ class ContinuousBatchingEngine:
 
     def finished(self) -> Dict[int, Request]:
         self._drain_pending()
+        if self._fused:
+            # land queued releases, so a drained engine's device state is
+            # drained too, not pending the next decode block
+            self._flush_updates()
         out, self._finished = self._finished, {}
         return out
 
@@ -502,7 +754,7 @@ class ContinuousBatchingEngine:
         for arr_dev, entries in self._pending:
             arr = arr_dev.cpu().numpy()
             for row, req, took in entries:
-                if arr.ndim == 1:           # prefill firsts [g]
+                if arr.ndim == 1:           # first tokens [g]
                     req.output.append(int(arr[row]))
                 else:                       # decode block [slots, n]
                     req.output.extend(int(t) for t in arr[row, :took])
@@ -511,7 +763,7 @@ class ContinuousBatchingEngine:
     # ---- internals ----
     def _to_device(self, arr):
         """Host array -> device tensor without stalling the stream: CUDA
-        copies go through pinned memory, non-blocking."""
+        copies go through a fresh pinned buffer, non-blocking."""
         t = torch.from_numpy(np.array(arr))
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -530,14 +782,31 @@ class ContinuousBatchingEngine:
                 stacklevel=3)
 
     def _release_slot(self, i: int):
-        """Free slot ``i``; its pages are reused by the next admission."""
+        """Free slot ``i``. With a prefix cache, DECREF the slot's blocks (a
+        shared block stays alive while another table or the radix cache
+        references it) and park its decode-table row: freed pages may be
+        mapped by the very next admission, and the inactive row's dummy
+        append must never touch them."""
         if self._slots[i] is not None:
             self._occupied.pop(i, None)
             self._free_slots.append(i)
         self._slots[i] = None
         self._pos[i] = 0
         self._temps[i] = 0.0
+        if self.prefix_cache is not None:
+            blocks = self._slot_blocks[i]
+            if blocks:
+                self._alloc.decref(blocks)
+            self._slot_blocks[i] = None
+            self._slot_rows[i] = None
+            self._prefill_next.pop(i, None)
+            if not self._fused:
+                self._tables_host[i] = self._park
+                self._tables_dirty = True
+        if self._fused:
+            self._queue_update(i, None, 0, False)
 
+    # -- legacy admission ------------------------------------------------
     def _admit_legacy(self):
         """Admit queued requests into free slots — ONE batched prefill call
         per (prompt bucket, padded?) group."""
@@ -560,7 +829,6 @@ class ContinuousBatchingEngine:
             self._tops[slot] = req.top_p
             self._topks[slot] = req.top_k
             self._seeds[slot] = req.seed
-        self._samp_dev = None   # sampling params changed -> re-upload lazily
         for (padded, _), grp in groups.items():
             firsts_dev = self._prefill_group(padded, grp)
             any_eos = any(r.eos_token_id is not None for _, r in grp)
@@ -572,6 +840,11 @@ class ContinuousBatchingEngine:
                 req._n_out += 1
                 self._sched_tokens += 1
                 self._pos[slot] = len(req.prompt) + 1
+                if self._fused:
+                    # static slot-owned tables: activation flips only the
+                    # position, the active flag and the sampling params
+                    self._queue_update(slot, None, len(req.prompt) + 1, True,
+                                       req.temperature, req.top_p, req.top_k)
                 if firsts is not None:
                     req.output.append(int(firsts[row]))
                 else:
@@ -623,12 +896,292 @@ class ContinuousBatchingEngine:
             last = ids.gather(1, (true_len.long() - 1)[:, None])[:, 0]
             logits, sub = self.model.paged_token_step(last, sub, true_len - 1)
         if do_sample:
-            if self._samp_dev is None:
-                self._samp_dev = (self._to_device(self._temps),
-                                  self._to_device(self._tops),
-                                  self._to_device(self._topks))
-            nxt = self._sample(logits, true_len_np, slots)
+            nxt = self._sample(logits, true_len_np, self._slot_params(slots),
+                               slots)
         else:
             nxt = logits.argmax(-1)
         self._last_tok[slots_d] = nxt
         return nxt
+
+    # -- prefix-cache admission and chunked prefill ------------------------
+    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+        return -(-(prompt_len + max_new) // self.page_size)
+
+    def _admit_prefix(self):
+        """Admission with radix prefix matching over the refcounted pool.
+
+        FIFO with head-of-line blocking on pool exhaustion: when the queue
+        head cannot get its blocks (even after LRU eviction of idle cached
+        blocks) it stays queued and later arrivals wait behind it; the
+        allocator never overcommits shared blocks."""
+        if not self._queue:
+            return
+        cow_wave = [] if self._fused else None
+        while self._free_slots and self._queue:
+            req = self._queue[0]
+            if not self._try_admit_prefix(self._free_slots[0], req, cow_wave):
+                break
+            self._queue.popleft()
+            self._free_slots.popleft()
+        if cow_wave:
+            self._cow_copy_batch(cow_wave)
+        self.stats["evictions"] = self._radix.evictions
+
+    def _try_admit_prefix(self, slot: int, req: Request,
+                          cow_wave=None) -> bool:
+        page = self.page_size
+        prompt = req.prompt
+        n_full = len(prompt) // page
+        matched = self._radix.match(prompt[: n_full * page]) if n_full else []
+        cow_src = None
+        if matched and len(matched) * page == len(prompt):
+            # FULL-prompt hit: nothing to prefill, but the first-token
+            # re-step rewrites position L-1 inside the last shared block —
+            # copy it into a private page first
+            cow_src = matched[-1]
+            matched = matched[:-1]
+        need = self._pages_needed(len(prompt), req.max_new_tokens)
+        fresh_n = need - len(matched)          # includes the COW copy
+        # pin the matched chain (and the COW source) BEFORE the
+        # eviction-capable alloc: refcount-0 cached-idle blocks could
+        # otherwise be evicted and handed back as `fresh`, mapping one
+        # block twice in this slot's table
+        pinned = matched + ([cow_src] if cow_src is not None else [])
+        self._alloc.incref(pinned)
+        fresh = self._alloc.alloc(fresh_n, evict=self._radix.evict_lru)
+        if fresh is None and self._overcommit:
+            fresh = self._steal_blocks(fresh_n, avoid=set(pinned))
+        if fresh is None:
+            self._alloc.decref(pinned)
+            return False                       # pool exhausted — defer
+        cached = len(matched) * page
+        if cow_src is not None:
+            dst = fresh[0]
+            if cow_wave is None:
+                self._cow_copy(cow_src, dst)
+                self._alloc.decref([cow_src])  # copy done — unpin the source
+            else:
+                # fused: the wave's copies run in one call; the source
+                # stays pinned until then so eviction cannot reclaim it
+                cow_wave.append((cow_src, dst))
+            self.stats["cow_copies"] += 1
+            blocks = matched + [dst] + fresh[1:]
+            cached = len(prompt)
+        else:
+            blocks = matched + fresh
+        row = np.full(self._maxp, self._park, np.int32)
+        row[: len(blocks)] = blocks
+        self._slot_rows[slot] = row
+        self._slot_blocks[slot] = blocks
+        self._slots[slot] = req
+        self._occupied[slot] = req
+        # next uncached write position; == len(prompt) means straight to
+        # the first-token re-step. The slot joins the decode batch (and its
+        # row the decode table) only once prefill completes.
+        self._prefill_next[slot] = cached
+        self.stats["hit_tokens"] += cached
+        self.stats["miss_tokens"] += len(prompt) - cached
+        return True
+
+    def _steal_blocks(self, n: int, avoid=()):
+        """``_unsafe_overcommit`` only: what an allocator without refcounts
+        does under exhaustion — take LRU radix leaves out of the cache and
+        hand them to the new request although live tables still map them.
+        Production admission defers instead."""
+        legit = list(self._alloc.alloc(min(n, self._alloc.free_blocks)) or [])
+        stolen = []
+        victims = sorted(self._radix._by_block.values(),
+                         key=lambda nd: nd.last_used)
+        for nd in victims:
+            if len(legit) + len(stolen) >= n:
+                break
+            if nd.block in avoid or nd.children:
+                continue
+            nd.parent.children.pop(nd.key, None)
+            del self._radix._by_block[nd.block]
+            self._alloc._ref[nd.block] = self._alloc._ref.get(nd.block, 0) + 1
+            stolen.append(nd.block)
+        if len(legit) + len(stolen) < n:
+            self._alloc.decref(stolen + legit)
+            return None
+        # stolen pages first: they become the thief's PROMPT blocks, so its
+        # next prefill overwrites a page the victim still reads
+        return stolen + legit
+
+    def _cow_copy(self, src: int, dst: int):
+        for k, v in self.caches["kv"]:
+            copy_pages(k, v, src, dst)
+
+    def _cow_copy_batch(self, pairs):
+        """All of an admission wave's COW copies in one call per layer; the
+        sources stay pinned (incref'd by ``_try_admit_prefix``) until the
+        copy is queued, so an eviction under a later admission of the same
+        wave cannot reclaim them first."""
+        src = self._to_device(np.asarray([s for s, _ in pairs], np.int64))
+        dst = self._to_device(np.asarray([d for _, d in pairs], np.int64))
+        for k, v in self.caches["kv"]:
+            copy_pages(k, v, src, dst)
+        self._alloc.decref([s for s, _ in pairs])
+
+    def _prefill_tick(self):
+        """One chunk of prefill per mid-prefill slot (packed in fused
+        mode), then the first-token re-step (and radix registration) for
+        slots whose prompts are fully written."""
+        if not self._prefill_next:
+            return
+        t0 = _time.perf_counter()
+        try:
+            chunkers = [(s, self._slots[s]) for s in sorted(self._prefill_next)
+                        if self._prefill_next[s] < len(self._slots[s].prompt)]
+            if chunkers and self._fused:
+                self._run_pack(chunkers)
+            elif chunkers:
+                self._run_chunk(chunkers)
+            ready = [(s, self._slots[s]) for s in sorted(self._prefill_next)
+                     if self._prefill_next[s] >= len(self._slots[s].prompt)]
+            if ready:
+                self._first_token(ready)
+        finally:
+            self.stats["prefill_host_s"] += _time.perf_counter() - t0
+
+    def _prefill_row(self, s: int, req: Request):
+        """Table row for a prefill chunk: the slot's REAL prompt pages,
+        everything beyond them (its decode-headroom blocks) parked, so a
+        chunk's pad tail never writes into the slot's future decode
+        blocks."""
+        row = np.full(self._maxp, self._park, np.int32)
+        n_real = -(-len(req.prompt) // self.page_size)
+        row[:n_real] = self._slot_rows[s][:n_real]
+        return row
+
+    def _prefill_chunk(self, ids, starts, rows):
+        """One ``paged_prefill_chunk`` call over host arrays ids [g, C],
+        starts [g] and table rows [g, maxp]."""
+        self._note_program(("chunk", ids.shape[0]))
+        self.stats["prefill_groups"] += 1
+        sub = {"kv": self.caches["kv"], "tables": self._to_device(rows)}
+        self.model.paged_prefill_chunk(self._to_device(ids), sub,
+                                       self._to_device(starts))
+
+    def _run_chunk(self, group):
+        """Legacy engines: one chunk of every mid-prefill slot, one row
+        each."""
+        C = self._chunk_tokens
+        g = len(group)
+        ids = np.zeros((g, C), np.int32)
+        starts = np.zeros(g, np.int32)
+        rows = np.stack([self._prefill_row(s, req) for s, req in group])
+        for r, (s, req) in enumerate(group):
+            nxt = self._prefill_next[s]
+            chunk = req.prompt[nxt: nxt + C]
+            ids[r, : len(chunk)] = chunk
+            starts[r] = nxt
+        self._prefill_chunk(ids, starts, rows)
+        for s, req in group:
+            self._prefill_next[s] = min(self._prefill_next[s] + C,
+                                        len(req.prompt))
+
+    def _run_pack(self, group):
+        """Packed prefill (fused mode): (slot, chunk) pairs flattened into
+        the rows of ONE ``paged_prefill_chunk`` call, so several short
+        prompts finish, and a long prompt advances several chunks, in one
+        call. Every row's k/v is appended before any row gathers and a
+        query attends exactly the keys at positions <= its own, so a later
+        chunk of a prompt reads the earlier chunk's pages written in the
+        same call, as if the chunks ran one after the other. Rows go out
+        breadth-first (one chunk per slot per pass), so every mid-prefill
+        slot advances at least one chunk a step; ``pack_rows`` bounds the
+        extra rows. The row count is bucketed to a power of two with
+        parked dummy rows."""
+        C = self._chunk_tokens
+        budget = max(len(group), self._pack_rows)
+        offs = {s: self._prefill_next[s] for s, _ in group}
+        rows = []
+        progress = True
+        while len(rows) < budget and progress:
+            progress = False
+            for s, req in group:
+                if len(rows) >= budget:
+                    break
+                if offs[s] < len(req.prompt):
+                    rows.append((s, req, offs[s]))
+                    offs[s] = min(offs[s] + C, len(req.prompt))
+                    progress = True
+        g = 1
+        while g < len(rows):
+            g *= 2
+        ids = np.zeros((g, C), np.int32)
+        starts = np.zeros(g, np.int32)
+        trows = np.full((g, self._maxp), self._park, np.int32)
+        for r, (s, req, off) in enumerate(rows):
+            chunk = req.prompt[off: off + C]
+            ids[r, : len(chunk)] = chunk
+            starts[r] = off
+            trows[r] = self._prefill_row(s, req)
+        self._prefill_chunk(ids, starts, trows)
+        self.stats["packed_rows"] += len(rows)
+        for s, _ in group:
+            self._prefill_next[s] = offs[s]
+
+    def _first_token(self, ready):
+        """Re-step the last REAL prompt token at its true position (k/v
+        rewritten into a private or COW block, logits over exactly the
+        prompt) and sample the first token; then register the prompt's full
+        blocks in the radix cache and promote the slot into the decode
+        batch (fused mode: through the next ``_flush_updates``)."""
+        slots = [s for s, _ in ready]
+        do_sample = any(r.temperature > 0.0 for _, r in ready)
+        self._note_program(("first", do_sample))
+        for s, req in ready:
+            self._temps[s] = req.temperature
+            self._tops[s] = req.top_p
+            self._topks[s] = req.top_k
+            self._seeds[s] = req.seed
+        true_len = np.asarray([len(r.prompt) for _, r in ready], np.int32)
+        last = np.asarray([r.prompt[-1] for _, r in ready], np.int64)
+        rows = np.stack([self._slot_rows[s] for s in slots])
+        sub = {"kv": self.caches["kv"], "tables": self._to_device(rows)}
+        logits, _ = self.model.paged_token_step(
+            self._to_device(last), sub, self._to_device(true_len - 1))
+        if do_sample:
+            firsts_dev = self._sample(logits, true_len,
+                                      self._slot_params(slots), slots)
+        else:
+            firsts_dev = logits.argmax(-1)
+        self._last_tok[self._to_device(np.asarray(slots, np.int64))] = \
+            firsts_dev
+        any_eos = any(r.eos_token_id is not None for _, r in ready)
+        firsts = firsts_dev.cpu().numpy() if any_eos else None
+        entries = []
+        for row, (slot, req) in enumerate(ready):
+            n_full = len(req.prompt) // self.page_size
+            if n_full:
+                # register once the whole prompt (and the re-step's
+                # rewrite) is queued: later admissions run behind these
+                # writes on the device; first writer wins on duplicates
+                self._radix.insert(req.prompt[: n_full * self.page_size],
+                                   self._slot_blocks[slot][:n_full])
+            del self._prefill_next[slot]
+            req._n_out += 1
+            self._sched_tokens += 1
+            self._pos[slot] = len(req.prompt) + 1
+            if self._fused:
+                self._queue_update(slot, self._slot_rows[slot],
+                                   len(req.prompt) + 1, True,
+                                   req.temperature, req.top_p, req.top_k)
+            else:
+                self._tables_host[slot] = self._slot_rows[slot]
+                self._tables_dirty = True
+            if firsts is not None:
+                req.output.append(int(firsts[row]))
+            else:
+                entries.append((row, req, 1))
+        for row, (slot, req) in enumerate(ready):
+            if ((firsts is not None and req.eos_token_id is not None
+                 and int(firsts[row]) == req.eos_token_id)
+                    or req._n_out >= req.max_new_tokens):
+                req.done = True
+                self._mark_done(req)
+                self._release_slot(slot)
+        if entries:
+            self._pending.append((firsts_dev, entries))

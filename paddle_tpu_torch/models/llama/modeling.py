@@ -18,8 +18,8 @@ Parameters are trainable (``requires_grad=True``, as the JAX package's
 are): ``loss_fn`` computes the shifted causal-LM loss through the fused,
 chunked cross-entropy (``ops.fused_ce``) and ``forward(ids, labels)`` the
 unfused criterion; gradients flow through the flash kernels' backward
-(K2/K3). The serving hooks (``_decode_chunk``, ``paged_token_step``) run
-under ``torch.no_grad()`` and build no graph.
+(K2/K3). The serving hooks (``_decode_chunk``, ``paged_token_step``,
+``paged_prefill_chunk``) run under ``torch.no_grad()`` and build no graph.
 
 With ``num_experts > 1`` each layer's MLP is the Mixtral-class MoE layer
 (``incubate.distributed.models.moe.MoELayer`` over ``SwiGLUExpertFFN``,
@@ -41,7 +41,8 @@ from ...device import resolve_device, resolve_dtype
 from ...incubate.distributed.models.moe import MoELayer, SwiGLUExpertFFN
 from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_linear_cross_entropy
-from ...ops.paged_attention import append_paged_kv, paged_decode_attention
+from ...ops.paged_attention import (append_paged_kv, paged_decode_attention,
+                                    paged_prefill_attention)
 from ..generation_utils import GenerationMixin
 
 
@@ -243,6 +244,30 @@ class LlamaAttention(nn.Module):
                                      (pos_vec + 1).to(torch.int32))
         return out.reshape(b, 1, -1) @ self.o_proj_weight, k_pages, v_pages
 
+    def paged_prefill_chunk(self, x, cos, sin, k_pages, v_pages, tables,
+                            starts):
+        """Prefill CHUNK at PER-ROW absolute offsets over cached history
+        (prefix-cache serving). x [b, s, h]: row b holds the tokens at
+        positions [starts[b], starts[b] + s); cos/sin [b, s, d]. The chunk's
+        k/v scatter into the pages first (positions clipped to the table's
+        extent, as in the JAX package: a final chunk's pad rows land past
+        the prompt, masked and later overwritten), then attention gathers
+        the whole table with an absolute-position mask."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q, k = apply_rotary_pos_emb(q, k, cos, sin)
+        dev = x.device
+        max_len = tables.shape[1] * k_pages.shape[2]
+        seq_ids = torch.arange(b, device=dev).repeat_interleave(s)
+        positions = (starts.to(dev).long()[:, None]
+                     + torch.arange(s, device=dev)).clamp(0, max_len - 1)
+        k_pages, v_pages = append_paged_kv(
+            k_pages, v_pages, k.reshape(b * s, self.num_kv_heads, -1),
+            v.reshape(b * s, self.num_kv_heads, -1), tables,
+            positions.reshape(-1), seq_ids)
+        out = paged_prefill_attention(q, k_pages, v_pages, tables, starts)
+        return out.reshape(b, s, -1) @ self.o_proj_weight, k_pages, v_pages
+
 
 def _attention(q, k, v):
     """Causal attention on [b, s, h, d] tensors: the single-device branch
@@ -316,6 +341,14 @@ class LlamaDecoderLayer(nn.Module):
         a, k_pages, v_pages = self.self_attn.paged_token_step(
             self.input_layernorm(x), cos, sin, k_pages, v_pages, tables,
             pos_vec)
+        x = x + a
+        return x + self.mlp(self.post_attention_layernorm(x)), k_pages, v_pages
+
+    def paged_prefill_chunk(self, x, cos, sin, k_pages, v_pages, tables,
+                            starts):
+        a, k_pages, v_pages = self.self_attn.paged_prefill_chunk(
+            self.input_layernorm(x), cos, sin, k_pages, v_pages, tables,
+            starts)
         x = x + a
         return x + self.mlp(self.post_attention_layernorm(x)), k_pages, v_pages
 
@@ -466,6 +499,34 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         hidden = model.norm(x)
         logits = self.logits(hidden[:, -1:])
         return logits[:, -1].float(), {"kv": new_kv, "tables": tables}
+
+    @torch.no_grad()
+    def paged_prefill_chunk(self, ids, caches, starts):
+        """Serving hook (prefix cache, chunked prefill): prefill ONE chunk
+        per row at per-row absolute offsets, attending over the cached
+        prefix. ids [b, s] int, starts [b] int; returns the caches (the
+        first token comes from a later ``paged_token_step`` re-step, so no
+        lm-head work here). Rows may share one sequence's table at
+        different starts (packed prefill): each layer appends every row's
+        k/v before any row gathers, so a later chunk reads an earlier
+        chunk's pages written in the same call."""
+        model = self.model
+        x = model.embed(ids)
+        tables = caches["tables"]
+        page = caches["kv"][0][0].shape[2]
+        max_len = tables.shape[1] * page
+        cos_full, sin_full = model.rope_tables(max_len, x.dtype, x.device)
+        s = ids.shape[1]
+        positions = (starts.to(x.device).long()[:, None]
+                     + torch.arange(s, device=x.device)).clamp(0, max_len - 1)
+        cos = cos_full[positions]
+        sin = sin_full[positions]
+        new_kv = []
+        for layer, (kp, vp) in zip(model.layers, caches["kv"]):
+            x, kp, vp = layer.paged_prefill_chunk(x, cos, sin, kp, vp,
+                                                  tables, starts)
+            new_kv.append((kp, vp))
+        return {"kv": new_kv, "tables": tables}
 
     @torch.no_grad()
     def _decode_chunk(self, ids, caches, pos, pad_bias, pos_offset):

@@ -15,13 +15,22 @@ for every row whatever its length, and runs :func:`paged_decode_reference`
 as in the JAX package, and writes the pools IN PLACE (the JAX version
 returns new arrays; the port returns the same tensors it was given).
 
+The prefix-cache path adds :func:`paged_prefill_attention` (:359), which
+the JAX package computes outside any Pallas kernel (gather + einsum), so
+the port computes it with plain tensor ops on both devices;
+:func:`copy_pages` (:445), the copy-on-write primitive, in place; and the
+host-side page bookkeeping :class:`BlockAllocator` (:472) and
+:class:`RadixPrefixCache` (:583), copied from the JAX package.
+
 Only floating-point pools are ported: the int8 block format
 (``QuantizedKVPool``, :50) arrives with the int8-KV serving slice.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -171,3 +180,260 @@ def append_paged_kv(k_cache, v_cache, k_new, v_new, block_tables, positions,
     k_cache[page_idx, :, offs, :] = k_new.to(k_cache.dtype)
     v_cache[page_idx, :, offs, :] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_starts,
+                            scale=None):
+    """Attention for a prefill CHUNK whose rows sit at per-row absolute
+    offsets inside partially filled paged caches: q [b, s, hq, d] for the
+    tokens at positions ``chunk_starts[b] + i`` -> [b, s, hq, d].
+
+    The chunk's own k/v must already be appended (append-then-gather). Keys
+    are gathered over the table's full ``max_pages * page`` extent and
+    masked by ABSOLUTE position (query p attends keys <= p, the finite
+    ``NEG_INF``), softmax in fp32: given the same cached bytes a token's
+    output does not depend on how its prompt was chunked or how much of it
+    came from the prefix cache, which is what the serving engine's
+    warm == cold guarantee rests on. Rows are independent, so several rows
+    may share one sequence's table at different starts (packed prefill)."""
+    _reject_int8(k_cache, v_cache)
+    b, s, hq, d = q.shape
+    _, hkv, page, _ = k_cache.shape
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    max_pages = block_tables.shape[1]
+    L = max_pages * page
+    safe = block_tables.clamp_min(0).long()
+    # [b, max_pages, hkv, page, d] -> [b, hkv, L, d]
+    kg = k_cache[safe].transpose(2, 3).reshape(b, L, hkv, d)
+    vg = v_cache[safe].transpose(2, 3).reshape(b, L, hkv, d)
+    kg = kg.transpose(1, 2).float()
+    vg = vg.transpose(1, 2).float()
+    qf = q.reshape(b, s, hkv, group, d).float().permute(0, 2, 3, 1, 4)
+    sc = torch.einsum("bhgsd,bhld->bhgsl", qf, kg) * scale
+    q_pos = (chunk_starts.to(q.device).long()[:, None]
+             + torch.arange(s, device=q.device))            # [b, s]
+    keep = torch.arange(L, device=q.device)[None, None, :] <= q_pos[:, :, None]
+    sc = torch.where(keep[:, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgsl,bhld->bhgsd", p, vg)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
+
+
+def copy_pages(k_cache, v_cache, src, dst):
+    """Copy page(s) ``src`` -> ``dst`` in a (k, v) pool pair, in place: the
+    copy-on-write primitive for shared prefix blocks. ``src``/``dst`` are a
+    scalar pair or equal-length index vectors (a whole admission wave's
+    copies in one call; padding entries copy the parking page onto itself).
+    Returns the same (k_cache, v_cache)."""
+    _reject_int8(k_cache, v_cache)
+    dev = k_cache.device
+    src = torch.as_tensor(src, device=dev).long().reshape(-1)
+    dst = torch.as_tensor(dst, device=dev).long().reshape(-1)
+    if src.shape != dst.shape:
+        raise ValueError(f"copy_pages: src {tuple(src.shape)} and dst "
+                         f"{tuple(dst.shape)} differ in length")
+    k_cache.index_copy_(0, dst, k_cache.index_select(0, src))
+    v_cache.index_copy_(0, dst, v_cache.index_select(0, src))
+    return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# refcounted block allocator + radix prefix cache (host-side bookkeeping,
+# copied from the JAX package)
+# ---------------------------------------------------------------------------
+
+class BlockAllocator:
+    """Refcounted allocator over the paged-KV pool's page ids.
+
+    Page states: FREE (in the free list), ACTIVE (refcount >= 1: mapped
+    into at least one request's block table), CACHED-IDLE (refcount 0 but
+    still registered in a :class:`RadixPrefixCache`, reclaimed lazily by
+    LRU eviction), or HELD (``hold()``: pool exhaustion on demand).
+
+    Refcounts count REQUEST references only: ``alloc`` hands out blocks at
+    refcount 1, each further request sharing a block calls ``incref``, and
+    ``decref`` returns a block to the free list only when nothing else
+    references it and no prefix cache retains it."""
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = int(num_blocks)
+        self._free = collections.deque(range(self.num_blocks))
+        self._ref: Dict[int, int] = {}
+        self._held: List[int] = []
+        # wired by RadixPrefixCache: keeps refcount-0 blocks out of the free
+        # list while the cache still maps them
+        self.is_cached: Callable[[int], bool] = lambda b: False
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    def hold(self, n: int) -> int:
+        """Remove up to ``n`` free blocks from circulation; returns how many
+        were held."""
+        took = 0
+        while took < n and self._free:
+            self._held.append(self._free.popleft())
+            took += 1
+        return took
+
+    def release_held(self) -> int:
+        n = len(self._held)
+        self._free.extend(self._held)
+        self._held.clear()
+        return n
+
+    def alloc(self, n: int,
+              evict: Optional[Callable[[int], int]] = None,
+              ) -> Optional[List[int]]:
+        """Allocate ``n`` blocks at refcount 1. When the free list is short,
+        ``evict(shortfall)`` (the radix cache's LRU reclaimer) may free
+        cached-idle blocks first. Returns None when the pool cannot serve
+        the request: callers defer, they never overcommit."""
+        if n <= 0:
+            return []
+        if len(self._free) < n and evict is not None:
+            evict(n - len(self._free))
+        if len(self._free) < n:
+            return None
+        out = [self._free.popleft() for _ in range(n)]
+        for b in out:
+            self._ref[b] = 1
+        return out
+
+    def incref(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            rc = self._ref.get(b, 0)
+            if rc == 0 and not self.is_cached(b):
+                raise RuntimeError(
+                    f"incref of free block {b} — a prefix-cache hit mapped "
+                    "a block the allocator does not consider live")
+            self._ref[b] = rc + 1
+
+    def decref(self, blocks: Sequence[int]) -> None:
+        for b in blocks:
+            rc = self._ref.get(b, 0)
+            if rc <= 0:
+                raise RuntimeError(f"decref of free block {b} (double free)")
+            if rc == 1:
+                del self._ref[b]
+                if not self.is_cached(b):
+                    self._free.append(b)
+            else:
+                self._ref[b] = rc - 1
+
+    def free_cached(self, block: int) -> None:
+        """Return a CACHED-IDLE block to the free list; only the radix
+        cache's eviction calls this, after unregistering the block."""
+        if self._ref.get(block, 0):
+            raise RuntimeError(
+                f"evicting block {block} with refcount "
+                f"{self._ref[block]} — still mapped by a live request")
+        self._free.append(block)
+
+
+class _RadixNode:
+    __slots__ = ("children", "block", "parent", "key", "last_used")
+
+    def __init__(self, parent=None, key=None, block=None):
+        self.children: Dict[tuple, "_RadixNode"] = {}
+        self.parent = parent
+        self.key = key
+        self.block = block
+        self.last_used = 0
+
+
+class RadixPrefixCache:
+    """Radix trie over page-sized prompt-token chunks -> filled KV blocks.
+
+    Each node maps ONE full block of ``page_size`` prompt tokens to the page
+    holding its k/v (one page id covers every layer's pool). ``match`` walks
+    the longest fully cached prefix; ``insert`` registers a request's full
+    prompt blocks (first writer wins: a duplicate chain stays private to
+    its request). Eviction is LRU over refcount-0 leaves, cascading upward,
+    so a cached chain never breaks in the middle."""
+
+    def __init__(self, page_size: int, allocator: BlockAllocator):
+        self.page_size = int(page_size)
+        self.allocator = allocator
+        self.root = _RadixNode()
+        self._by_block: Dict[int, _RadixNode] = {}
+        self._tick = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        allocator.is_cached = self.has_block
+
+    def __len__(self) -> int:
+        return len(self._by_block)
+
+    def has_block(self, block: int) -> bool:
+        return block in self._by_block
+
+    def _chunks(self, tokens) -> List[tuple]:
+        p = self.page_size
+        n = len(tokens) // p
+        return [tuple(int(t) for t in tokens[i * p:(i + 1) * p])
+                for i in range(n)]
+
+    def match(self, tokens) -> List[int]:
+        """Longest-prefix match over FULL blocks: the cached block ids in
+        order (possibly none). Bumps LRU recency along the path; the caller
+        increfs before mapping them into a table."""
+        self._tick += 1
+        node = self.root
+        out: List[int] = []
+        for key in self._chunks(tokens):
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.last_used = self._tick
+            out.append(child.block)
+            node = child
+        if out:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return out
+
+    def insert(self, tokens, blocks: Sequence[int]) -> List[int]:
+        """Register ``blocks[i]`` for the i-th full block of ``tokens``.
+        Existing nodes keep their block. Returns the block ids newly
+        registered."""
+        self._tick += 1
+        node = self.root
+        registered: List[int] = []
+        for key, block in zip(self._chunks(tokens), blocks):
+            child = node.children.get(key)
+            if child is None:
+                child = _RadixNode(parent=node, key=key, block=int(block))
+                node.children[key] = child
+                self._by_block[child.block] = child
+                registered.append(child.block)
+            child.last_used = self._tick
+            node = child
+        return registered
+
+    def evict_lru(self, n: int) -> int:
+        """Evict up to ``n`` blocks, LRU over refcount-0 leaves, cascading
+        to parents as they become leaves. Returns how many blocks went back
+        to the free list."""
+        freed = 0
+        while freed < n:
+            victims = [nd for nd in self._by_block.values()
+                       if not nd.children
+                       and self.allocator.refcount(nd.block) == 0]
+            if not victims:
+                break
+            victim = min(victims, key=lambda nd: nd.last_used)
+            victim.parent.children.pop(victim.key)
+            del self._by_block[victim.block]
+            self.allocator.free_cached(victim.block)
+            self.evictions += 1
+            freed += 1
+        return freed

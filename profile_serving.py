@@ -3,10 +3,12 @@
 
     python3 profile_serving.py        # from the root of a checkout
 
-Builds chip_smoke.py's serving configuration (llama-750M class, bf16, 8
-slots, random weights) and measures the engine's two programs at the
-wave's shapes — the prefill of a group of 4 bucket-length prompts and one
-decode step of 8 rows at context 576 — three ways:
+Builds chip_smoke.py's serving configuration (llama-750M class, bf16,
+random weights) and measures the engine's programs at the waves' shapes —
+the legacy engine's prefill of a group of 4 bucket-length prompts and its
+decode step of 8 rows at context 576, and the fused 128-slot engine's
+decode step (chip_smoke.FUSED_ENGINE: 128 rows from context 88) replayed
+from its CUDA graph and run eagerly — three ways:
 
   - device span: CUDA events around N back-to-back calls (what a caller
     waits for);
@@ -17,7 +19,10 @@ decode step of 8 rows at context 576 — three ways:
     kernels by device time.
 
 busy / span is the device's busy share; where host enqueue is close to the
-span, the host, not the card, sets the pace. Exits non-zero without a
+span, the host, not the card, sets the pace. Last, chip_smoke.py's fused
+wave (256 requests, cold: the radix cache emptied first) runs once
+unprofiled (its wall time) and once under the profiler (device busy over
+the whole wave, its busy share and top kernels). Exits non-zero without a
 CUDA device.
 """
 
@@ -29,11 +34,16 @@ import chip_smoke
 STEPS = 20
 
 
-def measure(torch, name, fn, n, top=8):
+def measure(torch, name, fn, n, top=8, reset=None):
+    """``reset`` (optional) runs before the warm-up, the timed calls and the
+    profiled calls, outside them."""
     from torch.profiler import ProfilerActivity, profile
 
+    reset = reset or (lambda: None)
+    reset()
     for _ in range(3):
         fn()
+    reset()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -45,6 +55,7 @@ def measure(torch, name, fn, n, top=8):
     end.record()
     torch.cuda.synchronize()
     span_ms = start.elapsed_time(end) / n
+    reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -66,6 +77,44 @@ def measure(torch, name, fn, n, top=8):
               f"x{e.count / n:5.0f}  {e.key[:90]}", flush=True)
 
 
+def profile_wave(torch, np, eng, Request, top=12):
+    """The fused cold wave: wall time unprofiled, then device busy time and
+    top kernels under the profiler (the radix cache emptied before each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts, news = chip_smoke._fused_wave(np, eng.model.config.vocab_size)
+
+    def wave():
+        eng._radix.evict_lru(eng._alloc.num_blocks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, k in zip(prompts, news):
+            eng.add_request(Request(p, max_new_tokens=k))
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wave()                                  # warm-up
+    wall_ms = wave()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = wave()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"fused wave cold [{len(prompts)} requests, "
+          f"{sum(news)} tokens]: wall_ms={wall_ms:.1f} (profiled "
+          f"{prof_wall_ms:.1f}) device_busy_ms={busy_ms:.1f} busy_share="
+          f"{busy_ms / prof_wall_ms:.3f} of the profiled wall, "
+          f"{busy_ms / wall_ms:.3f} of the unprofiled; kernels={launches}",
+          flush=True)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    for e in kernels[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms x{e.count:6d}  "
+              f"{e.key[:90]}", flush=True)
+
+
 def main():
     import torch
 
@@ -74,6 +123,9 @@ def main():
         return 1
     import numpy as np
 
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request)
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     card = chip_smoke.card_line()
@@ -96,6 +148,31 @@ def main():
                 lambda: model._decode_chunk(ids, sub, 0, None, None), 5)
         measure(torch, f"decode step [{slots} rows, context {ctx}]",
                 lambda: model.paged_token_step(toks, caches, pos), STEPS)
+    del caches
+    # the fused engine: its wave, then its step with every row active over
+    # its own pages (which overwrites the cache)
+    eng = ContinuousBatchingEngine(
+        model, prefix_cache=PrefixCacheConfig(
+            extra_blocks=chip_smoke.FUSED_EXTRA_BLOCKS),
+        **chip_smoke.FUSED_ENGINE)
+    with torch.no_grad():
+        profile_wave(torch, np, eng, Request)
+    ctx = chip_smoke.FUSED_STEP_CTX
+    for i in range(eng.max_batch):
+        eng._queue_update(i, np.arange(i * eng._maxp, (i + 1) * eng._maxp),
+                          ctx, True)
+    eng._flush_updates()
+
+    def reset():
+        eng._dev_pos.fill_(ctx)
+        eng._step_i.zero_()
+
+    rows = eng.max_batch
+    with torch.no_grad():
+        measure(torch, f"fused decode step replayed [{rows} rows, from "
+                f"context {ctx}]", eng._graph.replay, STEPS, reset=reset)
+        measure(torch, f"fused decode step eager [{rows} rows, from "
+                f"context {ctx}]", eng._fused_step, STEPS, reset=reset)
     return 0
 
 

@@ -14,7 +14,8 @@ bf16 (it is computed in fp32 from bf16 inputs, so only the order of the
 sums differs); the backward's gradients are held to tol x max(1, max
 |plain|) and the grouped matmuls (K5, K6) to tol x max |plain|. The dense
 and MoE train steps on the card are held against the same steps on the CPU
-(fp32, TF32 off).
+(fp32, TF32 off). The fused serving engine's captured decode step is held
+bitwise against the same step run eagerly on the card.
 """
 
 import numpy as np
@@ -22,8 +23,11 @@ import pytest
 import torch
 
 from paddle_tpu_torch.distributed import Engine
+from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                PrefixCacheConfig, Request)
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.ops import (flash_attention, flash_attention_backward,
+from paddle_tpu_torch.ops import (copy_pages, flash_attention,
+                                  flash_attention_backward,
                                   flash_attention_backward_reference,
                                   flash_attention_forward,
                                   flash_attention_reference,
@@ -438,3 +442,178 @@ def test_moe_engine_step_on_card_matches_cpu(cuda):
     for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
         err = (pg.detach().cpu() - pc.detach()).abs().max().item()
         assert err <= 2e-3, (name, err)
+
+
+# a small serving model whose head_dim (64) the paged decode kernel takes
+_SERVE_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=256)
+
+
+def _card_model(cuda, dtype="float32"):
+    """The small model on the CPU and the same weights on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(dtype=dtype, **_SERVE_CFG)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    card = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    return cpu, card
+
+
+def _fused_engine(model, device, **kw):
+    return ContinuousBatchingEngine(
+        model, max_batch=8, max_len=64, page_size=16, block_size=4,
+        fused=True, device=device,
+        prefix_cache=PrefixCacheConfig(prefill_chunk=16, extra_blocks=8),
+        **kw)
+
+
+def _step_state(eng):
+    """Everything a decode step writes: the pools, the token carry, the
+    positions, the token output and its step index."""
+    return ([t for kv in eng.caches["kv"] for t in kv]
+            + [eng._last_tok, eng._dev_pos, eng._out, eng._step_i])
+
+
+def _set_rows(eng, rows, gen):
+    """Activate ``rows`` (slot -> position) over random distinct pages;
+    every other slot parked."""
+    maxp = eng._maxp
+    pages = torch.randperm(eng._park, generator=gen).numpy()
+    for i in range(eng.max_batch):
+        if i in rows:
+            eng._queue_update(i, pages[i * maxp:(i + 1) * maxp], rows[i],
+                              True)
+        else:
+            eng._queue_update(i, None, 0, False)
+    eng._flush_updates()
+
+
+def _replay_vs_eager(eng, steps):
+    """``steps`` graph replays, then the same steps eagerly from the same
+    state: every tensor the step writes must be bitwise equal."""
+    start = [t.clone() for t in _step_state(eng)]
+    for _ in range(steps):
+        eng._graph.replay()
+    replayed = [t.clone() for t in _step_state(eng)]
+    for t, s0 in zip(_step_state(eng), start):
+        t.copy_(s0)
+    with torch.no_grad():
+        for _ in range(steps):
+            eng._fused_step()
+    torch.cuda.synchronize()
+    for a, b in zip(replayed, _step_state(eng)):
+        assert torch.equal(a, b)
+    return replayed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_replay_equals_eager_step_on_card(cuda, dtype):
+    _, card = _card_model(cuda, dtype)
+    eng = _fused_engine(card, cuda)
+    assert eng.stats["graph_captures"] == 1
+    assert eng._graph_k4 == card.config.num_hidden_layers
+    gen = torch.Generator().manual_seed(0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for k, v in eng.caches["kv"]:
+        k.copy_(torch.randn(k.shape, device=cuda, generator=g))
+        v.copy_(torch.randn(v.shape, device=cuda, generator=g))
+    eng._last_tok.copy_(torch.randint(0, 512, (8,), device=cuda,
+                                      generator=g))
+    _set_rows(eng, {0: 9, 3: 30, 5: 17}, gen)
+    eng._step_i.zero_()
+    out = _replay_vs_eager(eng, 3)
+    pos = out[-3]
+    assert pos.tolist() == [12, 0, 0, 33, 0, 20, 0, 0]
+
+
+@pytest.mark.cuda
+def test_replay_after_flush_follows_the_new_state_on_card(cuda):
+    """Tables, positions and the active mask change through
+    _flush_updates (in place); the same graph then replays the new state
+    exactly as an eager step would."""
+    _, card = _card_model(cuda)
+    eng = _fused_engine(card, cuda)
+    gen = torch.Generator().manual_seed(2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for k, v in eng.caches["kv"]:
+        k.copy_(torch.randn(k.shape, device=cuda, generator=g))
+        v.copy_(torch.randn(v.shape, device=cuda, generator=g))
+    _set_rows(eng, {0: 5, 3: 20}, gen)
+    eng._step_i.zero_()
+    _replay_vs_eager(eng, 2)
+    _set_rows(eng, {1: 40, 3: 7, 7: 60}, gen)  # new rows, tables, positions
+    eng._step_i.zero_()
+    pos = _replay_vs_eager(eng, 2)[-3]
+    assert pos.tolist() == [0, 42, 0, 9, 0, 0, 0, 62]
+    assert eng.stats["graph_captures"] == 1
+
+
+@pytest.mark.cuda
+def test_fused_engine_on_card_replays_without_recapture(cuda):
+    """A churning wave (more requests than slots, shared prefixes, a warm
+    re-serve with full-prompt hits): every greedy block replays the one
+    graph, K4 runs its captured launches at each replay, and the streams
+    equal the legacy engine's on the card."""
+    _, card = _card_model(cuda)
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, 512, (16,)).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, 512, (n,)).astype(
+        np.int32)]) for n in (0, 3, 16, 9, 5, 16, 1, 30, 7, 12, 4, 2)]
+    news = [4 + (i % 4) * 3 for i in range(len(prompts))]
+
+    def serve(eng):
+        reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done(max_steps=500)
+        return [r.tokens for r in reqs]
+
+    legacy = serve(ContinuousBatchingEngine(
+        card, max_batch=2, max_len=64, page_size=16, block_size=4,
+        device=cuda))
+    eng = _fused_engine(card, cuda)
+    n0 = paged_decode_attention.launches
+    assert serve(eng) == legacy and serve(eng) == legacy
+    st = eng.stats
+    assert st["graph_captures"] == 1 and st["eager_decode_steps"] == 0
+    assert st["graph_replays"] == st["decode_steps"] > 0
+    assert st["cow_copies"] > 0 and st["hit_tokens"] > 0
+    assert (paged_decode_attention.launches - n0
+            >= st["graph_replays"] * card.config.num_hidden_layers)
+    assert (eng.caches["tables"] == eng._park).all()
+    # a sampled block runs the same step eagerly
+    r = Request(prompts[1], max_new_tokens=5, temperature=0.9, seed=4)
+    eng.add_request(r)
+    eng.run_until_done(max_steps=50)
+    assert len(r.tokens) == 5 and st["eager_decode_steps"] > 0
+
+
+@pytest.mark.cuda
+def test_copy_pages_and_packed_prefill_on_card_match_cpu(cuda):
+    gen = torch.Generator().manual_seed(4)
+    kc, vc = (torch.randn(12, 2, 16, 64, generator=gen) for _ in range(2))
+    ck, cv = kc.clone().to(cuda), vc.clone().to(cuda)
+    for src, dst in ((3, 7), ([1, 2, 9, 9], [5, 6, 9, 9])):
+        copy_pages(kc, vc, src, dst)
+        copy_pages(ck, cv, src, dst)
+        assert torch.equal(ck.cpu(), kc) and torch.equal(cv.cpu(), vc)
+    # packed prefill: two rows of one sequence at starts 0 and 16, one row
+    # of another, and a parked dummy row
+    cpu, card = _card_model(cuda)
+    ids = torch.randint(0, 512, (4, 16), generator=gen)
+    starts = torch.tensor([0, 16, 0, 0], dtype=torch.int32)
+    rows = torch.tensor([[0, 1, 2, 3], [0, 1, 2, 3], [4, 5, 6, 7],
+                         [8, 8, 8, 8]], dtype=torch.int32)
+    out = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        caches = model._init_paged_caches(2, 64, 16, num_blocks=9,
+                                          device=dev)
+        sub = {"kv": caches["kv"], "tables": rows.to(dev)}
+        model.paged_prefill_chunk(ids.to(dev), sub, starts.to(dev))
+        out.append([t.cpu() for kv in caches["kv"] for t in kv])
+    for a, b in zip(*out):
+        assert (a[:8] - b[:8]).abs().max().item() <= 1e-4

@@ -155,9 +155,6 @@ def test_seeded_stream_independent_of_batch_composition(pair):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(fused=True), "fused"),
-    (dict(max_batch=32), "fused"),
-    (dict(prefix_cache=True), "prefix"),
     (dict(speculative=True), "speculative"),
     (dict(kv_cache="int8"), "int8"),
     (dict(mesh=2), "mesh"),
