@@ -57,7 +57,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      differs from its cold one. Prints tokens/s, prefill calls and packed
      rows, cached tokens matched, and the decode step's time replayed and
      eager at 128 rows (CUDA events).
-  8. training parity: a small fp32 Llama (hidden 512, 4/2 heads of 128, 2
+  7b. K4 on int8 pools (QuantizedKVPool: int8 pages, an fp32 absmax scale
+     per (page, kv head); the same kernel, dequantizing in its loop)
+     against the dense-gather version on the same bytes and scales, at the
+     main-path row's shape (bf16 and fp32 q) and the fused decode shape:
+     max abs error within phase 3's tolerances, zero rows zero, two calls
+     bitwise equal; ms, device_ms, cold_ms and the bound from the bytes
+     the call must move (int8 rows, the pages' scales, q, out); then 12
+     launches replayed from a CUDA graph after lengths, tables and scales
+     change in place, bitwise equal to eager calls.
+ 7c. speculative decode and int8 KV: the JAX package's bench_speculative
+     arm (bench.py:1526-1532, :1548-1552) at its TPU widths: the phase-6
+     model, 8 slots, max_len 128, page 16, block 4, fused, prefix cache
+     (73 pages), 16 requests of a random 8-token motif tiled 8 times,
+     max_new (i % 4 + 1) x 16. Four engines on one model (spec off, spec
+     k=4, int8, spec + int8) and twins of the two int8 engines serve the
+     wave cold, then 3 warm waves each, interleaved (best of 3). Prints
+     useful tokens/s, spec steps and replays, acceptance rate, K4 launches
+     on fp and int8 pools, the int8 headroom (bf16 pool bytes over int8
+     pages + scales, from the live tensors), how many spec streams differ
+     from spec-off, and the replayed spec step against the eager one and
+     the replayed greedy step (8 rows from context 96, CUDA events).
+     Checks: every request's token count in every engine; every spec
+     dispatch a replay of the one spec graph; K4-int8 carried every decode
+     step of the int8 engines; identical int8 engines give identical
+     streams; every emitted token within the teacher-forced margin (cold,
+     and each warm stream that differs from its cold one).
+ 8. training parity: a small fp32 Llama (hidden 512, 4/2 heads of 128, 2
      layers, vocab 1024, seq 200) takes 3 Engine steps on the card and on
      the CPU from the same weights; losses, parameters and AdamW moments
      must agree.
@@ -89,7 +115,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      memory, launches per step: K5 48, K6 24, K1-lse/K2/K3 8 each, serving
      K1 0), one step under set_sync_debug_mode (no synchronizing
      operation), then 6 steps at lr 1e-3 on one batch whose loss must fall.
-K4's "launches" in the kernels line counts both serving phases' waves.
+K4's "launches" in the kernels line counts the serving phases' waves on
+fp pools; "paged_decode_int8" counts phase 7c's launches on int8 pools.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -157,6 +184,9 @@ K4_CASES = [
     ("fused", 16, 16, 128, 16, 8, [49 + i * 79 // 127 for i in range(128)]),
 ]
 K4_GRAPH_LAYERS = 12   # one decode step of the serving config's 12 layers
+# K4 on int8 pools (QuantizedKVPool): the main-path row's shape and the
+# fused engine's decode shape, q in bf16 (and fp32 at "main")
+K4_INT8_CASES = [c for c in K4_CASES if c[0] in ("main", "fused")]
 # the repo's serving design point (bench.py bench_serving, llama-750M
 # class) at full width and depth
 SERVE_CONFIG = dict(vocab_size=32000, hidden_size=2048,
@@ -177,6 +207,18 @@ FUSED_ENGINE = dict(max_batch=128, max_len=128, page_size=16, block_size=16,
                     fused=True)
 FUSED_EXTRA_BLOCKS = 128
 FUSED_REQUESTS, FUSED_PROMPT, FUSED_SHARED, FUSED_MAX_NEW = 256, 64, 48, 64
+# the JAX package's speculative / int8-KV arm (bench.py bench_speculative,
+# :1526-1532 and :1548-1552) at its TPU widths: the SERVE_CONFIG model, 8
+# slots, max_len 128 (prompt 64 + max_new 64), page 16, block 4, fused,
+# prefix cache with 8 extra blocks (73 pages), SpecConfig(k=4); 16 requests,
+# each a random 8-token motif tiled 8 times, max_new_tokens (i % 4 + 1) * 16
+SPEC_ENGINE = dict(max_batch=8, max_len=128, page_size=16, block_size=4,
+                   fused=True)
+SPEC_EXTRA_BLOCKS, SPEC_K = 8, 4
+SPEC_MOTIF, SPEC_REPS, SPEC_MAX_NEW = 8, 8, 64
+SPEC_TIMED = 3          # best-of-3 waves a engine, interleaved
+# context of the spec-step timing: the wave's mean (64 + 64 / 2)
+SPEC_STEP_CTX = 96
 # context of the decode-step timing: the wave's mean (64 + 40 / 2 ~ 84-96)
 FUSED_STEP_CTX = 88
 # the headline training config (bench.py:2013-2019) at full width and
@@ -238,6 +280,7 @@ def _kernel_name(mangled):
     name, rest = mangled[j:j + int(n.group(1))], mangled[j + int(n.group(1)):]
     args = (["float"] if rest.startswith("If") else []) + \
         (["bf16"] if rest.startswith("I13__nv_bfloat16") else []) + \
+        (["int8"] if re.match(r"I(f|13__nv_bfloat16)a", rest) else []) + \
         re.findall(r"Li(\d+)E", rest.split("EEv")[0])
     return f"{name}<{','.join(args)}>"
 
@@ -494,6 +537,135 @@ def phase_k4_graph(torch, ops, gen):
     if not same:
         raise AssertionError("K4: the CUDA graph's replay differs from eager "
                              "calls")
+
+
+def _k4_int8_inputs(torch, ops, gen, dtype, hq, hkv, d, page, maxp,
+                    lens_list):
+    """_k4_inputs with int8 pools: random bytes in [-127, 127] and random
+    per-(page, kv head) scales in [0.5, 3)."""
+    q, _, _, tables, lens = _k4_inputs(torch, gen, dtype, hq, hkv, d, page,
+                                       maxp, lens_list)
+    npages = tables.numel()
+
+    def pool():
+        data = torch.randint(-127, 128, (npages, hkv, page, d), device=DEVICE,
+                             generator=gen, dtype=torch.int32).to(torch.int8)
+        scale = 0.5 + 2.5 * torch.rand(npages, hkv, device=DEVICE,
+                                       generator=gen)
+        return ops.QuantizedKVPool(data, scale)
+
+    return q, pool(), pool(), tables, lens
+
+
+def k4_int8_bytes(q, hkv, d, page, lens_list, tables):
+    """Bytes K4 must move on int8 pools: the int8 K and V rows the lengths
+    need, the two fp32 scales of each page read, q in and out, the tables
+    and the lengths."""
+    ntok = sum(lens_list)
+    pages = sum(-(-n // page) for n in lens_list)
+    return (2 * ntok * hkv * d + 2 * pages * hkv * 4
+            + 2 * q.numel() * q.element_size() + tables.numel() * 4
+            + len(lens_list) * 4)
+
+
+def phase_k4_int8(torch, ops):
+    """K4 on int8 pools against its plain version (the dense gather that
+    dequantizes) at K4_INT8_CASES, then replayed from a CUDA graph; returns
+    the main-path row (bf16 q, "main")."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    row = None
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        for name, hq, hkv, d, page, maxp, lens_list in K4_INT8_CASES:
+            if dname == "float32" and name != "main":
+                continue
+            args = _k4_int8_inputs(torch, ops, gen, dtype, hq, hkv, d, page,
+                                   maxp, lens_list)
+            q = args[0]
+            out = ops.paged_decode_attention(*args)
+            again = ops.paged_decode_attention(*args)
+            ref = ops.paged_decode_reference(*args)
+            sync()
+            err = (out.float() - ref.float()).abs().max().item()
+            same = torch.equal(out, again)
+            zero_ok = all(out[i].abs().max().item() == 0.0
+                          for i, n in enumerate(lens_list) if n == 0)
+            ms = cuda_ms(lambda: ops.paged_decode_attention(*args), 50, 5)
+            dev_ms = device_ms(torch, lambda: ops.paged_decode_attention(*args),
+                               50, 5)
+            plain_ms = cuda_ms(lambda: ops.paged_decode_reference(*args), 5, 1)
+            flops = 4 * d * hq * sum(lens_list)
+            nbytes = k4_int8_bytes(q, hkv, d, page, lens_list, args[3])
+            bound_ms, bound_by = bound(flops, nbytes, dname)
+            # pages cold in L2, as phase_k4 measures them
+            sets = [args] + [
+                _k4_int8_inputs(torch, ops, gen, dtype, hq, hkv, d, page,
+                                maxp, lens_list)
+                for _ in range(-(-L2_BYTES * 2 // nbytes))]
+            turn = itertools.cycle(sets)
+            cold_ms = device_ms(torch, lambda: ops.paged_decode_attention(
+                *next(turn)), 50, 5)
+            del sets
+            print(f"k4_int8 case={name} dtype={dname} rows={len(lens_list)} "
+                  f"heads={hq}/{hkv} d={d} page={page} pages_per_row={maxp} "
+                  f"max_abs_err={err:.3e} ms={ms:.4f} "
+                  f"device_ms={dev_ms:.4f} cold_ms={cold_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms=null "
+                  f"bound_ms={bound_ms:.5f} bound_by={bound_by} "
+                  f"bytes={nbytes} share_of_bound={bound_ms / dev_ms:.3f} "
+                  f"cold_share_of_bound={bound_ms / cold_ms:.3f} "
+                  f"zero_rows_zero={zero_ok} bitwise_repeat={same}",
+                  flush=True)
+            if not (err <= TOL[dname] and zero_ok and same):
+                raise AssertionError(f"K4 int8 {name} {dname}: max abs "
+                                     f"error {err} (tol {TOL[dname]}), zero "
+                                     f"rows zero {zero_ok}, bitwise repeat "
+                                     f"{same}")
+            if dname == "bfloat16" and name == "main":
+                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None, device_ms=dev_ms,
+                           cold_ms=cold_ms)
+            del args, q, out, again, ref
+    phase_k4_int8_graph(torch, ops, gen)
+    return row
+
+
+def phase_k4_int8_graph(torch, ops, gen):
+    """As phase_k4_graph on int8 pools: K4_GRAPH_LAYERS launches captured,
+    replayed after the lengths, tables and scales are rewritten in place,
+    bitwise equal to eager calls."""
+    name, hq, hkv, d, page, maxp, lens_list = next(c for c in K4_CASES
+                                                   if c[0] == "wave")
+    q, kc, vc, tables, lens = _k4_int8_inputs(torch, ops, gen,
+                                              torch.bfloat16, hq, hkv, d,
+                                              page, maxp, lens_list)
+    qs = [torch.randn(q.shape, device=DEVICE, generator=gen).to(q.dtype)
+          for _ in range(K4_GRAPH_LAYERS)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in qs:
+            ops.paged_decode_attention(x, kc, vc, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.paged_decode_attention(x, kc, vc, tables, lens)
+                for x in qs]
+    lens.copy_(lens.flip(0) - 1)   # new lengths, tables and scales
+    tables.copy_(tables.flip(0))
+    kc.scale.mul_(1.5)
+    graph.replay()
+    eager = [ops.paged_decode_attention(x, kc, vc, tables, lens) for x in qs]
+    sync()
+    same = all(torch.equal(o, e) for o, e in zip(outs, eager))
+    replay_ms = device_ms(torch, graph.replay, 20, 3) / K4_GRAPH_LAYERS
+    print(f"k4_int8_graph case={name} launches={K4_GRAPH_LAYERS} "
+          f"replay_bitwise_equal={same} "
+          f"replay_device_ms_per_launch={replay_ms:.4f}", flush=True)
+    if not same:
+        raise AssertionError("K4 int8: the CUDA graph's replay differs from "
+                             "eager calls")
 
 
 def _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d):
@@ -1381,6 +1553,195 @@ def phase_serving_fused(torch, np, ops, card):
     return waves["cold"][1] + waves["warm"][1]
 
 
+def _pool_bytes(eng):
+    """Bytes of an engine's live K/V pools (int8 pages and their scales,
+    or the fp pages)."""
+    total = 0
+    for pair in eng.caches["kv"]:
+        for side in pair:
+            for t in (side.data, side.scale) if hasattr(side, "scale") \
+                    else (side,):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def phase_serving_spec(torch, np, ops, card):
+    """bench_speculative's arm at SPEC_ENGINE: four engines on one model
+    (spec off, spec on, int8, spec + int8) and two twins (int8, spec +
+    int8) serve the same 16-request wave, cold, then SPEC_TIMED warm waves
+    each, interleaved. Returns (K4 launches on fp pools, K4 launches on
+    int8 pools) in those waves."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request, SpecConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SERVE_CONFIG)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, (SPEC_MOTIF,)).astype(
+        np.int32), SPEC_REPS) for _ in range(2 * SPEC_ENGINE["max_batch"])]
+    news = [(i % 4 + 1) * SPEC_MAX_NEW // 4 for i in range(len(prompts))]
+    useful = sum(news)
+    kinds = {"spec_off": {}, "spec": dict(speculative=SpecConfig(k=SPEC_K)),
+             "int8": dict(kv_cache="int8"),
+             "spec_int8": dict(speculative=SpecConfig(k=SPEC_K),
+                               kv_cache="int8")}
+    twins = {"int8_twin": "int8", "spec_int8_twin": "spec_int8"}
+
+    def build(name):
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=SPEC_EXTRA_BLOCKS),
+            **SPEC_ENGINE, **kinds[twins.get(name, name)])
+
+    engines = {n: build(n) for n in list(kinds) + list(twins)}
+    sync()
+    print(f"spec serving setup: {len(engines)} engines of "
+          f"{engines['spec']._park + 1} pages, "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    L = cfg.num_hidden_layers
+    fails = []
+    for name, eng in engines.items():
+        st = eng.stats
+        want = 2 if eng._spec is not None else 1
+        if st["graph_captures"] + st["spec_graph_captures"] != want:
+            fails.append(f"{name}: {st['graph_captures']} greedy and "
+                         f"{st['spec_graph_captures']} spec captures")
+
+    def wave(eng):
+        """One wave through ``eng``: (streams, seconds, K4 launches fp and
+        int8 during it)."""
+        reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+        k0 = (ops.paged_decode_attention.launches,
+              ops.paged_decode_attention.int8_launches)
+        sync()
+        t = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done(max_steps=40000)
+        sync()
+        dt = time.perf_counter() - t
+        n_all = ops.paged_decode_attention.launches - k0[0]
+        n8 = ops.paged_decode_attention.int8_launches - k0[1]
+        bad = [r.rid for r, k in zip(reqs, news)
+               if r.failed or len(r.output) != k]
+        if bad:
+            fails.append(f"requests {bad} did not get their token counts")
+        return [list(r.output) for r in reqs], dt, (n_all - n8, n8)
+
+    ops.paged_decode_attention.launches = 0
+    ops.paged_decode_attention.int8_launches = 0
+    cold, best, k4 = {}, {}, {}
+    for name, eng in engines.items():     # cold: radix empty
+        for k in eng.stats:
+            if k not in ("graph_captures", "spec_graph_captures",
+                         "compile_cache_entries"):
+                eng.stats[k] = 0.0 if k.endswith("_s") else 0
+        cold[name], _, k4[name] = wave(eng)
+    warm = {}
+    for _ in range(SPEC_TIMED):           # warm, interleaved, best-of
+        for name in kinds:
+            warm[name], dt, n = wave(engines[name])
+            best[name] = min(best.get(name, float("inf")), dt)
+            k4[name] = tuple(a + b for a, b in zip(k4[name], n))
+    k4_fp = ops.paged_decode_attention.launches \
+        - ops.paged_decode_attention.int8_launches
+    k4_int8 = ops.paged_decode_attention.int8_launches
+
+    headroom = _pool_bytes(engines["spec_off"]) / _pool_bytes(
+        engines["int8"])
+    for name in kinds:
+        st = engines[name].stats
+        rate = st["spec_accepted"] / max(1, st["spec_proposed"])
+        print(f"spec serving {name} [{card}]: useful_tokens_per_s="
+              f"{useful / best[name]:.1f} ({useful} tokens, best of "
+              f"{SPEC_TIMED} warm waves {best[name]:.3f}s) spec_steps="
+              f"{st['spec_steps']} spec_graph_replays="
+              f"{st['spec_graph_replays']} eager_spec_steps="
+              f"{st['eager_spec_steps']} acceptance_rate={rate:.4f} "
+              f"({st['spec_accepted']}/{st['spec_proposed']}) decode_steps="
+              f"{st['decode_steps']} graph_replays={st['graph_replays']} "
+              f"eager_decode_steps={st['eager_decode_steps']} "
+              f"k4_launches_fp={k4[name][0]} k4_launches_int8={k4[name][1]} "
+              f"pool_bytes={_pool_bytes(engines[name])} "
+              f"int8_kv_headroom={headroom:.4f}", flush=True)
+        if engines[name]._spec is not None and (
+                st["eager_spec_steps"] != 0 or st["spec_steps"] == 0
+                or st["spec_graph_replays"] != st["spec_steps"]):
+            fails.append(f"{name}: spec dispatches must all replay the spec "
+                         f"graph: {st}")
+        if st["eager_decode_steps"] != 0:
+            fails.append(f"{name}: {st['eager_decode_steps']} eager decode "
+                         "steps")
+        quant = engines[name]._kv_dtype == "int8"
+        if quant and (k4[name][0] != 0 or k4[name][1]
+                      < st["graph_replays"] * L or k4[name][1] == 0):
+            fails.append(f"{name}: K4-int8 did not carry the decode steps "
+                         f"(k4 {k4[name]}, replays {st['graph_replays']})")
+
+    # streams: spec against spec off, twins against each other, warm
+    # against cold; every emitted token teacher-forced against the dense
+    # forward
+    def differ(a, b):
+        return sum(x != y for x, y in zip(a, b))
+
+    spec_vs_off = differ(cold["spec"], cold["spec_off"])
+    spec8_vs_int8 = differ(cold["spec_int8"], cold["int8"])
+    twin_diff = {t: differ(cold[t], cold[src]) for t, src in twins.items()}
+    warm_diff = {n: differ(warm[n], cold[n]) for n in kinds}
+    print(f"spec streams [{card}]: {spec_vs_off} of {len(prompts)} spec "
+          f"streams differ from spec-off; {spec8_vs_int8} spec+int8 from "
+          f"int8; identical int8 engines differ in "
+          f"{twin_diff['int8_twin']} (int8) and "
+          f"{twin_diff['spec_int8_twin']} (spec+int8) streams; warm differs "
+          f"from cold in {warm_diff}", flush=True)
+    if any(twin_diff.values()):
+        fails.append(f"identical int8 engines differ: {twin_diff}")
+    for name in kinds:
+        outs = cold[name] + [w for w, c in zip(warm[name], cold[name])
+                             if w != c]
+        ps = prompts + [p for p, w, c in zip(prompts, warm[name], cold[name])
+                        if w != c]
+        worst, top1, n = _teacher_forced(torch, np, model, ps, outs)
+        print(f"spec teacher-forced {name}: worst (max logit - emitted "
+              f"logit) = {worst:.4f} (margin {MARGIN}); the emitted token "
+              f"is the dense argmax for {top1} of {n}", flush=True)
+        if not worst <= MARGIN:
+            fails.append(f"{name}: an emitted token trails the maximum "
+                         f"logit by {worst} > {MARGIN}")
+
+    # the spec step at the wave's shape: every row active at context
+    # SPEC_STEP_CTX over its own pages, one token emitted a replay (the
+    # verify window is computed whole whatever the caps)
+    eng = engines["spec"]
+    maxp = eng._maxp
+    for i in range(eng.max_batch):
+        eng._queue_update(i, np.arange(i * maxp, (i + 1) * maxp),
+                          SPEC_STEP_CTX, True,
+                          hist=eng._spec_seed(prompts[i]))
+    eng._flush_updates()
+    eng._dev_caps.fill_(1)
+
+    def timed(fn):
+        eng._dev_pos.fill_(SPEC_STEP_CTX)
+        eng._step_i.zero_()
+        with torch.no_grad():
+            return cuda_ms(fn, 20, 3)
+
+    spec_replay = timed(eng._spec_graph.replay)
+    spec_eager = timed(eng._spec_step)
+    greedy_replay = timed(eng._graph.replay)
+    print(f"spec step [{card}]: replayed_ms={spec_replay:.4f} "
+          f"eager_ms={spec_eager:.4f} greedy_replayed_ms={greedy_replay:.4f} "
+          f"({eng.max_batch} rows from context {SPEC_STEP_CTX}, window "
+          f"{SPEC_K + 1}, {L} layers)", flush=True)
+    if fails:
+        raise AssertionError("spec serving: " + "; ".join(fails))
+    return k4_fp, k4_int8
+
+
 def main():
     import torch
 
@@ -1414,6 +1775,9 @@ def main():
     k2, k3 = phase_k2k3(torch, F, ops)
     k1_launches, k4_launches = phase_serving(torch, np, ops, card)
     k4_launches += phase_serving_fused(torch, np, ops, card)
+    k4_int8 = phase_k4_int8(torch, ops)
+    k4_fp_spec, k4_int8_launches = phase_serving_spec(torch, np, ops, card)
+    k4_launches += k4_fp_spec
     phase_train_parity(torch, np, ops)
     lse_launches, k2_launches, k3_launches = phase_train_full(torch, np, ops,
                                                               card)
@@ -1442,6 +1806,10 @@ def main():
              source="paddle_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="paddle_tpu/ops/paged_attention.py:174",
              launches=k4_launches, **k4),
+        dict(name="paged_decode_int8", route="cuda",
+             source="paddle_tpu_torch/ops/csrc/paged_decode.cu",
+             replaces="paddle_tpu/ops/paged_attention.py:174",
+             launches=k4_int8_launches, **k4_int8),
         dict(name="pgmm", route="cuda",
              source="paddle_tpu_torch/ops/csrc/grouped_matmul.cu",
              replaces="paddle_tpu/ops/grouped_matmul.py:38",

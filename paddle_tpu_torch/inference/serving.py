@@ -1,6 +1,7 @@
 """Continuous-batching serving engine over paged KV caches — port of
 ``paddle_tpu/inference/serving.py`` (the legacy engine, the prefix cache
-with chunked prefill, and the fused mega-step).
+with chunked prefill, the fused mega-step, speculative decoding and the
+int8 KV block format).
 
 Design (the JAX engine's programs, run on the device):
   - ``max_batch`` slots share per-layer page pools sized
@@ -38,6 +39,22 @@ Design (the JAX engine's programs, run on the device):
     runs it eagerly too (the sampler seeds a host generator per row).
     Packed prefill (``_run_pack``) advances several (slot, chunk) rows in
     one call.
+  - SPEC (``speculative=SpecConfig(k=...)``, fused engines): a block
+    whose live rows are all greedy and have room for a K+1 window runs one
+    speculative dispatch instead (``_spec_step``): a device-resident
+    n-gram drafter proposes K tokens from each row's history ring, the
+    window runs through the model's ``paged_verify_step`` and the longest
+    draft prefix equal to the verify argmaxes, plus one bonus token, is
+    emitted. On the card the step is a second CUDA graph captured beside
+    the greedy one; each dispatch reads back only the [B] emit vector.
+    Other blocks take the ordinary step.
+  - INT8 KV (``kv_cache="int8"`` or ``KVCacheConfig(dtype="int8")``): the
+    pools are ``QuantizedKVPool`` (int8 pages, one absmax scale per (page,
+    kv head)), quantized on append and dequantized on read; the decode
+    kernel K4 dequantizes inside its loop. Freshly allocated blocks are
+    cleared of their previous scales (``_reset_quant_blocks``), so
+    recycled pages never shape a new request's quantization. Streams are
+    deterministic, and may differ from an fp engine's (int8 is lossy).
   - SAMPLE: per-request temperature / top-p / top-k / seed. Each sampled
     row draws with a generator seeded from ``(seed, token position)``, so
     a request's stream is independent of batching and arrival order.
@@ -47,9 +64,22 @@ Design (the JAX engine's programs, run on the device):
     references is never freed).
 
 Greedy token streams equal the JAX engine's on the same weights (fp32, CPU
-tests), with and without the prefix cache and the fused step. Speculative
-decode, int8 KV, the tp mesh, brownout and tracing are later slices:
-asking for any of them raises ``NotImplementedError``.
+tests), with and without the prefix cache and the fused step, with
+speculative decoding and with int8 pools. MoE serving, the tp mesh,
+brownout and tracing are later slices: asking for any of them raises
+``NotImplementedError``.
+
+Speculative == non-speculative greedy streams. The JAX package pins them
+byte-identical; in the port it holds where both paths compute the same
+logits. On the CPU in fp32 they share the gather math, and the streams are
+equal byte for byte (tests). On the card the two differ: a decode step
+runs K4, the verify step the plain prefill gather, and the verify
+matrix products run at M = B * (K+1) rows against B. In fp32 the streams
+are still required to be equal (a card test at a small model). In bf16 the
+logits differ in their last bits and near-ties can flip a token: the
+contract there is the teacher-forced check (every emitted token within a
+margin of its position's maximum logit), and the count of streams that
+differ is reported beside the card's name (``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -71,7 +101,9 @@ from ..ops.paged_attention import (BlockAllocator, RadixPrefixCache,
                                    copy_pages, paged_decode_attention)
 
 __all__ = ["BlockAllocator", "ContinuousBatchingEngine", "EngineSaturated",
-           "PrefixCacheConfig", "RadixPrefixCache", "Request", "RequestShed"]
+           "KVCacheConfig", "PrefixCacheConfig", "RadixPrefixCache",
+           "Request", "RequestShed", "SpecConfig", "ngram_draft",
+           "spec_accept"]
 
 
 class EngineSaturated(RuntimeError):
@@ -103,6 +135,117 @@ class PrefixCacheConfig:
     prefill_chunk: Optional[int] = None
     extra_blocks: int = 0
     pack_rows: Optional[int] = None
+
+
+@dataclasses.dataclass
+class SpecConfig:
+    """Knobs for speculative multi-token decoding in the fused engine
+    (``ContinuousBatchingEngine(speculative=...)``).
+
+    - ``k``: draft tokens proposed and verified per dispatch; a dispatch
+      emits 1 to k + 1 tokens a row (the accepted draft prefix plus one
+      bonus token from the verify logits).
+    - ``ngram``: match length of the device-resident prompt-lookup
+      drafter: the row's last ``ngram`` tokens are searched in its history
+      ring, and the tokens after the most recent match become the draft.
+    - ``history``: per-slot ring length (tokens) the drafter searches,
+      seeded from the prompt at activation.
+    - ``_unsafe_accept_all``: test-only: skip the argmax verification and
+      trust every draft, which shows the silent greedy divergence the
+      verify exists to prevent. Never enable.
+
+    Greedy output equals the non-speculative step's as far as the two
+    paths compute the same logits: drafts change how many tokens a
+    dispatch emits, never which (see the engine's docstring for where the
+    two paths' bf16 logits differ on the card). Blocks with a sampled row
+    keep the ordinary step. With ``KVCacheConfig(dtype="int8")`` rejected
+    drafts' appends feed the blocks' monotone scales, so spec+int8 streams
+    may differ from non-spec int8 streams in the last quantization bit;
+    identical spec+int8 engines and warm re-admissions still reproduce the
+    same bytes."""
+
+    k: int = 4
+    ngram: int = 2
+    history: int = 64
+    _unsafe_accept_all: bool = False
+
+
+@dataclasses.dataclass
+class KVCacheConfig:
+    """Paged-KV pool storage format (``ContinuousBatchingEngine(
+    kv_cache=...)``). ``dtype="int8"`` switches every pool to the int8
+    block format (``ops.paged_attention.QuantizedKVPool``: int8 pages with
+    one absmax scale per (page, kv head), quantize-on-append,
+    dequantize-on-read): pool bytes drop to about half of bf16's. Composes
+    with copy-on-write (the scales copy with the page) and the radix
+    prefix cache."""
+
+    dtype: Optional[str] = None
+
+    def __post_init__(self):
+        if self.dtype not in (None, "param", "int8"):
+            raise ValueError(f"unsupported KV cache dtype {self.dtype!r} "
+                             "(supported: None/'param', 'int8')")
+
+
+def ngram_draft(hist, hlen, last_tok, k: int, n: int):
+    """Device-resident prompt-lookup drafter (no draft model, no host
+    read): ``k`` draft tokens per row from its history ring.
+
+    ``hist`` [B, H] ring of emitted tokens (global index g at slot g % H),
+    ``hlen`` [B] tokens written so far, ``last_tok`` [B] the newest token
+    (not yet in the ring: the sequence is ``hist-window ++ last_tok``). The
+    row's last ``n`` tokens are matched against every earlier window; the
+    ``k`` tokens after the MOST RECENT match are the draft. No match (or
+    under ``n`` tokens of history) repeats ``last_tok``: drafts change how
+    many tokens a dispatch emits, never which. Fixed shapes and no host
+    read, so a CUDA graph can capture it. Returns [B, k] in
+    ``last_tok``'s dtype."""
+    H = hist.shape[1]
+    dev = hist.device
+    last_tok = last_tok.to(hist.dtype)
+    g = hlen.long()[:, None] - H + torch.arange(H, device=dev)[None, :]
+    # torch.remainder takes the divisor's sign, as jnp.mod does (fmod
+    # would not)
+    lin = hist.gather(1, torch.remainder(g, H))
+    lin = torch.cat([lin, last_tok[:, None]], dim=1)          # [B, H + 1]
+    L = H + 1
+    tail = lin[:, L - n:]                                     # the n-gram
+    J = L - n                                                 # starts
+    win_idx = (torch.arange(J, device=dev)[:, None]
+               + torch.arange(n, device=dev)[None, :])
+    wins = lin[:, win_idx]                                    # [B, J, n]
+    match = (wins == tail[:, None, :]).all(dim=-1)            # [B, J]
+    valid = (g >= 0)[:, :J]
+    jv = torch.where(match & valid, torch.arange(J, device=dev)[None, :],
+                     -1)
+    jbest = jv.amax(dim=1)
+    has = (jbest >= 0) & (hlen >= n)
+    cont = (jbest[:, None] + n
+            + torch.arange(k, device=dev)[None, :]).clamp(0, L - 1)
+    drafts = lin.gather(1, cont)
+    return torch.where(has[:, None], drafts, last_tok[:, None])
+
+
+def spec_accept(drafts, targets, caps):
+    """Accept/reject of greedy speculative decoding, on the device.
+
+    ``drafts`` [B, K] proposed tokens, ``targets`` [B, K+1] the argmax
+    token after each verify-window position (draft i is right iff it
+    equals ``targets[:, i]`` and every earlier draft was right), ``caps``
+    [B] >= 0 the per-row emission budget (0 masks a row). Returns ``(out
+    [B, K+1], emit [B], n_acc [B])``: the emitted tokens are
+    ``out[:, :emit]``, the accepted drafts plus ONE bonus token (the
+    model's own next token after the last accepted one)."""
+    K = drafts.shape[1]
+    match = drafts == targets[:, :K]
+    n_acc = torch.cumprod(match.long(), dim=1).sum(dim=1)     # [B] 0..K
+    emit = torch.minimum(n_acc + 1, caps.long().clamp_min(0))
+    bonus = targets.gather(1, n_acc[:, None])
+    padded = torch.cat([drafts, bonus], dim=1)                # [B, K+1]
+    keep = (torch.arange(K + 1, device=drafts.device)[None, :]
+            < n_acc[:, None])
+    return torch.where(keep, padded, bonus), emit, n_acc
 
 
 class Request:
@@ -175,6 +318,23 @@ class Request:
         return self.output
 
 
+def _k4_counts():
+    """K4's launch counters: (launches on any pool, on int8 pools)."""
+    return (paged_decode_attention.launches,
+            paged_decode_attention.int8_launches)
+
+
+def _set_k4(counts):
+    paged_decode_attention.launches, \
+        paged_decode_attention.int8_launches = counts
+
+
+def _add_k4(delta, times: int = 1):
+    """Credit K4 with ``times`` replays of a graph that captured ``delta``
+    launches."""
+    _set_k4(tuple(c + times * d for c, d in zip(_k4_counts(), delta)))
+
+
 def _later_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} slice "
@@ -184,7 +344,13 @@ def _later_slice(what: str, slice_name: str) -> NotImplementedError:
 class ContinuousBatchingEngine:
     """Continuous batching (module docstring) on ``device`` (default: the
     CUDA device; raises without one unless ``device="cpu"``). The model
-    must already live on that device."""
+    must already live on that device.
+
+    ``speculative=SpecConfig(k=4)`` (needs ``fused=True``) and
+    ``kv_cache="int8"`` compose with each other and with the prefix cache.
+    Speculative greedy streams equal the non-speculative engine's byte for
+    byte on the CPU and on the card in fp32; in bf16 on the card they may
+    differ at near-ties of the last logit bits (module docstring)."""
 
     def __init__(self, model, max_batch: int = 8, max_len: int = 512,
                  page_size: int = 64, block_size: int = 8,
@@ -204,13 +370,6 @@ class ContinuousBatchingEngine:
         if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
             raise _later_slice("serving an MoE model (num_experts > 1)",
                                "MoE-serving")
-        if speculative:
-            raise _later_slice("speculative decoding", "speculative-decode")
-        kv_dtype = getattr(kv_cache, "dtype", kv_cache)
-        if kv_dtype == "int8":
-            raise _later_slice("kv_cache='int8'", "int8-KV")
-        if kv_dtype not in (None, "param"):
-            raise ValueError(f"unsupported KV cache dtype {kv_dtype!r}")
         if mesh is not None:
             raise _later_slice("mesh-sharded serving", "tp-sharded serving")
         if brownout:
@@ -242,6 +401,31 @@ class ContinuousBatchingEngine:
         self.prefix_cache = prefix_cache
         # the JAX engine's default: the fused mega-step at big batch
         self._fused = (max_batch >= 32) if fused is None else bool(fused)
+        # speculative decoding: a device-resident n-gram drafter and one
+        # K+1-wide verify step per dispatch, over the fused engine's state
+        if speculative is True:
+            speculative = SpecConfig()
+        elif not speculative:
+            speculative = None
+        self._spec = speculative
+        if speculative is not None:
+            if not self._fused:
+                raise ValueError(
+                    "speculative decoding needs the fused mega-step "
+                    "(fused=True): the drafter and verify state live on the "
+                    "device")
+            if speculative.k < 1 or speculative.ngram < 1:
+                raise ValueError("SpecConfig.k and .ngram must be >= 1")
+            if speculative.history < speculative.ngram + speculative.k:
+                raise ValueError(
+                    f"SpecConfig.history {speculative.history} too short for "
+                    f"ngram {speculative.ngram} + k {speculative.k}")
+        # the int8 paged-KV block format (QuantizedKVPool pools)
+        if isinstance(kv_cache, str):
+            kv_cache = KVCacheConfig(dtype=kv_cache)
+        elif kv_cache is None:
+            kv_cache = KVCacheConfig()
+        self._kv_dtype = "int8" if kv_cache.dtype == "int8" else None
         # bound on distinct dispatch shapes (prefill groups, chunk widths,
         # decode blocks), warned past, as the JAX engine warns on its
         # compile cache
@@ -269,7 +453,7 @@ class ContinuousBatchingEngine:
             # block another request may share
             self.caches = model._init_paged_caches(
                 max_batch, max_len, page_size, num_blocks=n_blocks + 1,
-                device=self.device)
+                kv_dtype=self._kv_dtype, device=self.device)
             self._park = n_blocks
             self._alloc = BlockAllocator(n_blocks)
             self._radix = RadixPrefixCache(page_size, self._alloc)
@@ -288,6 +472,7 @@ class ContinuousBatchingEngine:
         else:
             self.caches = model._init_paged_caches(max_batch, max_len,
                                                    page_size,
+                                                   kv_dtype=self._kv_dtype,
                                                    device=self.device)
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._occupied: Dict[int, Request] = {}
@@ -307,6 +492,7 @@ class ContinuousBatchingEngine:
         self._topks = np.zeros(max_batch, np.int32)
         self._seeds = np.zeros(max_batch, np.int64)
         self._graph = None
+        self._spec_graph = None
         if self._fused:
             # device-resident step state, changed only in place by
             # _flush_updates: positions, active mask, sampling params (and,
@@ -332,18 +518,42 @@ class ContinuousBatchingEngine:
             self._out = torch.zeros((max_batch, max_len), dtype=torch.long,
                                     device=dev)
             self._step_i = torch.zeros(1, dtype=torch.long, device=dev)
+            if self._spec is not None:
+                # drafter state: per-slot history ring with one spare
+                # column (index ``history``), where the spec step sends the
+                # ring writes of tokens it does not emit, and the written
+                # count; the emission caps, filled in place before each
+                # dispatch; and the step's outputs
+                K, H = self._spec.k, self._spec.history
+                self._dev_hist = torch.zeros((max_batch, H + 1),
+                                             dtype=torch.long, device=dev)
+                self._dev_hlen = torch.zeros(max_batch, dtype=torch.long,
+                                             device=dev)
+                self._dev_caps = torch.zeros(max_batch, dtype=torch.int32,
+                                             device=dev)
+                self._spec_out = torch.zeros((max_batch, K + 1),
+                                             dtype=torch.long, device=dev)
+                self._spec_emit = torch.zeros(max_batch, dtype=torch.long,
+                                              device=dev)
         self._queue: collections.deque = collections.deque()
         self._finished: Dict[int, Request] = {}
         # deadline-carrying requests in the system: the expiry scan is a
         # single int check when zero
         self._n_deadlined = 0
         # host-side accounting (admission vs decode dispatch time) and work
-        # counts. decode_steps == graph_replays + eager_decode_steps.
+        # counts. decode_steps == graph_replays + eager_decode_steps, and
+        # spec_steps == spec_graph_replays + eager_spec_steps.
         self.stats = {"admit_host_s": 0.0, "decode_host_s": 0.0,
                       "compile_cache_entries": 0, "shed": 0,
                       "prefill_groups": 0, "decode_steps": 0,
                       "fused_updates": 0, "graph_captures": 0,
-                      "graph_replays": 0, "eager_decode_steps": 0}
+                      "graph_replays": 0, "eager_decode_steps": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_steps": 0, "spec_graph_captures": 0,
+                      "spec_graph_replays": 0, "eager_spec_steps": 0}
+        # pool pages held in the int8 block format (0 on fp engines)
+        self._kv_quant_blocks = (int(self.caches["kv"][0][0].shape[0])
+                                 if self._kv_dtype == "int8" else 0)
         if prefix_cache is not None:
             self.stats.update(hit_tokens=0, miss_tokens=0, cow_copies=0,
                               evictions=0, prefill_host_s=0.0,
@@ -516,6 +726,15 @@ class ContinuousBatchingEngine:
                         and i in self._prefill_next)]
         if not live:
             return
+        if (self._spec is not None
+                and not any(r.temperature > 0.0 for _, r in live)
+                and all(self.max_len - int(self._pos[i]) >= self._spec.k
+                        for i, _ in live)):
+            # an all-greedy block with room for the K+1 window on every row
+            # (it writes k/v at positions pos-1 .. pos-1+K): one speculative
+            # dispatch. Sampled rows and rows near max_len take the
+            # ordinary step.
+            return self._decode_spec_block(live)
         # block length: never decode past a request's max_new_tokens or the
         # engine max_len
         cap = min(min(r.max_new_tokens - r._n_out for _, r in live),
@@ -618,31 +837,47 @@ class ContinuousBatchingEngine:
         self._step_i.add_(1)
 
     def _capture(self):
-        """Capture the greedy ``_fused_step`` as a CUDA graph, once. Runs
-        at construction, while every row is inactive, so the warm-up steps
-        (cuBLAS handles, the rope tables, K4's once-per-instantiation
-        cluster query) write only dummy tokens at position 0 of parked rows.
-        A capture that fails raises."""
+        """Capture the greedy ``_fused_step`` as a CUDA graph, once, and on
+        spec engines ``_spec_step`` as a second graph in the same memory
+        pool. Runs at construction, while every row is inactive, so the
+        warm-up steps (cuBLAS handles, the rope tables, K4's
+        once-per-instantiation cluster query) write only dummy tokens at
+        the first positions of parked rows, and spec steps emit nothing. A
+        capture that fails raises."""
+        steps = [self._fused_step]
+        if self._spec is not None:
+            steps.append(self._spec_step)
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
+        graphs = []
         with torch.no_grad():
             with torch.cuda.stream(side):
                 for _ in range(2):
-                    self._fused_step()
+                    for fn in steps:
+                        fn()
             cur.wait_stream(side)
-            k4 = paged_decode_attention.launches
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._fused_step()
-        # the capture recorded these launches without running them: the
-        # count moves by them at each replay instead
-        self._graph_k4 = paged_decode_attention.launches - k4
-        paged_decode_attention.launches = k4
+            pool = None
+            for fn in steps:
+                k4 = _k4_counts()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    fn()
+                pool = graph.pool()
+                # the capture recorded these launches without running them:
+                # the counts move by them at each replay instead
+                graphs.append((graph, tuple(
+                    b - a for a, b in zip(k4, _k4_counts()))))
+                _set_k4(k4)
         self._last_tok.zero_()
         self._step_i.zero_()
-        self._graph = graph
+        self._graph, (self._graph_k4, self._graph_k4_int8) = graphs[0]
         self.stats["graph_captures"] += 1
+        if self._spec is not None:
+            self._spec_graph, self._spec_graph_k4 = graphs[1]
+            self._dev_hist.zero_()
+            self._dev_hlen.zero_()
+            self.stats["spec_graph_captures"] += 1
 
     def _run_fused(self, pos_np, n: int, do_sample: bool):
         """``n`` steps of the fused engine: ``n`` replays of the captured
@@ -654,7 +889,7 @@ class ContinuousBatchingEngine:
         if self._graph is not None and not do_sample:
             for _ in range(n):
                 self._graph.replay()
-            paged_decode_attention.launches += n * self._graph_k4
+            _add_k4((self._graph_k4, self._graph_k4_int8), n)
             self.stats["graph_replays"] += n
         else:
             for j in range(n):
@@ -662,15 +897,157 @@ class ContinuousBatchingEngine:
             self.stats["eager_decode_steps"] += n
         return self._out[:, :n].clone()
 
+    # -- speculative decoding ---------------------------------------------
+    def _spec_step(self):
+        """ONE speculative dispatch over all ``max_batch`` rows, on the
+        device-resident state and entirely in place (the step the second
+        CUDA graph captures): draft K tokens from each row's history ring
+        (:func:`ngram_draft`), run the window [last token, drafts] through
+        ``paged_verify_step``, keep the longest draft prefix equal to the
+        verify argmaxes plus one bonus token (:func:`spec_accept`), and
+        append the old last token and the emitted tokens but the newest to
+        the ring (the newest rides the last-token carry). Rejected drafts'
+        k/v needs no rollback: positions advance over emitted tokens only,
+        so it lies past every row's length and is overwritten later.
+        Inactive rows emit nothing (caps 0) and write only at the parking
+        page or their own slot's first positions. Outputs land in
+        ``_spec_out`` [B, K+1] and ``_spec_emit`` [B]."""
+        spec = self._spec
+        K, H = spec.k, spec.history
+        act = self._dev_act
+        toks = self._last_tok
+        hlen = self._dev_hlen
+        pos_vec = torch.where(act, self._dev_pos, 1) - 1
+        drafts = ngram_draft(self._dev_hist[:, :H], hlen, toks, K, spec.ngram)
+        window = torch.cat([toks[:, None], drafts], dim=1)
+        logits, _ = self.model.paged_verify_step(window, self.caches, pos_vec)
+        targets = logits.argmax(-1)
+        if spec._unsafe_accept_all:
+            targets = torch.cat([drafts, targets[:, K:]], dim=1)
+        out, emit, _ = spec_accept(drafts, targets,
+                                   torch.where(act, self._dev_caps, 0))
+        emit = torch.where(act, emit, 0)
+        last = out.gather(1, (emit - 1).clamp(0, K)[:, None])[:, 0]
+        last = torch.where(emit > 0, last, toks)
+        vals = torch.cat([toks[:, None], out[:, :K]], dim=1)
+        j = torch.arange(K + 1, device=toks.device)[None, :]
+        # tokens not emitted go to the spare column H, which no draft reads
+        widx = torch.where(j < emit[:, None], (hlen[:, None] + j) % H, H)
+        self._dev_hist.scatter_(1, widx, vals)
+        hlen.add_(emit)
+        self._dev_pos.add_(emit.to(torch.int32))
+        self._last_tok.copy_(last)
+        self._spec_out.copy_(out)
+        self._spec_emit.copy_(emit)
+
+    def _decode_spec_block(self, live):
+        """One speculative dispatch (a replay of the captured spec step, or
+        the step run eagerly on the CPU) and its per-row bookkeeping.
+        Acceptance depends on the data, so the [B] emit vector is read back
+        synchronously, once per dispatch; the token matrix stays a deferred
+        readback (``_drain_pending``) unless an eos-carrying row needs its
+        values."""
+        K = self._spec.k
+        caps = np.zeros(self.max_batch, np.int32)
+        for i, r in live:
+            caps[i] = min(r.max_new_tokens - r._n_out,
+                          self.max_len - int(self._pos[i]))
+        self._note_program(("spec_step",))
+        self._dev_caps.copy_(self._to_device(caps))
+        if self._spec_graph is not None:
+            self._spec_graph.replay()
+            _add_k4(self._spec_graph_k4)
+            self.stats["spec_graph_replays"] += 1
+        else:
+            self._spec_step()
+            self.stats["eager_spec_steps"] += 1
+        out_dev = self._spec_out.clone()
+        emit = self._spec_emit.cpu().numpy()     # the one synchronous read
+        self.stats["spec_proposed"] += K * len(live)
+        self.stats["spec_steps"] += 1
+        out = None
+        if any(r.eos_token_id is not None for _, r in live):
+            # materialize in generation order (older pendings first)
+            self._drain_pending()
+            out = out_dev.cpu().numpy()
+        entries = []
+        for i, req in live:
+            took = int(emit[i])
+            if out is not None:
+                used = 0
+                for jj in range(took):
+                    tok = int(out[i, jj])
+                    req.output.append(tok)
+                    req._n_out += 1
+                    used = jj + 1
+                    if (req.eos_token_id is not None
+                            and tok == req.eos_token_id):
+                        req.done = True
+                        break
+                took = used
+            else:
+                entries.append((i, req, took))
+                req._n_out += took
+            # every delivered token past a dispatch's first is an accepted
+            # draft (eos and cap truncation included)
+            self.stats["spec_accepted"] += max(0, took - 1)
+            self._pos[i] += took
+            self._sched_tokens += took
+            if req._n_out >= req.max_new_tokens:
+                req.done = True
+            if req.done:
+                self._mark_done(req)
+                self._release_slot(i)
+        if entries:
+            self._pending.append((out_dev, entries))
+
+    def _hist_seed(self, req):
+        """The drafter seed of ``req``'s activation (None without spec)."""
+        return None if self._spec is None else self._spec_seed(req.prompt)
+
+    def _spec_seed(self, prompt):
+        """Drafter seed for a slot's activation: the last ``history``
+        tokens of the prompt in ring order, global index g at slot g % H,
+        so the spec step's ring arithmetic continues from it; and the count
+        written. The current last token stays out: it rides the last-token
+        carry and enters the ring at the next spec step."""
+        H = self._spec.history
+        toks = np.asarray(prompt, np.int32).reshape(-1)
+        hlen = len(toks)
+        row = np.zeros(H, np.int32)
+        tail = toks[max(0, hlen - H):]
+        if len(tail):
+            row[np.arange(hlen - len(tail), hlen) % H] = tail
+        return row, hlen
+
+    def _reset_quant_blocks(self, blocks):
+        """int8 pools: zero the bytes AND the scales of freshly allocated
+        blocks, in place. A recycled page keeps its previous occupant's
+        scale, and quantize-on-append only grows scales (scatter-max):
+        without the reset a new request's tokens would quantize under a
+        stale, larger scale, and a warm re-admission through recycled pages
+        would emit other bytes than its cold run. Only the real blocks are
+        indexed."""
+        if self._kv_dtype != "int8" or not len(blocks):
+            return
+        idx = self._to_device(np.asarray(blocks, np.int64))
+        for k, v in self.caches["kv"]:
+            for pool in (k, v):
+                pool.data.index_fill_(0, idx, 0)
+                pool.scale.index_fill_(0, idx, 0.0)
+
     def _queue_update(self, slot: int, row, pos: int, act: bool,
-                      temp: float = 0.0, top_p: float = 1.0, top_k: int = 0):
+                      temp: float = 0.0, top_p: float = 1.0, top_k: int = 0,
+                      hist=None):
         """Queue one slot's device-state change (activation or release).
         The latest update per slot wins; all land at the next
         ``_flush_updates``. ``row=None`` is the parking row with a prefix
         cache (release) and leaves a static slot-owned table unchanged
-        without one."""
+        without one. ``hist`` (spec engines) is the slot's drafter seed
+        ``(ring row, count)`` from :meth:`_spec_seed`; None empties the
+        ring."""
         self._upd[slot] = (row, int(pos), bool(act), float(temp),
-                           float(top_p), int(top_k))
+                           float(top_p), int(top_k), hist)
 
     def _flush_updates(self):
         """Apply the queued slot updates to the device-resident state in
@@ -683,14 +1060,21 @@ class ContinuousBatchingEngine:
         items = sorted(self._upd.items())
         self._upd.clear()
         tables = self.prefix_cache is not None
-        width = 4 + (self._maxp if tables else 0)
-        ints = np.zeros((len(items), width), np.int32)
+        # columns: slot, pos, act, top_k | table row | ring row + spare
+        # column, ring count
+        t0 = 4
+        h0 = t0 + (self._maxp if tables else 0)
+        H1 = 0 if self._spec is None else self._spec.history + 1
+        ints = np.zeros((len(items), h0 + H1 + (1 if H1 else 0)), np.int32)
         floats = np.zeros((len(items), 2), np.float32)
-        for j, (slot, (row, pos, act, temp, top_p, top_k)) in \
+        for j, (slot, (row, pos, act, temp, top_p, top_k, hist)) in \
                 enumerate(items):
-            ints[j, :4] = (slot, pos, act, top_k)
+            ints[j, :t0] = (slot, pos, act, top_k)
             if tables:
-                ints[j, 4:] = self._park if row is None else row
+                ints[j, t0:h0] = self._park if row is None else row
+            if H1 and hist is not None:
+                ints[j, h0:h0 + H1 - 1] = hist[0]
+                ints[j, -1] = hist[1]
             floats[j] = (temp, top_p)
         ints_d = self._to_device(ints)
         floats_d = self._to_device(floats)
@@ -703,7 +1087,10 @@ class ContinuousBatchingEngine:
         topks.index_copy_(0, idx, ints_d[:, 3].contiguous())
         if tables:
             self.caches["tables"].index_copy_(0, idx,
-                                              ints_d[:, 4:].contiguous())
+                                              ints_d[:, t0:h0].contiguous())
+        if H1:
+            self._dev_hist.index_copy_(0, idx, ints_d[:, h0:h0 + H1].long())
+            self._dev_hlen.index_copy_(0, idx, ints_d[:, -1].long())
         self.stats["fused_updates"] += len(items)
 
     # -- sampling ----------------------------------------------------------
@@ -817,6 +1204,10 @@ class ContinuousBatchingEngine:
             take.append((self._free_slots.popleft(), self._queue.popleft()))
         if not take:
             return
+        # int8: slot i statically owns pages [i * maxp, (i + 1) * maxp);
+        # clear the admitted slots' pages of their previous scales
+        self._reset_quant_blocks([s * self._maxp + j for s, _ in take
+                                  for j in range(self._maxp)])
         # group by (bucket, padded?): exact-length rows take the no-restep
         # path, so their first token comes from the prefill-chunk logits
         groups: Dict[tuple, list] = {}
@@ -844,7 +1235,8 @@ class ContinuousBatchingEngine:
                     # static slot-owned tables: activation flips only the
                     # position, the active flag and the sampling params
                     self._queue_update(slot, None, len(req.prompt) + 1, True,
-                                       req.temperature, req.top_p, req.top_k)
+                                       req.temperature, req.top_p, req.top_k,
+                                       hist=self._hist_seed(req))
                 if firsts is not None:
                     req.output.append(int(firsts[row]))
                 else:
@@ -954,6 +1346,9 @@ class ContinuousBatchingEngine:
         if fresh is None:
             self._alloc.decref(pinned)
             return False                       # pool exhausted — defer
+        # int8: before any write (the COW copy below included), recycled
+        # pages lose their previous occupant's scales
+        self._reset_quant_blocks(fresh)
         cached = len(matched) * page
         if cow_src is not None:
             dst = fresh[0]
@@ -1168,7 +1563,8 @@ class ContinuousBatchingEngine:
             if self._fused:
                 self._queue_update(slot, self._slot_rows[slot],
                                    len(req.prompt) + 1, True,
-                                   req.temperature, req.top_p, req.top_k)
+                                   req.temperature, req.top_p, req.top_k,
+                                   hist=self._hist_seed(req))
             else:
                 self._tables_host[slot] = self._slot_rows[slot]
                 self._tables_dirty = True

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..device import resolve_device
+from ..ops.paged_attention import QuantizedKVPool
 
 _M64 = (1 << 64) - 1
 
@@ -91,8 +92,11 @@ class GenerationMixin:
         page pools + a block table with pages statically assigned per
         sequence, on ``device`` (default: the CUDA device; raises without
         one unless ``device="cpu"``). ``num_blocks`` overrides the pool
-        size (>= b * pages_per_seq). Pools take the parameters' dtype; the
-        int8 block format is not ported yet."""
+        size (>= b * pages_per_seq). Pools take the parameters' dtype, or
+        with ``kv_dtype="int8"`` the int8 block format
+        (``ops.paged_attention.QuantizedKVPool``: int8 pages and one fp32
+        absmax scale per (page, kv head), quantize-on-append and
+        dequantize-on-read)."""
         dev = resolve_device(device)
         cfg = self.config
         kvh = getattr(cfg, "num_key_value_heads", cfg.num_attention_heads)
@@ -104,17 +108,20 @@ class GenerationMixin:
             raise ValueError(f"num_blocks {npages} < {b * maxp} — the pool "
                              "cannot back every slot's table")
         if kv_dtype == "int8":
-            raise NotImplementedError(
-                "int8 paged-KV pools (QuantizedKVPool) are not ported yet: "
-                "they arrive with the int8-KV serving slice (ROADMAP Queue 1)")
-        if kv_dtype not in (None, "param"):
+            def pool():
+                return QuantizedKVPool(
+                    torch.zeros((npages, kvh, page_size, hd),
+                                dtype=torch.int8, device=dev),
+                    torch.zeros((npages, kvh), dtype=torch.float32,
+                                device=dev))
+        elif kv_dtype in (None, "param"):
+            def pool():
+                return torch.zeros((npages, kvh, page_size, hd), dtype=dtype,
+                                   device=dev)
+        else:
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
-                             "(supported: None/'param')")
+                             "(supported: None/'param', 'int8')")
         tables = torch.arange(b * maxp, dtype=torch.int32,
                               device=dev).reshape(b, maxp)
-        kv = [(torch.zeros((npages, kvh, page_size, hd), dtype=dtype,
-                           device=dev),
-               torch.zeros((npages, kvh, page_size, hd), dtype=dtype,
-                           device=dev))
-              for _ in range(cfg.num_hidden_layers)]
+        kv = [(pool(), pool()) for _ in range(cfg.num_hidden_layers)]
         return {"kv": kv, "tables": tables}

@@ -19,7 +19,9 @@ are): ``loss_fn`` computes the shifted causal-LM loss through the fused,
 chunked cross-entropy (``ops.fused_ce``) and ``forward(ids, labels)`` the
 unfused criterion; gradients flow through the flash kernels' backward
 (K2/K3). The serving hooks (``_decode_chunk``, ``paged_token_step``,
-``paged_prefill_chunk``) run under ``torch.no_grad()`` and build no graph.
+``paged_prefill_chunk``, ``paged_verify_step``) run under
+``torch.no_grad()`` and build no graph; they take fp pools or int8
+``QuantizedKVPool`` pools alike.
 
 With ``num_experts > 1`` each layer's MLP is the Mixtral-class MoE layer
 (``incubate.distributed.models.moe.MoELayer`` over ``SwiGLUExpertFFN``,
@@ -527,6 +529,38 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                                                   tables, starts)
             new_kv.append((kp, vp))
         return {"kv": new_kv, "tables": tables}
+
+    @torch.no_grad()
+    def paged_verify_step(self, toks, caches, pos_vec):
+        """Speculative-decode verify hook: score a K+1-token window per row
+        in one pass. toks [b, s] int, the window [last_token, draft_1 ..
+        draft_K] at positions ``pos_vec[b] + i``; returns (logits [b, s,
+        vocab] fp32, caches) with the window's k/v appended. The K-wide
+        sibling of :meth:`paged_token_step`: the ``paged_prefill_chunk``
+        layers (append-then-gather, absolute-position mask, the body of
+        ``ops.paged_verify_attention``) and the lm head at every window
+        position, so position i's logits are what a token step at that
+        position computes from the same cache bytes. Positions are clipped
+        to ``max_len - 1`` (torch does not clamp a gather); parked rows
+        arrive at ``pos_vec == 0`` over the parking page."""
+        model = self.model
+        x = model.embed(toks)
+        tables = caches["tables"]
+        page = caches["kv"][0][0].shape[2]
+        max_len = tables.shape[1] * page
+        cos_full, sin_full = model.rope_tables(max_len, x.dtype, x.device)
+        s = toks.shape[1]
+        positions = (pos_vec.long()[:, None]
+                     + torch.arange(s, device=x.device)).clamp(0, max_len - 1)
+        cos = cos_full[positions]
+        sin = sin_full[positions]
+        new_kv = []
+        for layer, (kp, vp) in zip(model.layers, caches["kv"]):
+            x, kp, vp = layer.paged_prefill_chunk(x, cos, sin, kp, vp,
+                                                  tables, pos_vec)
+            new_kv.append((kp, vp))
+        logits = self.logits(model.norm(x))
+        return logits.float(), {"kv": new_kv, "tables": tables}
 
     @torch.no_grad()
     def _decode_chunk(self, ids, caches, pos, pad_bias, pos_offset):

@@ -11,7 +11,10 @@ from .fused_ce import fused_linear_cross_entropy  # noqa: F401
 from .grouped_matmul import (padded_group_layout, pgmm,  # noqa: F401
                              pgmm_dw, pgmm_dw_reference, pgmm_raw,
                              pgmm_reference)
-from .paged_attention import (BlockAllocator,  # noqa: F401
-                              RadixPrefixCache, append_paged_kv, copy_pages,
-                              paged_decode_attention, paged_decode_reference,
-                              paged_prefill_attention)
+from .paged_attention import (KV_QMAX, BlockAllocator,  # noqa: F401
+                              QuantizedKVPool, RadixPrefixCache,
+                              append_paged_kv, copy_pages, dequantize_kv,
+                              kv_absmax, paged_decode_attention,
+                              paged_decode_reference,
+                              paged_prefill_attention,
+                              paged_verify_attention, quantize_kv)

@@ -55,7 +55,33 @@
 //  - FMAs, not tensor cores: the kernel moves 1 to 8 operations a byte.
 //  - Groups above 8 take ceil(group / 8) clusters per (row, kv head), each
 //    with 8 q heads in registers; each reads the kv head's pages.
+//
+// int8 pools (the block format of `QuantizedKVPool`: int8 pages and one
+// fp32 absmax scale per (page, kv head)). The TPU package never gave its
+// Pallas kernel the dequant (it routes int8 pools to the dense-gather
+// reference); here the same kernel takes them, with the pool type KT apart
+// from q's type T:
+//  - the ring holds the int8 page rows as they are, bulk-copied like the
+//    float pages (page * head_dim bytes a page and kv head, 2 KB at page
+//    16 / head_dim 128), so the K/V bytes read are half of bf16's;
+//  - a lane still holds VEC = 16 / sizeof(T) elements of head_dim, which
+//    for int8 is a VEC-byte piece of the row, so the register layout is
+//    that of the float kernel;
+//  - the producer lane that copies a page also loads its two fp32 scales
+//    (ordinary loads: a 4-byte bulk copy is not allowed) and leaves
+//    scale / 127 beside the stage in shared memory; every producer lane
+//    then arrives on the stage's full barrier too (33 arrivals with the
+//    one that sets the bytes), which releases those stores to the
+//    consumers. (Consumers loading the scales themselves, table entry
+//    then scale, doubled the kernel's time at the `main` shape: a chain
+//    of two dependent loads each stage.)
+//  - the consumers fold scale_k / 127 into each key's score and
+//    scale_v / 127 into each token's weight on V; the softmax sum takes
+//    the weights unscaled. Everything else (cluster split, DSMEM merge,
+//    zero-length rows, bitwise determinism) is the float kernel's.
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
@@ -69,7 +95,7 @@ namespace {
 constexpr int MAX_CL = 8;          // the portable cluster size limit
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T, int D, int G>
+template <typename T, typename KT, int D, int G>
 struct Tile {
   // consumer warps, passes a consumer warp takes a stage and ring stages:
   // the fastest on the card (PERF.md section 6)
@@ -77,19 +103,21 @@ struct Tile {
   static constexpr int U = 4;
   static constexpr int NST = 3;
   static constexpr int NT = 32 * (NW + 1);    // and one producer warp
-  static constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte piece
+  static constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte q piece
   static constexpr int LPT = D / VEC;         // lanes a token row takes
   static constexpr int TPW = 32 / LPT;        // tokens a warp pass takes
   static constexpr int CT = U * NW * TPW;     // tokens a stage holds
-  static constexpr int ROW = D * sizeof(T);   // bytes of one token row
+  static constexpr int ROW = D * sizeof(KT);  // bytes of one token row
   static constexpr int STAGE = 2 * CT * ROW;  // K rows, then V rows
+  static constexpr int PARTIALS = NW * G * (D + 2) * 4;
   static_assert(LPT <= 32 && 32 % LPT == 0, "a warp holds whole rows");
   // shared memory (byte offsets): the ring, which the warps' partials
   // reuse once every stage is consumed; the barriers; the slices other
   // blocks of the cluster send ([MAX_CL] senders x their share of the
   // G x D outputs, then their maxima and sums); the weights of the warps
   // and of the senders, 1 / sum, and the block's maxima and sums.
-  static constexpr int RING = NST * STAGE;
+  static constexpr int RING =
+      NST * STAGE > PARTIALS ? NST * STAGE : PARTIALS;
   static constexpr int BARS = RING;
   static constexpr int XACC = BARS + 2 * NST * 8;
   static constexpr int XM = XACC + (G * D + MAX_CL) * 4;
@@ -97,8 +125,12 @@ struct Tile {
   static constexpr int WW = XL + MAX_CL * G * 4;   // [NW][G]
   static constexpr int WR = WW + NW * G * 4;       // [MAX_CL][G]
   static constexpr int BM = WR + MAX_CL * G * 4;   // max [G], sum [G], 1/sum [G]
-  static constexpr int kBytes = BM + 3 * G * 4;
-  static_assert(NW * G * (D + 2) * 4 <= RING, "warp partials fit the ring");
+  // int8 pools: each stage's dequant steps of K and V, one a page the
+  // stage touches (at most CT + 1)
+  static constexpr int SEGS = CT + 1;
+  static constexpr int STEPS = BM + 3 * G * 4;     // [NST][2][SEGS]
+  static constexpr int kBytes =
+      STEPS + (sizeof(KT) == 1 ? NST * 2 * SEGS * 4 : 0);
   static_assert(kBytes <= 232448, "fits a block's shared memory");
 };
 
@@ -131,16 +163,61 @@ __device__ __forceinline__ void unpack(const uint4& u, float* dst,
   }
 }
 
+// VEC pool elements of a row from shared memory, as floats: a 16-byte
+// piece of a float pool, a VEC-byte piece of an int8 pool.
+template <int N>
+struct Word;
+template <>
+struct Word<4> { using type = uint32_t; };
+template <>
+struct Word<8> { using type = uint2; };
+
+__device__ __forceinline__ uint32_t word(uint32_t w, int) { return w; }
+__device__ __forceinline__ uint32_t word(const uint2& w, int j) {
+  return j == 0 ? w.x : w.y;
+}
+
+// Four int8 values to floats with full-rate instructions (int-to-float
+// conversion runs at a quarter of the FMA rate): the byte, offset by 128 to
+// unsigned, becomes the low mantissa byte of 2^23, and one subtraction of
+// 2^23 + 128 leaves its value, exactly.
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* dst) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dst[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+             8388736.f;
+}
+
+template <typename KT, int VEC>
+__device__ __forceinline__ void load_piece(const KT* p, bool valid,
+                                           float* dst) {
+  if constexpr (std::is_same_v<KT, int8_t>) {
+    typename Word<VEC>::type raw{};
+    if (valid) raw = *reinterpret_cast<const typename Word<VEC>::type*>(p);
+#pragma unroll
+    for (int j = 0; j < VEC / 4; ++j) int8x4_to_float(word(raw, j), dst + 4 * j);
+  } else {
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (valid) raw = *reinterpret_cast<const uint4*>(p);
+    unpack(raw, dst, KT());
+  }
+}
+
 // Grid (CL, hkv * nhb, b), clusters of (CL, 1, 1): one cluster per (row,
-// kv head, block of G q heads).
-template <typename T, int D, int G>
-__global__ void __launch_bounds__(Tile<T, D, G>::NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ tables,
+// kv head, block of G q heads). KT is the pool's element type: T, or int8_t
+// with the [P, hkv] scales ksc / vsc (unused for float pools).
+template <typename T, typename KT, int D, int G>
+__global__ void __launch_bounds__(Tile<T, KT, D, G>::NT)
+paged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
+                    const KT* __restrict__ vc, const float* __restrict__ ksc,
+                    const float* __restrict__ vsc,
+                    const int* __restrict__ tables,
                     const int* __restrict__ lens, T* __restrict__ out,
                     int hkv, int group, int nhb, int page, int maxp,
                     float qscale) {
-  using C = Tile<T, D, G>;
+  using C = Tile<T, KT, D, G>;
+  constexpr bool kQuant = std::is_same_v<KT, int8_t>;
   constexpr int NW = C::NW, NT = C::NT, U = C::U, VEC = C::VEC,
                 LPT = C::LPT, TPW = C::TPW, CT = C::CT, NST = C::NST;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -154,6 +231,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   float* bm = reinterpret_cast<float*>(smem + C::BM);      // [G]
   float* bl = bm + G;                                      // [G]
   float* inv_l = bl + G;                                   // [G]
+  float* stage_steps = reinterpret_cast<float*>(smem + C::STEPS);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -176,7 +254,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   if (tid == 0) {
     for (int s = 0; s < NST; ++s) {
-      hopper::bar_init(&full[s], 1);    // the producer's arrive + the bytes
+      // the producer's arrive + the bytes (int8: and one arrive of every
+      // producer lane, releasing its dequant steps)
+      hopper::bar_init(&full[s], kQuant ? 33 : 1);
       hopper::bar_init(&empty[s], NW);  // one arrive per consumer warp
     }
     hopper::bar_init_fence();
@@ -197,20 +277,25 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         hopper::bar_expect_tx(&full[s], (e - a) * 2 * C::ROW);
       }
       __syncwarp();
-      T* kd = reinterpret_cast<T*>(smem + s * C::STAGE);
-      T* vd = kd + CT * D;
+      KT* kd = reinterpret_cast<KT*>(smem + s * C::STAGE);
+      KT* vd = kd + CT * D;
+      float* steps = stage_steps + s * 2 * C::SEGS;
       const int p0 = a / page, nseg = (e - 1) / page - p0 + 1;
       for (int j = lane; j < nseg; j += 32) {
         const int pg = p0 + j;
         const int s0 = max(a, pg * page), s1 = min(e, (pg + 1) * page);
-        const long long src =
-            (static_cast<long long>(max(trow[pg], 0)) * hkv + h) * page +
-            (s0 - pg * page);
+        const long long blk = static_cast<long long>(max(trow[pg], 0)) * hkv + h;
+        const long long src = blk * page + (s0 - pg * page);
         hopper::bulk_copy(kd + (s0 - a) * D, kc + src * D,
                           (s1 - s0) * C::ROW, &full[s]);
         hopper::bulk_copy(vd + (s0 - a) * D, vc + src * D,
                           (s1 - s0) * C::ROW, &full[s]);
+        if (kQuant) {
+          steps[j] = ksc[blk] / 127.f;
+          steps[C::SEGS + j] = vsc[blk] / 127.f;
+        }
       }
+      if (kQuant) hopper::bar_arrive(&full[s]);  // releases its steps
     }
   } else {
     float qf[G][VEC];
@@ -231,9 +316,24 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int i = 0; i < nstage; ++i) {
       const int s = i % NST;
       const int n = min(CT, ntok - i * CT);
-      const T* ks = reinterpret_cast<const T*>(smem + s * C::STAGE);
-      const T* vs = ks + CT * D;
+      const KT* ks = reinterpret_cast<const KT*>(smem + s * C::STAGE);
+      const KT* vs = ks + CT * D;
       hopper::bar_wait(&full[s], (i / NST) & 1);
+      // int8: the dequant steps of the pages of this warp's token slots,
+      // as the producer left them beside the stage
+      float kstep[U], vstep[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        kstep[u] = vstep[u] = 1.f;
+        const int t = (u * NW + warp) * TPW + slot;
+        if (kQuant && t < n) {
+          const int a = t_begin + i * CT;
+          const float* steps = stage_steps + s * 2 * C::SEGS;
+          const int j = (a + t) / page - a / page;
+          kstep[u] = steps[j];
+          vstep[u] = steps[C::SEGS + j];
+        }
+      }
       // scores of this warp's U passes (token slot `slot` of each)
       float sc[U][G];
       bool valid[U];
@@ -242,10 +342,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         const int t = (u * NW + warp) * TPW + slot;
         valid[u] = t < n;
         float kf[VEC];
-        uint4 raw = make_uint4(0, 0, 0, 0);
-        if (valid[u])
-          raw = *reinterpret_cast<const uint4*>(ks + t * D + piece * VEC);
-        unpack(raw, kf, T());
+        load_piece<KT, VEC>(ks + t * D + piece * VEC, valid[u], kf);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float d = 0.f;
@@ -261,6 +358,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
           for (int g = 0; g < G; ++g)
             sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+      if (kQuant) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int g = 0; g < G; ++g) sc[u][g] *= kstep[u];
+      }
       // online softmax of the slot, rescaled once for the U passes
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -288,13 +391,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         if (!valid[u]) continue;
         const int t = (u * NW + warp) * TPW + slot;
         float vf[VEC];
-        unpack(*reinterpret_cast<const uint4*>(vs + t * D + piece * VEC), vf,
-               T());
+        load_piece<KT, VEC>(vs + t * D + piece * VEC, true, vf);
 #pragma unroll
-        for (int g = 0; g < G; ++g)
+        for (int g = 0; g < G; ++g) {
+          const float w = kQuant ? sc[u][g] * vstep[u] : sc[u][g];
 #pragma unroll
-          for (int c = 0; c < VEC; ++c)
-            acc[g][c] = fmaf(sc[u][g], vf[c], acc[g][c]);
+          for (int c = 0; c < VEC; ++c) acc[g][c] = fmaf(w, vf[c], acc[g][c]);
+        }
       }
       __syncwarp();
       if (lane == 0) hopper::bar_arrive(&empty[s]);
@@ -404,18 +507,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D, int G>
-int launch(const void* q, const void* kc, const void* vc, const int* tables,
-           const int* lens, void* out, int b, int hkv, int group, int page,
-           int maxp, float scale, cudaStream_t stream) {
-  constexpr int smem = Tile<T, D, G>::kBytes;
-  auto kernel = paged_decode_kernel<T, D, G>;
+template <typename T, typename KT, int D, int G>
+int launch(const void* q, const void* kc, const void* vc, const float* ksc,
+           const float* vsc, const int* tables, const int* lens, void* out,
+           int b, int hkv, int group, int page, int maxp, float scale,
+           cudaStream_t stream) {
+  constexpr int smem = Tile<T, KT, D, G>::kBytes;
+  auto kernel = paged_decode_kernel<T, KT, D, G>;
   cudaLaunchAttribute attrs[1];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
   attrs[0].val.clusterDim.y = 1;
   attrs[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(Tile<T, D, G>::NT);
+  cfg.blockDim = dim3(Tile<T, KT, D, G>::NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attrs;
@@ -447,50 +551,90 @@ int launch(const void* q, const void* kc, const void* vc, const int* tables,
   attrs[0].val.clusterDim.x = cl;
   cfg.gridDim = dim3(cl, hkv * nhb, b);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), tables, lens, static_cast<T*>(out), hkv,
-      group, nhb, page, maxp, scale * kLog2e);
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const KT*>(kc),
+      static_cast<const KT*>(vc), ksc, vsc, tables, lens,
+      static_cast<T*>(out), hkv, group, nhb, page, maxp, scale * kLog2e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 int launch_group(const void* q, const void* kc, const void* vc,
-                 const int* tables, const int* lens, void* out, int b,
-                 int hkv, int group, int page, int maxp, float scale,
-                 cudaStream_t s) {
+                 const float* ksc, const float* vsc, const int* tables,
+                 const int* lens, void* out, int b, int hkv, int group,
+                 int page, int maxp, float scale, cudaStream_t s) {
   if (group <= 1)
-    return launch<T, D, 1>(q, kc, vc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+    return launch<T, KT, D, 1>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
   if (group <= 2)
-    return launch<T, D, 2>(q, kc, vc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+    return launch<T, KT, D, 2>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
   if (group <= 4)
-    return launch<T, D, 4>(q, kc, vc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
-  return launch<T, D, 8>(q, kc, vc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+    return launch<T, KT, D, 4>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+  return launch<T, KT, D, 8>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+}
+
+// q's type T and head_dim, then the pool type: T itself (int8 = false) or
+// int8 pages with scales.
+template <typename T>
+int launch_dim(const void* q, const void* kc, const void* vc,
+               const float* ksc, const float* vsc, const int* tables,
+               const int* lens, void* out, bool int8, int b, int hkv,
+               int group, int d, int page, int maxp, float scale,
+               cudaStream_t s) {
+  if (d == 64 && int8)
+    return launch_group<T, int8_t, 64>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+  if (d == 128 && int8)
+    return launch_group<T, int8_t, 128>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+  if (d == 64)
+    return launch_group<T, T, 64>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+  if (d == 128)
+    return launch_group<T, T, 128>(q, kc, vc, ksc, vsc, tables, lens, out, b, hkv, group, page, maxp, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(const void* q, const void* kc, const void* vc, const void* ksc,
+             const void* vsc, const void* tables, const void* lens, void* out,
+             bool int8, int dtype, int b, int hq, int hkv, int d, int page,
+             int maxp, float scale, void* stream) {
+  const int group = hq / hkv;
+  const int* t = static_cast<const int*>(tables);
+  const int* l = static_cast<const int*>(lens);
+  const float* ks = static_cast<const float*>(ksc);
+  const float* vs = static_cast<const float*>(vsc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dim<float>(q, kc, vc, ks, vs, t, l, out, int8, b, hkv, group, d, page, maxp, scale, s);
+  if (dtype == 1)
+    return launch_dim<__nv_bfloat16>(q, kc, vc, ks, vs, t, l, out, int8, b, hkv, group, d, page, maxp, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q [b, hq, d] and out [b, hq, d] contiguous, 16-byte aligned; pools [P,
 // hkv, page, d] contiguous and 16-byte aligned; tables [b, maxp] int32;
-// lens [b] int32. All on the device. dtype: 0 = float32, 1 = bfloat16.
-// One kernel launch; returns its cudaError_t (cudaErrorLaunchOutOfResources
-// if no cluster of the chosen size fits the card), else 0.
+// lens [b] int32. All on the device. dtype (of q, out and the pools):
+// 0 = float32, 1 = bfloat16. One kernel launch; returns its cudaError_t
+// (cudaErrorLaunchOutOfResources if no cluster of the chosen size fits the
+// card), else 0.
 extern "C" int paddle_paged_decode(const void* q, const void* kc,
                                    const void* vc, const void* tables,
                                    const void* lens, void* out, int dtype,
                                    int b, int hq, int hkv, int d, int page,
                                    int maxp, float scale, void* stream) {
-  const int group = hq / hkv;
-  const int* t = static_cast<const int*>(tables);
-  const int* l = static_cast<const int*>(lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 64)
-    return launch_group<float, 64>(q, kc, vc, t, l, out, b, hkv, group, page, maxp, scale, s);
-  if (dtype == 0 && d == 128)
-    return launch_group<float, 128>(q, kc, vc, t, l, out, b, hkv, group, page, maxp, scale, s);
-  if (dtype == 1 && d == 64)
-    return launch_group<__nv_bfloat16, 64>(q, kc, vc, t, l, out, b, hkv, group, page, maxp, scale, s);
-  if (dtype == 1 && d == 128)
-    return launch_group<__nv_bfloat16, 128>(q, kc, vc, t, l, out, b, hkv, group, page, maxp, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(q, kc, vc, nullptr, nullptr, tables, lens, out, false,
+                  dtype, b, hq, hkv, d, page, maxp, scale, stream);
+}
+
+// The same on int8 pools: kc / vc [P, hkv, page, d] int8, ksc / vsc [P, hkv]
+// float32 absmax scales (a stored value x_q stands for x_q * scale / 127),
+// all contiguous; dtype is q's and out's.
+extern "C" int paddle_paged_decode_int8(const void* q, const void* kc,
+                                        const void* vc, const void* ksc,
+                                        const void* vsc, const void* tables,
+                                        const void* lens, void* out,
+                                        int dtype, int b, int hq, int hkv,
+                                        int d, int page, int maxp,
+                                        float scale, void* stream) {
+  return dispatch(q, kc, vc, ksc, vsc, tables, lens, out, true, dtype, b, hq,
+                  hkv, d, page, maxp, scale, stream);
 }

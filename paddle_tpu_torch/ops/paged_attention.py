@@ -1,29 +1,31 @@
 """Paged (block) KV-cache attention: the hand-written CUDA decode kernel,
-its plain version, and the page-pool scatter.
+its plain version, the page-pool scatter and the int8 block format.
 
 Port of ``paddle_tpu/ops/paged_attention.py``. Layouts are the JAX
 package's:
 
-  k_cache/v_cache: [num_pages, kv_heads, page_size, head_dim]
+  k_cache/v_cache: [num_pages, kv_heads, page_size, head_dim], or a
+                   :class:`QuantizedKVPool` (int8 pages + [num_pages,
+                   kv_heads] fp32 scales, :50)
   block_tables:    [batch, pages_per_seq] int32 (negative = unassigned)
   context_lens:    [batch] int32 — tokens in cache (incl. the current one)
 
 :func:`paged_decode_attention` (:271) launches ``csrc/paged_decode.cu`` (the
 port of the Pallas kernel ``_paged_decode_kernel``, :174) on CUDA tensors
-for every row whatever its length, and runs :func:`paged_decode_reference`
-(:142) on CPU tensors. :func:`append_paged_kv` (:681) is a plain scatter,
-as in the JAX package, and writes the pools IN PLACE (the JAX version
-returns new arrays; the port returns the same tensors it was given).
+for every row whatever its length, on floating-point pools and on int8
+pools alike (the kernel dequantizes the pages it reads), and runs
+:func:`paged_decode_reference` (:142) on CPU tensors. :func:`append_paged_kv`
+(:681) is a plain scatter, as in the JAX package, and writes the pools IN
+PLACE (the JAX version returns new arrays; the port returns the same
+tensors it was given); on int8 pools it quantizes on append.
 
 The prefix-cache path adds :func:`paged_prefill_attention` (:359), which
 the JAX package computes outside any Pallas kernel (gather + einsum), so
-the port computes it with plain tensor ops on both devices;
-:func:`copy_pages` (:445), the copy-on-write primitive, in place; and the
-host-side page bookkeeping :class:`BlockAllocator` (:472) and
+the port computes it with plain tensor ops on both devices, and its named
+delegation :func:`paged_verify_attention` (:413), the speculative verify
+window; :func:`copy_pages` (:445), the copy-on-write primitive, in place;
+and the host-side page bookkeeping :class:`BlockAllocator` (:472) and
 :class:`RadixPrefixCache` (:583), copied from the JAX package.
-
-Only floating-point pools are ported: the int8 block format
-(``QuantizedKVPool``, :50) arrives with the int8-KV serving slice.
 """
 
 from __future__ import annotations
@@ -39,19 +41,103 @@ from . import _build
 NEG_INF = -1e30
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
-_INT8_MSG = ("int8 paged-KV pools (QuantizedKVPool) are not ported yet: they "
-             "arrive with the int8-KV serving slice (ROADMAP Queue 1)")
+
+#: int8 KV block format: symmetric absmax quantization, q = round(x / step)
+#: with step = scale / KV_QMAX, one scale per (page, kv_head) block
+KV_QMAX = 127
 
 
-def _reject_int8(*pools):
-    if any(p.dtype == torch.int8 for p in pools):
-        raise NotImplementedError(_INT8_MSG)
+# ---------------------------------------------------------------------------
+# int8 paged-KV block format (serving.KVCacheConfig(dtype="int8"))
+# ---------------------------------------------------------------------------
+
+class QuantizedKVPool:
+    """One side (k or v) of a paged-KV pool in the int8 block format.
+
+    ``data`` [num_pages, kv_heads, page, head_dim] int8 and ``scale``
+    [num_pages, kv_heads] float32: one absmax scale per (page, kv_head)
+    block (scale == absmax of everything written there, stored value =
+    round(x / (scale / KV_QMAX))). ``.shape``/``.dtype``/``.device``
+    delegate to ``data``, so pool-geometry probes work unchanged. Both
+    tensors change only in place (a captured CUDA graph holds their
+    pointers).
+
+    Write paths quantize on append (:func:`append_paged_kv`): the block
+    scale grows by scatter-max with the incoming tokens' absmax, and the
+    stored values of the pages written to are requantized under the grown
+    scale (the ratio is exactly 1.0 where a scale did not grow, so their
+    bytes are stable). Read paths dequantize: the gather of
+    :func:`paged_decode_reference` / :func:`paged_prefill_attention`, and
+    the CUDA decode kernel inside its own loop."""
+
+    __slots__ = ("data", "scale")
+
+    def __init__(self, data, scale):
+        self.data = data
+        self.scale = scale
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def __repr__(self):
+        return (f"QuantizedKVPool(shape={tuple(self.data.shape)}, "
+                f"dtype={self.data.dtype})")
+
+
+def kv_absmax(x):
+    """Per-(token, kv_head) absmax of new k/v rows ``x`` [n, kv_heads, d]
+    (fp32), the input of the per-block scatter-max on append."""
+    return x.float().abs().amax(dim=-1)
+
+
+def quantize_kv(x, scale):
+    """Symmetric int8 quantization of ``x`` with ``scale`` (broadcast
+    against ``x``): round(x / (scale / KV_QMAX)), half to even, clipped to
+    +-KV_QMAX. A ``scale == 0`` block holds only zeros."""
+    step = scale.float() / KV_QMAX
+    safe = torch.where(step > 0, step, 1.0)
+    q = torch.round(x.float() / safe)
+    return q.clamp(-KV_QMAX, KV_QMAX).to(torch.int8)
+
+
+def dequantize_kv(q, scale):
+    """Inverse of :func:`quantize_kv` (fp32): q * (scale / KV_QMAX)."""
+    return q.float() * (scale.float() / KV_QMAX)
+
+
+def _gather_pages(cache, tables):
+    """Dense page gather, dequantizing int8 pools: [*tables.shape,
+    kv_heads, page, d], fp32 when quantized, the pool dtype otherwise."""
+    if isinstance(cache, QuantizedKVPool):
+        pages = cache.data[tables].float()
+        s = cache.scale[tables]                       # [..., kv_heads]
+        return pages * (s[..., None, None] / KV_QMAX)
+    if cache.dtype == torch.int8:
+        raise TypeError("an int8 pool needs its block scales: pass a "
+                        "QuantizedKVPool")
+    return cache[tables]
+
+
+def _pool_tensors(cache):
+    """The tensors a pool side is made of: (data, scale) or (pool,)."""
+    if isinstance(cache, QuantizedKVPool):
+        return cache.data, cache.scale
+    return (cache,)
 
 
 def paged_decode_reference(q, k_cache, v_cache, block_tables, context_lens,
                            scale=None):
-    """Dense-gather paged decode: q [b, hq, d] -> out [b, hq, d]."""
-    _reject_int8(k_cache, v_cache)
+    """Dense-gather paged decode: q [b, hq, d] -> out [b, hq, d]. int8
+    pools dequantize in the gather."""
     b, hq, d = q.shape
     _, hkv, page, _ = k_cache.shape
     group = hq // hkv
@@ -60,8 +146,10 @@ def paged_decode_reference(q, k_cache, v_cache, block_tables, context_lens,
     max_pages = block_tables.shape[1]
     safe = block_tables.clamp_min(0).long()
     # [b, max_pages, hkv, page, d] -> [b, hkv, L, d]
-    kg = k_cache[safe].transpose(2, 3).reshape(b, max_pages * page, hkv, d)
-    vg = v_cache[safe].transpose(2, 3).reshape(b, max_pages * page, hkv, d)
+    kg = _gather_pages(k_cache, safe).transpose(2, 3).reshape(
+        b, max_pages * page, hkv, d)
+    vg = _gather_pages(v_cache, safe).transpose(2, 3).reshape(
+        b, max_pages * page, hkv, d)
     kg = kg.transpose(1, 2).float()
     vg = vg.transpose(1, 2).float()
     qf = q.reshape(b, hkv, group, d).float()
@@ -81,9 +169,13 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens,
     """One-token-per-row paged decode: q [batch, q_heads, head_dim] ->
     [batch, q_heads, head_dim]. ``context_lens`` counts the row's cached
     tokens including the current one (already appended); rows of length 0
-    return zeros. CUDA tensors launch the kernel (bf16 or fp32, head_dim 64
-    or 128, contiguous); CPU tensors run :func:`paged_decode_reference`."""
-    _reject_int8(k_cache, v_cache)
+    return zeros. CUDA tensors launch the kernel (q bf16 or fp32, pools of
+    q's dtype or both :class:`QuantizedKVPool`, head_dim 64 or 128,
+    contiguous); CPU tensors run :func:`paged_decode_reference`."""
+    quant = isinstance(k_cache, QuantizedKVPool)
+    if quant != isinstance(v_cache, QuantizedKVPool):
+        raise TypeError("paged_decode_attention: k and v pools must both "
+                        "be QuantizedKVPool or both plain tensors")
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
@@ -92,21 +184,39 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, "
                          f"not {q.device}")
-    tensors = (q, k_cache, v_cache, block_tables, context_lens)
+    pages = (k_cache.data, v_cache.data) if quant else (k_cache, v_cache)
+    tensors = (q, *_pool_tensors(k_cache), *_pool_tensors(v_cache),
+               block_tables, context_lens)
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attention: all tensors must be on "
                          f"{q.device}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    if q.dtype not in _KERNEL_DTYPES or not (
-            q.dtype == k_cache.dtype == v_cache.dtype):
+    if q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"paged decode kernel takes q in bf16 or fp32, got "
+                        f"{q.dtype}")
+    if quant:
+        if not (k_cache.dtype == v_cache.dtype == torch.int8
+                and k_cache.scale.dtype == v_cache.scale.dtype
+                == torch.float32):
+            raise TypeError(f"int8 pools: pages {k_cache.dtype}/"
+                            f"{v_cache.dtype} must be int8, scales "
+                            f"{k_cache.scale.dtype}/{v_cache.scale.dtype} "
+                            "float32")
+        if tuple(k_cache.scale.shape) != tuple(k_cache.shape[:2]) or \
+                tuple(v_cache.scale.shape) != tuple(v_cache.shape[:2]):
+            raise ValueError(f"int8 pool scales {tuple(k_cache.scale.shape)}"
+                             f"/{tuple(v_cache.scale.shape)} must be [pages, "
+                             f"kv_heads] = {tuple(k_cache.shape[:2])}")
+    elif not q.dtype == k_cache.dtype == v_cache.dtype:
         raise TypeError(f"paged decode kernel takes bf16 or fp32 (one "
                         f"dtype), got {q.dtype}/{k_cache.dtype}/"
                         f"{v_cache.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise TypeError("block_tables and context_lens must be int32")
-    if q.ndim != 3 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+    if q.ndim != 3 or len(k_cache.shape) != 4 \
+            or k_cache.shape != v_cache.shape:
         raise ValueError(f"shapes: q {tuple(q.shape)}, pools "
                          f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
     b, hq, d = q.shape
@@ -123,11 +233,11 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens,
                          f"{tuple(context_lens.shape)} do not match batch {b}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged decode kernel needs contiguous tensors")
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+    if any(t.data_ptr() % 16 for t in (q, *pages)):
         raise ValueError("paged decode kernel reads q and the pools as "
-                         "16-byte vectors: their storage must be 16-byte "
-                         "aligned")
-    if page * d * q.element_size() % 16:
+                         "vectors: their storage must be 16-byte aligned")
+    pool_item = 1 if quant else q.element_size()
+    if page * d * pool_item % 16:
         raise ValueError(f"paged decode kernel bulk-copies pages of "
                          f"page * head_dim * itemsize bytes, which must be a "
                          f"multiple of 16 (page {page}, head_dim {d})")
@@ -136,20 +246,34 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, context_lens,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    err = _paged_lib().paddle_paged_decode(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        _KERNEL_DTYPES[q.dtype], b, hq, hkv, d, page, block_tables.shape[1],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _paged_lib()
+    if quant:
+        err = lib.paddle_paged_decode_int8(
+            q.data_ptr(), k_cache.data.data_ptr(), v_cache.data.data_ptr(),
+            k_cache.scale.data_ptr(), v_cache.scale.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b, hq, hkv, d, page,
+            block_tables.shape[1], float(scale), stream)
+    else:
+        err = lib.paddle_paged_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b, hq, hkv, d, page,
+            block_tables.shape[1], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
                            f"{err}")
     paged_decode_attention.launches += 1
+    if quant:
+        paged_decode_attention.int8_launches += 1
     return out
 
 
-#: launches of the CUDA kernel (a plain count; callers reset it to 0)
+#: launches of the CUDA kernel, on any pool (a plain count; callers reset
+#: it to 0), and of those the launches on int8 pools
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0
 
 
 def _paged_lib():
@@ -159,6 +283,10 @@ def _paged_lib():
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn8 = lib.paddle_paged_decode_int8
+        fn8.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_void_p])
+        fn8.restype = ctypes.c_int
     return lib
 
 
@@ -169,17 +297,47 @@ def append_paged_kv(k_cache, v_cache, k_new, v_new, block_tables, positions,
     k_new/v_new: [n_tokens, kv_heads, d]; positions [n_tokens] absolute
     position of each token in its sequence; seq_ids [n_tokens] row of
     block_tables per token (default: one token per row, the decode step).
-    Returns (k_cache, v_cache) — the same tensors, updated."""
-    _reject_int8(k_cache, v_cache)
+    int8 pools quantize on append (:func:`_append_quantized`). Returns
+    (k_cache, v_cache) — the same objects, updated."""
     page = k_cache.shape[2]
     positions = positions.long()
     if seq_ids is None:
         seq_ids = torch.arange(k_new.shape[0], device=k_cache.device)
     page_idx = block_tables[seq_ids.long(), positions // page].long()
     offs = positions % page
+    if isinstance(k_cache, QuantizedKVPool):
+        _append_quantized(k_cache, k_new, page_idx, offs)
+        _append_quantized(v_cache, v_new, page_idx, offs)
+        return k_cache, v_cache
     k_cache[page_idx, :, offs, :] = k_new.to(k_cache.dtype)
     v_cache[page_idx, :, offs, :] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _append_quantized(pool: QuantizedKVPool, x_new, page_idx, offs):
+    """Quantize-on-append into the int8 block format (one pool side), in
+    place, with the JAX package's arithmetic in its order:
+
+    1. scatter-MAX the per-(page, head) scales with the incoming tokens'
+       absmax (right under duplicate page indices: several tokens of a
+       chunk landing in one page);
+    2. requantize the stored values of the pages written to at ratio
+       old_scale / new_scale. The JAX package runs this pass over the whole
+       pool, but the ratio is exactly 1.0 on every other page and
+       round(q * 1.0) == q, so touching only ``page_idx`` gives the same
+       bytes at a cost in tokens, not in pool size. A page listed twice is
+       written twice with the same bytes;
+    3. write the new tokens quantized under the grown scale."""
+    s_tok = kv_absmax(x_new)                                  # [n, h]
+    old = pool.scale[page_idx]                                # [n, h]
+    pool.scale.scatter_reduce_(0, page_idx[:, None].expand_as(s_tok), s_tok,
+                               "amax")
+    new = pool.scale[page_idx]
+    ratio = torch.where(new > 0, old / torch.where(new > 0, new, 1.0), 1.0)
+    data = torch.round(pool.data[page_idx].float()
+                       * ratio[:, :, None, None]).clamp(-KV_QMAX, KV_QMAX)
+    pool.data.index_copy_(0, page_idx, data.to(torch.int8))
+    pool.data[page_idx, :, offs, :] = quantize_kv(x_new, new[:, :, None])
 
 
 def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_starts,
@@ -189,14 +347,14 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_starts,
     tokens at positions ``chunk_starts[b] + i`` -> [b, s, hq, d].
 
     The chunk's own k/v must already be appended (append-then-gather). Keys
-    are gathered over the table's full ``max_pages * page`` extent and
-    masked by ABSOLUTE position (query p attends keys <= p, the finite
-    ``NEG_INF``), softmax in fp32: given the same cached bytes a token's
-    output does not depend on how its prompt was chunked or how much of it
-    came from the prefix cache, which is what the serving engine's
-    warm == cold guarantee rests on. Rows are independent, so several rows
-    may share one sequence's table at different starts (packed prefill)."""
-    _reject_int8(k_cache, v_cache)
+    are gathered over the table's full ``max_pages * page`` extent
+    (dequantized on int8 pools) and masked by ABSOLUTE position (query p
+    attends keys <= p, the finite ``NEG_INF``), softmax in fp32: given the
+    same cached bytes a token's output does not depend on how its prompt
+    was chunked or how much of it came from the prefix cache, which is
+    what the serving engine's warm == cold guarantee rests on. Rows are
+    independent, so several rows may share one sequence's table at
+    different starts (packed prefill)."""
     b, s, hq, d = q.shape
     _, hkv, page, _ = k_cache.shape
     group = hq // hkv
@@ -206,8 +364,8 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_starts,
     L = max_pages * page
     safe = block_tables.clamp_min(0).long()
     # [b, max_pages, hkv, page, d] -> [b, hkv, L, d]
-    kg = k_cache[safe].transpose(2, 3).reshape(b, L, hkv, d)
-    vg = v_cache[safe].transpose(2, 3).reshape(b, L, hkv, d)
+    kg = _gather_pages(k_cache, safe).transpose(2, 3).reshape(b, L, hkv, d)
+    vg = _gather_pages(v_cache, safe).transpose(2, 3).reshape(b, L, hkv, d)
     kg = kg.transpose(1, 2).float()
     vg = vg.transpose(1, 2).float()
     qf = q.reshape(b, s, hkv, group, d).float().permute(0, 2, 3, 1, 4)
@@ -221,21 +379,37 @@ def paged_prefill_attention(q, k_cache, v_cache, block_tables, chunk_starts,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
+def paged_verify_attention(q, k_cache, v_cache, block_tables, row_starts,
+                           scale=None):
+    """Speculative-decode VERIFY attention: a K+1-token window per row
+    ([last_token, draft_1..draft_K] at positions ``row_starts[b] + i``)
+    scored in one pass, its k/v already appended. A named delegation to
+    :func:`paged_prefill_attention`, as in the JAX package: the absolute-
+    position mask makes window position i attend the cached prefix plus
+    drafts 0..i, so its logits are what a sequential token step at that
+    position computes from the same cache bytes. The serving verify step
+    (``paged_verify_step`` -> the layers' ``paged_prefill_chunk``) calls
+    the shared body directly: verify and chunk prefill are one
+    implementation."""
+    return paged_prefill_attention(q, k_cache, v_cache, block_tables,
+                                   row_starts, scale)
+
+
 def copy_pages(k_cache, v_cache, src, dst):
     """Copy page(s) ``src`` -> ``dst`` in a (k, v) pool pair, in place: the
     copy-on-write primitive for shared prefix blocks. ``src``/``dst`` are a
     scalar pair or equal-length index vectors (a whole admission wave's
     copies in one call; padding entries copy the parking page onto itself).
-    Returns the same (k_cache, v_cache)."""
-    _reject_int8(k_cache, v_cache)
+    int8 pools copy each block's scales with its bytes. Returns the same
+    (k_cache, v_cache)."""
     dev = k_cache.device
     src = torch.as_tensor(src, device=dev).long().reshape(-1)
     dst = torch.as_tensor(dst, device=dev).long().reshape(-1)
     if src.shape != dst.shape:
         raise ValueError(f"copy_pages: src {tuple(src.shape)} and dst "
                          f"{tuple(dst.shape)} differ in length")
-    k_cache.index_copy_(0, dst, k_cache.index_select(0, src))
-    v_cache.index_copy_(0, dst, v_cache.index_select(0, src))
+    for t in _pool_tensors(k_cache) + _pool_tensors(v_cache):
+        t.index_copy_(0, dst, t.index_select(0, src))
     return k_cache, v_cache
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's serving time goes on one CUDA card.
 
-    python3 profile_serving.py        # from the root of a checkout
+    python3 profile_serving.py            # from the root of a checkout
+    python3 profile_serving.py --spec     # the spec / int8 section only
 
 Builds chip_smoke.py's serving configuration (llama-750M class, bf16,
 random weights) and measures the engine's programs at the waves' shapes —
@@ -22,8 +23,12 @@ busy / span is the device's busy share; where host enqueue is close to the
 span, the host, not the card, sets the pace. Last, chip_smoke.py's fused
 wave (256 requests, cold: the radix cache emptied first) runs once
 unprofiled (its wall time) and once under the profiler (device busy over
-the whole wave, its busy share and top kernels). Exits non-zero without a
-CUDA device.
+the whole wave, its busy share and top kernels). Then the speculative /
+int8-KV arm (chip_smoke.SPEC_ENGINE: 8 slots, max_len 128, the prefix
+cache): the replayed greedy step of a bf16 and of an int8 engine and the
+replayed spec step (k = 4) of a spec and a spec + int8 engine, 8 rows from
+context 96, each one token emitted a call, the same three ways. Exits
+non-zero without a CUDA device.
 """
 
 import sys
@@ -115,6 +120,45 @@ def profile_wave(torch, np, eng, Request, top=12):
               f"{e.key[:90]}", flush=True)
 
 
+def profile_spec(torch, np, model):
+    """The spec / int8 arm's steps: every row active at
+    chip_smoke.SPEC_STEP_CTX over its own pages, one token emitted a spec
+    step (the verify window is computed whole whatever the caps)."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    SpecConfig)
+
+    ctx = chip_smoke.SPEC_STEP_CTX
+    for name, kw in (("bf16", {}), ("int8", dict(kv_cache="int8"))):
+        for spec in (False, True):
+            eng = ContinuousBatchingEngine(
+                model, prefix_cache=PrefixCacheConfig(
+                    extra_blocks=chip_smoke.SPEC_EXTRA_BLOCKS),
+                speculative=SpecConfig(k=chip_smoke.SPEC_K) if spec
+                else None, **chip_smoke.SPEC_ENGINE, **kw)
+            for i in range(eng.max_batch):
+                eng._queue_update(i, np.arange(i * eng._maxp,
+                                               (i + 1) * eng._maxp), ctx,
+                                  True, hist=eng._spec_seed(np.arange(64))
+                                  if spec else None)
+            eng._flush_updates()
+            if spec:
+                eng._dev_caps.fill_(1)
+
+            def reset(eng=eng):
+                eng._dev_pos.fill_(ctx)
+                eng._step_i.zero_()
+
+            step = eng._spec_graph if spec else eng._graph
+            what = (f"spec step k={chip_smoke.SPEC_K}" if spec
+                    else "greedy step")
+            with torch.no_grad():
+                measure(torch, f"{name} {what} replayed [{eng.max_batch} "
+                        f"rows, from context {ctx}]", step.replay, STEPS,
+                        top=10, reset=reset)
+            del eng
+
+
 def main():
     import torch
 
@@ -131,6 +175,9 @@ def main():
     card = chip_smoke.card_line()
     print(card, flush=True)
     cfg = LlamaConfig(**chip_smoke.SERVE_CONFIG)
+    if "--spec" in sys.argv[1:]:
+        profile_spec(torch, np, LlamaForCausalLM(cfg, seed=0))
+        return 0
     eng_cfg = chip_smoke.ENGINE
     slots, bucket = eng_cfg["max_batch"], eng_cfg["prompt_buckets"][0]
     model = LlamaForCausalLM(cfg, seed=0)
@@ -173,6 +220,8 @@ def main():
                 f"context {ctx}]", eng._graph.replay, STEPS, reset=reset)
         measure(torch, f"fused decode step eager [{rows} rows, from "
                 f"context {ctx}]", eng._fused_step, STEPS, reset=reset)
+    del eng
+    profile_spec(torch, np, model)
     return 0
 
 

@@ -11,7 +11,9 @@ Tolerances (max abs error): 1e-4 in fp32 (fp32 math, other summation
 order) and 2e-2 in bf16 (the output's bf16 rounding of O(1) values, and P
 rounded to bf16 before P V); the forward's lse to 1e-4 in fp32 and 5e-3 in
 bf16 (it is computed in fp32 from bf16 inputs, so only the order of the
-sums differs); the backward's gradients are held to tol x max(1, max
+sums differs); K4 on int8 pools is held to the same tolerances against the
+dense-gather version on the same int8 bytes and scales (both dequantize in
+fp32, only where the scale multiplies and the summation order differ); the backward's gradients are held to tol x max(1, max
 |plain|) and the grouped matmuls (K5, K6) to tol x max |plain|. The dense
 and MoE train steps on the card are held against the same steps on the CPU
 (fp32, TF32 off). The fused serving engine's captured decode step is held
@@ -24,7 +26,8 @@ import torch
 
 from paddle_tpu_torch.distributed import Engine
 from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
-                                                PrefixCacheConfig, Request)
+                                                PrefixCacheConfig, Request,
+                                                SpecConfig)
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import (copy_pages, flash_attention,
                                   flash_attention_backward,
@@ -35,6 +38,7 @@ from paddle_tpu_torch.ops import (copy_pages, flash_attention,
                                   padded_group_layout,
                                   paged_decode_attention,
                                   paged_decode_reference, pgmm, pgmm_dw,
+                                  QuantizedKVPool,
                                   pgmm_dw_reference, pgmm_raw,
                                   pgmm_reference)
 
@@ -201,6 +205,117 @@ def test_paged_kernel_replays_in_a_cuda_graph(cuda):
                                                          lens))
         ref = paged_decode_reference(qs[0], kc, vc, tables, lens)
         assert (outs[0].float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def _int8_case(cuda, dtype, hq, hkv, d, page, maxp, lens):
+    """``_paged_case`` with int8 pools: random bytes in [-127, 127] and
+    random per-(page, kv head) scales in [0.5, 3)."""
+    q, _, _, tables, lens_t = _paged_case(cuda, dtype, hq, hkv, d, page,
+                                          maxp, lens)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    npages = tables.numel()
+
+    def pool():
+        data = torch.randint(-127, 128, (npages, hkv, page, d), device=cuda,
+                             generator=g, dtype=torch.int32).to(torch.int8)
+        scale = 0.5 + 2.5 * torch.rand(npages, hkv, device=cuda, generator=g)
+        return QuantizedKVPool(data, scale)
+
+    return q, pool(), pool(), tables, lens_t
+
+
+def _check_paged_int8(args, tol):
+    n0, i0 = (paged_decode_attention.launches,
+              paged_decode_attention.int8_launches)
+    out = _check_paged(args, tol)
+    assert paged_decode_attention.int8_launches == i0 + 1
+    assert paged_decode_attention.launches == n0 + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+# groups 1, 2, 4 and 8; 16 takes two clusters of 8 q heads per kv head
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (16, 4), (16, 2),
+                                    (32, 2)])
+def test_paged_kernel_int8_edges_on_card(cuda, dtype, tol, d, hq, hkv):
+    _check_paged_int8(_int8_case(cuda, dtype, hq, hkv, d, _PAGE, _MAXP,
+                                 _EDGE_LENS), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_kernel_int8_long_gqa_and_empty_on_card(cuda, dtype, tol):
+    _check_paged_int8(_int8_case(cuda, dtype, 32, 8, 128, 16, 256,
+                                 [1, 1000, 2500, 4096]), tol)
+    out = _check_paged_int8(_int8_case(cuda, dtype, 16, 4, 128, _PAGE, 4,
+                                       [0] * 6), 0.0)
+    assert (out == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_int8_is_deterministic_on_card(cuda, dtype):
+    args = _int8_case(cuda, dtype, 16, 4, 128, 16, 40,
+                      [0, 1, 16, 64, 100, 333, 512, 640])
+    assert torch.equal(paged_decode_attention(*args),
+                       paged_decode_attention(*args))
+
+
+@pytest.mark.cuda
+def test_paged_kernel_int8_replays_in_a_cuda_graph(cuda):
+    """As test_paged_kernel_replays_in_a_cuda_graph, on int8 pools whose
+    bytes and scales also change between replays (in place)."""
+    layers, page, maxp = 12, 16, 40
+    q, kc, vc, tables, lens = _int8_case(cuda, torch.bfloat16, 16, 16, 128,
+                                         page, maxp, [5, 17, 64, 100, 200,
+                                                      333, 512, 640])
+    qs = [torch.randn_like(q, dtype=torch.float32).to(q.dtype)
+          for _ in range(layers)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in qs:
+            paged_decode_attention(x, kc, vc, tables, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [paged_decode_attention(x, kc, vc, tables, lens) for x in qs]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for new_lens in ([640, 0, 1, 333, 17, 512, 64, 100],
+                     [0, 0, 0, 0, 0, 0, 0, 0]):
+        lens.copy_(torch.tensor(new_lens, dtype=torch.int32))
+        tables.copy_(torch.randperm(tables.numel(), device=cuda,
+                                    generator=g).reshape(tables.shape))
+        kc.scale.mul_(1.5)
+        vc.data.copy_(vc.data.flip(0))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, o in zip(qs, outs):
+            assert torch.equal(o, paged_decode_attention(x, kc, vc, tables,
+                                                         lens))
+        ref = paged_decode_reference(qs[0], kc, vc, tables, lens)
+        assert (outs[0].float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_paged_kernel_int8_refuses_what_it_cannot_take(cuda):
+    q, kc, vc, tables, lens = _int8_case(cuda, torch.bfloat16, 8, 4, 128,
+                                         16, 4, [3, 5])
+    with pytest.raises(TypeError, match="both"):
+        paged_decode_attention(q, kc, vc.data, tables, lens)
+    bad = QuantizedKVPool(kc.data, kc.scale.half())
+    with pytest.raises(TypeError, match="float32"):
+        paged_decode_attention(q, bad, vc, tables, lens)
+    bad = QuantizedKVPool(kc.data, kc.scale[:, :1].contiguous())
+    with pytest.raises(ValueError, match="scales"):
+        paged_decode_attention(q, bad, vc, tables, lens)
+    bad = QuantizedKVPool(kc.data, kc.scale.t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, bad, vc, tables, lens)
 
 
 _BWD_SHAPES = [(128, 128, 4, 4, 128, True), (77, 77, 4, 2, 64, False),
@@ -617,3 +732,115 @@ def test_copy_pages_and_packed_prefill_on_card_match_cpu(cuda):
         out.append([t.cpu() for kv in caches["kv"] for t in kv])
     for a, b in zip(*out):
         assert (a[:8] - b[:8]).abs().max().item() <= 1e-4
+
+
+# chip_smoke.py's PARITY_CONFIG: head_dim 128, group 2
+_PARITY_CFG = dict(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=256)
+
+
+def _spec_wave(vocab, n=8):
+    """Greedy requests whose prompts are a random 8-token motif tiled (the
+    n-gram drafter's food) or random, with uneven lengths."""
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(rng.integers(0, vocab, (8,)).astype(np.int32), 3)
+               if i % 2 == 0 else
+               rng.integers(0, vocab, (9 + i,)).astype(np.int32)
+               for i in range(n)]
+    return prompts, [8 + (i % 4) * 6 for i in range(n)]
+
+
+def _serve_card(eng, prompts, news):
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_done(max_steps=1000)
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_cache", [None, "int8"])
+def test_spec_streams_equal_non_spec_fp32_on_card(cuda, kv_cache):
+    """fp32 on the card: the speculative engine's greedy streams equal the
+    non-speculative engine's (the decode steps run K4, the verify step the
+    plain gather; in fp32 their logits agree far inside the gaps between
+    a random model's top logits). Every spec dispatch replays the one
+    captured spec graph. On int8 pools rejected drafts' appends move the
+    block scales, so there spec is held to the teacher-free contract of
+    the JAX package: two identical engines give identical bytes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig(**_PARITY_CFG), device=cuda, seed=3)
+    prompts, news = _spec_wave(_PARITY_CFG["vocab_size"])
+
+    def build(**kw):
+        return ContinuousBatchingEngine(
+            model, max_batch=4, max_len=128, page_size=16, block_size=4,
+            fused=True, device=cuda, kv_cache=kv_cache,
+            prefix_cache=PrefixCacheConfig(extra_blocks=8), **kw)
+
+    ref = _serve_card(build(), prompts, news)
+    eng = build(speculative=SpecConfig(k=4))
+    got = _serve_card(eng, prompts, news)
+    st = eng.stats
+    assert st["spec_graph_captures"] == 1 and st["graph_captures"] == 1
+    assert st["eager_spec_steps"] == 0
+    assert st["spec_graph_replays"] == st["spec_steps"] > 0
+    assert st["spec_accepted"] > 0
+    assert [len(t) for t in got] == news
+    if kv_cache is None:
+        assert got == ref
+    else:
+        assert _serve_card(build(speculative=SpecConfig(k=4)), prompts,
+                           news) == got
+        assert _serve_card(eng, prompts, news) == got     # warm == cold
+
+
+@pytest.mark.cuda
+def test_spec_graph_replays_equal_eager_spec_steps_on_card(cuda):
+    """The captured spec step against the same step run eagerly from the
+    same state: every tensor it writes (pools, ring, positions, carry,
+    outputs) bitwise equal, after the state changed through
+    _flush_updates. Three places hold garbage that no live row reads and
+    are left out: the parking page, where the parked rows' windows land
+    with duplicate indices (which of them wins a scatter is not fixed),
+    the parked rows' verify outputs, computed from that page, and the
+    ring's spare column, where each row's tokens not emitted go."""
+    _, card = _card_model(cuda)
+    eng = _fused_engine(card, cuda, speculative=SpecConfig(k=3))
+    assert eng.stats["spec_graph_captures"] == 1
+    gen = torch.Generator().manual_seed(0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for k, v in eng.caches["kv"]:
+        k.copy_(torch.randn(k.shape, device=cuda, generator=g))
+        v.copy_(torch.randn(v.shape, device=cuda, generator=g))
+    eng._last_tok.copy_(torch.randint(0, 512, (8,), device=cuda,
+                                      generator=g))
+    _set_rows(eng, {0: 9, 3: 30, 5: 17}, gen)
+    eng._dev_caps.fill_(4)
+    state = ([t for kv in eng.caches["kv"] for t in kv]
+             + [eng._last_tok, eng._dev_pos, eng._dev_hist, eng._dev_hlen,
+                eng._spec_out, eng._spec_emit])
+    start = [t.clone() for t in state]
+    for _ in range(2):
+        eng._spec_graph.replay()
+    replayed = [t.clone() for t in state]
+    for t, s0 in zip(state, start):
+        t.copy_(s0)
+    with torch.no_grad():
+        for _ in range(2):
+            eng._spec_step()
+    torch.cuda.synchronize()
+    live = torch.arange(eng._park + 1, device=cuda) != eng._park
+    n_pools = 2 * len(eng.caches["kv"])
+    for i, (a, b) in enumerate(zip(replayed, state)):
+        if i < n_pools:
+            a, b = a[live], b[live]
+        elif b is eng._dev_hist:
+            a, b = a[:, :-1], b[:, :-1]
+        elif b is eng._spec_out:
+            a, b = a[[0, 3, 5]], b[[0, 3, 5]]
+        assert torch.equal(a, b), i
+    emitted = eng._dev_pos - start[-5]
+    assert (emitted[[0, 3, 5]] >= 2).all() and emitted.sum() == \
+        emitted[[0, 3, 5]].sum()

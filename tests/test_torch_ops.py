@@ -145,8 +145,9 @@ def test_wrappers_refuse_what_this_slice_does_not_port():
     assert out.grad_fn is not None
     (g,) = torch.autograd.grad(out.sum(), x)
     assert g.shape == x.shape and torch.isfinite(g).all()
+    # an int8 pool needs its block scales (QuantizedKVPool)
     pool = torch.zeros(4, 2, 8, 16, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(TypeError, match="int8"):
         paged_decode_attention(torch.zeros(1, 2, 16), pool, pool,
                                torch.zeros(1, 2, dtype=torch.int32),
                                torch.ones(1, dtype=torch.int32))

@@ -154,9 +154,9 @@ def test_seeded_stream_independent_of_batch_composition(pair):
     assert other.output != alone.output
 
 
+# speculative decoding and int8 KV are ported (tests/test_torch_spec.py,
+# tests/test_torch_kv_int8.py)
 @pytest.mark.parametrize("kw,match", [
-    (dict(speculative=True), "speculative"),
-    (dict(kv_cache="int8"), "int8"),
     (dict(mesh=2), "mesh"),
     (dict(brownout=True), "brownout"),
     (dict(tracer=object()), "tracing"),
