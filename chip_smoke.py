@@ -25,13 +25,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      in place: bitwise equal to eager calls, with the replay's device time
      per launch.
   4. K1 with its lse output (the training forward) against its plain
-     version at the K1 cases, the training shape [2, 4096, 16/4, 128] and
-     the MoE step's [8, 2048, 16/4, 64] (lse max abs error <= 5e-3 bf16 /
+     version at the K1 cases, the training shape [2, 4096, 16/4, 128],
+     the MoE step's [8, 2048, 16/4, 64] and the remat step's [4, 4096,
+     16/4, 128] (bf16 at those three; lse max abs error <= 5e-3 bf16 /
      1e-4 fp32, out as in 2), timed beside the no-lse path and SDPA's
      forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
-     on the same (q, k, v, o, lse, dout): the training shape and the MoE
-     step's [8, 2048, 16/4, 64] (bf16), MHA, ragged 77 (not causal),
+     on the same (q, k, v, o, lse, dout): the training shape, the MoE
+     step's and the remat step's (bf16), MHA, ragged 77 (not causal),
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
      [b, s, 3, h, d] buffer, each also in fp32; max abs error <= tol x
      max(1, max |plain|); at the training shape two runs must be bitwise
@@ -103,10 +104,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      |plain|, the tileless expert's dw exactly 0; kernel (chained and
      device_ms), plain and library (torch._grouped_mm, or a per-expert
      torch.mm loop) times and the bound.
- 11. MoE training parity: a small fp32 MoE Llama (4 experts, top-2, pgmm)
-     takes 3 Engine steps on the card and on the CPU from the same
-     weights; the same expert choices, and losses, parameters and moments
-     within phase 8's tolerances.
+ 11. MoE training parity, for every dispatch: a small fp32 MoE Llama (4
+     experts) takes 3 Engine steps on the card and on the CPU from the
+     same weights, with pgmm, einsum, scatter, ragged and auto (einsum
+     here), a switch gate in eval mode, and flash remat over scatter; the
+     capacity modes at capacity factor 0.5, so choices drop. Each: the
+     same expert choices and the same dropped choices, losses, parameters
+     and moments within phase 8's tolerances, K1-lse once a layer a step,
+     and K5/K6 launches for pgmm and ragged only.
  12. MoE training at full width and depth: the Mixtral-class config of
      bench.py bench_moe (640M params, 225M activated: 8 layers, hidden 1024,
      8 swiglu experts of 2816, top-2 GShard, batch 8 x seq 2048, bf16) with
@@ -115,8 +120,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      memory, launches per step: K5 48, K6 24, K1-lse/K2/K3 8 each, serving
      K1 0), one step under set_sync_debug_mode (no synchronizing
      operation), then 6 steps at lr 1e-3 on one batch whose loss must fall.
+ 13. remat at full width and depth: bench.py's llama_853M_seq4096_remat
+     line (:1962-1968: phase 9's model with recompute=True and the
+     flash_qkv policy, batch 4 x seq 4096): 2 warm-up and 8 timed steps
+     (tokens/s, MFU from model FLOPs with no recompute counted, ms per
+     step, peak memory; K1-lse/K2/K3 exactly 16 a step: the policy saves
+     the flash forward, so the backward does not run it again; serving K1
+     0; the projections of q/k/v run outside the checkpointed region, so
+     they are kept, not replayed; phases 4 and 5 hold the three kernels
+     against their plain versions at this step's shape), then 6 steps at
+     lr 1e-3 on one batch whose loss must fall; the same config without
+     remat at batch 4 (ms, peak memory, the remat tax as a ms ratio;
+     remat's peak must be lower); then each policy at 4
+     layers of the same widths: K1-lse 4 a step for flash, flash_qkv and
+     flash_mlp, 8 for full, 6 for full with remat_every=2.
+ 14. the MoE line at its default dispatch: phase 12's config with
+     moe_dispatch="auto", which must resolve to scatter (capacity 5120:
+     16384 x 8 x 5120 > 2^24): 2 warm-up and 8 timed steps (tokens/s,
+     activated MFU, ms per step, peak memory) beside phase 12's pgmm line;
+     K1-lse/K2/K3 8 a step, K5/K6 none; one step under
+     set_sync_debug_mode (no synchronizing operation); 6 steps at lr 1e-3
+     on one batch whose loss must fall.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools; "paged_decode_int8" counts phase 7c's launches on int8 pools.
+fp pools; "paged_decode_int8" counts phase 7c's launches on int8 pools;
+K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14, each read
+with the counts set to 0 just before it.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -160,12 +188,17 @@ LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
 # the MoE step's attention shape (MOE_CONFIG below: batch 8 x seq 2048, 16 q
 # / 4 kv heads of 64)
 MOE_ATTN_SHAPE = ("moe", 8, 2048, 2048, 16, 4, 64, True)
-# K2/K3 cases; the training and MoE shapes run in bf16 only. "strided" (here
-# and in K1_CASES) takes q, k and v as strided views of one [b, s, 3, h, d]
-# buffer.
+# the remat step's attention shape (REMAT_CONFIG below at batch 4)
+REMAT_ATTN_SHAPE = ("remat", 4, 4096, 4096, 16, 4, 128, True)
+# the main paths' attention shapes, which K1-lse and K2/K3 run in bf16 only
+TRAIN_PATH_SHAPES = (TRAIN_SHAPE, MOE_ATTN_SHAPE, REMAT_ATTN_SHAPE)
+# K2/K3 cases; the training, MoE and remat shapes run in bf16 only.
+# "strided" (here and in K1_CASES) takes q, k and v as strided views of one
+# [b, s, 3, h, d] buffer.
 BWD_CASES = [
     TRAIN_SHAPE,
     MOE_ATTN_SHAPE,
+    REMAT_ATTN_SHAPE,
     ("mha", 2, 1024, 1024, 16, 16, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
@@ -244,6 +277,20 @@ MOE_CONFIG = dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
                   dtype="bfloat16", num_experts=8, moe_topk=2,
                   moe_dispatch="pgmm")
 MOE_BATCH, MOE_SEQ, MOE_WARMUP, MOE_STEPS = 8, 2048, 2, 8
+# phase 13: bench.py's llama_853M_seq4096_remat line (:1962-1968): the
+# headline model with recompute=True and the flash_qkv policy at batch 4;
+# then the same at batch 4 without remat, and the policy check at 4 layers
+REMAT_CONFIG = dict(TRAIN_CONFIG, recompute=True, remat_policy="flash_qkv")
+REMAT_BATCH, REMAT_WARMUP, REMAT_STEPS = 4, 2, 8
+REMAT_POLICY_LAYERS = 4
+# policy, remat_every, K1-lse launches a step at 4 layers
+REMAT_POLICY_CASES = [("flash", 1, 4), ("flash_qkv", 1, 4),
+                      ("flash_mlp", 1, 4), ("full", 1, 8), ("full", 2, 6)]
+# phase 14: bench.py bench_moe (:1749-1754) at its default dispatch; "auto"
+# resolves to scatter at this shape (capacity 5120: 16384 x 8 x 5120 >
+# 2^24)
+MOE_AUTO_CONFIG = dict(MOE_CONFIG, moe_dispatch="auto")
+MOE_AUTO_CAPACITY = 5120
 # K5/K6 cases: name, routed rows, experts, k, n, tile_m, dtypes; "main" is
 # the train step's: 8 x 2048 tokens x top-2 = 32768 rows, padded to 36864
 PGMM_CASES = [
@@ -255,8 +302,23 @@ PGMM_CASES = [
 MOE_PARITY_CONFIG = dict(vocab_size=1024, hidden_size=256,
                          intermediate_size=512, num_hidden_layers=2,
                          num_attention_heads=4, num_key_value_heads=2,
-                         max_position_embeddings=256, num_experts=4,
-                         moe_dispatch="pgmm")
+                         max_position_embeddings=256, num_experts=4)
+# phase 11's cases: name, config overrides, eval mode. The capacity modes
+# run at capacity factor 0.5 (capacity 100 for 400 tokens x top-2 over 4
+# experts), so every step drops choices; "auto" resolves to einsum here.
+MOE_PARITY_CASES = [
+    ("pgmm", dict(moe_dispatch="pgmm"), False),
+    ("einsum", dict(moe_dispatch="einsum", moe_capacity_factor=0.5), False),
+    ("scatter", dict(moe_dispatch="scatter", moe_capacity_factor=0.5),
+     False),
+    ("ragged", dict(moe_dispatch="ragged"), False),
+    ("auto", dict(moe_dispatch="auto", moe_capacity_factor=0.5), False),
+    ("switch_eval", dict(moe_gate="switch", moe_dispatch="scatter",
+                         moe_capacity_factor=0.5), True),
+    ("remat_flash_scatter", dict(moe_dispatch="scatter",
+                                 moe_capacity_factor=0.5, recompute=True,
+                                 remat_policy="flash"), False),
+]
 
 
 def card_line():
@@ -690,7 +752,7 @@ def phase_k1_lse(torch, F, ops):
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     row = None
     cases = [(c, dn) for dn in ("bfloat16", "float32") for c in K1_CASES]
-    cases += [(TRAIN_SHAPE, "bfloat16"), (MOE_ATTN_SHAPE, "bfloat16")]
+    cases += [(c, "bfloat16") for c in TRAIN_PATH_SHAPES]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
         q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
@@ -740,7 +802,7 @@ def phase_k2k3(torch, F, ops):
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     rows = None
     cases = [(c, dn) for c in BWD_CASES for dn in ("bfloat16", "float32")
-             if not (c in (TRAIN_SHAPE, MOE_ATTN_SHAPE) and dn == "float32")]
+             if not (c in TRAIN_PATH_SHAPES and dn == "float32")]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
         q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
@@ -892,68 +954,31 @@ def phase_train_parity(torch, np, ops):
 def phase_train_full(torch, np, ops, card):
     """The headline config trained at full width and depth; returns the
     main-path launch counts (K1-lse, K2, K3)."""
-    from paddle_tpu_torch.distributed import Engine
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models import LlamaConfig
 
     cfg = LlamaConfig(**TRAIN_CONFIG)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
-    eng = Engine(model, lr=1e-4, clip_norm=1.0)
-    rng = np.random.default_rng(0)
-    batches = [torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
-            DEVICE) for _ in range(TRAIN_STEPS)]
-    sync()
-    print(f"train setup: {cfg.num_params() / 1e6:.1f}M params, "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    losses = [eng.step(batches[0], batches[0]) for _ in range(TRAIN_WARMUP)]
-    sync()
-    ops.flash_attention.launches = 0
-    ops.flash_attention_forward.launches = 0
-    ops.flash_attention_backward.launches_dq = 0
-    ops.flash_attention_backward.launches_dkv = 0
-    t0 = time.perf_counter()
-    for ids in batches:
-        losses.append(eng.step(ids, ids))
-    last = losses[-1].item()    # one host read fences the chain
-    wall = time.perf_counter() - t0
-    counts = (ops.flash_attention_forward.launches,
-              ops.flash_attention_backward.launches_dq,
-              ops.flash_attention_backward.launches_dkv)
-    serving_k1 = ops.flash_attention.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    vals = torch.stack(losses).float().cpu()
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall
+    eng, batches, r = _timed_train(torch, np, ops, cfg, TRAIN_BATCH,
+                                   TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS)
     L, H, Q = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
     flops_per_token = 6.0 * cfg.num_params() + 6.0 * L * (H * Q) * TRAIN_SEQ
-    mfu = tok_s * flops_per_token / PEAK_FLOPS["bfloat16"]
-    print(f"train [{card}]: tokens_per_s={tok_s:.1f} mfu={mfu:.4f} "
-          f"ms_per_step={wall / TRAIN_STEPS * 1e3:.2f} peak_mem_gb="
-          f"{peak_gb:.2f} ({cfg.num_params() / 1e6:.1f}M params, batch "
-          f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, {cfg.dtype}, fused CE, no remat); "
-          f"losses {[round(x, 4) for x in vals.tolist()]}; launches "
+    mfu = r["tok_s"] * flops_per_token / PEAK_FLOPS["bfloat16"]
+    counts = (r["launches"]["k1_lse"], r["launches"]["k2"],
+              r["launches"]["k3"])
+    serving_k1 = r["launches"]["k1"]
+    print(f"train [{card}]: tokens_per_s={r['tok_s']:.1f} mfu={mfu:.4f} "
+          f"ms_per_step={r['ms']:.2f} peak_mem_gb={r['peak_gb']:.2f} "
+          f"({cfg.num_params() / 1e6:.1f}M params, batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, {cfg.dtype}, fused CE, no remat); losses "
+          f"{[round(x, 4) for x in r['losses'].tolist()]}; launches "
           f"k1_lse/k2/k3={counts} serving_k1={serving_k1}", flush=True)
+    _check_losses(r["losses"], "training")
     need = TRAIN_STEPS * L
-    if not torch.isfinite(vals).all():
-        raise AssertionError(f"non-finite training loss: {vals.tolist()}")
-    if not 9.0 <= vals[0].item() <= 12.5:
-        raise AssertionError(f"first loss {vals[0].item()} outside [9, 12.5]"
-                             f" (ln {cfg.vocab_size} = 10.37)")
     if min(counts) < need or serving_k1 != 0:
         raise AssertionError(f"kernels did not carry the train step: "
                              f"{counts} < {need} or serving K1 ran "
                              f"{serving_k1} times")
-    # learning: 6 steps at lr 1e-3 on one batch
-    eng.lr = 1e-3
-    fixed = [eng.step(batches[0], batches[0]) for _ in range(6)]
-    first, final = fixed[0].item(), fixed[-1].item()
-    print(f"train fixed batch (lr 1e-3, 6 steps): first loss {first:.4f} "
-          f"last loss {final:.4f} (last {last:.4f} before)", flush=True)
-    if not final < first:
-        raise AssertionError(f"loss did not fall on a fixed batch: {first} "
-                             f"-> {final}")
-    del eng, model, batches
+    _loss_falls(eng, batches[0], "train")
+    del eng, batches
     torch.cuda.empty_cache()
     return counts
 
@@ -1095,36 +1120,46 @@ def phase_pgmm(torch, np, ops):
 
 
 def _recording_routes(mod, seen):
-    """Patch routed_ffn to append, for every forward, its top-k expert ids
-    (on the host) and the smallest gap between rank-1/rank-2 and
-    rank-k/rank-k+1 gate probabilities; returns the real function."""
+    """Patch routed_ffn to append, for every call, its choices on the host:
+    the top-k expert ids of the dropless modes, or ``topk_routing``'s
+    expert ids and keep mask (the dropped choices) of the capacity modes,
+    and the smallest gap between rank-1/rank-2 and rank-k/rank-k+1 gate
+    probabilities; returns the real function."""
     real = mod.routed_ffn
 
-    def spy(tokens, probs, expert_fn, k, *a, **kw):
-        s = probs.detach().float().sort(dim=-1, descending=True)
+    def spy(tokens, probs, expert_fn, k, capacity, *a, **kw):
+        p = probs.detach().float()
+        s = p.sort(dim=-1, descending=True)
         gap = min((s.values[:, 0] - s.values[:, 1]).min().item(),
                   (s.values[:, k - 1] - s.values[:, k]).min().item())
-        seen.append((s.indices[:, :k].cpu(), gap))
-        return real(tokens, probs, expert_fn, k, *a, **kw)
+        mode = mod.resolve_dispatch(kw.get("dispatch_mode", "auto"),
+                                    p.shape[0], p.shape[1], capacity,
+                                    expert_fn)
+        if mode in ("einsum", "scatter"):
+            eidx, _, _, keep, _ = mod.topk_routing(p, k, capacity)
+            seen.append((mode, eidx.cpu(), keep.cpu(), gap))
+        else:
+            seen.append((mode, s.indices[:, :k].cpu(), None, gap))
+        return real(tokens, probs, expert_fn, k, capacity, *a, **kw)
     mod.routed_ffn = spy
     return real
 
 
-def phase_moe_parity(torch, np, ops):
-    """3 Engine steps of a tiny fp32 MoE Llama on the card and on the CPU
-    from the same weights: the card path runs K5/K6 (and K1-lse/K2/K3), the
-    CPU path their plain versions."""
+def _moe_parity_case(torch, np, ops, moe_mod, name, over, evaluate):
+    """One phase-11 case: 3 Engine steps on the CPU and on the card from
+    the same weights; returns the card's K5/K6/K1-lse launches."""
     from paddle_tpu_torch.distributed import Engine
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    moe_mod = importlib.import_module(
-        "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer")
-    cfg = LlamaConfig(**MOE_PARITY_CONFIG)
+    cfg = LlamaConfig(**MOE_PARITY_CONFIG, **over)
     cpu = LlamaForCausalLM(cfg, device="cpu", seed=8)
     card = LlamaForCausalLM(cfg, device=DEVICE, seed=8)
     with torch.no_grad():
         for pc, pg in zip(cpu.parameters(), card.parameters()):
             pg.copy_(pc)
+    if evaluate:
+        cpu.eval()
+        card.eval()
     rng = np.random.default_rng(8)
     batches = [torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ)))
@@ -1132,47 +1167,77 @@ def phase_moe_parity(torch, np, ops):
     routes = {"cpu": [], "card": []}
     real = _recording_routes(moe_mod, routes["cpu"])
     ec, lc = _engine_steps(torch, Engine, cpu, batches, PARITY_LR)
-    n5, n6 = ops.pgmm.launches, ops.pgmm_dw.launches
     moe_mod.routed_ffn = real
     _recording_routes(moe_mod, routes["card"])
+    n0 = (ops.pgmm.launches, ops.pgmm_dw.launches,
+          ops.flash_attention_forward.launches)
     eg, lg = _engine_steps(torch, Engine, card,
                            [x.to(DEVICE) for x in batches], PARITY_LR)
     sync()
-    counts = (ops.pgmm.launches - n5, ops.pgmm_dw.launches - n6)
+    counts = (ops.pgmm.launches - n0[0], ops.pgmm_dw.launches - n0[1],
+              ops.flash_attention_forward.launches - n0[2])
     moe_mod.routed_ffn = real
     # the gates' fp32 matmuls round differently on the two devices, so a
-    # near-tie could route a token elsewhere: count the choices that differ
-    flips = sum(int((a != b).sum()) for (a, _), (b, _) in
-                zip(routes["cpu"], routes["card"]))
-    gap = min(g for _, g in routes["cpu"])
+    # near-tie could route a token elsewhere: count the choices (and the
+    # dropped choices) that differ
+    pairs = list(zip(routes["cpu"], routes["card"]))
+    flips = sum(int((a[1] != b[1]).sum()) for a, b in pairs)
+    drop_flips = sum(int((a[2] != b[2]).sum()) for a, b in pairs
+                     if a[2] is not None)
+    dropped = sum(int((~a[2]).sum()) for a, _ in pairs if a[2] is not None)
+    modes = sorted({r[0] for r in routes["card"]})
+    gap = min(r[3] for r in routes["cpu"])
     loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
     sc, sg = ec.state_dict(), eg.state_dict()
     worst = {}
     for key in ("model", "m", "v"):
         w = (0.0, "")
-        for name, a in sc[key].items():
-            err = (sg[key][name].cpu() - a).abs().max().item()
+        for pname, a in sc[key].items():
+            err = (sg[key][pname].cpu() - a).abs().max().item()
             if key != "model":
                 err /= max(a.abs().max().item(), 1e-30)
-            w = max(w, (err, name))
+            w = max(w, (err, pname))
         worst[key] = w
     p_tol = 2 * PARITY_LR * PARITY_STEPS   # as phase_train_parity derives
     L = cfg.num_hidden_layers * PARITY_STEPS
-    print(f"moe parity (card vs CPU, fp32, {PARITY_STEPS} steps, "
-          f"{cfg.num_experts} experts top-2 pgmm, hidden {cfg.hidden_size}, "
-          f"seq {PARITY_SEQ}): losses card {[round(x, 6) for x in lg.tolist()]}"
-          f" cpu {[round(x, 6) for x in lc.tolist()]} max_rel={loss_rel:.3e};"
-          f" params worst abs {worst['model'][0]:.3e} ({worst['model'][1]}, "
-          f"tol {p_tol}); m worst rel {worst['m'][0]:.3e} ({worst['m'][1]}); "
-          f"v worst rel {worst['v'][0]:.3e} ({worst['v'][1]}); routing: "
-          f"{flips} of {sum(a.numel() for a, _ in routes['cpu'])} expert "
-          f"choices differ, smallest top-k gap (CPU) {gap:.3e}; card "
-          f"launches k5/k6={counts}", flush=True)
+    grouped = name in ("pgmm", "ragged")
+    want = (6 * L, 3 * L) if grouped else (0, 0)
+    topk = 1 if cfg.moe_gate == "switch" else cfg.moe_topk
+    print(f"moe parity {name} (card vs CPU, fp32, {PARITY_STEPS} steps, "
+          f"{cfg.num_experts} experts top-{topk} {cfg.moe_gate}, dispatch "
+          f"{modes}, capacity "
+          f"factor {cfg.moe_capacity_factor}{', eval' if evaluate else ''}"
+          f"{', remat ' + cfg.remat_policy if cfg.recompute else ''}): "
+          f"losses card {[round(x, 6) for x in lg.tolist()]} cpu "
+          f"{[round(x, 6) for x in lc.tolist()]} max_rel={loss_rel:.3e}; "
+          f"params worst abs {worst['model'][0]:.3e} ({worst['model'][1]}, "
+          f"tol {p_tol}); m worst rel {worst['m'][0]:.3e}; v worst rel "
+          f"{worst['v'][0]:.3e}; routing: {flips} of "
+          f"{sum(a[1].numel() for a, _ in pairs)} expert choices and "
+          f"{drop_flips} drop decisions differ ({dropped} choices dropped "
+          f"on the CPU), smallest top-k gap (CPU) {gap:.3e}; card launches "
+          f"k5/k6/k1_lse={counts}", flush=True)
+    calls = L * (2 if cfg.recompute else 1)   # a recompute routes again
     if not (loss_rel <= 1e-4 and worst["model"][0] <= p_tol
             and worst["m"][0] <= 1e-3 and worst["v"][0] <= 1e-3
-            and counts == (6 * L, 3 * L) and flips == 0
-            and len(routes["card"]) == len(routes["cpu"]) == L):
-        raise AssertionError("MoE training parity card vs CPU failed")
+            and counts[:2] == want and counts[2] == L
+            and flips == 0 and drop_flips == 0
+            and len(routes["card"]) == len(routes["cpu"]) == calls
+            and (grouped or name == "auto" or dropped > 0)):
+        raise AssertionError(f"MoE training parity card vs CPU failed "
+                             f"({name})")
+    return counts
+
+
+def phase_moe_parity(torch, np, ops):
+    """3 Engine steps of a tiny fp32 MoE Llama on the card and on the CPU
+    from the same weights, for each dispatch (MOE_PARITY_CASES): the card
+    path runs K5/K6 (pgmm, ragged) and K1-lse/K2/K3, the CPU path their
+    plain versions."""
+    moe_mod = importlib.import_module(
+        "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer")
+    for name, over, evaluate in MOE_PARITY_CASES:
+        _moe_parity_case(torch, np, ops, moe_mod, name, over, evaluate)
 
 
 def _sync_count(torch, fn):
@@ -1206,65 +1271,32 @@ def moe_flops_per_token(cfg, model, seq):
 
 def phase_moe_train(torch, np, ops, card):
     """The Mixtral-class MoE step trained at full width and depth; returns
-    the main-path launch counts (K5, K6) of the timed steps."""
-    from paddle_tpu_torch.distributed import Engine
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    the main-path launch counts (K5, K6) of the timed steps and the line's
+    numbers (ms, tokens/s, peak memory, activated MFU)."""
+    from paddle_tpu_torch.models import LlamaConfig
 
     cfg = LlamaConfig(**MOE_CONFIG)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
-    eng = Engine(model, lr=1e-4, clip_norm=1.0)
-    rng = np.random.default_rng(0)
-    batches = [torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)).astype(np.int32)).to(
-            DEVICE) for _ in range(MOE_STEPS)]
-    n_total, n_act, fpt = moe_flops_per_token(cfg, model, MOE_SEQ)
-    sync()
-    print(f"moe train setup: {n_total / 1e6:.1f}M params, "
-          f"{n_act / 1e6:.1f}M activated, "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
-    losses = [eng.step(batches[0], batches[0]) for _ in range(MOE_WARMUP)]
-    sync()
-    for fn in (ops.flash_attention, ops.flash_attention_forward, ops.pgmm,
-               ops.pgmm_dw):
-        fn.launches = 0
-    ops.flash_attention_backward.launches_dq = 0
-    ops.flash_attention_backward.launches_dkv = 0
-    t0 = time.perf_counter()
-    for ids in batches:
-        losses.append(eng.step(ids, ids))
-    last = losses[-1].item()    # one host read fences the chain
-    wall = time.perf_counter() - t0
-    k5, k6 = ops.pgmm.launches, ops.pgmm_dw.launches
-    attn = (ops.flash_attention_forward.launches,
-            ops.flash_attention_backward.launches_dq,
-            ops.flash_attention_backward.launches_dkv)
-    serving_k1 = ops.flash_attention.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    vals = torch.stack(losses).float().cpu()
-    tok_s = MOE_BATCH * MOE_SEQ * MOE_STEPS / wall
-    mfu = tok_s * fpt / PEAK_FLOPS["bfloat16"]
-    per_step = [c / MOE_STEPS for c in (k5, k6, *attn)]
-    print(f"moe train [{card}]: tokens_per_s={tok_s:.1f} "
-          f"activated_mfu={mfu:.4f} ms_per_step={wall / MOE_STEPS * 1e3:.2f} "
-          f"peak_mem_gb={peak_gb:.2f} ({n_total / 1e6:.1f}M params, "
+    eng, batches, r = _timed_train(torch, np, ops, cfg, MOE_BATCH, MOE_SEQ,
+                                   MOE_WARMUP, MOE_STEPS)
+    n_total, n_act, fpt = moe_flops_per_token(cfg, eng.model, MOE_SEQ)
+    mfu = r["tok_s"] * fpt / PEAK_FLOPS["bfloat16"]
+    per_step = [r["per_step"][k] for k in ("k5", "k6", "k1_lse", "k2", "k3")]
+    serving_k1 = r["launches"]["k1"]
+    print(f"moe train [{card}]: tokens_per_s={r['tok_s']:.1f} "
+          f"activated_mfu={mfu:.4f} ms_per_step={r['ms']:.2f} "
+          f"peak_mem_gb={r['peak_gb']:.2f} ({n_total / 1e6:.1f}M params, "
           f"{n_act / 1e6:.1f}M activated, {cfg.num_experts} experts top-"
           f"{cfg.moe_topk} pgmm, batch {MOE_BATCH} x seq {MOE_SEQ}, "
-          f"{cfg.dtype}); losses {[round(x, 4) for x in vals.tolist()]}; "
-          f"launches per step k5/k6/k1_lse/k2/k3={per_step} "
-          f"serving_k1={serving_k1}", flush=True)
+          f"{cfg.dtype}); losses "
+          f"{[round(x, 4) for x in r['losses'].tolist()]}; launches per "
+          f"step k5/k6/k1_lse/k2/k3={per_step} serving_k1={serving_k1}",
+          flush=True)
     L = cfg.num_hidden_layers
     if per_step != [6 * L, 3 * L, L, L, L] or serving_k1 != 0:
         raise AssertionError(f"kernels did not carry the MoE step: per step "
                              f"{per_step} != {[6 * L, 3 * L, L, L, L]} or "
                              f"serving K1 ran {serving_k1} times")
-    if not torch.isfinite(vals).all():
-        raise AssertionError(f"non-finite MoE loss: {vals.tolist()}")
-    if not 9.0 <= vals[0].item() <= 12.5:
-        raise AssertionError(f"first MoE loss {vals[0].item()} outside "
-                             f"[9, 12.5]")
+    _check_losses(r["losses"], "MoE")
     syncs = _sync_count(torch, lambda: eng.step(batches[1], batches[1]))
     print(f"moe step under set_sync_debug_mode: {len(syncs)} synchronizing "
           f"operations", flush=True)
@@ -1272,17 +1304,204 @@ def phase_moe_train(torch, np, ops, card):
         print(f"  {msg[:160]}", flush=True)
     if syncs:
         raise AssertionError(f"the MoE step synchronized {len(syncs)} times")
-    eng.lr = 1e-3
-    fixed = [eng.step(batches[0], batches[0]) for _ in range(6)]
-    first, final = fixed[0].item(), fixed[-1].item()
-    print(f"moe fixed batch (lr 1e-3, 6 steps): first loss {first:.4f} "
-          f"last loss {final:.4f} (last {last:.4f} before)", flush=True)
-    if not final < first:
-        raise AssertionError(f"MoE loss did not fall on a fixed batch: "
-                             f"{first} -> {final}")
-    del eng, model, batches
+    _loss_falls(eng, batches[0], "moe")
+    del eng, batches
     torch.cuda.empty_cache()
-    return k5, k6
+    return r["launches"]["k5"], r["launches"]["k6"], dict(
+        ms=r["ms"], tok_s=r["tok_s"], peak_gb=r["peak_gb"], mfu=mfu)
+
+
+def _reset_counts(ops):
+    for fn in (ops.flash_attention, ops.flash_attention_forward, ops.pgmm,
+               ops.pgmm_dw):
+        fn.launches = 0
+    ops.flash_attention_backward.launches_dq = 0
+    ops.flash_attention_backward.launches_dkv = 0
+
+
+def _read_counts(ops):
+    return dict(k1=ops.flash_attention.launches,
+                k1_lse=ops.flash_attention_forward.launches,
+                k2=ops.flash_attention_backward.launches_dq,
+                k3=ops.flash_attention_backward.launches_dkv,
+                k5=ops.pgmm.launches, k6=ops.pgmm_dw.launches)
+
+
+def _timed_train(torch, np, ops, cfg, batch, seq, warmup, steps):
+    """Build ``cfg`` on the card (random weights, seed 0) under
+    Engine(lr=1e-4, clip 1.0); ``warmup`` steps on one batch, then
+    ``steps`` timed steps on fresh batches with every launch count set to 0
+    just before and read just after. Returns (engine, batches, stats):
+    ms a step, tokens/s, peak memory (GB, from the model's construction
+    on), launches a step, the losses."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = Engine(model, lr=1e-4, clip_norm=1.0)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).to(DEVICE)
+        for _ in range(steps)]
+    losses = [eng.step(batches[0], batches[0]) for _ in range(warmup)]
+    sync()
+    _reset_counts(ops)
+    t0 = time.perf_counter()
+    for ids in batches:
+        losses.append(eng.step(ids, ids))
+    losses[-1].item()           # one host read fences the chain
+    wall = time.perf_counter() - t0
+    counts = _read_counts(ops)
+    return eng, batches, dict(
+        ms=wall / steps * 1e3, tok_s=batch * seq * steps / wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        per_step={k: v / steps for k, v in counts.items()},
+        launches=counts, losses=torch.stack(losses).float().cpu())
+
+
+def _loss_falls(eng, ids, what):
+    """6 steps at lr 1e-3 on one batch: the loss must fall."""
+    eng.lr = 1e-3
+    fixed = [eng.step(ids, ids) for _ in range(6)]
+    first, final = fixed[0].item(), fixed[-1].item()
+    print(f"{what} fixed batch (lr 1e-3, 6 steps): first loss {first:.4f} "
+          f"last loss {final:.4f}", flush=True)
+    if not final < first:
+        raise AssertionError(f"{what}: loss did not fall on a fixed batch: "
+                             f"{first} -> {final}")
+
+
+def _check_losses(vals, what):
+    if not bool(vals.isfinite().all()):
+        raise AssertionError(f"non-finite {what} loss: {vals.tolist()}")
+    if not 9.0 <= vals[0].item() <= 12.5:
+        raise AssertionError(f"first {what} loss {vals[0].item()} outside "
+                             f"[9, 12.5] (ln 32000 = 10.37)")
+
+
+def phase_remat_train(torch, np, ops, card):
+    """bench.py's remat line (853M, seq 4096, batch 4, flash_qkv) trained
+    at full width and depth, the same at batch 4 without remat, and the
+    K1-lse launches of each policy at 4 layers; returns the main-path
+    launch counts (K1-lse, K2, K3) of the remat run's timed steps."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**REMAT_CONFIG)
+    L, H, Q = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+    # bench.py:101-103's model FLOPs: no recompute counted
+    fpt = 6.0 * cfg.num_params() + 6.0 * L * (H * Q) * TRAIN_SEQ
+    eng, batches, r = _timed_train(torch, np, ops, cfg, REMAT_BATCH,
+                                   TRAIN_SEQ, REMAT_WARMUP, REMAT_STEPS)
+    per = r["per_step"]
+    print(f"remat train [{card}]: tokens_per_s={r['tok_s']:.1f} mfu="
+          f"{r['tok_s'] * fpt / PEAK_FLOPS['bfloat16']:.4f} ms_per_step="
+          f"{r['ms']:.2f} peak_mem_gb={r['peak_gb']:.2f} "
+          f"({cfg.num_params() / 1e6:.1f}M params, batch {REMAT_BATCH} x "
+          f"seq {TRAIN_SEQ}, {cfg.dtype}, remat {cfg.remat_policy} every "
+          f"{cfg.remat_every}); losses "
+          f"{[round(x, 4) for x in r['losses'].tolist()]}; launches per "
+          f"step k1_lse/k2/k3={per['k1_lse']}/{per['k2']}/{per['k3']} "
+          f"serving_k1={r['launches']['k1']}", flush=True)
+    _check_losses(r["losses"], "remat")
+    if (per["k1_lse"], per["k2"], per["k3"]) != (L, L, L) \
+            or r["launches"]["k1"] != 0:
+        raise AssertionError(f"remat step launches: K1-lse/K2/K3 per step "
+                             f"{per['k1_lse']}/{per['k2']}/{per['k3']} != "
+                             f"{L} each (a saved forward runs once), or "
+                             f"serving K1 ran {r['launches']['k1']} times")
+    _loss_falls(eng, batches[0], "remat")
+    launches = (r["launches"]["k1_lse"], r["launches"]["k2"],
+                r["launches"]["k3"])
+    del eng, batches
+    cfg0 = LlamaConfig(**dict(REMAT_CONFIG, recompute=False))
+    eng, batches, r0 = _timed_train(torch, np, ops, cfg0, REMAT_BATCH,
+                                    TRAIN_SEQ, REMAT_WARMUP, REMAT_STEPS)
+    _check_losses(r0["losses"], "no-remat batch-4")
+    print(f"no-remat batch-4 train [{card}]: tokens_per_s={r0['tok_s']:.1f} "
+          f"ms_per_step={r0['ms']:.2f} peak_mem_gb={r0['peak_gb']:.2f}; "
+          f"remat tax (ms ratio) {r['ms'] / r0['ms']:.4f}, peak memory "
+          f"ratio {r['peak_gb'] / r0['peak_gb']:.4f}", flush=True)
+    del eng, batches
+    if not r["peak_gb"] < r0["peak_gb"]:
+        raise AssertionError(f"remat peak memory {r['peak_gb']} GB is not "
+                             f"below no-remat's {r0['peak_gb']} GB")
+    for policy, every, want in REMAT_POLICY_CASES:
+        cfgp = LlamaConfig(**dict(REMAT_CONFIG,
+                                  num_hidden_layers=REMAT_POLICY_LAYERS,
+                                  remat_policy=policy, remat_every=every))
+        eng, _, rp = _timed_train(torch, np, ops, cfgp, REMAT_BATCH,
+                                  TRAIN_SEQ, 1, 2)
+        per = rp["per_step"]
+        print(f"remat policy {policy} every {every} ({REMAT_POLICY_LAYERS} "
+              f"layers, batch {REMAT_BATCH} x seq {TRAIN_SEQ}) [{card}]: "
+              f"k1_lse per step {per['k1_lse']} (want {want}), k2/k3 "
+              f"{per['k2']}/{per['k3']}, ms_per_step={rp['ms']:.2f} "
+              f"peak_mem_gb={rp['peak_gb']:.2f}", flush=True)
+        del eng
+        if (per["k1_lse"], per["k2"], per["k3"]) != (
+                want, REMAT_POLICY_LAYERS, REMAT_POLICY_LAYERS):
+            raise AssertionError(f"remat policy {policy} every {every}: "
+                                 f"K1-lse {per['k1_lse']} a step, want "
+                                 f"{want}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_auto_train(torch, np, ops, card, pgmm):
+    """bench.py bench_moe at its default dispatch ("auto", which resolves
+    to scatter here), trained at full width and depth beside phase 12's
+    pgmm line; returns the main-path launch counts (K1-lse, K2, K3)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import \
+        resolve_dispatch
+    from paddle_tpu_torch.models import LlamaConfig
+
+    cfg = LlamaConfig(**MOE_AUTO_CONFIG)
+    eng, batches, r = _timed_train(torch, np, ops, cfg, MOE_BATCH, MOE_SEQ,
+                                   MOE_WARMUP, MOE_STEPS)
+    mlp = eng.model.model.layers[0].mlp
+    n = MOE_BATCH * MOE_SEQ
+    cap = mlp.capacity(n)
+    mode = resolve_dispatch(mlp.dispatch_mode, n, cfg.num_experts, cap,
+                            mlp.experts)
+    n_total, n_act, fpt = moe_flops_per_token(cfg, eng.model, MOE_SEQ)
+    mfu = r["tok_s"] * fpt / PEAK_FLOPS["bfloat16"]
+    per = r["per_step"]
+    print(f"moe auto train [{card}]: dispatch auto -> {mode} (capacity "
+          f"{cap}) tokens_per_s={r['tok_s']:.1f} activated_mfu={mfu:.4f} "
+          f"ms_per_step={r['ms']:.2f} peak_mem_gb={r['peak_gb']:.2f}; "
+          f"pgmm (phase 12, same run): tokens_per_s={pgmm['tok_s']:.1f} "
+          f"activated_mfu={pgmm['mfu']:.4f} ms_per_step={pgmm['ms']:.2f} "
+          f"peak_mem_gb={pgmm['peak_gb']:.2f}; scatter/pgmm ms ratio "
+          f"{r['ms'] / pgmm['ms']:.4f}; losses "
+          f"{[round(x, 4) for x in r['losses'].tolist()]}; launches per step "
+          f"k5/k6/k1_lse/k2/k3={per['k5']}/{per['k6']}/{per['k1_lse']}/"
+          f"{per['k2']}/{per['k3']} serving_k1={r['launches']['k1']}",
+          flush=True)
+    L = cfg.num_hidden_layers
+    if mode != "scatter" or cap != MOE_AUTO_CAPACITY:
+        raise AssertionError(f"auto resolved to {mode} at capacity {cap}, "
+                             f"want scatter at {MOE_AUTO_CAPACITY}")
+    if [per[k] for k in ("k5", "k6", "k1_lse", "k2", "k3")] != \
+            [0, 0, L, L, L] or r["launches"]["k1"] != 0:
+        raise AssertionError(f"MoE auto step launches per step {per}, want "
+                             f"K5/K6 0 and K1-lse/K2/K3 {L}")
+    _check_losses(r["losses"], "MoE auto")
+    syncs = _sync_count(torch, lambda: eng.step(batches[1], batches[1]))
+    print(f"moe auto step under set_sync_debug_mode: {len(syncs)} "
+          f"synchronizing operations", flush=True)
+    for msg in syncs[:5]:
+        print(f"  {msg[:160]}", flush=True)
+    if syncs:
+        raise AssertionError(f"the MoE auto step synchronized {len(syncs)} "
+                             f"times")
+    _loss_falls(eng, batches[0], "moe auto")
+    launches = (r["launches"]["k1_lse"], r["launches"]["k2"],
+                r["launches"]["k3"])
+    del eng, batches
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_serving(torch, np, ops, card):
@@ -1742,6 +1961,14 @@ def phase_serving_spec(torch, np, ops, card):
     return k4_fp, k4_int8
 
 
+def _phase(name, fn, *args):
+    """``fn(*args)``, then a line with the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -1769,21 +1996,33 @@ def main():
             print(f"  {name}: {fn} registers={regs} spill_store_bytes="
                   f"{spill}", flush=True)
 
-    k1 = phase_k1(torch, F, ops)
-    k4 = phase_k4(torch, ops)
-    k1_lse = phase_k1_lse(torch, F, ops)
-    k2, k3 = phase_k2k3(torch, F, ops)
-    k1_launches, k4_launches = phase_serving(torch, np, ops, card)
-    k4_launches += phase_serving_fused(torch, np, ops, card)
-    k4_int8 = phase_k4_int8(torch, ops)
-    k4_fp_spec, k4_int8_launches = phase_serving_spec(torch, np, ops, card)
+    k1 = _phase("2 k1", phase_k1, torch, F, ops)
+    k4 = _phase("3 k4", phase_k4, torch, ops)
+    k1_lse = _phase("4 k1_lse", phase_k1_lse, torch, F, ops)
+    k2, k3 = _phase("5 k2k3", phase_k2k3, torch, F, ops)
+    k1_launches, k4_launches = _phase("6 serving", phase_serving, torch, np,
+                                      ops, card)
+    k4_launches += _phase("7 fused serving", phase_serving_fused, torch, np,
+                          ops, card)
+    k4_int8 = _phase("7b k4_int8", phase_k4_int8, torch, ops)
+    k4_fp_spec, k4_int8_launches = _phase("7c spec serving",
+                                          phase_serving_spec, torch, np,
+                                          ops, card)
     k4_launches += k4_fp_spec
-    phase_train_parity(torch, np, ops)
-    lse_launches, k2_launches, k3_launches = phase_train_full(torch, np, ops,
-                                                              card)
-    k5, k6 = phase_pgmm(torch, np, ops)
-    phase_moe_parity(torch, np, ops)
-    k5_launches, k6_launches = phase_moe_train(torch, np, ops, card)
+    _phase("8 train parity", phase_train_parity, torch, np, ops)
+    lse_launches, k2_launches, k3_launches = _phase(
+        "9 train", phase_train_full, torch, np, ops, card)
+    k5, k6 = _phase("10 pgmm", phase_pgmm, torch, np, ops)
+    _phase("11 moe parity", phase_moe_parity, torch, np, ops)
+    k5_launches, k6_launches, pgmm_line = _phase(
+        "12 moe train", phase_moe_train, torch, np, ops, card)
+    for path in (_phase("13 remat train", phase_remat_train, torch, np, ops,
+                        card),
+                 _phase("14 moe auto train", phase_moe_auto_train, torch,
+                        np, ops, card, pgmm_line)):
+        lse_launches += path[0]
+        k2_launches += path[1]
+        k3_launches += path[2]
 
     kernels = [
         dict(name="flash_fwd", route="cuda",

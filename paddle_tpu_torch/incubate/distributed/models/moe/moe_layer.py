@@ -1,19 +1,27 @@
 """Mixture-of-Experts layer — port of
-``paddle_tpu/incubate/distributed/models/moe/moe_layer.py`` with its
-dropless ``pgmm`` dispatch.
+``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``.
 
-Tokens go to their top-k experts with no capacity and no drop: the
-(token, choice) rows are sorted by expert into a zero-padded, tile-aligned
-buffer (``ops.grouped_matmul.padded_group_layout``), the expert FFN runs
-as padded grouped matmuls (``ops.pgmm``: K5 forward and dx, K6 dw on the
-card) and the rows come back weighted by their renormalised gate
-probabilities. Module and parameter names are the JAX layer's
-(``gate.gate_weight``, ``experts.w_gate`` ...), so ``weights.
+:func:`routed_ffn` is the one dispatch -> experts -> combine pipeline, in
+all five of the JAX package's modes:
+
+- ``einsum``: GShard's dense one-hot dispatch and combine ``[n, E, C]``
+  (:func:`gate.topk_dispatch`) and the experts' dense ``[E, C, d]`` forward.
+- ``scatter``: the same routing (:func:`gate.topk_routing`), the kept
+  (token, choice) rows written into their ``[E * C]`` slots and gathered
+  back: O(n k d) instead of O(n E C d).
+- ``auto``: ``scatter`` when ``E >= 16`` or the one-hot buffers would hold
+  more than 2^24 elements, else ``einsum`` (``LlamaConfig``'s default).
+- ``ragged``: dropless; rows sorted by expert through the experts'
+  ``forward_ragged`` (``ops.grouped_dot``: K5/K6 on the card).
+- ``pgmm``: dropless; the sorted rows in a zero-padded tile-aligned buffer
+  (``ops.grouped_matmul.padded_group_layout``) through the experts'
+  ``forward_pgmm`` (``ops.pgmm``: K5 forward and dx, K6 dw on the card).
+
+An expert layer without ``forward_ragged`` / ``forward_pgmm`` takes the
+``scatter`` dispatch for those modes, as in the JAX package (routing
+semantics, not a device fallback). Module and parameter names are the JAX
+layer's (``gate.gate_weight``, ``experts.w_gate`` ...), so ``weights.
 load_jax_state`` carries a JAX MoE model across as it is.
-
-The capacity dispatches (``einsum``, ``scatter``, and ``auto``, which
-picks one of them) and ``ragged`` arrive with a later slice and raise
-here, as does an expert layer's dense ``forward`` that they call.
 """
 
 from __future__ import annotations
@@ -27,8 +35,8 @@ from torch import nn
 
 from .....device import resolve_device, resolve_dtype
 from .....ops import grouped_matmul as gm
-from .gate import BaseGate, GShardGate, NaiveGate, SwitchGate, \
-    _load_balance_loss
+from .gate import (BaseGate, GShardGate, NaiveGate, SwitchGate,
+                   _load_balance_loss, topk_dispatch, topk_routing)
 
 DISPATCH_MODES = ("auto", "einsum", "scatter", "ragged", "pgmm")
 
@@ -37,25 +45,73 @@ def _check_dispatch(mode: str) -> None:
     if mode not in DISPATCH_MODES:
         raise ValueError(f"dispatch_mode must be auto/einsum/scatter/ragged/"
                          f"pgmm, got {mode!r}")
-    if mode != "pgmm":
-        raise NotImplementedError(
-            f"dispatch_mode={mode!r} is not ported yet: the capacity "
-            "(einsum/scatter, and auto, which picks one of them) and ragged "
-            "dispatches arrive with a later MoE slice; this slice runs "
-            "dispatch_mode='pgmm'")
+
+
+def resolve_dispatch(mode: str, n: int, e: int, capacity: int,
+                     expert_fn) -> str:
+    """The dispatch :func:`routed_ffn` runs (:67-75): ``auto`` is
+    ``scatter`` iff ``e >= 16`` or ``n * e * capacity > 2**24`` (the dense
+    one-hot buffers grow as n^2), else ``einsum``; ``ragged`` / ``pgmm`` on
+    an expert layer without ``forward_ragged`` / ``forward_pgmm`` is
+    ``scatter``. All from Python ints: no host read."""
+    _check_dispatch(mode)
+    if mode == "auto":
+        mode = "scatter" if e >= 16 or n * e * capacity > (1 << 24) \
+            else "einsum"
+    if mode in ("ragged", "pgmm") and getattr(
+            expert_fn, "forward_" + mode, None) is None:
+        mode = "scatter"
+    return mode
+
+
+def _combine(w, rows, dtype):
+    """The ``"nk,nkd->nd"`` combine with the weights cast to ``dtype``,
+    summed in fp32 as elementwise work (as an einsum it is a batched matmul
+    of depth k, which cuBLAS runs as n tiny GEMMs); out in ``dtype``."""
+    wk = w.to(dtype).float()[..., None]
+    return (wk * rows.float()).sum(1).to(dtype)
 
 
 def routed_ffn(tokens, probs, expert_fn, k: int, capacity: int,
                renormalize: bool = True, dispatch_mode: str = "auto"):
-    """Dispatch -> expert_fn -> combine (``routed_ffn`` :36, pgmm branch
-    :73-106). tokens [n, d], probs [n, E] -> (out [n, d'], aux). Dropless:
-    ``capacity`` is ignored, as in the JAX package's grouped modes."""
-    _check_dispatch(dispatch_mode)
-    if getattr(expert_fn, "forward_pgmm", None) is None:
-        raise NotImplementedError(
-            "dispatch_mode='pgmm' needs an expert layer with forward_pgmm "
-            "(the JAX package falls back to the scatter dispatch, which is "
-            "not ported yet)")
+    """Dispatch -> expert_fn -> combine (``routed_ffn`` :36-135). tokens
+    [n, d], probs [n, E]; expert_fn maps [E, C, d] -> [E, C, d'] (and has
+    ``forward_ragged`` / ``forward_pgmm`` for the grouped modes). Returns
+    (out [n, d'], aux). ``capacity`` is ignored by the dropless modes."""
+    n, d = tokens.shape
+    e = probs.shape[-1]
+    mode = resolve_dispatch(dispatch_mode, n, e, capacity, expert_fn)
+    if mode in ("ragged", "pgmm"):
+        return _grouped(tokens, probs, expert_fn, k, renormalize, mode)
+    if mode == "einsum":
+        combine, dispatch, aux = topk_dispatch(probs, k, capacity,
+                                               renormalize)
+        expert_in = torch.einsum("nec,nd->ecd", dispatch.to(tokens.dtype),
+                                 tokens)
+        expert_out = expert_fn(expert_in)
+        out = torch.einsum("nec,ecd->nd", combine.to(tokens.dtype),
+                           expert_out)
+        return out, aux
+    eidx, cpos, w, keep, aux = topk_routing(probs, k, capacity, renormalize)
+    slot = (eidx.long() * capacity + cpos.long()).reshape(-1)   # [n*k]
+    # JAX's segment_sum adds a dropped choice's zero row to slot 0 of its
+    # expert; a plain (non-accumulating) write would overwrite a kept
+    # token's row there with zeros, so dropped choices write to a spare
+    # row, cut off afterwards. Kept choices never collide: capacity gives
+    # each slot at most one token.
+    spare = e * capacity
+    dest = torch.where(keep.reshape(-1), slot, spare)
+    expert_in = tokens.new_zeros((spare + 1, d)).index_copy(
+        0, dest, tokens.repeat_interleave(k, dim=0))
+    expert_out = expert_fn(expert_in[:spare].reshape(e, capacity, d))
+    gathered = expert_out.reshape(spare, -1)[slot].reshape(n, k, -1)
+    return _combine(w * keep.to(w.dtype), gathered, tokens.dtype), aux
+
+
+def _grouped(tokens, probs, expert_fn, k, renormalize, mode):
+    """The dropless modes (:76-106): top-k with no capacity, the (token,
+    choice) rows sorted by expert through ``forward_ragged`` (``ragged``)
+    or padded into tiles through ``forward_pgmm`` (``pgmm``)."""
     n, d = tokens.shape
     e = probs.shape[-1]
     w, eidx = torch.topk(probs, k, dim=-1)                      # [n, k]
@@ -66,35 +122,37 @@ def routed_ffn(tokens, probs, expert_fn, k: int, capacity: int,
     first = eidx[:, :1] == torch.arange(e, device=eidx.device)
     aux = _load_balance_loss(probs, first)
     flat_e = eidx.reshape(-1)                                   # [n*k]
+    # one padded tile layout a layer, which both modes run through on the
+    # card: order sorts the rows by expert, pos_sorted is each sorted row's
+    # padded row
     order, pos_sorted, tile_gids, p_total = gm.padded_group_layout(
         flat_e, e, n * k)
-    # the padded row of each (token, choice) row: pos_sorted by the inverse
-    # of the sort (the JAX package's gather by ``order // k`` in, then by
-    # ``pos_sorted`` and the inverse permutation out, in one index)
-    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    x_pad = tokens.new_zeros((p_total, d)).index_put(
-        (pos,), tokens.repeat_interleave(k, dim=0))
-    out_pad = expert_fn.forward_pgmm(x_pad, tile_gids)
-    out_flat = out_pad[pos].reshape(n, k, -1)
-    # the "nk,nkd->nd" combine with w cast to the token dtype, summed in
-    # fp32 as elementwise work: as an einsum it is a batched matmul of
-    # depth k, which cuBLAS runs as n tiny GEMMs
-    wk = w.to(tokens.dtype).float()[..., None]
-    out = (wk * out_flat.float()).sum(1).to(tokens.dtype)
-    return out, aux
+    if mode == "pgmm":
+        # the padded row of each (token, choice) row: pos_sorted by the
+        # inverse of the sort (the JAX package's gather by ``order // k``
+        # in, then by ``pos_sorted`` and the inverse permutation out, in
+        # one index)
+        pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+        x_pad = tokens.new_zeros((p_total, d)).index_put(
+            (pos,), tokens.repeat_interleave(k, dim=0))
+        out_flat = expert_fn.forward_pgmm(x_pad, tile_gids)[pos]
+    else:
+        group_sizes = torch.zeros(e, dtype=torch.long,
+                                  device=flat_e.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        out_sorted = expert_fn.forward_ragged(
+            tokens[order // k], group_sizes, flat_e[order],
+            layout=(pos_sorted, tile_gids, p_total))
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(n * k, device=order.device))
+        out_flat = out_sorted[inv]
+    return _combine(w, out_flat.reshape(n, k, -1), tokens.dtype), aux
 
 
 def _normal(shape, dtype, std, device, gen):
     t = torch.empty(shape, dtype=resolve_dtype(dtype), device=device)
     t.normal_(0.0, std, generator=gen)
     return nn.Parameter(t)
-
-
-def _dense_forward_later():
-    return NotImplementedError(
-        "the experts' dense [E, C, d] forward serves the capacity "
-        "dispatches, which are not ported yet (dispatch_mode='pgmm' calls "
-        "forward_pgmm)")
 
 
 class ExpertFFN(nn.Module):
@@ -123,7 +181,9 @@ class ExpertFFN(nn.Module):
                                            device=dev))
 
     def forward(self, x):
-        raise _dense_forward_later()
+        """x [E, C, d_model], batched over the experts (:163-170)."""
+        h = self._act(torch.bmm(x, self.w1) + self.b1[:, None, :])
+        return torch.bmm(h, self.w2) + self.b2[:, None, :]
 
     def _act(self, h):
         if self.activation == "gelu":
@@ -131,6 +191,16 @@ class ExpertFFN(nn.Module):
         if self.activation == "relu":
             return F.relu(h)
         return F.silu(h)
+
+    def forward_ragged(self, x, group_sizes, expert_ids, layout=None):
+        """The ragged path (:181-191): x [m, d] sorted by expert,
+        group_sizes [E] row counts, expert_ids [m] each row's expert (for
+        the biases), ``layout`` the rows' tile layout for
+        ``ops.grouped_dot`` (built once by the caller, or None)."""
+        h = self._act(gm.grouped_dot(x, self.w1, group_sizes, layout)
+                      + self.b1[expert_ids])
+        return (gm.grouped_dot(h, self.w2, group_sizes, layout)
+                + self.b2[expert_ids])
 
     def forward_pgmm(self, x_pad, tile_gids, tile_m=None):
         """The pgmm path (:193-205): biases follow each row's tile expert
@@ -159,7 +229,19 @@ class SwiGLUExpertFFN(nn.Module):
         self.w_down = mk((num_experts, d_hidden, d_model))
 
     def forward(self, x):
-        raise _dense_forward_later()
+        """x [E, C, d_model] (:225-231)."""
+        g = torch.bmm(x, self.w_gate)
+        u = torch.bmm(x, self.w_up)
+        return torch.bmm(F.silu(g) * u, self.w_down)
+
+    def forward_ragged(self, x, group_sizes, expert_ids, layout=None):
+        """Dropless grouped swiglu over expert-sorted rows (:233-243):
+        three ``grouped_dot`` calls over one tile layout (K5/K6 on the
+        card)."""
+        g = gm.grouped_dot(x, self.w_gate, group_sizes, layout)
+        u = gm.grouped_dot(x, self.w_up, group_sizes, layout)
+        return gm.grouped_dot(F.silu(g) * u, self.w_down, group_sizes,
+                              layout)
 
     def forward_pgmm(self, x_pad, tile_gids, tile_m=None):
         """Dropless grouped swiglu through K5 (:245-255): three grouped
@@ -175,10 +257,13 @@ class MoELayer(nn.Module):
     """Mixture of Experts (``MoELayer`` :258-350).
 
     Args as the JAX layer's: ``d_model``, ``num_experts``, ``d_hidden``,
-    ``experts`` (default :class:`ExpertFFN`), ``gate`` ("gshard" or
-    "naive"/"topk", or a BaseGate), ``top_k``, ``capacity_factor``,
-    ``activation``, ``dtype``, ``dispatch_mode`` (only "pgmm" is ported);
-    and the port's ``device`` and ``generator`` for the initial weights."""
+    ``experts`` (default :class:`ExpertFFN`), ``gate`` ("gshard",
+    "switch", "naive"/"topk", or a BaseGate), ``top_k``,
+    ``capacity_factor`` (precedence: this argument, then a gate instance's
+    ``capacity_factor``, then 1.25), ``activation``, ``dtype``,
+    ``dispatch_mode`` (any of :data:`DISPATCH_MODES`); and the port's
+    ``device`` and ``generator`` (the initial weights, and a switch gate's
+    jitter)."""
 
     def __init__(self, d_model: int, num_experts: int,
                  d_hidden: Optional[int] = None,
@@ -226,6 +311,13 @@ class MoELayer(nn.Module):
     def forward(self, x):
         """x: [batch, seq, d_model] or [tokens, d_model] -> the same shape;
         the gate keeps the aux loss (:meth:`get_loss`)."""
+        out, aux = self.forward_with_aux(x)
+        self.gate.set_loss(aux)
+        return out
+
+    def forward_with_aux(self, x):
+        """(out, aux loss) with no side effect (``_routed_forward``
+        :311-329): what a checkpointed block returns."""
         tokens = x.reshape(-1, x.shape[-1])
         probs = self.gate.probs(tokens)
         out, aux = routed_ffn(tokens, probs, self.experts, self.top_k,
@@ -234,8 +326,7 @@ class MoELayer(nn.Module):
                               dispatch_mode=self.dispatch_mode)
         if not getattr(self.gate, "use_aux", True):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        self.gate.set_loss(aux)
-        return out.reshape(x.shape)
+        return out.reshape(x.shape), aux
 
     def get_loss(self, clear=True):
         """The gate's aux (load-balance) loss for this forward."""

@@ -25,10 +25,25 @@ unfused criterion; gradients flow through the flash kernels' backward
 
 With ``num_experts > 1`` each layer's MLP is the Mixtral-class MoE layer
 (``incubate.distributed.models.moe.MoELayer`` over ``SwiGLUExpertFFN``,
-dispatch ``pgmm``: grouped matmuls K5/K6) and ``loss_fn`` adds
-``moe_aux_weight`` times the layers' summed load-balance loss. Remat
-(``recompute=True``), the other MoE dispatches and MoE serving arrive with
-later slices and raise here.
+any of its dispatches: ``auto`` picks ``einsum`` or ``scatter``; ``ragged``
+and ``pgmm`` run the grouped matmuls K5/K6) and ``loss_fn`` adds
+``moe_aux_weight`` times the layers' summed load-balance loss, which each
+layer returns as an output (never through the gate's side channel). MoE
+serving arrives with a later slice and raises.
+
+Remat (``recompute=True``, ``remat_policy``, ``remat_every``; :519-575):
+while autograd records, layer ``i`` with ``i % remat_every == 0`` runs
+under ``torch.utils.checkpoint``: ``flash`` saves the flash forward op's
+outputs (the selective policy :func:`remat_policy_of` builds),
+``flash_qkv`` also the rope'd q/k/v, ``flash_mlp`` also the swiglu
+product, ``full`` nothing. q/k/v and the swiglu product are kept by where
+:func:`_remat` cuts the checkpointed region, not by the policy: the ops in
+front of a region's inputs run outside it, and the ops behind a region's
+outputs too, so autograd keeps those tensors and never runs their ops
+again (``torch.utils.checkpoint`` replays every op of a region that its
+policy does not save). Explicit generators that a layer draws noise from
+(``SwitchGate``'s jitter) are rewound for the recompute, so it sees the
+forward's noise.
 """
 
 from __future__ import annotations
@@ -38,6 +53,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ...device import resolve_device, resolve_dtype
 from ...incubate.distributed.models.moe import MoELayer, SwiGLUExpertFFN
@@ -203,11 +221,19 @@ class LlamaAttention(nn.Module):
         return q, k, v
 
     def forward(self, hidden, cos, sin):
-        b, s, _ = hidden.shape
+        return self.attend(*self.qkv_heads(hidden, cos, sin))
+
+    def qkv_heads(self, hidden, cos, sin):
+        """The rope'd heads q, k, v [b, s, heads, d]: what the JAX package
+        names ``attn_q/k/v`` (:182-189)."""
         q, k, v = self._qkv(hidden)
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
-        out = _attention(q, k, v)
-        return out.reshape(b, s, -1) @ self.o_proj_weight
+        return q, k, v
+
+    def attend(self, q, k, v):
+        """Causal attention over the heads, then the output projection."""
+        b, s = q.shape[:2]
+        return _attention(q, k, v).reshape(b, s, -1) @ self.o_proj_weight
 
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
         """Paged-KV chunk step at absolute positions [pos, pos+s) for every
@@ -286,8 +312,12 @@ class LlamaMLP(nn.Module):
         self.down_proj_weight = _normal((m, h), config, device, gen)
 
     def forward(self, x):
-        act = F.silu(x @ self.gate_proj_weight) * (x @ self.up_proj_weight)
-        return act @ self.down_proj_weight
+        return self.act(x) @ self.down_proj_weight
+
+    def act(self, x):
+        """The swiglu product, what the JAX package names ``mlp_act``
+        (:387-388)."""
+        return F.silu(x @ self.gate_proj_weight) * (x @ self.up_proj_weight)
 
 
 class LlamaRMSNorm(nn.Module):
@@ -306,9 +336,11 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device, gen):
+    def __init__(self, config: LlamaConfig, device, gen, remat=False):
         super().__init__()
         self.config = config
+        # checkpointed in training (LlamaModel.forward)
+        self.remat = remat
         self.input_layernorm = LlamaRMSNorm(config, device)
         self.self_attn = LlamaAttention(config, device, gen)
         self.post_attention_layernorm = LlamaRMSNorm(config, device)
@@ -329,8 +361,31 @@ class LlamaDecoderLayer(nn.Module):
             self.mlp = LlamaMLP(config, device, gen)
 
     def forward(self, x, cos, sin):
+        return self.forward_with_aux(x, cos, sin)[0]
+
+    def forward_with_aux(self, x, cos, sin):
+        """(the layer's output, the MoE layer's aux loss or None). The aux
+        is an output (``MoELayer.forward_with_aux``), never read from the
+        gate's side channel, so a checkpoint's recompute leaves nothing
+        there."""
+        q, k, v = self.self_attn.qkv_heads(self.input_layernorm(x), cos, sin)
+        return self.forward_from_qkv(x, q, k, v)
+
+    def forward_from_qkv(self, x, q, k, v):
+        """:meth:`forward_with_aux` from the rope'd heads on."""
+        x = x + self.self_attn.attend(q, k, v)
+        h = self.post_attention_layernorm(x)
+        if self.config.num_experts > 1:
+            y, aux = self.mlp.forward_with_aux(h)
+        else:
+            y, aux = self.mlp(h), None
+        return x + y, aux
+
+    def forward_to_act(self, x, cos, sin):
+        """A dense layer up to its swiglu product: (the attention block's
+        output x, act); the layer's output is x + act @ down_proj."""
         x = x + self.self_attn(self.input_layernorm(x), cos, sin)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        return x, self.mlp.act(self.post_attention_layernorm(x))
 
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
         a, k_pages, v_pages = self.self_attn.paged_decode_step(
@@ -358,16 +413,16 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "recompute=True (remat, remat_policy_of) is not ported yet: "
-                "it arrives with the remat slice (torch.utils.checkpoint "
-                "saving flash_out/flash_lse); use recompute=False")
         self.config = config
         self.embed_tokens_weight = _normal(
             (config.vocab_size, config.hidden_size), config, device, gen)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(config, device, gen)
-                                     for _ in range(config.num_hidden_layers)])
+        # partial remat: layer i is checkpointed iff i % remat_every == 0
+        self._remat_policy = remat_policy_of(config)
+        every = config.remat_every
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(config, device, gen,
+                              remat=config.recompute and i % every == 0)
+            for i in range(config.num_hidden_layers)])
         self.norm = LlamaRMSNorm(config, device)
         # rope tables per (length, dtype, device): the same values
         # _rope_cos_sin recomputes, kept off the per-token decode path
@@ -388,13 +443,110 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids):
         x = self.embed(input_ids)
         cos, sin = self.rope_tables(input_ids.shape[1], x.dtype, x.device)
+        # remat only while autograd records, as JAX applies it only under
+        # tracing (:522): serving and no_grad forwards never checkpoint
+        remat = torch.is_grad_enabled()
+        auxes = []
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            if remat and layer.remat:
+                x, aux = _remat(layer, self._remat_policy, x, cos, sin)
+            else:
+                x, aux = layer.forward_with_aux(x, cos, sin)
+            auxes.append(aux)
         if self.config.num_experts > 1:
-            # each layer's gate keeps the aux loss of its last forward
-            self._moe_aux = torch.stack([layer.mlp.get_loss()
-                                         for layer in self.layers]).sum()
+            self._moe_aux = torch.stack(auxes).sum()
         return self.norm(x)
+
+
+#: the residuals each remat policy keeps (:549-571); None: keeps nothing
+_REMAT_NAMES = {
+    "flash": ("flash_out", "flash_lse"),
+    # also the rope'd q/k/v heads
+    "flash_qkv": ("flash_out", "flash_lse", "attn_q", "attn_k", "attn_v"),
+    # also the swiglu product
+    "flash_mlp": ("flash_out", "flash_lse", "mlp_act"),
+    "full": None,
+}
+
+
+def remat_policy_of(cfg):
+    """The selective-checkpoint policy function for ``cfg.remat_policy``,
+    or None for 'full' (save nothing). Every ``flash*`` policy saves the
+    outputs of the flash forward op ``paddle_tpu_torch::flash_fwd_lse``
+    (``flash_out``/``flash_lse`` in the JAX package), so the backward does
+    not run K1 again, and recomputes every other op of the region. Its
+    ``names`` are the JAX names the policy keeps; :func:`_remat` keeps
+    ``attn_q/k/v`` and ``mlp_act`` by where it cuts the region."""
+    names = _REMAT_NAMES[getattr(cfg, "remat_policy", "flash")]
+    if names is None:
+        return None
+    flash_op = torch.ops.paddle_tpu_torch.flash_fwd_lse.default
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op is flash_op
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    policy.names = frozenset(names)
+    return policy
+
+
+def _remat(layer, policy, x, cos, sin):
+    """``layer.forward_with_aux(x, cos, sin)`` under ``torch.utils.
+    checkpoint`` (non-reentrant) with ``policy`` (None: save nothing); the
+    aux loss is an output of the checkpointed function (:528-539).
+
+    ``attn_q`` among the policy's names: the projections and rope run
+    outside the region, which starts at the rope'd heads; autograd keeps
+    q/k/v (the region's inputs) and the normed input (the projections'),
+    and only the norm is recomputed, in a region of its own. ``mlp_act``
+    on a dense layer: the region ends at the swiglu product, and the down
+    projection runs outside it. (A MoE layer has no ``mlp_act``, as in the
+    JAX package, so 'flash_mlp' is 'flash' there.)"""
+    context_fn = noop_context_fn if policy is None else (
+        lambda: create_selective_checkpoint_contexts(policy))
+    gens = list({id(g): g for g in (getattr(m, "noise_generator", None)
+                                    for m in layer.modules())
+                 if g is not None}.values())
+
+    def region(fn, *args):
+        return checkpoint(_replaying(fn, gens), *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    names = policy.names if policy is not None else ()
+    if "attn_q" in names:
+        h = checkpoint(layer.input_layernorm, x, use_reentrant=False)
+        q, k, v = layer.self_attn.qkv_heads(h, cos, sin)
+        return region(layer.forward_from_qkv, x, q, k, v)
+    if "mlp_act" in names and layer.config.num_experts <= 1:
+        x, act = region(layer.forward_to_act, x, cos, sin)
+        return x + act @ layer.mlp.down_proj_weight, None
+    return region(layer.forward_with_aux, x, cos, sin)
+
+
+def _replaying(fn, generators):
+    """``fn``, whose later calls (a checkpoint's recompute) draw the same
+    numbers from ``generators`` as its first call did: each recompute
+    starts from the generators' states before the first call and puts back
+    the states it found. ``torch.utils.checkpoint`` restores only the
+    default generators, not explicit ones."""
+    if not generators:
+        return fn
+    before = [g.get_state() for g in generators]
+    first = [True]
+
+    def run(*args):
+        if first[0]:
+            first[0] = False
+            return fn(*args)
+        now = [g.get_state() for g in generators]
+        for g, st in zip(generators, before):
+            g.set_state(st)
+        try:
+            return fn(*args)
+        finally:
+            for g, st in zip(generators, now):
+                g.set_state(st)
+    return run
 
 
 def _decode_model_paged(model: LlamaModel, ids, caches, pos):
@@ -452,9 +604,15 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
             return logits
         return LlamaPretrainingCriterion.compute(logits, labels)
 
+    def remat_policy(self):
+        """Engine hook (:788-790): the selective-checkpoint policy function
+        for this model's blocks (None for 'full')."""
+        return remat_policy_of(self.config)
+
     def moe_aux_loss(self):
         """Sum of the layers' gate load-balance losses from the last
-        forward (0 for a dense model)."""
+        forward (0 for a dense model), collected as layer outputs: safe
+        under recompute."""
         if self.config.num_experts <= 1:
             return 0.0
         return getattr(self.model, "_moe_aux", 0.0)

@@ -8,8 +8,10 @@ from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_reference,
                               flash_attention_reference_lse)
 from .fused_ce import fused_linear_cross_entropy  # noqa: F401
-from .grouped_matmul import (padded_group_layout, pgmm,  # noqa: F401
-                             pgmm_dw, pgmm_dw_reference, pgmm_raw,
+from .grouped_matmul import (grouped_dot,  # noqa: F401
+                             grouped_dot_reference, grouped_dot_tiled,
+                             padded_group_layout,
+                             pgmm, pgmm_dw, pgmm_dw_reference, pgmm_raw,
                              pgmm_reference)
 from .paged_attention import (KV_QMAX, BlockAllocator,  # noqa: F401
                               QuantizedKVPool, RadixPrefixCache,

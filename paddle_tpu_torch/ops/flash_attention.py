@@ -7,22 +7,29 @@ head_dim]`` layout:
 - :func:`flash_attention` is the public entry (``flash_attention`` :831).
   Without gradients it runs the primal forward (``_flash`` :700, no lse
   written); when grad is enabled and an input requires grad it runs the
-  ``torch.autograd.Function`` that mirrors the custom VJP ``_flash_fwd`` /
-  ``_flash_bwd`` (:709-733): the forward with lse, then the backward.
+  custom op ``paddle_tpu_torch::flash_fwd_lse``, whose autograd formula
+  mirrors the custom VJP ``_flash_fwd`` / ``_flash_bwd`` (:709-733): the
+  forward with lse, then the op ``paddle_tpu_torch::flash_bwd``.
 - :func:`flash_attention_forward` returns ``(out, lse)``, lse ``[b, hq,
   s_q]`` fp32 of the scaled logits (``_pallas_forward`` :221 with lse; the
   TPU kernel's 8-lane axis is dropped).
 - :func:`flash_attention_backward` returns ``(dq, dk, dv)`` from the saved
   ``(q, k, v, out, lse)`` and ``dout`` (``_pallas_backward`` :497).
 
-On CUDA tensors the wrappers launch ``csrc/flash_fwd.cu`` (K1,
-``_fa_fwd_kernel`` :117) and ``csrc/flash_bwd.cu`` (K2 ``_fa_bwd_dq_kernel``
-:337, K3 ``_fa_bwd_dkv_kernel`` :420) or raise; on CPU tensors they run the
-plain versions :func:`flash_attention_reference`,
-:func:`flash_attention_reference_lse` (``_xla_reference_lse`` :736) and
-:func:`flash_attention_backward_reference`, which applies the kernels'
-formulas (P from the saved lse, delta from the stored output) rather than
-autograd through the forward.
+The training forward and the backward are registered ``torch.library``
+custom ops so that a selective-checkpoint policy sees the forward as one
+op and can save its outputs (the JAX package names them ``flash_out`` /
+``flash_lse`` for its remat policies, :711-718): a saved forward is not run
+again in the backward, and its launch is counted once. Each op has a CUDA
+implementation, which launches ``csrc/flash_fwd.cu`` (K1,
+``_fa_fwd_kernel`` :117) or ``csrc/flash_bwd.cu`` (K2 ``_fa_bwd_dq_kernel``
+:337, K3 ``_fa_bwd_dkv_kernel`` :420) or raises, and a CPU implementation,
+which runs the plain versions :func:`flash_attention_reference_lse`
+(``_xla_reference_lse`` :736) and :func:`flash_attention_backward_reference`
+(the kernels' formulas: P from the saved lse, delta from the stored
+output, not autograd through the forward). The no-lse serving forward
+launches K1 directly, or runs :func:`flash_attention_reference` on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -207,7 +214,8 @@ def flash_attention(q, k, v, causal: bool = False, scale=None):
     scale = _default_scale(q, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, bool(causal), scale)
+        return torch.ops.paddle_tpu_torch.flash_fwd_lse(q, k, v, bool(causal),
+                                                        scale)[0]
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
     out, _ = _launch_forward(q, k, v, causal, scale, with_lse=False)
@@ -221,20 +229,41 @@ flash_attention.launches = 0
 
 def flash_attention_forward(q, k, v, causal: bool = False, scale=None):
     """The training forward: (out in q's shape and dtype, lse [b, hq, s_q]
-    fp32 of the scaled logits, NEG_INF for a row that sees no key). CUDA
-    tensors launch K1 with its lse output; CPU tensors run
-    :func:`flash_attention_reference_lse`."""
+    fp32 of the scaled logits, NEG_INF for a row that sees no key). Runs the
+    op ``paddle_tpu_torch::flash_fwd_lse``: CUDA tensors launch K1 with its
+    lse output; CPU tensors run :func:`flash_attention_reference_lse`."""
     _check(q, k, v)
-    scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
-        return flash_attention_reference_lse(q, k, v, causal, scale)
+    return torch.ops.paddle_tpu_torch.flash_fwd_lse(
+        q, k, v, bool(causal), _default_scale(q, scale))
+
+
+#: launches of the forward kernel with its lse output (counted inside the
+#: op's CUDA implementation, so a forward that a checkpoint policy saves is
+#: counted once)
+flash_attention_forward.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd_lse", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, scale: float
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 with its lse output on CUDA tensors."""
     out, lse = _launch_forward(q, k, v, causal, scale, with_lse=True)
     flash_attention_forward.launches += 1
     return out, lse
 
 
-#: launches of the forward kernel with its lse output
-flash_attention_forward.launches = 0
+@_flash_fwd_lse.register_kernel("cpu")
+def _flash_fwd_lse_cpu(q, k, v, causal, scale):
+    return flash_attention_reference_lse(q, k, v, causal, scale)
+
+
+@_flash_fwd_lse.register_fake
+def _flash_fwd_lse_fake(q, k, v, causal, scale):
+    b, s_q, hq, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, hq, s_q), dtype=torch.float32))
 
 
 def _check_backward(q, k, v, o, lse, dout):
@@ -297,13 +326,26 @@ def flash_attention_backward(q, k, v, o, lse, dout, causal: bool = False,
                              scale=None):
     """(dq, dk, dv) of :func:`flash_attention` from the forward's ``o`` and
     ``lse`` (:func:`flash_attention_forward`) and the output gradient
-    ``dout``. CUDA tensors launch K2 then K3 on the current stream; CPU
-    tensors run :func:`flash_attention_backward_reference`."""
+    ``dout``. Runs the op ``paddle_tpu_torch::flash_bwd``: CUDA tensors
+    launch K2 then K3 on the current stream; CPU tensors run
+    :func:`flash_attention_backward_reference`."""
     _check_backward(q, k, v, o, lse, dout)
-    scale = _default_scale(q, scale)
-    if q.device.type == "cpu":
-        return flash_attention_backward_reference(q, k, v, o, lse, dout,
-                                                  causal, scale)
+    return torch.ops.paddle_tpu_torch.flash_bwd(
+        q, k, v, o, lse, dout, bool(causal), _default_scale(q, scale))
+
+
+#: launches of K2 (dq) and K3 (dk/dv)
+flash_attention_backward.launches_dq = 0
+flash_attention_backward.launches_dkv = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               causal: bool, scale: float
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 then K3 on CUDA tensors."""
     _check_kernel(q, k, v, o, dout)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous fp32 [b, hq, s_q] tensor")
@@ -314,28 +356,37 @@ def flash_attention_backward(q, k, v, o, lse, dout, causal: bool = False,
     return dq, dk, dv
 
 
-#: launches of K2 (dq) and K3 (dk/dv)
-flash_attention_backward.launches_dq = 0
-flash_attention_backward.launches_dkv = 0
+@_flash_bwd.register_kernel("cpu")
+def _flash_bwd_cpu(q, k, v, o, lse, dout, causal, scale):
+    return flash_attention_backward_reference(q, k, v, o, lse, dout, causal,
+                                              scale)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The custom VJP of ``_flash`` (:700-733): the forward keeps (q, k, v,
+@_flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, o, lse, dout, causal, scale):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+
+
+def _flash_fwd_lse_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _flash_fwd_lse_backward(ctx, dout, _dlse):
+    """The custom VJP of ``_flash`` (:709-733): the forward keeps (q, k, v,
     out, lse); the backward runs :func:`flash_attention_backward`."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.paddle_tpu_torch.flash_bwd(
+        q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale)
+    return dq, dk, dv, None, None
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+_flash_fwd_lse.register_autograd(_flash_fwd_lse_backward,
+                                 setup_context=_flash_fwd_lse_setup)
 
 
 def _flash_lib():

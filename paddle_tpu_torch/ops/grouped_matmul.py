@@ -21,6 +21,15 @@ and padded so that each expert's rows start at a ``tile_m`` boundary
 On CUDA tensors the wrappers launch ``csrc/grouped_matmul.cu`` or raise; on
 CPU tensors they run the plain versions :func:`pgmm_reference` and
 :func:`pgmm_dw_reference`.
+
+:func:`grouped_dot` is the ``ragged`` dispatch's grouped matmul
+(``grouped_dot`` :211-233: megablox ``gmm`` on the TPU, ``lax.ragged_dot``
+elsewhere, neither of them a kernel the JAX package wrote). On CUDA tensors
+it runs through K5/K6: the expert-sorted rows go into the tile-aligned
+layout of :func:`padded_group_layout`, :func:`pgmm` runs there, and the
+rows are gathered back, all on the device (no group size is read on the
+host). On CPU tensors it runs :func:`grouped_dot_reference`, a per-group
+matmul with ``lax.ragged_dot``'s semantics.
 """
 
 from __future__ import annotations
@@ -235,3 +244,65 @@ def _lib():
                                        + [ctypes.c_void_p])
         lib.paddle_pgmm_dw.restype = ctypes.c_int
     return lib
+
+
+def grouped_dot_reference(x, w, group_sizes):
+    """Plain ``lax.ragged_dot``: rows [start_g, start_g + group_sizes[g]) of
+    x [m, k] (sorted by group) times w[g] of w [E, k, n]; rows past the
+    groups are zero. Reads the group sizes on the host."""
+    out = x.new_zeros((x.shape[0], w.shape[2]))
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        if size:
+            out[start:start + size] = x[start:start + size] @ w[g]
+        start += size
+    return out
+
+
+def grouped_dot(x, w, group_sizes, layout=None):
+    """Grouped matmul over rows sorted by group: x [m, k], w [E, k, n],
+    group_sizes [E] row counts; returns [m, n] in x's dtype, differentiable
+    with respect to x and w. Rows past the groups (group_sizes summing to
+    less than m) come out zero, as in ``lax.ragged_dot``. CUDA tensors take
+    :func:`grouped_dot_tiled` (K5 forward and dx, K6 dw); CPU tensors run
+    :func:`grouped_dot_reference`. ``layout``: see
+    :func:`grouped_dot_tiled` (CPU tensors do not need it)."""
+    if x.ndim != 2 or w.ndim != 3 or group_sizes.shape != (w.shape[0],):
+        raise ValueError(f"grouped_dot takes x [m, k], w [E, k, n] and "
+                         f"group_sizes [E]; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(group_sizes.shape)}")
+    if x.device.type == "cpu":
+        return grouped_dot_reference(x, w, group_sizes)
+    return grouped_dot_tiled(x, w, group_sizes, layout=layout)
+
+
+def grouped_dot_tiled(x, w, group_sizes, tile_m=None, layout=None):
+    """:func:`grouped_dot` through :func:`pgmm`: the rows go into the
+    padded tile layout of their groups, the grouped matmul runs there, and
+    the rows are gathered back; nothing is read on the host. ``layout``
+    ``(padded_pos, tile_gids, P)`` is that layout as
+    :func:`padded_group_layout` gives it for the rows' groups (its tile is
+    P // len(tile_gids)); a caller that runs several products over the
+    same rows builds it once, and its group sizes must then sum to m.
+    Without it the layout comes from ``group_sizes``. (On CPU tensors pgmm
+    runs its plain versions, so the CPU tests hold this route against
+    :func:`grouped_dot_reference`.)"""
+    m, e = x.shape[0], w.shape[0]
+    valid = None
+    if layout is None:
+        tile_m = tile_m or TILE_M
+        # each row's group: the first group whose end lies past the row
+        ends = torch.cumsum(group_sizes.long(), 0)
+        rows = torch.arange(m, device=x.device)
+        row_e = torch.searchsorted(ends, rows, right=True).clamp_max(e - 1)
+        # the rows are sorted, so the layout's order is the identity and
+        # its padded positions are the rows' own
+        _, pos, tile_gids, p = padded_group_layout(row_e, e, m, tile_m)
+        valid = rows < ends[-1]
+    else:
+        pos, tile_gids, p = layout
+        tile_m = p // tile_gids.numel()
+    x_pad = x.new_zeros((p, x.shape[1])).index_put((pos,), x)
+    out = pgmm(x_pad, w, tile_gids, tile_m)[pos]
+    # rows past the groups sit in the last group's tiles: zero them
+    return out if valid is None else out * valid[:, None].to(out.dtype)

@@ -3,7 +3,7 @@
 
     python3 profile_training.py        # from the root of a checkout
 
-Two arms, each chip_smoke.py's training
+Four arms, each chip_smoke.py's training
 configuration at full width and depth with random weights from seed 0
 under Engine(lr=1e-4, clip 1.0):
 
@@ -12,7 +12,11 @@ under Engine(lr=1e-4, clip 1.0):
     4 kv heads of 128, batch 2 x seq 4096, bf16, fused CE, no remat);
   - moe: the Mixtral-class MoE config of bench.py's bench_moe (8 layers,
     hidden 1024, 8 swiglu experts of 2816, top-2 GShard gate, batch 8 x seq
-    2048, bf16) with the dropless pgmm dispatch (K5/K6).
+    2048, bf16) with the dropless pgmm dispatch (K5/K6);
+  - remat: bench.py's llama_853M_seq4096_remat line (the dense model with
+    recompute=True and the flash_qkv policy, batch 4 x seq 4096);
+  - moe_auto: the moe arm at its default dispatch, "auto", which resolves
+    to scatter at this shape.
 
 Each arm measures one train step (forward, fused CE, backward, clip, AdamW)
 after two warm-up steps, three ways (profile_serving.measure): device span
@@ -69,6 +73,10 @@ def main():
     profile_arm(torch, np, "dense", chip_smoke.TRAIN_CONFIG,
                 chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
     profile_arm(torch, np, "moe", chip_smoke.MOE_CONFIG,
+                chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ)
+    profile_arm(torch, np, "remat", chip_smoke.REMAT_CONFIG,
+                chip_smoke.REMAT_BATCH, chip_smoke.TRAIN_SEQ)
+    profile_arm(torch, np, "moe_auto", chip_smoke.MOE_AUTO_CONFIG,
                 chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ)
     return 0
 

@@ -20,6 +20,8 @@ and MoE train steps on the card are held against the same steps on the CPU
 bitwise against the same step run eagerly on the card.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -844,3 +846,136 @@ def test_spec_graph_replays_equal_eager_spec_steps_on_card(cuda):
     emitted = eng._dev_pos - start[-5]
     assert (emitted[[0, 3, 5]] >= 2).all() and emitted.sum() == \
         emitted[[0, 3, 5]].sum()
+
+
+# ---- remat and the MoE dispatches (the flash custom ops) ----
+
+_REMAT_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=3, num_attention_heads=4,
+                  num_key_value_heads=2, max_position_embeddings=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,every,lse_launches", [
+    ("flash", 1, 3), ("flash_qkv", 1, 3), ("flash_mlp", 1, 3),
+    ("full", 1, 6), ("full", 2, 5)])
+def test_remat_on_card_equals_no_remat(cuda, policy, every, lse_launches):
+    """fp32, 3 layers: remat replays the forward's ops on the same values,
+    so the loss and every gradient equal no remat (tolerance 1e-5 x
+    max(1, max |no-remat|): the same kernels, K2/K3 deterministic); K1-lse
+    runs once a layer when the policy saves it, again in the backward for
+    each checkpointed layer under 'full'."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids = torch.randint(0, 512, (2, 100), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    out = []
+    for over in (dict(recompute=False),
+                 dict(recompute=True, remat_policy=policy,
+                      remat_every=every)):
+        model = LlamaForCausalLM(LlamaConfig(**_REMAT_CFG, **over),
+                                 device=cuda, seed=3)
+        n0 = (flash_attention_forward.launches,
+              flash_attention_backward.launches_dq, flash_attention.launches)
+        loss = model.loss_fn(ids, ids)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        out.append((loss, grads, (flash_attention_forward.launches - n0[0],
+                                  flash_attention_backward.launches_dq
+                                  - n0[1], flash_attention.launches - n0[2])))
+    (loss0, g0, c0), (loss, g, c) = out
+    assert c0 == (3, 3, 0) and c == (lse_launches, 3, 0)
+    assert abs(loss.item() - loss0.item()) <= 1e-5 * abs(loss0.item())
+    for a, b in zip(g, g0):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_custom_ops_equal_the_direct_launches_bitwise(cuda):
+    """The training shape [2, 4096, 16/4, 128] in bf16: the ops
+    paddle_tpu_torch::flash_fwd_lse and ::flash_bwd give bitwise the
+    outputs of the kernel launches they wrap (K1 with lse; K2 then K3)."""
+    # the module (the package attribute ``ops.flash_attention`` is the
+    # function)
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, generator=g).to(
+            torch.bfloat16)
+    q, k, v = rnd(2, 4096, 16, 128), rnd(2, 4096, 4, 128), \
+        rnd(2, 4096, 4, 128)
+    dout = rnd(2, 4096, 16, 128)
+    scale = 128 ** -0.5
+    out, lse = torch.ops.paddle_tpu_torch.flash_fwd_lse(q, k, v, True,
+                                                        scale)
+    out2, lse2 = fa._launch_forward(q, k, v, True, scale, with_lse=True)
+    dq, dk, dv = torch.ops.paddle_tpu_torch.flash_bwd(q, k, v, out, lse,
+                                                      dout, True, scale)
+    dq2, delta = fa._launch_dq(q, k, v, out, lse, dout, True, scale)
+    dk2, dv2 = fa._launch_dkv(q, k, v, dout, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    for a, b in ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+def _moe_card_pair(cuda, **over):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=384,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256,
+                      num_experts=4, **over)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=3)
+    card = LlamaForCausalLM(cfg, device=cuda, seed=3)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    return cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch,k5,k6", [
+    ("einsum", 0, 0), ("scatter", 0, 0), ("ragged", 12, 6), ("auto", 0, 0)])
+def test_moe_dispatch_step_on_card_matches_cpu(cuda, dispatch, k5, k6):
+    """One Engine step (fp32) on the card against the CPU from the same
+    weights, capacity factor 0.5 (the capacity modes drop choices): the
+    loss to 1e-4 relative and every parameter within 2 lr; ``ragged`` runs
+    K5 (3 forward + 3 dx a layer) and K6 (3 a layer), the others neither."""
+    cpu, card = _moe_card_pair(cuda, moe_dispatch=dispatch,
+                               moe_capacity_factor=0.5)
+    ids = torch.randint(0, 512, (2, 100),
+                        generator=torch.Generator().manual_seed(0))
+    ec, eg = Engine(cpu, lr=1e-3), Engine(card, lr=1e-3)
+    n5, n6 = pgmm.launches, pgmm_dw.launches
+    lc = ec.step(ids, ids)
+    lg = eg.step(ids.to(cuda), ids.to(cuda))
+    torch.cuda.synchronize()
+    assert (pgmm.launches - n5, pgmm_dw.launches - n6) == (k5, k6)
+    assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        err = (pg.detach().cpu() - pc.detach()).abs().max().item()
+        assert err <= 2e-3, (name, err)
+
+
+@pytest.mark.cuda
+def test_scatter_moe_step_syncs_nothing_on_card(cuda):
+    """A bf16 MoE step with the scatter dispatch under
+    set_sync_debug_mode("error"): routing, capacity drops, the slot writes
+    and the gathers never wait for the device."""
+    model = LlamaForCausalLM(LlamaConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=384,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=256, num_experts=4, dtype="bfloat16",
+        moe_dispatch="scatter", moe_capacity_factor=0.5), device=cuda,
+        seed=3)
+    eng = Engine(model, lr=1e-3)
+    ids = torch.randint(0, 512, (2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    eng.step(ids, ids)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = eng.step(ids, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(loss).item()

@@ -79,10 +79,25 @@ def test_load_checks_names_and_shapes(pair):
 
 
 def test_moe_and_training_paths_raise():
+    # the default MoE config (dispatch "auto") and remat build; MoE
+    # serving, an unknown dispatch and invalid remat settings raise
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+
+    moe = LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
+    assert moe.model.layers[0].mlp.dispatch_mode == "auto"
     with pytest.raises(NotImplementedError, match="MoE"):
-        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="remat slice"):
-        LlamaForCausalLM(LlamaConfig.tiny(recompute=True), device="cpu")
+        ContinuousBatchingEngine(moe, max_batch=2, max_len=32, page_size=8,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="dispatch_mode"):
+        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4,
+                                          moe_dispatch="dense"),
+                         device="cpu")
+    assert LlamaForCausalLM(LlamaConfig.tiny(recompute=True),
+                            device="cpu").model.layers[0].remat
+    with pytest.raises(ValueError, match="remat_policy"):
+        LlamaConfig.tiny(recompute=True, remat_policy="most")
+    with pytest.raises(ValueError, match="remat_every"):
+        LlamaConfig.tiny(recompute=True, remat_every=0)
     # the training loss is ported: labels give the shifted CE, a scalar
     # with a graph back to every parameter
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")

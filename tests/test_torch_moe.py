@@ -368,31 +368,36 @@ def test_bf16_moe_model_keeps_an_fp32_gate():
 
 
 def test_unported_moe_paths_raise():
+    """What stays refused: MoE serving, sequence_parallel, the XLA
+    attention path and an unknown dispatch. Every dispatch, the switch
+    gate and the experts' dense forward are ported (they build here and
+    tests/test_torch_moe_dispatch.py holds them against JAX)."""
     for mode in ("auto", "einsum", "scatter", "ragged"):
-        with pytest.raises(NotImplementedError, match="pgmm"):
-            MoELayer(16, 4, dispatch_mode=mode, device="cpu")
-        with pytest.raises(NotImplementedError, match="pgmm"):
-            routed_ffn(torch.zeros(4, 16), torch.full((4, 4), 0.25),
-                       SwiGLUExpertFFN(4, 16, 32, device="cpu"), 2, 4,
-                       dispatch_mode=mode)
-        with pytest.raises(NotImplementedError, match="pgmm"):
-            LlamaForCausalLM(LlamaConfig.tiny(num_experts=4,
-                                              moe_dispatch=mode),
-                             device="cpu")
+        MoELayer(16, 4, dispatch_mode=mode, device="cpu")
+        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4, moe_dispatch=mode),
+                         device="cpu")
     with pytest.raises(ValueError, match="dispatch_mode"):
         MoELayer(16, 4, dispatch_mode="dense", device="cpu")
-    with pytest.raises(NotImplementedError, match="SwitchGate"):
-        SwitchGate(16, 4)
-    with pytest.raises(NotImplementedError, match="SwitchGate"):
-        MoELayer(16, 4, gate="switch", dispatch_mode="pgmm", device="cpu")
-    with pytest.raises(NotImplementedError, match="forward_pgmm"):
-        SwiGLUExpertFFN(4, 16, 32, device="cpu")(torch.zeros(4, 2, 16))
-    with pytest.raises(NotImplementedError, match="forward_pgmm"):
-        ExpertFFN(4, 16, 32, device="cpu")(torch.zeros(4, 2, 16))
+    with pytest.raises(ValueError, match="dispatch_mode"):
+        routed_ffn(torch.zeros(4, 16), torch.full((4, 4), 0.25),
+                   SwiGLUExpertFFN(4, 16, 32, device="cpu"), 2, 4,
+                   dispatch_mode="dense")
+    assert isinstance(MoELayer(16, 4, gate="switch", device="cpu").gate,
+                      SwitchGate)
+    with pytest.raises(ValueError, match="topk"):
+        SwitchGate(16, 4, topk=2, device="cpu")
+    assert SwiGLUExpertFFN(4, 16, 32, device="cpu")(
+        torch.zeros(4, 2, 16)).shape == (4, 2, 16)
+    assert ExpertFFN(4, 16, 32, device="cpu")(
+        torch.zeros(4, 2, 16)).shape == (4, 2, 16)
     with pytest.raises(NotImplementedError, match="use_flash_attention"):
         LlamaConfig.tiny(use_flash_attention=False)
     with pytest.raises(NotImplementedError, match="sequence_parallel"):
         LlamaConfig.tiny(sequence_parallel=True)
+    with pytest.raises(ValueError, match="remat_policy"):
+        LlamaConfig.tiny(num_experts=4, remat_policy="most")
+    with pytest.raises(ValueError, match="remat_every"):
+        LlamaConfig.tiny(num_experts=4, recompute=True, remat_every=0)
     tm = LlamaForCausalLM(LlamaConfig.tiny(**_moe_cfg()), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         ContinuousBatchingEngine(tm, max_batch=2, max_len=32, page_size=8,
