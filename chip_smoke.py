@@ -99,8 +99,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      trans_w (dx) mode, and K6 (its dw) against their plain versions on a
      seeded skewed routing that leaves one expert without a token: the MoE
      step's shapes (x [36864, 1024] against w [8, 1024, 2816], [36864,
-     2816] against [8, 2816, 1024], bf16), a small case (fp32 and bf16) and
-     one whose k and n a 128 tile does not divide; error <= tol x max
+     2816] against [8, 2816, 1024], bf16), the MoE serving decode step's
+     (phase 15: 128 tokens x top-2 = 256 rows padded to 4608, the same
+     weight shapes, bf16), a small case (fp32 and bf16) and one whose k
+     and n a 128 tile does not divide; error <= tol x max
      |plain|, the tileless expert's dw exactly 0; kernel (chained and
      device_ms), plain and library (torch._grouped_mm, or a per-expert
      torch.mm loop) times and the bound.
@@ -141,10 +143,55 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      K1-lse/K2/K3 8 a step, K5/K6 none; one step under
      set_sync_debug_mode (no synchronizing operation); 6 steps at lr 1e-3
      on one batch whose loss must fall.
+ 15. MoE serving: bench_moe's model (phase 12's config, pgmm, bf16, random
+     weights from seed 0) through phase 7's fused 128-slot engine and wave,
+     cold then warm: every decode block replays the one captured graph,
+     which holds 24 K5 launches (3 a layer) beside 8 K4 launches, and each
+     replay moves K5's count by them; K6 never runs; warm streams equal
+     cold (pgmm drops nothing). The teacher-forced check takes the
+     engine's own expert choices: the wave runs once more with eager
+     steps (bitwise the replayed step; its streams must equal the cold
+     wave's) while the gates record the experts picked for every emitted
+     position, and the dense forward takes them there (a top-k choice
+     flips at near-ties between two bf16 paths, which moves a token's
+     logits far past the margin); every emitted token within the margin.
+     The routing itself is held to the dense forward: wherever, in that
+     forward, a layer's own top-k (from its own gate over the hidden state
+     the engine's earlier choices led to) differs from the engine's
+     choice, the forward's gate logits of the two experts must lie within
+     GATE_MARGIN. Prints tokens/s, launches, the busy share of a profiled
+     warm wave, the replayed step against the eager one (and the
+     synchronizing operations of each: none in the replay), and phase
+     10's K5 times at the decode layout with their share of the replayed
+     step. Then the legacy
+     engine (K1 prefill, eager decode) on 16 of the requests at 8 slots,
+     checked the same way, and the wave once more at moe_dispatch="auto"
+     (einsum at decode, scatter at prefill; no K5), with the count of
+     streams that differ from the pgmm engines' (capacity drops depend on
+     a step's rows, so they may).
+ 16. generate(): bench.py bench_serving's wave (the phase-6 model, 16
+     requests of 64-token prompts sharing 48, max_new (i % 4 + 1) x 16)
+     through model.generate in batches of 8 to 64 new tokens, greedy, with
+     the dense cache (plain attention) and the paged cache (K1 prefill, K4
+     decode: exactly 12 and 12 x 63 launches a batch), beside the
+     prefix-cache engine on the same wave, best of 3 interleaved waves:
+     useful tokens/s of each and the engine's over dense generate's
+     (bench_serving's vs_baseline). Paged streams against dense (count),
+     every token within the teacher-forced margin.
+ 17. brownout: phase 7's wave through a fused engine with brownout=True,
+     the pool cut to the 416 of its 1152 blocks that the wave's first 64
+     requests need (half the slots) until it enters brownout: it must
+     enter (brownouts >= 1, brownout_steps > 0), leave
+     before the wave ends, replay the one graph (no recapture, no eager
+     step), finish every request, and keep every stream that differs from
+     phase 7's cold wave within the teacher-forced margin.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools; "paged_decode_int8" counts phase 7c's launches on int8 pools;
-K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14, each read
-with the counts set to 0 just before it.
+fp pools (phases 6, 7, 7c and 15-17); "paged_decode_int8" counts phase
+7c's launches on int8 pools; K1's adds the legacy engine of phase 15 and
+the paged generate of phase 16 to phase 6's wave; K5's adds phase 15's
+served waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps
+of phases 9, 13 and 14, each read with the counts set to 0 just before
+it.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -174,6 +221,17 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # its top two logits (~0.15); a wrong token trails by about a standard
 # deviation or more.
 MARGIN = 0.1
+# MoE routing check: where the engine picked another expert than the dense
+# forward's own top-k at a layer, the forward's gate logits of the two
+# experts must lie within this margin. The gate's logits are fp32 dots of
+# the normed bf16 hidden state with a Xavier-uniform gate, std ~1.4 at
+# hidden 1024 (0.044 x sqrt(1024)), 1.6 times the output logits' scale; the
+# output logits' worst bf16 trail (0.047 above) so scales to ~0.08 for a
+# difference of two gate logits (the first H100 run with this check
+# measured 0.1159). 0.25 is three times the estimate and a sixth of the
+# std: a token routed to another expert than a near-tie's trails by about
+# a std or more.
+GATE_MARGIN = 0.25
 # K1 cases: name, batch, s_q, s_kv, q heads, kv heads, head_dim, causal
 K1_CASES = [
     ("prefill", 8, 512, 512, 16, 16, 128, True),   # the serving prefill
@@ -181,6 +239,10 @@ K1_CASES = [
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
     ("strided", 2, 1024, 1024, 16, 16, 128, True),
+    # phase 15's legacy MoE engine prefills 8 prompts of 64 tokens at 16/4
+    # heads of 64; phase 16's paged generate 8 at 16/16 heads of 128
+    ("moe_prefill", 8, 64, 64, 16, 4, 64, True),
+    ("generate_prefill", 8, 64, 64, 16, 16, 128, True),
 ]
 # the train step's attention shape (bench.py:2013-2019 at batch 2)
 TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
@@ -215,6 +277,12 @@ K4_CASES = [
     # the fused engine's decode (FUSED_ENGINE): 128 rows at the wave's
     # contexts, 49 (first decode step) to 128 (max_len)
     ("fused", 16, 16, 128, 16, 8, [49 + i * 79 // 127 for i in range(128)]),
+    # phase 15's MoE model (16/4 heads of 64) at the fused engine's decode
+    # and at the legacy engine's (8 rows, contexts 64 to 128); phase 16's
+    # paged generate (8 rows of 16/16 heads of 128, contexts 64 to 128)
+    ("moe_fused", 16, 4, 64, 16, 8, [49 + i * 79 // 127 for i in range(128)]),
+    ("moe_legacy", 16, 4, 64, 16, 8, [64 + i * 64 // 7 for i in range(8)]),
+    ("generate", 16, 16, 128, 16, 8, [64 + i * 64 // 7 for i in range(8)]),
 ]
 K4_GRAPH_LAYERS = 12   # one decode step of the serving config's 12 layers
 # K4 on int8 pools (QuantizedKVPool): the main-path row's shape and the
@@ -291,10 +359,39 @@ REMAT_POLICY_CASES = [("flash", 1, 4), ("flash_qkv", 1, 4),
 # 2^24)
 MOE_AUTO_CONFIG = dict(MOE_CONFIG, moe_dispatch="auto")
 MOE_AUTO_CAPACITY = 5120
+# phase 15: bench_moe's model (MOE_CONFIG: pgmm) served at
+# bench_serving_large_batch's wave (FUSED_ENGINE, FUSED_EXTRA_BLOCKS) cold
+# then warm; the legacy engine (no prefix cache) on MOE_LEGACY_REQUESTS of
+# the requests at 8 slots; the wave once more at moe_dispatch="auto"
+MOE_LEGACY_ENGINE = dict(max_batch=8, max_len=128, page_size=16,
+                         block_size=16)
+MOE_LEGACY_REQUESTS = 16
+# phase 16: bench.py bench_serving (:208-246): the SERVE_CONFIG model, 16
+# requests of 64-token prompts sharing 48, generate() in batches of 8 with
+# max_new_tokens 64 (every row decoded to the batch's max), beside the
+# prefix-cache engine (8 slots, max_len 128, page 16, block 16, 8 extra
+# blocks) on the same wave; best of GEN_TIMED interleaved waves each
+GEN_REQUESTS, GEN_BATCH, GEN_TIMED = 16, 8, 3
+GEN_ENGINE = dict(max_batch=8, max_len=128, page_size=16, block_size=16)
+GEN_EXTRA_BLOCKS = 8
+# phase 17: phase 7's wave with brownout=True under a pool pressure
+# episode: blocks held out of the allocator until the engine enters
+# brownout. The engine sizes its pool so that every admission fits
+# (max_batch x pages a slot + extra_blocks), so extra_blocks alone cannot
+# make it defer; the hold cuts the pool as the JAX package's fault plan
+# ("serving.block_pool") does: to the pages the wave's first max_batch / 2
+# requests need, so the other half of the slots stand idle and the queue
+# head defers from the first step until the first requests finish, far
+# past enter_after (2 steps). (The least hold that defers the first
+# admission is not enough: one step later the head matches the shared
+# prompt's blocks and fits.)
 # K5/K6 cases: name, routed rows, experts, k, n, tile_m, dtypes; "main" is
 # the train step's: 8 x 2048 tokens x top-2 = 32768 rows, padded to 36864
 PGMM_CASES = [
     ("main", MOE_BATCH * MOE_SEQ * 2, 8, 1024, 2816, 512, ("bfloat16",)),
+    # phase 15's decode step: 128 rows x top-2 = 256 rows, padded to 4608
+    ("decode", FUSED_ENGINE["max_batch"] * 2, 8, 1024, 2816, 512,
+     ("bfloat16",)),
     ("small", 3000, 4, 256, 384, 512, ("float32", "bfloat16")),
     ("edge", 1000, 4, 136, 200, 256, ("float32", "bfloat16")),
 ]
@@ -1030,9 +1127,11 @@ def _grouped_mm_library(torch, x, w, dout, gids, e, tile_m):
 def phase_pgmm(torch, np, ops):
     """K5 (forward and its trans_w dx mode) and K6 against their plain
     versions on a skewed padded layout with a tileless expert; returns the
-    main-path rows (bf16, x [36864, 1024] against w [8, 1024, 2816])."""
+    main-path rows (bf16, x [36864, 1024] against w [8, 1024, 2816]) and
+    K5's rows at the decode layout ({(k, n): row} for the gate/up product
+    and the down product)."""
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    rows = {}
+    rows, decode = {}, {}
     for name, n_rows, e, k, n, tile_m, dnames in PGMM_CASES:
         empty = e // 2
         flat_e = _skewed_routing(torch, np, n_rows, e, 2, empty, 7)
@@ -1041,7 +1140,7 @@ def phase_pgmm(torch, np, ops):
         pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
         if (gids == empty).any().item():
             raise AssertionError(f"pgmm {name}: expert {empty} owns a tile")
-        shapes = [(k, n)] if name != "main" else [(k, n), (n, k)]
+        shapes = [(k, n), (n, k)] if name in ("main", "decode") else [(k, n)]
         for dname in dnames:
             dtype = getattr(torch, dname)
             for kk, nn in shapes:
@@ -1106,17 +1205,17 @@ def phase_pgmm(torch, np, ops):
                             f"pgmm {cname} {name} {dname}: relative error "
                             f"{err} (tol {TOL[dname]}), tileless expert "
                             f"zero: {zero_ok}")
+                    row = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=library_ms, device_ms=dev_ms)
                     if name == "main" and (kk, nn) == (k, n) \
                             and cname in ("k5", "k6"):
-                        rows[cname] = dict(max_abs_err=abs_err, ms=ms,
-                                           plain_ms=plain_ms,
-                                           bound_ms=bound_ms,
-                                           bound_by=bound_by,
-                                           library_ms=library_ms,
-                                           device_ms=dev_ms)
+                        rows[cname] = row
+                    if name == "decode" and cname == "k5":
+                        decode[(kk, nn)] = dict(row, P=p, lib=lib_name)
                 del x, dout, w, calls, lib
                 torch.cuda.empty_cache()
-    return rows["k5"], rows["k6"]
+    return rows["k5"], rows["k6"], decode
 
 
 def _recording_routes(mod, seen):
@@ -1615,15 +1714,15 @@ def phase_serving(torch, np, ops, card):
     return k1_launches, k4_launches
 
 
-def _fused_wave(np, vocab):
-    """FUSED_REQUESTS prompts (a shared system prompt and a random tail,
-    from seed 0) and their max_new_tokens, as bench.py's arm makes them."""
+def _fused_wave(np, vocab, n=FUSED_REQUESTS):
+    """``n`` prompts (a shared system prompt and a random tail, from seed
+    0) and their max_new_tokens, as bench.py's serving arms make them."""
     rng = np.random.default_rng(0)
     system = rng.integers(0, vocab, (FUSED_SHARED,)).astype(np.int32)
     prompts = [np.concatenate([system, rng.integers(
         0, vocab, (FUSED_PROMPT - FUSED_SHARED,)).astype(np.int32)])
-        for _ in range(FUSED_REQUESTS)]
-    news = [(i % 4 + 1) * FUSED_MAX_NEW // 4 for i in range(FUSED_REQUESTS)]
+        for _ in range(n)]
+    news = [(i % 4 + 1) * FUSED_MAX_NEW // 4 for i in range(n)]
     return prompts, news
 
 
@@ -1651,6 +1750,275 @@ def _teacher_forced(torch, np, model, prompts, outputs):
     return worst, top1, n
 
 
+class _RouteRecorder:
+    """Records the experts an engine's MoE layers choose for the tokens of
+    a wave's streams: ``routes[(stream, position)]`` = the top-k expert ids
+    of each layer [L, k]. ``ctx`` is set, around each model call that
+    carries stream tokens, to each of its flat rows' (stream, position) or
+    None; a call whose row count differs from it is not recorded."""
+
+    def __init__(self, torch, model):
+        self.torch, self.model = torch, model
+        self.k = model.config.moe_topk
+        self.L = model.config.num_hidden_layers
+        self.ctx = None
+        self.routes = {}
+
+    def __enter__(self):
+        for i, layer in enumerate(self.model.model.layers):
+            layer.mlp.gate.probs = self._recording(i, layer.mlp.gate)
+        return self
+
+    def __exit__(self, *exc):
+        for layer in self.model.model.layers:
+            del layer.mlp.gate.probs
+
+    def _recording(self, i, gate):
+        cls_probs = type(gate).probs
+
+        def probs(inp):
+            p = cls_probs(gate, inp)
+            if self.ctx is not None and len(self.ctx) == p.shape[0]:
+                top = p.topk(self.k, dim=-1).indices.tolist()
+                for key, experts in zip(self.ctx, top):
+                    if key is not None:
+                        self.routes.setdefault(key, [None] * self.L)[i] = \
+                            experts
+            return p
+        return probs
+
+    def around(self, obj, name, ctx_of):
+        """Wrap ``obj.name`` so that each call records under the context
+        ``ctx_of(*args)`` gives."""
+        orig = getattr(obj, name)
+
+        def call(*args, **kw):
+            self.ctx = ctx_of(*args)
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.ctx = None
+        setattr(obj, name, call)
+
+
+def _recorded_wave(torch, np, eng, Request, prompts, news):
+    """The wave through ``eng`` (radix cache emptied first) with its decode
+    steps run eagerly and the experts its MoE layers choose recorded for
+    every token whose logits give an emitted token: the decode steps
+    (fused: ``_fused_step``; legacy: ``model.paged_token_step``), the
+    first-token steps (``_first_token``) or prefill chunks
+    (``_prefill_group``). The eager step computes what the captured graph
+    replays (the card tests hold them bitwise equal). Returns (streams,
+    routes)."""
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+    index = {id(r): i for i, r in enumerate(reqs)}
+    rec = _RouteRecorder(torch, eng.model)
+
+    def slot_key(i, pos):
+        r = eng._slots[i]
+        return None if r is None else (index[id(r)], int(pos))
+
+    if eng._fused:
+        def fused_ctx(*_):
+            act = eng._dev_act.tolist()
+            pos = eng._dev_pos.tolist()
+            return [slot_key(i, pos[i] - 1) if act[i] else None
+                    for i in range(eng.max_batch)]
+        rec.around(eng, "_fused_step", fused_ctx)
+        rec.around(eng, "_first_token", lambda ready: [
+            (index[id(r)], len(r.prompt) - 1) for _, r in ready]
+            + [None] * (eng._first_token_group(len(ready)) - len(ready)))
+        graph, eng._graph = eng._graph, None
+    else:
+        rec.around(eng.model, "paged_token_step", lambda toks, caches, pos: [
+            slot_key(i, p) for i, p in enumerate(pos.tolist())])
+        rec.around(eng, "_prefill_group", lambda padded, grp: [
+            (index[id(r)], t) if t < len(r.prompt) else None
+            for _, r in grp for t in range(padded)])
+    if eng.prefix_cache is not None:
+        eng._radix.evict_lru(eng._alloc.num_blocks)
+    try:
+        with rec:
+            for r in reqs:
+                eng.add_request(r)
+            eng.run_until_done(max_steps=40000)
+    finally:
+        for obj, name in ((eng, "_fused_step"), (eng, "_first_token"),
+                          (eng, "_prefill_group"),
+                          (eng.model, "paged_token_step")):
+            obj.__dict__.pop(name, None)
+        if eng._fused:
+            eng._graph = graph
+    return [list(r.output) for r in reqs], rec.routes
+
+
+def _moe_margin_check(torch, np, model, prompts, outputs, routes, what,
+                      card):
+    """The teacher-forced check of an MoE model's streams, with the
+    routing the engine chose. An MoE layer routes each token to its top-k
+    experts, a discontinuous choice: where a position's k-th and (k+1)-th
+    gate probabilities lie within rounding of each other, the serving path
+    (other kernels, other bf16 rounding) may pick another expert than a
+    dense forward would, and the logits then differ by far more than
+    MARGIN. So the dense forward takes, at every position ``routes`` holds
+    (the engine's choices for the tokens whose logits gave the emitted
+    ones), the engine's experts (the gate's other probabilities zeroed
+    before its top-k; the kept weights are the gate's own), and every
+    emitted token must lie within MARGIN of its position's maximum logit
+    there. The routing is held to the forward's own gate: at every forced
+    layer-position where the forward's top-k (over the hidden state the
+    engine's earlier choices led to) differs from the engine's, the
+    forward's gate logits of the experts that swap must lie within
+    GATE_MARGIN. Prints how many positions the engine routed unlike the
+    dense forward."""
+    k = model.config.moe_topk
+    L = model.config.num_hidden_layers
+    by_len = {}
+    for i, (p, out) in enumerate(zip(prompts, outputs)):
+        by_len.setdefault(len(out), []).append((i, p, out))
+    worst, top1, n, flipped, forced_n = 0.0, 0, 0, 0, 0
+    gates = [layer.mlp.gate for layer in model.model.layers]
+    forced = [None] * L
+    # forced layer-positions, those routed unlike the forward, its gap there
+    forced_all, moved, gate_gap = 0, 0, 0.0
+
+    def forcing(i, gate):
+        cls_probs = type(gate).probs
+
+        def probs(inp):
+            nonlocal moved, gate_gap
+            p = cls_probs(gate, inp)
+            f = forced[i]
+            if f is None:
+                return p
+            f = f.reshape(-1, k)
+            on = f[:, 0] >= 0
+            keep = torch.zeros_like(p, dtype=torch.bool).scatter_(
+                1, f.clamp_min(0), True)
+            own = torch.zeros_like(keep).scatter_(
+                1, p.topk(k, dim=-1).indices, True)
+            # the forward's own gate-logit gap (softmax keeps differences)
+            # between its least top-k expert the engine dropped and the
+            # engine's best pick outside the forward's top-k
+            lp = p.log()
+            gap = (torch.where(own & ~keep, lp, float("inf")).amin(-1)
+                   - torch.where(keep & ~own, lp, float("-inf")).amax(-1))
+            flip = on & (keep != own).any(-1)
+            if flip.any().item():
+                moved += int(flip.sum().item())
+                gate_gap = max(gate_gap, gap[flip].max().item())
+            return torch.where(on[:, None] & ~keep, 0.0, p)
+        return probs
+
+    for i, g in enumerate(gates):
+        g.probs = forcing(i, g)
+    try:
+        with torch.no_grad():
+            for rows in by_len.values():
+                seqs = np.stack([np.concatenate([p, np.asarray(o, np.int32)])
+                                 for _, p, o in rows])
+                ids = torch.from_numpy(seqs[:, :-1]).to(DEVICE)
+                g_, T = ids.shape
+                start = len(rows[0][1]) - 1
+                table = np.full((L, g_, T, k), -1, np.int64)
+                for r, (si, _, _) in enumerate(rows):
+                    for t in range(T):
+                        route = routes.get((si, t))
+                        if route is not None and None not in route:
+                            table[:, r, t] = route
+                forced_n += int((table[0, :, start:, 0] >= 0).sum())
+                forced_all += L * int((table[0, ..., 0] >= 0).sum())
+                for i in range(L):
+                    forced[i] = None
+                own = model(ids).float()
+                for i in range(L):
+                    forced[i] = torch.from_numpy(table[i]).to(DEVICE)
+                logits = model(ids)[:, start:].float()
+                for i in range(L):
+                    forced[i] = None
+                # positions the engine routed unlike the dense forward:
+                # the forward's logits move where a choice moved
+                flipped += int(((own[:, start:] - logits).abs().amax(-1)
+                                > 0).sum())
+                emitted = torch.from_numpy(seqs[:, start + 1:].astype(
+                    np.int64)).to(DEVICE)
+                got = logits.gather(2, emitted[..., None])[..., 0]
+                best = logits.max(dim=-1).values
+                worst = max(worst, (best - got).max().item())
+                top1 += int((got >= best).sum().item())
+                n += got.numel()
+    finally:
+        for g in gates:
+            del g.probs
+    print(f"moe teacher-forced {what} [{card}]: worst (max logit - emitted "
+          f"logit) = {worst:.4f} (margin {MARGIN}) with the engine's routing "
+          f"at {forced_n} of {n} emitted positions; the emitted token is the "
+          f"argmax for {top1} of {n}; {flipped} positions' logits move "
+          f"when the dense forward takes the engine's routing; the engine "
+          f"picked other experts than the forward's own gate at {moved} of "
+          f"{forced_all} layer-positions, the forward's gate-logit gap "
+          f"there at most {gate_gap:.4f} (margin {GATE_MARGIN})", flush=True)
+    fails = []
+    if forced_n != n:
+        fails.append(f"routing recorded at {forced_n} of {n} emitted "
+                     f"positions")
+    if not worst <= MARGIN:
+        fails.append(f"an emitted token trails the maximum logit by "
+                     f"{worst} > {MARGIN} under the engine's own routing")
+    if not gate_gap <= GATE_MARGIN:
+        fails.append(f"the engine's routing departs from the dense "
+                     f"forward's own where its gate logits are {gate_gap} "
+                     f"> {GATE_MARGIN} apart")
+    if fails:
+        raise AssertionError(f"moe {what}: " + "; ".join(fails))
+
+
+def _reset_stats(eng):
+    """Zero an engine's counters (not its capture and program counts)."""
+    for k in eng.stats:
+        if k not in ("graph_captures", "spec_graph_captures",
+                     "compile_cache_entries"):
+            eng.stats[k] = 0.0 if k.endswith("_s") else 0
+
+
+def _warm_up_engine(eng, Request, np, vocab):
+    """Two requests that share nothing with the waves (first launches at
+    the prefill shapes), then an empty radix cache: the next wave runs
+    cold."""
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        eng.add_request(Request(rng.integers(0, vocab, (
+            FUSED_PROMPT,)).astype(np.int32), max_new_tokens=4))
+    eng.run_until_done()
+    if eng.prefix_cache is not None:
+        eng._radix.evict_lru(eng._alloc.num_blocks)
+
+
+def _differ(a, b):
+    """How many of the streams ``a`` differ from ``b``'s."""
+    return sum(x != y for x, y in zip(a, b))
+
+
+def _activate_all(np, eng, ctx):
+    """Every slot of a fused engine active at context ``ctx`` over its own
+    pages (the engine's cache contents are no longer needed)."""
+    maxp = eng._maxp
+    for i in range(eng.max_batch):
+        eng._queue_update(i, np.arange(i * maxp, (i + 1) * maxp), ctx, True)
+    eng._flush_updates()
+
+
+def _step_ms(torch, eng, ctx, step, measure=None):
+    """``measure(torch, step)`` (default: CUDA-event ms over 20 calls after
+    3) from every row at context ``ctx``, without autograd."""
+    eng._dev_pos.fill_(ctx)
+    eng._step_i.zero_()
+    with torch.no_grad():
+        if measure is None:
+            return cuda_ms(step, 20, 3)
+        return measure(torch, step)
+
+
 def phase_serving_fused(torch, np, ops, card):
     """The fused 128-slot engine at FUSED_ENGINE: a cold wave, then the same
     wave warm (the radix cache primed). Returns K4's launches in the two
@@ -1673,26 +2041,17 @@ def phase_serving_fused(torch, np, ops, card):
     print(f"fused serving setup: {eng._park + 1} pages ({pool_gb:.2f} GB of "
           f"K/V), graph_captures={eng.stats['graph_captures']}, "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    if eng.stats["graph_captures"] != 1 or eng._graph_k4 != \
+    if eng.stats["graph_captures"] != 1 or eng._graph_counts[0] != \
             cfg.num_hidden_layers:
         raise AssertionError(f"the decode step was not captured once with "
                              f"{cfg.num_hidden_layers} K4 launches")
     prompts, news = _fused_wave(np, cfg.vocab_size)
-    # warm-up on prompts that share nothing with the wave (first launches
-    # at the prefill shapes), then an empty radix cache: the wave runs cold
-    rng = np.random.default_rng(1)
-    for _ in range(2):
-        eng.add_request(Request(rng.integers(0, cfg.vocab_size, (
-            FUSED_PROMPT,)).astype(np.int32), max_new_tokens=4))
-    eng.run_until_done()
-    eng._radix.evict_lru(eng._alloc.num_blocks)
+    _warm_up_engine(eng, Request, np, cfg.vocab_size)
 
     L = cfg.num_hidden_layers
     waves = {}
     for name in ("cold", "warm"):
-        for k in eng.stats:
-            if k not in ("graph_captures", "compile_cache_entries"):
-                eng.stats[k] = 0.0 if k.endswith("_s") else 0
+        _reset_stats(eng)
         reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
         ops.paged_decode_attention.launches = 0
         ops.flash_attention.launches = 0
@@ -1749,27 +2108,14 @@ def phase_serving_fused(torch, np, ops, card):
                              f"trails the maximum logit by "
                              f"{max(worst, worst_w)} > {MARGIN}")
 
-    # the decode step at the wave's shape: every row active at context
-    # FUSED_STEP_CTX over its own pages, replayed and eager (the engine's
-    # cache contents are no longer needed)
-    maxp = eng._maxp
-    for i in range(eng.max_batch):
-        eng._queue_update(i, np.arange(i * maxp, (i + 1) * maxp),
-                          FUSED_STEP_CTX, True)
-    eng._flush_updates()
-
-    def timed(fn):
-        eng._dev_pos.fill_(FUSED_STEP_CTX)
-        eng._step_i.zero_()
-        with torch.no_grad():
-            return cuda_ms(fn, 20, 3)
-
-    replay_ms = timed(eng._graph.replay)
-    eager_ms = timed(eng._fused_step)
+    # the decode step at the wave's shape, replayed and eager
+    _activate_all(np, eng, FUSED_STEP_CTX)
+    replay_ms = _step_ms(torch, eng, FUSED_STEP_CTX, eng._graph.replay)
+    eager_ms = _step_ms(torch, eng, FUSED_STEP_CTX, eng._fused_step)
     print(f"fused decode step [{card}]: replayed_ms={replay_ms:.4f} "
           f"eager_ms={eager_ms:.4f} ({eng.max_batch} rows from context "
           f"{FUSED_STEP_CTX}, {L} layers)", flush=True)
-    return waves["cold"][1] + waves["warm"][1]
+    return waves["cold"][1] + waves["warm"][1], cold
 
 
 def _pool_bytes(eng):
@@ -1854,10 +2200,7 @@ def phase_serving_spec(torch, np, ops, card):
     ops.paged_decode_attention.int8_launches = 0
     cold, best, k4 = {}, {}, {}
     for name, eng in engines.items():     # cold: radix empty
-        for k in eng.stats:
-            if k not in ("graph_captures", "spec_graph_captures",
-                         "compile_cache_entries"):
-                eng.stats[k] = 0.0 if k.endswith("_s") else 0
+        _reset_stats(eng)
         cold[name], _, k4[name] = wave(eng)
     warm = {}
     for _ in range(SPEC_TIMED):           # warm, interleaved, best-of
@@ -1903,13 +2246,10 @@ def phase_serving_spec(torch, np, ops, card):
     # streams: spec against spec off, twins against each other, warm
     # against cold; every emitted token teacher-forced against the dense
     # forward
-    def differ(a, b):
-        return sum(x != y for x, y in zip(a, b))
-
-    spec_vs_off = differ(cold["spec"], cold["spec_off"])
-    spec8_vs_int8 = differ(cold["spec_int8"], cold["int8"])
-    twin_diff = {t: differ(cold[t], cold[src]) for t, src in twins.items()}
-    warm_diff = {n: differ(warm[n], cold[n]) for n in kinds}
+    spec_vs_off = _differ(cold["spec"], cold["spec_off"])
+    spec8_vs_int8 = _differ(cold["spec_int8"], cold["int8"])
+    twin_diff = {t: _differ(cold[t], cold[src]) for t, src in twins.items()}
+    warm_diff = {n: _differ(warm[n], cold[n]) for n in kinds}
     print(f"spec streams [{card}]: {spec_vs_off} of {len(prompts)} spec "
           f"streams differ from spec-off; {spec8_vs_int8} spec+int8 from "
           f"int8; identical int8 engines differ in "
@@ -1961,6 +2301,408 @@ def phase_serving_spec(torch, np, ops, card):
     return k4_fp, k4_int8
 
 
+def _zero_serving_counts(ops):
+    for fn in (ops.flash_attention, ops.paged_decode_attention, ops.pgmm,
+               ops.pgmm_dw):
+        fn.launches = 0
+    ops.paged_decode_attention.int8_launches = 0
+
+
+def _serving_counts(ops):
+    return dict(k1=ops.flash_attention.launches,
+                k4=ops.paged_decode_attention.launches,
+                k5=ops.pgmm.launches, k6=ops.pgmm_dw.launches)
+
+
+def _serve_wave(eng, Request, prompts, news):
+    """One wave through ``eng``, synchronized at both ends: (requests,
+    seconds). Raises unless every request finished with its count."""
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+    sync()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    done = eng.run_until_done(max_steps=40000)
+    sync()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs) or any(
+            r.failed or len(r.output) != r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished "
+                             "with their token counts")
+    return reqs, wall
+
+
+def _busy_share(torch, fn):
+    """(device busy ms, wall ms) of ``fn`` under torch.profiler: the
+    kernels' device time summed (one stream, so they do not overlap) over
+    the host clock around ``fn`` and a synchronize. None for the busy time
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return (busy_ms if busy_ms > 0 else None), wall_ms
+
+
+def phase_moe_serving(torch, np, ops, card, k5_decode):
+    """bench_moe's model (MOE_CONFIG, pgmm, bf16) served: the fused
+    128-slot engine at phase 7's wave, cold then warm; the replayed step
+    against the eager one, beside K5's device time at the decode layout
+    (``k5_decode``: phase 10's "decode" rows); the legacy engine on
+    MOE_LEGACY_REQUESTS requests; the wave once more at
+    moe_dispatch="auto". Returns the launches of K1, K4 and K5 in those
+    waves."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**MOE_CONFIG)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+
+    def fused():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+            **FUSED_ENGINE)
+
+    eng = fused()
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"moe serving setup [{card}]: {n_params / 1e6:.1f}M params, "
+          f"{cfg.num_experts} experts top-{cfg.moe_topk} "
+          f"{cfg.moe_dispatch}, {eng._park + 1} pages, graph_captures="
+          f"{eng.stats['graph_captures']}, launches a replay (k4, k4_int8, "
+          f"k5, k6)={eng._graph_counts}, {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    if eng.stats["graph_captures"] != 1 or eng._graph_counts != (
+            L, 0, 3 * L, 0):
+        raise AssertionError(f"the MoE decode step was not captured once "
+                             f"with {L} K4 and {3 * L} K5 launches")
+    prompts, news = _fused_wave(np, cfg.vocab_size)
+    _warm_up_engine(eng, Request, np, cfg.vocab_size)
+    launches = dict(k1=0, k4=0, k5=0)
+    waves = {}
+    for name in ("cold", "warm"):
+        _reset_stats(eng)
+        _zero_serving_counts(ops)
+        reqs, wall = _serve_wave(eng, Request, prompts, news)
+        c = _serving_counts(ops)
+        st = dict(eng.stats)
+        useful = sum(len(r.output) for r in reqs)
+        print(f"moe serving {name} [{card}]: useful_tokens_per_s="
+              f"{useful / wall:.1f} ({useful} tokens in {wall:.3f}s, "
+              f"{len(reqs)} requests, {FUSED_ENGINE['max_batch']} slots) "
+              f"prefill_groups={st['prefill_groups']} packed_rows="
+              f"{st['packed_rows']} cached_tokens_matched={st['hit_tokens']} "
+              f"decode_steps={st['decode_steps']} graph_replays="
+              f"{st['graph_replays']} eager_decode_steps="
+              f"{st['eager_decode_steps']} k5_launches={c['k5']} "
+              f"(k5 a replay {eng._graph_counts[2]}) k6_launches={c['k6']} "
+              f"k4_launches={c['k4']} k1_launches={c['k1']}", flush=True)
+        if (st["eager_decode_steps"] != 0 or st["graph_captures"] != 1
+                or st["graph_replays"] != st["decode_steps"]
+                or c["k5"] < st["graph_replays"] * 3 * L or c["k6"] != 0
+                or c["k4"] < st["graph_replays"] * L):
+            raise AssertionError(
+                f"moe {name}: greedy blocks must replay the one captured "
+                f"graph ({3 * L} K5 and {L} K4 launches each), K6 never: "
+                f"{st}, {c}")
+        waves[name] = [list(r.output) for r in reqs]
+        for k in launches:
+            launches[k] += c[k]
+    cold, warm = waves["cold"], waves["warm"]
+    warm_diff = _differ(warm, cold)
+    print(f"moe serving [{card}]: {warm_diff} of {len(prompts)} warm "
+          f"streams differ from cold", flush=True)
+    if warm_diff:
+        raise AssertionError(f"moe serving: {warm_diff} warm streams differ "
+                             "from cold (pgmm drops nothing)")
+    # the same wave once more with eager steps, recording the experts the
+    # engine picks: the dense forward takes them for the margin check
+    streams, routes = _recorded_wave(torch, np, eng, Request, prompts, news)
+    if streams != cold:
+        raise AssertionError(f"moe serving: {_differ(streams, cold)} streams "
+                             "of the eager wave differ from the replayed "
+                             "cold wave")
+    _moe_margin_check(torch, np, model, prompts, cold, routes, "fused cold",
+                      card)
+    busy_ms, wall_ms = _busy_share(
+        torch, lambda: _serve_wave(eng, Request, prompts, news))
+    print(f"moe serving warm wave under the profiler [{card}]: "
+          + (f"device_busy_ms={busy_ms:.1f} wall_ms={wall_ms:.1f} "
+             f"busy_share={busy_ms / wall_ms:.3f}" if busy_ms is not None
+             else f"busy_share=not measured (the profiler saw no device "
+             f"time; wall_ms={wall_ms:.1f})"), flush=True)
+
+    # the decode step at the wave's shape, replayed and eager; the syncs
+    # of each
+    _activate_all(np, eng, FUSED_STEP_CTX)
+    replay_ms = _step_ms(torch, eng, FUSED_STEP_CTX, eng._graph.replay)
+    eager_ms = _step_ms(torch, eng, FUSED_STEP_CTX, eng._fused_step)
+    syncs_replay = _step_ms(torch, eng, FUSED_STEP_CTX, eng._graph.replay,
+                            _sync_count)
+    syncs_eager = _step_ms(torch, eng, FUSED_STEP_CTX, eng._fused_step,
+                           _sync_count)
+    print(f"moe decode step [{card}]: replayed_ms={replay_ms:.4f} "
+          f"eager_ms={eager_ms:.4f} ({eng.max_batch} rows from context "
+          f"{FUSED_STEP_CTX}, {L} layers, {3 * L} K5 launches a step); "
+          f"synchronizing operations: {len(syncs_replay)} replayed, "
+          f"{len(syncs_eager)} eager", flush=True)
+    for msg in (syncs_replay + syncs_eager)[:5]:
+        print(f"  {msg[:160]}", flush=True)
+    if syncs_replay:
+        raise AssertionError(f"the replayed MoE step synchronized "
+                             f"{len(syncs_replay)} times")
+    # a layer's experts: gate and up [hidden -> intermediate], down back
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    k5_step = L * (2 * k5_decode[(h, inter)]["device_ms"]
+                   + k5_decode[(inter, h)]["device_ms"])
+    for (kk, nn), r in sorted(k5_decode.items()):
+        print(f"moe decode K5 [{card}] (phase 10, case decode): "
+              f"{eng.max_batch} tokens x top-{cfg.moe_topk} in P={r['P']} "
+              f"padded rows, k={kk} n={nn}: device_ms={r['device_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.5f} bound_by={r['bound_by']} "
+              f"library_ms={r['library_ms']:.4f} ({r['lib']}) "
+              f"plain_ms={r['plain_ms']:.4f}", flush=True)
+    print(f"moe decode K5 share [{card}]: {3 * L} launches a step, "
+          f"{k5_step:.4f} device ms at phase 10's times, "
+          f"{k5_step / replay_ms:.3f} of the replayed step's "
+          f"{replay_ms:.4f} ms", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # the legacy engine (K1 prefill, eager decode) on the first requests
+    leg = ContinuousBatchingEngine(model, device=DEVICE, **MOE_LEGACY_ENGINE)
+    _warm_up_engine(leg, Request, np, cfg.vocab_size)
+    _reset_stats(leg)
+    _zero_serving_counts(ops)
+    lp, ln = prompts[:MOE_LEGACY_REQUESTS], news[:MOE_LEGACY_REQUESTS]
+    reqs, wall = _serve_wave(leg, Request, lp, ln)
+    c = _serving_counts(ops)
+    legacy = [list(r.output) for r in reqs]
+    leg_diff = _differ(legacy, cold)
+    st = leg.stats
+    print(f"moe serving legacy [{card}]: useful_tokens_per_s="
+          f"{sum(ln) / wall:.1f} ({sum(ln)} tokens in {wall:.3f}s, "
+          f"{len(lp)} requests, {MOE_LEGACY_ENGINE['max_batch']} slots) "
+          f"prefill_groups={st['prefill_groups']} decode_steps="
+          f"{st['decode_steps']} k1_launches={c['k1']} k4_launches={c['k4']} "
+          f"k5_launches={c['k5']} k6_launches={c['k6']}; {leg_diff} of "
+          f"{len(lp)} streams differ from the fused engine's", flush=True)
+    if (c["k1"] < st["prefill_groups"] * L or c["k6"] != 0
+            or c["k4"] < st["decode_steps"] * L
+            or c["k5"] < (st["decode_steps"] + st["prefill_groups"]) * 3 * L):
+        raise AssertionError(f"moe legacy engine: {st}, {c}")
+    streams, routes = _recorded_wave(torch, np, leg, Request, lp, ln)
+    if streams != legacy:
+        raise AssertionError("moe legacy engine: a second wave differs")
+    _moe_margin_check(torch, np, model, lp, legacy, routes, "legacy", card)
+    for k in launches:
+        launches[k] += c[k]
+    del leg
+
+    # the same wave at the default dispatch: capacity routing, no K5
+    for layer in model.model.layers:
+        layer.mlp.dispatch_mode = "auto"
+    eng = fused()
+    _warm_up_engine(eng, Request, np, cfg.vocab_size)
+    _reset_stats(eng)
+    _zero_serving_counts(ops)
+    reqs, wall = _serve_wave(eng, Request, prompts, news)
+    c = _serving_counts(ops)
+    auto = [list(r.output) for r in reqs]
+    print(f"moe serving auto [{card}]: useful_tokens_per_s="
+          f"{sum(news) / wall:.1f} ({sum(news)} tokens in {wall:.3f}s) "
+          f"graph_replays={eng.stats['graph_replays']} k5_launches="
+          f"{c['k5']} k4_launches={c['k4']}; {_differ(auto, cold)} of "
+          f"{len(auto)} streams differ from the pgmm fused wave, "
+          f"{_differ(auto, legacy)} of {len(legacy)} from the pgmm legacy "
+          f"engine's (capacity drops depend on a step's rows)", flush=True)
+    if (c["k5"] != 0 or c["k6"] != 0 or eng.stats["eager_decode_steps"]
+            or eng.stats["graph_replays"] != eng.stats["decode_steps"]):
+        raise AssertionError(f"moe auto: {eng.stats}, {c}")
+    launches["k4"] += c["k4"]
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_generate(torch, np, ops, card):
+    """bench_serving's wave through generate() with the dense and the
+    paged cache and through the prefix-cache engine, best of GEN_TIMED
+    interleaved waves each. Returns the launches of K1 and K4 in the timed
+    waves."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SERVE_CONFIG)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    prompts, news = _fused_wave(np, cfg.vocab_size, GEN_REQUESTS)
+    useful = sum(news)
+    batches = [np.stack(prompts[lo:lo + GEN_BATCH])
+               for lo in range(0, GEN_REQUESTS, GEN_BATCH)]
+    eng = ContinuousBatchingEngine(
+        model, device=DEVICE,
+        prefix_cache=PrefixCacheConfig(extra_blocks=GEN_EXTRA_BLOCKS),
+        **GEN_ENGINE)
+
+    def gen(cache_impl):
+        return np.concatenate([model.generate(
+            b, max_new_tokens=FUSED_MAX_NEW, temperature=0.0,
+            cache_impl=cache_impl, page_size=GEN_ENGINE["page_size"]).cpu()
+            .numpy() for b in batches])
+
+    arms = {"dense": lambda: gen("dense"), "paged": lambda: gen("paged"),
+            "engine": lambda: [r.output for r in _serve_wave(
+                eng, Request, prompts, news)[0]]}
+    for fn in arms.values():          # warm-up; the engine's primes its cache
+        fn()
+    _zero_serving_counts(ops)
+    best, outs, per = {}, {}, {}
+    for _ in range(GEN_TIMED):
+        for name, fn in arms.items():
+            c0 = _serving_counts(ops)
+            sync()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            sync()
+            best[name] = min(best.get(name, float("inf")),
+                             time.perf_counter() - t0)
+            per[name] = {k: v - c0[k] for k, v in _serving_counts(ops).items()}
+    c = _serving_counts(ops)
+    tps = {k: useful / v for k, v in best.items()}
+    dense, paged = outs["dense"], outs["paged"]
+    differ = [i for i in range(GEN_REQUESTS)
+              if not np.array_equal(dense[i], paged[i])]
+    eng_differ = sum(list(dense[i][:news[i]]) != outs["engine"][i]
+                     for i in range(GEN_REQUESTS))
+    worst, top1, n = _teacher_forced(torch, np, model, prompts,
+                                     [list(r) for r in paged])
+    worst_d, _, _ = _teacher_forced(
+        torch, np, model, [prompts[i] for i in differ],
+        [list(dense[i]) for i in differ]) if differ else (0.0, 0, 0)
+    print(f"generate [{card}]: useful_tokens_per_s dense={tps['dense']:.1f} "
+          f"paged={tps['paged']:.1f} engine={tps['engine']:.1f} "
+          f"vs_baseline (engine / dense generate)="
+          f"{tps['engine'] / tps['dense']:.4f} paged/dense="
+          f"{tps['paged'] / tps['dense']:.4f} ({useful} useful tokens of "
+          f"{GEN_REQUESTS} requests, generate in batches of {GEN_BATCH} to "
+          f"{FUSED_MAX_NEW} new tokens; best of {GEN_TIMED}: "
+          f"{best['dense']:.3f} / {best['paged']:.3f} / "
+          f"{best['engine']:.3f}s); launches a wave: dense {per['dense']}, "
+          f"paged {per['paged']}, engine {per['engine']}", flush=True)
+    print(f"generate streams [{card}]: {len(differ)} of {GEN_REQUESTS} "
+          f"paged streams differ from dense; {eng_differ} engine streams "
+          f"differ from dense generate's; teacher-forced worst trail "
+          f"{worst:.4f} paged, {worst_d:.4f} over the differing dense "
+          f"streams (margin {MARGIN}); the emitted token is the dense "
+          f"argmax for {top1} of {n}", flush=True)
+    want_paged = dict(k1=len(batches) * L,
+                      k4=len(batches) * (FUSED_MAX_NEW - 1) * L)
+    if (per["paged"]["k1"] != want_paged["k1"]
+            or per["paged"]["k4"] != want_paged["k4"]
+            or per["dense"]["k1"] or per["dense"]["k4"]):
+        raise AssertionError(f"generate: paged launches {per['paged']} != "
+                             f"{want_paged}, dense {per['dense']} (none)")
+    if not (worst <= MARGIN and worst_d <= MARGIN):
+        raise AssertionError(f"generate: an emitted token trails the "
+                             f"maximum logit by {max(worst, worst_d)}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return c["k1"], c["k4"]
+
+
+def phase_brownout(torch, np, ops, card, base):
+    """Phase 7's wave through a fused engine with brownout=True, the pool
+    cut to the pages of the wave's first max_batch / 2 requests until the
+    engine enters brownout; ``base``
+    is phase 7's cold streams (the same model from seed 0, no brownout).
+    Returns K4's launches in the wave."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    PrefixCacheConfig,
+                                                    Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SERVE_CONFIG)
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = ContinuousBatchingEngine(
+        model, device=DEVICE, brownout=True,
+        prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+        **FUSED_ENGINE)
+    _warm_up_engine(eng, Request, np, cfg.vocab_size)
+    _reset_stats(eng)
+    prompts, news = _fused_wave(np, cfg.vocab_size)
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+    # each of the first admission's requests takes its own blocks (the
+    # cache registers nothing before their first tokens)
+    half = eng.max_batch // 2
+    room = sum(eng._pages_needed(len(p), k) for p, k in
+               zip(prompts[:half], news[:half]))
+    held = eng._alloc.hold(eng._alloc.free_blocks - room)
+    _zero_serving_counts(ops)
+    sync()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.add_request(r)
+    steps, entered, exited = 0, None, None
+    while eng.has_work():
+        eng.step()
+        steps += 1
+        if entered is None and eng._brownout_active:
+            entered = steps
+            eng._alloc.release_held()         # the pressure episode ends
+        if entered is not None and exited is None \
+                and not eng._brownout_active:
+            exited = steps
+    eng.finished()
+    sync()
+    wall = time.perf_counter() - t0
+    c = _serving_counts(ops)
+    st = eng.stats
+    outs = [list(r.output) for r in reqs]
+    differ = [i for i in range(len(reqs)) if outs[i] != base[i]]
+    worst, _, _ = _teacher_forced(
+        torch, np, model, [prompts[i] for i in differ],
+        [outs[i] for i in differ]) if differ else (0.0, 0, 0)
+    print(f"brownout [{card}]: useful_tokens_per_s="
+          f"{sum(news) / wall:.1f} ({sum(news)} tokens in {wall:.3f}s) "
+          f"{held} of {eng._alloc.num_blocks} blocks held until brownout "
+          f"(the {room} left hold the first {half} requests); "
+          f"entered at step {entered}, exited at step {exited} of {steps}; "
+          f"brownouts={st['brownouts']} brownout_steps="
+          f"{st['brownout_steps']} cached_tokens_matched={st['hit_tokens']} "
+          f"graph_captures={st['graph_captures']} graph_replays="
+          f"{st['graph_replays']} eager_decode_steps="
+          f"{st['eager_decode_steps']} k4_launches={c['k4']}; "
+          f"{len(differ)} of {len(reqs)} streams differ from the wave "
+          f"without brownout (phase 7, cold); worst teacher-forced trail "
+          f"over them {worst:.4f} (margin {MARGIN})", flush=True)
+    if (st["brownouts"] < 1 or st["brownout_steps"] == 0 or exited is None
+            or exited >= steps or st["graph_captures"] != 1
+            or st["eager_decode_steps"] != 0
+            or st["graph_replays"] != st["decode_steps"]
+            or any(r.failed or len(r.output) != r.max_new_tokens
+                   for r in reqs) or not worst <= MARGIN):
+        raise AssertionError(f"brownout: entered {entered}, exited {exited} "
+                             f"of {steps} steps, {st}, worst trail {worst}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return c["k4"]
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -2002,8 +2744,9 @@ def main():
     k2, k3 = _phase("5 k2k3", phase_k2k3, torch, F, ops)
     k1_launches, k4_launches = _phase("6 serving", phase_serving, torch, np,
                                       ops, card)
-    k4_launches += _phase("7 fused serving", phase_serving_fused, torch, np,
-                          ops, card)
+    k4_fused, fused_cold = _phase("7 fused serving", phase_serving_fused,
+                                  torch, np, ops, card)
+    k4_launches += k4_fused
     k4_int8 = _phase("7b k4_int8", phase_k4_int8, torch, ops)
     k4_fp_spec, k4_int8_launches = _phase("7c spec serving",
                                           phase_serving_spec, torch, np,
@@ -2012,7 +2755,7 @@ def main():
     _phase("8 train parity", phase_train_parity, torch, np, ops)
     lse_launches, k2_launches, k3_launches = _phase(
         "9 train", phase_train_full, torch, np, ops, card)
-    k5, k6 = _phase("10 pgmm", phase_pgmm, torch, np, ops)
+    k5, k6, k5_decode = _phase("10 pgmm", phase_pgmm, torch, np, ops)
     _phase("11 moe parity", phase_moe_parity, torch, np, ops)
     k5_launches, k6_launches, pgmm_line = _phase(
         "12 moe train", phase_moe_train, torch, np, ops, card)
@@ -2023,6 +2766,15 @@ def main():
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]
+    moe_serving = _phase("15 moe serving", phase_moe_serving, torch, np,
+                         ops, card, k5_decode)
+    k1_gen, k4_gen = _phase("16 generate", phase_generate, torch, np, ops,
+                            card)
+    k4_brownout = _phase("17 brownout", phase_brownout, torch, np, ops, card,
+                         fused_cold)
+    k1_launches += moe_serving["k1"] + k1_gen
+    k4_launches += moe_serving["k4"] + k4_gen + k4_brownout
+    k5_launches += moe_serving["k5"]
 
     kernels = [
         dict(name="flash_fwd", route="cuda",

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine over paged KV caches — port of
 ``paddle_tpu/inference/serving.py`` (the legacy engine, the prefix cache
-with chunked prefill, the fused mega-step, speculative decoding and the
-int8 KV block format).
+with chunked prefill, the fused mega-step, speculative decoding, the int8
+KV block format and brownout), for dense and MoE Llama models.
 
 Design (the JAX engine's programs, run on the device):
   - ``max_batch`` slots share per-layer page pools sized
@@ -62,12 +62,30 @@ Design (the JAX engine's programs, run on the device):
   - FINISH: eos or max_new_tokens frees the slot; with a prefix cache its
     blocks are decref'd (a block another table or the radix cache still
     references is never freed).
+  - BROWNOUT (``brownout=True`` or ``BrownoutConfig(...)``; with a prefix
+    cache only): after ``enter_after`` consecutive steps that deferred an
+    admission, idle cached blocks are flushed, admission stops matching
+    and registering prefix chains and chunked prefill runs each prompt
+    whole in its first tick; it exits after ``exit_after`` pressure-free
+    steps with ``exit_free_frac`` of the pool free (``_brownout_tick``).
+    Host bookkeeping only: a fused engine's graph is never recaptured.
+  - MoE (``num_experts > 1``): every hook runs the model's MoE layer at
+    the step's rows (decode: one token a slot; prefill: the chunk or the
+    pack), under any of its dispatches. ``pgmm`` pads the (token, choice)
+    rows into 512-row expert tiles for K5 (8 experts: 4608 rows for any
+    decode step of up to 512 choices); the fused step captures K5 with the
+    rest, and each replay moves ``ops.pgmm.launches`` by the launches it
+    replays, as it moves K4's.
 
-Greedy token streams equal the JAX engine's on the same weights (fp32, CPU
-tests), with and without the prefix cache and the fused step, with
-speculative decoding and with int8 pools. MoE serving, the tp mesh,
-brownout and tracing are later slices: asking for any of them raises
-``NotImplementedError``.
+Greedy token streams equal the JAX engine's of the same kind on the same
+weights (fp32, CPU tests), with and without the prefix cache and the
+fused step, with speculative decoding, with int8 pools, with brownout and
+on MoE models. Under the capacity dispatches (``einsum``, ``scatter``,
+``auto``) a token's dropped choices depend on the other rows of its step,
+so streams differ between engine kinds and slot counts, in the JAX engine
+as in the port; the dropless ``pgmm`` and ``ragged`` keep fused == legacy
+and warm == cold. The tp mesh and tracing are later slices: asking for
+them raises ``NotImplementedError``.
 
 Speculative == non-speculative greedy streams. The JAX package pins them
 byte-identical; in the port it holds where both paths compute the same
@@ -97,13 +115,14 @@ import torch
 from ..device import resolve_device
 from ..models.generation_utils import fold_keys, sample_rows, \
     validate_sampling
+from ..ops.grouped_matmul import pgmm, pgmm_dw
 from ..ops.paged_attention import (BlockAllocator, RadixPrefixCache,
                                    copy_pages, paged_decode_attention)
 
-__all__ = ["BlockAllocator", "ContinuousBatchingEngine", "EngineSaturated",
-           "KVCacheConfig", "PrefixCacheConfig", "RadixPrefixCache",
-           "Request", "RequestShed", "SpecConfig", "ngram_draft",
-           "spec_accept"]
+__all__ = ["BlockAllocator", "BrownoutConfig", "ContinuousBatchingEngine",
+           "EngineSaturated", "KVCacheConfig", "PrefixCacheConfig",
+           "RadixPrefixCache", "Request", "RequestShed", "SpecConfig",
+           "ngram_draft", "spec_accept"]
 
 
 class EngineSaturated(RuntimeError):
@@ -186,6 +205,28 @@ class KVCacheConfig:
         if self.dtype not in (None, "param", "int8"):
             raise ValueError(f"unsupported KV cache dtype {self.dtype!r} "
                              "(supported: None/'param', 'int8')")
+
+
+@dataclasses.dataclass
+class BrownoutConfig:
+    """Hysteretic degraded mode under sustained KV-pool pressure
+    (``ContinuousBatchingEngine(brownout=...)``; the JAX package's
+    ``BrownoutConfig``).
+
+    After ``enter_after`` consecutive steps with a deferred admission (the
+    pool could not serve the queue head even after LRU eviction) the engine
+    enters brownout: idle cached blocks are flushed back to the pool,
+    prefix-cache admission stops matching and registering chains, and
+    chunked prefill collapses to whole-prompt prefill, the cache-off
+    serving behaviour (warm == cold, so the streams do not change, only
+    the memory and throughput shape). Brownout exits only after
+    ``exit_after`` consecutive pressure-free steps with at least
+    ``exit_free_frac`` of the pool free: hysteresis, so a workload at the
+    edge does not flap the cache on and off."""
+
+    enter_after: int = 2
+    exit_free_frac: float = 0.5
+    exit_after: int = 4
 
 
 def ngram_draft(hist, hlen, last_tok, k: int, n: int):
@@ -318,21 +359,24 @@ class Request:
         return self.output
 
 
-def _k4_counts():
-    """K4's launch counters: (launches on any pool, on int8 pools)."""
+def _kernel_counts():
+    """The launch counters a captured step can move: K4 (any pool), K4 on
+    int8 pools, K5, K6."""
     return (paged_decode_attention.launches,
-            paged_decode_attention.int8_launches)
+            paged_decode_attention.int8_launches, pgmm.launches,
+            pgmm_dw.launches)
 
 
-def _set_k4(counts):
-    paged_decode_attention.launches, \
-        paged_decode_attention.int8_launches = counts
+def _set_counts(counts):
+    (paged_decode_attention.launches, paged_decode_attention.int8_launches,
+     pgmm.launches, pgmm_dw.launches) = counts
 
 
-def _add_k4(delta, times: int = 1):
-    """Credit K4 with ``times`` replays of a graph that captured ``delta``
-    launches."""
-    _set_k4(tuple(c + times * d for c, d in zip(_k4_counts(), delta)))
+def _add_counts(delta, times: int = 1):
+    """Credit the kernels with ``times`` replays of a graph that captured
+    ``delta`` launches."""
+    _set_counts(tuple(c + times * d
+                      for c, d in zip(_kernel_counts(), delta)))
 
 
 def _later_slice(what: str, slice_name: str) -> NotImplementedError:
@@ -347,7 +391,9 @@ class ContinuousBatchingEngine:
     must already live on that device.
 
     ``speculative=SpecConfig(k=4)`` (needs ``fused=True``) and
-    ``kv_cache="int8"`` compose with each other and with the prefix cache.
+    ``kv_cache="int8"`` compose with each other and with the prefix cache;
+    ``brownout=True`` (or a ``BrownoutConfig``) acts only with a prefix
+    cache.
     Speculative greedy streams equal the non-speculative engine's byte for
     byte on the CPU and on the card in fp32; in bf16 on the card they may
     differ at near-ties of the last logit bits (module docstring)."""
@@ -367,13 +413,8 @@ class ContinuousBatchingEngine:
                  tracer=None,
                  device=None,
                  _unsafe_overcommit: bool = False):
-        if getattr(getattr(model, "config", None), "num_experts", 1) > 1:
-            raise _later_slice("serving an MoE model (num_experts > 1)",
-                               "MoE-serving")
         if mesh is not None:
             raise _later_slice("mesh-sharded serving", "tp-sharded serving")
-        if brownout:
-            raise _later_slice("brownout", "brownout")
         if tracer is not None:
             raise _later_slice("request tracing", "serving observability")
         self.device = resolve_device(device)
@@ -399,6 +440,16 @@ class ContinuousBatchingEngine:
         elif not prefix_cache:
             prefix_cache = None
         self.prefix_cache = prefix_cache
+        if brownout is True:
+            brownout = BrownoutConfig()
+        elif not brownout:
+            brownout = None
+        # brownout acts on the prefix cache: without one it is off
+        self._brownout_cfg = brownout if prefix_cache is not None else None
+        self._brownout_active = False
+        self._pressure_steps = self._clear_steps = 0
+        # set by a step whose admission deferred the queue head
+        self._deferred_step = False
         # the JAX engine's default: the fused mega-step at big batch
         self._fused = (max_batch >= 32) if fused is None else bool(fused)
         # speculative decoding: a device-resident n-gram drafter and one
@@ -493,6 +544,8 @@ class ContinuousBatchingEngine:
         self._seeds = np.zeros(max_batch, np.int64)
         self._graph = None
         self._spec_graph = None
+        # kernel launches one replay of each graph runs (_kernel_counts)
+        self._graph_counts = self._spec_graph_counts = (0, 0, 0, 0)
         if self._fused:
             # device-resident step state, changed only in place by
             # _flush_updates: positions, active mask, sampling params (and,
@@ -557,7 +610,7 @@ class ContinuousBatchingEngine:
         if prefix_cache is not None:
             self.stats.update(hit_tokens=0, miss_tokens=0, cow_copies=0,
                               evictions=0, prefill_host_s=0.0,
-                              packed_rows=0)
+                              brownouts=0, brownout_steps=0, packed_rows=0)
         if self._fused and self.device.type == "cuda":
             self._capture()
 
@@ -633,6 +686,7 @@ class ContinuousBatchingEngine:
         and newly complete prompts take their first token."""
         t0 = _time.perf_counter()
         sched0 = self._sched_tokens
+        self._deferred_step = False
         try:
             with torch.no_grad():
                 self._step_inner()
@@ -643,6 +697,39 @@ class ContinuousBatchingEngine:
                 rate = d / dt
                 self._ema_tok_s = (rate if self._ema_tok_s is None
                                    else 0.7 * self._ema_tok_s + 0.3 * rate)
+            if self._brownout_cfg is not None:
+                self._brownout_tick()
+
+    def _brownout_tick(self):
+        """The hysteretic brownout state machine, once a step (:1001-1031):
+        sustained admission deferrals enter the degraded mode (idle cached
+        blocks flushed; matching, registration and chunked prefill off); a
+        sustained pressure-free streak with real pool headroom exits it."""
+        cfg = self._brownout_cfg
+        if self._brownout_active:
+            self.stats["brownout_steps"] += 1
+            free_frac = self._alloc.free_blocks / max(1, self._alloc.num_blocks)
+            if not self._deferred_step and free_frac >= cfg.exit_free_frac:
+                self._clear_steps += 1
+                if self._clear_steps >= cfg.exit_after:
+                    self._brownout_active = False
+                    self._pressure_steps = self._clear_steps = 0
+            else:
+                self._clear_steps = 0
+            return
+        if self._deferred_step:
+            self._pressure_steps += 1
+            if self._pressure_steps >= cfg.enter_after:
+                self._brownout_active = True
+                self._clear_steps = 0
+                self.stats["brownouts"] += 1
+                # under pressure the working set outranks reuse: reclaimed
+                # pages go straight back to the pool the deferred head
+                # waits on
+                self._radix.evict_lru(self._alloc.num_blocks)
+                self.stats["evictions"] = self._radix.evictions
+        else:
+            self._pressure_steps = 0
 
     def _step_inner(self):
         self._evict_expired()
@@ -821,10 +908,13 @@ class ContinuousBatchingEngine:
     def _fused_step(self, positions=None):
         """One token step over all ``max_batch`` rows on the device-resident
         state, entirely in place: the step a CUDA graph captures. Inactive
-        rows step position 0 (the parking page with a prefix cache).
+        rows step position j at the block's step j (the parking page with a
+        prefix cache), as the JAX engine's scan advances them: an MoE
+        layer's capacity dispatches route them with the live rows.
         ``positions`` (host, the sampled tokens' positions) switches the
         argmax for the sampler, which cannot be captured."""
-        pos_vec = torch.where(self._dev_act, self._dev_pos, 1) - 1
+        pos_vec = torch.where(self._dev_act, self._dev_pos - 1,
+                              self._step_i.to(torch.int32))
         logits, _ = self.model.paged_token_step(self._last_tok, self.caches,
                                                 pos_vec)
         if positions is None:
@@ -859,7 +949,7 @@ class ContinuousBatchingEngine:
             cur.wait_stream(side)
             pool = None
             for fn in steps:
-                k4 = _k4_counts()
+                before = _kernel_counts()
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=pool):
                     fn()
@@ -867,14 +957,14 @@ class ContinuousBatchingEngine:
                 # the capture recorded these launches without running them:
                 # the counts move by them at each replay instead
                 graphs.append((graph, tuple(
-                    b - a for a, b in zip(k4, _k4_counts()))))
-                _set_k4(k4)
+                    b - a for a, b in zip(before, _kernel_counts()))))
+                _set_counts(before)
         self._last_tok.zero_()
         self._step_i.zero_()
-        self._graph, (self._graph_k4, self._graph_k4_int8) = graphs[0]
+        self._graph, self._graph_counts = graphs[0]
         self.stats["graph_captures"] += 1
         if self._spec is not None:
-            self._spec_graph, self._spec_graph_k4 = graphs[1]
+            self._spec_graph, self._spec_graph_counts = graphs[1]
             self._dev_hist.zero_()
             self._dev_hlen.zero_()
             self.stats["spec_graph_captures"] += 1
@@ -889,7 +979,7 @@ class ContinuousBatchingEngine:
         if self._graph is not None and not do_sample:
             for _ in range(n):
                 self._graph.replay()
-            _add_k4((self._graph_k4, self._graph_k4_int8), n)
+            _add_counts(self._graph_counts, n)
             self.stats["graph_replays"] += n
         else:
             for j in range(n):
@@ -956,7 +1046,7 @@ class ContinuousBatchingEngine:
         self._dev_caps.copy_(self._to_device(caps))
         if self._spec_graph is not None:
             self._spec_graph.replay()
-            _add_k4(self._spec_graph_k4)
+            _add_counts(self._spec_graph_counts)
             self.stats["spec_graph_replays"] += 1
         else:
             self._spec_step()
@@ -1312,6 +1402,9 @@ class ContinuousBatchingEngine:
         while self._free_slots and self._queue:
             req = self._queue[0]
             if not self._try_admit_prefix(self._free_slots[0], req, cow_wave):
+                # the pool could not serve the head even after LRU
+                # eviction: the brownout pressure signal
+                self._deferred_step = True
                 break
             self._queue.popleft()
             self._free_slots.popleft()
@@ -1324,7 +1417,10 @@ class ContinuousBatchingEngine:
         page = self.page_size
         prompt = req.prompt
         n_full = len(prompt) // page
-        matched = self._radix.match(prompt[: n_full * page]) if n_full else []
+        # brownout: admission does not consult the radix cache; every block
+        # is fresh (the cache-off working-set shape)
+        matched = (self._radix.match(prompt[: n_full * page])
+                   if n_full and not self._brownout_active else [])
         cow_src = None
         if matched and len(matched) * page == len(prompt):
             # FULL-prompt hit: nothing to prefill, but the first-token
@@ -1428,10 +1524,15 @@ class ContinuousBatchingEngine:
         try:
             chunkers = [(s, self._slots[s]) for s in sorted(self._prefill_next)
                         if self._prefill_next[s] < len(self._slots[s].prompt)]
-            if chunkers and self._fused:
-                self._run_pack(chunkers)
-            elif chunkers:
-                self._run_chunk(chunkers)
+            # brownout turns chunked interleaving off: each prompt
+            # prefills whole in this tick, through the same chunk calls
+            run = self._run_pack if self._fused else self._run_chunk
+            while chunkers:
+                run(chunkers)
+                if not self._brownout_active:
+                    break
+                chunkers = [(s, r) for s, r in chunkers
+                            if self._prefill_next[s] < len(r.prompt)]
             ready = [(s, self._slots[s]) for s in sorted(self._prefill_next)
                      if self._prefill_next[s] >= len(self._slots[s].prompt)]
             if ready:
@@ -1518,6 +1619,14 @@ class ContinuousBatchingEngine:
         for s, _ in group:
             self._prefill_next[s] = offs[s]
 
+    def _first_token_group(self, n: int) -> int:
+        """Rows of the first-token step for ``n`` ready slots. Fused engines
+        step a power-of-two group, as the JAX engine does: the dummy rows
+        re-step token 0 at position 0 of the parking page (an MoE layer's
+        capacity dispatches route them with the real rows); their tokens
+        are dropped."""
+        return 1 << (n - 1).bit_length() if self._fused else n
+
     def _first_token(self, ready):
         """Re-step the last REAL prompt token at its true position (k/v
         rewritten into a private or COW block, logits over exactly the
@@ -1532,12 +1641,19 @@ class ContinuousBatchingEngine:
             self._tops[s] = req.top_p
             self._topks[s] = req.top_k
             self._seeds[s] = req.seed
-        true_len = np.asarray([len(r.prompt) for _, r in ready], np.int32)
-        last = np.asarray([r.prompt[-1] for _, r in ready], np.int64)
-        rows = np.stack([self._slot_rows[s] for s in slots])
+        g = self._first_token_group(len(ready))
+        true_len = np.ones(g, np.int32)
+        last = np.zeros(g, np.int64)
+        rows = np.full((g, self._maxp), self._park, np.int32)
+        for r, (s, req) in enumerate(ready):
+            true_len[r] = len(req.prompt)
+            last[r] = req.prompt[-1]
+            rows[r] = self._slot_rows[s]
         sub = {"kv": self.caches["kv"], "tables": self._to_device(rows)}
         logits, _ = self.model.paged_token_step(
             self._to_device(last), sub, self._to_device(true_len - 1))
+        logits = logits[:len(ready)]
+        true_len = true_len[:len(ready)]
         if do_sample:
             firsts_dev = self._sample(logits, true_len,
                                       self._slot_params(slots), slots)
@@ -1550,10 +1666,12 @@ class ContinuousBatchingEngine:
         entries = []
         for row, (slot, req) in enumerate(ready):
             n_full = len(req.prompt) // self.page_size
-            if n_full:
+            if n_full and not self._brownout_active:
                 # register once the whole prompt (and the re-step's
                 # rewrite) is queued: later admissions run behind these
-                # writes on the device; first writer wins on duplicates
+                # writes on the device; first writer wins on duplicates.
+                # Brownout registers nothing: blocks go back to the pool
+                # when the request ends
                 self._radix.insert(req.prompt[: n_full * self.page_size],
                                    self._slot_blocks[slot][:n_full])
             del self._prefill_next[slot]

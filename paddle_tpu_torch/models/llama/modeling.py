@@ -28,8 +28,16 @@ With ``num_experts > 1`` each layer's MLP is the Mixtral-class MoE layer
 any of its dispatches: ``auto`` picks ``einsum`` or ``scatter``; ``ragged``
 and ``pgmm`` run the grouped matmuls K5/K6) and ``loss_fn`` adds
 ``moe_aux_weight`` times the layers' summed load-balance loss, which each
-layer returns as an output (never through the gate's side channel). MoE
-serving arrives with a later slice and raises.
+layer returns as an output (never through the gate's side channel). The
+serving and generation hooks run the MoE layer too, and drop its aux loss
+(:meth:`LlamaDecoderLayer.ffn`).
+
+Generation (``GenerationMixin.generate``) runs ``_decode_chunk`` over a
+dense cache (``decode_step``: the chunk's k/v written into ``[b, max_len,
+kv_heads, d]`` caches in place, then attention over the whole cache with
+the causal and left-pad bias, in plain tensor ops as the JAX package's XLA
+attention computes it) or over a paged one (``_decode_model_paged``: K1 for
+the prompt, K4 for each token).
 
 Remat (``recompute=True``, ``remat_policy``, ``remat_every``; :519-575):
 while autograd records, layer ``i`` with ``i % remat_every == 0`` runs
@@ -63,7 +71,7 @@ from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_linear_cross_entropy
 from ...ops.paged_attention import (append_paged_kv, paged_decode_attention,
                                     paged_prefill_attention)
-from ..generation_utils import GenerationMixin
+from ..generation_utils import GenerationMixin, causal_cache_bias
 
 
 class LlamaConfig:
@@ -259,6 +267,23 @@ class LlamaAttention(nn.Module):
             out = flash_attention(q, k, v, causal=True)
         return out.reshape(b, s, -1) @ self.o_proj_weight, k_pages, v_pages
 
+    def decode_step(self, x, cos, sin, k_cache, v_cache, pos,
+                    pad_bias=None):
+        """Dense KV-cache attention for generation, prefill and decode
+        (:196-221). x [b, s, h] holds the chunk at absolute positions
+        [pos, pos + s); caches [b, max_len, kv_heads, d], written in place
+        at those positions; cos/sin [s, d] or per row [b, s, d];
+        ``pad_bias`` [b, 1, 1, max_len] masks left-pad columns. Returns
+        (out, k_cache, v_cache)."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x)
+        q, k = apply_rotary_pos_emb(q, k, cos, sin)
+        k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
+        v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
+        bias = causal_cache_bias(k_cache, pos, s, pad_bias)
+        out = _bias_attention(q, k_cache, v_cache, bias)
+        return out.reshape(b, s, -1) @ self.o_proj_weight, k_cache, v_cache
+
     def paged_token_step(self, x, cos, sin, k_pages, v_pages, tables,
                          pos_vec):
         """ONE token per row at PER-ROW positions (continuous batching).
@@ -301,6 +326,22 @@ def _attention(q, k, v):
     """Causal attention on [b, s, h, d] tensors: the single-device branch
     of the JAX package's ``_attention`` (flash attention)."""
     return flash_attention(q, k, v, causal=True)
+
+
+def _bias_attention(q, k, v, bias):
+    """Attention with an additive bias on [b, s, h, d] tensors, in the
+    JAX package's order (``_xla_attention``, nn/functional/
+    flash_attention.py:19): the scaled scores in the input dtype, cast to
+    fp32, plus the fp32 bias, an fp32 softmax cast back, then the product
+    with v. kv heads are repeated for GQA."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if kh.shape[1] != qh.shape[1]:
+        rep = qh.shape[1] // kh.shape[1]
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+    scores = (qh @ kh.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    probs = torch.softmax(scores.float() + bias.float(), dim=-1)
+    return (probs.to(q.dtype) @ vh).transpose(1, 2)
 
 
 class LlamaMLP(nn.Module):
@@ -381,17 +422,34 @@ class LlamaDecoderLayer(nn.Module):
             y, aux = self.mlp(h), None
         return x + y, aux
 
+    def ffn(self, h):
+        """The MLP of the serving and generation hooks. An MoE layer's aux
+        loss is dropped there, as the JAX engine's programs drop it: it
+        goes neither out nor into the gate's side channel, so a step keeps
+        no tensor of its own past its end or inside a captured graph."""
+        if self.config.num_experts > 1:
+            return self.mlp.forward_with_aux(h)[0]
+        return self.mlp(h)
+
     def forward_to_act(self, x, cos, sin):
         """A dense layer up to its swiglu product: (the attention block's
         output x, act); the layer's output is x + act @ down_proj."""
         x = x + self.self_attn(self.input_layernorm(x), cos, sin)
         return x, self.mlp.act(self.post_attention_layernorm(x))
 
+    def decode_step(self, x, cos, sin, k_cache, v_cache, pos,
+                    pad_bias=None):
+        a, k_cache, v_cache = self.self_attn.decode_step(
+            self.input_layernorm(x), cos, sin, k_cache, v_cache, pos,
+            pad_bias=pad_bias)
+        x = x + a
+        return x + self.ffn(self.post_attention_layernorm(x)), k_cache, v_cache
+
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
         a, k_pages, v_pages = self.self_attn.paged_decode_step(
             self.input_layernorm(x), cos, sin, k_pages, v_pages, tables, pos)
         x = x + a
-        return x + self.mlp(self.post_attention_layernorm(x)), k_pages, v_pages
+        return x + self.ffn(self.post_attention_layernorm(x)), k_pages, v_pages
 
     def paged_token_step(self, x, cos, sin, k_pages, v_pages, tables,
                          pos_vec):
@@ -399,7 +457,7 @@ class LlamaDecoderLayer(nn.Module):
             self.input_layernorm(x), cos, sin, k_pages, v_pages, tables,
             pos_vec)
         x = x + a
-        return x + self.mlp(self.post_attention_layernorm(x)), k_pages, v_pages
+        return x + self.ffn(self.post_attention_layernorm(x)), k_pages, v_pages
 
     def paged_prefill_chunk(self, x, cos, sin, k_pages, v_pages, tables,
                             starts):
@@ -407,7 +465,7 @@ class LlamaDecoderLayer(nn.Module):
             self.input_layernorm(x), cos, sin, k_pages, v_pages, tables,
             starts)
         x = x + a
-        return x + self.mlp(self.post_attention_layernorm(x)), k_pages, v_pages
+        return x + self.ffn(self.post_attention_layernorm(x)), k_pages, v_pages
 
 
 class LlamaModel(nn.Module):
@@ -547,6 +605,31 @@ def _replaying(fn, generators):
             for g, st in zip(generators, now):
                 g.set_state(st)
     return run
+
+
+def _decode_model(model: LlamaModel, ids, caches, pos, pad_bias=None,
+                  rope_offset=None):
+    """Dense-cache chunk decode (:578-607): caches [(k, v)] per layer, each
+    [b, max_len, kv_heads, d]; ids [b, s] at absolute positions [pos,
+    pos + s). ``pad_bias`` [b, 1, 1, max_len] masks left-pad columns;
+    ``rope_offset`` [b] shifts each row's positions (left padding moves a
+    row's position 0 to its first real token; pads clip to 0)."""
+    x = model.embed(ids)
+    max_len = caches[0][0].shape[1]
+    cos_full, sin_full = model.rope_tables(max_len, x.dtype, x.device)
+    s = ids.shape[1]
+    if rope_offset is None:
+        cos, sin = cos_full[pos:pos + s], sin_full[pos:pos + s]
+    else:
+        positions = (pos + torch.arange(s, device=x.device)[None, :]
+                     - rope_offset.long()[:, None]).clamp(0, max_len - 1)
+        cos, sin = cos_full[positions], sin_full[positions]
+    new_caches = []
+    for layer, (kc, vc) in zip(model.layers, caches):
+        x, kc, vc = layer.decode_step(x, cos, sin, kc, vc, pos,
+                                      pad_bias=pad_bias)
+        new_caches.append((kc, vc))
+    return model.norm(x), new_caches
 
 
 def _decode_model_paged(model: LlamaModel, ids, caches, pos):
@@ -722,16 +805,18 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
 
     @torch.no_grad()
     def _decode_chunk(self, ids, caches, pos, pad_bias, pos_offset):
-        """Run a chunk at absolute positions [pos, pos+s) through the paged
-        cache; returns (last-position logits [b, vocab] fp32, caches). Only
-        the paged serving branch is ported (no left padding)."""
-        if not isinstance(caches, dict):
-            raise NotImplementedError(
-                "dense-cache decoding arrives with the dense-generation "
-                "slice; this port serves through paged caches")
-        if pad_bias is not None or pos_offset is not None:
-            raise ValueError("the paged path does not take left padding")
-        hidden, caches = _decode_model_paged(self.model, ids, caches, pos)
+        """Run a chunk at absolute positions [pos, pos+s) through the
+        cache: paged (a dict from ``_init_paged_caches``; no left padding)
+        or dense (a list from ``_init_caches``, with the left-pad bias and
+        position offsets). Returns (last-position logits [b, vocab] fp32,
+        caches)."""
+        if isinstance(caches, dict):
+            if pad_bias is not None or pos_offset is not None:
+                raise ValueError("the paged path does not take left padding")
+            hidden, caches = _decode_model_paged(self.model, ids, caches, pos)
+        else:
+            hidden, caches = _decode_model(self.model, ids, caches, pos,
+                                           pad_bias, pos_offset)
         # lm head only on the position we sample from
         logits = self.logits(hidden[:, -1:])
         return logits[:, -1].float(), caches

@@ -17,7 +17,10 @@ fp32, only where the scale multiplies and the summation order differ); the backw
 |plain|) and the grouped matmuls (K5, K6) to tol x max |plain|. The dense
 and MoE train steps on the card are held against the same steps on the CPU
 (fp32, TF32 off). The fused serving engine's captured decode step is held
-bitwise against the same step run eagerly on the card.
+bitwise against the same step run eagerly on the card; K5 at the MoE
+decode layouts is held bitwise between a graph replay and an eager launch;
+the fused MoE engine's greedy streams (fp32) equal the legacy engine's,
+and paged ``generate`` the engine's.
 """
 
 import importlib
@@ -632,7 +635,7 @@ def test_fused_replay_equals_eager_step_on_card(cuda, dtype):
     _, card = _card_model(cuda, dtype)
     eng = _fused_engine(card, cuda)
     assert eng.stats["graph_captures"] == 1
-    assert eng._graph_k4 == card.config.num_hidden_layers
+    assert eng._graph_counts[0] == card.config.num_hidden_layers
     gen = torch.Generator().manual_seed(0)
     g = torch.Generator(device=cuda).manual_seed(1)
     for k, v in eng.caches["kv"]:
@@ -979,3 +982,106 @@ def test_scatter_moe_step_syncs_nothing_on_card(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(loss).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 256])
+def test_pgmm_decode_layout_replays_in_a_cuda_graph(cuda, rows):
+    """K5 at the MoE serving decode layouts: 8 or 128 tokens x top-2 over 8
+    experts in 512-row tiles, 4608 padded rows, at bench_moe's widths in
+    bf16. Captured in a CUDA graph, then replayed after the tokens and the
+    routing change in place: the replay equals an eager launch bitwise and
+    the plain version within 2e-2 x max |plain|."""
+    e, k, n, tile = 8, 1024, 2816, 512
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn(e, k, n, device=cuda, generator=g)
+         * k ** -0.5).to(torch.bfloat16)
+
+    def routed(seed):
+        """A routing of ``rows`` choices and x with those rows filled."""
+        flat = torch.randint(0, e, (rows,), device=cuda, generator=torch.
+                             Generator(device=cuda).manual_seed(seed))
+        order, pos_sorted, gids, p = padded_group_layout(flat, e, rows, tile)
+        pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+        xs = torch.zeros(p, k, device=cuda, dtype=torch.bfloat16)
+        xs[pos] = torch.randn(rows, k, device=cuda,
+                              generator=g).to(torch.bfloat16)
+        return xs, gids
+
+    x, gids = routed(1)
+    assert x.shape[0] == 4608
+    pgmm_raw(x, w, gids)                       # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pgmm_raw(x, w, gids)
+    x2, gids2 = routed(2)
+    x.copy_(x2)
+    gids.copy_(gids2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, pgmm_raw(x, w, gids))
+    assert _rel_err(out, pgmm_reference(x, w, gids, tile)) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_moe_fused_engine_equals_legacy_fp32_on_card(cuda):
+    """A small fp32 MoE model (pgmm, 4 experts) on the card: the fused
+    prefix-cache engine, K5 captured in its decode graph and every decode
+    block replayed, gives the legacy engine's greedy streams cold and
+    warm. Each replay credits K5 with the 3 launches a layer it replays;
+    K6 never runs. A witness outside the port's kernels: the plain CPU
+    forward of the same weights, routing by its own gates, puts every
+    emitted token within fp32 rounding (1e-4) of its position's maximum
+    logit."""
+    cpu, card = _moe_card_pair(cuda, moe_dispatch="pgmm")
+    prompts, news = _spec_wave(512)
+    legacy = ContinuousBatchingEngine(card, max_batch=4, max_len=128,
+                                      page_size=16, block_size=4,
+                                      fused=False, device=cuda)
+    ref = _serve_card(legacy, prompts, news)
+    eng = ContinuousBatchingEngine(
+        card, max_batch=8, max_len=128, page_size=16, block_size=4,
+        fused=True, device=cuda,
+        prefix_cache=PrefixCacheConfig(extra_blocks=8))
+    L = card.config.num_hidden_layers
+    assert eng._graph_counts[2:] == (3 * L, 0)
+    n5, n6 = pgmm.launches, pgmm_dw.launches
+    cold = _serve_card(eng, prompts, news)
+    warm = _serve_card(eng, prompts, news)
+    st = eng.stats
+    assert cold == warm == ref
+    assert st["graph_captures"] == 1 and st["eager_decode_steps"] == 0
+    assert st["graph_replays"] == st["decode_steps"] > 0
+    assert pgmm.launches - n5 >= 3 * L * st["graph_replays"]
+    assert pgmm_dw.launches == n6
+    with torch.no_grad():
+        for p, out in zip(prompts, ref):
+            seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
+            logits = cpu(torch.from_numpy(seq[None]))[0, len(p) - 1:]
+            got = logits.gather(1, torch.tensor(out)[:, None])[:, 0]
+            assert (logits.max(-1).values - got).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_paged_generate_equals_engine_greedy_fp32_on_card(cuda):
+    """fp32 on the card: generate with the paged cache (K1 for the prompt,
+    K4 for each token) gives the legacy engine's greedy stream of each
+    prompt, and the dense cache (plain attention) the same tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig(**_PARITY_CFG), device=cuda, seed=3)
+    L = model.config.num_hidden_layers
+    ids = np.random.default_rng(1).integers(
+        0, _PARITY_CFG["vocab_size"], (4, 24)).astype(np.int32)
+    k1, k4 = flash_attention.launches, paged_decode_attention.launches
+    paged = model.generate(ids, max_new_tokens=20, temperature=0.0,
+                           cache_impl="paged", page_size=16)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - k1 == L
+    assert paged_decode_attention.launches - k4 == 19 * L
+    dense = model.generate(ids, max_new_tokens=20, temperature=0.0)
+    eng = ContinuousBatchingEngine(model, max_batch=4, max_len=64,
+                                   page_size=16, block_size=4, device=cuda)
+    ref = _serve_card(eng, list(ids), [20] * 4)
+    assert paged.tolist() == ref
+    assert dense.tolist() == ref

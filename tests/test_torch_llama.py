@@ -79,15 +79,21 @@ def test_load_checks_names_and_shapes(pair):
 
 
 def test_moe_and_training_paths_raise():
-    # the default MoE config (dispatch "auto") and remat build; MoE
-    # serving, an unknown dispatch and invalid remat settings raise
-    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    # the default MoE config (dispatch "auto") and remat build, and the
+    # engine serves the MoE model (tests/test_torch_moe_serving.py holds
+    # its streams against the JAX engine's); an unknown dispatch and
+    # invalid remat settings raise
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
 
     moe = LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
     assert moe.model.layers[0].mlp.dispatch_mode == "auto"
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ContinuousBatchingEngine(moe, max_batch=2, max_len=32, page_size=8,
-                                 device="cpu")
+    eng = ContinuousBatchingEngine(moe, max_batch=2, max_len=32,
+                                   page_size=8, device="cpu")
+    req = Request(np.arange(5), max_new_tokens=3)
+    eng.add_request(req)
+    eng.run_until_done()
+    assert req.done and len(req.tokens) == 3
     with pytest.raises(ValueError, match="dispatch_mode"):
         LlamaForCausalLM(LlamaConfig.tiny(num_experts=4,
                                           moe_dispatch="dense"),

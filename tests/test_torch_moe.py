@@ -368,10 +368,11 @@ def test_bf16_moe_model_keeps_an_fp32_gate():
 
 
 def test_unported_moe_paths_raise():
-    """What stays refused: MoE serving, sequence_parallel, the XLA
-    attention path and an unknown dispatch. Every dispatch, the switch
-    gate and the experts' dense forward are ported (they build here and
-    tests/test_torch_moe_dispatch.py holds them against JAX)."""
+    """What stays refused: sequence_parallel, the XLA attention path and
+    an unknown dispatch. Every dispatch, the switch gate, the experts'
+    dense forward and MoE serving are ported (they build here, and
+    tests/test_torch_moe_dispatch.py and tests/test_torch_moe_serving.py
+    hold them against JAX)."""
     for mode in ("auto", "einsum", "scatter", "ragged"):
         MoELayer(16, 4, dispatch_mode=mode, device="cpu")
         LlamaForCausalLM(LlamaConfig.tiny(num_experts=4, moe_dispatch=mode),
@@ -398,7 +399,9 @@ def test_unported_moe_paths_raise():
         LlamaConfig.tiny(num_experts=4, remat_policy="most")
     with pytest.raises(ValueError, match="remat_every"):
         LlamaConfig.tiny(num_experts=4, recompute=True, remat_every=0)
+    # the engine serves the MoE model (tests/test_torch_moe_serving.py
+    # holds its streams against the JAX engine's)
     tm = LlamaForCausalLM(LlamaConfig.tiny(**_moe_cfg()), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ContinuousBatchingEngine(tm, max_batch=2, max_len=32, page_size=8,
-                                 device="cpu")
+    eng = ContinuousBatchingEngine(tm, max_batch=2, max_len=32, page_size=8,
+                                   device="cpu")
+    assert eng.model is tm and eng.caches["kv"]

@@ -154,17 +154,27 @@ def test_seeded_stream_independent_of_batch_composition(pair):
     assert other.output != alone.output
 
 
-# speculative decoding and int8 KV are ported (tests/test_torch_spec.py,
-# tests/test_torch_kv_int8.py)
+# speculative decoding, int8 KV and brownout are ported
+# (tests/test_torch_spec.py, tests/test_torch_kv_int8.py,
+# tests/test_torch_brownout.py)
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=2), "mesh"),
-    (dict(brownout=True), "brownout"),
     (dict(tracer=object()), "tracing"),
 ])
 def test_unported_paths_raise(pair, kw, match):
     _, tm, _ = pair
     with pytest.raises(NotImplementedError, match=match):
         _port_engine(tm, **kw)
+
+
+def test_brownout_engine_builds_and_serves(pair):
+    """brownout=True builds (it acts only with a prefix cache, so this
+    engine serves exactly as without it)."""
+    _, tm, prompts = pair
+    eng = _port_engine(tm, brownout=True)
+    assert eng._brownout_cfg is None
+    assert _wave(eng, Request, prompts) == _wave(_port_engine(tm), Request,
+                                                 prompts)
 
 
 def test_rejects_out_of_vocab_and_oversized(pair):

@@ -381,10 +381,10 @@ def test_spec_replay_bookkeeping_rehearsed(pair):
                                           **_SPEC), Request, prompts, kws)
     eng = ContinuousBatchingEngine(tm, max_batch=4, device="cpu",
                                    speculative=SpecConfig(k=3), **_SPEC)
+    # the stand-ins launch eagerly and count their own launches: a replay
+    # credits the kernels with none (_graph_counts stays zero)
     eng._graph = types.SimpleNamespace(replay=eng._fused_step)
-    eng._graph_k4, eng._graph_k4_int8 = 0, 0
     eng._spec_graph = types.SimpleNamespace(replay=eng._spec_step)
-    eng._spec_graph_k4 = (0, 0)
     assert _serve(eng, Request, prompts, kws) == ref
     st = eng.stats
     assert st["spec_graph_replays"] == st["spec_steps"] > 0
