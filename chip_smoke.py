@@ -185,13 +185,51 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      before the wave ends, replay the one graph (no recapture, no eager
      step), finish every request, and keep every stream that differs from
      phase 7's cold wave within the teacher-forced margin.
+ 18. varlen (flash_attention_varlen: K1, K2 and K3 in their segment-id
+     mode): one packed row of 8192 tokens (the dense training line's 2 x
+     4096) cut into documents of 3000, 1500, 1200, 900, 700, 400, 300 and
+     192 tokens, 16 q / 4 kv heads of 128, causal, bf16; forward and
+     backward through the entry point (launch counts), then
+     flash_attn_varlen_qkvpacked's forward on the same tokens at 16 heads
+     for q, k and v; the kernels against their plain versions (out, lse,
+     gradients within phase 5's tolerances); every id 0 must give the dense
+     kernels' output, lse and gradients bit for bit. Each kernel's ms,
+     device_ms, bound (4, 6 and 8 head_dim operations per visible (q, k)
+     pair and q head, the pairs counted on the host from the ids), plain
+     ms, and SDPA with the equivalent boolean mask (forward, and forward +
+     backward; its backend named) as the yardstick.
+ 19. flashmask (flashmask_attention's kernel path: the row-bound mode),
+     [2, 4096, 16/4, 128], causal, bf16, forward and backward through the
+     entry point: (a) the causal document mask, 1 index, hm 1, documents of
+     2048, 1024 and 1024 tokens a row; (b) 2 indices, hm = 4: kv head h
+     hides rows [c + W_h, min(c + W_h + 512, 4096)) from column c, W_h in
+     256, 512, 1024, 2048. Checked and timed as phase 18.
+ 20. lse cotangent (flash_attention_with_lse) at the training shape: loss
+     (out g).sum() + (lse h).sum() with seeded g and h, gradients through
+     autograd against the plain backward with l-bar; K2 with l-bar timed as
+     phase 18 (SDPA's forward and backward, which take no lse cotangent,
+     as the yardstick).
+ 21. block_multihead_attention at the Llama serving width (16 q / 4 kv
+     heads of 128, block 64): 64 sequences, 8 prefill rows of 512 tokens
+     and 56 decode rows at contexts drawn from 256-2048, with bf16 caches
+     and with raw int8 caches and static per-head scales: exactly 8 K1
+     launches and one K4 (int8: on int8 pages) a call; the output against
+     the same call with the kernels' plain versions in their place (TOL),
+     the caches equal byte for byte.
+ 22. fused_moe at bench_moe's expert width: x [4, 1024, 1024], 8 swiglu
+     experts (w1 [8, 1024, 5632], w2 [8, 2816, 1024]), top-2, bf16 against
+     the same call in fp32 (error <= TOL x max |fp32|). No hand-written
+     kernel runs here: its products are plain einsums, as the JAX
+     package's are XLA's.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools (phases 6, 7, 7c and 15-17); "paged_decode_int8" counts phase
-7c's launches on int8 pools; K1's adds the legacy engine of phase 15 and
-the paged generate of phase 16 to phase 6's wave; K5's adds phase 15's
-served waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps
-of phases 9, 13 and 14, each read with the counts set to 0 just before
-it.
+fp pools (phases 6, 7, 7c and 15-17) and phase 21's calls; "paged_decode_
+int8" counts phase 7c's launches on int8 pools; K1's adds the legacy
+engine of phase 15, the paged generate of phase 16 and phase 21's prefill
+rows to phase 6's wave; K5's adds phase 15's served waves to phase 12's
+steps; K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14
+(K1-lse also phase 20's forward); the masked and l-bar rows count the
+main-path runs of phases 18-20; each read with the counts set to 0 just
+before it.
 The second-to-last line is a JSON object listing each kernel; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero before printing any result.
@@ -254,6 +292,24 @@ MOE_ATTN_SHAPE = ("moe", 8, 2048, 2048, 16, 4, 64, True)
 REMAT_ATTN_SHAPE = ("remat", 4, 4096, 4096, 16, 4, 128, True)
 # the main paths' attention shapes, which K1-lse and K2/K3 run in bf16 only
 TRAIN_PATH_SHAPES = (TRAIN_SHAPE, MOE_ATTN_SHAPE, REMAT_ATTN_SHAPE)
+# phases 18-20: the masked and lse-cotangent modes at the dense training
+# line's attention width (bench.py:2013-2019: 16 q / 4 kv heads of 128,
+# batch 2 x seq 4096, bf16). varlen packs the batch into one row of 8192
+# tokens, cut into these documents:
+VARLEN_SHAPE = (1, 8192, 16, 4, 128)        # b, s, hq, hkv, d
+VARLEN_DOCS = (3000, 1500, 1200, 900, 700, 400, 300, 192)
+FLASHMASK_SHAPE = (2, 4096, 16, 4, 128)
+FLASHMASK_DOCS = (2048, 1024, 1024)        # the causal document mask
+# the band case (a test shape, not a user's mask): kv head h hides rows
+# [c + W_h, min(c + W_h + FLASHMASK_BAND, s)) from column c
+FLASHMASK_WINDOWS = (256, 512, 1024, 2048)
+FLASHMASK_BAND = 512
+# phase 21: block_multihead_attention at the Llama serving width
+BMHA = dict(heads=16, kv_heads=4, head_dim=128, block_size=64,
+            prefill_rows=8, prefill_len=512, decode_rows=56, ctx_lo=256,
+            ctx_hi=2048)
+# phase 22: fused_moe at bench_moe's expert width (bench.py:1750-1754)
+FUSED_MOE = dict(x=(4, 1024, 1024), experts=8, ffn=2816, topk=2)
 # K2/K3 cases; the training, MoE and remat shapes run in bf16 only.
 # "strided" (here and in K1_CASES) takes q, k and v as strided views of one
 # [b, s, 3, h, d] buffer.
@@ -440,7 +496,7 @@ def _kernel_name(mangled):
     args = (["float"] if rest.startswith("If") else []) + \
         (["bf16"] if rest.startswith("I13__nv_bfloat16") else []) + \
         (["int8"] if re.match(r"I(f|13__nv_bfloat16)a", rest) else []) + \
-        re.findall(r"Li(\d+)E", rest.split("EEv")[0])
+        re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
     return f"{name}<{','.join(args)}>"
 
 
@@ -2703,6 +2759,565 @@ def phase_brownout(torch, np, ops, card, base):
     return c["k4"]
 
 
+# ---- phases 18-22: the attention and MoE functional surface ---------------
+
+_MASK_COUNTERS = (
+    ("flash_attention", "launches_seg"), ("flash_attention", "launches_rowmask"),
+    ("flash_attention_forward", "launches_seg"),
+    ("flash_attention_forward", "launches_rowmask"),
+    ("flash_attention_backward", "launches_dq_seg"),
+    ("flash_attention_backward", "launches_dkv_seg"),
+    ("flash_attention_backward", "launches_dq_rowmask"),
+    ("flash_attention_backward", "launches_dkv_rowmask"),
+    ("flash_attention_backward", "launches_glse"),
+    ("flash_attention_backward", "launches_dq"),
+    ("flash_attention_backward", "launches_dkv"),
+    ("flash_attention", "launches"), ("flash_attention_forward", "launches"),
+    ("paged_decode_attention", "launches"),
+    ("paged_decode_attention", "int8_launches"))
+
+
+def _zero_mask_counts(ops):
+    for fn, attr in _MASK_COUNTERS:
+        setattr(getattr(ops, fn), attr, 0)
+
+
+def _mask_counts(ops):
+    return {f"{fn}.{attr}": getattr(getattr(ops, fn), attr)
+            for fn, attr in _MASK_COUNTERS}
+
+
+def masked_pairs(np, b, s_q, s_kv, hq, causal, q_seg=None, kv_seg=None,
+                 start=None, end=None):
+    """Visible (q, k) pairs summed over the batch and the q heads, counted
+    on the host from the mask's operands (numpy): the end-aligned causal
+    mask and segment ids (q row i sees column j iff their ids are equal) or
+    per-column row bounds [b, hm, s_kv] (column c hides rows [start[c],
+    end[c]); bounds row h serves the hq / hm q heads of its kv heads). With
+    neither, ``causal_pairs`` times b hq."""
+    offset = s_kv - s_q
+    if q_seg is not None:
+        total = 0.0
+        for r in range(b):
+            # segments are runs of equal ids, q and kv packed alike
+            _, counts = np.unique(q_seg[r], return_counts=True)
+            for n in counts.tolist():
+                total += n * (n + 1) / 2 if causal else n * n
+        return total * hq
+    if start is None:
+        return causal_pairs(s_q, s_kv, causal) * b * hq
+    c = np.arange(s_kv)
+    lo = np.maximum(c - offset, 0) if causal else np.zeros_like(c)
+    seen = s_q - lo                                   # rows at or after lo
+    hidden = np.clip(np.minimum(end, s_q) - np.maximum(start, lo), 0, None)
+    per_row = (seen[None, None, :] - hidden).sum(-1)  # [b, hm]
+    return float(per_row.sum()) * hq / start.shape[1]
+
+
+def _sdpa_backend(torch, q, k, v, mask, causal=False):
+    """The SDPA backend torch picks for these [b, h, s, d] inputs (its own
+    dispatcher's choice), or "unknown"."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, attn_mask=mask, dropout_p=0.0, is_causal=causal,
+            enable_gqa=q.shape[1] != k.shape[1])).name
+    except (AttributeError, TypeError, ValueError, RuntimeError):
+        return "unknown"  # a private dispatcher: its signature moves
+
+
+def _sdpa_masked(torch, F, q, k, v, keep):
+    """SDPA with the boolean mask ``keep`` [b, 1 or hq, s_q, s_kv] (True =
+    visible), kv heads repeated to q's beforehand (GQA with a mask runs
+    SDPA's math backend): (forward ms, forward + backward ms, backend). A
+    yardstick only: the port never calls it."""
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k.repeat_interleave(rep, 2),
+                            v.repeat_interleave(rep, 2)))
+    backend = _sdpa_backend(torch, qt, kt, vt, keep)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+
+    out = fwd()
+    go = torch.ones_like(out)
+    fwd_ms = cuda_ms(fwd, 5, 1)
+
+    def both():
+        o = fwd()
+        torch.autograd.grad(o, (qt, kt, vt), go)
+
+    both_ms = cuda_ms(both, 5, 1)
+    del out, qt, kt, vt
+    return fwd_ms, both_ms, backend
+
+
+def _grad_errs(grads, refs):
+    errs = {}
+    for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        raw = (a.float() - r.float()).abs().max().item()
+        errs[gname] = (raw, raw / max(1.0, r.float().abs().max().item()))
+    return errs
+
+
+def _mode_rows(torch, F, fa, name, q, k, v, do, causal, mask, keep, pairs,
+               g_lse=None, library=None):
+    """A masked mode (``mask``: the checked ``fa._Mask``, or None for the
+    lse cotangent's dense mode) against its plain versions on one input:
+    K1 with lse (out and lse), K2 and K3 (gradients, on the kernel's out and
+    lse) within TOL; then each kernel's ms, device_ms, bound (4 d, 6 d and 8
+    d operations per visible pair and q head at the bf16 peak, or the bytes
+    it moves), plain ms and SDPA-with-mask ms. Returns (fwd, dq, dkv) rows
+    for the kernels line (fwd None for the lse cotangent)."""
+    b, s_q, hq, d = q.shape
+    scale = d ** -0.5
+    kw = {} if mask is None else (
+        dict(q_seg=mask.a, kv_seg=mask.b) if mask.kind == "seg"
+        else dict(row_start=mask.a, row_end=mask.b))
+    out, lse = fa._launch_forward(q, k, v, causal, scale, True, mask)
+    if mask is None:
+        ref, ref_lse = fa.flash_attention_reference_lse(q, k, v, causal)
+    else:
+        ref, ref_lse = fa._masked_reference_lse(q, k, v, keep, causal, scale)
+    sync()
+    err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref, ref_lse
+    dq, delta = fa._launch_dq(q, k, v, out, lse, do, causal, scale, mask,
+                              g_lse)
+    dk, dv = fa._launch_dkv(q, k, v, do, lse, delta, causal, scale, mask)
+    refs = fa.flash_attention_backward_reference(q, k, v, out, lse, do,
+                                                 causal, scale, g_lse=g_lse,
+                                                 **kw)
+    sync()
+    errs = _grad_errs((dq, dk, dv), refs)
+    del refs, dq, dk, dv
+    torch.cuda.empty_cache()
+    worst = max(rel for _, rel in errs.values())
+    print(f"{name}: max_abs_err={err:.3e} lse_max_abs_err={lse_err:.3e} "
+          + " ".join(f"{g}_err={r:.3e} {g}_rel={rel:.3e}"
+                     for g, (r, rel) in errs.items()), flush=True)
+    if not (err <= TOL["bfloat16"] and lse_err <= LSE_TOL["bfloat16"]
+            and worst <= TOL["bfloat16"]):
+        raise AssertionError(f"{name}: out error {err}, lse error {lse_err}, "
+                             f"gradient error {worst} (tol "
+                             f"{TOL['bfloat16']} / {LSE_TOL['bfloat16']})")
+
+    def fwd():
+        return fa._launch_forward(q, k, v, causal, scale, True, mask)
+
+    def k2():
+        return fa._launch_dq(q, k, v, out, lse, do, causal, scale, mask,
+                             g_lse)
+
+    def k3():
+        return fa._launch_dkv(q, k, v, do, lse, delta, causal, scale, mask)
+
+    es = q.element_size()
+    row_bytes = b * hq * s_q * 4
+    mask_bytes = 0 if mask is None else (mask.a.numel() + mask.b.numel()) * 4
+    glse_bytes = 0 if g_lse is None else row_bytes
+    fwd_bytes = ((2 * q.numel() + k.numel() + v.numel()) * es + row_bytes
+                 + mask_bytes)
+    dq_bytes = ((4 * q.numel() + k.numel() + v.numel()) * es + 2 * row_bytes
+                + mask_bytes + glse_bytes)
+    dkv_bytes = ((2 * q.numel() + 4 * k.numel()) * es + 2 * row_bytes
+                 + mask_bytes)
+    bounds = (bound(4 * d * pairs, fwd_bytes, "bfloat16"),
+              bound(6 * d * pairs, dq_bytes, "bfloat16"),
+              bound(8 * d * pairs, dkv_bytes, "bfloat16"))
+    if mask is None:
+        plain_fwd = lambda: fa.flash_attention_reference_lse(q, k, v, causal)
+    else:
+        plain_fwd = lambda: fa._masked_reference_lse(q, k, v, keep, causal,
+                                                     scale)
+    plain = (cuda_ms(plain_fwd, 3, 1),
+             cuda_ms(lambda: fa.flash_attention_backward_reference(
+                 q, k, v, out, lse, do, causal, scale, g_lse=g_lse, **kw),
+                 3, 1))
+    torch.cuda.empty_cache()
+    lib_fwd, lib_both, backend = library
+    rows = []
+    for kname, fn, (bms, bby), pms, lms in (
+            ("k1", fwd, bounds[0], plain[0], lib_fwd),
+            ("k2", k2, bounds[1], plain[1], lib_both - lib_fwd),
+            ("k3", k3, bounds[2], plain[1], lib_both - lib_fwd)):
+        ms = cuda_ms(fn)
+        dev = device_ms(torch, fn)
+        print(f"{name} {kname}: ms={ms:.4f} device_ms={dev:.4f} "
+              f"bound_ms={bms:.5f} ({bby}) share_of_bound={bms / dev:.3f} "
+              f"plain_ms={pms:.4f} library_ms={lms:.4f} (SDPA {backend} "
+              f"with the boolean mask: forward {lib_fwd:.4f}, forward + "
+              f"backward {lib_both:.4f}) visible_pairs={pairs:.0f}",
+              flush=True)
+        rows.append(dict(max_abs_err=(max(err, lse_err) if kname == "k1"
+                                      else errs["dq"][0] if kname == "k2"
+                                      else max(errs["dk"][0], errs["dv"][0])),
+                         ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         library_ms=lms, device_ms=dev))
+    del out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _seg_ids(torch, docs, s):
+    ids = torch.repeat_interleave(
+        torch.arange(len(docs), dtype=torch.int32),
+        torch.tensor(docs))
+    if ids.numel() != s:
+        raise AssertionError(f"documents {docs} do not fill {s} tokens")
+    return ids
+
+
+def phase_varlen(torch, F, ops):
+    """flash_attention_varlen (K1-K3 in segment mode) forward and backward
+    on one packed row of VARLEN_DOCS, flash_attn_varlen_qkvpacked's forward
+    on the same tokens at 16 heads for q, k and v, and the all-zeros-segment
+    case bitwise against the dense kernels. Returns (flash_fwd_seg,
+    flash_bwd_dq_seg, flash_bwd_dkv_seg) rows."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn.functional import flash_attn_varlen_qkvpacked
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    b, s, hq, hkv, d = VARLEN_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    q, k, v = _inputs(torch, gen, torch.bfloat16, b, s, s, hq, hkv, d)
+    do = torch.randn(b, s, hq, d, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    ids = _seg_ids(torch, VARLEN_DOCS, s)[None].to(DEVICE)
+    cu = torch.tensor(np.concatenate([[0], np.cumsum(VARLEN_DOCS)]),
+                      dtype=torch.int32)
+    qkv = torch.randn(s, 3, hq, d, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    # the main path: the entry points, forward and backward
+    _zero_mask_counts(ops)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention_varlen(qg, kg, vg, ids, ids, True)
+    torch.autograd.grad(out, (qg, kg, vg), do)
+    packed, _ = flash_attn_varlen_qkvpacked(qkv, cu, cu, max(VARLEN_DOCS),
+                                            max(VARLEN_DOCS), causal=True)
+    sync()
+    counts = _mask_counts(ops)
+    want = {"flash_attention_forward.launches_seg": 1,
+            "flash_attention_backward.launches_dq_seg": 1,
+            "flash_attention_backward.launches_dkv_seg": 1,
+            "flash_attention.launches_seg": 1}
+    print(f"varlen main path launches: "
+          f"{ {n: c for n, c in counts.items() if c} }", flush=True)
+    if {n: c for n, c in counts.items() if c} != want:
+        raise AssertionError(f"varlen: launches {counts}, expected {want}")
+    pk = ops.flash_attention_varlen_reference(
+        qkv[None, :, 0], qkv[None, :, 1], qkv[None, :, 2], ids, ids, True)[0]
+    perr = (packed.float() - pk.float()).abs().max().item()
+    print(f"flash_attn_varlen_qkvpacked [{s}, 3, {hq}, {d}] "
+          f"{len(VARLEN_DOCS)} documents: max_abs_err={perr:.3e}", flush=True)
+    if not perr <= TOL["bfloat16"]:
+        raise AssertionError(f"flash_attn_varlen_qkvpacked: error {perr}")
+    del qkv, packed, pk, out, qg, kg, vg
+    torch.cuda.empty_cache()
+
+    # every id 0: the segment mode masks nothing and gives the dense bits
+    zeros = torch.zeros_like(ids)
+    zm = fa._check_mask(q, k, fa._Mask("seg", zeros, zeros))
+    zo, zl = fa._launch_forward(q, k, v, True, d ** -0.5, True, zm)
+    do_, dl = fa._launch_forward(q, k, v, True, d ** -0.5, True)
+    same = torch.equal(zo, do_) and torch.equal(zl, dl)
+    zdq, zdelta = fa._launch_dq(q, k, v, zo, zl, do, True, d ** -0.5, zm)
+    zdk, zdv = fa._launch_dkv(q, k, v, do, zl, zdelta, True, d ** -0.5, zm)
+    ddq, ddelta = fa._launch_dq(q, k, v, do_, dl, do, True, d ** -0.5)
+    ddk, ddv = fa._launch_dkv(q, k, v, do, dl, ddelta, True, d ** -0.5)
+    same_grads = all(torch.equal(a, b_) for a, b_ in
+                     zip((zdq, zdk, zdv), (ddq, ddk, ddv)))
+    print(f"varlen all-zeros segments vs dense: forward bitwise {same}, "
+          f"gradients bitwise {same_grads}", flush=True)
+    if not (same and same_grads):
+        raise AssertionError("varlen: all-zeros segment ids differ from the "
+                             "dense kernels")
+    del zo, zl, do_, dl, zdq, zdelta, zdk, zdv, ddq, ddelta, ddk, ddv
+    torch.cuda.empty_cache()
+
+    mask = fa._check_mask(q, k, fa._Mask("seg", ids, ids))
+    keep = fa._seg_keep(ids, ids) & torch.ones(
+        s, s, dtype=torch.bool, device=DEVICE).tril()
+    pairs = masked_pairs(np, b, s, s, hq, True,
+                         q_seg=ids.cpu().numpy(), kv_seg=ids.cpu().numpy())
+    library = _sdpa_masked(torch, F, q, k, v, keep)
+    rows = _mode_rows(torch, F, fa, "varlen", q, k, v, do, True, mask, keep,
+                      pairs, library=library)
+    n = counts
+    rows[0]["launches"] = (n["flash_attention.launches_seg"]
+                           + n["flash_attention_forward.launches_seg"])
+    rows[1]["launches"] = n["flash_attention_backward.launches_dq_seg"]
+    rows[2]["launches"] = n["flash_attention_backward.launches_dkv_seg"]
+    return rows
+
+
+def _flashmask_indices(torch, case, b, s, hkv):
+    """startend_row_indices of the two flashmask cases: "doc" the causal
+    document mask (1 index, hm 1: column c hides the rows from its
+    document's end on); "band" (2 indices, hm = kv heads): kv head h hides
+    rows [c + W_h, min(c + W_h + FLASHMASK_BAND, s))."""
+    c = torch.arange(s, dtype=torch.int32)
+    if case == "doc":
+        bounds = torch.cumsum(torch.tensor(FLASHMASK_DOCS), 0)
+        doc_end = bounds[torch.bucketize(c, bounds, right=True)]
+        return doc_end.to(torch.int32).view(1, 1, s, 1).expand(
+            b, 1, s, 1).contiguous()
+    w = torch.tensor(FLASHMASK_WINDOWS, dtype=torch.int32)[:, None]
+    lts = c[None] + w
+    lte = torch.clamp(lts + FLASHMASK_BAND, max=s)
+    return torch.stack([lts, lte], -1)[None].expand(b, hkv, s, 2).contiguous()
+
+
+def phase_flashmask(torch, F, ops):
+    """flashmask_attention's kernel path (K1-K3 in row-bound mode),
+    forward and backward, on FLASHMASK_SHAPE in two cases. Returns the
+    (flash_fwd_rowmask, flash_bwd_dq_rowmask, flash_bwd_dkv_rowmask) rows
+    of the band case (both bounds, per-head bounds), launches summed."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn.functional import flashmask_attention
+
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    b, s, hq, hkv, d = FLASHMASK_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    q, k, v = _inputs(torch, gen, torch.bfloat16, b, s, s, hq, hkv, d)
+    do = torch.randn(b, s, hq, d, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    rows, totals = None, None
+    for case in ("doc", "band"):
+        idx = _flashmask_indices(torch, case, b, s, hkv).to(DEVICE)
+        _zero_mask_counts(ops)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = flashmask_attention(qg, kg, vg, idx, causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+        sync()
+        counts = _mask_counts(ops)
+        got = {n_: c for n_, c in counts.items() if c}
+        want = {"flash_attention_forward.launches_rowmask": 1,
+                "flash_attention_backward.launches_dq_rowmask": 1,
+                "flash_attention_backward.launches_dkv_rowmask": 1}
+        print(f"flashmask {case} main path launches: {got}", flush=True)
+        if got != want:
+            raise AssertionError(f"flashmask {case}: launches {got}, "
+                                 f"expected {want}")
+        totals = got if totals is None else {
+            n_: totals[n_] + got[n_] for n_ in want}
+        del out, qg, kg, vg
+        start = idx[..., 0]
+        end = (idx[..., 1] if idx.shape[-1] > 1
+               else torch.full_like(start, 2 * s))
+        mask = fa._check_mask(q, k, fa._Mask("rowmask", start, end))
+        keep = fa._row_keep(mask.a, mask.b, hq, s) & torch.ones(
+            s, s, dtype=torch.bool, device=DEVICE).tril()
+        pairs = masked_pairs(np, b, s, s, hq, True,
+                             start=mask.a.cpu().numpy(),
+                             end=mask.b.cpu().numpy())
+        library = _sdpa_masked(torch, F, q, k, v, keep)
+        r = _mode_rows(torch, F, fa, f"flashmask {case}", q, k, v, do, True,
+                       mask, keep, pairs, library=library)
+        del keep
+        torch.cuda.empty_cache()
+        if case == "band":
+            rows = r
+    rows[0]["launches"] = totals["flash_attention_forward.launches_rowmask"]
+    rows[1]["launches"] = totals[
+        "flash_attention_backward.launches_dq_rowmask"]
+    rows[2]["launches"] = totals[
+        "flash_attention_backward.launches_dkv_rowmask"]
+    return rows
+
+
+def phase_lse_cotangent(torch, F, ops):
+    """flash_attention_with_lse at the training shape, loss (out g).sum() +
+    (lse h).sum(): K2 takes l-bar. Returns (the flash_bwd_dq_glse row, K1
+    with lse launches of the main path)."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    _, b, s, _, hq, hkv, d, causal = TRAIN_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    q, k, v = _inputs(torch, gen, torch.bfloat16, b, s, s, hq, hkv, d)
+    g = torch.randn(b, s, hq, d, device=DEVICE, generator=gen).to(
+        torch.bfloat16)
+    h = torch.randn(b, hq, s, device=DEVICE, generator=gen)
+    _zero_mask_counts(ops)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out, lse = ops.flash_attention_with_lse(qg, kg, vg, causal)
+    loss = (out.float() * g.float()).sum() + (lse * h).sum()
+    grads = torch.autograd.grad(loss, (qg, kg, vg))
+    sync()
+    counts = {n_: c for n_, c in _mask_counts(ops).items() if c}
+    want = {"flash_attention_forward.launches": 1,
+            "flash_attention_backward.launches_glse": 1,
+            "flash_attention_backward.launches_dkv": 1}
+    print(f"lse cotangent main path launches: {counts}", flush=True)
+    if counts != want:
+        raise AssertionError(f"lse cotangent: launches {counts}, expected "
+                             f"{want}")
+    refs = ops.flash_attention_backward_reference(
+        q, k, v, out.detach(), lse.detach(), g, causal, g_lse=h)
+    errs = _grad_errs(grads, refs)
+    worst = max(rel for _, rel in errs.values())
+    print("lse cotangent through autograd vs plain: " + " ".join(
+        f"{n_}_rel={rel:.3e}" for n_, (_, rel) in errs.items()), flush=True)
+    if not worst <= TOL["bfloat16"]:
+        raise AssertionError(f"lse cotangent: gradient error {worst}")
+    del grads, refs, out, lse, qg, kg, vg, loss
+    torch.cuda.empty_cache()
+    # the yardstick: SDPA forward and backward (no lse cotangent)
+    fwd_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal), 5, 1)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lo = sdpa(F, qs, ks, vs, causal)
+    gt = g.transpose(1, 2)
+    bwd_ms = cuda_ms(lambda: lo.backward(gt, retain_graph=True), 5, 1)
+    library = (fwd_ms, fwd_ms + bwd_ms, _sdpa_backend(
+        torch, *(x.transpose(1, 2) for x in (q, k, v)), None, causal))
+    del qs, ks, vs, lo
+    pairs = causal_pairs(s, s, causal) * b * hq
+    rows = _mode_rows(torch, F, fa, "lse cotangent", q, k, v, g, causal,
+                      None, None, pairs, g_lse=h, library=library)
+    row = rows[1]
+    row["launches"] = counts["flash_attention_backward.launches_glse"]
+    return row, counts["flash_attention_forward.launches"]
+
+
+def _bmha_case(torch, np, quant, gen):
+    """block_multihead_attention's inputs at BMHA: the rows' qkv, caches
+    holding random history, tables, lengths (8 prefill rows, 56 decode)."""
+    nh, kv, hd, page = BMHA["heads"], BMHA["kv_heads"], BMHA["head_dim"], \
+        BMHA["block_size"]
+    rng = np.random.default_rng(21)
+    n_pre, n_dec = BMHA["prefill_rows"], BMHA["decode_rows"]
+    ctx = rng.integers(BMHA["ctx_lo"], BMHA["ctx_hi"] + 1, n_dec)
+    enc = np.concatenate([np.full(n_pre, BMHA["prefill_len"]),
+                          np.zeros(n_dec, np.int64)])
+    dec = np.concatenate([np.zeros(n_pre, np.int64), ctx - 1])
+    this = np.concatenate([np.full(n_pre, BMHA["prefill_len"]),
+                           np.ones(n_dec, np.int64)])
+    b = n_pre + n_dec
+    maxp = -(-max(BMHA["prefill_len"], BMHA["ctx_hi"]) // page)
+    npages = b * maxp
+    tables = torch.randperm(npages, device=DEVICE, generator=gen).reshape(
+        b, maxp).to(torch.int32)
+    tok = int(this.sum())
+    qkv = torch.randn(tok, (nh + 2 * kv) * hd, device=DEVICE,
+                      generator=gen).to(torch.bfloat16)
+    if quant:
+        caches = [torch.randint(-127, 128, (npages, kv, page, hd),
+                                device=DEVICE, generator=gen,
+                                dtype=torch.int8) for _ in range(2)]
+        qs = torch.linspace(30, 60, kv, device=DEVICE)
+        scales = dict(cache_k_quant_scales=qs, cache_v_quant_scales=qs * 1.5,
+                      cache_k_dequant_scales=1 / qs,
+                      cache_v_dequant_scales=1 / (qs * 1.5))
+    else:
+        caches = [torch.randn(npages, kv, page, hd, device=DEVICE,
+                              generator=gen).to(torch.bfloat16)
+                  for _ in range(2)]
+        scales = {}
+
+    def lens(a):
+        return torch.tensor(a, dtype=torch.int32)[:, None]
+
+    cu = lens(np.concatenate([[0], np.cumsum(this)]))
+    args = dict(qkv=qkv, key_cache=caches[0], value_cache=caches[1],
+                seq_lens_encoder=lens(enc), seq_lens_decoder=lens(dec),
+                seq_lens_this_time=lens(this),
+                padding_offsets=torch.zeros(tok, dtype=torch.int32),
+                cum_offsets=torch.zeros(b, dtype=torch.int32),
+                cu_seqlens_q=cu, cu_seqlens_k=cu, block_tables=tables,
+                block_size=page, **scales)
+    return args, int((ctx).sum())
+
+
+def phase_block_mha(torch, np, ops):
+    """block_multihead_attention at the Llama serving width (BMHA): bf16
+    caches, then raw int8 caches with static scales. Each call on the card
+    (K1 a prefill row, one K4 call for the decode rows) against the same
+    call with the kernels' plain versions in their place, on copies of the
+    caches: out within TOL, the caches byte for byte. Returns (K1 launches,
+    K4 launches) of the two calls."""
+    imod = importlib.import_module("paddle_tpu_torch.incubate.nn.functional")
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    k1 = k4 = 0
+    for quant in (False, True):
+        args, ctx_tokens = _bmha_case(torch, np, quant, gen)
+        plain_args = dict(args, key_cache=args["key_cache"].clone(),
+                          value_cache=args["value_cache"].clone())
+        _zero_mask_counts(ops)
+        t0 = time.perf_counter()
+        out = imod.block_multihead_attention(**args)[0]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _mask_counts(ops)
+        c1 = counts["flash_attention.launches"]
+        c4 = counts["paged_decode_attention.launches"]
+        c4q = counts["paged_decode_attention.int8_launches"]
+        saved = (imod.flash_attention, imod.paged_decode_attention)
+        imod.flash_attention = lambda q, k, v, causal: \
+            ops.flash_attention_reference(q, k, v, causal)
+        imod.paged_decode_attention = ops.paged_decode_reference
+        try:
+            ref = imod.block_multihead_attention(**plain_args)[0]
+        finally:
+            imod.flash_attention, imod.paged_decode_attention = saved
+        sync()
+        err = (out.float() - ref.float()).abs().max().item()
+        same = (torch.equal(args["key_cache"], plain_args["key_cache"])
+                and torch.equal(args["value_cache"],
+                                plain_args["value_cache"]))
+        kind = "int8" if quant else "bf16"
+        print(f"block_mha {kind}: {BMHA['prefill_rows']} prefill rows of "
+              f"{BMHA['prefill_len']}, {BMHA['decode_rows']} decode rows "
+              f"({ctx_tokens} context tokens), heads {BMHA['heads']}/"
+              f"{BMHA['kv_heads']} x {BMHA['head_dim']}, block "
+              f"{BMHA['block_size']}: max_abs_err={err:.3e} caches equal "
+              f"{same}; launches K1 {c1} K4 {c4} (int8 {c4q}); call "
+              f"{wall * 1e3:.1f} ms (host clock, first call)", flush=True)
+        if not (err <= TOL["bfloat16"] and same):
+            raise AssertionError(f"block_mha {kind}: error {err}, caches "
+                                 f"equal {same}")
+        if c1 != BMHA["prefill_rows"] or c4 != 1 or c4q != int(quant):
+            raise AssertionError(f"block_mha {kind}: launches K1 {c1}, K4 "
+                                 f"{c4} (int8 {c4q})")
+        k1 += c1
+        k4 += c4
+        del args, plain_args, out, ref
+        torch.cuda.empty_cache()
+    return k1, k4
+
+
+def phase_fused_moe(torch, np):
+    """fused_moe at bench_moe's expert width (FUSED_MOE), bf16, against the
+    same call in fp32 on the card (one routing: the gate logits are fp32
+    inputs of both)."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_moe
+
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    bsz, seq, dm = FUSED_MOE["x"]
+    e, ff, k = FUSED_MOE["experts"], FUSED_MOE["ffn"], FUSED_MOE["topk"]
+    x = torch.randn(bsz, seq, dm, device=DEVICE, generator=gen)
+    gate = torch.randn(bsz, seq, e, device=DEVICE, generator=gen)
+    w1 = torch.randn(e, dm, 2 * ff, device=DEVICE, generator=gen) / dm ** 0.5
+    w2 = torch.randn(e, ff, dm, device=DEVICE, generator=gen) / ff ** 0.5
+    ref = fused_moe(x, gate, w1, w2, moe_topk=k)
+    bf = [t.to(torch.bfloat16) for t in (x, w1, w2)]
+    out = fused_moe(bf[0], gate, bf[1], bf[2], moe_topk=k)
+    sync()
+    err = (out.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    ms = cuda_ms(lambda: fused_moe(bf[0], gate, bf[1], bf[2], moe_topk=k),
+                 5, 1)
+    print(f"fused_moe x [{bsz}, {seq}, {dm}], {e} swiglu experts of {ff}, "
+          f"top-{k}: bf16 vs fp32 max_abs_err={err:.3e} (max |fp32| "
+          f"{scale:.3f}) finite {bool(torch.isfinite(out).all())} "
+          f"ms={ms:.3f}", flush=True)
+    if not (torch.isfinite(out).all() and err <= TOL["bfloat16"] * scale):
+        raise AssertionError(f"fused_moe: error {err} > "
+                             f"{TOL['bfloat16']} x {scale}")
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -2775,6 +3390,16 @@ def main():
     k1_launches += moe_serving["k1"] + k1_gen
     k4_launches += moe_serving["k4"] + k4_gen + k4_brownout
     k5_launches += moe_serving["k5"]
+    seg = _phase("18 varlen", phase_varlen, torch, F, ops)
+    rowmask = _phase("19 flashmask", phase_flashmask, torch, F, ops)
+    glse, glse_lse = _phase("20 lse cotangent", phase_lse_cotangent, torch,
+                            F, ops)
+    bmha_k1, bmha_k4 = _phase("21 block_mha", phase_block_mha, torch, np,
+                              ops)
+    _phase("22 fused_moe", phase_fused_moe, torch, np)
+    k1_launches += bmha_k1
+    k4_launches += bmha_k4
+    lse_launches += glse_lse
 
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -2810,6 +3435,20 @@ def main():
              replaces="paddle_tpu/ops/grouped_matmul.py:93",
              launches=k6_launches, **k6),
     ]
+    for mode, rows in (("seg", seg), ("rowmask", rowmask)):
+        for kname, line, row in zip(
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                (117, 337, 420), rows):
+            kernels.append(dict(
+                name=f"{kname}_{mode}", route="cuda",
+                source="paddle_tpu_torch/ops/csrc/" + (
+                    "flash_fwd.cu" if kname == "flash_fwd"
+                    else "flash_bwd.cu"),
+                replaces=f"paddle_tpu/ops/flash_attention.py:{line}", **row))
+    kernels.append(dict(name="flash_bwd_dq_glse", route="cuda",
+                        source="paddle_tpu_torch/ops/csrc/flash_bwd.cu",
+                        replaces="paddle_tpu/ops/flash_attention.py:337",
+                        **glse))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

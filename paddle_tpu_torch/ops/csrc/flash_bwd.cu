@@ -60,6 +60,16 @@
 //  - No atomics and no carry across blocks: each output element is summed
 //    by one warpgroup in a fixed order, so results are identical run to run.
 //    K3 is launched after K2 on the same stream.
+// Modes, template parameters of all four kernels: MODE, the masks of
+// flash_mask.cuh (segment ids or per-kv-column row bounds, `with_seg` /
+// `with_rowmask` of the TPU kernels), masks every tile it computes (the
+// causal skips stay); K2 reads a kv tile's ids or bounds while its products
+// run, K3 keeps its k rows' ids or bounds in registers and reads a streamed
+// q tile's ids the same way. GLSE (K2 only, `with_glse`): the cotangent
+// g_lse of the forward's lse output, from `flash_attention_with_lse` :757,
+// enters the prologue only, d = rowsum(dO * O) - g_lse, which K3 then
+// reads; the lse guard above keeps rows that saw no key at P = 0 whatever
+// d carries. MODE none without GLSE is the code above.
 // fp32 runs on FMAs (256 threads, 64-row tiles, 4 x 4 score tiles and 4-row
 // accumulator strips per thread) so its 1e-4 tolerance holds; it carries the
 // card-vs-CPU parity checks. K2 has one block per (64-row q tile, q head,
@@ -69,6 +79,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -81,9 +92,12 @@ struct Strides {
   long long b, s, h;
 };
 
+template <int MODE>
 __device__ __forceinline__ bool visible(int qr, int kc, int s_q, int s_kv,
-                                        int offset, int causal) {
-  return qr < s_q && kc < s_kv && !(causal && qr + offset < kc);
+                                        int offset, int causal,
+                                        const fmask::View& mv) {
+  return qr < s_q && kc < s_kv && !(causal && qr + offset < kc) &&
+         !fmask::hidden<MODE>(mv, qr, kc);
 }
 
 // P from the saved lse; 0 where masked or where the row saw no key.
@@ -129,14 +143,15 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int D, int MODE, bool GLSE>
 __global__ void __launch_bounds__(NTF)
 dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ o,
               const float* __restrict__ dout, const float* __restrict__ lse,
               float* __restrict__ dq, float* __restrict__ delta, int s_q,
               int s_kv, int hq, int group, Strides sq, Strides sk, Strides sv,
-              Strides so, Strides sd, float scale, int causal) {
+              Strides so, Strides sd, float scale, int causal,
+              fmask::Args ma, const float* __restrict__ glse) {
   using L = F32Layout<D>;
   constexpr int LD = L::LD, LP = L::LP, DPT = D / 16;
   extern __shared__ float fsm[];
@@ -152,6 +167,7 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / group, offset = s_kv - s_q;
   const long long bh = static_cast<long long>(b) * hq + h;
+  const fmask::View mv = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
 
   load_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, s_q);
   load_f32<D>(dos, dout + b * sd.b + h * sd.h, sd.s, q0, s_q);
@@ -169,6 +185,9 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int w = 16; w > 0; w >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, w);
       if (lane == 0) {
+        if constexpr (GLSE) {  // the lse cotangent: delta -= g_lse
+          if (qr < s_q) acc -= glse[bh * s_q + qr];
+        }
         del_s[r] = acc;
         lse_s[r] = qr < s_q ? lse[bh * s_q + qr] : pt::kNegInf;
         if (qr < s_q) delta[bh * s_q + qr] = acc;
@@ -223,7 +242,8 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tx + 16 * j;
-        const bool vis = visible(q0 + row, k0 + col, s_q, s_kv, offset, causal);
+        const bool vis = visible<MODE>(q0 + row, k0 + col, s_q, s_kv, offset,
+                                       causal, mv);
         const float p = prob(s[i][j] * scale, lse_s[row], vis);
         dss[row * LP + col] = p * (dp[i][j] - del_s[row]) * scale;
       }
@@ -253,14 +273,15 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int MODE>
 __global__ void __launch_bounds__(NTF)
 dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int s_q,
                int s_kv, int hq, int hkv, int group, Strides sq, Strides sk,
-               Strides sv, Strides sd, float scale, int causal) {
+               Strides sv, Strides sd, float scale, int causal,
+               fmask::Args ma) {
   using L = F32Layout<D>;
   constexpr int LD = L::LD, LP = L::LP, DPT = D / 16;
   extern __shared__ float fsm[];
@@ -276,6 +297,7 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int k0 = blockIdx.x * BT, hk = blockIdx.y, b = blockIdx.z;
   const int offset = s_kv - s_q;
+  const fmask::View mv = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
 
   load_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, s_kv);
   load_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, s_kv);
@@ -334,8 +356,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = tx + 16 * j;
-          const bool vis = visible(q0 + col, k0 + row, s_q, s_kv, offset,
-                                   causal);
+          const bool vis = visible<MODE>(q0 + col, k0 + row, s_q, s_kv,
+                                         offset, causal, mv);
           const float p = prob(s[i][j] * scale, lse_s[col], vis);
           pts[row * LP + col] = p;
           dst[row * LP + col] = p * (dp[i][j] - del_s[col]) * scale;
@@ -464,8 +486,10 @@ __device__ __forceinline__ void product_reg_tile(float (&d)[D / 2],
 
 // K2. Grid: one block per (RB-row q tile, q head, batch), flattened with the
 // last q tiles first. Tensor maps: mq, mdo box {64, 1, RB, 1}; mk, mv box
-// {64, 1, SB, 1}.
-template <int D>
+// {64, 1, SB, 1}. MODE: the mask beyond the causal one (flash_mask.cuh; a
+// masked mode masks every tile); GLSE: subtract the lse cotangent glse
+// [b, hq, s_q] from delta.
+template <int D, int MODE, bool GLSE>
 __global__ void __launch_bounds__(NTC, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
              const __grid_constant__ CUtensorMap mk,
@@ -474,7 +498,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
              const bf16* __restrict__ o, const bf16* __restrict__ dout,
              const float* __restrict__ lse, bf16* __restrict__ dq,
              float* __restrict__ delta, int batch, int s_q, int s_kv, int hq,
-             int group, Strides so, Strides sd, float scale, int causal) {
+             int group, Strides so, Strides sd, float scale, int causal,
+             fmask::Args ma, const float* __restrict__ glse) {
   using L = TcLayout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* qs = align_1024(smem_raw);  // resident Q
@@ -554,6 +579,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if ((t & 1) == 0) {
+      if constexpr (GLSE) {  // the lse cotangent: delta -= g_lse
+        if (row < s_q) acc -= glse[bh * s_q + row];
+      }
       dls[64 * cw + rr] = acc;
       if (row < s_q) delta[bh * s_q + row] = acc;
     }
@@ -570,6 +598,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
     lse2[e] = lse_log2(rows[e] < s_q ? lse[bh * s_q + rows[e]] : pt::kNegInf);
     dl[e] = dls[64 * cw + rr];
   }
+  const fmask::View mview = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
+  const int ids[2] = {fmask::row_id<MODE>(mview, rows[0], s_q),
+                      fmask::row_id<MODE>(mview, rows[1], s_q)};
   const float sc2 = scale * kLog2e;
   float acc[D / 2];
 #pragma unroll
@@ -591,20 +622,35 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
       product_res_tile<D>(sv, qs, ks, cw);   // S  = Q K^T
       product_res_tile<D>(dp, dos, vs, cw);  // dP = dO V^T
       wgmma_commit();
+      fmask::KvCols<MODE> cols;  // the tile's ids, read while S, dP run
+      cols.load(mview, k0, s_kv, l);
       wgmma_wait0();
       fence_regs(sv);
       fence_regs(dp);
-      const bool mask =
-          (causal && r0 + offset < k0 + SB - 1) || k0 + SB > s_kv;
+      if constexpr (MODE == fmask::kNone) {
+        const bool mask =
+            (causal && r0 + offset < k0 + SB - 1) || k0 + SB > s_kv;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int e = (i >> 1) & 1;
-        float p = exp2f(fmaf(sv[i], sc2, -lse2[e]));
-        if (mask) {
-          const int kc = k0 + 8 * (i >> 2) + 2 * (l % 4) + (i & 1);
-          if (kc >= s_kv || (causal && rows[e] + offset < kc)) p = 0.f;
+        for (int i = 0; i < 32; ++i) {
+          const int e = (i >> 1) & 1;
+          float p = exp2f(fmaf(sv[i], sc2, -lse2[e]));
+          if (mask) {
+            const int kc = k0 + 8 * (i >> 2) + 2 * (l % 4) + (i & 1);
+            if (kc >= s_kv || (causal && rows[e] + offset < kc)) p = 0.f;
+          }
+          sv[i] = p * (dp[i] - dl[e]) * scale;  // dS
         }
-        sv[i] = p * (dp[i] - dl[e]) * scale;  // dS
+      } else {  // a masked mode masks every tile
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int e = (i >> 1) & 1;
+          const int kc = k0 + 8 * (i >> 2) + 2 * (l % 4) + (i & 1);
+          float p = exp2f(fmaf(sv[i], sc2, -lse2[e]));
+          if (kc >= s_kv || (causal && rows[e] + offset < kc) ||
+              cols.hidden(i, ids[e], rows[e]))
+            p = 0.f;
+          sv[i] = p * (dp[i] - dl[e]) * scale;  // dS
+        }
       }
       uint32_t a[SB / 16][4];
       pack_tile(sv, a);
@@ -623,8 +669,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
 
 // K3. Grid: one block per (RB-row k tile, kv head, batch), flattened with
 // the first k tiles first. Tensor maps: mk, mv box {64, 1, RB, 1}; mq, mdo
-// box {64, 1, SB, 1}.
-template <int D>
+// box {64, 1, SB, 1}. MODE as K2's: the block's kv ids or row bounds stay
+// in registers; a streamed q tile's ids are read while its S^T runs.
+template <int D, int MODE>
 __global__ void __launch_bounds__(NTC, 1)
 dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mk,
@@ -633,7 +680,7 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
               int s_q, int s_kv, int hq, int hkv, int group, float scale,
-              int causal) {
+              int causal, fmask::Args ma) {
   using L = TcLayout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ks = align_1024(smem_raw);  // resident K
@@ -705,6 +752,18 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int cw = tid / 128 - 1, t = tid % 128, w = t / 32, l = t % 32;
   const int kr0 = k0 + 64 * cw;
   const int krow[2] = {kr0 + 16 * w + l / 4, kr0 + 16 * w + l / 4 + 8};
+  const fmask::View mview = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
+  // this thread's two k rows: their kv ids (kSeg) or row bounds (kRow)
+  int kid[2] = {0, 0}, kst[2] = {0, 0}, ken[2] = {0, 0};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kr = min(krow[e], s_kv - 1);
+    if constexpr (MODE == fmask::kSeg) kid[e] = __ldg(mview.kv_seg + kr);
+    if constexpr (MODE == fmask::kRow) {
+      kst[e] = __ldg(mview.start + kr);
+      ken[e] = __ldg(mview.end + kr);
+    }
+  }
   const float sc2 = scale * kLog2e;
   float ak[D / 2], av[D / 2];
 #pragma unroll
@@ -726,14 +785,27 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
       product_res_tile<D>(sv, ks, qs, cw);  // S^T = K Q^T
       wgmma_commit();
+      int qid[16];  // kSeg: the q tile's ids, read while S^T runs
+      if constexpr (MODE == fmask::kSeg)
+        fmask::load_cols(qid, mview.q_seg, q0, s_q, l);
       wgmma_wait0();
       fence_regs(sv);
       const bool mask = causal && q0 + offset < kr0 + 63;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int col = 8 * (i >> 2) + 2 * (l % 4) + (i & 1);
+        const int e = (i >> 1) & 1;
         float p = exp2f(fmaf(sv[i], sc2, -lz[col]));
-        if (mask && q0 + col + offset < krow[(i >> 1) & 1]) p = 0.f;
+        if constexpr (MODE == fmask::kNone) {
+          if (mask && q0 + col + offset < krow[e]) p = 0.f;
+        } else {
+          bool drop = causal && q0 + col + offset < krow[e];
+          if constexpr (MODE == fmask::kSeg)
+            drop = drop || qid[fmask::col_slot(i)] != kid[e];
+          if constexpr (MODE == fmask::kRow)
+            drop = drop || (q0 + col >= kst[e] && q0 + col < ken[e]);
+          if (drop) p = 0.f;
+        }
         sv[i] = p;  // P^T
       }
       uint32_t a[SB / 16][4];
@@ -778,23 +850,24 @@ int set_smem(K kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-template <int D>
+template <int D, int MODE, bool GLSE>
 int launch_dq(int dtype, const void* q, const void* k, const void* v,
               const void* o, const void* dout, const float* lse, void* dq,
               float* delta, int b, int s_q, int s_kv, int hq, int hkv,
-              const Strides* st, float scale, int causal, cudaStream_t s) {
+              const Strides* st, float scale, int causal,
+              const fmask::Args& ma, const float* glse, cudaStream_t s) {
   const int group = hq / hkv;
   if (dtype == 0) {
     dim3 grid((s_q + BT - 1) / BT, hq, b);
     const size_t smem = F32Layout<D>::kBytes;
-    int err = set_smem(dq_f32_kernel<D>, smem);
+    int err = set_smem(dq_f32_kernel<D, MODE, GLSE>, smem);
     if (err) return err;
-    dq_f32_kernel<D><<<grid, NTF, smem, s>>>(
+    dq_f32_kernel<D, MODE, GLSE><<<grid, NTF, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(o),
         static_cast<const float*>(dout), lse, static_cast<float*>(dq), delta,
         s_q, s_kv, hq, group, st[0], st[1], st[2], st[3], st[4], scale,
-        causal);
+        causal, ma, glse);
   } else {
     CUtensorMap mq, mk, mv, mdo;
     int err;
@@ -807,32 +880,33 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v,
     if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
                         st[4].h, RB))) return err;
     const size_t smem = TcLayout<D>::kBytes;
-    if ((err = set_smem(dq_tc_kernel<D>, smem))) return err;
+    if ((err = set_smem(dq_tc_kernel<D, MODE, GLSE>, smem))) return err;
     const int blocks = (s_q + RB - 1) / RB * hq * b;
-    dq_tc_kernel<D><<<blocks, NTC, smem, s>>>(
+    dq_tc_kernel<D, MODE, GLSE><<<blocks, NTC, smem, s>>>(
         mq, mk, mv, mdo, static_cast<const bf16*>(o),
         static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, b,
-        s_q, s_kv, hq, group, st[3], st[4], scale, causal);
+        s_q, s_kv, hq, group, st[3], st[4], scale, causal, ma, glse);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int MODE>
 int launch_dkv(int dtype, const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* delta,
                void* dk, void* dv, int b, int s_q, int s_kv, int hq, int hkv,
-               const Strides* st, float scale, int causal, cudaStream_t s) {
+               const Strides* st, float scale, int causal,
+               const fmask::Args& ma, cudaStream_t s) {
   const int group = hq / hkv;
   if (dtype == 0) {
     dim3 grid((s_kv + BT - 1) / BT, hkv, b);
     const size_t smem = F32Layout<D>::kBytes;
-    int err = set_smem(dkv_f32_kernel<D>, smem);
+    int err = set_smem(dkv_f32_kernel<D, MODE>, smem);
     if (err) return err;
-    dkv_f32_kernel<D><<<grid, NTF, smem, s>>>(
+    dkv_f32_kernel<D, MODE><<<grid, NTF, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), s_q, s_kv,
-        hq, hkv, group, st[0], st[1], st[2], st[4], scale, causal);
+        hq, hkv, group, st[0], st[1], st[2], st[4], scale, causal, ma);
   } else {
     CUtensorMap mq, mk, mv, mdo;
     int err;
@@ -845,11 +919,12 @@ int launch_dkv(int dtype, const void* q, const void* k, const void* v,
     if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
                         st[4].h, SB))) return err;
     const size_t smem = TcLayout<D>::kBytes;
-    if ((err = set_smem(dkv_tc_kernel<D>, smem))) return err;
+    if ((err = set_smem(dkv_tc_kernel<D, MODE>, smem))) return err;
     const int blocks = (s_kv + RB - 1) / RB * hkv * b;
-    dkv_tc_kernel<D><<<blocks, NTC, smem, s>>>(
+    dkv_tc_kernel<D, MODE><<<blocks, NTC, smem, s>>>(
         mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), b, s_q, s_kv, hq, hkv, group, scale, causal);
+        static_cast<bf16*>(dv), b, s_q, s_kv, hq, hkv, group, scale, causal,
+        ma);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -859,20 +934,64 @@ void unpack(const long long* flat, Strides* st) {
                                                flat[3 * i + 2]};
 }
 
+// The mask mode of a launch's operands (-1: an invalid combination).
+int mask_mode(const fmask::Args& ma) {
+  const bool seg = ma.q_seg != nullptr, row = ma.start != nullptr;
+  if (seg && row) return -1;
+  if (seg) return ma.kv_seg != nullptr ? fmask::kSeg : -1;
+  if (row) return (ma.end != nullptr && ma.hm >= 1) ? fmask::kRow : -1;
+  return fmask::kNone;
+}
+
+template <int D>
+int dq_mode(int mode, int dtype, const void* q, const void* k, const void* v,
+            const void* o, const void* dout, const float* lse, void* dq,
+            float* delta, int b, int s_q, int s_kv, int hq, int hkv,
+            const Strides* st, float scale, int causal,
+            const fmask::Args& ma, const float* glse, cudaStream_t s) {
+  if (mode == fmask::kNone && glse == nullptr)
+    return launch_dq<D, fmask::kNone, false>(dtype, q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
+  if (mode == fmask::kNone)
+    return launch_dq<D, fmask::kNone, true>(dtype, q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
+  if (glse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == fmask::kSeg)
+    return launch_dq<D, fmask::kSeg, false>(dtype, q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
+  return launch_dq<D, fmask::kRow, false>(dtype, q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
+}
+
+template <int D>
+int dkv_mode(int mode, int dtype, const void* q, const void* k,
+             const void* v, const void* dout, const float* lse,
+             const float* delta, void* dk, void* dv, int b, int s_q,
+             int s_kv, int hq, int hkv, const Strides* st, float scale,
+             int causal, const fmask::Args& ma, cudaStream_t s) {
+  if (mode == fmask::kSeg)
+    return launch_dkv<D, fmask::kSeg>(dtype, q, k, v, dout, lse, delta, dk, dv, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (mode == fmask::kRow)
+    return launch_dkv<D, fmask::kRow>(dtype, q, k, v, dout, lse, delta, dk, dv, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  return launch_dkv<D, fmask::kNone>(dtype, q, k, v, dout, lse, delta, dk, dv, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+}
+
 }  // namespace
 
 // K2. q/o/dout [b, s_q, hq, d] and k/v [b, s_kv, hkv, d] read through the
 // element strides in `strides` (15 values: batch, seq, head of q, k, v, o,
 // dout in that order; head_dim contiguous); lse [b, hq, s_q] fp32; writes
 // dq [b, s_q, hq, d] contiguous and delta [b, hq, s_q] fp32 (scratch for
-// K3). dtype: 0 = float32, 1 = bfloat16 (16-byte aligned pointers, strides
-// multiples of 8). Returns the launch's cudaError_t (bf16:
-// cudaErrorNotSupported without the driver's tensor-map encoder,
+// K3). g_lse [b, hq, s_q] fp32, the cotangent of the forward's lse output,
+// or null: delta = rowsum(dout o) - g_lse. Masks as paddle_flash_fwd's
+// (flash_mask.cuh): q_seg/kv_seg, or start/end with hm, or all null; g_lse
+// only without a mask. dtype: 0 = float32, 1 = bfloat16 (16-byte aligned
+// pointers, strides multiples of 8). Returns the launch's cudaError_t
+// (bf16: cudaErrorNotSupported without the driver's tensor-map encoder,
 // cudaErrorInvalidValue if it refuses an operand's strides).
 extern "C" int paddle_flash_bwd_dq(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
-                                   void* dq, void* delta, int dtype, int b,
+                                   void* dq, void* delta, const void* g_lse,
+                                   const void* q_seg, const void* kv_seg,
+                                   const void* start, const void* end, int hm,
+                                   int dtype, int b,
                                    int s_q, int s_kv, int hq, int hkv, int d,
                                    const long long* strides, float scale,
                                    int causal, void* stream) {
@@ -881,21 +1000,31 @@ extern "C" int paddle_flash_bwd_dq(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const float* gl = static_cast<const float*>(g_lse);
+  const fmask::Args ma{static_cast<const int*>(q_seg),
+                       static_cast<const int*>(kv_seg),
+                       static_cast<const int*>(start),
+                       static_cast<const int*>(end), hm};
+  const int mode = mask_mode(ma);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch_dq<64>(dtype, q, k, v, o, dout, l, dq, dl, b, s_q, s_kv,
-                         hq, hkv, st, scale, causal, s);
+    return dq_mode<64>(mode, dtype, q, k, v, o, dout, l, dq, dl, b, s_q,
+                       s_kv, hq, hkv, st, scale, causal, ma, gl, s);
   if (d == 128)
-    return launch_dq<128>(dtype, q, k, v, o, dout, l, dq, dl, b, s_q, s_kv,
-                          hq, hkv, st, scale, causal, s);
+    return dq_mode<128>(mode, dtype, q, k, v, o, dout, l, dq, dl, b, s_q,
+                        s_kv, hq, hkv, st, scale, causal, ma, gl, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K3. Same operands and stride layout as K2 (the o strides are unused);
-// delta is K2's output; writes dk and dv [b, s_kv, hkv, d] contiguous.
+// delta is K2's output (g_lse already in it); writes dk and dv [b, s_kv,
+// hkv, d] contiguous. Masks as K2's.
 extern "C" int paddle_flash_bwd_dkv(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dk, void* dv, int dtype, int b,
+                                    void* dk, void* dv, const void* q_seg,
+                                    const void* kv_seg, const void* start,
+                                    const void* end, int hm, int dtype, int b,
                                     int s_q, int s_kv, int hq, int hkv, int d,
                                     const long long* strides, float scale,
                                     int causal, void* stream) {
@@ -904,11 +1033,17 @@ extern "C" int paddle_flash_bwd_dkv(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const fmask::Args ma{static_cast<const int*>(q_seg),
+                       static_cast<const int*>(kv_seg),
+                       static_cast<const int*>(start),
+                       static_cast<const int*>(end), hm};
+  const int mode = mask_mode(ma);
+  if (mode < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return launch_dkv<64>(dtype, q, k, v, dout, l, dl, dk, dv, b, s_q, s_kv,
-                          hq, hkv, st, scale, causal, s);
+    return dkv_mode<64>(mode, dtype, q, k, v, dout, l, dl, dk, dv, b, s_q,
+                        s_kv, hq, hkv, st, scale, causal, ma, s);
   if (d == 128)
-    return launch_dkv<128>(dtype, q, k, v, dout, l, dl, dk, dv, b, s_q, s_kv,
-                           hq, hkv, st, scale, causal, s);
+    return dkv_mode<128>(mode, dtype, q, k, v, dout, l, dl, dk, dv, b, s_q,
+                         s_kv, hq, hkv, st, scale, causal, ma, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

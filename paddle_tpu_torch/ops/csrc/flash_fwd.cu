@@ -58,6 +58,19 @@
 //    columns past s_kv weight 0. Rows past s_q are not stored.
 //  - No atomics and no carry across blocks: results are identical run to
 //    run, and the primal and lse paths give the same out bit for bit.
+// Masks beyond the causal one (flash_mask.cuh), a template parameter MODE
+// of both kernels, as the TPU kernel's `with_seg` / `with_rowmask`: segment
+// ids (packed variable-length batches, `flash_attention_varlen` :891) or
+// per-kv-column row bounds (flashmask, `flash_attention_rowmask` :982).
+// MODE none is the code above; a masked mode masks every tile it computes
+// (its masked scores take NEG_INF on top of the causal mask) and still
+// visits every tile the causal mask leaves, masked or not, as the TPU
+// kernel does. A thread reads the ids or bounds of its 16 columns of a kv
+// tile into registers while the tile's S = Q K^T runs. A row that has seen
+// only masked scores so far weighs them uniformly (exp(NEG_INF - NEG_INF))
+// until a visible key's alpha = 0 wipes them; a row that sees no key at all
+// ends with the mean of v over the columns of the tiles it visited and lse
+// NEG_INF.
 // fp32 runs on FMAs (128 threads, 64-row tiles, Q, K and V staged as fp32
 // with a padded row, an 8 x 4 score tile and an 8 x (head_dim / 16) output
 // tile per thread in registers), so it stays exact to fp32 rounding and
@@ -65,6 +78,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -75,7 +89,7 @@ constexpr int NT = 128;  // threads per block: 8 row groups x 16 col groups
 constexpr int RPT = BQ / 8;   // q rows per thread
 constexpr int CPT = BK / 16;  // score columns per thread
 
-template <typename T, int D>
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int s_q,
@@ -83,7 +97,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long q_sh, long long k_sb, long long k_ss,
                  long long k_sh, long long v_sb, long long v_ss,
                  long long v_sh, float scale, int causal,
-                 float* __restrict__ lse) {
+                 float* __restrict__ lse, fmask::Args ma) {
   constexpr int LD = D + 1;     // padded shared row
   constexpr int LP = BK + 1;
   constexpr int DPT = D / 16;   // output columns per thread
@@ -104,6 +118,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
+  const fmask::View mv = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
@@ -165,6 +180,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (kc >= s_kv) {
           s[i][j] = -INFINITY;  // past the end: weight exactly 0
         } else if (causal && qr + offset < kc) {
+          s[i][j] = pt::kNegInf;
+        } else if (MODE != fmask::kNone && qr < s_q &&
+                   fmask::hidden<MODE>(mv, qr, kc)) {
           s[i][j] = pt::kNegInf;
         }
         mx = fmaxf(mx, s[i][j]);
@@ -324,19 +342,24 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 // columns), turns s into P = exp(scale (s - m)) and returns in alpha the
 // factor that row's O must be rescaled by. MASK: the tile crosses the
 // causal diagonal or the end of the sequence.
-template <bool MASK>
+template <bool MASK, int MODE>
 __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float sc2, int k0, int s_kv,
                                              const int (&rows)[2], int offset,
-                                             int causal, int lane) {
+                                             int causal, int lane,
+                                             const fmask::KvCols<MODE>& cols,
+                                             const int (&ids)[2]) {
   if constexpr (MASK) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
       const int kc = k0 + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
+      const int e = (i >> 1) & 1;
       if (kc >= s_kv)
         s[i] = -INFINITY;  // past the end: weight exactly 0
-      else if (causal && rows[(i >> 1) & 1] + offset < kc)
+      else if (causal && rows[e] + offset < kc)
+        s[i] = pt::kNegInf;
+      else if (cols.hidden(i, ids[e], rows[e]))
         s[i] = pt::kNegInf;
     }
   }
@@ -372,15 +395,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
 
 // Grid: one block per (RB-row q tile, q head, batch), flattened with the
 // last q tiles first. Tensor maps: mq box {64, 1, RB, 1}; mk, mv box
-// {64, 1, BN, 1}. lse may be null (the primal path).
-template <int D, int NST, int NCW>
+// {64, 1, BN, 1}. lse may be null (the primal path). MODE: the mask
+// beyond the causal one (flash_mask.cuh); a masked mode masks every tile.
+template <int D, int NST, int NCW, int MODE>
 __global__ void __launch_bounds__(128 * (NCW + 1), 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv,
                     bf16* __restrict__ out, float* __restrict__ lse,
                     int batch, int s_q, int s_kv, int hq, int group,
-                    float scale, int causal) {
+                    float scale, int causal, fmask::Args ma) {
   using L = TcLayout<D, NST, NCW>;
   constexpr int RB = L::RB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -437,6 +461,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   const int t = tid % 128, w = t / 32, l = t % 32;
   const int r0 = q0 + 64 * cw;
   const int rows[2] = {r0 + 16 * w + l / 4, r0 + 16 * w + l / 4 + 8};
+  const fmask::View mview = fmask::view<MODE>(ma, b, hk, s_q, s_kv);
+  const int ids[2] = {fmask::row_id<MODE>(mview, rows[0], s_q),
+                      fmask::row_id<MODE>(mview, rows[1], s_q)};
   // the tiles this warpgroup's real rows see (the others: skipped)
   const int nkw =
       r0 < s_q ? kv_tiles(min(r0 + 63, s_q - 1), s_kv, offset, causal) : 0;
@@ -447,18 +474,21 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   float m[2] = {pt::kNegInf, pt::kNegInf}, lsum[2] = {0.f, 0.f};
   uint32_t a[BN / 16][4];  // P of the previous tile, bf16
 
-  // does kv tile `it` cross this warpgroup's diagonal or the sequence end?
+  // does kv tile `it` cross this warpgroup's diagonal or the sequence
+  // end? (every tile, in a masked mode)
   auto masked = [&](int it) {
+    if constexpr (MODE != fmask::kNone) return true;
     const int k0 = it * BN;
     return (causal && r0 + offset < k0 + BN - 1) || k0 + BN > s_kv;
   };
-  auto softmax = [&](float (&sv)[BN / 2], int it, float (&alpha)[2]) {
+  auto softmax = [&](float (&sv)[BN / 2], int it, float (&alpha)[2],
+                     const fmask::KvCols<MODE>& cols) {
     if (masked(it))
-      softmax_tile<true>(sv, m, lsum, alpha, sc2, it * BN, s_kv, rows,
-                         offset, causal, l);
+      softmax_tile<true, MODE>(sv, m, lsum, alpha, sc2, it * BN, s_kv, rows,
+                               offset, causal, l, cols, ids);
     else
-      softmax_tile<false>(sv, m, lsum, alpha, sc2, it * BN, s_kv, rows,
-                          offset, causal, l);
+      softmax_tile<false, MODE>(sv, m, lsum, alpha, sc2, it * BN, s_kv,
+                                rows, offset, causal, l, cols, ids);
   };
 
   bar_wait(res, 0);
@@ -470,10 +500,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_fence();
       issue_qk<D, RB>(sv, qs, ring, cw);
       wgmma_commit();
+      fmask::KvCols<MODE> cols;  // the tile's ids, read while S runs
+      cols.load(mview, 0, s_kv, l);
       wgmma_wait0();
       fence_regs(sv);
       float alpha[2];
-      softmax(sv, 0, alpha);
+      softmax(sv, 0, alpha, cols);
 #pragma unroll
       for (int j = 0; j < BN / 16; ++j) pack_a(sv, j, a[j]);
     }
@@ -489,10 +521,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
       wgmma_commit();
       issue_pv<D>(o, a, ring + sp * L::STAGE + L::TILE);
       wgmma_commit();
+      fmask::KvCols<MODE> cols;
+      cols.load(mview, it * BN, s_kv, l);
       wgmma_wait1();  // S is done
       fence_regs(sv);
       float alpha[2];
-      softmax(sv, it, alpha);
+      softmax(sv, it, alpha, cols);
       wgmma_wait0();  // P V is done
       fence_regs(o);
       if (t == 0) bar_arrive(&empty[sp]);  // stage of tile it - 1 is free
@@ -540,11 +574,11 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D>
+template <int D, int MODE>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int s_q, int s_kv, int hq, int hkv,
                 const long long* st, float scale, int causal,
-                cudaStream_t stream) {
+                const fmask::Args& ma, cudaStream_t stream) {
   constexpr int NST = TcTile<D>::NST, NCW = TcTile<D>::NCW;
   using L = TcLayout<D, NST, NCW>;
   constexpr int RB = L::RB;
@@ -565,34 +599,51 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       return err;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D, NST, NCW>,
+      flash_fwd_tc_kernel<D, NST, NCW, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (s_q + RB - 1) / RB * hq * b;
-  flash_fwd_tc_kernel<D, NST, NCW>
+  flash_fwd_tc_kernel<D, NST, NCW, MODE>
       <<<blocks, L::THREADS, L::kBytes, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), lse, b, s_q, s_kv, hq, hq / hkv,
-      scale, causal);
+      scale, causal, ma);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- fp32: FMAs ------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, int MODE>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int b, int s_q, int s_kv, int hq, int hkv, const long long* st,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, const fmask::Args& ma,
+           cudaStream_t stream) {
   const size_t smem = (BQ * (D + 1) + BK * (D + 1) + BQ * (BK + 1)) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((s_q + BQ - 1) / BQ, hq, b);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, D, MODE><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), s_q, s_kv, hq,
       hq / hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale, causal, lse);
+      st[8], scale, causal, lse, ma);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_mode(const void* q, const void* k, const void* v, void* out,
+                float* lse, int dtype, int b, int s_q, int s_kv, int hq,
+                int hkv, int d, const long long* st, float scale, int causal,
+                const fmask::Args& ma, cudaStream_t s) {
+  if (dtype == 0 && d == 64)
+    return launch<float, 64, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (dtype == 0 && d == 128)
+    return launch<float, 128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (dtype == 1 && d == 64)
+    return launch_bf16<64, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (dtype == 1 && d == 128)
+    return launch_bf16<128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -601,11 +652,16 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
 // (batch, seq, head; head_dim contiguous); out [b, s_q, hq, d] contiguous;
 // lse [b, hq, s_q] fp32 contiguous, or null to skip it (the primal path).
 // dtype: 0 = float32, 1 = bfloat16 (then the pointers are 16-byte aligned
-// and the strides multiples of 8). Returns the launch's cudaError_t (bf16:
-// cudaErrorNotSupported without the driver's tensor-map encoder,
-// cudaErrorInvalidValue if it refuses an operand's strides).
+// and the strides multiples of 8). Masks (flash_mask.cuh), int32
+// contiguous: segment ids q_seg [b, s_q] and kv_seg [b, s_kv], or row
+// bounds start/end [b, hm, s_kv] (q head h reads bounds row (h / group) %
+// hm); all null for none, and not both kinds. Returns the launch's
+// cudaError_t (bf16: cudaErrorNotSupported without the driver's tensor-map
+// encoder, cudaErrorInvalidValue if it refuses an operand's strides).
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
-                                void* out, void* lse_ptr, int dtype, int b,
+                                void* out, void* lse_ptr, const void* q_seg,
+                                const void* kv_seg, const void* start,
+                                const void* end, int hm, int dtype, int b,
                                 int s_q,
                                 int s_kv, int hq, int hkv, int d,
                                 long long q_sb, long long q_ss, long long q_sh,
@@ -615,13 +671,18 @@ extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_ptr);
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
-  if (dtype == 1 && d == 64)
-    return launch_bf16<64>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
-  if (dtype == 1 && d == 128)
-    return launch_bf16<128>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const fmask::Args ma{static_cast<const int*>(q_seg),
+                       static_cast<const int*>(kv_seg),
+                       static_cast<const int*>(start),
+                       static_cast<const int*>(end), hm};
+  const bool seg = q_seg != nullptr, row = start != nullptr;
+  if (seg && row) return static_cast<int>(cudaErrorInvalidValue);
+  if (seg && kv_seg == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (row && (end == nullptr || hm < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (seg)
+    return launch_mode<fmask::kSeg>(q, k, v, out, lse, dtype, b, s_q, s_kv, hq, hkv, d, st, scale, causal, ma, s);
+  if (row)
+    return launch_mode<fmask::kRow>(q, k, v, out, lse, dtype, b, s_q, s_kv, hq, hkv, d, st, scale, causal, ma, s);
+  return launch_mode<fmask::kNone>(q, k, v, out, lse, dtype, b, s_q, s_kv, hq, hkv, d, st, scale, causal, ma, s);
 }

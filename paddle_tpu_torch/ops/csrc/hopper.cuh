@@ -305,12 +305,23 @@ inline int make_map(CUtensorMap* m, const void* base, int rank,
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&] {
+    return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+              const_cast<void*>(base), dims, strides, box, unit,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r != CUDA_SUCCESS) {
+    // The encoder is a driver call and needs the device's context current
+    // on this host thread. A thread that has made no runtime call needing
+    // one (the autograd engine's worker thread, when a flash backward is
+    // its first launch) has none yet: cudaSetDevice makes it current.
+    int dev;
+    if (cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess)
+      r = encode();
+  }
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,6 +18,7 @@ pools alike (the kernel dequantizes the pages it reads), and runs
 (:681) is a plain scatter, as in the JAX package, and writes the pools IN
 PLACE (the JAX version returns new arrays; the port returns the same
 tensors it was given); on int8 pools it quantizes on append.
+:func:`gather_paged_kv` (:798) is the dense gather of each row's pages.
 
 The prefix-cache path adds :func:`paged_prefill_attention` (:359), which
 the JAX package computes outside any Pallas kernel (gather + einsum), so
@@ -288,6 +289,24 @@ def _paged_lib():
                         + [ctypes.c_float, ctypes.c_void_p])
         fn8.restype = ctypes.c_int
     return lib
+
+
+def gather_paged_kv(k_cache, v_cache, block_tables, max_len):
+    """Dense [b, max_len, hkv, d] copies of each row's pages (``gather_paged_
+    kv`` :798; the prefill path of ``block_multihead_attention``).
+    ``max_len`` must be a multiple of the page size; negative table entries
+    read page 0. :class:`QuantizedKVPool` pools come back dequantized fp32;
+    plain pools, raw int8 ones included, in their own dtype."""
+    b = block_tables.shape[0]
+    _, hkv, page, d = k_cache.shape
+    tables = block_tables[:, :max_len // page].clamp_min(0).long()
+
+    def gather(cache):
+        pages = (_gather_pages(cache, tables)
+                 if isinstance(cache, QuantizedKVPool) else cache[tables])
+        return pages.transpose(2, 3).reshape(b, max_len, hkv, d)
+
+    return gather(k_cache), gather(v_cache)
 
 
 def append_paged_kv(k_cache, v_cache, k_new, v_new, block_tables, positions,

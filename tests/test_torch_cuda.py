@@ -1085,3 +1085,297 @@ def test_paged_generate_equals_engine_greedy_fp32_on_card(cuda):
     ref = _serve_card(eng, list(ids), [20] * 4)
     assert paged.tolist() == ref
     assert dense.tolist() == ref
+
+
+# ---- K1-K3 in the segment and row-bound modes, K2 with the lse cotangent --
+# Masks where every row sees a key (its own diagonal): documents of packed
+# sequences, and row bounds with start[c] > c. Out, lse and gradients are
+# held to the dense kernels' tolerances against the plain versions on the
+# same inputs.
+
+def _fa():
+    return importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+
+
+def _masks(cuda, kind, b, s, hkv):
+    """(mask kwargs for the plain backward, positional mask operands) of a
+    seeded mask in which every row sees its diagonal: "seg" documents of
+    s // 3, s // 5 and the rest tokens (the second row one document);
+    "row1"/"rowh" bounds [b, 1 or hkv, s] with start[c] in (c, c + 64] and
+    end = start + 40 (rowh: another band per kv head)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    if kind == "seg":
+        cut = [s // 3, s // 3 + s // 5]
+        ids = torch.zeros(b, s, dtype=torch.int32)
+        ids[0, cut[0]:] = 1
+        ids[0, cut[1]:] = 2
+        ids = ids.to(cuda)
+        return dict(q_seg=ids, kv_seg=ids), (ids, ids)
+    hm = 1 if kind == "row1" else hkv
+    cols = torch.arange(s, dtype=torch.int32)
+    start = cols + 1 + torch.randint(0, 64, (b, hm, s), generator=g,
+                                     dtype=torch.int32)
+    end = start + 40 + 40 * torch.arange(hm, dtype=torch.int32)[None, :, None]
+    start, end = start.to(cuda), end.to(cuda)
+    return dict(row_start=start, row_end=end), (start, end)
+
+
+def _masked_fn(kind):
+    fa = _fa()
+    return (fa.flash_attention_varlen if kind == "seg"
+            else fa.flash_attention_rowmask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kind", ["seg", "row1", "rowh"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [65, 300])
+def test_flash_masked_modes_match_plain_on_card(cuda, dtype, tol, kind, d,
+                                                causal, s):
+    fa = _fa()
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, s, s, 8, 2, d)
+    kw, ops_ = _masks(cuda, kind, 2, s, 2)
+    name = "seg" if kind == "seg" else "rowmask"
+    # the primal forward (no grad): K1 in the mode, no lse
+    n_primal = getattr(flash_attention, "launches_" + name)
+    with torch.no_grad():
+        primal = _masked_fn(kind)(q, k, v, *ops_, causal=causal)
+    assert getattr(flash_attention, "launches_" + name) == n_primal + 1
+    keep = fa._mask_keep(q, fa._make_mask(**kw))
+    ref, ref_lse = fa._masked_reference_lse(q, k, v, keep, causal,
+                                            d ** -0.5)
+    # the training op: K1 with lse, then K2/K3 in the mode
+    fwd = getattr(torch.ops.paddle_tpu_torch, "flash_fwd_lse_" + name)
+    bwd = getattr(torch.ops.paddle_tpu_torch, "flash_bwd_" + name)
+    out, lse = fwd(q, k, v, *ops_, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(primal, out)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    lse_tol = 5e-3 if dtype == torch.bfloat16 else 1e-4
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+    fb = flash_attention_backward
+    nq, nk = (getattr(fb, "launches_dq_" + name),
+              getattr(fb, "launches_dkv_" + name))
+    grads = bwd(q, k, v, out, lse, do, *ops_, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert getattr(fb, "launches_dq_" + name) == nq + 1
+    assert getattr(fb, "launches_dkv_" + name) == nk + 1
+    refs = flash_attention_backward_reference(q, k, v, out, lse, do, causal,
+                                              **kw)
+    for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * max(1.0, r.float().abs().max().item()), (gname,
+                                                                     err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s_q,s_kv,causal", [(300, 300, True),
+                                             (77, 77, False),
+                                             (200, 520, True)])
+def test_flash_glse_matches_plain_on_card(cuda, dtype, tol, d, s_q, s_kv,
+                                          causal):
+    fa = _fa()
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, s_q, s_kv, 8, 2, d)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    glse = torch.randn(lse.shape, device=cuda, generator=g)
+    n0 = flash_attention_backward.launches_glse
+    grads = torch.ops.paddle_tpu_torch.flash_bwd_glse(
+        q, k, v, out, lse, do, glse, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches_glse == n0 + 1
+    refs = flash_attention_backward_reference(q, k, v, out, lse, do, causal,
+                                              g_lse=glse)
+    for gname, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= tol * max(1.0, r.float().abs().max().item()), (gname,
+                                                                     err)
+    # through autograd: the loss uses both outputs
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o2, l2 = fa.flash_attention_with_lse(qg, kg, vg, causal)
+    loss = (o2.float() * do.float()).sum() + (l2 * glse).sum()
+    auto = torch.autograd.grad(loss, (qg, kg, vg))
+    for a, b_ in zip(auto, grads):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_all_zero_segments_bitwise_dense_on_card(cuda, dtype, d,
+                                                       causal):
+    # one segment: the segment mode masks nothing, and gives the dense
+    # kernels' bits
+    fa = _fa()
+    q, k, v, do = _bwd_inputs(cuda, dtype, 2, 300, 300, 8, 2, d)
+    ids = torch.zeros(2, 300, dtype=torch.int32, device=cuda)
+    out, lse = torch.ops.paddle_tpu_torch.flash_fwd_lse_seg(
+        q, k, v, ids, ids, causal, d ** -0.5)
+    dense, dense_lse = flash_attention_forward(q, k, v, causal=causal)
+    assert torch.equal(out, dense) and torch.equal(lse, dense_lse)
+    with torch.no_grad():
+        assert torch.equal(fa.flash_attention_varlen(q, k, v, ids, ids,
+                                                     causal), dense)
+    grads = torch.ops.paddle_tpu_torch.flash_bwd_seg(
+        q, k, v, out, lse, do, ids, ids, causal, d ** -0.5)
+    dense_grads = flash_attention_backward(q, k, v, dense, dense_lse, do,
+                                           causal=causal)
+    for a, b_ in zip(grads, dense_grads):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_masked_rows_without_keys_on_card(cuda, dtype):
+    # q rows 100-139 are a segment of their own that no kv column carries:
+    # they see no key, come out finite with lse NEG_INF and get no gradient
+    fa = _fa()
+    q, k, v, do = _bwd_inputs(cuda, dtype, 1, 200, 200, 8, 2, 64)
+    q_seg = torch.zeros(1, 200, dtype=torch.int32, device=cuda)
+    q_seg[0, 100:140] = 7
+    kv_seg = torch.zeros_like(q_seg)
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fa.flash_attention_varlen(qg, kg, vg, q_seg, kv_seg, True)
+    dq, dk, dv = torch.autograd.grad((out.float() * do.float()).sum(),
+                                     (qg, kg, vg))
+    _, lse = torch.ops.paddle_tpu_torch.flash_fwd_lse_seg(
+        q, k, v, q_seg, kv_seg, True, 0.125)
+    assert torch.isfinite(out.float()).all()
+    assert (lse[:, :, 100:140] <= NEG_INF / 2).all()
+    assert not dq[:, 100:140].any()
+    for t in (dq, dk, dv):
+        assert torch.isfinite(t.float()).all()
+    ref = fa.flash_attention_varlen_reference(q, k, v, q_seg, kv_seg, True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    rows = torch.ones(200, dtype=torch.bool)
+    rows[100:140] = False
+    assert (out[:, rows].float() - ref[:, rows].float()).abs().max() <= tol
+
+
+_FIRST_BACKWARD = """
+import importlib, sys, torch
+from paddle_tpu_torch import ops
+g = torch.Generator(device="cuda").manual_seed(0)
+q, k, v, do = (torch.randn(1, 256, 4, 64, device="cuda", generator=g)
+               .to(torch.bfloat16).requires_grad_() for _ in range(4))
+ids = torch.zeros(1, 256, dtype=torch.int32, device="cuda")
+out = (ops.flash_attention(q, k, v, causal=True) if sys.argv[1] == "dense"
+       else ops.flash_attention_varlen(q, k, v, ids, ids, True))
+torch.autograd.grad(out, (q, k, v), do.detach())
+torch.cuda.synchronize()
+print("ok")
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "varlen"])
+def test_flash_backward_is_the_first_launch_of_a_fresh_process(cuda, path):
+    # the loss is the attention output itself, so the flash backward op is
+    # the first launch of the autograd engine's worker thread, in a process
+    # that has run nothing else
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _FIRST_BACKWARD, path],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# ---- the functional surface on the card -----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_mha_on_card_matches_cpu(cuda, quant):
+    # 2 prefill rows (K1 each), 3 decode rows (one K4 call), bf16 qkv; raw
+    # int8 caches with static scales through K4's int8 mode
+    imod = importlib.import_module("paddle_tpu_torch.incubate.nn.functional")
+    nh, kv, hd, page, maxp = 8, 2, 128, 64, 4
+    enc = np.array([100, 64, 0, 0, 0])
+    dec = np.array([0, 0, 10, 130, 200])
+    this = np.array([100, 64, 1, 1, 1])
+    b, tok = len(enc), int(this.sum())
+    g = torch.Generator().manual_seed(7)
+    qkv = torch.randn(tok, (nh + 2 * kv) * hd, generator=g).to(torch.bfloat16)
+    if quant:
+        caches = [torch.randint(-127, 128, (b * maxp, kv, page, hd),
+                                generator=g, dtype=torch.int8)
+                  for _ in range(2)]
+        qs = torch.tensor([30.0, 50.0])
+        scales = dict(cache_k_quant_scales=qs, cache_v_quant_scales=qs * 2,
+                      cache_k_dequant_scales=1 / qs,
+                      cache_v_dequant_scales=1 / (qs * 2))
+    else:
+        caches = [torch.randn(b * maxp, kv, page, hd, generator=g).to(
+            torch.bfloat16) for _ in range(2)]
+        scales = {}
+    tables = torch.randperm(b * maxp, generator=g).reshape(b, maxp).to(
+        torch.int32)
+
+    def lens(a):
+        return torch.tensor(a, dtype=torch.int32)[:, None]
+
+    def args(dev):
+        cu = lens(np.concatenate([[0], np.cumsum(this)]))
+        return dict(qkv=qkv.to(dev), key_cache=caches[0].clone().to(dev),
+                    value_cache=caches[1].clone().to(dev),
+                    seq_lens_encoder=lens(enc), seq_lens_decoder=lens(dec),
+                    seq_lens_this_time=lens(this), padding_offsets=None,
+                    cum_offsets=None, cu_seqlens_q=cu, cu_seqlens_k=cu,
+                    block_tables=tables.to(dev), block_size=page,
+                    **{n: s.to(dev) for n, s in scales.items()})
+
+    on_card, on_cpu = args(cuda), args("cpu")
+    n1, n4 = flash_attention.launches, paged_decode_attention.launches
+    n8 = paged_decode_attention.int8_launches
+    out = imod.block_multihead_attention(**on_card)[0]
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n1 + 2
+    assert paged_decode_attention.launches == n4 + 1
+    assert paged_decode_attention.int8_launches == n8 + int(quant)
+    ref = imod.block_multihead_attention(**on_cpu)[0]
+    assert (out.cpu().float() - ref.float()).abs().max().item() <= 2e-2
+    for name in ("key_cache", "value_cache"):
+        assert torch.equal(on_card[name].cpu(), on_cpu[name])
+
+
+@pytest.mark.cuda
+def test_functional_surface_routes_to_the_kernels_on_card(cuda):
+    F = importlib.import_module("paddle_tpu_torch.nn.functional")
+    flags = importlib.import_module("paddle_tpu_torch.flags")
+    q, k, v, _ = _bwd_inputs(cuda, torch.bfloat16, 2, 256, 256, 8, 2, 128)
+    idx = (torch.arange(256, device=cuda, dtype=torch.int32) + 1).view(
+        1, 1, 256, 1).expand(2, 1, 256, 1).contiguous()
+    n_dense, n_row = flash_attention.launches, flash_attention.launches_rowmask
+    F.flashmask_attention(q, k, v, idx, causal=True)
+    F.flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches_rowmask == n_row + 1
+    assert flash_attention.launches == n_dense + 1
+    flags.set_flags({"use_pallas_attention": False})
+    try:
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    finally:
+        flags.set_flags({"use_pallas_attention": True})
+    assert flash_attention.launches == n_dense + 1
+    ref = flash_attention_reference(q, k, v, True)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    # varlen packed: one segment-mode K1 launch for the packed buffer
+    qkv = torch.stack([q[0], k[0].repeat_interleave(4, 1),
+                       v[0].repeat_interleave(4, 1)], 1)
+    cu = torch.tensor([0, 100, 256], dtype=torch.int32)
+    n_seg = flash_attention.launches_seg
+    packed, _ = F.flash_attn_varlen_qkvpacked(qkv, cu, cu, 156, 156,
+                                              causal=True)
+    assert flash_attention.launches_seg == n_seg + 1
+    alone = flash_attention_reference(qkv[None, 100:, 0], qkv[None, 100:, 1],
+                                      qkv[None, 100:, 2], True)[0]
+    assert (packed[100:].float() - alone.float()).abs().max().item() <= 2e-2

@@ -49,6 +49,12 @@ def _imported_modules(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 8 and all(f.exists() for f in files)
+    # the functional surfaces and the flags module are scanned too
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"paddle_tpu_torch/flags.py",
+            "paddle_tpu_torch/nn/functional/flash_attention.py",
+            "paddle_tpu_torch/nn/functional/extras.py",
+            "paddle_tpu_torch/incubate/nn/functional/__init__.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]

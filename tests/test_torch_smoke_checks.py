@@ -74,3 +74,45 @@ def test_moe_margin_check_holds_the_routing_to_the_dense_forward(smoke,
     with pytest.raises(AssertionError, match="gate logits are"):
         smoke._moe_margin_check(torch, np, model, prompts, streams, shifted,
                                 "shifted", "cpu")
+
+
+@pytest.mark.parametrize("mask", ["none", "seg", "row1", "rowh",
+                                  "flashmask_doc", "flashmask_band"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_masked_pairs_counts_the_plain_masks_visible_pairs(smoke, mask,
+                                                           causal):
+    # the bound of phases 18-19 counts visible (q, k) pairs on the host from
+    # the ids or bounds; it must equal the count of the plain versions' own
+    # mask (the causal mask and the ids / bounds), summed over the q heads
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    b, s, hq, hkv = 2, 96, 4, 2
+    rng = np.random.default_rng(3)
+    kw, keep = {}, None
+    if mask == "seg":
+        ids = np.sort(rng.integers(0, 5, (b, s)), axis=1).astype(np.int32)
+        kw = dict(q_seg=ids, kv_seg=ids)
+        keep = fa._seg_keep(torch.from_numpy(ids), torch.from_numpy(ids))
+    elif mask != "none":
+        if mask.startswith("flashmask"):
+            smoke.FLASHMASK_DOCS = (48, 24, 24)
+            smoke.FLASHMASK_WINDOWS = (8, 40)
+            smoke.FLASHMASK_BAND = 16
+            idx = smoke._flashmask_indices(torch, mask.split("_")[1], b, s,
+                                           hkv)
+            start = idx[..., 0].numpy()
+            end = (idx[..., 1].numpy() if idx.shape[-1] > 1
+                   else np.full_like(start, 2 * s))
+        else:
+            hm = 1 if mask == "row1" else hkv
+            start = rng.integers(0, s, (b, hm, s)).astype(np.int32)
+            end = start + rng.integers(0, 40, (b, hm, s)).astype(np.int32)
+        kw = dict(start=start, end=end)
+        keep = fa._row_keep(torch.from_numpy(start), torch.from_numpy(end),
+                            hq, s)
+    full = torch.ones(b, hq, s, s, dtype=torch.bool)
+    if causal:
+        full &= torch.ones(s, s, dtype=torch.bool).tril()
+    if keep is not None:
+        full &= keep
+    got = smoke.masked_pairs(np, b, s, s, hq, causal, **kw)
+    assert isinstance(got, float) and got == full.sum().item()
