@@ -179,8 +179,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (bench_serving's vs_baseline). Paged streams against dense (count),
      every token within the teacher-forced margin.
  17. brownout: phase 7's wave through a fused engine with brownout=True,
-     the pool cut to the 416 of its 1152 blocks that the wave's first 64
-     requests need (half the slots) until it enters brownout: it must
+     the pool cut by the serving.block_pool fault site (exhaust, at the
+     first admission) to the 416 of its 1152 blocks that the wave's first
+     64 requests need (half the slots) until it enters brownout: it must
      enter (brownouts >= 1, brownout_steps > 0), leave
      before the wave ends, replay the one graph (no recapture, no eager
      step), finish every request, and keep every stream that differs from
@@ -221,11 +222,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the same call in fp32 (error <= TOL x max |fp32|). No hand-written
      kernel runs here: its products are plain einsums, as the JAX
      package's are XLA's.
+ 23. recovery (bench.py bench_serving_recovery, :474) at phase 7's widths:
+     (a) a ServingSupervisor over phase 7's fused engine and wave, whose
+     first quarter samples (seeded, temperature 0.8): the wave clean (the
+     reference), then under a serving.step kill at a step with at least 64
+     busy slots after tokens were delivered (PT-SRV-001: rebuild, capture,
+     replay), then with the step watchdog armed at 5 x the clean wave's
+     slowest step (at least 0.25 s) and a serving.stall of 3 budgets at
+     the same step (PT-SRV-002). Every wave starts with an empty radix
+     cache. Checks: recoveries equal the faults, in order, and no other
+     overrun; no request fails and every stream equals the reference byte
+     for byte; each rebuilt engine captured its graph once and replays it;
+     K4 launches during the recovery. (c) The supervisor is abandoned
+     mid-wave and a new one over the same journal finishes the wave:
+     streams equal, each token journaled once, every engine of the old
+     supervisor freed, and memory_allocated after this third recovery
+     within 64 MiB of its value after the first. (b) The legacy engine
+     (phase 6's engine and 16-request wave) with a kill mid-wave: streams
+     equal, K1 and K4 launch inside the recovery. Prints recovery_s, the
+     rebuild's share, replayed requests and the faulted and clean waves'
+     tokens/s.
+ 24. fleet (bench.py bench_fleet, :713): a FleetRouter of 3 replicas of
+     phase 23's fused engine on its model, with affinity, over the same
+     wave: a clean pass; a fleet.replica_kill of replica 1 mid-wave (its
+     journal's requests finish on the survivors; then restart(1)); a
+     drain of replica 0 mid-wave (queued requests migrate, in-flight ones
+     finish in place, the replica rebuilds); parallel_step=True with a
+     serving.step kill (one supervisor rebuilds, capturing its graph, in
+     its stepping thread) and replica 2 killed and restarted mid-wave.
+     Every stream equals phase 23's reference byte for byte, no request
+     fails. Prints the router's failover time, fleet tokens/s, one
+     supervisor-wrapped engine's tokens/s (phase 23) and their ratio.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools (phases 6, 7, 7c and 15-17) and phase 21's calls; "paged_decode_
-int8" counts phase 7c's launches on int8 pools; K1's adds the legacy
-engine of phase 15, the paged generate of phase 16 and phase 21's prefill
-rows to phase 6's wave; K5's adds phase 15's served waves to phase 12's
+fp pools (phases 6, 7, 7c, 15-17, 23 and 24) and phase 21's calls;
+"paged_decode_int8" counts phase 7c's launches on int8 pools; K1's adds
+the legacy engine of phase 15, the paged generate of phase 16, phase 21's
+prefill rows and phase 23's legacy arm to phase 6's wave; K5's adds phase 15's served waves to phase 12's
 steps; K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14
 (K1-lse also phase 20's forward); the masked and l-bar rows count the
 main-path runs of phases 18-20; each read with the counts set to 0 just
@@ -235,13 +267,18 @@ The second-to-last line is a JSON object listing each kernel; the last is
 of the repository, it exits non-zero before printing any result.
 """
 
+import collections
 import importlib
 import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+import warnings
+import weakref
 
 DEVICE = "cuda"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
@@ -355,6 +392,7 @@ ENGINE = dict(max_batch=8, max_len=640, page_size=16, block_size=16,
 # the wave: 4 prompts of exactly the bucket length and 12 of 3/4 bucket to
 # bucket - 1 (re-stepped), max_new_tokens cycling through WAVE_NEW
 WAVE_NEW = (32, 64, 96, 128)
+LEGACY_EOS = 7          # request 5's eos token
 # the JAX package's big-batch serving arm (bench.py
 # bench_serving_large_batch, :371-379 and :396-401) at its TPU widths: the
 # SERVE_CONFIG model, 128 slots, fused mega-step, prefix cache with 128
@@ -364,6 +402,16 @@ FUSED_ENGINE = dict(max_batch=128, max_len=128, page_size=16, block_size=16,
                     fused=True)
 FUSED_EXTRA_BLOCKS = 128
 FUSED_REQUESTS, FUSED_PROMPT, FUSED_SHARED, FUSED_MAX_NEW = 256, 64, 48, 64
+# phases 23-24: bench.py bench_serving_recovery (:474) and bench_fleet
+# (:713) over phase 7's engine and wave, whose first quarter samples
+# (seeded, temperature 0.8) as in the JAX package's crash-replay test; the
+# watchdog budget is 5 x the clean wave's slowest step and at least
+# RECOVERY_BUDGET_MIN s; memory may not grow across recoveries by more than
+# RECOVERY_MEM_SLACK bytes; the fleet has FLEET_REPLICAS replicas
+RECOVERY_SAMPLED, RECOVERY_TEMP = FUSED_REQUESTS // 4, 0.8
+RECOVERY_BUDGET_MIN = 0.25
+RECOVERY_MEM_SLACK = 64 << 20
+FLEET_REPLICAS = 3
 # the JAX package's speculative / int8-KV arm (bench.py bench_speculative,
 # :1526-1532 and :1548-1552) at its TPU widths: the SERVE_CONFIG model, 8
 # slots, max_len 128 (prompt 64 + max_new 64), page 16, block 4, fused,
@@ -1671,24 +1719,19 @@ def phase_serving(torch, np, ops, card):
     sync()
     print(f"serving setup: {cfg.num_params() / 1e6:.1f}M params, "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    rng = np.random.default_rng(0)
+    warm, prompts, kws, rng = _legacy_wave(np, cfg.vocab_size)
 
     def prompt(n):
         return rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
 
     bucket = ENGINE["prompt_buckets"][0]
     # warm-up (cuBLAS handles, first launches), not counted
-    for n in (bucket, bucket - 1):
-        eng.add_request(Request(prompt(n), max_new_tokens=4))
+    for p in warm:
+        eng.add_request(Request(p, max_new_tokens=4))
     eng.run_until_done()
 
-    lens = [bucket] * 4 + [int(x) for x in
-                           rng.integers(bucket * 3 // 4, bucket, 12)]
-    news = [WAVE_NEW[i % 4] for i in range(16)]
-    eos_id = 7
-    reqs = [Request(prompt(n), max_new_tokens=k,
-                    eos_token_id=eos_id if i == 5 else None)
-            for i, (n, k) in enumerate(zip(lens, news))]
+    eos_id = LEGACY_EOS
+    reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
     eng.stats.update(prefill_groups=0, decode_steps=0)
     ops.flash_attention.launches = 0
     ops.paged_decode_attention.launches = 0
@@ -2683,10 +2726,12 @@ def phase_generate(torch, np, ops, card):
 
 def phase_brownout(torch, np, ops, card, base):
     """Phase 7's wave through a fused engine with brownout=True, the pool
-    cut to the pages of the wave's first max_batch / 2 requests until the
-    engine enters brownout; ``base``
+    cut (the serving.block_pool fault site's exhaust) to the pages of the
+    wave's first max_batch / 2 requests until the engine enters brownout;
+    ``base``
     is phase 7's cold streams (the same model from seed 0, no brownout).
     Returns K4's launches in the wave."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
     from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
                                                     PrefixCacheConfig,
                                                     Request)
@@ -2707,22 +2752,30 @@ def phase_brownout(torch, np, ops, card, base):
     half = eng.max_batch // 2
     room = sum(eng._pages_needed(len(p), k) for p, k in
                zip(prompts[:half], news[:half]))
-    held = eng._alloc.hold(eng._alloc.free_blocks - room)
+    held = eng._alloc.free_blocks - room
+    # the JAX package's pool-pressure fault site: the first admission's
+    # allocation finds all but `room` blocks held
+    plan = FaultPlan(seed=9, specs=[FaultSpec(
+        "serving.block_pool", "exhaust", at=0, count=1, arg=held)])
     _zero_serving_counts(ops)
     sync()
     t0 = time.perf_counter()
-    for r in reqs:
-        eng.add_request(r)
     steps, entered, exited = 0, None, None
-    while eng.has_work():
-        eng.step()
-        steps += 1
-        if entered is None and eng._brownout_active:
-            entered = steps
-            eng._alloc.release_held()         # the pressure episode ends
-        if entered is not None and exited is None \
-                and not eng._brownout_active:
-            exited = steps
+    with plan:
+        for r in reqs:
+            eng.add_request(r)
+        while eng.has_work():
+            eng.step()
+            steps += 1
+            if steps == 1 and len(eng._alloc._held) != held:
+                raise AssertionError(f"brownout: {len(eng._alloc._held)} "
+                                     f"blocks held, not {held}")
+            if entered is None and eng._brownout_active:
+                entered = steps
+                eng._alloc.release_held()     # the pressure episode ends
+            if entered is not None and exited is None \
+                    and not eng._brownout_active:
+                exited = steps
     eng.finished()
     sync()
     wall = time.perf_counter() - t0
@@ -2746,7 +2799,9 @@ def phase_brownout(torch, np, ops, card, base):
           f"{len(differ)} of {len(reqs)} streams differ from the wave "
           f"without brownout (phase 7, cold); worst teacher-forced trail "
           f"over them {worst:.4f} (margin {MARGIN})", flush=True)
-    if (st["brownouts"] < 1 or st["brownout_steps"] == 0 or exited is None
+    if (plan.fired() != {"serving.block_pool": 1}
+            or st["brownouts"] < 1 or st["brownout_steps"] == 0
+            or exited is None
             or exited >= steps or st["graph_captures"] != 1
             or st["eager_decode_steps"] != 0
             or st["graph_replays"] != st["decode_steps"]
@@ -3318,6 +3373,500 @@ def phase_fused_moe(torch, np):
                              f"{TOL['bfloat16']} x {scale}")
 
 
+# ---- phases 23-24: serving recovery and the fleet router -----------------
+
+def _scratch_dir(name):
+    """An empty directory for journals under the checkout's build/ (listed
+    in .gitignore)."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke", name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def _recovery_wave(np, vocab):
+    """Phase 7's 256 prompts and max_new_tokens; the first
+    RECOVERY_SAMPLED requests sample at RECOVERY_TEMP with their own seeds
+    (the rest greedy), as kwargs for Request."""
+    prompts, news = _fused_wave(np, vocab)
+    kws = [dict(max_new_tokens=k) for k in news]
+    for i in range(RECOVERY_SAMPLED):
+        kws[i].update(temperature=RECOVERY_TEMP, seed=1000 + i)
+    return prompts, kws
+
+
+def _cold(*engines):
+    """Empty the engines' radix caches: the next wave starts cold, so its
+    step schedule is the first cold wave's."""
+    for eng in engines:
+        eng._radix.evict_lru(eng._alloc.num_blocks)
+
+
+def _run_sup(sup, reqs, schedule=None, times=None):
+    """Submit ``reqs`` and step the supervisor to the end; ``schedule``
+    collects (active slots, delivered tokens) before each step and
+    ``times`` each step's host seconds."""
+    for r in reqs:
+        sup.submit(r)
+    while sup.has_work():
+        if schedule is not None:
+            schedule.append((sup.engine.active_slots(),
+                             sum(len(r.output) for r in reqs)))
+        t0 = time.perf_counter()
+        sup.step()
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+    sup.finished()
+    sync()
+
+
+def _mid_wave(schedule, min_active):
+    """The step index in the middle of the steps that start with at least
+    ``min_active`` busy slots after some tokens were delivered."""
+    steps = [i for i, (act, dlv) in enumerate(schedule)
+             if act >= min_active and dlv > 0]
+    if not steps:
+        raise AssertionError(f"no step with >= {min_active} busy slots "
+                             f"after a delivery: {schedule}")
+    return steps[len(steps) // 2]
+
+
+def _check_streams(what, reqs, ref):
+    outs = [list(r.output) for r in reqs]
+    bad = [i for i, (a, b) in enumerate(zip(outs, ref)) if a != b]
+    failed = [r.rid for r in reqs if r.failed or not r.done]
+    if bad or failed:
+        raise AssertionError(
+            f"{what}: {len(bad)} of {len(reqs)} streams differ from the "
+            f"uninterrupted run (first {bad[:8]}), {len(failed)} failed or "
+            f"unfinished: {[r.error for r in reqs if r.failed][:2]}")
+
+
+class _RecoveryProbe:
+    """Wraps a supervisor's ``_recover`` and its factory: K1/K4 launches
+    from the start of each recovery to its end, the rebuild's seconds
+    (engine construction with its graph capture) and the new engines."""
+
+    def __init__(self, ops, sup):
+        self.k1 = self.k4 = 0
+        self.build_s = []
+        self.engines = []
+        recover, build = sup._recover, sup._build
+
+        def timed_build():
+            t0 = time.perf_counter()
+            eng = build()
+            sync()
+            self.build_s.append(time.perf_counter() - t0)
+            self.engines.append(weakref.ref(eng))
+            return eng
+
+        def counted(*args, **kwargs):
+            k1 = ops.flash_attention.launches
+            k4 = ops.paged_decode_attention.launches
+            recover(*args, **kwargs)
+            self.k1 += ops.flash_attention.launches - k1
+            self.k4 += ops.paged_decode_attention.launches - k4
+
+        sup._build = timed_build
+        sup._recover = counted
+
+    @staticmethod
+    def detach(sup):
+        """Drop the wrappers (they and ``sup`` refer to each other)."""
+        del sup._build, sup._recover
+
+
+def phase_recovery(torch, np, ops, card):
+    """bench.py bench_serving_recovery at the SERVE_CONFIG widths: (a) a
+    ServingSupervisor over the fused 128-slot engine, the 256-request wave
+    clean, under a serving.step kill and under a serving.stall overrun;
+    (b) the legacy engine with phase 6's wave and a kill; (c) a journal
+    restart. Returns (K1 launches, K4 launches, model, the clean streams,
+    the supervisor's clean tokens/s)."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            PrefixCacheConfig, Request,
+                                            RequestJournal,
+                                            ServingSupervisor)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**SERVE_CONFIG)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+
+    def build():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+            **FUSED_ENGINE)
+
+    prompts, kws = _recovery_wave(np, cfg.vocab_size)
+
+    def wave():
+        return [Request(p, **kw) for p, kw in zip(prompts, kws)]
+
+    _zero_serving_counts(ops)
+    path = os.path.join(_scratch_dir("recovery"), "fused.jrnl")
+    sup = ServingSupervisor(build, path, max_recoveries=3)
+    probe = _RecoveryProbe(ops, sup)
+    warm = [Request(p, max_new_tokens=4) for p in prompts[-2:]]
+    _run_sup(sup, warm)
+    _cold(sup.engine)
+
+    # (a) the clean wave: the reference streams and the step schedule
+    schedule, times = [], []
+    reqs = wave()
+    t0 = time.perf_counter()
+    _run_sup(sup, reqs, schedule, times)
+    clean_s = time.perf_counter() - t0
+    ref = [list(r.output) for r in reqs]
+    _check_streams("recovery clean", reqs, ref)
+    useful = sum(len(o) for o in ref)
+    k = _mid_wave(schedule, FUSED_ENGINE["max_batch"] // 2)
+    budget = max(RECOVERY_BUDGET_MIN, 5 * max(times))
+
+    # the kill: PT-SRV-001, rebuild, replay
+    _cold(sup.engine)
+    reqs = wave()
+    plan = FaultPlan(seed=7, specs=[FaultSpec("serving.step", "kill", at=k)])
+    rec0, replayed0 = sup.stats["recovery_s"], sup.stats["replayed_requests"]
+    k4_0 = probe.k4
+    t0 = time.perf_counter()
+    with plan:
+        _run_sup(sup, reqs)
+    kill_s = time.perf_counter() - t0
+    eng = sup.engine
+    mem_first = torch.cuda.memory_allocated()
+    kill_rec = sup.stats["recovery_s"] - rec0
+    kill_replayed = sup.stats["replayed_requests"] - replayed0
+    print(f"recovery kill [{card}]: serving.step kill at step {k} of "
+          f"{len(schedule)} ({schedule[k][0]} busy slots, {schedule[k][1]} "
+          f"tokens delivered); recovery_s={kill_rec:.4f} (rebuild "
+          f"{probe.build_s[-1]:.4f} s with the graph capture) "
+          f"replayed_requests={kill_replayed}; faulted wave "
+          f"{useful / kill_s:.1f} tokens/s against clean "
+          f"{useful / clean_s:.1f} ({useful} tokens); rebuilt engine: "
+          f"graph_captures={eng.stats['graph_captures']} graph_replays="
+          f"{eng.stats['graph_replays']} eager_decode_steps="
+          f"{eng.stats['eager_decode_steps']}, K4 launches during the "
+          f"recovery {probe.k4 - k4_0}", flush=True)
+    _check_streams("recovery kill", reqs, ref)
+    if (plan.fired() != {"serving.step": 1} or sup.recoveries != 1
+            or [c for c, _ in sup.events] != ["PT-SRV-001"]
+            or eng.stats["graph_captures"] != 1
+            or eng.stats["graph_replays"] == 0 or kill_replayed == 0
+            or probe.k4 == k4_0
+            or ops.paged_decode_attention.launches
+            < eng.stats["graph_replays"] * L):
+        raise AssertionError(f"recovery kill: fired {plan.fired()}, events "
+                             f"{sup.events}, rebuilt engine {eng.stats}")
+    del eng
+
+    # the stall: the watchdog flags PT-SRV-002 mid-hang, then rebuild
+    sup.set_step_budget(budget)
+    _cold(sup.engine)
+    reqs = wave()
+    plan = FaultPlan(seed=7, specs=[FaultSpec("serving.stall", "stall",
+                                              at=k, arg=3 * budget)])
+    rec0, replayed0 = sup.stats["recovery_s"], sup.stats["replayed_requests"]
+    t0 = time.perf_counter()
+    with plan, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        _run_sup(sup, reqs)
+    stall_s = time.perf_counter() - t0
+    overruns = list(sup.watchdog.overruns)
+    print(f"recovery stall [{card}]: budget {budget:.3f} s (5 x the "
+          f"slowest clean step {max(times):.4f} s, at least "
+          f"{RECOVERY_BUDGET_MIN}), a {3 * budget:.3f} s stall at step {k}; "
+          f"overruns={[(t, round(e, 4)) for t, e in overruns]} "
+          f"recovery_s={sup.stats['recovery_s'] - rec0:.4f} (rebuild "
+          f"{probe.build_s[-1]:.4f} s) replayed_requests="
+          f"{sup.stats['replayed_requests'] - replayed0}; faulted wave "
+          f"{useful / stall_s:.1f} tokens/s", flush=True)
+    _check_streams("recovery stall", reqs, ref)
+    if (plan.fired() != {"serving.stall": 1} or sup.recoveries != 2
+            or [c for c, _ in sup.events] != ["PT-SRV-001", "PT-SRV-002"]
+            or len(overruns) != 1
+            or sup.engine.stats["graph_captures"] != 1):
+        raise AssertionError(f"recovery stall: fired {plan.fired()}, events "
+                             f"{sup.events}, overruns {overruns}")
+    sup.set_step_budget(None)
+
+    # (c) restart: the supervisor dies mid-wave; a new one over the journal
+    _cold(sup.engine)
+    reqs = wave()
+    for r in reqs:
+        sup.submit(r)
+    for _ in range(k):
+        sup.step()
+    delivered = {r.rid: list(r.output) for r in reqs}
+    old = [weakref.ref(sup.engine)] + probe.engines
+    sup.abandon()
+    _RecoveryProbe.detach(sup)
+    del sup, probe
+    leaked = sum(w() is not None for w in old)
+    sup2 = ServingSupervisor(build, path)
+    sup2.run_until_done()
+    sync()
+    mem_third = torch.cuda.memory_allocated()
+    restarted = {rid: r for rid, r in sup2.requests.items()}
+    outs = [restarted.get(r.rid, r) for r in reqs]
+    recs = RequestJournal.load(path)
+    dup = [r.rid for r, want in zip(reqs, ref)
+           if [t for x in recs if x["k"] == "prog" and x["rid"] == r.rid
+               for t in x["toks"]] != want]
+    print(f"recovery restart [{card}]: abandoned at step {k} with "
+          f"{sum(len(v) for v in delivered.values())} tokens delivered, "
+          f"{len(restarted)} requests replayed by the new supervisor in "
+          f"{sup2.stats['recovery_s']:.4f} s; engines of the old supervisor "
+          f"still alive: {leaked}; memory_allocated after the first "
+          f"recovery {mem_first / 2**20:.1f} MiB, after the third "
+          f"{mem_third / 2**20:.1f} MiB", flush=True)
+    _check_streams("recovery restart", outs, ref)
+    if (dup or leaked or [c for c, _ in sup2.events] != ["PT-SRV-001"]
+            or abs(mem_third - mem_first) > RECOVERY_MEM_SLACK
+            or any(restarted[rid].output[:len(delivered[rid])]
+                   != delivered[rid] for rid in restarted)):
+        raise AssertionError(
+            f"recovery restart: re-delivered or lost tokens {dup[:8]}, "
+            f"{leaked} old engines alive, memory {mem_first} -> "
+            f"{mem_third}, events {sup2.events}")
+    sup2.close()
+    single_tok_s = useful / clean_s
+    del sup2
+
+    # (b) the legacy engine: phase 6's wave, a kill mid-wave; K1 (prefill)
+    # and K4 (decode) carry the replay
+    warm_l, prompts_l, kws_l, _ = _legacy_wave(np, cfg.vocab_size)
+
+    def build_legacy():
+        return ContinuousBatchingEngine(model, device=DEVICE, **ENGINE)
+
+    def wave_l():
+        return [Request(p, **kw) for p, kw in zip(prompts_l, kws_l)]
+
+    sup = ServingSupervisor(build_legacy,
+                            os.path.join(_scratch_dir("legacy"), "j.jrnl"))
+    probe = _RecoveryProbe(ops, sup)
+    _run_sup(sup, [Request(p, max_new_tokens=4) for p in warm_l])
+    schedule = []
+    reqs = wave_l()
+    _run_sup(sup, reqs, schedule)
+    ref_l = [list(r.output) for r in reqs]
+    k_l = _mid_wave(schedule, ENGINE["max_batch"] // 2)
+    reqs = wave_l()
+    plan = FaultPlan(seed=7, specs=[FaultSpec("serving.step", "kill",
+                                              at=k_l)])
+    with plan:
+        _run_sup(sup, reqs)
+    print(f"recovery legacy [{card}]: kill at step {k_l} of "
+          f"{len(schedule)}; recovery_s={sup.stats['recovery_s']:.4f} "
+          f"(rebuild {probe.build_s[-1]:.4f} s) replayed_requests="
+          f"{sup.stats['replayed_requests']}; during the recovery K1 "
+          f"launches {probe.k1}, K4 launches {probe.k4}", flush=True)
+    _check_streams("recovery legacy", reqs, ref_l)
+    if (plan.fired() != {"serving.step": 1} or sup.recoveries != 1
+            or probe.k1 == 0 or probe.k4 == 0):
+        raise AssertionError(f"recovery legacy: fired {plan.fired()}, "
+                             f"events {sup.events}, K1 {probe.k1} K4 "
+                             f"{probe.k4}")
+    sup.close()
+    _RecoveryProbe.detach(sup)
+    c = _serving_counts(ops)
+    return c["k1"], c["k4"], model, ref, single_tok_s
+
+
+def _legacy_wave(np, vocab):
+    """Phase 6's wave, from seed 0: two warm-up prompts (the bucket and one
+    token less), then 16 requests, 4 of exactly the bucket length and 12
+    of 3/4 bucket to bucket - 1 (re-stepped), max_new_tokens cycling
+    through WAVE_NEW, request 5 with an eos. Returns (warm-up prompts,
+    prompts, Request kwargs, the generator for later draws)."""
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return rng.integers(0, vocab, (n,)).astype(np.int32)
+
+    bucket = ENGINE["prompt_buckets"][0]
+    warm = [prompt(n) for n in (bucket, bucket - 1)]
+    lens = [bucket] * 4 + [int(x) for x in
+                           rng.integers(bucket * 3 // 4, bucket, 12)]
+    news = [WAVE_NEW[i % 4] for i in range(16)]
+    prompts = [prompt(n) for n in lens]
+    kws = [dict(max_new_tokens=k,
+                eos_token_id=LEGACY_EOS if i == 5 else None)
+           for i, k in enumerate(news)]
+    return warm, prompts, kws, rng
+
+
+def phase_fleet(torch, np, ops, card, model, ref, single_tok_s):
+    """bench.py bench_fleet at the SERVE_CONFIG widths: a FleetRouter of
+    FLEET_REPLICAS replicas of phase 23's fused engine sharing ``model``,
+    with affinity, over phase 23's wave: clean, a replica kill, a drain,
+    and parallel_step with a rebuild inside a stepping thread and a
+    restart. ``ref`` is phase 23's clean streams, ``single_tok_s`` one
+    supervisor-wrapped engine's tokens/s on the wave. Returns (K1, K4
+    launches)."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            FleetConfig, FleetRouter,
+                                            PrefixCacheConfig, Request,
+                                            RequestJournal)
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+
+    def build():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+            **FUSED_ENGINE)
+
+    prompts, kws = _recovery_wave(np, cfg.vocab_size)
+
+    def wave():
+        return [Request(p, **kw) for p, kw in zip(prompts, kws)]
+
+    _zero_serving_counts(ops)
+    fleet = FleetRouter(build, _scratch_dir("fleet"),
+                        num_replicas=FLEET_REPLICAS,
+                        config=FleetConfig(affinity=True))
+    for rep in fleet.replicas:
+        _warm_up_engine(rep.sup.engine, Request, np, cfg.vocab_size)
+
+    def engines():
+        return [rep.sup.engine for rep in fleet.replicas
+                if rep.state == "alive"]
+
+    def run(reqs, on_step=None):
+        steps = 0
+        for r in reqs:
+            fleet.submit(r)
+        while fleet.has_work():
+            if on_step is not None:
+                on_step(steps)
+            fleet.step()
+            steps += 1
+        fleet.finished()
+        sync()
+        return steps
+
+    # the clean pass
+    reqs = wave()
+    t0 = time.perf_counter()
+    n_steps = run(reqs)
+    fleet_s = time.perf_counter() - t0
+    _check_streams("fleet clean", reqs, ref)
+    useful = sum(len(o) for o in ref)
+    spread = dict(collections.Counter(fleet._assigned[r.rid] for r in reqs))
+    k = n_steps // 2
+
+    # a replica killed mid-wave: its journal fails over to the survivors
+    _cold(*engines())
+    reqs = wave()
+    plan = FaultPlan(seed=7, specs=[FaultSpec(
+        "fleet.replica_kill", "kill", at=k, match="replica:1:")])
+    with plan:
+        run(reqs)
+    dead = fleet.replicas[1]
+    moved = [x["rid"] for x in RequestJournal.load(dead.journal_path)
+             if x["k"] == "migr"]
+    on_dead = [r for r in reqs if r.rid in moved]
+    print(f"fleet kill [{card}]: replica 1 killed at its fleet step {k} of "
+          f"{n_steps}; failover_s={fleet.stats['failover_s']:.4f} "
+          f"failover_requests={fleet.stats['failover_requests']} "
+          f"({len(on_dead)} moved to survivors "
+          f"{sorted(set(fleet._assigned[r.rid] for r in on_dead))})",
+          flush=True)
+    _check_streams("fleet kill", reqs, ref)
+    if (plan.fired() != {"fleet.replica_kill": 1}
+            or fleet.stats["replica_deaths"] != 1 or not on_dead
+            or any(fleet._assigned[r.rid] == 1 for r in on_dead)):
+        raise AssertionError(f"fleet kill: fired {plan.fired()}, "
+                             f"{fleet.stats}")
+    failover_s = fleet.stats["failover_s"]
+    fleet.restart(1)
+
+    # a drain mid-wave: queued requests migrate, in-flight ones finish in
+    # place, the replica rebuilds once idle
+    _cold(*engines())
+    reqs = wave()
+    half = len(reqs) // 2
+    for r in reqs[:half]:
+        fleet.submit(r)
+    for _ in range(k // 2):
+        fleet.step()
+    gen0 = fleet.replicas[0].gen
+    for r in reqs[half:]:
+        fleet.submit(r)
+    inflight = [r.rid for r in reqs if fleet._assigned.get(r.rid) == 0
+                and not r.done]
+    fleet.drain(0)
+    stayed = [rid for rid in inflight if fleet._assigned[rid] == 0]
+    run([])
+    print(f"fleet drain [{card}]: replica 0 drained with {len(inflight)} "
+          f"requests on it: {fleet.stats['migrated']} queued ones migrated, "
+          f"{len(stayed)} in flight finished in place; generation "
+          f"{gen0} -> {fleet.replicas[0].gen}", flush=True)
+    _check_streams("fleet drain", reqs, ref)
+    if (fleet.stats["migrated"] == 0 or not stayed
+            or fleet.replicas[0].gen != gen0 + 1
+            or fleet.replicas[0].state != "alive"):
+        raise AssertionError(f"fleet drain: {fleet.stats}")
+
+    # parallel_step: a serving.step kill rebuilds one replica (its graph
+    # captured) inside its stepping thread; replica 2 is killed and
+    # restarted mid-wave
+    fleet.config.parallel_step = True
+    _cold(*engines())
+    reqs = wave()
+    # every supervisor of the pass (a restart replaces replica 2's)
+    sups = {id(rep.sup): rep.sup for rep in fleet.replicas}
+    recoveries0 = sum(sup.recoveries for sup in sups.values())
+    deaths0 = fleet.stats["replica_deaths"]
+    plan = FaultPlan(seed=7, specs=[
+        FaultSpec("serving.step", "kill", at=k),
+        FaultSpec("fleet.replica_kill", "kill", at=k // 2,
+                  match="replica:2:")])
+
+    def restart_dead(step):
+        sups.update((id(rep.sup), rep.sup) for rep in fleet.replicas)
+        if fleet.replicas[2].state == "dead":
+            fleet.restart(2)
+
+    t0 = time.perf_counter()
+    with plan:
+        run(reqs, restart_dead)
+    par_s = time.perf_counter() - t0
+    sups.update((id(rep.sup), rep.sup) for rep in fleet.replicas)
+    rebuilt = sum(sup.recoveries for sup in sups.values()) - recoveries0
+    print(f"fleet parallel_step [{card}]: fired {plan.fired()}, "
+          f"{rebuilt} supervisor rebuild in a stepping thread, replica 2 "
+          f"restarted (generation {fleet.replicas[2].gen}); "
+          f"{useful / par_s:.1f} tokens/s with the faults", flush=True)
+    _check_streams("fleet parallel_step", reqs, ref)
+    if (plan.fired() != {"serving.step": 1, "fleet.replica_kill": 1}
+            or rebuilt != 1 or fleet.stats["replica_deaths"] != deaths0 + 1
+            or fleet.replicas[2].state != "alive"
+            or any(e.stats["graph_captures"] != 1 for e in engines())):
+        raise AssertionError(f"fleet parallel_step: fired {plan.fired()}, "
+                             f"rebuilds {rebuilt}, {fleet.stats}")
+    fleet.close()
+    fleet_tok_s = useful / fleet_s
+    print(f"fleet [{card}]: fleet_tokens_per_s={fleet_tok_s:.1f} "
+          f"({FLEET_REPLICAS} replicas on one card, clean pass, {useful} "
+          f"tokens in {fleet_s:.3f}s, requests per replica {spread}) "
+          f"single_supervisor_tokens_per_s={single_tok_s:.1f} vs_baseline="
+          f"{fleet_tok_s / single_tok_s:.3f} failover_s={failover_s:.4f}",
+          flush=True)
+    c = _serving_counts(ops)
+    if c["k4"] < L:
+        raise AssertionError(f"fleet: K4 launches {c['k4']}")
+    return c["k1"], c["k4"]
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -3397,8 +3946,13 @@ def main():
     bmha_k1, bmha_k4 = _phase("21 block_mha", phase_block_mha, torch, np,
                               ops)
     _phase("22 fused_moe", phase_fused_moe, torch, np)
-    k1_launches += bmha_k1
-    k4_launches += bmha_k4
+    k1_rec, k4_rec, serve_model, serve_ref, single_tok_s = _phase(
+        "23 recovery", phase_recovery, torch, np, ops, card)
+    k1_fleet, k4_fleet = _phase("24 fleet", phase_fleet, torch, np, ops,
+                                card, serve_model, serve_ref, single_tok_s)
+    del serve_model
+    k1_launches += bmha_k1 + k1_rec + k1_fleet
+    k4_launches += bmha_k4 + k4_rec + k4_fleet
     lse_launches += glse_lse
 
     kernels = [

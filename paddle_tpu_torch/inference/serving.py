@@ -69,6 +69,13 @@ Design (the JAX engine's programs, run on the device):
     whole in its first tick; it exits after ``exit_after`` pressure-free
     steps with ``exit_free_frac`` of the pool free (``_brownout_tick``).
     Host bookkeeping only: a fused engine's graph is never recaptured.
+  - FAULT SITES (``distributed.resilience.faults``): ``serving.stall``,
+    ``serving.step`` and ``device.loss`` at the top of every ``step()``
+    (detail ``step:<n>``), ``serving.block_pool`` before each prefix-cache
+    admission's allocation (detail ``rid:<id>``), in the JAX engine's
+    order, so one plan fires at the same events in both packages. The
+    crash-recovery supervisor and the fleet router sit above
+    (``inference/recovery.py``, ``inference/fleet.py``).
   - MoE (``num_experts > 1``): every hook runs the model's MoE layer at
     the step's rows (decode: one token a slot; prefill: the chunk or the
     pack), under any of its dispatches. ``pgmm`` pads the (token, choice)
@@ -104,6 +111,8 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import threading
 import time as _time
 import warnings
 import weakref
@@ -113,6 +122,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed.resilience.faults import (device_loss, maybe_inject,
+                                             resource_hold)
 from ..models.generation_utils import fold_keys, sample_rows, \
     validate_sampling
 from ..ops.grouped_matmul import pgmm, pgmm_dw
@@ -120,9 +131,22 @@ from ..ops.paged_attention import (BlockAllocator, RadixPrefixCache,
                                    copy_pages, paged_decode_attention)
 
 __all__ = ["BlockAllocator", "BrownoutConfig", "ContinuousBatchingEngine",
-           "EngineSaturated", "KVCacheConfig", "PrefixCacheConfig",
-           "RadixPrefixCache", "Request", "RequestShed", "SpecConfig",
-           "ngram_draft", "spec_accept"]
+           "EngineSaturated", "KVCacheConfig", "MeshDegraded",
+           "PrefixCacheConfig", "RadixPrefixCache", "Request", "RequestShed",
+           "SpecConfig", "ngram_draft", "spec_accept"]
+
+
+class MeshDegraded(RuntimeError):
+    """PT-SRV-008: the engine's tp device group lost devices mid-serve.
+    Carries ``lost`` (devices gone) and ``survivors`` (devices still
+    usable). The port serves on one device (tp-sharded serving is a later
+    slice), so nothing raises it yet; the supervisor catches it as the JAX
+    package's does."""
+
+    def __init__(self, msg: str, lost: int = 0, survivors: int = 1):
+        super().__init__(msg)
+        self.lost = int(lost)
+        self.survivors = max(0, int(survivors))
 
 
 class EngineSaturated(RuntimeError):
@@ -305,6 +329,10 @@ class Request:
 
     ``priority`` orders admission: lower values admit first; FIFO within a
     class. Admitted slots are never preempted.
+
+    ``tenant`` is a workload tag that the journal carries across recovery
+    and failover (the JAX package's tracer splits SLOs by it; tracing is a
+    later slice of the port).
     """
 
     PRIORITY_HIGH = 0
@@ -318,7 +346,8 @@ class Request:
                  temperature: float = 0.0, top_p: float = 1.0,
                  top_k: int = 0, seed: Optional[int] = None,
                  deadline_s: Optional[float] = None,
-                 priority: int = PRIORITY_NORMAL):
+                 priority: int = PRIORITY_NORMAL,
+                 tenant: Optional[str] = None):
         validate_sampling(temperature, top_p, top_k)
         Request._counter[0] += 1
         self.rid = Request._counter[0]
@@ -333,6 +362,7 @@ class Request:
         self.seed = int(seed if seed is not None else self.rid)
         self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.priority = int(priority)
+        self.tenant = None if tenant is None else str(tenant)
         self.output: List[int] = []
         self.done = False
         self.failed = False
@@ -379,6 +409,35 @@ def _add_counts(delta, times: int = 1):
                       for c, d in zip(_kernel_counts(), delta)))
 
 
+# Engines of one process share its device. Their device work (construction
+# with the graph capture, steps, readbacks) runs one engine at a time, so
+# a capture never sees another thread's CUDA call (the default "global"
+# capture mode refuses those) and the launch counters stay exact when a
+# FleetRouter steps replicas in threads (parallel_step=True).
+_DEVICE_LOCK = threading.RLock()
+
+
+def _serialized(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with _DEVICE_LOCK:
+            return fn(*args, **kwargs)
+    return run
+
+
+# One warm-up stream per device for every capture: cuBLAS keeps a workspace
+# for each (handle, stream) it has run on for the life of the process, so a
+# fresh stream per engine held 32 MiB more device memory per rebuilt engine
+# (H100, chip_smoke.py phase 23).
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device):
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
 def _later_slice(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet: it arrives with the {slice_name} slice "
@@ -398,6 +457,7 @@ class ContinuousBatchingEngine:
     byte on the CPU and on the card in fp32; in bf16 on the card they may
     differ at near-ties of the last logit bits (module docstring)."""
 
+    @_serialized
     def __init__(self, model, max_batch: int = 8, max_len: int = 512,
                  page_size: int = 64, block_size: int = 8,
                  prompt_buckets: Optional[Sequence[int]] = None,
@@ -490,6 +550,15 @@ class ContinuousBatchingEngine:
         self._ema_tok_s: Optional[float] = None
         self._sched_tokens = 0
         self._maxp = -(-max_len // page_size)
+        # On the card every prefill, first-token and re-step call carries a
+        # fixed row count: cuBLAS picks its kernel (and with it the order of
+        # a row's sums) by the row count, so a prompt's k/v and first token
+        # would depend on the requests admitted beside it, and a crash
+        # replay, which re-admits them in other groups, would diverge
+        # (PERF.md §6). Decode steps already run every slot. The CPU
+        # keeps the JAX engine's power-of-two buckets (its sums do not
+        # depend on the row count).
+        self._fixed_rows = self.device.type == "cuda"
         # test-only knob: allocate past pool capacity by taking blocks out
         # of the radix cache while live tables still map them — the
         # corruption the refcounted path exists to prevent. Never enable.
@@ -593,6 +662,8 @@ class ContinuousBatchingEngine:
         # deadline-carrying requests in the system: the expiry scan is a
         # single int check when zero
         self._n_deadlined = 0
+        # engine steps so far: the detail of the step fault sites
+        self._step_idx = 0
         # host-side accounting (admission vs decode dispatch time) and work
         # counts. decode_steps == graph_replays + eager_decode_steps, and
         # spec_steps == spec_graph_replays + eager_spec_steps.
@@ -678,12 +749,25 @@ class ContinuousBatchingEngine:
         """Occupied slots (decoding and mid-prefill)."""
         return len(self._occupied)
 
+    @_serialized
     def step(self):
         """Advance active slots by one decode block, then admit new
         requests (decode-first, so admission's host work overlaps the
         in-flight block). When all slots are idle, admission runs first.
         With a prefix cache every mid-prefill slot also advances one chunk
-        and newly complete prompts take their first token."""
+        and newly complete prompts take their first token.
+
+        Fault sites, before any work of the step (one global read each
+        when no plan is installed): ``serving.stall`` sleeps the step past
+        its wall-clock budget (StepWatchdog / PT-SRV-002), ``serving.step``
+        kills the engine mid-wave (ServingSupervisor rebuild-from-journal /
+        PT-SRV-001), ``device.loss`` removes devices from a tp mesh; the
+        port serves unsharded, so a loss is ignored, as the JAX engine
+        ignores it without a mesh."""
+        self._step_idx += 1
+        maybe_inject("serving.stall", f"step:{self._step_idx}")
+        maybe_inject("serving.step", f"step:{self._step_idx}")
+        device_loss(f"step:{self._step_idx}")
         t0 = _time.perf_counter()
         sched0 = self._sched_tokens
         self._deferred_step = False
@@ -938,7 +1022,7 @@ class ContinuousBatchingEngine:
         if self._spec is not None:
             steps.append(self._spec_step)
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _capture_stream(self.device)
         side.wait_stream(cur)
         graphs = []
         with torch.no_grad():
@@ -1211,6 +1295,7 @@ class ContinuousBatchingEngine:
             steps += 1
         return self.finished()
 
+    @_serialized
     def finished(self) -> Dict[int, Request]:
         self._drain_pending()
         if self._fused:
@@ -1226,6 +1311,19 @@ class ContinuousBatchingEngine:
             self._n_deadlined = max(0, self._n_deadlined - 1)
         self._finished[req.rid] = req
 
+    def withdraw_queued(self, rid: int) -> bool:
+        """Remove a still-WAITING request from the queue (never an admitted
+        slot): the fleet's drain-migration primitive. Returns False when
+        the request is not in the queue."""
+        for i, r in enumerate(self._queue):
+            if r.rid == rid:
+                del self._queue[i]
+                if r.deadline_s is not None:
+                    self._n_deadlined = max(0, self._n_deadlined - 1)
+                return True
+        return False
+
+    @_serialized
     def _drain_pending(self):
         """Materialize deferred token blocks into request outputs."""
         for arr_dev, entries in self._pending:
@@ -1376,7 +1474,17 @@ class ContinuousBatchingEngine:
             # beyond true_len are not attended)
             true_len = self._to_device(true_len_np)
             last = ids.gather(1, (true_len.long() - 1)[:, None])[:, 0]
-            logits, sub = self.model.paged_token_step(last, sub, true_len - 1)
+            pos = true_len - 1
+            g = len(grp)
+            if self._fixed_rows and g < self.max_batch:
+                # max_batch rows: copies of row 0 write its own k/v bytes
+                # again at the same place
+                idx = self._to_device(np.concatenate([
+                    np.arange(g), np.zeros(self.max_batch - g, np.int64)]))
+                last, pos = last[idx], pos[idx]
+                sub = {"kv": sub["kv"], "tables": sub["tables"][idx]}
+            logits, _ = self.model.paged_token_step(last, sub, pos)
+            logits = logits[:g]
         if do_sample:
             nxt = self._sample(logits, true_len_np, self._slot_params(slots),
                                slots)
@@ -1401,6 +1509,10 @@ class ContinuousBatchingEngine:
         cow_wave = [] if self._fused else None
         while self._free_slots and self._queue:
             req = self._queue[0]
+            # fault site: seeded pool exhaustion before the allocation
+            held = resource_hold("serving.block_pool", f"rid:{req.rid}")
+            if held:
+                self._alloc.hold(held)
             if not self._try_admit_prefix(self._free_slots[0], req, cow_wave):
                 # the pool could not serve the head even after LRU
                 # eviction: the brownout pressure signal
@@ -1563,11 +1675,13 @@ class ContinuousBatchingEngine:
         """Legacy engines: one chunk of every mid-prefill slot, one row
         each."""
         C = self._chunk_tokens
-        g = len(group)
+        # on the card max_batch rows (``_fixed_rows``), the rest parked
+        g = self.max_batch if self._fixed_rows else len(group)
         ids = np.zeros((g, C), np.int32)
         starts = np.zeros(g, np.int32)
-        rows = np.stack([self._prefill_row(s, req) for s, req in group])
+        rows = np.full((g, self._maxp), self._park, np.int32)
         for r, (s, req) in enumerate(group):
+            rows[r] = self._prefill_row(s, req)
             nxt = self._prefill_next[s]
             chunk = req.prompt[nxt: nxt + C]
             ids[r, : len(chunk)] = chunk
@@ -1588,7 +1702,8 @@ class ContinuousBatchingEngine:
         breadth-first (one chunk per slot per pass), so every mid-prefill
         slot advances at least one chunk a step; ``pack_rows`` bounds the
         extra rows. The row count is bucketed to a power of two with
-        parked dummy rows."""
+        parked dummy rows; on the card the rows go out in calls of one fixed
+        count (``_pack_group``)."""
         C = self._chunk_tokens
         budget = max(len(group), self._pack_rows)
         offs = {s: self._prefill_next[s] for s, _ in group}
@@ -1603,28 +1718,39 @@ class ContinuousBatchingEngine:
                     rows.append((s, req, offs[s]))
                     offs[s] = min(offs[s] + C, len(req.prompt))
                     progress = True
-        g = 1
-        while g < len(rows):
-            g *= 2
-        ids = np.zeros((g, C), np.int32)
-        starts = np.zeros(g, np.int32)
-        trows = np.full((g, self._maxp), self._park, np.int32)
-        for r, (s, req, off) in enumerate(rows):
-            chunk = req.prompt[off: off + C]
-            ids[r, : len(chunk)] = chunk
-            starts[r] = off
-            trows[r] = self._prefill_row(s, req)
-        self._prefill_chunk(ids, starts, trows)
+        g = self._pack_group(len(rows))
+        for lo in range(0, len(rows), g):
+            ids = np.zeros((g, C), np.int32)
+            starts = np.zeros(g, np.int32)
+            trows = np.full((g, self._maxp), self._park, np.int32)
+            for r, (s, req, off) in enumerate(rows[lo:lo + g]):
+                chunk = req.prompt[off: off + C]
+                ids[r, : len(chunk)] = chunk
+                starts[r] = off
+                trows[r] = self._prefill_row(s, req)
+            self._prefill_chunk(ids, starts, trows)
         self.stats["packed_rows"] += len(rows)
         for s, _ in group:
             self._prefill_next[s] = offs[s]
+
+    def _pack_group(self, n: int) -> int:
+        """Rows of a packed prefill call for ``n`` (slot, chunk) rows: the
+        next power of two, as the JAX engine buckets them. On the card
+        (``_fixed_rows``) every call carries the power of two at or above
+        ``pack_rows``, and a pack of more rows runs as several calls."""
+        if self._fixed_rows:
+            n = self._pack_rows
+        return 1 << (n - 1).bit_length()
 
     def _first_token_group(self, n: int) -> int:
         """Rows of the first-token step for ``n`` ready slots. Fused engines
         step a power-of-two group, as the JAX engine does: the dummy rows
         re-step token 0 at position 0 of the parking page (an MoE layer's
         capacity dispatches route them with the real rows); their tokens
-        are dropped."""
+        are dropped. On the card every engine steps ``max_batch`` rows
+        (``_fixed_rows``)."""
+        if self._fixed_rows:
+            return self.max_batch
         return 1 << (n - 1).bit_length() if self._fused else n
 
     def _first_token(self, ready):

@@ -3,6 +3,7 @@
 
     python3 profile_serving.py            # from the root of a checkout
     python3 profile_serving.py --spec     # the spec / int8 section only
+    python3 profile_serving.py --recovery # crash replay: row counts, time
 
 Builds chip_smoke.py's serving configuration (llama-750M class, bf16,
 random weights) and measures the engine's programs at the waves' shapes —
@@ -29,6 +30,20 @@ cache): the replayed greedy step of a bf16 and of an int8 engine and the
 replayed spec step (k = 4) of a spec and a spec + int8 engine, 8 rows from
 context 96, each one token emitted a call, the same three ways. Exits
 non-zero without a CUDA device.
+
+``--recovery`` instead looks at crash replay (chip_smoke.py phase 23):
+  - row invariance of the model's products: for each weight of layer 0
+    and the lm head, in the model's bf16 and in fp32, how many rows of
+    ``x[:m] @ w`` differ in any bit from the same rows computed at the
+    largest m, for m = g x 128 tokens (packed prefill rows of 128) and
+    for m = 1..128 rows (first-token and re-step groups);
+  - phase 23's fused kill arm with the engines' fixed row counts off
+    (``_fixed_rows = False``: the JAX engine's power-of-two buckets) and
+    on: how many of the 256 streams differ from the clean run and how
+    many requests fail with PT-SRV-005;
+  - where the kill's recovery time goes: the rebuild (engine and graph
+    capture), the replay's engine steps, and the rest (re-admission,
+    journal, the final sync).
 """
 
 import sys
@@ -159,6 +174,110 @@ def profile_spec(torch, np, model):
             del eng
 
 
+def row_invariance(torch, model):
+    """Rows of ``x[:m] @ w`` that differ from the same rows at the largest
+    m, per weight, dtype and m (docstring)."""
+    named = dict(model.named_parameters())
+    ws = {n.split("layers.0.")[1]: p for n, p in named.items()
+          if n.startswith("model.layers.0.") and p.dim() == 2}
+    ws["lm_head"] = model._lm_head_w()
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, w in ws.items():
+            w = w.detach().to(dtype)
+            g = torch.Generator(device="cuda").manual_seed(0)
+            x = torch.randn(16384, w.shape[0], device="cuda",
+                            generator=g).to(dtype)
+            full, head = x @ w, x[:128] @ w
+            packs = {m: int((x[:m * 128] @ w != full[:m * 128]).any(-1)
+                            .sum()) for m in (1, 2, 4, 8, 16, 32, 64, 128)}
+            rows = {m: int((x[:m] @ w != head[:m]).any(-1).sum())
+                    for m in (1, 2, 3, 4, 8, 16, 32, 64, 128)}
+            print(f"rows differing, {str(dtype)[6:]} {name} "
+                  f"{tuple(w.shape)}: at g x 128 tokens (against 16384) "
+                  f"{packs}; at m rows (against 128) {rows}", flush=True)
+        torch.cuda.empty_cache()
+
+
+def profile_recovery(torch, np, model):
+    """Phase 23's fused kill arm with fixed row counts off and on, and the
+    recovery time split (module docstring)."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            PrefixCacheConfig, Request,
+                                            ServingSupervisor)
+
+    prompts, kws = chip_smoke._recovery_wave(np, model.config.vocab_size)
+    path = chip_smoke._scratch_dir("profile_recovery")
+    for fixed in (False, True):
+        spans = {"rebuild": 0.0, "steps": 0.0}
+
+        def build():
+            t0 = time.perf_counter()
+            eng = ContinuousBatchingEngine(
+                model, prefix_cache=PrefixCacheConfig(
+                    extra_blocks=chip_smoke.FUSED_EXTRA_BLOCKS),
+                **chip_smoke.FUSED_ENGINE)
+            eng._fixed_rows = fixed
+            step = eng.step
+
+            def timed():
+                t1 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                if sup_ref and sup_ref[0].recovering:
+                    spans["steps"] += time.perf_counter() - t1
+
+            eng.step = timed
+            torch.cuda.synchronize()
+            spans["rebuild"] += time.perf_counter() - t0
+            return eng
+
+        sup_ref = []
+        sup = ServingSupervisor(build, f"{path}/fixed{int(fixed)}.jrnl")
+        sup.recovering = False
+        sup_ref.append(sup)
+        recover = sup._recover
+
+        def recovering(*args, **kwargs):
+            sup.recovering = True
+            try:
+                recover(*args, **kwargs)
+            finally:
+                sup.recovering = False
+
+        sup._recover = recovering
+        chip_smoke._run_sup(sup, [Request(p, max_new_tokens=4)
+                                  for p in prompts[-2:]])
+        chip_smoke._cold(sup.engine)
+        schedule = []
+        reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+        chip_smoke._run_sup(sup, reqs, schedule)
+        ref = [list(r.output) for r in reqs]
+        k = chip_smoke._mid_wave(schedule,
+                                 chip_smoke.FUSED_ENGINE["max_batch"] // 2)
+        chip_smoke._cold(sup.engine)
+        reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+        spans.update(rebuild=0.0, steps=0.0)
+        with FaultPlan(seed=7, specs=[FaultSpec("serving.step", "kill",
+                                                at=k)]):
+            chip_smoke._run_sup(sup, reqs)
+        rec = sup.stats["recovery_s"]
+        differ = sum(list(r.output) != o for r, o in zip(reqs, ref))
+        diverged = sum(c == "PT-SRV-005" for c, _ in sup.events)
+        print(f"recovery, fixed row counts {'on' if fixed else 'off'}: "
+              f"kill at step {k}; {differ} of {len(reqs)} streams differ "
+              f"from the clean run, {diverged} failed with PT-SRV-005; "
+              f"recovery_s={rec:.4f} = rebuild {spans['rebuild']:.4f} + "
+              f"replay steps {spans['steps']:.4f} + the rest "
+              f"{rec - spans['rebuild'] - spans['steps']:.4f} "
+              f"({sup.stats['replayed_requests']} requests replayed)",
+              flush=True)
+        del sup._recover
+        sup.close()
+        del sup, sup_ref[:]
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -177,6 +296,11 @@ def main():
     cfg = LlamaConfig(**chip_smoke.SERVE_CONFIG)
     if "--spec" in sys.argv[1:]:
         profile_spec(torch, np, LlamaForCausalLM(cfg, seed=0))
+        return 0
+    if "--recovery" in sys.argv[1:]:
+        model = LlamaForCausalLM(cfg, seed=0)
+        row_invariance(torch, model)
+        profile_recovery(torch, np, model)
         return 0
     eng_cfg = chip_smoke.ENGINE
     slots, bucket = eng_cfg["max_batch"], eng_cfg["prompt_buckets"][0]

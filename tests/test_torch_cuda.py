@@ -1379,3 +1379,179 @@ def test_functional_surface_routes_to_the_kernels_on_card(cuda):
     alone = flash_attention_reference(qkv[None, 100:, 0], qkv[None, 100:, 1],
                                       qkv[None, 100:, 2], True)[0]
     assert (packed[100:].float() - alone.float()).abs().max().item() <= 2e-2
+
+
+# ---- serving recovery and the fleet router on the card -------------------
+
+def _recovery_wave(n=12, sampled=(0, 1, 5)):
+    """Prompts sharing a 16-token prefix, uneven lengths and budgets; the
+    ``sampled`` requests draw with their own seeds."""
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, 512, (16,)).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, 512, (m,)).astype(
+        np.int32)]) for m in rng.integers(1, 24, n)]
+    kws = [dict(max_new_tokens=6 + 3 * (i % 5)) for i in range(n)]
+    for i in sampled:
+        kws[i].update(temperature=0.8, seed=100 + i)
+    return prompts, kws
+
+
+def _sup_wave(sup, prompts, kws):
+    reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+    for r in reqs:
+        sup.submit(r)
+    sup.run_until_done()
+    assert all(r.done and not r.failed for r in reqs), \
+        [r.error for r in reqs if r.failed]
+    return [list(r.output) for r in reqs]
+
+
+def _kill(at):
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    return FaultPlan(seed=7, specs=[FaultSpec("serving.step", "kill",
+                                              at=at)])
+
+
+@pytest.mark.cuda
+def test_kill_replay_fp32_on_card_equals_cpu_port(cuda, tmp_path):
+    """fp32: a serving.step kill mid-wave on the card; the supervisor
+    rebuilds (a new engine, its graph captured once) and replays. Every
+    stream equals the uninterrupted card run byte for byte, and the greedy
+    ones equal the port's streams on the CPU (sampled draws come from
+    per-device generators, so those are held on the card only)."""
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+
+    cpu, card = _card_model(cuda)
+    prompts, kws = _recovery_wave()
+    sampled = [i for i, kw in enumerate(kws) if "temperature" in kw]
+    ref_cpu = _serve_card(_fused_engine(cpu, "cpu"), prompts,
+                          [kw["max_new_tokens"] for kw in kws])
+    clean = _sup_wave(ServingSupervisor(lambda: _fused_engine(card, cuda),
+                                        str(tmp_path / "a.jrnl")),
+                      prompts, kws)
+    sup = ServingSupervisor(lambda: _fused_engine(card, cuda),
+                            str(tmp_path / "b.jrnl"))
+    plan = _kill(4)
+    with plan:
+        got = _sup_wave(sup, prompts, kws)
+    assert plan.fired() == {"serving.step": 1} and sup.recoveries == 1
+    assert sup.stats["replayed_requests"] > 0
+    st = sup.engine.stats
+    assert st["graph_captures"] == 1 and st["graph_replays"] > 0
+    assert got == clean
+    assert [g for i, g in enumerate(got) if i not in sampled] == \
+        [r for i, r in enumerate(ref_cpu) if i not in sampled]
+
+
+@pytest.mark.cuda
+def test_bf16_replay_equals_clean_run_on_card(cuda, tmp_path):
+    """bf16: the replay re-admits every unfinished request at once into a
+    fresh engine with an empty prefix cache, so its prefill runs other
+    rows beside each prompt than the clean run did; the streams must
+    still be byte-identical (kill and stall)."""
+    import warnings
+
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+
+    _, card = _card_model(cuda, "bfloat16")
+    prompts, kws = _recovery_wave(n=20, sampled=(0, 5, 15))
+    sup = ServingSupervisor(lambda: _fused_engine(card, cuda),
+                            str(tmp_path / "j.jrnl"), max_recoveries=4)
+    clean = _sup_wave(sup, prompts, kws)
+    for at in (2, 5, 9):
+        sup.engine._radix.evict_lru(sup.engine._alloc.num_blocks)
+        with _kill(at):
+            assert _sup_wave(sup, prompts, kws) == clean
+    sup.set_step_budget(0.5)
+    sup.engine._radix.evict_lru(sup.engine._alloc.num_blocks)
+    with FaultPlan(seed=7, specs=[FaultSpec("serving.stall", "stall", at=3,
+                                            arg=1.5)]), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        assert _sup_wave(sup, prompts, kws) == clean
+    assert [c for c, _ in sup.events] == ["PT-SRV-001"] * 3 + ["PT-SRV-002"]
+    sup.close()
+
+
+@pytest.mark.cuda
+def test_rebuilds_free_the_old_engine_on_card(cuda, tmp_path):
+    """Three recoveries: each crashed engine (its pools and its captured
+    graph's memory pool) is freed once its recovery returns, so memory
+    allocated after the third recovery equals that after the first."""
+    import weakref
+
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+
+    _, card = _card_model(cuda, "bfloat16")
+    prompts, kws = _recovery_wave()
+    built = []
+
+    def build():
+        eng = _fused_engine(card, cuda)
+        built.append(weakref.ref(eng))
+        return eng
+
+    sup = ServingSupervisor(build, str(tmp_path / "j.jrnl"),
+                            max_recoveries=3)
+    clean = _sup_wave(sup, prompts, kws)
+    mem = []
+    for at in (3, 4, 5):
+        sup.engine._radix.evict_lru(sup.engine._alloc.num_blocks)
+        with _kill(at):
+            assert _sup_wave(sup, prompts, kws) == clean
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    assert sup.recoveries == 3 and len(built) == 4
+    assert [w() is None for w in built] == [True, True, True, False]
+    assert abs(mem[2] - mem[0]) <= 1 << 20, mem
+    sup.close()
+
+
+@pytest.mark.cuda
+def test_fleet_parallel_step_with_rebuild_and_restart_on_card(cuda,
+                                                             tmp_path):
+    """parallel_step=True on the card: a serving.step kill rebuilds one
+    replica (capturing its graph) inside its stepping thread while the
+    other threads step, and replica 2 is killed and restarted mid-wave.
+    Every stream equals one supervisor's uninterrupted run. (The restart
+    replaces replica 2's supervisor: count recoveries over every
+    supervisor of the run.)"""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference.fleet import FleetConfig, FleetRouter
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+
+    _, card = _card_model(cuda, "bfloat16")
+    prompts, kws = _recovery_wave(n=24, sampled=(1, 8))
+
+    def build():
+        return _fused_engine(card, cuda)
+
+    clean = _sup_wave(ServingSupervisor(build, str(tmp_path / "ref.jrnl")),
+                      prompts, kws)
+    fleet = FleetRouter(build, str(tmp_path / "fleet"), num_replicas=3,
+                        config=FleetConfig(parallel_step=True))
+    reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+    plan = FaultPlan(seed=7, specs=[
+        FaultSpec("serving.step", "kill", at=6),
+        FaultSpec("fleet.replica_kill", "kill", at=2, match="replica:2:")])
+    sups = {}
+    with plan:
+        for r in reqs:
+            fleet.submit(r)
+        while fleet.has_work():
+            sups.update((id(rep.sup), rep.sup) for rep in fleet.replicas)
+            if fleet.replicas[2].state == "dead":
+                fleet.restart(2)
+            fleet.step()
+    fleet.finished()
+    sups.update((id(rep.sup), rep.sup) for rep in fleet.replicas)
+    assert plan.fired() == {"serving.step": 1, "fleet.replica_kill": 1}
+    assert sum(sup.recoveries for sup in sups.values()) == 1
+    assert fleet.stats["replica_deaths"] == 1
+    assert fleet.replicas[2].state == "alive" and fleet.replicas[2].gen == 1
+    assert all(rep.sup.engine.stats["graph_captures"] == 1
+               for rep in fleet.replicas)
+    assert all(r.done and not r.failed for r in reqs)
+    assert [list(r.output) for r in reqs] == clean
+    fleet.close()

@@ -1,4 +1,5 @@
-"""The port stands alone: nothing under paddle_tpu_torch/, and none of
+"""The port stands alone: nothing under paddle_tpu_torch/ (the serving
+recovery and fleet modules and the fault plan included), and none of
 chip_smoke.py, profile_serving.py and profile_training.py, imports JAX or
 the JAX package;
 importing the whole port loads no JAX; and entry points never fall back to
@@ -54,7 +55,12 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     assert {"paddle_tpu_torch/flags.py",
             "paddle_tpu_torch/nn/functional/flash_attention.py",
             "paddle_tpu_torch/nn/functional/extras.py",
-            "paddle_tpu_torch/incubate/nn/functional/__init__.py"} <= scanned
+            "paddle_tpu_torch/incubate/nn/functional/__init__.py",
+            "paddle_tpu_torch/distributed/resilience/__init__.py",
+            "paddle_tpu_torch/distributed/resilience/faults.py",
+            "paddle_tpu_torch/distributed/resilience/watchdog.py",
+            "paddle_tpu_torch/inference/recovery.py",
+            "paddle_tpu_torch/inference/fleet.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
