@@ -253,9 +253,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      Every stream equals phase 23's reference byte for byte, no request
      fails. Prints the router's failover time, fleet tokens/s, one
      supervisor-wrapped engine's tokens/s (phase 23) and their ratio.
+ 25. disagg (bench.py bench_disagg's tiers, :1259, closed-loop): (a) a
+     TieredRouter of one prefill and one decode replica, both phase 23's
+     fused engine on its model, warmed as phase 24's: phase 23's wave,
+     every stream byte-equal to its reference; migrations + requests
+     finished in place = 256, none corrupt; each engine captured its graph
+     once and the decode engine replays it over spliced chains (K4);
+     memory_allocated after the phase, router closed, within 64 MiB of
+     its value before. Prints tiered against phase 23's single-supervisor
+     tokens/s, migration_s mean and p99, the chain bytes and pages per
+     migration (against 12 layers x 2 x 4 pages x 64 KiB = 6.0 MiB at a
+     64-token prompt's first token), and a migration's time split into
+     export (gather, then crc + digest), import verify, scatter and
+     admit_migrated, timed around the codec's calls (host time). (b) int8
+     pools with speculative decode (phase 7c's engine geometry and 16
+     motif prompts, max_new_tokens (i % 4 + 1) * 15) on one prefill and
+     two decode replicas: every stream byte-equal to one such engine, the
+     chains' headers carry kv_scales; prints acceptance and spec steps
+     beside the single engine's. (c) phase 23's first 64 requests under
+     a serving.kv_transfer bitflip (PT-SRV-007, the chain re-prefilled on
+     the decode tier) and a fleet.replica_kill of the decode replica after
+     its splices (PT-FLT-001 failover to the prefill tier), each on a
+     router of its own: streams byte-equal, every rid finished once across
+     the journals.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools (phases 6, 7, 7c, 15-17, 23 and 24) and phase 21's calls;
-"paged_decode_int8" counts phase 7c's launches on int8 pools; K1's adds
+fp pools (phases 6, 7, 7c, 15-17 and 23-25) and phase 21's calls;
+"paged_decode_int8" counts phases 7c's and 25's launches on int8 pools;
+K1's adds
 the legacy engine of phase 15, the paged generate of phase 16, phase 21's
 prefill rows and phase 23's legacy arm to phase 6's wave; K5's adds phase 15's served waves to phase 12's
 steps; K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14
@@ -268,6 +292,7 @@ of the repository, it exits non-zero before printing any result.
 """
 
 import collections
+import gc
 import importlib
 import itertools
 import json
@@ -412,6 +437,20 @@ RECOVERY_SAMPLED, RECOVERY_TEMP = FUSED_REQUESTS // 4, 0.8
 RECOVERY_BUDGET_MIN = 0.25
 RECOVERY_MEM_SLACK = 64 << 20
 FLEET_REPLICAS = 3
+# phase 25: bench.py bench_disagg's 1 prefill + 1 decode tier over phase
+# 23's engine and wave (closed-loop: the open-loop burst replay needs the
+# observability slice); arm (b) runs phase 7c's int8 + spec geometry on two
+# decode replicas with max_new_tokens (i % 4 + 1) * DISAGG_SPEC_MAX_NEW,
+# which keeps every row's K+1 window inside max_len, so every decode
+# dispatch is a spec dispatch whatever rows share it; arm (c)
+# faults the first DISAGG_FAULT_REQUESTS requests: the bitflip at the
+# DISAGG_BITFLIP_AT-th artifact in transit, the decode replica killed at
+# its DISAGG_KILL_AT-th router step, after at least DISAGG_KILL_AFTER
+# migrations
+DISAGG_SPEC_DECODE, DISAGG_SPEC_MAX_NEW = 2, 15
+DISAGG_FAULT_REQUESTS = 64
+DISAGG_BITFLIP_AT = 5
+DISAGG_KILL_AT, DISAGG_KILL_AFTER = 2, 8
 # the JAX package's speculative / int8-KV arm (bench.py bench_speculative,
 # :1526-1532 and :1548-1552) at its TPU widths: the SERVE_CONFIG model, 8
 # slots, max_len 128 (prompt 64 + max_new 64), page 16, block 4, fused,
@@ -3867,6 +3906,301 @@ def phase_fleet(torch, np, ops, card, model, ref, single_tok_s):
     return c["k1"], c["k4"]
 
 
+class _MigrationSplit:
+    """Host seconds of each codec call a migration makes, timed around the
+    calls (the package is not touched): ``gather`` (the chain's device
+    gather and host copy, after the work queued on the stream), ``export``
+    (the rest of ``export_chain``: crc32 per page, digest, join),
+    ``verify`` (import crc32 + digest), ``scatter`` (the page upload and
+    in-place writes, queued) and ``admit`` (``admit_migrated``). Also
+    notes whether each exported header carries int8 scales."""
+
+    def __init__(self, codec, disagg, engine_cls):
+        self.t = collections.defaultdict(list)
+        self.scales = []
+        self._undo = []
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.t[name].append(time.perf_counter() - t0)
+            return run
+
+        export = codec.export_chain
+
+        def export_timed(engine, rid):
+            g0 = sum(self.t["gather"])
+            t0 = time.perf_counter()
+            art = export(engine, rid)
+            self.t["export"].append(time.perf_counter() - t0
+                                    - (sum(self.t["gather"]) - g0))
+            self.scales.append("kv_scales" in codec.peek(art))
+            return art
+
+        for owner, name, key in (
+                (disagg, "gather_chain_pages", "gather"),
+                (disagg, "scatter_chain_pages", "scatter"),
+                (codec, "_verify", "verify"),
+                (engine_cls, "admit_migrated", "admit")):
+            self._patch(owner, name, timed(key, getattr(owner, name)))
+        self._patch(codec, "export_chain", export_timed)
+
+    def _patch(self, owner, name, fn):
+        self._undo.append((owner, name, getattr(owner, name),
+                           name in vars(owner)))
+        setattr(owner, name, fn)
+
+    def restore(self):
+        for owner, name, old, own in reversed(self._undo):
+            if own:
+                setattr(owner, name, old)
+            else:
+                delattr(owner, name)
+
+    def line(self):
+        return " ".join(f"{k}={1e3 * sum(v) / max(1, len(v)):.3f}"
+                        for k, v in self.t.items())
+
+
+def _terminal_counts(RequestJournal, fleet_dir):
+    """rid -> number of fin records that did not fail, over every journal
+    of a fleet directory."""
+    fins = collections.Counter()
+    for name in os.listdir(fleet_dir):
+        for rec in RequestJournal.load(os.path.join(fleet_dir, name)):
+            if rec["k"] == "fin" and not rec["failed"]:
+                fins[rec["rid"]] += 1
+    return fins
+
+
+def phase_disagg(torch, np, ops, card, model, ref, single_tok_s):
+    """bench.py bench_disagg's tiers at the SERVE_CONFIG widths (the
+    module docstring's phase 25): (a) the clean tiered wave, (b) int8
+    chains with spec decode on the decode tier, (c) a corrupt transfer
+    and a decode-replica kill. ``ref`` and ``single_tok_s`` are phase 23's
+    clean streams and tokens/s. Returns K4's launches (fp pools, int8
+    pools)."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            KVChainCodec, PrefixCacheConfig,
+                                            Request, RequestJournal,
+                                            TieredRouter, disagg)
+    from paddle_tpu_torch.inference.serving import SpecConfig
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    vocab = cfg.vocab_size
+
+    def build():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+            **FUSED_ENGINE)
+
+    def build_spec():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=SPEC_EXTRA_BLOCKS),
+            speculative=SpecConfig(k=SPEC_K), kv_cache="int8",
+            **SPEC_ENGINE)
+
+    def router(name, build_fn, num_decode=1, codec=None):
+        d = _scratch_dir(f"disagg_{name}")
+        tiered = TieredRouter(build_fn, build_fn, d, num_prefill=1,
+                              num_decode=num_decode, codec=codec)
+        for rep in tiered.replicas:
+            _warm_up_engine(rep.sup.engine, Request, np, vocab)
+        return tiered, d
+
+    def run(tiered, reqs):
+        for r in reqs:
+            tiered.submit(r)
+        while tiered.has_work():
+            tiered.step()
+        tiered.finished()
+        sync()
+
+    prompts, kws = _recovery_wave(np, vocab)
+    useful = sum(len(o) for o in ref)
+    page_bytes = (cfg.num_key_value_heads * FUSED_ENGINE["page_size"]
+                  * cfg.head_dim * next(model.parameters()).element_size())
+    fails = []
+    gc.collect()
+    sync()
+    mem0 = torch.cuda.memory_allocated()
+    _zero_serving_counts(ops)
+
+    # (a) the clean tiered wave
+    codec = KVChainCodec()
+    tiered, d = router("clean", build, codec=codec)
+    pre, dec = (rep.sup.engine for rep in tiered.replicas)
+    _reset_stats(pre)
+    _reset_stats(dec)
+    split = _MigrationSplit(codec, disagg, ContinuousBatchingEngine)
+    k4_0 = ops.paged_decode_attention.launches
+    reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+    try:
+        t0 = time.perf_counter()
+        run(tiered, reqs)
+        tier_s = time.perf_counter() - t0
+    finally:
+        split.restore()
+    k4_wave = ops.paged_decode_attention.launches - k4_0
+    st = dict(tiered.stats)
+    samples = sorted(tiered.migration_samples)
+    recs = RequestJournal.load(tiered.replicas[0].journal_path)
+    in_place = sum(r["k"] == "fin" for r in recs)
+    migr_kv = sum(r["k"] == "migr-kv" for r in recs)
+    n = max(1, st["migrations"])
+    payload = st["migration_pages"] * L * 2 * page_bytes
+    first_chain = L * 2 * (FUSED_PROMPT // FUSED_ENGINE["page_size"]) \
+        * page_bytes
+    replays = (pre.stats["graph_replays"], dec.stats["graph_replays"])
+    tier_tok_s = useful / tier_s
+    p99 = samples[min(len(samples) - 1, int(0.99 * len(samples)))] \
+        if samples else 0.0
+    print(f"disagg clean [{card}]: tiered_tokens_per_s={tier_tok_s:.1f} "
+          f"({useful} tokens in {tier_s:.3f}s, 1 prefill + 1 decode "
+          f"replica) single_supervisor_tokens_per_s={single_tok_s:.1f} "
+          f"vs_baseline={tier_tok_s / single_tok_s:.3f}; migrations="
+          f"{st['migrations']} finished_in_place={in_place} "
+          f"deferred={st['migration_deferred']} refused="
+          f"{st['migration_refused']} corrupt={st['migration_corrupt']}; "
+          f"migration_s mean={1e3 * st['migration_s'] / n:.3f} ms "
+          f"p99={1e3 * p99:.3f} ms; chain bytes per migration "
+          f"{st['migration_bytes'] / n / 2**20:.3f} MiB, pages "
+          f"{st['migration_pages'] / n:.3f} (a 64-token prompt's "
+          f"first-token chain: {first_chain / 2**20:.3f} MiB); host ms per "
+          f"migration: {split.line()}; graph_replays prefill/decode "
+          f"{replays}, K4 launches {k4_wave}", flush=True)
+    _check_streams("disagg clean", reqs, ref)
+    header = st["migration_bytes"] - payload
+    if (st["migrations"] + in_place != len(reqs)
+            or migr_kv != st["migrations"] or st["migration_corrupt"]
+            or st["migration_reprefill"] or st["migrations"] == 0
+            or not 0 < header < 16384 * n
+            or pre.stats["graph_captures"] != 1
+            or dec.stats["graph_captures"] != 1 or replays[1] == 0
+            or k4_wave < sum(replays) * L
+            or any(split.scales)):
+        fails.append(f"clean: {st}, in place {in_place}, migr-kv "
+                     f"{migr_kv}, header bytes {header}, replays {replays}, "
+                     f"K4 {k4_wave}")
+    tiered.close()
+    del tiered, pre, dec, reqs
+    gc.collect()
+    sync()
+    mem1 = torch.cuda.memory_allocated()
+    print(f"disagg memory [{card}]: memory_allocated {mem0 / 2**20:.1f} MiB "
+          f"before the phase, {mem1 / 2**20:.1f} MiB after the clean wave "
+          f"with the router closed", flush=True)
+    if mem1 > mem0 + RECOVERY_MEM_SLACK:
+        fails.append(f"memory {mem0} -> {mem1}")
+
+    # (b) int8 chains, spec decode on the decode tier
+    rng = np.random.default_rng(0)
+    prompts_b = [np.tile(rng.integers(0, vocab, (SPEC_MOTIF,)).astype(
+        np.int32), SPEC_REPS) for _ in range(2 * SPEC_ENGINE["max_batch"])]
+    news_b = [(i % 4 + 1) * DISAGG_SPEC_MAX_NEW
+              for i in range(len(prompts_b))]
+    single = build_spec()
+    _warm_up_engine(single, Request, np, vocab)
+    _reset_stats(single)
+    k8_0 = ops.paged_decode_attention.int8_launches
+    ref_b = [list(r.output) for r in
+             _serve_wave(single, Request, prompts_b, news_b)[0]]
+    codec = KVChainCodec()
+    tiered, d = router("spec_int8", build_spec, DISAGG_SPEC_DECODE, codec)
+    for rep in tiered.replicas:
+        _reset_stats(rep.sup.engine)
+    split = _MigrationSplit(codec, disagg, ContinuousBatchingEngine)
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts_b, news_b)]
+    try:
+        run(tiered, reqs)
+    finally:
+        split.restore()
+    k8 = ops.paged_decode_attention.int8_launches - k8_0
+    keys = ("spec_steps", "spec_proposed", "spec_accepted", "decode_steps")
+    tier_spec = {k: sum(rep.sup.engine.stats[k] for rep in tiered.replicas)
+                 for k in keys}
+    st = tiered.stats
+    one = {k: single.stats[k] for k in keys}
+    rates = [d["spec_accepted"] / max(1, d["spec_proposed"])
+             for d in (tier_spec, one)]
+    print(f"disagg spec int8 [{card}]: {len(reqs)} requests, "
+          f"{st['migrations']} migrations (1 prefill + {DISAGG_SPEC_DECODE} "
+          f"decode replicas), every header with kv_scales: "
+          f"{bool(split.scales) and all(split.scales)}; tiered {tier_spec} "
+          f"against one engine {one}; acceptance tiered {rates[0]:.4f} "
+          f"single {rates[1]:.4f}; K4 int8 launches {k8}", flush=True)
+    _check_streams("disagg spec int8", reqs, ref_b)
+    if (st["migrations"] == 0 or not split.scales or not all(split.scales)
+            or st["migration_corrupt"] or tier_spec["spec_steps"] == 0
+            or k8 == 0):
+        fails.append(f"spec int8: {st}, scales {split.scales}")
+    tiered.close()
+    del tiered, single, reqs
+
+    # (c) faults on the wave's first requests
+    nf = DISAGG_FAULT_REQUESTS
+    ref_c = ref[:nf]
+    tiered, d = router("bitflip", build)
+    plan = FaultPlan(seed=7, specs=[FaultSpec(
+        "serving.kv_transfer", "bitflip", at=DISAGG_BITFLIP_AT)])
+    reqs = [Request(p, **kw) for p, kw in zip(prompts[:nf], kws[:nf])]
+    with plan:
+        run(tiered, reqs)
+    st = tiered.stats
+    codes = [c for c, _ in tiered.events]
+    print(f"disagg bitflip [{card}]: fired {plan.fired()}, events "
+          f"PT-SRV-007 x{codes.count('PT-SRV-007')}, migrations="
+          f"{st['migrations']} corrupt={st['migration_corrupt']} "
+          f"reprefill={st['migration_reprefill']}", flush=True)
+    _check_streams("disagg bitflip", reqs, ref_c)
+    fins = _terminal_counts(RequestJournal, d)
+    if (plan.fired() != {"serving.kv_transfer": 1}
+            or "PT-SRV-007" not in codes or st["migration_reprefill"] < 1
+            or fins != {r.rid: 1 for r in reqs}):
+        fails.append(f"bitflip: fired {plan.fired()}, {st}, events "
+                     f"{tiered.events[-3:]}")
+    tiered.close()
+    del tiered
+
+    tiered, d = router("kill", build)
+    plan = FaultPlan(seed=7, specs=[FaultSpec(
+        "fleet.replica_kill", "kill", at=DISAGG_KILL_AT,
+        match="replica:1:")])
+    reqs = [Request(p, **kw) for p, kw in zip(prompts[:nf], kws[:nf])]
+    with plan:
+        run(tiered, reqs)
+    st = tiered.stats
+    spliced = sum(r["k"] == "admit" for r in
+                  RequestJournal.load(tiered.replicas[1].journal_path))
+    fins = _terminal_counts(RequestJournal, d)
+    print(f"disagg kill [{card}]: fired {plan.fired()}, decode replica "
+          f"killed after {spliced} splices; replica_deaths="
+          f"{st['replica_deaths']} failover_requests="
+          f"{st['failover_requests']} failover_s={st['failover_s']:.4f}; "
+          f"rids finished once across the journals: "
+          f"{sum(v == 1 for v in fins.values())} of {len(reqs)}", flush=True)
+    _check_streams("disagg kill", reqs, ref_c)
+    if (plan.fired() != {"fleet.replica_kill": 1}
+            or st["replica_deaths"] != 1 or spliced < DISAGG_KILL_AFTER
+            or "PT-FLT-001" not in [c for c, _ in tiered.events]
+            or fins != {r.rid: 1 for r in reqs}):
+        fails.append(f"kill: fired {plan.fired()}, {st}, spliced {spliced}")
+    tiered.close()
+    del tiered
+    if fails:
+        raise AssertionError("disagg: " + "; ".join(fails))
+    c = _serving_counts(ops)
+    k8 = ops.paged_decode_attention.int8_launches
+    return c["k4"] - k8, k8
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -3950,9 +4284,13 @@ def main():
         "23 recovery", phase_recovery, torch, np, ops, card)
     k1_fleet, k4_fleet = _phase("24 fleet", phase_fleet, torch, np, ops,
                                 card, serve_model, serve_ref, single_tok_s)
+    k4_disagg, k4_int8_disagg = _phase("25 disagg", phase_disagg, torch, np,
+                                       ops, card, serve_model, serve_ref,
+                                       single_tok_s)
     del serve_model
     k1_launches += bmha_k1 + k1_rec + k1_fleet
-    k4_launches += bmha_k4 + k4_rec + k4_fleet
+    k4_launches += bmha_k4 + k4_rec + k4_fleet + k4_disagg
+    k4_int8_launches += k4_int8_disagg
     lse_launches += glse_lse
 
     kernels = [

@@ -1,7 +1,7 @@
 """``paddle_tpu.distributed.resilience`` for the port: the fault plan and
 the step watchdog that serving recovery consults (the serving slice of
 the JAX package's resilience layer; retry, the trainer, the numeric
-watchdog and the data/wire/numeric fault hooks are later slices)."""
+watchdog and the wire/numeric fault hooks are later slices)."""
 
 from .faults import (  # noqa: F401
     ComposedFaultPlan,
@@ -9,6 +9,7 @@ from .faults import (  # noqa: F401
     FaultPlan,
     FaultSpec,
     active_plan,
+    corrupt,
     device_loss,
     maybe_inject,
     resource_hold,
@@ -17,6 +18,6 @@ from .watchdog import StepWatchdog  # noqa: F401
 
 __all__ = [
     "ComposedFaultPlan", "FaultInjected", "FaultPlan", "FaultSpec",
-    "active_plan", "device_loss", "maybe_inject", "resource_hold",
+    "active_plan", "corrupt", "device_loss", "maybe_inject", "resource_hold",
     "StepWatchdog",
 ]

@@ -32,13 +32,18 @@ Sites the port consults:
                         step (detail = ``replica:<i>:step:<n>``)
 ``fleet.drain``       fleet router, top of every fleet step per replica
                       (same detail; ``kill`` = operator drain signal)
+``serving.kv_transfer``  tiered router, each KV-chain artifact in transit
+                         (detail = ``rid:<id>``; :func:`corrupt`'s data
+                         actions damage the bytes)
 ====================  =====================================================
 
 Plans, counters and draws work exactly as the JAX package's, so the same
 plan over the same event stream fires at the same events (``log``,
 ``fired()``) in both packages. The port keeps its own installed plan: a
-JAX plan and a port plan are installed independently. The data, wire and
-numeric hooks (``corrupt``, ``wire_faults``, ``numeric_inject_code``,
+JAX plan and a port plan are installed independently. The data hook
+:func:`corrupt` draws from ``plan.rng_for(spec)`` in the JAX package's
+order, so one plan damages the same bytes in both packages. The wire and
+numeric hooks (``wire_faults``, ``numeric_inject_code``,
 ``poison_arrays``) arrive with the slices that consult them.
 """
 
@@ -51,7 +56,8 @@ import time
 from typing import List, Optional, Sequence
 
 __all__ = ["FaultSpec", "FaultPlan", "ComposedFaultPlan", "FaultInjected",
-           "maybe_inject", "active_plan", "resource_hold", "device_loss"]
+           "maybe_inject", "active_plan", "resource_hold", "device_loss",
+           "corrupt"]
 
 
 class FaultInjected(ConnectionError):
@@ -190,6 +196,43 @@ def maybe_inject(site: str, detail: str = "") -> None:
         elif s.action == "error":
             raise RuntimeError(f"fault injected: error at {site} ({detail})")
         # data actions at a control-only site are ignored
+
+
+def corrupt(site: str, detail: str, data: bytes) -> bytes:
+    """Data hook (``serving.kv_transfer``): ``data`` with the due data
+    faults applied — ``truncate`` drops ``arg`` trailing bytes (half when
+    0), ``bitflip`` flips ``arg`` (at least 1) bits in the middle half,
+    ``garbage`` replaces every byte; control actions act as in
+    :func:`maybe_inject`. No plan -> ``data`` unchanged."""
+    plan = _ACTIVE
+    if plan is None:
+        return data
+    for s in plan.fire(site, detail):
+        if s.action == "truncate":
+            n = int(s.arg) or max(1, len(data) // 2)
+            data = data[: max(0, len(data) - n)]
+        elif s.action == "bitflip":
+            buf = bytearray(data)
+            nbits = int(s.arg) or 1
+            rng = plan.rng_for(s)
+            # the middle half: past container headers, before trailing
+            # indexes — the silent-corruption zone
+            lo, hi = len(buf) // 4, max(len(buf) // 4 + 1, (3 * len(buf)) // 4)
+            for _ in range(nbits):
+                pos = rng.randrange(lo, hi)
+                buf[pos] ^= 1 << rng.randrange(8)
+            data = bytes(buf)
+        elif s.action == "garbage":
+            data = bytes(plan.rng_for(s).getrandbits(8)
+                         for _ in range(len(data)))
+        elif s.action in ("stall", "delay"):
+            time.sleep(s.arg)
+        elif s.action == "kill":
+            raise FaultInjected(
+                f"fault injected: kill at {site} ({detail})")
+        elif s.action == "error":
+            raise RuntimeError(f"fault injected: error at {site} ({detail})")
+    return data
 
 
 def resource_hold(site: str, detail: str = "") -> int:

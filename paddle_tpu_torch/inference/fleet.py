@@ -198,9 +198,9 @@ class FleetRouter:
         ``add_replica``); the router consumes only the replica surface
         (submit/step/finished/load/progress/withdraw/behind/close/abandon
         + ``.engine`` geometry)."""
-        return ServingSupervisor(self._engine_factory(idx), path, **self._sup_kw)
+        return ServingSupervisor(self._builder(idx), path, **self._sup_kw)
 
-    def _engine_factory(self, idx: int) -> Callable[[], ContinuousBatchingEngine]:
+    def _builder(self, idx: int) -> Callable[[], ContinuousBatchingEngine]:
         """Engine factory for replica ``idx`` — one homogeneous fleet
         (a tiered router overrides it with per-tier factories)."""
         return self._build

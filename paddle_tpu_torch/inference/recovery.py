@@ -15,8 +15,9 @@ radix cache cannot change a token).
   torn TAIL (a crash mid-append) is tolerated and truncated; damage earlier
   raises :class:`JournalCorrupt` naming the record. Records: ``admit``,
   ``prog`` (delivered-token deltas with the high-water mark), ``fin``,
-  ``migr`` (migrated to another replica), ``migr-kv`` (read only: the
-  KV-chain handoff is a later slice), ``shed``, ``crash``/``recovered``.
+  ``migr`` (migrated to another replica), ``migr-kv`` (the KV chain
+  moved to a decode-tier replica: terminal here, with the chain digest),
+  ``shed``, ``crash``/``recovered``.
   ``defer`` buffers records and ``flush`` writes them in one syscall.
 - :class:`ServingSupervisor` — owns the engine via a ``build_engine``
   factory. The engine decodes into private TWIN requests; the caller's
@@ -33,10 +34,14 @@ On the card a rebuilt fused engine captures its CUDA graph inside
 ``build_engine``, before the replay steps, which run unarmed; the first
 ``watchdog_grace_steps`` armed steps after a rebuild are unarmed too.
 
+The KV-chain handoff of the disaggregated tiers (``inference/disagg.py``)
+is journaled on both sides: ``retire_migrated`` appends ``migr-kv`` on the
+source before its slot is released, ``submit_migrated`` journals the
+destination's admit and delivered mark only after the splice landed.
+
 Later slices, refused with ``NotImplementedError``: ``tracer=`` /
-``trace_tags=`` (serving observability), the mesh-degrade reshard
-(``_degrade``: tp-sharded serving) and ``submit_migrated`` /
-``retire_migrated`` (disaggregated tiers).
+``trace_tags=`` (serving observability) and the mesh-degrade reshard
+(``_degrade``: tp-sharded serving).
 
 PT-SRV codes: 001 engine crash absorbed, 002 step watchdog overrun, 003
 request shed at submit, 004 journal corruption, 005 replay divergence,
@@ -444,12 +449,45 @@ class ServingSupervisor:
         return self._meta.pop(rid, None)
 
     def submit_migrated(self, req: Request, artifact: bytes, codec) -> int:
-        raise _later_slice("KV-chain migration (submit_migrated)",
-                           "disaggregated tiers")
+        """Accept a migrated finished-prefill chain: splice its pages into
+        this supervisor's engine (``codec.import_chain``) and resume decode
+        at the recorded position. The admit and the delivered high-water
+        mark are journaled AFTER the splice lands, so a refusal
+        (``EngineSaturated`` on a slot or pool shortfall, ``KVChainCorrupt``
+        PT-SRV-007 on damaged bytes, ``ValueError`` on another geometry)
+        propagates with no journal trace.
+
+        The twin continues the stream in place (its output starts with the
+        delivered tokens): nothing is regenerated, so there is no PT-SRV-005
+        window. A crash after this replays from the journaled admit: the
+        rebuilt engine re-runs prefill and verifies the delivered prefix."""
+        meta = _admit_record(req)
+        twin = _request_from(meta)
+        twin.output = [int(t) for t in req.output]
+        twin._n_out = len(twin.output)
+        codec.import_chain(self.engine, artifact, req=twin)
+        self.journal.defer("admit", **meta)
+        if req.output:
+            self.journal.defer("prog", rid=req.rid, hwm=len(req.output),
+                               toks=[int(t) for t in req.output])
+        self.journal.flush()
+        req._n_out = len(req.output)
+        self.requests[req.rid] = req
+        self._live[req.rid] = twin
+        self._meta[req.rid] = meta
+        return req.rid
 
     def retire_migrated(self, rid: int, digest: str) -> Optional[dict]:
-        raise _later_slice("KV-chain migration (retire_migrated)",
-                           "disaggregated tiers")
+        """The source side of the handoff: journal ``migr-kv`` (failover
+        over this journal must not serve ``rid`` again), then release the
+        ACTIVE slot (its chain was exported first). Returns the admit
+        record, as :meth:`withdraw` does."""
+        self.journal.append("migr-kv", rid=rid, digest=str(digest))
+        self.engine.withdraw_active(rid)
+        self._live.pop(rid, None)
+        self._verify.discard(rid)
+        self.requests.pop(rid, None)
+        return self._meta.pop(rid, None)
 
     def set_step_budget(self, budget_s: Optional[float]) -> None:
         """(Re)arm the step watchdog — after a warm-up wave, so the budget

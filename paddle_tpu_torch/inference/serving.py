@@ -76,6 +76,12 @@ Design (the JAX engine's programs, run on the device):
     order, so one plan fires at the same events in both packages. The
     crash-recovery supervisor and the fleet router sit above
     (``inference/recovery.py``, ``inference/fleet.py``).
+  - MIGRATION (prefix-cache engines; ``inference/disagg.py``):
+    ``migration_ready`` lists slots whose prefill is complete,
+    ``withdraw_active`` releases one without terminal bookkeeping once its
+    chain was exported, and ``admit_migrated`` resumes a spliced chain at
+    its position (table row, sampling state, last-token carry in place,
+    the drafter ring re-seeded from prompt + delivered tokens).
   - MoE (``num_experts > 1``): every hook runs the model's MoE layer at
     the step's rows (decode: one token a slot; prefill: the chunk or the
     pack), under any of its dispatches. ``pgmm`` pads the (token, choice)
@@ -1179,14 +1185,18 @@ class ContinuousBatchingEngine:
         """The drafter seed of ``req``'s activation (None without spec)."""
         return None if self._spec is None else self._spec_seed(req.prompt)
 
-    def _spec_seed(self, prompt):
+    def _spec_seed(self, prompt, extra=()):
         """Drafter seed for a slot's activation: the last ``history``
-        tokens of the prompt in ring order, global index g at slot g % H,
-        so the spec step's ring arithmetic continues from it; and the count
-        written. The current last token stays out: it rides the last-token
-        carry and enters the ring at the next spec step."""
+        tokens of the prompt (and, for a migrated chain, of the delivered
+        tokens ``extra`` after it) in ring order, global index g at slot
+        g % H, so the spec step's ring arithmetic continues from it; and
+        the count written. The current last token stays out: it rides the
+        last-token carry and enters the ring at the next spec step."""
         H = self._spec.history
         toks = np.asarray(prompt, np.int32).reshape(-1)
+        if len(extra):
+            toks = np.concatenate(
+                [toks, np.asarray(extra, np.int32).reshape(-1)])
         hlen = len(toks)
         row = np.zeros(H, np.int32)
         tail = toks[max(0, hlen - H):]
@@ -1322,6 +1332,102 @@ class ContinuousBatchingEngine:
                     self._n_deadlined = max(0, self._n_deadlined - 1)
                 return True
         return False
+
+    # -- disaggregated-tier hooks (inference/disagg.py) --------------------
+    def slot_of(self, rid: int) -> Optional[int]:
+        """Slot currently serving ``rid`` (None when queued or finished)."""
+        for i, r in self._occupied.items():
+            if r.rid == rid:
+                return i
+        return None
+
+    def migration_ready(self) -> List[int]:
+        """rids whose prefill is COMPLETE (first token scheduled, slot in
+        the decode set) with decode work left: the prefill tier's
+        migration candidates. Mid-prefill slots are not exportable: their
+        cache holds a partial prompt and nothing has been sampled."""
+        out = []
+        for i, r in sorted(self._occupied.items()):
+            if self.prefix_cache is not None and i in self._prefill_next:
+                continue
+            if r._n_out >= 1 and not r.done:
+                out.append(r.rid)
+        return out
+
+    def withdraw_active(self, rid: int) -> bool:
+        """Release ``rid``'s ACTIVE slot without terminal bookkeeping: the
+        source half of a KV-chain handoff (the request is neither done nor
+        failed here). Export the chain FIRST: the decref'd pages may be
+        mapped by the very next admission."""
+        slot = self.slot_of(rid)
+        if slot is None:
+            return False
+        if self._slots[slot].deadline_s is not None:
+            self._n_deadlined = max(0, self._n_deadlined - 1)
+        self._release_slot(slot)
+        return True
+
+    @_serialized
+    def admit_migrated(self, req: Request, blocks: Sequence[int],
+                       pos: int, last_tok: int) -> int:
+        """Resume-at-position admission of a migrated finished-prefill
+        chain whose pages the caller (``KVChainCodec``) has allocated at
+        refcount 1 and filled with the exported bytes.
+
+        Maps the table row, restores the position, the sampling state and
+        the last-token carry, and registers the prompt's full pages in the
+        radix cache (first writer wins). Decode continues through the
+        ordinary steps: sample keys depend on (seed, position) alone, so
+        on the same page bytes the stream continues as if it had never
+        moved. The carry is written IN PLACE (the fused engine's graph
+        reads ``_last_tok``); spec engines re-seed the drafter ring from
+        prompt + delivered tokens. Raises :class:`EngineSaturated` with no
+        free slot: the caller still owns ``blocks``."""
+        if self.prefix_cache is None:
+            raise ValueError("KV-chain splice needs a prefix-cache engine "
+                             "(dynamic block tables over the refcounted "
+                             "pool)")
+        if not self._free_slots:
+            raise EngineSaturated(
+                f"no free slot for migrated rid={req.rid} "
+                f"({len(self._occupied)}/{self.max_batch} busy)")
+        slot = self._free_slots.popleft()
+        # int8: the chain's written prefix arrived with its scales; the
+        # tail blocks it will decode into are recycled pages
+        if self._kv_dtype == "int8":
+            n_written = max(0, -(-(int(pos) - 1) // self.page_size))
+            self._reset_quant_blocks(list(blocks)[n_written:])
+        row = np.full(self._maxp, self._park, np.int32)
+        row[: len(blocks)] = blocks
+        self._slot_rows[slot] = row
+        self._slot_blocks[slot] = list(blocks)
+        self._slots[slot] = req
+        self._occupied[slot] = req
+        req._engine = weakref.ref(self)
+        # the deadline clock restarts at re-admission, as after recovery
+        req._enqueued_at = _time.monotonic()
+        if req.deadline_s is not None:
+            self._n_deadlined += 1
+        self._pos[slot] = int(pos)
+        self._temps[slot] = req.temperature
+        self._tops[slot] = req.top_p
+        self._topks[slot] = req.top_k
+        self._seeds[slot] = req.seed
+        self._last_tok[slot] = int(last_tok)
+        if self._fused:
+            self._queue_update(slot, row, int(pos), True, req.temperature,
+                               req.top_p, req.top_k,
+                               hist=(self._spec_seed(req.prompt,
+                                                     extra=req.output[:-1])
+                                     if self._spec is not None else None))
+        else:
+            self._tables_host[slot] = row
+            self._tables_dirty = True
+        n_full = len(req.prompt) // self.page_size
+        if n_full and not self._brownout_active:
+            self._radix.insert(req.prompt[: n_full * self.page_size],
+                               list(blocks)[:n_full])
+        return slot
 
     @_serialized
     def _drain_pending(self):

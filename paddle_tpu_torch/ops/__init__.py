@@ -21,7 +21,8 @@ from .grouped_matmul import (grouped_dot,  # noqa: F401
 from .paged_attention import (KV_QMAX, BlockAllocator,  # noqa: F401
                               QuantizedKVPool, RadixPrefixCache,
                               append_paged_kv, copy_pages, dequantize_kv,
-                              gather_paged_kv,
+                              gather_chain_pages, gather_chain_scales,
+                              gather_paged_kv, scatter_chain_pages,
                               kv_absmax, paged_decode_attention,
                               paged_decode_reference,
                               paged_prefill_attention,

@@ -27,6 +27,11 @@ delegation :func:`paged_verify_attention` (:413), the speculative verify
 window; :func:`copy_pages` (:445), the copy-on-write primitive, in place;
 and the host-side page bookkeeping :class:`BlockAllocator` (:472) and
 :class:`RadixPrefixCache` (:583), copied from the JAX package.
+
+KV-chain migration (inference/disagg.py) moves a finished prefill's pages
+between engines: :func:`gather_chain_pages` / :func:`gather_chain_scales`
+(:732, :758) copy a chain to the host, :func:`scatter_chain_pages` (:770)
+writes one into fresh pages IN PLACE (the JAX version returns new arrays).
 """
 
 from __future__ import annotations
@@ -430,6 +435,102 @@ def copy_pages(k_cache, v_cache, src, dst):
     for t in _pool_tensors(k_cache) + _pool_tensors(v_cache):
         t.index_copy_(0, dst, t.index_select(0, src))
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# KV-chain migration: a finished prefill's pages between engines' pools
+# (inference/disagg.py)
+# ---------------------------------------------------------------------------
+
+#: pool dtypes by the names the JAX package writes into a chain artifact's
+#: header (numpy's names). numpy has no bfloat16 without ml_dtypes, so the
+#: port moves page bytes as torch tensors and reads the item size here.
+CHAIN_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "float16": torch.float16, "int8": torch.int8}
+
+
+def chain_dtype_name(dtype) -> str:
+    """The artifact header's name of a pool dtype (``"bfloat16"``, never
+    ``"torch.bfloat16"``)."""
+    for name, dt in CHAIN_DTYPES.items():
+        if dt == dtype:
+            return name
+    raise ValueError(f"no KV-chain dtype name for {dtype}")
+
+
+def _page_data(pool):
+    return pool.data if isinstance(pool, QuantizedKVPool) else pool
+
+
+def gather_chain_pages(kv, blocks):
+    """Host copies of a block chain's page bytes from every layer's (k, v)
+    pool pair: the EXPORT half of KV-block migration (JAX :732). ``kv`` is
+    the engine's per-layer ``[(k_pages, v_pages), ...]``, ``blocks`` the
+    chain's page ids in block-table order. Returns ``[(k, v), ...]`` CPU
+    tensors of shape ``[len(blocks), kv_heads, page, head_dim]`` in the
+    pool dtype (views of one host buffer, layer by layer, k then v); int8
+    pools give their RAW int8 bytes (the scales travel apart:
+    :func:`gather_chain_scales`).
+
+    One gather per pool and one device-to-host copy, issued on the current
+    stream: the stream every engine call runs its prefill, first-token
+    step and graph replays on, so the copy reads the pages after every
+    write queued before it (the JAX package's ``np.asarray`` fence)."""
+    dev = kv[0][0].device
+    idx = torch.as_tensor(list(blocks), dtype=torch.long).to(dev)
+    host = torch.stack([_page_data(pool).index_select(0, idx)
+                        for pair in kv for pool in pair]).cpu()
+    return [(host[2 * i], host[2 * i + 1]) for i in range(len(kv))]
+
+
+def gather_chain_scales(kv, blocks):
+    """Per-layer (k_scales, v_scales) CPU fp32 tensors ``[len(blocks),
+    kv_heads]`` for a chain's blocks: the scale half of an int8 chain
+    export (JAX :758). None for floating-point pools."""
+    if not kv or not isinstance(kv[0][0], QuantizedKVPool):
+        return None
+    idx = torch.as_tensor(list(blocks), dtype=torch.long).to(
+        kv[0][0].device)
+    host = torch.stack([pool.scale.index_select(0, idx)
+                        for pair in kv for pool in pair]).cpu()
+    return [(host[2 * i], host[2 * i + 1]) for i in range(len(kv))]
+
+
+def _upload(src, like):
+    """``src`` (a host tensor or array) as ``like``'s dtype on its device;
+    pinned host tensors upload without stalling the stream."""
+    t = torch.as_tensor(src)
+    if t.dtype != like.dtype:
+        t = t.to(like.dtype)
+    return t.to(like.device, non_blocking=True)
+
+
+def scatter_chain_pages(kv, blocks, pages, scales=None):
+    """Write exported chain bytes into freshly allocated pool pages: the
+    IMPORT half of KV-block migration (JAX :770). ``pages`` is
+    :func:`gather_chain_pages` output (or the codec's unpacked payload);
+    int8 pools take the per-block ``scales`` with the raw int8 bytes.
+
+    Writes IN PLACE (``index_copy_``) and returns the same ``kv`` list: a
+    captured CUDA graph holds the pool pointers, so pools rebound to new
+    tensors would leave the next replay attending the old ones (the JAX
+    version returns new arrays and the codec rebinds ``engine.caches``).
+    An int8 pool without ``scales`` raises before any page is written."""
+    quant = bool(kv) and isinstance(kv[0][0], QuantizedKVPool)
+    if quant and scales is None:
+        raise ValueError("int8 pool import needs per-block scales")
+    dev = kv[0][0].device
+    idx = torch.as_tensor(list(blocks), dtype=torch.long).to(dev)
+    for li, ((k, v), (pk, pv)) in enumerate(zip(kv, pages)):
+        if quant:
+            ks, vs = scales[li]
+            for pool, src, s in ((k, pk, ks), (v, pv, vs)):
+                pool.data.index_copy_(0, idx, _upload(src, pool.data))
+                pool.scale.index_copy_(0, idx, _upload(s, pool.scale))
+        else:
+            k.index_copy_(0, idx, _upload(pk, k))
+            v.index_copy_(0, idx, _upload(pv, v))
+    return kv
 
 
 # ---------------------------------------------------------------------------

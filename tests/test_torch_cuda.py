@@ -1555,3 +1555,147 @@ def test_fleet_parallel_step_with_rebuild_and_restart_on_card(cuda,
     assert all(r.done and not r.failed for r in reqs)
     assert [list(r.output) for r in reqs] == clean
     fleet.close()
+
+
+# ---- disaggregated tiers: KV-chain migration on the card -----------------
+
+def _tiered_wave(router, prompts, kws):
+    reqs = [Request(p, **kw) for p, kw in zip(prompts, kws)]
+    for r in reqs:
+        router.submit(r)
+    router.run_until_done()
+    assert all(r.done and not r.failed for r in reqs), \
+        [r.error for r in reqs if r.failed]
+    return [list(r.output) for r in reqs]
+
+
+@pytest.mark.cuda
+def test_tiered_migration_fp32_equals_single_with_graphs_on_card(cuda,
+                                                                 tmp_path):
+    """fp32, CUDA graphs on: a 1+1 TieredRouter over fused engines serves
+    the wave (greedy and seeded) byte-identically to one supervisor, and
+    its greedy streams equal the port's on the CPU. The decode engine
+    replays the graph it captured at construction over spliced chains, so
+    this is the in-place witness: pools or the last-token carry rebound
+    by the splice would leave the replays reading the old buffers."""
+    from paddle_tpu_torch.inference import ServingSupervisor, TieredRouter
+
+    cpu, card = _card_model(cuda)
+    prompts, kws = _recovery_wave()
+    sampled = [i for i, kw in enumerate(kws) if "temperature" in kw]
+    ref_cpu = _serve_card(_fused_engine(cpu, "cpu"), prompts,
+                          [kw["max_new_tokens"] for kw in kws])
+    clean = _sup_wave(ServingSupervisor(lambda: _fused_engine(card, cuda),
+                                        str(tmp_path / "ref.jrnl")),
+                      prompts, kws)
+    tiered = TieredRouter(lambda: _fused_engine(card, cuda),
+                          lambda: _fused_engine(card, cuda),
+                          str(tmp_path / "tiers"), num_prefill=1,
+                          num_decode=1)
+    k4 = paged_decode_attention.launches
+    got = _tiered_wave(tiered, prompts, kws)
+    dec = tiered.replicas[1].sup.engine
+    assert tiered.stats["migrations"] > 0
+    assert tiered.stats["migration_corrupt"] == 0
+    assert all(rep.sup.engine.stats["graph_captures"] == 1
+               for rep in tiered.replicas)
+    assert dec.stats["graph_replays"] > 0
+    assert paged_decode_attention.launches - k4 >= \
+        dec.stats["graph_replays"] * card.config.num_hidden_layers
+    assert got == clean
+    assert [g for i, g in enumerate(got) if i not in sampled] == \
+        [list(r) for i, r in enumerate(ref_cpu) if i not in sampled]
+    tiered.close()
+
+
+@pytest.mark.cuda
+def test_int8_chain_migration_round_trip_matches_plain_on_card(cuda):
+    """int8 pools on the card: the chain functions give the CPU path's
+    bytes and scales and write them back in place; an int8 spec+int8
+    chain exported on the card continues in another card engine to the
+    single engine's stream."""
+    from paddle_tpu_torch.inference import KVChainCodec
+    from paddle_tpu_torch.ops import gather_chain_pages, \
+        gather_chain_scales, scatter_chain_pages
+
+    g = torch.Generator().manual_seed(0)
+    host = [tuple(QuantizedKVPool(
+        torch.randint(-127, 128, (9, 2, 16, 64), generator=g,
+                      dtype=torch.int8),
+        torch.rand(9, 2, generator=g)) for _ in range(2)) for _ in range(3)]
+    dev = [tuple(QuantizedKVPool(p.data.to(cuda), p.scale.to(cuda))
+                 for p in pair) for pair in host]
+    blocks, dst = [7, 2, 4], [0, 8, 5]
+    for kv in (host, dev):
+        pages = gather_chain_pages(kv, blocks)
+        scales = gather_chain_scales(kv, blocks)
+        ptrs = [p.data.data_ptr() for pair in kv for p in pair]
+        assert scatter_chain_pages(kv, dst, pages, scales) is kv
+        assert [p.data.data_ptr() for pair in kv for p in pair] == ptrs
+    for hp, dp in zip(host, dev):
+        for h, d in zip(hp, dp):
+            assert torch.equal(h.data, d.data.cpu())
+            assert torch.equal(h.scale, d.scale.cpu())
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = LlamaForCausalLM(LlamaConfig(**_PARITY_CFG), device=cuda, seed=3)
+    prompts, news = _spec_wave(_PARITY_CFG["vocab_size"], n=4)
+
+    def build():
+        return ContinuousBatchingEngine(
+            model, max_batch=4, max_len=128, page_size=16, block_size=4,
+            fused=True, device=cuda, kv_cache="int8",
+            speculative=SpecConfig(k=4),
+            prefix_cache=PrefixCacheConfig(extra_blocks=8))
+
+    ref = _serve_card(build(), prompts, news)
+    src, out = build(), build()
+    codec = KVChainCodec()
+    reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+    for r in reqs:
+        src.add_request(r)
+    moved = []
+    while src.has_work():
+        src.step()
+        for rid in src.migration_ready():
+            art = codec.export_chain(src, rid)
+            assert "kv_scales" in codec.peek(art)
+            src.withdraw_active(rid)
+            moved.append(codec.import_chain(out, art))
+    out.run_until_done()
+    src.finished()
+    assert moved and out.stats["spec_graph_replays"] > 0
+    byid = {r.rid: r for r in moved}
+    assert [byid.get(r.rid, r).tokens for r in reqs] == ref
+
+
+@pytest.mark.cuda
+def test_migration_export_right_after_a_replay_reads_its_bytes_on_card(
+        cuda):
+    """A graph replay queued behind a long device sleep, then the chain
+    gathered at once: the host copy holds the bytes the replay wrote (it
+    runs on the engine's stream, after the replay), equal to the pages
+    read after a full synchronize."""
+    from paddle_tpu_torch.ops import gather_chain_pages
+
+    _, card = _card_model(cuda)
+    eng = _fused_engine(card, cuda)
+    req = Request(np.arange(5, 35, dtype=np.int32), max_new_tokens=20)
+    eng.add_request(req)
+    while req.rid not in eng.migration_ready():
+        eng.step()
+    eng._flush_updates()
+    slot = eng.slot_of(req.rid)
+    blocks = list(eng._slot_blocks[slot])
+    before = gather_chain_pages(eng.caches["kv"], blocks)
+    eng._step_i.zero_()
+    torch.cuda._sleep(200_000_000)
+    eng._graph.replay()
+    got = gather_chain_pages(eng.caches["kv"], blocks)
+    torch.cuda.synchronize()
+    want = gather_chain_pages(eng.caches["kv"], blocks)
+    assert any(not torch.equal(a, b) for pa, pb in zip(before, want)
+               for a, b in zip(pa, pb))
+    for pa, pb in zip(got, want):
+        for a, b in zip(pa, pb):
+            assert torch.equal(a, b)

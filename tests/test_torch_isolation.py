@@ -1,5 +1,5 @@
 """The port stands alone: nothing under paddle_tpu_torch/ (the serving
-recovery and fleet modules and the fault plan included), and none of
+recovery, fleet and disagg modules and the fault plan included), and none of
 chip_smoke.py, profile_serving.py and profile_training.py, imports JAX or
 the JAX package;
 importing the whole port loads no JAX; and entry points never fall back to
@@ -60,7 +60,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/distributed/resilience/faults.py",
             "paddle_tpu_torch/distributed/resilience/watchdog.py",
             "paddle_tpu_torch/inference/recovery.py",
-            "paddle_tpu_torch/inference/fleet.py"} <= scanned
+            "paddle_tpu_torch/inference/fleet.py",
+            "paddle_tpu_torch/inference/disagg.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]

@@ -589,3 +589,93 @@ def test_fused_default_follows_jax(pair, max_batch, fused, want):
     eng = ContinuousBatchingEngine(tm, max_batch=max_batch, fused=fused,
                                    device="cpu", **SMALL)
     assert eng._fused is want
+
+
+# ---------------------------------------------------------------------------
+# the disaggregated-tier hooks against the JAX engine
+# ---------------------------------------------------------------------------
+
+def _tier_hooks(mod, eng, R, prompts, kws):
+    """Step a wave and record after each step the migration candidates and
+    each request's slot; withdraw the first candidate once two are ready.
+    Returns (the log, the withdrawn request's chain: blocks, position, last
+    token, page bytes, request)."""
+    reqs = [R(p, **k) for p, k in zip(prompts, kws)]
+    for r in reqs:
+        eng.add_request(r)
+    log, moved = [], None
+    while eng.has_work():
+        eng.step()
+        ready = eng.migration_ready()
+        log.append((ready, [eng.slot_of(r.rid) for r in reqs]))
+        if moved is None and len(ready) >= 2:
+            req = next(r for r in reqs if r.rid == ready[0])
+            slot = eng.slot_of(req.rid)
+            eng._drain_pending()
+            pos = int(eng._pos[slot])
+            blocks = list(eng._slot_blocks[slot])
+            n = -(-(pos - 1) // eng.page_size)
+            pages = mod.gather_chain_pages(eng.caches["kv"], blocks[:n])
+            free = eng._alloc.free_blocks
+            assert eng.withdraw_active(req.rid)
+            assert not eng.withdraw_active(req.rid)
+            moved = (blocks, pos, int(req.output[-1]), pages, req)
+            log.append(("withdrawn", eng.slot_of(req.rid), len(ready),
+                        eng._alloc.free_blocks - free,
+                        len(eng._free_slots)))
+    return log, moved
+
+
+def _admit(eng, mod, moved, R):
+    """``admit_migrated`` of a withdrawn chain into ``eng``: fresh blocks,
+    the page bytes written, the request resumed with its delivered
+    tokens; returns its slot and its finished stream."""
+    blocks, pos, last, pages, src = moved
+    fresh = eng._alloc.alloc(len(blocks))
+    got = mod.scatter_chain_pages(eng.caches["kv"],
+                                  fresh[:pages[0][0].shape[0]], pages)
+    if got is not eng.caches["kv"]:             # JAX returns new arrays
+        eng.caches = {"kv": got, "tables": eng.caches["tables"]}
+    req = R(src.prompt, max_new_tokens=src.max_new_tokens)
+    req.output = list(src.output)
+    req._n_out = len(req.output)
+    slot = eng.admit_migrated(req, fresh, pos, last_tok=last)
+    state = (slot, int(eng._pos[slot]), list(eng._slot_blocks[slot]),
+             len(eng._radix), eng.migration_ready())
+    eng.run_until_done(max_steps=500)
+    return state, list(req.tokens)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["legacy", "fused"])
+def test_tier_hooks_match_jax_engine(pair, fused):
+    """``migration_ready``, ``slot_of``, ``withdraw_active`` and
+    ``admit_migrated`` step for step against the JAX engine on one greedy
+    wave: the same candidates and slots after every step, the same slot
+    and pages released, and the withdrawn chain (its own package's page
+    bytes) resumed in a fresh engine at the same slot, position and radix
+    state, continuing to the same stream; admit_migrated refuses a full
+    engine and a prefixless one."""
+    jm, tm = pair
+    prompts, kws = _wave(sampled=False)
+    slots = 8 if fused else 2
+    runs = []
+    base = max(JaxRequest._counter[0], Request._counter[0])
+    for mod, eng, R in (
+            (jpa, JaxEngine(jm, max_batch=slots, fused=fused,
+                            prefix_cache=JaxPrefix(**CHUNKED), **SMALL),
+             JaxRequest),
+            (tpa, _engine(tm, fused), Request)):
+        R._counter[0] = base                    # the same rids
+        log, moved = _tier_hooks(mod, eng, R, prompts, kws)
+        assert moved is not None
+        dst = (JaxEngine(jm, max_batch=slots, fused=fused,
+                         prefix_cache=JaxPrefix(**CHUNKED), **SMALL)
+               if mod is jpa else _engine(tm, fused))
+        runs.append((log, moved[:3], _admit(dst, mod, moved, R)))
+        dst._free_slots.clear()
+        with pytest.raises(Exception, match="no free slot"):
+            dst.admit_migrated(R(prompts[0]), [0], 3, last_tok=1)
+    assert runs[0] == runs[1]
+    plain = _engine(tm, fused, prefix=False)
+    with pytest.raises(ValueError, match="prefix-cache"):
+        plain.admit_migrated(Request(prompts[0]), [0], 3, last_tok=1)

@@ -635,10 +635,6 @@ def test_later_slices_refused(pkgs, tmp_path):
         trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "b"),
                                     trace_tags={"replica": 0})
     sup = trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "c"))
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        sup.submit_migrated(pkg.s.Request(_prompt(4, 1)), b"", None)
-    with pytest.raises(NotImplementedError, match="disaggregated"):
-        sup.retire_migrated(1, "digest")
 
     def lose():
         raise pkg.s.MeshDegraded("PT-SRV-008: lost", lost=1, survivors=1)
