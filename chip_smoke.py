@@ -276,8 +276,50 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its splices (PT-FLT-001 failover to the prefill tier), each on a
      router of its own: streams byte-equal, every rid finished once across
      the journals.
+ 26. observability (bench.py bench_observability, :1026) on phase 23's
+     model: (a) bench's TPU geometry (4 slots, max_len 256, page 16, block
+     8, prefix cache, not fused) with 12 requests of 16-token prompts,
+     max_new_tokens 48, seeds 700 + i; (b) phase 7's fused 128-slot engine
+     and 256-request wave. A bare and a traced engine (TraceRecorder into a
+     MetricsRegistry with the engine collector and a live MetricsServer on
+     port 0, closed in a finally) each take a warm-up wave; the traced one
+     then gets a fresh recorder and the two run best-of-4, interleaved
+     with the order alternating (each engine goes first twice).
+     Checks: traced streams byte-equal to bare ones, every rid's lifecycle
+     holds submit, admit, first_token, finish in order, nothing dropped;
+     in (b) one graph capture each, the same eager_decode_steps traced and
+     bare, and no more synchronizing operations in a traced wave than in a
+     bare one (set_sync_debug_mode). Prints p50/p99 TTFT,
+     observability_overhead_pct, the scrape's family count and the trace
+     events.
+ 27. SLO burst (bench.py bench_slo_burst, :1133): (a) bench's TPU burst
+     workload (seed 23, 6 s, 6 rps, x4 bursts of 1 s every 3 s, prompts
+     16-48, outputs 8-32, tenants chat and batch) replayed wall-clock,
+     open-loop, into a 2-replica FleetRouter (brownout_depth 10**9) of
+     26 (a)'s engine, after a closed-loop warm wave and with a fresh
+     recorder and SLOMonitor (TTFT 1500 ms, 1 s windows): no request
+     fails, submitted + refused = arrivals, every stream byte-equal to the
+     same request served closed-loop by one engine of the same geometry;
+     prints attainment, goodput, p99 TTFT under burst, arrivals, refused,
+     fleet steps and wall time. (b) the observatory of
+     tools/traffic_replay.py run_replay (observatory_replay: its seeded
+     burst on a VirtualClock, 2-slot engines, SLOAutoscaler min 1 max 3)
+     on the card, autoscaler off and on: each report equal to the same
+     replay of a 1-layer tiny model on the CPU.
+ 28. disagg under burst (bench.py bench_disagg, :1259): the seed-29 burst
+     replayed wall-clock into a unified 2-replica FleetRouter, then a
+     TieredRouter of one prefill and one decode replica, both of 26 (a)'s
+     engine with extra_blocks 4, each after a warm wave with a fresh
+     recorder and a migration-stats snapshot: streams byte-equal to the
+     closed-loop engine in both arms, the recorder's migrations (and
+     pt_migration_time_ms observations) equal to the router's
+     measured-window delta, memory_allocated after the phase within 64 MiB
+     of its value before. Prints unified and tiered p99 TTFT, the
+     migrations, mean migration_s, pages, bytes, deferred, refused and
+     re-prefills, and pt_migration_time_ms's count and mean beside the
+     router's.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools (phases 6, 7, 7c, 15-17 and 23-25) and phase 21's calls;
+fp pools (phases 6, 7, 7c, 15-17 and 23-28) and phase 21's calls;
 "paged_decode_int8" counts phases 7c's and 25's launches on int8 pools;
 K1's adds
 the legacy engine of phase 15, the paged generate of phase 16, phase 21's
@@ -438,8 +480,8 @@ RECOVERY_BUDGET_MIN = 0.25
 RECOVERY_MEM_SLACK = 64 << 20
 FLEET_REPLICAS = 3
 # phase 25: bench.py bench_disagg's 1 prefill + 1 decode tier over phase
-# 23's engine and wave (closed-loop: the open-loop burst replay needs the
-# observability slice); arm (b) runs phase 7c's int8 + spec geometry on two
+# 23's engine and wave (closed-loop; phase 28 replays bench's open-loop
+# burst); arm (b) runs phase 7c's int8 + spec geometry on two
 # decode replicas with max_new_tokens (i % 4 + 1) * DISAGG_SPEC_MAX_NEW,
 # which keeps every row's K+1 window inside max_len, so every decode
 # dispatch is a spec dispatch whatever rows share it; arm (c)
@@ -451,6 +493,37 @@ DISAGG_SPEC_DECODE, DISAGG_SPEC_MAX_NEW = 2, 15
 DISAGG_FAULT_REQUESTS = 64
 DISAGG_BITFLIP_AT = 5
 DISAGG_KILL_AT, DISAGG_KILL_AFTER = 2, 8
+# phases 26-28: bench.py bench_observability (:1026), bench_slo_burst
+# (:1133) and bench_disagg (:1259) on the SERVE_CONFIG model (bench's TPU
+# arms use a 4-layer, hidden-512 model: a cut that does not carry over),
+# with bench's TPU engine geometry and traffic verbatim: 4 slots, max_len
+# 256, page 16, block 8, prefix cache; 12 requests of 16-token prompts
+# (seed 0), max_new_tokens 48, seeds 700 + i; best-of-4 interleaved waves,
+# each engine first in two of them (bench's best-of-3 runs bare first in
+# every round, which mixes the order into the comparison)
+OBS_ENGINE = dict(max_batch=4, max_len=256, page_size=16, block_size=8)
+OBS_REQUESTS, OBS_PROMPT, OBS_MAX_NEW, OBS_SEED0 = 12, 16, 48, 700
+OBS_TIMED = 4
+#: the span chain every served request must hold, in order
+OBS_CHAIN = ("submit", "admit", "first_token", "finish")
+# the open-loop burst of bench_slo_burst (seed 23) and bench_disagg (seed
+# 29): 6 s at 6 rps, bursts of 1 s every 3 s at x4, prompts 16-48 and
+# outputs 8-32 tokens, tenants chat (weight 2, a 16-token shared prefix)
+# and batch (weight 1, priority 2); TTFT target 1500 ms over 1 s windows;
+# the disagg engines keep extra_blocks = slots
+BURST_SLO_SEED, BURST_DISAGG_SEED = 23, 29
+BURST_TTFT_MS = 1500.0
+# the observatory of tools/traffic_replay.py run_replay (:78-120): its
+# selftest burst workload (seed 17), 2-slot engines, a VirtualClock at
+# 0.05 s a fleet step, the SLO and the autoscaler's knobs
+OBSERVATORY_ENGINE = dict(max_batch=2, max_len=32, page_size=8, block_size=2,
+                          prefix_cache=True)
+OBSERVATORY_SLO = dict(ttft_ms=500.0, inter_token_ms=None,
+                       queue_wait_ms=None, target_attainment=0.7,
+                       window_s=1.0)
+OBSERVATORY_SCALER = dict(min_replicas=1, max_replicas=3, up_after=2,
+                          down_after=4, cooldown_windows=1)
+OBSERVATORY_DT_S = 0.05
 # the JAX package's speculative / int8-KV arm (bench.py bench_speculative,
 # :1526-1532 and :1548-1552) at its TPU widths: the SERVE_CONFIG model, 8
 # slots, max_len 128 (prompt 64 + max_new 64), page 16, block 4, fused,
@@ -4201,6 +4274,467 @@ def phase_disagg(torch, np, ops, card, model, ref, single_tok_s):
     return c["k4"] - k8, k8
 
 
+def burst_workload(O, seed, vocab):
+    """bench.py's TPU burst WorkloadConfig (bench_slo_burst, bench_disagg)
+    with ``seed``."""
+    return O.WorkloadConfig(
+        seed=seed, duration_s=6.0, rate_rps=6.0, arrival="burst",
+        burst_every_s=3.0, burst_len_s=1.0, burst_multiplier=4.0,
+        vocab_size=vocab, prompt_min=16, prompt_max=48, output_min=8,
+        output_max=32,
+        tenants=(O.TenantSpec("chat", 2.0, prefix_len=16),
+                 O.TenantSpec("batch", 1.0, priority=2)))
+
+
+def observatory_workload(O):
+    """tools/traffic_replay.py's selftest workload (_selftest_workload)."""
+    return O.WorkloadConfig(
+        seed=17, duration_s=10.0, rate_rps=5.0, arrival="burst",
+        burst_every_s=4.0, burst_len_s=2.0, burst_multiplier=8.0,
+        vocab_size=64, prompt_mu=2.2, prompt_sigma=0.4, prompt_min=4,
+        prompt_max=16, output_mu=1.8, output_sigma=0.4, output_min=4,
+        output_max=12,
+        tenants=(O.TenantSpec("chat", weight=2.0, prefix_len=8),
+                 O.TenantSpec("batch", weight=1.0, prefix_len=0,
+                              priority=2)))
+
+
+class _EngineClock:
+    """Stands in for the serving module's ``time`` with ``monotonic`` read
+    from ``clock`` (the engine's enqueue and admission stamps, hence the
+    queue waits, in the replay's virtual seconds)."""
+
+    def __init__(self, clock):
+        self._clock = clock
+
+    def monotonic(self):
+        return self._clock()
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def observatory_replay(model, fleet_dir, autoscale_on, device=None):
+    """tools/traffic_replay.py ``run_replay`` on the port: the seeded
+    burst schedule replayed open-loop on a VirtualClock into a 1-replica
+    FleetRouter of 2-slot prefix-cache engines over ``model``, the SLO
+    monitor's windows rolled and the autoscaler ticked at each boundary
+    (off: the control arm). The engines' queue-wait clock is the virtual
+    one too, and request ids start at 1 (the router breaks load ties by
+    rid), as in the fresh process tools/traffic_replay.py runs in, so the
+    report is a function of the scheduling alone. Returns the report
+    dict."""
+    from paddle_tpu_torch import observability as O
+    from paddle_tpu_torch.inference import serving
+    from paddle_tpu_torch.inference.autoscale import (AutoscaleConfig,
+                                                      SLOAutoscaler)
+    from paddle_tpu_torch.inference.fleet import FleetConfig, FleetRouter
+
+    device = DEVICE if device is None else device
+
+    def build():
+        return serving.ContinuousBatchingEngine(model, device=device,
+                                                **OBSERVATORY_ENGINE)
+
+    clock = O.VirtualClock()
+    tracer = O.TraceRecorder(clock=clock)
+    monitor = O.SLOMonitor(O.SLOConfig(**OBSERVATORY_SLO), tracer=tracer)
+    saved, saved_rid = serving._time, serving.Request._counter[0]
+    serving._time = _EngineClock(clock)
+    serving.Request._counter[0] = 0
+    try:
+        fleet = FleetRouter(build, fleet_dir, num_replicas=1, tracer=tracer,
+                            config=FleetConfig(brownout_depth=10 ** 9))
+        try:
+            scaler = SLOAutoscaler(fleet, monitor,
+                                   AutoscaleConfig(**OBSERVATORY_SCALER),
+                                   tracer=tracer, enabled=autoscale_on)
+            driver = O.ReplayDriver(
+                fleet, O.generate_schedule(observatory_workload(O)),
+                clock=clock, dt_s=OBSERVATORY_DT_S, monitor=monitor,
+                autoscaler=scaler, max_steps=5000)
+            return driver.run()
+        finally:
+            fleet.close()
+    finally:
+        serving._time = saved
+        serving.Request._counter[0] = max(saved_rid,
+                                          serving.Request._counter[0])
+
+
+def _chain_breaks(tracer, rids):
+    """rids whose lifecycle lacks OBS_CHAIN in order."""
+    bad = []
+    for rid in rids:
+        names = iter(tracer.lifecycle(rid))
+        if not all(step in names for step in OBS_CHAIN):
+            bad.append(rid)
+    return bad
+
+
+def _obs_arm(torch, ops, name, card, make, wave):
+    """bench_observability's comparison for one engine kind: a bare and a
+    traced engine (TraceRecorder into a MetricsRegistry with the engine
+    collector and a live MetricsServer), a warm-up wave each, a fresh
+    recorder on the traced engine, then OBS_TIMED interleaved waves each,
+    the order alternating (best-of). ``wave(eng)`` serves one wave and
+    returns its requests.
+    Returns (K4 launches in the timed waves, the arm's readings)."""
+    from paddle_tpu_torch.observability import (MetricsRegistry,
+                                                MetricsServer, TraceRecorder,
+                                                engine_collector,
+                                                parse_prometheus_text)
+    import urllib.request
+
+    registry = MetricsRegistry()
+    plain = make(None)
+    traced = make(TraceRecorder(registry=registry))
+    registry.register_collector(engine_collector(traced))
+    server = MetricsServer(registry, port=0)
+    try:
+        wave(plain)
+        wave(traced)
+        tracer = TraceRecorder()        # warm waves only
+        traced.tracer = tracer
+        best = {"bare": float("inf"), "traced": float("inf")}
+        diff = rids = 0
+        served = []
+        ops.paged_decode_attention.launches = 0
+        for i in range(OBS_TIMED):
+            outs = {}
+            # alternate which engine goes first, so the order of the runs
+            # does not enter the best-of comparison
+            arms = (("bare", plain), ("traced", traced))
+            for arm, eng in arms[::-1] if i % 2 else arms:
+                sync()
+                t0 = time.perf_counter()
+                reqs = wave(eng)
+                sync()
+                best[arm] = min(best[arm], time.perf_counter() - t0)
+                outs[arm] = [list(r.output) for r in reqs]
+                if arm == "traced":
+                    served += [r.rid for r in reqs]
+            diff += _differ(outs["bare"], outs["traced"])
+            rids += len(outs["bare"])
+        k4 = ops.paged_decode_attention.launches
+        with urllib.request.urlopen(server.url, timeout=10) as resp:
+            scrape = resp.read().decode("utf-8")
+        families = len(parse_prometheus_text(scrape))
+    finally:
+        server.close()
+    slo = tracer.slo_summary()
+    pct = (best["traced"] - best["bare"]) / best["bare"] * 100.0
+    breaks = _chain_breaks(tracer, served)
+    read = dict(p50=slo["p50_time_to_first_token_ms"],
+                p99=slo["p99_time_to_first_token_ms"], pct=pct,
+                families=families, events=len(tracer.events),
+                dropped=tracer.dropped, plain=plain, traced=traced)
+    print(f"observability {name} [{card}]: p50_ttft_ms={read['p50']} "
+          f"p99_ttft_ms={read['p99']} observability_overhead_pct={pct:.2f} "
+          f"(best-of-{OBS_TIMED} wave bare {best['bare']:.4f}s traced "
+          f"{best['traced']:.4f}s); scrape {families} families, "
+          f"{len(tracer.events)} trace events over {slo['submitted']} warm "
+          f"requests, dropped {tracer.dropped}; streams differing traced vs "
+          f"bare {diff} of {rids}; K4 launches {k4}", flush=True)
+    fails = []
+    if diff:
+        fails.append(f"{diff} traced streams differ from the bare ones")
+    if breaks:
+        fails.append(f"rids {breaks[:8]} lack {OBS_CHAIN} in order")
+    if tracer.dropped or tracer.incomplete():
+        fails.append(f"dropped {tracer.dropped}, incomplete "
+                     f"{tracer.incomplete()[:8]}")
+    if not families:
+        fails.append("the /metrics scrape carried no family")
+    if fails:
+        raise AssertionError(f"observability {name}: " + "; ".join(fails))
+    return k4, read
+
+
+def phase_observability(torch, np, ops, card, model):
+    """bench.py bench_observability on the SERVE_CONFIG model: (a) bench's
+    4-slot prefix-cache engine and 12-request wave, (b) phase 7's fused
+    128-slot engine and 256-request wave (every decode block a graph
+    replay). Returns K4's launches in the timed waves."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            PrefixCacheConfig, Request)
+
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, (OBS_PROMPT,)).astype(np.int32)
+               for _ in range(OBS_REQUESTS)]
+
+    def small(tracer):
+        return ContinuousBatchingEngine(model, device=DEVICE,
+                                        prefix_cache=True, tracer=tracer,
+                                        **OBS_ENGINE)
+
+    def small_wave(eng):
+        reqs = [Request(p, max_new_tokens=OBS_MAX_NEW, seed=OBS_SEED0 + i)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done(max_steps=20000)
+        return reqs
+
+    k4_a, read = _obs_arm(torch, ops, "(a) 4 slots", card, small,
+                          small_wave)
+    if read["plain"]._fused:
+        raise AssertionError("bench's 4-slot engine must not be fused")
+    del read
+
+    fused_prompts, news = _fused_wave(np, vocab)
+
+    def fused(tracer):
+        return ContinuousBatchingEngine(
+            model, device=DEVICE, tracer=tracer,
+            prefix_cache=PrefixCacheConfig(extra_blocks=FUSED_EXTRA_BLOCKS),
+            **FUSED_ENGINE)
+
+    def fused_wave(eng):
+        reqs = [Request(p, max_new_tokens=k)
+                for p, k in zip(fused_prompts, news)]
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done(max_steps=40000)
+        return reqs
+
+    k4_b, read = _obs_arm(torch, ops,
+                          f"(b) fused {FUSED_ENGINE['max_batch']} slots",
+                          card, fused, fused_wave)
+    plain, traced = read["plain"], read["traced"]
+    syncs = {arm: len(_sync_count(torch, lambda e=eng: fused_wave(e)))
+             for arm, eng in (("bare", plain), ("traced", traced))}
+    st = {arm: (eng.stats["graph_captures"], eng.stats["eager_decode_steps"],
+                eng.stats["graph_replays"])
+          for arm, eng in (("bare", plain), ("traced", traced))}
+    print(f"observability (b) graph and syncs [{card}]: (graph_captures, "
+          f"eager_decode_steps, graph_replays) {st}; synchronizing "
+          f"operations in one wave: bare {syncs['bare']}, traced "
+          f"{syncs['traced']}", flush=True)
+    if (st["bare"][0] != 1 or st["traced"][0] != 1
+            or st["bare"][1] != st["traced"][1]
+            or syncs["traced"] > syncs["bare"]):
+        raise AssertionError(f"observability (b): tracing changed the "
+                             f"captured path: {st}, syncs {syncs}")
+    del plain, traced, read
+    gc.collect()
+    return k4_a + k4_b
+
+
+def _fresh_recorder(target, O):
+    """bench's warm-only discipline: a fresh recorder on the router and
+    every replica's supervisor and engine (no recapture needed)."""
+    tracer = O.TraceRecorder()
+    target.tracer = tracer
+    for rep in target.replicas:
+        rep.sup.tracer = tracer
+        rep.sup._attach_tracer()
+    return tracer
+
+
+def _warm_router(target, Request, np, vocab, wl, seed0):
+    """bench's closed-loop warm wave: 2 x slots prompts of prompt_min
+    tokens (seed 0), max_new_tokens output_max."""
+    rng = np.random.default_rng(0)
+    for i in range(2 * OBS_ENGINE["max_batch"]):
+        target.submit(Request(rng.integers(0, vocab, (wl.prompt_min,))
+                              .astype(np.int32),
+                              max_new_tokens=wl.output_max, seed=seed0 + i))
+    target.run_until_done(max_steps=20000)
+
+
+def _closed_loop_ref(build, Request, schedule):
+    """Every arrival of ``schedule`` served closed-loop by one engine:
+    {seed: stream}."""
+    eng = build()
+    reqs = [Request(a.prompt, max_new_tokens=a.max_new, seed=a.seed,
+                    priority=a.priority, tenant=a.tenant) for a in schedule]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_done(max_steps=200000)
+    return {r.seed: list(r.output) for r in reqs}
+
+
+def _check_replay(what, driver, ref, arrivals):
+    st = driver.stats
+    bad = [r.seed for r in driver.requests if list(r.output) != ref[r.seed]]
+    failed = [r.rid for r in driver.requests if r.failed or not r.done]
+    if (bad or failed or st["submitted"] + st["refused"] != arrivals):
+        raise AssertionError(
+            f"{what}: {len(bad)} of {len(driver.requests)} streams differ "
+            f"from the closed-loop engine (seeds {bad[:6]}), failed or "
+            f"unfinished {failed[:6]}, submitted {st['submitted']} + "
+            f"refused {st['refused']} != {arrivals} arrivals")
+
+
+def phase_slo_burst(torch, np, ops, card, model):
+    """(a) bench.py bench_slo_burst on the SERVE_CONFIG model: the seeded
+    burst replayed wall-clock, open-loop, into a 2-replica FleetRouter of
+    bench's 4-slot engine; (b) the observatory (tools/traffic_replay.py
+    run_replay) on the card, autoscaler off and on, against the same
+    replay of a 1-layer tiny model on the CPU. Returns K4's launches in
+    the measured replays."""
+    from paddle_tpu_torch import observability as O
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            Request)
+    from paddle_tpu_torch.inference.fleet import FleetConfig, FleetRouter
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    vocab = model.config.vocab_size
+    wl = burst_workload(O, BURST_SLO_SEED, vocab)
+    schedule = O.generate_schedule(wl)
+
+    def build():
+        return ContinuousBatchingEngine(model, device=DEVICE,
+                                        prefix_cache=True, **OBS_ENGINE)
+
+    fleet = FleetRouter(build, _scratch_dir("slo_burst"), num_replicas=2,
+                        config=FleetConfig(brownout_depth=10 ** 9))
+    try:
+        _warm_router(fleet, Request, np, vocab, wl, 900)
+        tracer = _fresh_recorder(fleet, O)
+        monitor = O.SLOMonitor(O.SLOConfig(ttft_ms=BURST_TTFT_MS,
+                                           window_s=1.0), tracer=tracer)
+        driver = O.ReplayDriver(fleet, schedule, monitor=monitor,
+                                wall_clock=True, max_steps=200000)
+        ops.paged_decode_attention.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        report = driver.run()
+        sync()
+        wall = time.perf_counter() - t0
+        k4 = ops.paged_decode_attention.launches
+    finally:
+        fleet.close()
+    tot = report["slo"]["totals"]
+    attain = 100.0 * tot["met"] / tot["finished"] if tot["finished"] else 0.0
+    p99 = tracer._h_ttft.quantile(0.99)
+    print(f"slo burst (a) [{card}]: serving_slo_attainment_pct={attain:.2f} "
+          f"serving_goodput_tokens_per_sec={tot['good_tokens'] / wall:.1f} "
+          f"serving_ttft_p99_under_burst_ms={p99} ({len(schedule)} "
+          f"arrivals over {wl.duration_s}s, refused "
+          f"{report['driver']['refused']}, {report['driver']['steps']} fleet "
+          f"steps in {wall:.2f}s wall, {tot['finished']} finished, "
+          f"{tot['tokens']} tokens, 2x{OBS_ENGINE['max_batch']} slots); K4 "
+          f"launches {k4}", flush=True)
+    _check_replay("slo burst (a)", driver,
+                  _closed_loop_ref(build, Request, schedule), len(schedule))
+
+    cpu_model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                                 device="cpu", seed=0)
+    for on in (False, True):
+        arm = "on" if on else "off"
+        ops.paged_decode_attention.launches = 0
+        t0 = time.perf_counter()
+        card_rep = observatory_replay(model, _scratch_dir(f"obs_{arm}"), on)
+        card_s = time.perf_counter() - t0
+        k4 += ops.paged_decode_attention.launches
+        cpu_rep = observatory_replay(cpu_model, _scratch_dir(f"obs_cpu_{arm}"),
+                                     on, device="cpu")
+        asc = card_rep["autoscaler"]["stats"]
+        print(f"slo burst (b) observatory autoscaler {arm} [{card}]: "
+              f"driver {card_rep['driver']}, attainment "
+              f"{card_rep['slo']['attainment']}, scale_ups "
+              f"{asc['scale_ups']} brownouts {asc['brownouts']}, digest "
+              f"{card_rep['schedule']['digest']}, {card_s:.2f}s; equal to "
+              f"the CPU run: {card_rep == cpu_rep}", flush=True)
+        if card_rep != cpu_rep:
+            raise AssertionError(f"observatory {arm}: the card's report "
+                                 "differs from the CPU run's")
+    return k4
+
+
+def phase_disagg_burst(torch, np, ops, card, model):
+    """bench.py bench_disagg's A/B on the SERVE_CONFIG model: the seed-29
+    burst replayed wall-clock into a unified 2-replica FleetRouter, then a
+    TieredRouter of 1 prefill + 1 decode replica, both of bench's 4-slot
+    engine with extra_blocks = slots. Returns K4's launches in the
+    measured replays."""
+    from paddle_tpu_torch import observability as O
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            PrefixCacheConfig, Request,
+                                            TieredRouter)
+    from paddle_tpu_torch.inference.fleet import FleetConfig, FleetRouter
+
+    vocab = model.config.vocab_size
+    wl = burst_workload(O, BURST_DISAGG_SEED, vocab)
+    schedule = O.generate_schedule(wl)
+    slots = OBS_ENGINE["max_batch"]
+
+    def build():
+        return ContinuousBatchingEngine(
+            model, device=DEVICE,
+            prefix_cache=PrefixCacheConfig(extra_blocks=slots),
+            **OBS_ENGINE)
+
+    keys = ("migrations", "migration_s", "migration_pages",
+            "migration_bytes", "migration_deferred", "migration_refused",
+            "migration_reprefill")
+    gc.collect()
+    sync()
+    mem0 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    ref = _closed_loop_ref(build, Request, schedule)
+    k4 = 0
+    out = {}
+    for arm in ("unified", "tiered"):
+        d = _scratch_dir(f"disagg_burst_{arm}")
+        cfg = FleetConfig(brownout_depth=10 ** 9)
+        target = (FleetRouter(build, d, num_replicas=2, config=cfg)
+                  if arm == "unified" else
+                  TieredRouter(build, build, d, num_prefill=1, num_decode=1,
+                               config=cfg))
+        try:
+            _warm_router(target, Request, np, vocab, wl, 950)
+            tracer = _fresh_recorder(target, O)
+            snap = {k: target.stats.get(k, 0) for k in keys}
+            driver = O.ReplayDriver(target, schedule, wall_clock=True,
+                                    max_steps=200000)
+            ops.paged_decode_attention.launches = 0
+            t0 = time.perf_counter()
+            driver.run()
+            sync()
+            wall = time.perf_counter() - t0
+            k4 += ops.paged_decode_attention.launches
+            delta = {k: target.stats.get(k, 0) - snap[k] for k in keys}
+        finally:
+            target.close()
+        _check_replay(f"disagg burst {arm}", driver, ref, len(schedule))
+        out[arm] = (tracer, delta, wall, driver.stats)
+        del target, driver
+    gc.collect()
+    sync()
+    mem1 = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    tr_uni, tr_tier = out["unified"][0], out["tiered"][0]
+    delta = out["tiered"][1]
+    mig = delta["migrations"]
+    h = tr_tier._h_migration
+    row = h.snapshot()
+    n_h = h.row_count(row)
+    print(f"disagg burst [{card}]: {len(schedule)} arrivals; p99 TTFT "
+          f"unified {tr_uni._h_ttft.quantile(0.99)} ms vs tiered "
+          f"{tr_tier._h_ttft.quantile(0.99)} ms (wall {out['unified'][2]:.2f}"
+          f"s / {out['tiered'][2]:.2f}s); {mig} migrations in the measured "
+          f"window, mean migration_s "
+          f"{delta['migration_s'] / max(1, mig):.6f}, pages "
+          f"{delta['migration_pages']}, bytes {delta['migration_bytes']}, "
+          f"deferred {delta['migration_deferred']}, refused "
+          f"{delta['migration_refused']}, re-prefills "
+          f"{delta['migration_reprefill']}; pt_migration_time_ms count "
+          f"{n_h} mean {row[-1] / max(1, n_h):.4f} ms beside the router's "
+          f"{1e3 * delta['migration_s'] / max(1, mig):.4f} ms; "
+          f"memory_allocated {mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB; "
+          f"K4 launches {k4}", flush=True)
+    if tr_tier._c_migrations.value() != mig or n_h != mig or not mig:
+        raise AssertionError(
+            f"disagg burst: the recorder counted "
+            f"{tr_tier._c_migrations.value()} migrations ({n_h} timed), "
+            f"the router {mig}")
+    if mem1 - mem0 > RECOVERY_MEM_SLACK:
+        raise AssertionError(f"disagg burst: memory grew {mem0} -> {mem1}")
+    return k4
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -4287,9 +4821,16 @@ def main():
     k4_disagg, k4_int8_disagg = _phase("25 disagg", phase_disagg, torch, np,
                                        ops, card, serve_model, serve_ref,
                                        single_tok_s)
+    k4_obs = _phase("26 observability", phase_observability, torch, np, ops,
+                    card, serve_model)
+    k4_slo = _phase("27 slo burst", phase_slo_burst, torch, np, ops, card,
+                    serve_model)
+    k4_dburst = _phase("28 disagg burst", phase_disagg_burst, torch, np,
+                       ops, card, serve_model)
     del serve_model
     k1_launches += bmha_k1 + k1_rec + k1_fleet
-    k4_launches += bmha_k4 + k4_rec + k4_fleet + k4_disagg
+    k4_launches += (bmha_k4 + k4_rec + k4_fleet + k4_disagg + k4_obs
+                    + k4_slo + k4_dburst)
     k4_int8_launches += k4_int8_disagg
     lse_launches += glse_lse
 

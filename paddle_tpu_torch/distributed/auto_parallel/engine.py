@@ -28,11 +28,11 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {slice_name} slice "
-        "of the port; this slice trains on one device with the built-in "
-        "AdamW (Engine(model, mesh=None))")
+from ..._later import later_slice
+
+# what the caller can use until the slices arrive
+_ONE_DEVICE = ("; this slice trains on one device with the built-in AdamW "
+               "(Engine(model, mesh=None))")
 
 
 def _as_tensor(x, device, dtype=None):
@@ -69,18 +69,18 @@ class Engine:
         guard=None,
     ):
         if mesh is not None:
-            raise _later_slice("mesh training (mesh=)",
-                               "distributed-training")
+            raise later_slice("mesh training (mesh=)",
+                              "distributed-training", "6", _ONE_DEVICE)
         if (n_micro is not None or pp_remat is not None or pp_interleave != 1
                 or pp_schedule != "auto" or pp_remat_policy != "auto"):
-            raise _later_slice("pipeline parallelism (n_micro=, pp_*=)",
-                               "distributed-training")
+            raise later_slice("pipeline parallelism (n_micro=, pp_*=)",
+                              "distributed-training", "6", _ONE_DEVICE)
         if optimizer is not None:
-            raise _later_slice("pluggable optimizers (optimizer=)",
-                               "optimizer")
+            raise later_slice("pluggable optimizers (optimizer=)",
+                              "optimizer", note=_ONE_DEVICE)
         if guard is not None:
-            raise _later_slice("the numeric guard (guard=)",
-                               "resilience")
+            raise later_slice("the numeric guard (guard=)", "resilience",
+                              "6", _ONE_DEVICE)
         self.model = model
         self.lr = lr
         self.beta1, self.beta2 = beta1, beta2

@@ -62,8 +62,13 @@ prefill replica dies  its journal's ``migr-kv`` records keep migrated rids
 no decode tier left   candidates decode in place on the prefill tier
 ====================  ===================================================
 
-``tracer=`` (the ``migrate`` span and ``migration_failure`` instant) is a
-later slice and raises, through :class:`FleetRouter`.
+Tracing (``tracer=``, through :class:`FleetRouter`): each spliced chain
+is one ``migrate`` span on the request's lane (export to splice, with
+from/to replica, pages and bytes, tagged with the decode replica) feeding
+the ``pt_migration_*`` counters and the ``pt_migration_time_ms``
+histogram; a chain refused by a target is a ``migrate_failure`` instant
+with reason ``corrupt`` (PT-SRV-007) or ``refused`` (saturated or another
+geometry), and a rid no replica can take gets its terminal.
 """
 
 from __future__ import annotations
@@ -485,6 +490,7 @@ class TieredRouter(FleetRouter):
             self.stats["migration_deferred"] += 1
             return False
         t0 = time.monotonic()
+        t0_tr = None if self.tracer is None else self.tracer.now()
         # flush before surfacing: everything delivered so far is journaled
         # and in the caller's object before the chain travels
         src.sup._sync_progress()
@@ -513,12 +519,18 @@ class TieredRouter(FleetRouter):
                 corrupt_art = True
                 self.stats["migration_corrupt"] += 1
                 self.events.append(("PT-SRV-007", str(e)))
+                if self.tracer is not None:
+                    self.tracer.migration_failure(
+                        rid, "corrupt", tags={"replica": rep.idx})
                 continue
             except (EngineSaturated, ValueError):
                 # saturated at import (the pre-check's estimate was
                 # optimistic) or a geometry refusal: the bytes are fine,
                 # try the next target
                 self.stats["migration_refused"] += 1
+                if self.tracer is not None:
+                    self.tracer.migration_failure(
+                        rid, "refused", tags={"replica": rep.idx})
                 continue
             except Exception as e:  # noqa: BLE001 — replica death boundary
                 # an unexpected splice failure leaves that engine untrusted:
@@ -544,6 +556,7 @@ class TieredRouter(FleetRouter):
                 user.done = user.failed = True
                 user.error = (f"PT-TIER-001: no surviving replica to "
                               f"place migrated rid={rid} on")
+                self._trace_lost(rid, user, src.idx)
                 return True
             self.stats["migration_reprefill"] += 1
             target.sup.submit(user, resume=True)
@@ -567,4 +580,9 @@ class TieredRouter(FleetRouter):
              f"rid={rid} chain ({hdr['n_written']} page(s), {len(art)} "
              f"bytes) migrated replica {src.idx} -> {placed.idx} in "
              f"{dt * 1e3:.1f}ms"))
+        if self.tracer is not None:
+            self.tracer.migrate(rid, src.idx, placed.idx,
+                                pages=int(hdr["n_written"]),
+                                nbytes=len(art), t0=t0_tr,
+                                tags={"replica": placed.idx})
         return True

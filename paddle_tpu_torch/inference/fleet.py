@@ -33,7 +33,12 @@ replicas in threads; the engines' device work is serialized per process
 (``serving._DEVICE_LOCK``), so a replica rebuilding (and capturing its
 CUDA graph) in one thread never races another replica's step.
 
-``tracer=`` (serving observability) is a later slice and raises.
+``tracer=`` takes ONE ``TraceRecorder`` across the fleet: every
+supervisor and engine stamps with ``trace_tags={"replica": idx}`` (pid =
+replica in the chrome trace), a failed-over request's spans continue in
+the same lane after a ``failover`` edge (from, to), a fleet brownout shed
+is stamped before any replica sees the request, and a request lost with
+its replica gets its terminal (or a ``request_lost`` instant).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ from typing import Callable, Dict, List, Optional, Set
 from ..distributed.resilience.faults import FaultInjected, maybe_inject
 from .recovery import RequestJournal, ServingSupervisor, _request_from
 from .serving import (ContinuousBatchingEngine, EngineSaturated, Request,
-                      RequestShed, _later_slice)
+                      RequestShed)
 
 __all__ = ["FleetConfig", "FleetRouter", "ReplicaState"]
 
@@ -142,9 +147,6 @@ class FleetRouter:
                  graceful_drain: bool = True,
                  config: Optional[FleetConfig] = None, fsync: bool = False,
                  tracer=None):
-        if tracer is not None:
-            raise _later_slice("fleet tracing (tracer=)",
-                               "serving observability")
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
         self._build = build_engine
@@ -153,6 +155,7 @@ class FleetRouter:
         self.config = config or FleetConfig()
         self.failover = bool(failover)
         self.graceful_drain = bool(graceful_drain)
+        self.tracer = tracer
         self._sup_kw = dict(step_budget_s=step_budget_s,
                             max_recoveries=max_recoveries, fsync=fsync)
         self.stats = {"submitted": 0, "fleet_shed": 0, "replica_deaths": 0,
@@ -192,13 +195,31 @@ class FleetRouter:
         self._clear_events = 0
         self._brownout_forced = False
 
+    def _trace_lost(self, rid: int, user: Request, replica: int) -> None:
+        """Terminal stamp for a lost request. The engine may have
+        terminal'd the rid in the very step its replica died (twin
+        finished, result never spliced): a second terminal would break the
+        one-terminal invariant, so that case records a non-terminal
+        ``request_lost`` event instead."""
+        if self.tracer is None:
+            return
+        if self.tracer.is_open(rid):
+            self.tracer.finish(rid, len(user.output), failed=True,
+                               error=user.error, kind="fail",
+                               tags={"replica": replica})
+        else:
+            self.tracer.instant("request_lost", rid,
+                                tags={"replica": replica},
+                                error=(user.error or "")[:200])
+
     def _make_sup(self, idx: int, path: str):
         """Build the replica-``idx`` supervisor over journal ``path`` — the
         ONE construction point (initial fleet, ``_respawn``,
         ``add_replica``); the router consumes only the replica surface
         (submit/step/finished/load/progress/withdraw/behind/close/abandon
         + ``.engine`` geometry)."""
-        return ServingSupervisor(self._builder(idx), path, **self._sup_kw)
+        return ServingSupervisor(self._builder(idx), path,
+                                 **self._rep_kw(idx))
 
     def _builder(self, idx: int) -> Callable[[], ContinuousBatchingEngine]:
         """Engine factory for replica ``idx`` — one homogeneous fleet
@@ -209,6 +230,12 @@ class FleetRouter:
         """Tier label for replica ``idx`` (``"serving"`` in a flat
         fleet)."""
         return "serving"
+
+    def _rep_kw(self, idx: int) -> dict:
+        kw = dict(self._sup_kw)
+        if self.tracer is not None:
+            kw.update(tracer=self.tracer, trace_tags={"replica": idx})
+        return kw
 
     def _latest_gen(self, idx: int) -> int:
         best = 0
@@ -270,6 +297,15 @@ class FleetRouter:
         if (self._brownout_active
                 and req.priority >= self.config.shed_priority):
             self.stats["fleet_shed"] += 1
+            if self.tracer is not None:
+                # shed before any replica saw it: the tracer books the
+                # implicit submit so the lifecycle still closes (with the
+                # tenant, so fleet sheds count against that tenant)
+                self.tracer.shed(
+                    req.rid,
+                    tags=({"tenant": req.tenant} if req.tenant is not None
+                          else None),
+                    reason="fleet brownout")
             raise RequestShed(
                 f"PT-FLT-003: fleet brownout — priority {req.priority} "
                 f"request rid={req.rid} shed at submit (every replica at "
@@ -441,6 +477,7 @@ class FleetRouter:
             user.done = user.failed = True
             user.error = (f"PT-FLT-001: replica {rep.idx} died and failover "
                           "is disabled — request lost")
+            self._trace_lost(rid, user, rep.idx)
             lost.append(rid)
         self._retire_journal(rep.journal_path, [], lost)
 
@@ -480,7 +517,12 @@ class FleetRouter:
                 user.done = user.failed = True
                 user.error = ("PT-FLT-001: no surviving replica to fail "
                               f"over rid={rid} to")
+                self._trace_lost(rid, user, dead.idx)
                 continue
+            if self.tracer is not None:
+                # the failover EDGE: which journal the request came from
+                # and which survivor continues its stream
+                self.tracer.failover(rid, dead.idx, target.idx)
             # resume=True: journaled work is never refused — the supervisor
             # disables backpressure AND feasibility shedding for it (both
             # were charged at the original submit)
@@ -552,6 +594,7 @@ class FleetRouter:
                 user.done = user.failed = True
                 user.error = ("PT-FLT-002: replica hard-restarted without "
                               "drain — request lost")
+                self._trace_lost(rid, user, idx)
                 lost.append(rid)
             self._retire_journal(rep.journal_path, [], lost)
             self._respawn(rep)

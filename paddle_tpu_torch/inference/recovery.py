@@ -39,9 +39,18 @@ is journaled on both sides: ``retire_migrated`` appends ``migr-kv`` on the
 source before its slot is released, ``submit_migrated`` journals the
 destination's admit and delivered mark only after the splice landed.
 
-Later slices, refused with ``NotImplementedError``: ``tracer=`` /
-``trace_tags=`` (serving observability) and the mesh-degrade reshard
-(``_degrade``: tp-sharded serving).
+Tracing (``tracer=``, ``trace_tags=``): the supervisor owns the
+recorder's attachment because the engine is factory-built and REBUILT on
+recovery (``_attach_tracer`` after every build), so one request's spans
+stay in one timeline across crashes. A resumed or replayed request is
+``mark_recovered`` at its delivered mark BEFORE its twin re-admits (the
+catch-up regeneration streams no token twice, and every later span carries
+``recovered: true``); a recovery is one ``recovery`` span; a replay
+divergence stamps the request's terminal (or a ``replay_divergence``
+instant when the twin already finished).
+
+A later slice, refused with ``NotImplementedError``: the mesh-degrade
+reshard (``_degrade`` and its ``mesh_degrade`` span: tp-sharded serving).
 
 PT-SRV codes: 001 engine crash absorbed, 002 step watchdog overrun, 003
 request shed at submit, 004 journal corruption, 005 replay divergence,
@@ -56,9 +65,10 @@ import time
 import zlib
 from typing import Callable, Dict, List, Optional, Set
 
+from .._later import later_slice
 from ..distributed.resilience.watchdog import StepWatchdog
 from .serving import (ContinuousBatchingEngine, MeshDegraded, Request,
-                      RequestShed, _later_slice)
+                      RequestShed)
 
 __all__ = ["JournalCorrupt", "RequestJournal", "ServingSupervisor"]
 
@@ -255,10 +265,10 @@ class ServingSupervisor:
                  max_recoveries: int = 2, watchdog_grace_steps: int = 4,
                  fsync: bool = False, tracer=None,
                  trace_tags: Optional[dict] = None, elastic: bool = True):
-        if tracer is not None or trace_tags is not None:
-            raise _later_slice("supervisor tracing (tracer=, trace_tags=)",
-                               "serving observability")
         self._build = build_engine
+        # every engine this supervisor builds gets the same recorder
+        self.tracer = tracer
+        self.trace_tags = dict(trace_tags or {})
         # a rebuilt engine's first steps can be slow (first launches at new
         # shapes) and read as stalls: the first N steps after every
         # rebuild run unarmed
@@ -286,6 +296,7 @@ class ServingSupervisor:
                       "replayed_requests": 0, "mesh_reshards": 0,
                       "mesh_degraded": 0}
         self.engine = build_engine()
+        self._attach_tracer()
         # rids come from a per-process counter; a restart over an existing
         # journal resets it, so bump it past every journaled rid before any
         # submit (a collision would merge two requests' records)
@@ -302,6 +313,11 @@ class ServingSupervisor:
                           f"journal restart: {len(pending)} unfinished "
                           "request(s) found", rebuild=False)
 
+    def _attach_tracer(self) -> None:
+        if self.tracer is not None:
+            self.engine.tracer = self.tracer
+            self.engine.trace_tags = dict(self.trace_tags)
+
     # -- public API --------------------------------------------------------
     def submit(self, req: Request, resume: bool = False) -> int:
         """Journal + admit (a private twin carrying the same rid enters the
@@ -315,6 +331,12 @@ class ServingSupervisor:
         one (PT-SRV-005 on divergence)."""
         meta = _admit_record(req)
         twin = _request_from(meta)
+        if resume and self.tracer is not None:
+            # raise the streamed-token dedup floor BEFORE the twin admits:
+            # catch-up regeneration below the delivered mark re-streams
+            # nothing, and every span from here on carries recovered=true
+            self.tracer.mark_recovered(req.rid, len(req.output),
+                                       self.trace_tags)
         if resume:
             # journaled work is never refused: backpressure and feasibility
             # shedding were charged at the ORIGINAL submit
@@ -541,6 +563,20 @@ class ServingSupervisor:
                            f"vs {user.output[:8]}...")
                     self.events.append(("PT-SRV-005", err))
                     self.journal.defer("fin", rid=rid, failed=True)
+                    if self.tracer is not None:
+                        # a twin that never reached the engine's _mark_done
+                        # needs its terminal here; one that did (done but
+                        # diverged) already has one: record the divergence
+                        # without a second terminal
+                        if self.tracer.is_open(rid):
+                            self.tracer.finish(rid, len(user.output),
+                                               failed=True, error=err,
+                                               kind="fail",
+                                               tags=self.trace_tags)
+                        else:
+                            self.tracer.instant("replay_divergence", rid,
+                                                self.trace_tags,
+                                                error=err[:200])
                     updates.append((rid, user, [], True, True, err))
                     continue
                 if n_twin >= n_user:
@@ -573,8 +609,8 @@ class ServingSupervisor:
 
     def _degrade(self, e: MeshDegraded) -> None:
         """PT-SRV-008 reshard-and-resume: needs a tp-sharded engine."""
-        raise _later_slice("the mesh-degrade reshard (MeshDegraded)",
-                           "tp-sharded serving") from e
+        raise later_slice("the mesh-degrade reshard (MeshDegraded)",
+                          "tp-sharded serving", "7") from e
 
     def _recover(self, code: str, msg: str, rebuild: bool = True) -> None:
         """Rebuild the engine and replay every unfinished journaled request
@@ -582,6 +618,7 @@ class ServingSupervisor:
         Blocks until each replay has caught up to its delivered high-water
         mark (verified bit-for-bit), then returns."""
         t0 = time.monotonic()
+        t0_tr = None if self.tracer is None else self.tracer.now()
         self.recoveries += 1
         self.stats["recoveries"] += 1
         self._grace = self.watchdog_grace_steps
@@ -589,6 +626,7 @@ class ServingSupervisor:
         if rebuild:
             self.journal.append("crash", code=code, msg=msg)
             self.engine = self._build()
+            self._attach_tracer()
         replaying: List[int] = []
         # shedding and backpressure were charged at the original submit
         saved_max_queue = self.engine.max_queue
@@ -614,6 +652,9 @@ class ServingSupervisor:
                 self._live[rid] = twin
                 if user.output:
                     self._verify.add(rid)
+                if self.tracer is not None:
+                    self.tracer.mark_recovered(rid, len(user.output),
+                                               self.trace_tags)
                 self.engine.add_request(twin)
                 replaying.append(rid)
         finally:
@@ -643,5 +684,8 @@ class ServingSupervisor:
         self._sync_progress()
         dt = time.monotonic() - t0
         self.stats["recovery_s"] += dt
+        if self.tracer is not None:
+            self.tracer.recovery(t0_tr, code, len(replaying),
+                                 tags=self.trace_tags)
         self.journal.append("recovered", code=code, n=len(replaying),
                             seconds=round(dt, 6))

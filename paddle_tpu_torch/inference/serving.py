@@ -97,8 +97,20 @@ on MoE models. Under the capacity dispatches (``einsum``, ``scatter``,
 ``auto``) a token's dropped choices depend on the other rows of its step,
 so streams differ between engine kinds and slot counts, in the JAX engine
 as in the port; the dropless ``pgmm`` and ``ragged`` keep fused == legacy
-and warm == cold. The tp mesh and tracing are later slices: asking for
-them raises ``NotImplementedError``.
+and warm == cold. The tp mesh is a later slice: asking for it raises
+``NotImplementedError``.
+
+TRACING (``tracer=``, a ``paddle_tpu_torch.observability.TraceRecorder``;
+``trace_tags`` ride every stamp): the stamp sites are the JAX engine's
+(submit/shed at ``add_request``, admit, prefill chunks and groups, first
+tokens, one ``decode_block`` span per block with every row's token
+progress under one recorder lock, finish/evict at ``_mark_done``). They
+are host-side only: the decode span is taken around the launch or the
+graph replays, before any readback, and no stamp synchronizes the device
+or sits inside ``_fused_step`` / ``_spec_step`` (the captured steps).
+``engine.tracer`` is read at every stamp, so a recorder attached or
+swapped after construction (the supervisor's ``_attach_tracer``) needs no
+recapture.
 
 Speculative == non-speculative greedy streams. The JAX package pins them
 byte-identical; in the port it holds where both paths compute the same
@@ -127,9 +139,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .._later import later_slice
 from ..device import resolve_device
 from ..distributed.resilience.faults import (device_loss, maybe_inject,
                                              resource_hold)
+from ..distributed.resilience.retry import retry_stats
 from ..models.generation_utils import fold_keys, sample_rows, \
     validate_sampling
 from ..ops.grouped_matmul import pgmm, pgmm_dw
@@ -140,6 +154,17 @@ __all__ = ["BlockAllocator", "BrownoutConfig", "ContinuousBatchingEngine",
            "EngineSaturated", "KVCacheConfig", "MeshDegraded",
            "PrefixCacheConfig", "RadixPrefixCache", "Request", "RequestShed",
            "SpecConfig", "ngram_draft", "spec_accept"]
+
+
+def __getattr__(name):
+    # the SLO-pressure autoscaler (autoscale.py), re-exported lazily as the
+    # JAX serving module does: importing serving must not pull the control
+    # loop in
+    if name in ("SLOAutoscaler", "AutoscaleConfig"):
+        from . import autoscale
+
+        return getattr(autoscale, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class MeshDegraded(RuntimeError):
@@ -337,8 +362,8 @@ class Request:
     class. Admitted slots are never preempted.
 
     ``tenant`` is a workload tag that the journal carries across recovery
-    and failover (the JAX package's tracer splits SLOs by it; tracing is a
-    later slice of the port).
+    and failover; the engine's trace stamps carry it, and the SLO monitor
+    splits attainment by it.
     """
 
     PRIORITY_HIGH = 0
@@ -444,12 +469,6 @@ def _capture_stream(device):
     return _CAPTURE_STREAMS[device]
 
 
-def _later_slice(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it arrives with the {slice_name} slice "
-        "of the port (ROADMAP Queue 1, serving engine)")
-
-
 class ContinuousBatchingEngine:
     """Continuous batching (module docstring) on ``device`` (default: the
     CUDA device; raises without one unless ``device="cpu"``). The model
@@ -477,12 +496,17 @@ class ContinuousBatchingEngine:
                  kv_cache=None,
                  mesh=None,
                  tracer=None,
+                 trace_tags: Optional[Dict] = None,
                  device=None,
                  _unsafe_overcommit: bool = False):
         if mesh is not None:
-            raise _later_slice("mesh-sharded serving", "tp-sharded serving")
-        if tracer is not None:
-            raise _later_slice("request tracing", "serving observability")
+            raise later_slice("mesh-sharded serving", "tp-sharded serving",
+                              "7")
+        # per-request trace spans: every stamp site is host-side, behind
+        # one `is not None` check; assignable after construction (the
+        # supervisor attaches one to factory-built engines)
+        self.tracer = tracer
+        self.trace_tags = dict(trace_tags or {})
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device != self.device:
@@ -675,6 +699,9 @@ class ContinuousBatchingEngine:
         # spec_steps == spec_graph_replays + eager_spec_steps.
         self.stats = {"admit_host_s": 0.0, "decode_host_s": 0.0,
                       "compile_cache_entries": 0, "shed": 0,
+                      # the retry_call registry's attempts and give-ups,
+                      # copied in at finished()
+                      "retry_attempts": 0, "retry_giveups": 0,
                       "prefill_groups": 0, "decode_steps": 0,
                       "fused_updates": 0, "graph_captures": 0,
                       "graph_replays": 0, "eager_decode_steps": 0,
@@ -690,6 +717,16 @@ class ContinuousBatchingEngine:
                               brownouts=0, brownout_steps=0, packed_rows=0)
         if self._fused and self.device.type == "cuda":
             self._capture()
+
+    def _req_tags(self, req: Request) -> Dict:
+        """Stamp tags of the per-request sites (submit / shed / admit): the
+        engine's tags plus the request's workload tenant, so SLO attainment
+        and the queue-wait events split per tenant."""
+        if req.tenant is None:
+            return self.trace_tags
+        tags = dict(self.trace_tags)
+        tags["tenant"] = req.tenant
+        return tags
 
     # ---- public API ----
     def add_request(self, req: Request) -> int:
@@ -711,7 +748,19 @@ class ContinuousBatchingEngine:
         vocab = self.model.config.vocab_size
         if req.prompt.min() < 0 or req.prompt.max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
-        self._shed_check(req)
+        if self.tracer is not None:
+            # stamp AFTER the caller-error validations (a refused request
+            # never entered the system) but BEFORE the shed check (a shed
+            # is a real terminal outcome of a real submission)
+            self.tracer.submit(req.rid, len(req.prompt), req.max_new_tokens,
+                               self._req_tags(req))
+            try:
+                self._shed_check(req)
+            except RequestShed:
+                self.tracer.shed(req.rid, self._req_tags(req))
+                raise
+        else:
+            self._shed_check(req)
         req._engine = weakref.ref(self)
         req._enqueued_at = _time.monotonic()
         if req.deadline_s is not None:
@@ -932,27 +981,43 @@ class ContinuousBatchingEngine:
         # parked rows decode at position 0 (their own slot's pages, or the
         # parking page with a prefix cache)
         pos_np = (np.where(active, self._pos, 1) - 1).astype(np.int32)
+        # the block's span covers the host work that queued it (launches or
+        # graph replays), read before any readback: no stamp synchronizes
+        tracer = self.tracer
+        t0_tr = None if tracer is None else tracer.now()
         if self._fused:
             out = self._run_fused(pos_np, n, do_sample)
         else:
             out = self._run_decode(pos_np, n, do_sample)
+        t1_tr = None if tracer is None else tracer.now()
         if async_ok:
             entries = []
+            tok_marks = [] if tracer is not None else None
             for i, req in live:
                 took = min(n, req.max_new_tokens - req._n_out)
                 entries.append((i, req, took))
                 req._n_out += took
                 self._sched_tokens += took
+                if tok_marks is not None:
+                    tok_marks.append((req.rid, req._n_out))
                 self._pos[i] += took
                 if req._n_out >= req.max_new_tokens:
                     req.done = True
                     self._mark_done(req)
                     self._release_slot(i)
+            if tracer is not None:
+                # ONE recorder-lock acquisition for the whole block's stamps
+                tracer.decode_block_batch(
+                    t0_tr, n, len(live), tok_marks, t1=t1_tr,
+                    tags=self.trace_tags,
+                    tokens=sum(e[2] for e in entries))
             self._pending.append((out, entries))
             return
         # eos path: materialize (in generation order — older pendings first)
         self._drain_pending()
         out = out.cpu().numpy()
+        tok_marks = [] if tracer is not None else None
+        block_tokens = 0
         for i, req in live:
             took = 0
             for j in range(n):
@@ -966,9 +1031,16 @@ class ContinuousBatchingEngine:
                     break
             self._pos[i] += took
             self._sched_tokens += took
+            block_tokens += took
+            if tok_marks is not None:
+                tok_marks.append((req.rid, req._n_out))
             if req.done:
                 self._mark_done(req)
                 self._release_slot(i)
+        if tracer is not None:
+            tracer.decode_block_batch(t0_tr, n, len(live), tok_marks,
+                                      t1=t1_tr, tags=self.trace_tags,
+                                      tokens=block_tokens)
 
     def _run_decode(self, pos_np, n: int, do_sample: bool):
         """Legacy engines: ``n`` decode steps over every slot, eagerly;
@@ -1132,6 +1204,8 @@ class ContinuousBatchingEngine:
         for i, r in live:
             caps[i] = min(r.max_new_tokens - r._n_out,
                           self.max_len - int(self._pos[i]))
+        tracer = self.tracer
+        t0_tr = None if tracer is None else tracer.now()
         self._note_program(("spec_step",))
         self._dev_caps.copy_(self._to_device(caps))
         if self._spec_graph is not None:
@@ -1145,12 +1219,15 @@ class ContinuousBatchingEngine:
         emit = self._spec_emit.cpu().numpy()     # the one synchronous read
         self.stats["spec_proposed"] += K * len(live)
         self.stats["spec_steps"] += 1
+        t1_tr = None if tracer is None else tracer.now()
         out = None
         if any(r.eos_token_id is not None for _, r in live):
             # materialize in generation order (older pendings first)
             self._drain_pending()
             out = out_dev.cpu().numpy()
         entries = []
+        tok_marks = [] if tracer is not None else None
+        total = 0
         for i, req in live:
             took = int(emit[i])
             if out is not None:
@@ -1173,11 +1250,20 @@ class ContinuousBatchingEngine:
             self.stats["spec_accepted"] += max(0, took - 1)
             self._pos[i] += took
             self._sched_tokens += took
+            total += took
+            if tok_marks is not None:
+                tok_marks.append((req.rid, req._n_out))
             if req._n_out >= req.max_new_tokens:
                 req.done = True
             if req.done:
                 self._mark_done(req)
                 self._release_slot(i)
+        if tracer is not None:
+            # the block's REAL emitted-token count rides the span: a spec
+            # dispatch emits 1..K+1 tokens a row
+            tracer.decode_block_batch(t0_tr, K + 1, len(live), tok_marks,
+                                      t1=t1_tr, tags=self.trace_tags,
+                                      tokens=total)
         if entries:
             self._pending.append((out_dev, entries))
 
@@ -1312,14 +1398,25 @@ class ContinuousBatchingEngine:
             # land queued releases, so a drained engine's device state is
             # drained too, not pending the next decode block
             self._flush_updates()
+        # the retry registry's snapshot rides here (control plane), not in
+        # step(), as in the JAX engine
+        rs = retry_stats()
+        self.stats["retry_attempts"] = rs["attempts"]
+        self.stats["retry_giveups"] = rs["giveups"]
         out, self._finished = self._finished, {}
         return out
 
     def _mark_done(self, req: Request):
-        """Single chokepoint for request completion."""
+        """Single chokepoint for request completion: surfaces the request
+        in ``_finished``, retires its deadline from the expiry scan, and
+        stamps the terminal span (finish / evict / fail — the tracer infers
+        the kind from failed + error)."""
         if req.deadline_s is not None:
             self._n_deadlined = max(0, self._n_deadlined - 1)
         self._finished[req.rid] = req
+        if self.tracer is not None:
+            self.tracer.finish(req.rid, req._n_out, failed=req.failed,
+                               error=req.error, tags=self.trace_tags)
 
     def withdraw_queued(self, rid: int) -> bool:
         """Remove a still-WAITING request from the queue (never an admitted
@@ -1514,16 +1611,29 @@ class ContinuousBatchingEngine:
             self._tops[slot] = req.top_p
             self._topks[slot] = req.top_k
             self._seeds[slot] = req.seed
+        tracer = self.tracer
         for (padded, _), grp in groups.items():
+            t0_tr = None if tracer is None else tracer.now()
             firsts_dev = self._prefill_group(padded, grp)
+            if tracer is not None:
+                tracer.span("prefill_group", None, t0_tr,
+                            tags=self.trace_tags, tokens=padded * len(grp),
+                            slots=len(grp))
             any_eos = any(r.eos_token_id is not None for _, r in grp)
             firsts = firsts_dev.cpu().numpy() if any_eos else None
             entries = []
+            ft_marks = [] if tracer is not None else None
             for row, (slot, req) in enumerate(grp):
                 self._slots[slot] = req
                 self._occupied[slot] = req
                 req._n_out += 1
                 self._sched_tokens += 1
+                if tracer is not None:
+                    now = _time.monotonic()
+                    tracer.admit(req.rid, now - (req._enqueued_at or now),
+                                 miss_tokens=len(req.prompt),
+                                 tags=self._req_tags(req))
+                    ft_marks.append((req.rid, req._n_out))
                 self._pos[slot] = len(req.prompt) + 1
                 if self._fused:
                     # static slot-owned tables: activation flips only the
@@ -1535,6 +1645,9 @@ class ContinuousBatchingEngine:
                     req.output.append(int(firsts[row]))
                 else:
                     entries.append((row, req, 1))
+            if ft_marks:
+                # one recorder-lock acquisition for the group's first tokens
+                tracer.first_tokens(ft_marks, tags=self.trace_tags)
             for row, (slot, req) in enumerate(grp):
                 if ((firsts is not None and req.eos_token_id is not None
                      and int(firsts[row]) == req.eos_token_id)
@@ -1690,6 +1803,12 @@ class ContinuousBatchingEngine:
         self._prefill_next[slot] = cached
         self.stats["hit_tokens"] += cached
         self.stats["miss_tokens"] += len(prompt) - cached
+        if self.tracer is not None:
+            now = _time.monotonic()
+            self.tracer.admit(
+                req.rid, now - (req._enqueued_at or now),
+                hit_tokens=cached, miss_tokens=len(prompt) - cached,
+                tags=self._req_tags(req))
         return True
 
     def _steal_blocks(self, n: int, avoid=()):
@@ -1781,6 +1900,7 @@ class ContinuousBatchingEngine:
         """Legacy engines: one chunk of every mid-prefill slot, one row
         each."""
         C = self._chunk_tokens
+        t0_tr = None if self.tracer is None else self.tracer.now()
         # on the card max_batch rows (``_fixed_rows``), the rest parked
         g = self.max_batch if self._fixed_rows else len(group)
         ids = np.zeros((g, C), np.int32)
@@ -1794,8 +1914,14 @@ class ContinuousBatchingEngine:
             starts[r] = nxt
         self._prefill_chunk(ids, starts, rows)
         for s, req in group:
-            self._prefill_next[s] = min(self._prefill_next[s] + C,
-                                        len(req.prompt))
+            nxt = self._prefill_next[s]
+            self._prefill_next[s] = min(nxt + C, len(req.prompt))
+            if self.tracer is not None:
+                # one span per slot per chunk (host dispatch window), with
+                # the real (unpadded) token count the chunk advanced
+                self.tracer.prefill_chunk(
+                    req.rid, t0_tr, self._prefill_next[s] - nxt,
+                    tags=self.trace_tags)
 
     def _run_pack(self, group):
         """Packed prefill (fused mode): (slot, chunk) pairs flattened into
@@ -1825,6 +1951,7 @@ class ContinuousBatchingEngine:
                     offs[s] = min(offs[s] + C, len(req.prompt))
                     progress = True
         g = self._pack_group(len(rows))
+        t0_tr = None if self.tracer is None else self.tracer.now()
         for lo in range(0, len(rows), g):
             ids = np.zeros((g, C), np.int32)
             starts = np.zeros(g, np.int32)
@@ -1836,8 +1963,13 @@ class ContinuousBatchingEngine:
                 trows[r] = self._prefill_row(s, req)
             self._prefill_chunk(ids, starts, trows)
         self.stats["packed_rows"] += len(rows)
-        for s, _ in group:
-            self._prefill_next[s] = offs[s]
+        for s, req in group:
+            nxt = self._prefill_next[s]
+            if offs[s] > nxt:
+                self._prefill_next[s] = offs[s]
+                if self.tracer is not None:
+                    self.tracer.prefill_chunk(req.rid, t0_tr, offs[s] - nxt,
+                                              tags=self.trace_tags)
 
     def _pack_group(self, n: int) -> int:
         """Rows of a packed prefill call for ``n`` (slot, chunk) rows: the
@@ -1896,6 +2028,7 @@ class ContinuousBatchingEngine:
         any_eos = any(r.eos_token_id is not None for _, r in ready)
         firsts = firsts_dev.cpu().numpy() if any_eos else None
         entries = []
+        ft_marks = [] if self.tracer is not None else None
         for row, (slot, req) in enumerate(ready):
             n_full = len(req.prompt) // self.page_size
             if n_full and not self._brownout_active:
@@ -1909,6 +2042,8 @@ class ContinuousBatchingEngine:
             del self._prefill_next[slot]
             req._n_out += 1
             self._sched_tokens += 1
+            if ft_marks is not None:
+                ft_marks.append((req.rid, req._n_out))
             self._pos[slot] = len(req.prompt) + 1
             if self._fused:
                 self._queue_update(slot, self._slot_rows[slot],
@@ -1922,6 +2057,9 @@ class ContinuousBatchingEngine:
                 req.output.append(int(firsts[row]))
             else:
                 entries.append((row, req, 1))
+        if ft_marks:
+            # one recorder-lock acquisition for the wave's first tokens
+            self.tracer.first_tokens(ft_marks, tags=self.trace_tags)
         for row, (slot, req) in enumerate(ready):
             if ((firsts is not None and req.eos_token_id is not None
                  and int(firsts[row]) == req.eos_token_id)

@@ -1699,3 +1699,56 @@ def test_migration_export_right_after_a_replay_reads_its_bytes_on_card(
     for pa, pb in zip(got, want):
         for a, b in zip(pa, pb):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["fused", "spec"])
+def test_traced_fused_wave_adds_no_sync_and_keeps_streams_on_card(cuda,
+                                                                  spec):
+    """A TraceRecorder on the fused engine (every decode block a graph
+    replay, or a spec dispatch) stamps host-side only: a traced wave
+    reports no more synchronizing operations than the same wave bare, the
+    streams are equal, the graphs are captured once and replayed, and
+    every request's lifecycle closes."""
+    import chip_smoke
+    from paddle_tpu_torch.observability import TraceRecorder
+
+    _, card = _card_model(cuda)
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, 512, (16,)).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(0, 512, (n,)).astype(
+        np.int32)]) for n in (0, 3, 16, 9, 5, 16, 1, 30, 7, 12, 4, 2)]
+    news = [4 + (i % 4) * 3 for i in range(len(prompts))]
+    kw = dict(speculative=SpecConfig(k=4)) if spec else {}
+    tracer = TraceRecorder()
+    bare = _fused_engine(card, cuda, **kw)
+    traced = _fused_engine(card, cuda, tracer=tracer, **kw)
+
+    def serve(eng, out):
+        reqs = [Request(p, max_new_tokens=k) for p, k in zip(prompts, news)]
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done(max_steps=500)
+        out.append([r.tokens for r in reqs])
+        return reqs
+
+    warm_b, warm_t = [], []
+    serve(bare, warm_b)
+    reqs = serve(traced, warm_t)
+    assert warm_t == warm_b
+    out_b, out_t = [], []
+    s_bare = chip_smoke._sync_count(torch, lambda: serve(bare, out_b))
+    s_traced = chip_smoke._sync_count(torch, lambda: serve(traced, out_t))
+    assert out_t == out_b
+    assert len(s_traced) <= len(s_bare), (s_traced, s_bare)
+    for eng in (bare, traced):
+        st = eng.stats
+        assert st["graph_captures"] == 1 and st["eager_decode_steps"] == 0
+        if spec:
+            assert st["spec_graph_replays"] > 0 and \
+                st["eager_spec_steps"] == 0
+    assert tracer.incomplete() == [] and tracer.dropped == 0
+    for r in reqs:
+        names = iter(tracer.lifecycle(r.rid))
+        assert all(s in names for s in ("submit", "admit", "first_token",
+                                        "finish"))

@@ -516,8 +516,18 @@ def test_prefixless_tier_refused_at_construction(pkgs, tmp_path):
     with pytest.raises(ValueError, match="each tier"):
         pkg.d.TieredRouter(pkg.factory(), pkg.factory(), str(tmp_path),
                            num_prefill=0, num_decode=1)
-    with pytest.raises(NotImplementedError, match="observability"):
-        _tiered(pkg, tmp_path / "t", tracer=object())
+    # tracing is ported: one recorder reaches both tiers' engines, each
+    # stamping with its replica tag
+    from paddle_tpu_torch.observability import TraceRecorder
+    tr = TraceRecorder()
+    tiered = _tiered(pkg, tmp_path / "t", tracer=tr)
+    try:
+        assert tiered.tracer is tr
+        assert [(rep.sup.engine.tracer is tr,
+                 rep.sup.engine.trace_tags) for rep in tiered.replicas] == [
+            (True, {"replica": 0}), (True, {"replica": 1})]
+    finally:
+        tiered.close()
 
 
 def test_incompatible_decode_tier_decodes_in_place(pkgs, tmp_path):

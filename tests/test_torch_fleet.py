@@ -595,11 +595,19 @@ def test_parallel_step_serializes_device_work(pkgs, tmp_path):
 def test_later_slices_refused_and_exports(pkgs, tmp_path):
     import paddle_tpu_torch.inference as inference
     pkg = pkgs[1]
-    with pytest.raises(NotImplementedError, match="observability"):
-        pkg.fleet(tmp_path, 1, tracer=object())
+    from paddle_tpu_torch import observability
+    # fleet tracing is ported; the process fleet's collector is a later
+    # slice (item 3b) and says so
+    tr = observability.TraceRecorder()
+    fleet = pkg.fleet(tmp_path, 1, tracer=tr)
+    assert fleet.replicas[0].sup.tracer is tr
+    assert fleet.replicas[0].sup.engine.trace_tags == {"replica": 0}
+    fleet.close()
+    with pytest.raises(NotImplementedError, match="3b"):
+        observability.procfleet_collector(fleet)
     for name in ("FleetRouter", "FleetConfig", "ReplicaState",
                  "ServingSupervisor", "RequestJournal", "JournalCorrupt",
-                 "MeshDegraded"):
+                 "MeshDegraded", "SLOAutoscaler", "AutoscaleConfig"):
         assert hasattr(inference, name)
     assert tfleet.FleetConfig() == tfleet.FleetConfig(**{
         k: getattr(jfleet.FleetConfig(), k)

@@ -628,12 +628,15 @@ def test_tenant_carried_across_restart(pkgs, tmp_path):
 
 def test_later_slices_refused(pkgs, tmp_path):
     pkg = pkgs[1]
-    with pytest.raises(NotImplementedError, match="observability"):
-        trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "a"),
-                                    tracer=object())
-    with pytest.raises(NotImplementedError, match="observability"):
-        trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "b"),
-                                    trace_tags={"replica": 0})
+    from paddle_tpu_torch.observability import TraceRecorder
+    # tracing is ported: the supervisor attaches its recorder and tags to
+    # the engine it builds
+    tr = TraceRecorder()
+    sup = trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "a"),
+                                      tracer=tr, trace_tags={"replica": 0})
+    assert sup.engine.tracer is tr
+    assert sup.engine.trace_tags == {"replica": 0}
+    sup.close()
     sup = trecovery.ServingSupervisor(pkg.prefix, str(tmp_path / "c"))
 
     def lose():

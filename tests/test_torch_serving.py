@@ -157,14 +157,20 @@ def test_seeded_stream_independent_of_batch_composition(pair):
 # speculative decoding, int8 KV and brownout are ported
 # (tests/test_torch_spec.py, tests/test_torch_kv_int8.py,
 # tests/test_torch_brownout.py)
+# (tracing is ported: tests/test_torch_observability.py; the recorder's
+# profiler mirror is the later slice that still raises)
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=2), "mesh"),
-    (dict(tracer=object()), "tracing"),
+    (dict(mirror_host_events=True), "tracing"),
 ])
 def test_unported_paths_raise(pair, kw, match):
     _, tm, _ = pair
+    from paddle_tpu_torch.observability import TraceRecorder
     with pytest.raises(NotImplementedError, match=match):
-        _port_engine(tm, **kw)
+        if "mirror_host_events" in kw:
+            _port_engine(tm, tracer=TraceRecorder(**kw))
+        else:
+            _port_engine(tm, **kw)
 
 
 def test_brownout_engine_builds_and_serves(pair):
