@@ -318,12 +318,53 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      migrations, mean migration_s, pages, bytes, deferred, refused and
      re-prefills, and pt_migration_time_ms's count and mean beside the
      router's.
+ 29. the process fleet (inference/procfleet), each worker a process of
+     its own (CUDA context, the SERVE_CONFIG model from seed 0, journal,
+     /metrics) over the PT-PROC wire: (a) bench.py bench_fleet's process
+     arm (:826-886) on phase 6's legacy engine and wave: a
+     ProcFleetRouter of 1 worker, then 2 (parallel_step), brownout depth
+     10**9, a warm pass and the best of 3; every stream byte-equal to the
+     same wave through one engine in this process (best of 3 too);
+     prints fleet_proc_tokens_per_sec of both arms, their ratio (both
+     workers share this card: overhead and time-slicing, not scale-out)
+     and 1 worker's over the in-process engine's, each
+     worker's spawn-to-HELLO seconds and card memory (mem_get_info).
+     (e) procfleet_collector over that fleet: 2 workers alive, each
+     worker's worker_up and pt_engine_scheduled_tokens_total under its
+     replica label. (b) the fleet_proc_kill drill (tools/fault_drill.py
+     :1369): fleet.proc_kill at the second step of worker 0 SIGKILLs it;
+     one death, the pid gone, streams byte-equal, failover_s printed, the
+     survivor's decode steps grow and this process still launches K4
+     (held to its plain version); then worker 0 restarted with failover
+     off: its requests are lost with PT-FLT-001, the rest byte-equal.
+     After close() the scrape answers with 0 alive and every spawned
+     worker reaped. (c) a ProcTieredRouter of 1 prefill + 1 decode worker
+     on phase 23's fused prefix engine, every 3rd request of its wave
+     (86, 22 of them sampled): chains cross TCP, streams byte-equal to phase 23's,
+     migrations >= 1, a migr-kv record in the prefill journal; prints
+     migration_s mean and p99, chain MiB and the wire's share (one frame
+     of the chain's size encoded, sent over localhost TCP and decoded,
+     twice, over the mean). (d)
+     bench.py bench_serving_migration_under_loss (:1401-1498): loopback
+     workers (threads of this process) with the presets' tiny engine
+     geometry on the same model, 1 prefill + 2 decode, chaos, hedging,
+     crc checks, 5 s op timeouts; 8 prompts of 6 tokens (seed 47),
+     max_new 8, a warm wave then the measured one, clean and under a
+     net.send drop (MIGRATE_IN 1) and bitflip (MIGRATE_IN 4, 64 bits):
+     lossy streams equal clean, both faults fired; prints p99 of both,
+     hedges, typed refusals and re-prefills. Afterwards no worker pid is
+     alive or listed by nvidia-smi --query-compute-apps, and no worker
+     rebuilt a kernel library.
 K4's "launches" in the kernels line counts the serving phases' waves on
-fp pools (phases 6, 7, 7c, 15-17 and 23-28) and phase 21's calls;
+fp pools (phases 6, 7, 7c, 15-17, 23-28 and 29's launches in this
+process: (a)'s reference wave and (d)'s loopback workers; a spawned
+worker's launches move its own counters and are not counted) and phase
+21's calls;
 "paged_decode_int8" counts phases 7c's and 25's launches on int8 pools;
 K1's adds
 the legacy engine of phase 15, the paged generate of phase 16, phase 21's
-prefill rows and phase 23's legacy arm to phase 6's wave; K5's adds phase 15's served waves to phase 12's
+prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
+phase 6's wave; K5's adds phase 15's served waves to phase 12's
 steps; K1-lse, K2 and K3 count the timed steps of phases 9, 13 and 14
 (K1-lse also phase 20's forward); the masked and l-bar rows count the
 main-path runs of phases 18-20; each read with the counts set to 0 just
@@ -493,6 +534,25 @@ DISAGG_SPEC_DECODE, DISAGG_SPEC_MAX_NEW = 2, 15
 DISAGG_FAULT_REQUESTS = 64
 DISAGG_BITFLIP_AT = 5
 DISAGG_KILL_AT, DISAGG_KILL_AFTER = 2, 8
+# phase 29: the process fleet on the SERVE_CONFIG model, each worker a
+# process of its own that builds the model from seed 0 (bit for bit the
+# in-process model) through the presets' llama_engine. (a)-(b) phase 6's
+# legacy engine and wave (bench.py bench_fleet's process arm, :826-886,
+# best of PROC_TIMED passes after a warm one; the fleet_proc_kill drill);
+# (c) 1 + 1 tiers over TCP on phase 23's fused engine, every
+# PROC_TIER_STRIDE-th request of its wave; (d) bench.py
+# bench_serving_migration_under_loss (:1401-1498) on loopback workers with
+# the presets' tiny engine geometry and its 8 x 6-token wave (seed 47).
+# PROC_SPAWN_S bounds spawn -> HELLO (torch import, CUDA context, 750M
+# init, engine: 7.0-8.4 s measured for the legacy engine on the H100),
+# PROC_OP_S every wire op
+PROC_PRESETS = "paddle_tpu_torch.inference.procfleet.presets"
+PROC_SPAWN_S, PROC_OP_S = 180.0, 120.0
+PROC_TIMED = 3
+PROC_TIER_STRIDE = 3
+LOSS_ENGINE = dict(max_batch=2, max_len=32, page_size=8, block_size=2,
+                   prefix_cache=True)
+LOSS_REQUESTS, LOSS_PROMPT, LOSS_MAX_NEW, LOSS_OP_S = 8, 6, 8, 5.0
 # phases 26-28: bench.py bench_observability (:1026), bench_slo_burst
 # (:1133) and bench_disagg (:1259) on the SERVE_CONFIG model (bench's TPU
 # arms use a 4-layer, hidden-512 model: a cut that does not carry over),
@@ -4735,6 +4795,386 @@ def phase_disagg_burst(torch, np, ops, card, model):
     return k4
 
 
+# ---- phase 29: the process fleet ------------------------------------------
+
+def _proc_config(factory_kwargs, op_timeout_s=PROC_OP_S, **extra):
+    """A process fleet whose CUDA workers build ``llama_engine`` on the
+    SERVE_CONFIG model from seed 0 with ``factory_kwargs``' geometry."""
+    from paddle_tpu_torch.inference.procfleet import ProcFleetConfig
+
+    return ProcFleetConfig(
+        factory=f"{PROC_PRESETS}:llama_engine",
+        factory_kwargs=dict(config=dict(SERVE_CONFIG), seed=0,
+                            device=DEVICE, **factory_kwargs),
+        spawn_timeout_s=PROC_SPAWN_S, op_timeout_s=op_timeout_s, **extra)
+
+
+def _pid_gone(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+def _samples(fams, name):
+    """``{replica label: value}`` of a family's samples."""
+    return {s[1].get("replica"): s[2] for s in fams[name].samples}
+
+
+def _wire_ms(nbytes):
+    """Host ms of one frame of ``nbytes`` blob over a localhost TCP
+    connection: encode (crc32), send, receive and decode (crc32 again),
+    best of 3."""
+    import socket
+    import threading
+
+    from paddle_tpu_torch.inference.procfleet import Message, wire
+
+    lst = socket.create_server(("127.0.0.1", 0))
+    a = socket.create_connection(lst.getsockname())
+    b, _ = lst.accept()
+    lst.close()
+    msg = Message("CHAIN", {"rid": 0, "digest": "0", "pages": 0,
+                            "updates": []}, blob=bytes(nbytes))
+    best = float("inf")
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            th = threading.Thread(target=wire.send_msg, args=(a, msg))
+            th.start()
+            wire.recv_msg(b, timeout=30.0)
+            th.join()
+            best = min(best, time.perf_counter() - t0)
+    finally:
+        a.close()
+        b.close()
+    return best * 1e3
+
+
+def phase_procfleet(torch, np, ops, card, model, ref):
+    """The process fleet at the SERVE_CONFIG widths (the module
+    docstring's phase 29): (a) bench_fleet's process arm, 1 then 2 worker
+    processes; (e) the remote scrape; (b) the fleet_proc_kill drill and
+    its no-failover arm; (c) 1 + 1 tiers over TCP; (d) migration under
+    seeded wire loss over loopback workers. ``ref`` is phase 23's clean
+    streams. Returns (K1, K4) launches made in this process: (a)'s
+    in-process reference wave and (d)'s loopback workers."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            FleetConfig, Request,
+                                            RequestJournal)
+    from paddle_tpu_torch.inference.procfleet import (ProcFleetRouter,
+                                                      ProcTieredRouter)
+    from paddle_tpu_torch.observability import (MetricsRegistry,
+                                                parse_prometheus_text,
+                                                procfleet_collector)
+    from paddle_tpu_torch.ops import _build
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    vocab = cfg.vocab_size
+    built = {p.name: p.stat().st_mtime_ns
+             for p in _build.BUILD_DIR.glob("*.so")}
+    pids = []
+
+    def run(router, reqs):
+        for r in reqs:
+            router.submit(r)
+        router.run_until_done(max_steps=200000)
+        router.finished()
+        return reqs
+
+    # the in-process reference: phase 6's wave through one legacy engine
+    warm_l, prompts_l, kws_l, _ = _legacy_wave(np, vocab)
+
+    def wave():
+        return [Request(p, **kw) for p, kw in zip(prompts_l, kws_l)]
+
+    _zero_serving_counts(ops)
+    eng = ContinuousBatchingEngine(model, device=DEVICE, **ENGINE)
+    for p in warm_l:
+        eng.add_request(Request(p, max_new_tokens=4))
+    eng.run_until_done()
+    best = float("inf")
+    for _ in range(PROC_TIMED):
+        reqs = wave()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.add_request(r)
+        eng.run_until_done()
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    ref_l = [list(r.output) for r in reqs]
+    useful = sum(len(o) for o in ref_l)
+    engine_tok_s = useful / best
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) 1 then 2 worker processes, bench_fleet's process arm
+    fleet_dir = _scratch_dir("procfleet")
+    fleet = None
+    try:
+        sync()
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        fleet = ProcFleetRouter(_proc_config(ENGINE), fleet_dir,
+                                num_replicas=1,
+                                config=FleetConfig(brownout_depth=10 ** 9))
+        spawn_s = [time.perf_counter() - t0]
+        pids.append(fleet.replicas[0].sup.worker_pid)
+        free = [free0, torch.cuda.mem_get_info()[0]]
+        tok_s = {}
+        for n in (1, 2):
+            if n == 2:
+                t0 = time.perf_counter()
+                fleet.add_replica()
+                spawn_s.append(time.perf_counter() - t0)
+                pids.append(fleet.replicas[1].sup.worker_pid)
+                free.append(torch.cuda.mem_get_info()[0])
+                fleet.config.parallel_step = True
+            run(fleet, [Request(p, max_new_tokens=4) for p in warm_l])
+            _check_streams(f"procfleet {n} warm", run(fleet, wave()), ref_l)
+            best = float("inf")
+            for _ in range(PROC_TIMED):
+                reqs = wave()
+                t0 = time.perf_counter()
+                run(fleet, reqs)
+                best = min(best, time.perf_counter() - t0)
+                _check_streams(f"procfleet {n}", reqs, ref_l)
+            tok_s[n] = useful / best
+        spread = dict(collections.Counter(fleet._assigned[r.rid]
+                                          for r in reqs))
+        mem = [(free[i] - free[i + 1]) / 2 ** 20 for i in range(2)]
+        print(f"procfleet (a) [{card}]: fleet_proc_tokens_per_sec 1 worker "
+              f"{tok_s[1]:.1f}, 2 workers {tok_s[2]:.1f} (ratio "
+              f"{tok_s[2] / tok_s[1]:.3f}; both worker processes share this "
+              f"one card, so the ratio reads wire overhead and "
+              f"time-slicing, not scale-out); the same engine in this "
+              f"process {engine_tok_s:.1f} (1 worker over it "
+              f"{tok_s[1] / engine_tok_s:.3f}); {useful} tokens a pass, "
+              f"requests per worker {spread}; spawn-to-HELLO "
+              f"{[round(x, 3) for x in spawn_s]} s; card memory per worker "
+              f"process {[round(m, 1) for m in mem]} MiB (mem_get_info)",
+              flush=True)
+
+        # (e) the remote scrape over the live workers
+        reg = MetricsRegistry()
+        reg.register_collector(procfleet_collector(fleet))
+        fams = parse_prometheus_text(reg.dump())
+        sched = _samples(fams, "pt_engine_scheduled_tokens_total")
+        up = _samples(fams, "pt_procfleet_worker_up")
+        dec0 = _samples(fams, "pt_engine_decode_steps")
+        alive = fams["pt_procfleet_workers_alive"].samples[0][2]
+        print(f"procfleet (e) [{card}]: workers_alive={alive} worker_up="
+              f"{up} scheduled_tokens={sched} decode_steps={dec0} (worker "
+              f"K4 launches >= decode_steps x {L}: "
+              f"{sum(dec0.values()) * L:.0f}) scrape_errors="
+              f"{fams['pt_procfleet_scrape_errors'].samples[0][2]}",
+              flush=True)
+        if (alive != 2 or up != {"0": 1.0, "1": 1.0}
+                or set(sched) != {"0", "1"}
+                or min(sched.values()) <= 0):
+            raise AssertionError(f"procfleet scrape: alive {alive}, up "
+                                 f"{up}, scheduled {sched}")
+
+        # (b) the fleet_proc_kill drill on the 2-worker fleet
+        fleet.config.parallel_step = False
+        pid0 = fleet.replicas[0].sup.worker_pid
+        plan = FaultPlan(seed=5, specs=[FaultSpec(
+            "fleet.proc_kill", "kill", at=2, count=1, match="replica:0:")])
+        reqs = wave()
+        with plan:
+            run(fleet, reqs)
+        fams = parse_prometheus_text(reg.dump())
+        dec1 = _samples(fams, "pt_engine_decode_steps")
+        print(f"procfleet (b) [{card}]: fired {plan.fired()}, worker pid "
+              f"{pid0} gone {_pid_gone(pid0)}; replica_deaths="
+              f"{fleet.stats['replica_deaths']} failover_s="
+              f"{fleet.stats['failover_s']:.4f} failover_requests="
+              f"{fleet.stats['failover_requests']}; the survivor's decode "
+              f"steps {dec0.get('1')} -> {dec1.get('1')}", flush=True)
+        _check_streams("procfleet kill", reqs, ref_l)
+        if (plan.fired() != {"fleet.proc_kill": 1}
+                or fleet.stats["replica_deaths"] != 1
+                or not _pid_gone(pid0)
+                or not dec1.get("1", 0) > dec0.get("1", 0)):
+            raise AssertionError(f"procfleet kill: fired {plan.fired()}, "
+                                 f"{fleet.stats}")
+        _k4_alive(torch, ops)
+
+        # the control arm: failover off, the killed worker's requests lost
+        fleet.restart(0)
+        pids.append(fleet.replicas[0].sup.worker_pid)
+        fleet.failover = False
+        plan = FaultPlan(seed=5, specs=[FaultSpec(
+            "fleet.proc_kill", "kill", at=2, count=1, match="replica:0:")])
+        reqs = wave()
+        with plan:
+            run(fleet, reqs)
+        lost = [r for r in reqs if r.failed]
+        kept = [(list(r.output), want) for r, want in zip(reqs, ref_l)
+                if not r.failed]
+        print(f"procfleet (b) control [{card}]: failover off, {len(lost)} "
+              f"of {len(reqs)} requests lost "
+              f"({sorted({(r.error or '')[:10] for r in lost})})",
+              flush=True)
+        if (not lost or any("PT-FLT-001" not in (r.error or "")
+                            for r in lost)
+                or any(a != b for a, b in kept)):
+            raise AssertionError(f"procfleet control: lost {len(lost)}, "
+                                 f"{[r.error for r in lost][:2]}")
+    finally:
+        if fleet is not None:
+            fleet.close()
+    fams = parse_prometheus_text(reg.dump())
+    if (fams["pt_procfleet_workers_alive"].samples[0][2] != 0
+            or fams["pt_procfleet_reaped_total"].samples[0][2]
+            != fleet.stats["proc_spawned"]):
+        raise AssertionError("procfleet scrape after close: "
+                             f"{reg.dump()[:400]}")
+
+    # (c) 1 + 1 tiers over TCP on phase 23's fused engine
+    prompts, kws = _recovery_wave(np, vocab)
+    idx = list(range(0, len(prompts), PROC_TIER_STRIDE))
+    tiered = None
+    try:
+        t0 = time.perf_counter()
+        tiered = ProcTieredRouter(
+            *[_proc_config(dict(FUSED_ENGINE, prefix_cache=dict(
+                extra_blocks=FUSED_EXTRA_BLOCKS)))] * 2,
+            _scratch_dir("proctiers"), num_prefill=1, num_decode=1)
+        tier_spawn_s = time.perf_counter() - t0
+        pids += [rep.sup.worker_pid for rep in tiered.replicas]
+        rng = np.random.default_rng(1)
+        run(tiered, [Request(rng.integers(0, vocab, (FUSED_PROMPT,)).astype(
+            np.int32), max_new_tokens=4) for _ in range(2)])
+        m0 = dict(tiered.stats)
+        n0 = len(tiered.migration_samples)
+        reqs = [Request(prompts[i], **kws[i]) for i in idx]
+        t0 = time.perf_counter()
+        run(tiered, reqs)
+        tier_s = time.perf_counter() - t0
+        samples = tiered.migration_samples[n0:]
+        migs = tiered.stats["migrations"] - m0["migrations"]
+        nbytes = (tiered.stats["migration_bytes"]
+                  - m0["migration_bytes"]) / max(1, migs)
+        recs = RequestJournal.load(tiered.replicas[0].journal_path)
+    finally:
+        if tiered is not None:
+            tiered.close()
+    _check_streams("procfleet tiers", reqs, [ref[i] for i in idx])
+    wire_ms = _wire_ms(int(nbytes))
+    mean_ms = 1e3 * float(np.mean(samples)) if samples else 0.0
+    p99_ms = 1e3 * float(np.percentile(samples, 99)) if samples else 0.0
+    print(f"procfleet (c) [{card}]: 2 fused-engine workers (each with its "
+          f"graph capture) spawned in {tier_spawn_s:.3f} s; "
+          f"{len(reqs)} requests in {tier_s:.3f} s "
+          f"({sum(len(r.output) for r in reqs) / tier_s:.1f} tokens/s), "
+          f"{migs} migrations over TCP: migration_s mean {mean_ms:.3f} ms "
+          f"p99 {p99_ms:.3f} ms (phase "
+          f"25 in-process: 44.146 ms mean, PR 13), chain "
+          f"{nbytes / 2 ** 20:.3f} MiB; one frame of that size encoded, "
+          f"sent over localhost TCP and decoded {wire_ms:.3f} ms, the "
+          f"chain crosses twice: wire "
+          f"share {2 * wire_ms / max(mean_ms, 1e-9):.3f}; deferred "
+          f"{tiered.stats['migration_deferred']} reprefill "
+          f"{tiered.stats['migration_reprefill']}", flush=True)
+    if (migs < 1 or not any(r["k"] == "migr-kv" for r in recs)
+            or tiered.stats["migration_corrupt"]):
+        raise AssertionError(f"procfleet tiers: {tiered.stats}")
+
+    # (d) migration under seeded wire loss, loopback workers
+    def loss_cfg():
+        return _proc_config(LOSS_ENGINE, op_timeout_s=LOSS_OP_S,
+                            transport="loopback", chaos=True, hedge=True,
+                            verify_crc=True)
+
+    def loss_wave(seed0):
+        rng = np.random.default_rng(47)
+        return [Request(rng.integers(0, vocab, (LOSS_PROMPT,)).astype(
+            np.int32), max_new_tokens=LOSS_MAX_NEW, seed=seed0 + i)
+            for i in range(LOSS_REQUESTS)]
+
+    def loss_arm(plan=None):
+        router = None
+        try:
+            router = ProcTieredRouter(loss_cfg(), loss_cfg(),
+                                      _scratch_dir("procloss"),
+                                      num_prefill=1, num_decode=2)
+            run(router, loss_wave(970))
+            n0 = len(router.migration_samples)
+            reqs = loss_wave(990)
+            if plan is not None:
+                plan.install()
+            try:
+                run(router, reqs)
+            finally:
+                if plan is not None:
+                    plan.uninstall()
+            if any(r.failed or not r.done for r in reqs):
+                raise AssertionError("migration under loss lost requests")
+            return ([list(r.output) for r in reqs],
+                    list(router.migration_samples[n0:]), dict(router.stats))
+        finally:
+            if router is not None:
+                router.close()
+
+    k4_0 = ops.paged_decode_attention.launches
+    clean, clean_s, _ = loss_arm()
+    plan = FaultPlan(seed=7, specs=[
+        FaultSpec("net.send", "drop", at=1, count=1, match="MIGRATE_IN"),
+        FaultSpec("net.send", "bitflip", at=4, count=1, arg=64,
+                  match="MIGRATE_IN")])
+    lossy, lossy_s, st = loss_arm(plan)
+    k4_loss = ops.paged_decode_attention.launches - k4_0
+    print(f"procfleet (d) [{card}]: serving_migration_under_loss_p99_s "
+          f"clean {float(np.percentile(clean_s, 99)):.4f} "
+          f"({len(clean_s)} migrations), lossy "
+          f"{float(np.percentile(lossy_s, 99)):.4f} ({len(lossy_s)}); "
+          f"fired {sorted(a for _, _, a in plan.log)}, hedges "
+          f"{st['migration_hedges']}, typed refusals "
+          f"{st['migration_corrupt']}, re-prefills "
+          f"{st['migration_reprefill']}; K4 launches in the loopback "
+          f"workers {k4_loss}", flush=True)
+    if lossy != clean or plan.fired() != {"net.send": 2} or not lossy_s:
+        raise AssertionError(f"migration under loss: {_differ(lossy, clean)}"
+                             f" streams differ, fired {plan.fired()}")
+
+    # no worker left, no kernel rebuilt by a worker
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.split()
+    left = [p for p in pids if str(p) in apps or not _pid_gone(p)]
+    after = {p.name: p.stat().st_mtime_ns
+             for p in _build.BUILD_DIR.glob("*.so")}
+    print(f"procfleet [{card}]: {len(pids)} worker processes, none left "
+          f"({left}); compute apps on the card now {apps}; kernel "
+          f"libraries unchanged by the workers: {after == built}",
+          flush=True)
+    if left or after != built:
+        raise AssertionError(f"procfleet: workers left {left}, libraries "
+                             f"{built} -> {after}")
+    c = _serving_counts(ops)
+    return c["k1"], c["k4"]
+
+
+def _k4_alive(torch, ops):
+    """After a worker's SIGKILL this process's context still launches K4
+    and agrees with the plain version."""
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    q, kc, vc, tables, lens = _k4_inputs(torch, gen, torch.bfloat16, 16, 16,
+                                         128, 16, 4, [0, 1, 37, 64])
+    n = ops.paged_decode_attention.launches
+    out = ops.paged_decode_attention(q, kc, vc, tables, lens)
+    err = (out.float() - ops.paged_decode_reference(
+        q, kc, vc, tables, lens).float()).abs().max().item()
+    ops.paged_decode_attention.launches = n
+    if not err <= TOL["bfloat16"]:
+        raise AssertionError(f"K4 after the worker kill: error {err}")
+
+
 def _phase(name, fn, *args):
     """``fn(*args)``, then a line with the phase's wall time."""
     t0 = time.perf_counter()
@@ -4827,10 +5267,12 @@ def main():
                     serve_model)
     k4_dburst = _phase("28 disagg burst", phase_disagg_burst, torch, np,
                        ops, card, serve_model)
+    k1_proc, k4_proc = _phase("29 procfleet", phase_procfleet, torch, np,
+                              ops, card, serve_model, serve_ref)
     del serve_model
-    k1_launches += bmha_k1 + k1_rec + k1_fleet
+    k1_launches += bmha_k1 + k1_rec + k1_fleet + k1_proc
     k4_launches += (bmha_k4 + k4_rec + k4_fleet + k4_disagg + k4_obs
-                    + k4_slo + k4_dburst)
+                    + k4_slo + k4_dburst + k4_proc)
     k4_int8_launches += k4_int8_disagg
     lse_launches += glse_lse
 

@@ -35,6 +35,13 @@ Sites the port consults:
 ``serving.kv_transfer``  tiered router, each KV-chain artifact in transit
                          (detail = ``rid:<id>``; :func:`corrupt`'s data
                          actions damage the bytes)
+``fleet.proc_kill``   process-fleet proxy, before each worker step
+                      (detail = ``replica:<i>:pid:<pid>``; ``kill``
+                      SIGKILLs the worker process)
+``net.connect``       chaos transport, each connect (detail = peer)
+``net.send``          chaos transport, each frame sent (detail =
+                      ``peer:MSGTYPE``; :func:`wire_faults`)
+``net.recv``          chaos transport, each frame read (detail = peer)
 ====================  =====================================================
 
 Plans, counters and draws work exactly as the JAX package's, so the same
@@ -42,9 +49,10 @@ plan over the same event stream fires at the same events (``log``,
 ``fired()``) in both packages. The port keeps its own installed plan: a
 JAX plan and a port plan are installed independently. The data hook
 :func:`corrupt` draws from ``plan.rng_for(spec)`` in the JAX package's
-order, so one plan damages the same bytes in both packages. The wire and
-numeric hooks (``wire_faults``, ``numeric_inject_code``,
-``poison_arrays``) arrive with the slices that consult them.
+order, so one plan damages the same bytes in both packages; so does the
+transport hook :func:`wire_faults`, whose due specs the chaos transport
+interprets. The numeric hooks (``numeric_inject_code``,
+``poison_arrays``) arrive with the slice that consults them.
 """
 
 from __future__ import annotations
@@ -56,8 +64,8 @@ import time
 from typing import List, Optional, Sequence
 
 __all__ = ["FaultSpec", "FaultPlan", "ComposedFaultPlan", "FaultInjected",
-           "maybe_inject", "active_plan", "resource_hold", "device_loss",
-           "corrupt"]
+           "maybe_inject", "corrupt", "active_plan", "resource_hold",
+           "wire_faults", "device_loss"]
 
 
 class FaultInjected(ConnectionError):
@@ -233,6 +241,19 @@ def corrupt(site: str, detail: str, data: bytes) -> bytes:
         elif s.action == "error":
             raise RuntimeError(f"fault injected: error at {site} ({detail})")
     return data
+
+
+def wire_faults(site: str, detail: str = "") -> List[FaultSpec]:
+    """Transport hook (``net.connect``/``net.send``/``net.recv``): the
+    specs due at this wire event. The chaos transport interprets the
+    actions itself: ``drop``, ``duplicate``, ``torn`` and ``blackhole``
+    need the frame (suppress a send, deliver it twice, ship a prefix,
+    silence a peer), which a byte hook cannot express. No plan -> empty
+    list (one global read)."""
+    plan = _ACTIVE
+    if plan is None:
+        return []
+    return plan.fire(site, detail)
 
 
 def resource_hold(site: str, detail: str = "") -> int:

@@ -4,7 +4,9 @@ fleet router over supervisors, the disaggregated prefill/decode tiers with
 KV-chain migration and the SLO autoscaler over the fleet
 (``AutoscaleConfig``, ``SLOAutoscaler``: loaded on first use, so importing
 the serving modules never pulls the control loop in). Every layer takes
-``tracer=`` (a ``paddle_tpu_torch.observability.TraceRecorder``)."""
+``tracer=`` (a ``paddle_tpu_torch.observability.TraceRecorder``). The
+process-per-replica fleet lives in ``inference.procfleet`` (not
+re-exported here, as in the JAX package)."""
 
 from .disagg import KVChainCodec, KVChainCorrupt, TieredRouter  # noqa: F401
 from .fleet import FleetConfig, FleetRouter, ReplicaState  # noqa: F401

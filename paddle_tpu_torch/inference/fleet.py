@@ -28,7 +28,9 @@ reliable engine:
 Replicas of one process share its card. Failover here covers host-side
 faults (a crash, a stall, a wedge): a real CUDA fault poisons the context
 of every in-process replica, and surviving it takes one process per
-replica (the process fleet, a later slice). ``parallel_step=True`` steps
+replica (``inference/procfleet``: ``ProcFleetRouter`` overrides
+``_make_sup`` to spawn a worker process per replica and consumes the same
+replica surface). ``parallel_step=True`` steps
 replicas in threads; the engines' device work is serialized per process
 (``serving._DEVICE_LOCK``), so a replica rebuilding (and capturing its
 CUDA graph) in one thread never races another replica's step.
@@ -324,7 +326,14 @@ class FleetRouter:
         alive = self._routable(req)
         if not alive:
             return []
-        loads = {r.idx: r.sup.load() for r in alive}
+        # capacity-weighted load: a replica whose supervisor reports a
+        # capacity weight below 1 (the JAX package's process replica after
+        # an elastic mesh degrade) reads proportionally busier, so new work
+        # drifts toward full-capacity replicas without failover
+        loads = {
+            r.idx: r.sup.load()
+            / max(getattr(r.sup, "capacity_weight", lambda: 1.0)(), 1e-6)
+            for r in alive}
         n = len(alive)
         order = sorted(alive, key=lambda r: (loads[r.idx],
                                              (r.idx - req.rid) % n))

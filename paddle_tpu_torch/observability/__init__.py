@@ -29,9 +29,10 @@ Three pillars:
    (``paddle_tpu_torch.inference.autoscale``).
 
 All recording is host-side and buffered: no stamp synchronizes the device
-or runs inside a captured CUDA graph. ``guard_collector``,
-``checkpoint_collector`` and ``procfleet_collector`` are later slices and
-raise ``NotImplementedError``.
+or runs inside a captured CUDA graph. ``procfleet_collector`` aggregates
+the process fleet's workers' own registries; ``guard_collector`` and
+``checkpoint_collector`` are later slices and raise
+``NotImplementedError``.
 """
 
 from .collectors import (checkpoint_collector, engine_collector,  # noqa: F401

@@ -31,21 +31,28 @@ Adapters (register with ``MetricsRegistry.register_collector``):
   must be scrapeable.
 - :func:`slo_collector` — ``SLOMonitor``: windowed SLO attainment,
   per-tenant attainment and goodput as ``pt_slo_*`` families.
+- :func:`procfleet_collector` — the process fleet
+  (``inference/procfleet``): spawn/reap/heartbeat counters, the
+  ``pt_transport_*`` families, and every live worker's own ``/metrics``
+  re-labeled ``replica="<idx>"``. Over an in-process fleet it renders the
+  ``pt_procfleet_*`` and ``pt_transport_*`` families at zero.
 
 Later slices of the port, refused with ``NotImplementedError`` when asked
-for: :func:`guard_collector` (the numeric guard, ROADMAP Queue 1 item 6),
-:func:`checkpoint_collector` (the checkpoint lifecycle, item 6) and
-:func:`procfleet_collector` (the process fleet, item 3b).
+for: :func:`guard_collector` (the numeric guard, ROADMAP Queue 1 item 6)
+and :func:`checkpoint_collector` (the checkpoint lifecycle, item 6).
 
 Nothing here touches device state.
 """
 
 from __future__ import annotations
 
+import contextlib
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List
 
 from .._later import later_slice
-from .metrics import MetricFamily
+from .metrics import MetricFamily, parse_prometheus_text
 
 __all__ = ["checkpoint_collector", "engine_collector", "fleet_collector",
            "guard_collector", "procfleet_collector", "retry_collector",
@@ -284,11 +291,105 @@ def fleet_collector(router):
 
 def procfleet_collector(router, scrape_workers: bool = True,
                         timeout_s: float = 2.0):
-    """Process-fleet transport telemetry (``pt_procfleet_*``,
-    ``pt_transport_*``) and remote worker aggregation: needs the process
-    fleet, a later slice."""
-    raise later_slice("procfleet_collector (inference/procfleet)",
-                      "process-fleet", "3b")
+    """Process-fleet transport telemetry + remote worker aggregation.
+
+    ``pt_procfleet_spawned_total`` / ``pt_procfleet_reaped_total`` come
+    from the router's stats (zero on a non-process fleet);
+    ``pt_procfleet_heartbeats_total`` sums every proxy's heartbeat-probe
+    count. The transport seam adds ``pt_transport_retries`` (retryable
+    wire timeouts summed across replica proxies), ``pt_transport_hedges``
+    (migrations raced onto a second decode replica) and
+    ``pt_transport_breaker_state`` (per-replica gauge, 0=closed 1=open
+    2=half_open) — all zero over an in-process fleet. With ``scrape_workers`` (default), each live worker's
+    ``/metrics`` endpoint (``ProcFleetRouter.worker_metrics_urls``) is
+    fetched under ``timeout_s``, parsed, re-labeled ``replica="<idx>"``
+    and forwarded; a worker that cannot answer (dying, reaped mid-scrape)
+    is skipped and counted in ``pt_procfleet_scrape_errors`` — one dead
+    endpoint must not take the driver's scrape down."""
+
+    def collect() -> Iterable[MetricFamily]:
+        stats = getattr(router, "stats", {})
+        fams = [
+            MetricFamily("pt_procfleet_spawned_total", "counter",
+                         "replica worker processes spawned").add(
+                stats.get("proc_spawned", 0)),
+            MetricFamily("pt_procfleet_reaped_total", "counter",
+                         "replica worker processes reaped").add(
+                stats.get("proc_reaped", 0)),
+        ]
+        hb = getattr(router, "heartbeat_total", None)
+        fams.append(MetricFamily(
+            "pt_procfleet_heartbeats_total", "counter",
+            "driver-side heartbeat probes answered by workers").add(
+            hb() if callable(hb) else 0))
+        # transport-seam families — every read getattr-defaulted, so an
+        # IN-PROCESS fleet renders them at zero
+        retries = 0
+        breaker = MetricFamily(
+            "pt_transport_breaker_state", "gauge",
+            "per-replica circuit breaker (0=closed 1=open 2=half_open)")
+        b_order = {"closed": 0, "open": 1, "half_open": 2}
+        for rep in getattr(router, "replicas", ()):
+            sup = getattr(rep, "sup", None)
+            retries += int(getattr(sup, "transport_retries", 0) or 0)
+            state_fn = getattr(sup, "breaker_state", None)
+            state = state_fn() if callable(state_fn) else "closed"
+            breaker.add(b_order.get(state, 0),
+                        replica=str(getattr(rep, "idx", "?")))
+        fams.append(MetricFamily(
+            "pt_transport_retries", "counter",
+            "retryable wire timeouts across replica transports "
+            "(non-fatal: the probe retried or the migration hedged)").add(
+            retries))
+        fams.append(MetricFamily(
+            "pt_transport_hedges", "counter",
+            "timed-out KV migrations raced onto another decode replica"
+            ).add(stats.get("migration_hedges", 0)))
+        fams.append(breaker)
+        urls = {}
+        getter = getattr(router, "worker_metrics_urls", None)
+        if callable(getter):
+            urls = getter()
+        fams.append(MetricFamily(
+            "pt_procfleet_workers_alive", "gauge",
+            "live worker processes exposing a /metrics endpoint").add(
+            len(urls)))
+        errors = 0
+        if scrape_workers and urls:
+            def fetch(item):
+                idx, url = item
+                with contextlib.closing(urllib.request.urlopen(
+                        url, timeout=timeout_s)) as resp:
+                    return idx, parse_prometheus_text(
+                        resp.read().decode("utf-8"))
+
+            # fetch workers CONCURRENTLY: the scrape blocks max(worker),
+            # not sum(worker) — N dying endpoints during a rolling
+            # restart must not stack N timeouts onto one registry dump
+            with ThreadPoolExecutor(
+                    max_workers=min(8, len(urls)),
+                    thread_name_prefix="pt-procfleet-scrape") as pool:
+                futures = [pool.submit(fetch, item)
+                           for item in urls.items()]
+                for fut in futures:
+                    try:
+                        idx, worker_fams = fut.result()
+                    except Exception:   # dying worker: skip, count
+                        errors += 1
+                        continue
+                    for fam in worker_fams.values():
+                        out = MetricFamily(fam.name, fam.kind, fam.help)
+                        for suffix, labels, value in fam.samples:
+                            merged = dict(labels)
+                            merged["replica"] = str(idx)
+                            out.samples.append((suffix, merged, value))
+                        fams.append(out)
+        fams.append(MetricFamily(
+            "pt_procfleet_scrape_errors", "gauge",
+            "worker endpoints that failed this scrape").add(errors))
+        return fams
+
+    return collect
 
 
 def tracer_collector(tracer, **labels):

@@ -1752,3 +1752,103 @@ def test_traced_fused_wave_adds_no_sync_and_keeps_streams_on_card(cuda,
         names = iter(tracer.lifecycle(r.rid))
         assert all(s in names for s in ("submit", "admit", "first_token",
                                         "finish"))
+
+
+def _procfleet_config(**extra):
+    """A process fleet whose CUDA workers build ``_fused_engine``'s
+    geometry on ``_SERVE_CFG`` (fp32) from seed 3."""
+    from paddle_tpu_torch.inference.procfleet import ProcFleetConfig
+
+    return ProcFleetConfig(
+        factory="paddle_tpu_torch.inference.procfleet.presets:llama_engine",
+        factory_kwargs=dict(
+            config=dict(_SERVE_CFG, dtype="float32"), seed=3, device="cuda",
+            max_batch=8, max_len=64, page_size=16, block_size=4, fused=True,
+            prefix_cache=dict(prefill_chunk=16, extra_blocks=8)),
+        spawn_timeout_s=180.0, op_timeout_s=120.0, **extra)
+
+
+def _gone(pid):
+    import os
+
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return True
+    return False
+
+
+@pytest.mark.cuda
+def test_procfleet_cuda_worker_streams_equal_in_process_engine(cuda,
+                                                               tmp_path):
+    """One CUDA worker process (its own context, its own seed-3 weights)
+    serves the recovery wave on a fused prefix engine: every stream,
+    greedy and seeded, equals the same engine's in this process, and the
+    worker's engine replayed its graph (its /metrics)."""
+    from paddle_tpu_torch.inference.procfleet import ProcFleetRouter
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+    from paddle_tpu_torch.observability import parse_prometheus_text
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = LlamaForCausalLM(LlamaConfig(dtype="float32", **_SERVE_CFG),
+                            device=cuda, seed=3)
+    prompts, kws = _recovery_wave()
+    ref = _sup_wave(ServingSupervisor(lambda: _fused_engine(card, cuda),
+                                      str(tmp_path / "ref.jrnl")),
+                    prompts, kws)
+    fleet = ProcFleetRouter(_procfleet_config(), str(tmp_path / "fleet"),
+                            num_replicas=1)
+    try:
+        got = _sup_wave(fleet, prompts, kws)
+        fams = parse_prometheus_text(fleet.replicas[0].sup.metrics_text())
+    finally:
+        fleet.close()
+    assert got == ref
+    replays = fams["pt_engine_graph_replays"].samples[0][2]
+    assert fams["pt_engine_graph_captures"].samples[0][2] == 1
+    assert replays > 0
+
+
+@pytest.mark.cuda
+def test_procfleet_sigkill_one_of_two_cuda_workers(cuda, tmp_path):
+    """A SIGKILL of one of two CUDA workers mid-wave: its journal fails
+    over to the survivor, every stream equals one supervisor's run in
+    this process, the pid is gone, and this process's context still
+    launches K4 (held to its plain version)."""
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.inference.procfleet import ProcFleetRouter
+    from paddle_tpu_torch.inference.recovery import ServingSupervisor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = LlamaForCausalLM(LlamaConfig(dtype="float32", **_SERVE_CFG),
+                            device=cuda, seed=3)
+    prompts, kws = _recovery_wave()
+    ref = _sup_wave(ServingSupervisor(lambda: _fused_engine(card, cuda),
+                                      str(tmp_path / "ref.jrnl")),
+                    prompts, kws)
+    fleet = ProcFleetRouter(_procfleet_config(), str(tmp_path / "fleet"),
+                            num_replicas=2)
+    plan = FaultPlan(seed=5, specs=[FaultSpec(
+        "fleet.proc_kill", "kill", at=2, count=1, match="replica:0:")])
+    try:
+        pid0 = fleet.replicas[0].sup.worker_pid
+        with plan:
+            got = _sup_wave(fleet, prompts, kws)
+    finally:
+        fleet.close()
+    assert plan.fired() == {"fleet.proc_kill": 1}
+    assert fleet.stats["replica_deaths"] == 1
+    assert got == ref
+    assert _gone(pid0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(4, 4, 64, device=cuda, generator=g)
+    kc = torch.randn(16, 2, 16, 64, device=cuda, generator=g)
+    vc = torch.randn(16, 2, 16, 64, device=cuda, generator=g)
+    tables = torch.randperm(16, device=cuda, generator=g).reshape(4, 4).to(
+        torch.int32)
+    lens = torch.tensor([0, 1, 37, 64], dtype=torch.int32, device=cuda)
+    n = paged_decode_attention.launches
+    out = paged_decode_attention(q, kc, vc, tables, lens)
+    assert paged_decode_attention.launches == n + 1
+    ref_out = paged_decode_reference(q, kc, vc, tables, lens)
+    assert (out - ref_out).abs().max().item() <= 1e-4

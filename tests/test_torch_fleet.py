@@ -596,15 +596,17 @@ def test_later_slices_refused_and_exports(pkgs, tmp_path):
     import paddle_tpu_torch.inference as inference
     pkg = pkgs[1]
     from paddle_tpu_torch import observability
-    # fleet tracing is ported; the process fleet's collector is a later
-    # slice (item 3b) and says so
+    # fleet tracing is ported, and so is the process fleet's collector
+    # (item 3b): over an in-process fleet it reads zero workers
     tr = observability.TraceRecorder()
     fleet = pkg.fleet(tmp_path, 1, tracer=tr)
     assert fleet.replicas[0].sup.tracer is tr
     assert fleet.replicas[0].sup.engine.trace_tags == {"replica": 0}
     fleet.close()
-    with pytest.raises(NotImplementedError, match="3b"):
-        observability.procfleet_collector(fleet)
+    fams = {f.name: f for f in observability.procfleet_collector(fleet)()}
+    assert fams["pt_procfleet_workers_alive"].samples[0][2] == 0
+    assert fams["pt_transport_breaker_state"].samples[0][1] == {
+        "replica": "0"}
     for name in ("FleetRouter", "FleetConfig", "ReplicaState",
                  "ServingSupervisor", "RequestJournal", "JournalCorrupt",
                  "MeshDegraded", "SLOAutoscaler", "AutoscaleConfig"):

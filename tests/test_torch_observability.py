@@ -777,6 +777,12 @@ def test_later_collectors_name_their_slices():
         tobs.guard_collector()
     with pytest.raises(NotImplementedError, match="item 6"):
         tobs.checkpoint_collector()
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        tobs.procfleet_collector(None)
+    # the process fleet's collector is ported (item 3b): over an object
+    # that is no fleet it renders JAX's families at zero, as JAX's does
+    port = tobs.MetricsRegistry()
+    port.register_collector(tobs.procfleet_collector(None))
+    ref = jobs.MetricsRegistry()
+    ref.register_collector(jobs.procfleet_collector(None))
+    assert port.dump() == ref.dump()
+    assert "pt_procfleet_workers_alive 0" in port.dump()
     assert sorted(tobs.__all__) == sorted(jobs.__all__)
