@@ -77,7 +77,7 @@ class Engine:
                               "distributed-training", "6", _ONE_DEVICE)
         if optimizer is not None:
             raise later_slice("pluggable optimizers (optimizer=)",
-                              "optimizer", note=_ONE_DEVICE)
+                              "Paddle API surface", "8", _ONE_DEVICE)
         if guard is not None:
             raise later_slice("the numeric guard (guard=)", "resilience",
                               "6", _ONE_DEVICE)
@@ -155,7 +155,11 @@ class Engine:
             self.step_count += 1
         with torch.enable_grad():
             loss = self._loss(ids, lbl)
-            grads = torch.autograd.grad(loss, self.params)
+            # a parameter the loss does not read (BERT's token-type table
+            # without token types, the MLM head's pooler) gets a zero
+            # gradient, as under jax.grad: weight decay still moves it
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True,
+                                        materialize_grads=True)
         self._adamw(grads)
         return loss.detach()
 

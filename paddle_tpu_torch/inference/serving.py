@@ -748,6 +748,11 @@ class ContinuousBatchingEngine:
         vocab = self.model.config.vocab_size
         if req.prompt.min() < 0 or req.prompt.max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
+        # the family's own length limit (GPT's learned position table), the
+        # check generate() applies (JAX serving.py:864-867)
+        validate = getattr(self.model, "_validate_generate", None)
+        if validate is not None:
+            validate(len(req.prompt), len(req.prompt) + req.max_new_tokens)
         if self.tracer is not None:
             # stamp AFTER the caller-error validations (a refused request
             # never entered the system) but BEFORE the shed check (a shed

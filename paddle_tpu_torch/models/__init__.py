@@ -1,3 +1,7 @@
-"""Model families of the port (Llama: serving and training)."""
+"""Model families of the port: Llama and GPT (serving and training) and
+BERT (fine-tuning)."""
 
+from .bert import (BertConfig, BertForMaskedLM,  # noqa: F401
+                   BertForSequenceClassification)
+from .gpt import GPTConfig, GPTForCausalLM  # noqa: F401
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel  # noqa: F401

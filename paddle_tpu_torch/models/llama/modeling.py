@@ -7,7 +7,11 @@ Parameter names and layouts are the JAX package's: every projection is an
 load_jax_state`). Attention runs through the port's kernels: causal prefill
 through ``ops.flash_attention`` and paged decode through
 ``ops.paged_decode_attention``; projections, the MLP and the lm head are
-plain ``torch.matmul``, as the JAX package leaves them to XLA.
+plain ``torch.matmul``, as the JAX package leaves them to XLA. With
+``use_flash_attention=False`` the training and dense forward take the
+dense ``_xla_attention`` (plain tensor ops on either device) in place of
+the flash kernels, as the JAX package's ``_attention`` does; the serving
+hooks keep theirs.
 
 bf16 rounding follows the JAX package: rope tables are computed in fp32 and
 cast to the activation dtype, RMSNorm normalises in fp32, casts back, then
@@ -65,12 +69,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from ..._later import later_slice
 from ...device import resolve_device, resolve_dtype
 from ...incubate.distributed.models.moe import MoELayer, SwiGLUExpertFFN
+from ...nn.functional.flash_attention import _xla_attention
 from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_linear_cross_entropy
 from ...ops.paged_attention import (append_paged_kv, paged_decode_attention,
                                     paged_prefill_attention)
+from .._common import _attention, _normal, _replaying
 from ..generation_utils import GenerationMixin, causal_cache_bias
 
 
@@ -124,14 +131,9 @@ class LlamaConfig:
             raise ValueError(f"remat_every must be >= 1 (got {remat_every}); "
                              "use recompute=False to disable remat")
         self.remat_every = remat_every
-        if not use_flash_attention:
-            raise NotImplementedError(
-                "use_flash_attention=False (the XLA attention path) is not "
-                "ported: the port's attention is the flash kernels")
         if sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel=True is not ported yet: it arrives with "
-                "the distributed-training slice")
+            raise later_slice("sequence_parallel=True",
+                              "distributed-training", "6")
         self.use_flash_attention = use_flash_attention
         self.sequence_parallel = sequence_parallel
         self.num_experts = num_experts
@@ -198,12 +200,6 @@ def apply_rotary_pos_emb(q, k, cos, sin):
     return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
-def _normal(shape, config, device, gen):
-    t = torch.empty(shape, dtype=resolve_dtype(config.dtype), device=device)
-    t.normal_(0.0, config.initializer_range, generator=gen)
-    return nn.Parameter(t)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
@@ -241,7 +237,8 @@ class LlamaAttention(nn.Module):
     def attend(self, q, k, v):
         """Causal attention over the heads, then the output projection."""
         b, s = q.shape[:2]
-        return _attention(q, k, v).reshape(b, s, -1) @ self.o_proj_weight
+        return (_attention(q, k, v, self.config).reshape(b, s, -1)
+                @ self.o_proj_weight)
 
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
         """Paged-KV chunk step at absolute positions [pos, pos+s) for every
@@ -281,7 +278,7 @@ class LlamaAttention(nn.Module):
         k_cache[:, pos:pos + s] = k.to(k_cache.dtype)
         v_cache[:, pos:pos + s] = v.to(v_cache.dtype)
         bias = causal_cache_bias(k_cache, pos, s, pad_bias)
-        out = _bias_attention(q, k_cache, v_cache, bias)
+        out = _xla_attention(q, k_cache, v_cache, bias=bias)
         return out.reshape(b, s, -1) @ self.o_proj_weight, k_cache, v_cache
 
     def paged_token_step(self, x, cos, sin, k_pages, v_pages, tables,
@@ -320,28 +317,6 @@ class LlamaAttention(nn.Module):
             positions.reshape(-1), seq_ids)
         out = paged_prefill_attention(q, k_pages, v_pages, tables, starts)
         return out.reshape(b, s, -1) @ self.o_proj_weight, k_pages, v_pages
-
-
-def _attention(q, k, v):
-    """Causal attention on [b, s, h, d] tensors: the single-device branch
-    of the JAX package's ``_attention`` (flash attention)."""
-    return flash_attention(q, k, v, causal=True)
-
-
-def _bias_attention(q, k, v, bias):
-    """Attention with an additive bias on [b, s, h, d] tensors, in the
-    JAX package's order (``_xla_attention``, nn/functional/
-    flash_attention.py:19): the scaled scores in the input dtype, cast to
-    fp32, plus the fp32 bias, an fp32 softmax cast back, then the product
-    with v. kv heads are repeated for GQA."""
-    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    if kh.shape[1] != qh.shape[1]:
-        rep = qh.shape[1] // kh.shape[1]
-        kh = kh.repeat_interleave(rep, dim=1)
-        vh = vh.repeat_interleave(rep, dim=1)
-    scores = (qh @ kh.transpose(-1, -2)) * q.shape[-1] ** -0.5
-    probs = torch.softmax(scores.float() + bias.float(), dim=-1)
-    return (probs.to(q.dtype) @ vh).transpose(1, 2)
 
 
 class LlamaMLP(nn.Module):
@@ -579,32 +554,6 @@ def _remat(layer, policy, x, cos, sin):
         x, act = region(layer.forward_to_act, x, cos, sin)
         return x + act @ layer.mlp.down_proj_weight, None
     return region(layer.forward_with_aux, x, cos, sin)
-
-
-def _replaying(fn, generators):
-    """``fn``, whose later calls (a checkpoint's recompute) draw the same
-    numbers from ``generators`` as its first call did: each recompute
-    starts from the generators' states before the first call and puts back
-    the states it found. ``torch.utils.checkpoint`` restores only the
-    default generators, not explicit ones."""
-    if not generators:
-        return fn
-    before = [g.get_state() for g in generators]
-    first = [True]
-
-    def run(*args):
-        if first[0]:
-            first[0] = False
-            return fn(*args)
-        now = [g.get_state() for g in generators]
-        for g, st in zip(generators, before):
-            g.set_state(st)
-        try:
-            return fn(*args)
-        finally:
-            for g, st in zip(generators, now):
-                g.set_state(st)
-    return run
 
 
 def _decode_model(model: LlamaModel, ids, caches, pos, pad_bias=None,

@@ -1,8 +1,10 @@
 """Carry weights from the JAX package into the port.
 
 Both packages name parameters alike (``model.layers.0.self_attn.
-q_proj_weight`` ...) and store projections as ``[in, out]``, so a JAX
-state dict loads as it is: no renames, no transposes. The JAX training
+q_proj_weight``, ``gpt.layers.0.attn.qkv_weight``, ``bert.embeddings.
+word_embeddings_weight`` ...) and store projections as ``[in, out]``, so a
+JAX state dict loads as it is: no renames, no transposes. A tied
+embedding (GPT's ``gpt.wte``, BERT's MLM head) is one parameter in both. The JAX training
 engine keys its AdamW moments by the same names, so its optimizer state
 crosses over by name too (:func:`engine_state_from_jax`).
 """

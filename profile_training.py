@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one CUDA card.
 
-    python3 profile_training.py        # from the root of a checkout
+    python3 profile_training.py [ARM ...]   # from the root of a checkout
 
-Four arms, each chip_smoke.py's training
+Five arms (all of them unless named on the command line), each
+chip_smoke.py's training
 configuration at full width and depth with random weights from seed 0
 under Engine(lr=1e-4, clip 1.0):
 
@@ -16,9 +17,12 @@ under Engine(lr=1e-4, clip 1.0):
   - remat: bench.py's llama_853M_seq4096_remat line (the dense model with
     recompute=True and the flash_qkv policy, batch 4 x seq 4096);
   - moe_auto: the moe arm at its default dispatch, "auto", which resolves
-    to scatter at this shape.
+    to scatter at this shape;
+  - bert: bench.py's bench_bert (BERT-base sequence classification, batch
+    32 x seq 128, bf16, dropout 0) under Engine(lr=2e-5, clip 1.0,
+    loss_fn=model.loss_fn), as chip_smoke.py's phase 32 runs it.
 
-Each arm measures one train step (forward, fused CE, backward, clip, AdamW)
+Each arm measures one train step (forward, loss, backward, clip, AdamW)
 after two warm-up steps, three ways (profile_serving.measure): device span
 (CUDA events), host enqueue (host clock without a synchronise) and device
 busy time (torch.profiler's kernel times, summed), with the top kernels by
@@ -47,11 +51,32 @@ def profile_arm(torch, np, name, cfg_dict, batch, seq):
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)))
     ids = ids.cuda()
+    profile_step(torch, name, eng, model, ids, ids, batch, seq)
+
+
+def profile_bert(torch, np):
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+
+    cfg = BertConfig(**chip_smoke.BERT_CONFIG)
+    model = BertForSequenceClassification(cfg, seed=0)
+    eng = Engine(model, lr=chip_smoke.BERT_LR, clip_norm=1.0,
+                 loss_fn=model.loss_fn)
+    batch, seq = chip_smoke.BERT_BATCH, chip_smoke.BERT_SEQ
+    (ids, labels), = chip_smoke._bert_batches(
+        np, np.random.default_rng(0), cfg, 1, batch, seq, False)
+    profile_step(torch, "bert", eng, model, torch.from_numpy(ids).cuda(),
+                 torch.from_numpy(labels).cuda(), batch, seq)
+
+
+def profile_step(torch, name, eng, model, ids, labels, batch, seq):
     profile_serving.measure(
         torch, f"{name} train step [{batch} x {seq}, "
-        f"{cfg.num_hidden_layers} layers]",
-        lambda: eng.step(ids, ids), STEPS, top=15)
-    syncs = chip_smoke._sync_count(torch, lambda: eng.step(ids, ids))
+        f"{model.config.num_hidden_layers} layers, {len(eng.params)} "
+        f"parameter tensors]",
+        lambda: eng.step(ids, labels), STEPS, top=15)
+    syncs = chip_smoke._sync_count(torch, lambda: eng.step(ids, labels))
     print(f"{name}: synchronizing operations reported in one step: "
           f"{len(syncs)}", flush=True)
     for msg in syncs[:5]:
@@ -68,16 +93,30 @@ def main():
         return 1
     import numpy as np
 
+    arms = {
+        "dense": (chip_smoke.TRAIN_CONFIG, chip_smoke.TRAIN_BATCH,
+                  chip_smoke.TRAIN_SEQ),
+        "moe": (chip_smoke.MOE_CONFIG, chip_smoke.MOE_BATCH,
+                chip_smoke.MOE_SEQ),
+        "remat": (chip_smoke.REMAT_CONFIG, chip_smoke.REMAT_BATCH,
+                  chip_smoke.TRAIN_SEQ),
+        "moe_auto": (chip_smoke.MOE_AUTO_CONFIG, chip_smoke.MOE_BATCH,
+                     chip_smoke.MOE_SEQ),
+        "bert": None,
+    }
+    names = sys.argv[1:] or list(arms)
+    unknown = [n for n in names if n not in arms]
+    if unknown:
+        print(f"profile_training: unknown arms {unknown}; the arms are "
+              f"{list(arms)}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
-    profile_arm(torch, np, "dense", chip_smoke.TRAIN_CONFIG,
-                chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ)
-    profile_arm(torch, np, "moe", chip_smoke.MOE_CONFIG,
-                chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ)
-    profile_arm(torch, np, "remat", chip_smoke.REMAT_CONFIG,
-                chip_smoke.REMAT_BATCH, chip_smoke.TRAIN_SEQ)
-    profile_arm(torch, np, "moe_auto", chip_smoke.MOE_AUTO_CONFIG,
-                chip_smoke.MOE_BATCH, chip_smoke.MOE_SEQ)
+    for name in names:
+        if name == "bert":
+            profile_bert(torch, np)
+        else:
+            profile_arm(torch, np, name, *arms[name])
     return 0
 
 

@@ -1852,3 +1852,192 @@ def test_procfleet_sigkill_one_of_two_cuda_workers(cuda, tmp_path):
     assert paged_decode_attention.launches == n + 1
     ref_out = paged_decode_reference(q, kc, vc, tables, lens)
     assert (out - ref_out).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# GPT and BERT on the card (the same weights on the CPU are the reference)
+# ---------------------------------------------------------------------------
+
+def _gpt_pair(cuda, d, dtype="float32"):
+    """A small GPT with heads of ``d`` (4 heads, 2 layers) on the CPU and
+    the same weights on the card."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=512, hidden_size=4 * d, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=256,
+                    dtype=dtype)
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=3)
+    card = GPTForCausalLM(cfg, device=cuda, seed=3)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    return cpu, card
+
+
+def _gpt_wave(model, device, **kw):
+    """Greedy streams of 6 requests through a 2-slot legacy engine (or
+    ``kw``'s engine): bucketed prompts, exact and re-stepped."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32)
+               for n in (32, 17, 25, 32, 9, 30)]
+    eng = ContinuousBatchingEngine(
+        model, device=device,
+        **(kw or dict(max_batch=2, max_len=64, page_size=16, block_size=4,
+                      prompt_buckets=[32])))
+    reqs = [Request(p, max_new_tokens=6 + i % 3 * 5)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_done(max_steps=500)
+    return [r.tokens for r in reqs], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_gpt_logits_and_decode_on_card_match_cpu(cuda, d):
+    """The dense forward (K1 on strided q, k, v views) within 1e-4 of the
+    CPU's; the legacy engine's greedy streams (K1 prefill, K4 decode on a
+    contiguous copy of q) and paged generate equal the CPU's."""
+    cpu, card = _gpt_pair(cuda, d)
+    ids = torch.randint(0, 512, (2, 100),
+                        generator=torch.Generator().manual_seed(1))
+    n1 = flash_attention.launches
+    with torch.no_grad():
+        got = card(ids.to(cuda)).cpu()
+        ref = cpu(ids)
+    assert flash_attention.launches == n1 + 2
+    assert (got - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+    n1, n4 = flash_attention.launches, paged_decode_attention.launches
+    streams, eng = _gpt_wave(card, cuda)
+    assert flash_attention.launches - n1 >= 2 * eng.stats["prefill_groups"]
+    assert (paged_decode_attention.launches - n4
+            >= 2 * eng.stats["decode_steps"])
+    assert streams == _gpt_wave(cpu, "cpu")[0]
+    p = ids[:1, :24]
+    paged = card.generate(p.to(cuda), max_new_tokens=12, temperature=0.0,
+                          cache_impl="paged", page_size=16)
+    dense = cpu.generate(p, max_new_tokens=12, temperature=0.0)
+    assert paged.cpu().tolist() == dense.tolist()
+
+
+def _live_replay_vs_eager(eng, steps, live):
+    """:func:`_replay_vs_eager` on what the ``live`` rows read and emit:
+    every page but the parking page, the live rows' tokens, every
+    position and the step index. The parked rows all write one slot of
+    the parking page, duplicate indices whose winner a replay and an eager
+    run may pick differently (GPT's k/v reach the scatter as strided
+    views); no live row reads that page, and the parked rows' tokens,
+    computed from it, are dropped."""
+    park = eng._park
+    state = _step_state(eng)
+    start = [t.clone() for t in state]
+    for _ in range(steps):
+        eng._graph.replay()
+    replayed = [t.clone() for t in state]
+    for t, s0 in zip(state, start):
+        t.copy_(s0)
+    with torch.no_grad():
+        for _ in range(steps):
+            eng._fused_step()
+    torch.cuda.synchronize()
+    n_pools = 2 * len(eng.caches["kv"])
+    for i, (a, b) in enumerate(zip(replayed, state)):
+        if i < n_pools:
+            assert torch.equal(a[:park], b[:park])
+            assert torch.equal(a[park + 1:], b[park + 1:])
+        elif i in (n_pools, n_pools + 2):     # _last_tok, _out
+            assert torch.equal(a[live], b[live])
+        else:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpt_fused_engine_replays_its_graph_on_card(cuda, dtype):
+    """GPT's token step captured once (2 K4 launches a replay), bitwise the
+    eager step on random pools for every live row, and (fp32) a wave's
+    streams equal the legacy engine's with every greedy block a replay."""
+    _, card = _gpt_pair(cuda, 128, dtype)
+    eng = _fused_engine(card, cuda)
+    assert eng.stats["graph_captures"] == 1 and eng._graph_counts[0] == 2
+    gen = torch.Generator().manual_seed(0)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for k, v in eng.caches["kv"]:
+        k.copy_(torch.randn(k.shape, device=cuda, generator=g))
+        v.copy_(torch.randn(v.shape, device=cuda, generator=g))
+    eng._last_tok.copy_(torch.randint(0, 512, (8,), device=cuda,
+                                      generator=g))
+    rows = {0: 9, 3: 30, 5: 17}
+    _set_rows(eng, rows, gen)
+    eng._step_i.zero_()
+    _live_replay_vs_eager(eng, 3, sorted(rows))
+    if dtype == "bfloat16":
+        return
+    legacy, _ = _gpt_wave(card, cuda)
+    fused, eng = _gpt_wave(card, cuda, max_batch=8, max_len=64, page_size=16,
+                           block_size=4, fused=True,
+                           prefix_cache=PrefixCacheConfig(extra_blocks=8))
+    assert fused == legacy
+    st = eng.stats
+    assert st["graph_captures"] == 1 and st["eager_decode_steps"] == 0
+    assert st["graph_replays"] == st["decode_steps"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [128, 77])
+@pytest.mark.parametrize("head", ["seqcls", "mlm"])
+def test_bert_engine_step_on_card_matches_cpu(cuda, seq, head):
+    """One Engine step of BERT (heads of 64) on the card and on the CPU
+    from the same weights: the non-causal K1-lse, K2 and K3 once a layer,
+    the loss within 1e-4 relative, parameters within 2 * lr, and the first
+    moments (the clipped gradients times 1 - beta1) within 1e-3 of their
+    largest magnitude: Adam's update alone would hide a wrong gradient
+    inside the parameters' 2 * lr."""
+    import chip_smoke
+    from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                         BertForSequenceClassification)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cls = BertForMaskedLM if head == "mlm" else BertForSequenceClassification
+    cfg = BertConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, intermediate_size=512,
+                     max_position_embeddings=256, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, num_labels=3)
+    cpu, card = cls(cfg, device="cpu", seed=4), cls(cfg, device=cuda, seed=4)
+    with torch.no_grad():
+        for pc, pg in zip(cpu.parameters(), card.parameters()):
+            pg.copy_(pc)
+    g = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 512, (4, seq), generator=g)
+    if head == "mlm":
+        labels = torch.where(torch.rand(4, seq, generator=g) < 0.3,
+                             torch.randint(0, 512, (4, seq), generator=g),
+                             -100)
+    else:
+        labels = torch.randint(0, 3, (4,), generator=g)
+    ec = Engine(cpu, lr=1e-3, loss_fn=cpu.loss_fn)
+    eg = Engine(card, lr=1e-3, loss_fn=card.loss_fn)
+    n = (flash_attention_forward.launches,
+         flash_attention_backward.launches_dq,
+         flash_attention_backward.launches_dkv)
+    lc = ec.step(ids, labels)
+    lg = eg.step(ids.to(cuda), labels.to(cuda))
+    torch.cuda.synchronize()
+    assert (flash_attention_forward.launches - n[0],
+            flash_attention_backward.launches_dq - n[1],
+            flash_attention_backward.launches_dkv - n[2]) == (2, 2, 2)
+    assert abs(lg.item() - lc.item()) <= 1e-4 * abs(lc.item())
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        err = (pg.detach().cpu() - pc.detach()).abs().max().item()
+        assert err <= 2e-3, (name, err)
+    # the key biases' gradients are rounding noise (softmax ignores a
+    # shift of every key's logit): chip_smoke's floor holds them to a share
+    # of the largest moment
+    mc, mg = ec.state_dict()["m"], eg.state_dict()["m"]
+    top = max(a.abs().max().item() for a in mc.values())
+    for name, a in mc.items():
+        err = (mg[name].cpu() - a).abs().max().item()
+        scale = max(a.abs().max().item(), chip_smoke.BERT_MOMENT_FLOOR * top)
+        assert err <= 1e-3 * scale, (name, err, scale)

@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models import (BertConfig, BertForMaskedLM,
+                                     BertForSequenceClassification,
+                                     GPTConfig, GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
 from paddle_tpu_torch.ops import _build
 
 torch.set_num_threads(1)
@@ -61,7 +64,12 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/distributed/resilience/watchdog.py",
             "paddle_tpu_torch/inference/recovery.py",
             "paddle_tpu_torch/inference/fleet.py",
-            "paddle_tpu_torch/inference/disagg.py"} <= scanned
+            "paddle_tpu_torch/inference/disagg.py",
+            "paddle_tpu_torch/models/gpt/modeling.py",
+            "paddle_tpu_torch/models/gpt/__init__.py",
+            "paddle_tpu_torch/models/bert/modeling.py",
+            "paddle_tpu_torch/models/bert/__init__.py",
+            "paddle_tpu_torch/models/_common.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -71,6 +79,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import pkgutil, sys, paddle_tpu_torch\n"
+        "from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,"
+        " BertConfig, BertForMaskedLM, BertForSequenceClassification)\n"
         "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,"
         " 'paddle_tpu_torch.'):\n"
         "    __import__(m.name)\n"
@@ -99,6 +109,18 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for():
         ContinuousBatchingEngine(model, max_batch=2, max_len=32, page_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaForCausalLM(cfg, device="cuda")
+
+
+def test_gpt_and_bert_raise_without_a_card_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    builds = [lambda dev: GPTForCausalLM(GPTConfig.tiny(), device=dev)]
+    builds += [lambda dev, c=cls: c(BertConfig.tiny(), device=dev)
+               for cls in (BertForMaskedLM, BertForSequenceClassification)]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(None)
+        assert next(build("cpu").parameters()).device.type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc():

@@ -368,11 +368,12 @@ def test_bf16_moe_model_keeps_an_fp32_gate():
 
 
 def test_unported_moe_paths_raise():
-    """What stays refused: sequence_parallel, the XLA attention path and
-    an unknown dispatch. Every dispatch, the switch gate, the experts'
-    dense forward and MoE serving are ported (they build here, and
-    tests/test_torch_moe_dispatch.py and tests/test_torch_moe_serving.py
-    hold them against JAX)."""
+    """What stays refused: sequence_parallel and an unknown dispatch.
+    Every dispatch, the switch gate, the experts' dense forward and MoE
+    serving are ported (they build here, and tests/test_torch_moe_dispatch.py
+    and tests/test_torch_moe_serving.py hold them against JAX), and so is
+    the XLA attention path (``use_flash_attention=False``), held here to
+    the JAX model with the same flag."""
     for mode in ("auto", "einsum", "scatter", "ragged"):
         MoELayer(16, 4, dispatch_mode=mode, device="cpu")
         LlamaForCausalLM(LlamaConfig.tiny(num_experts=4, moe_dispatch=mode),
@@ -391,8 +392,18 @@ def test_unported_moe_paths_raise():
         torch.zeros(4, 2, 16)).shape == (4, 2, 16)
     assert ExpertFFN(4, 16, 32, device="cpu")(
         torch.zeros(4, 2, 16)).shape == (4, 2, 16)
-    with pytest.raises(NotImplementedError, match="use_flash_attention"):
-        LlamaConfig.tiny(use_flash_attention=False)
+    paddle.seed(9)
+    jx = JaxLlama(JaxConfig.tiny(use_flash_attention=False))
+    tx = LlamaForCausalLM(LlamaConfig.tiny(use_flash_attention=False),
+                          device="cpu")
+    assert not tx.config.use_flash_attention
+    load_jax_state(tx, state_from_jax_layer(jx))
+    ids = np.random.default_rng(9).integers(0, 256, (2, 16)).astype(np.int32)
+    _close(tx(torch.from_numpy(ids)).detach(),
+           np.asarray(jx(paddle.to_tensor(ids))._data), what="xla logits")
+    _close(tx.loss_fn(torch.from_numpy(ids), torch.from_numpy(ids)).item(),
+           float(jx.loss_fn(jnp.asarray(ids), jnp.asarray(ids))),
+           what="xla loss")
     with pytest.raises(NotImplementedError, match="sequence_parallel"):
         LlamaConfig.tiny(sequence_parallel=True)
     with pytest.raises(ValueError, match="remat_policy"):

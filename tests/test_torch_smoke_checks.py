@@ -116,3 +116,24 @@ def test_masked_pairs_counts_the_plain_masks_visible_pairs(smoke, mask,
         full &= keep
     got = smoke.masked_pairs(np, b, s, s, hq, causal, **kw)
     assert isinstance(got, float) and got == full.sum().item()
+
+
+@pytest.mark.parametrize("best,trail,ulps", [(5.0, 3 / 32, 3.0),
+                                             (3.0, 6 / 64, 6.0),
+                                             (3.0, 7 / 64, 7.0),
+                                             (-0.75, 1 / 256, 1.0)])
+def test_teacher_forced_trail_counts_ulps_of_the_row_max(smoke, best, trail,
+                                                          ulps):
+    # the margin bounds max logit - emitted logit in bf16 ulps of the max
+    # (2 ** (floor(log2 |max|) - 7)); 6 ulps pass, 7 do not
+    logits = torch.full((2, 3, 8), -4.0)
+    logits[..., 0] = best
+    logits[1, 2, 5] = best - trail
+    emitted = torch.zeros(2, 3, dtype=torch.long)
+    emitted[1, 2] = 5
+    tf = smoke.Trail(torch)
+    tf.add(logits, emitted, lambda r, t: f"row {r} pos {t}")
+    assert tf.ulps == ulps and tf.abs == pytest.approx(trail)
+    assert tf.n == 6 and tf.top1 == 5 and "row 1 pos 2" in str(tf)
+    assert "emitted token's rank 2" in str(tf)
+    assert tf.ok() == (ulps <= smoke.MARGIN_ULPS)
