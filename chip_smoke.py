@@ -394,6 +394,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      synchronizing operation (set_sync_debug_mode). Phases 4 and 5
      hold the three kernels at this shape ([32, 128, 12/12, 64], not
      causal).
+ 33. vision parity, card against CPU on the same weights and batches
+     (fp32, TF32 off): (a) resnet18(num_classes=10), 3
+     hapi.Model.train_batch steps (Momentum 0.9, lr 1e-3, batch 16 of 3 x
+     32 x 32), each started on the card from the CPU's parameters,
+     BatchNorm statistics and velocity: the loss within 1e-4 relative,
+     every parameter within 1e-4, every _mean / _variance within 2e-3 of
+     its largest; (b) the tiny ViT (ViTConfig.tiny, batch 4) and UNet
+     (UNetConfig.tiny, batch 2 of 16 x 16 latents): the loss within 1e-4
+     relative and every gradient within 1e-4 of its largest; (c) each zoo
+     factory (VGG 11/13/16/19 with and without BatchNorm, MobileNetV1/V2,
+     AlexNet, SqueezeNet 1.0/1.1) in eval mode at 224 px, batch 2: logits
+     within 1e-4 of their largest. K1-K6 must launch zero times: this path
+     runs none of them, as the JAX package runs no Pallas kernel there
+     (convolutions, pools and norms are torch's ops, attention the dense
+     _xla_attention).
+ 34. bench_resnet (bench.py:112-148, BASELINE config 1): resnet18
+     (num_classes=10), batch 256 of 3 x 32 x 32 fp32, Momentum(lr 0.1,
+     momentum 0.9), CrossEntropyLoss, through hapi.Model.train_batch (one
+     host read of the loss a step, as bench's): 1 warm-up and 8 timed
+     steps; images/s, ms a step, the loss, peak memory; the loss finite,
+     the BatchNorm statistics moved, no K1-K6 launch.
+ 35. bench_vit (bench.py:1681-1730, config 5): vit_l_16(dtype="bfloat16")
+     (304M parameters, 224 px, 197 tokens), batch 32, bench's step (the
+     loss's gradients, then p - 1e-4 g): 1 warm-up and 8 timed steps;
+     images/s, MFU with bench's FLOP count over 989 TFLOP/s, peak memory;
+     losses finite, no K1-K6 launch.
+ 36. bench_unet (bench.py:1623-1678, config 5): UNetConfig(block_channels
+     (128, 256, 512), 2 layers a block, 8 heads, cross_attention_dim 768,
+     bf16), batch 8 of 4 x 32 x 32 latents, context 77, bench's step: 1
+     warm-up and 8 timed steps; latents/s, peak memory; losses finite, no
+     K1-K6 launch.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -418,6 +449,7 @@ import gc
 import importlib
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -791,6 +823,45 @@ BERT_PARITY_SEQ = 77
 # a shift of every key's logit): their moments are rounding noise, held to
 # this share of the largest moment instead of their own magnitude
 BERT_MOMENT_FLOOR = 1e-6
+# phase 33: card against CPU, fp32, TF32 off. resnet18(num_classes=10)
+# through 3 hapi train_batch steps (Momentum 0.9 at lr 1e-3, batch 16 of
+# 3 x 32 x 32), each step started on the card from the CPU's parameters,
+# BatchNorm statistics and velocity (a pre-activation that rounding moves
+# across ReLU's kink moves a BatchNorm channel's whole gradient, and free
+# steps compound it: tests/test_torch_vision.py); the tiny ViT and UNet
+# (ViTConfig.tiny, batch 4; UNetConfig.tiny, batch 2 of 16 x 16) loss and
+# gradients; each zoo factory in eval mode at 224 px, batch 2
+VISION_PARITY_BATCH, VISION_PARITY_LR = 16, 1e-3
+ZOO_FACTORIES = [("vgg11", {}), ("vgg13", {}), ("vgg16", {}), ("vgg19", {}),
+                 ("vgg11", dict(batch_norm=True)),
+                 ("vgg13", dict(batch_norm=True)),
+                 ("vgg16", dict(batch_norm=True)),
+                 ("vgg19", dict(batch_norm=True)), ("mobilenet_v1", {}),
+                 ("mobilenet_v2", {}), ("alexnet", {}), ("squeezenet1_0", {}),
+                 ("squeezenet1_1", {})]
+ZOO_PX, ZOO_BATCH = 224, 2
+# card-vs-CPU bounds (fp32): a loss relative, a parameter after a step
+# absolute (lr 1e-3), a BatchNorm statistic, logit or gradient relative to
+# its tensor's largest magnitude (at least 1)
+VISION_TOL = dict(loss=1e-4, param=1e-4, stat=2e-3, logits=1e-4, grad=1e-4)
+# phases 34-36: bench.py's vision arms at their TPU shapes, 1 warm-up and 8
+# timed steps each, random weights from seed 0 and inputs from
+# default_rng(0), made on the card before the timing. 34: bench_resnet
+# (:112-148): resnet18(num_classes=10), batch 256 of 3 x 32 x 32 fp32,
+# Momentum(lr 0.1, momentum 0.9), CrossEntropyLoss, hapi.Model.train_batch
+# (one host read of the loss a step, as bench's). 35: bench_vit
+# (:1681-1730): vit_l_16(dtype="bfloat16"), batch 32 of bf16 224 x 224
+# images; 36: bench_unet (:1623-1678): UNET_BENCH_CONFIG, batch 8 of 4 x 32
+# x 32 fp32 latents, 77 x 768 context. 35 and 36 run bench's step: the
+# loss's gradients, then p - 1e-4 g for every parameter
+RESNET_BENCH = dict(batch=256, lr=0.1, momentum=0.9)
+VIT_BENCH_BATCH = 32
+UNET_BENCH_CONFIG = dict(block_channels=(128, 256, 512), layers_per_block=2,
+                         num_heads=8, cross_attention_dim=768,
+                         dtype="bfloat16")
+UNET_BENCH_BATCH, UNET_BENCH_HW, UNET_BENCH_CTX = 8, 32, 77
+BENCH_SGD_LR = 1e-4
+VISION_WARMUP, VISION_STEPS = 1, 8
 
 
 def card_line():
@@ -5534,6 +5605,322 @@ def phase_bert(torch, np, ops, card):
     return tuple(a + b for a, b in zip(rows["seqcls"], rows["mlm"]))
 
 
+def _no_kernel_ran(ops, what):
+    """The vision path runs none of K1-K6, as the JAX package runs no
+    Pallas kernel there."""
+    counts = _read_counts(ops)
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernels launched {counts}")
+    return counts
+
+
+def _rel_err(a, b):
+    """max |a - b| over max(1, max |b|), b the CPU reference."""
+    b = b.detach().float().cpu()
+    return ((a.detach().float().cpu() - b).abs().max()
+            / b.abs().max().clamp_min(1.0)).item()
+
+
+def _copy_state(torch, dst, src):
+    """``src``'s parameters and buffers into ``dst`` (any devices)."""
+    with torch.no_grad():
+        ref = src.state_dict()
+        for k, v in dst.state_dict().items():
+            v.copy_(ref[k])
+
+
+def sgd_bench_step(torch, model, loss_of, lr=BENCH_SGD_LR):
+    """bench.py's ViT and UNet step (:1711-1716, :1661-1664): the loss's
+    gradients with respect to every parameter, then ``p - lr * g`` (in the
+    parameter's dtype); returns the loss tensor (not read)."""
+    params = list(model.parameters())
+    loss = loss_of()
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g.to(p.dtype))
+    return loss.detach()
+
+
+def vit_bench_inputs(torch, np, cfg, batch, device):
+    """bench_vit's images (in the model's dtype) and labels on
+    ``device``."""
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.in_channels, cfg.image_size, cfg.image_size)))
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, batch))
+    from paddle_tpu_torch import resolve_dtype
+    return (imgs.to(device, resolve_dtype(cfg.dtype)), labels.to(device))
+
+
+def unet_bench_batch(torch, np, cfg, batch, hw, ctx, device):
+    """bench_unet's batch (:1645-1654) on ``device``: fp32 latents, noise
+    and context, int32 timesteps in [0, 1000)."""
+    rng = np.random.default_rng(0)
+    arrays = {
+        "sample": rng.standard_normal((batch, 4, hw, hw)),
+        "timesteps": rng.integers(0, 1000, batch).astype(np.int32),
+        "context": rng.standard_normal((batch, ctx,
+                                        cfg.cross_attention_dim)),
+        "noise": rng.standard_normal((batch, 4, hw, hw))}
+    return {k: torch.from_numpy(v).to(device, torch.int32 if k ==
+                                      "timesteps" else torch.float32)
+            for k, v in arrays.items()}
+
+
+def resnet_bench(torch, np, device=None):
+    """bench_resnet's model, hapi.Model and batches on ``device``:
+    (model, hapi model, [(x, y)] for the warm-up and the timed steps)."""
+    from paddle_tpu_torch import hapi, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet18
+
+    device = device or DEVICE
+    model = resnet18(num_classes=10, device=device, seed=0)
+    opt = optimizer.Momentum(learning_rate=RESNET_BENCH["lr"],
+                             momentum=RESNET_BENCH["momentum"],
+                             parameters=model.parameters())
+    m = hapi.Model(model)
+    m.prepare(optimizer=opt, loss=nn.CrossEntropyLoss())
+    rng = np.random.default_rng(0)
+    b = RESNET_BENCH["batch"]
+    batches = [(torch.from_numpy(rng.standard_normal(
+                    (b, 3, 32, 32)).astype(np.float32)).to(device),
+                torch.from_numpy(rng.integers(0, 10, b)).to(device))
+               for _ in range(VISION_WARMUP + VISION_STEPS)]
+    return model, m, batches
+
+
+def _resnet_parity(torch, np, card):
+    """3 train_batch steps of resnet18 on the card and the CPU, each
+    started on the card from the CPU's state; returns the worst errors."""
+    from paddle_tpu_torch import hapi, nn, optimizer
+    from paddle_tpu_torch.vision.models import resnet18
+
+    cpu = resnet18(num_classes=10, device="cpu", seed=33)
+    gpu = resnet18(num_classes=10, device=DEVICE, seed=33)
+    opts, models = [], []
+    for net in (cpu, gpu):
+        opt = optimizer.Momentum(learning_rate=VISION_PARITY_LR,
+                                 momentum=0.9, parameters=net.parameters())
+        m = hapi.Model(net)
+        m.prepare(optimizer=opt, loss=nn.CrossEntropyLoss())
+        opts.append(opt)
+        models.append(m)
+    rng = np.random.default_rng(33)
+    worst = dict(loss=0.0, param=(0.0, ""), stat=(0.0, ""))
+    moved = False
+    for step in range(3):
+        _copy_state(torch, gpu, cpu)
+        vel = opts[0]._accumulators.get("velocity", {})
+        for pc, pg in zip(cpu.parameters(), gpu.parameters()):
+            if pc in vel:
+                opts[1]._accumulators["velocity"][pg] = vel[pc].to(
+                    DEVICE, copy=True)
+        x = torch.from_numpy(rng.standard_normal(
+            (VISION_PARITY_BATCH, 3, 32, 32)).astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, VISION_PARITY_BATCH))
+        before = {k: v.clone() for k, v in cpu.state_dict().items()}
+        (lc,), _ = models[0].train_batch(x, y)
+        (lg,), _ = models[1].train_batch(x.to(DEVICE), y.to(DEVICE))
+        worst["loss"] = max(worst["loss"], abs(lg - lc) / abs(lc))
+        sg = gpu.state_dict()
+        for k, v in cpu.state_dict().items():
+            if k.endswith(("_mean", "_variance")):
+                worst["stat"] = max(worst["stat"], (_rel_err(sg[k], v), k))
+            else:
+                err = (sg[k].cpu() - v).abs().max().item()
+                worst["param"] = max(worst["param"], (err, k))
+                moved |= (v - before[k]).abs().max().item() > \
+                    VISION_TOL["param"]
+    print(f"vision parity resnet18 [{card}]: 3 train_batch steps card vs "
+          f"CPU (fp32, batch {VISION_PARITY_BATCH}, lr {VISION_PARITY_LR}): "
+          f"loss max_rel={worst['loss']:.3e}; params worst abs "
+          f"{worst['param'][0]:.3e} ({worst['param'][1]}); statistics worst "
+          f"rel {worst['stat'][0]:.3e} ({worst['stat'][1]})", flush=True)
+    if not (worst["loss"] <= VISION_TOL["loss"]
+            and worst["param"][0] <= VISION_TOL["param"]
+            and worst["stat"][0] <= VISION_TOL["stat"] and moved):
+        raise AssertionError(f"resnet18 card vs CPU failed: {worst}, "
+                             f"moved {moved}")
+    del cpu, gpu, models, opts
+
+
+def _grad_parity(torch, what, make, loss_of, card):
+    """Loss and every gradient of ``make(device)`` on the card and the CPU
+    from the same weights."""
+    cpu, gpu = make("cpu"), make(DEVICE)
+    _copy_state(torch, gpu, cpu)
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        loss = loss_of(model, dev)
+        out.append((loss.item(), torch.autograd.grad(
+            loss, list(model.parameters()))))
+    (lc, gc), (lg, gg) = out
+    loss_rel = abs(lg - lc) / abs(lc)
+    names = [n for n, _ in cpu.named_parameters()]
+    grad = max((_rel_err(b, a), n) for n, a, b in zip(names, gc, gg))
+    print(f"vision parity {what} [{card}]: loss cpu {lc:.6f} card {lg:.6f} "
+          f"max_rel={loss_rel:.3e}; gradients worst rel {grad[0]:.3e} "
+          f"({grad[1]}, {len(names)} parameters)", flush=True)
+    if not (loss_rel <= VISION_TOL["loss"] and grad[0] <= VISION_TOL["grad"]):
+        raise AssertionError(f"{what} card vs CPU failed")
+
+
+def phase_vision_parity(torch, np, ops, card):
+    """Card against CPU on the same weights and batches (fp32, TF32 off):
+    resnet18's hapi steps with its BatchNorm statistics, the tiny ViT's and
+    UNet's loss and gradients, each zoo factory's eval logits; K1-K6 must
+    not launch."""
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.vision import models as V
+
+    _reset_counts(ops)
+    _resnet_parity(torch, np, card)
+    vcfg = V.ViTConfig.tiny()
+    imgs, labels = vit_bench_inputs(torch, np, vcfg, 4, "cpu")
+    _grad_parity(
+        torch, "vit tiny", lambda dev: V.VisionTransformer(vcfg, device=dev,
+                                                           seed=33),
+        lambda m, dev: m.loss_fn(imgs.to(dev), labels.to(dev)), card)
+    ucfg = UNetConfig.tiny()
+    batch = unet_bench_batch(torch, np, ucfg, 2, 16, 6, "cpu")
+    _grad_parity(
+        torch, "unet tiny", lambda dev: UNet2DConditionModel(ucfg, device=dev,
+                                                             seed=33),
+        lambda m, dev: m.loss_fn({k: v.to(dev) for k, v in batch.items()}),
+        card)
+    x = torch.from_numpy(np.random.default_rng(33).standard_normal(
+        (ZOO_BATCH, 3, ZOO_PX, ZOO_PX)).astype(np.float32))
+    rows = []
+    for name, kw in ZOO_FACTORIES:
+        make = getattr(V, name)
+        cpu = make(device="cpu", seed=33, **kw).eval()
+        gpu = make(device=DEVICE, seed=33, **kw).eval()
+        _copy_state(torch, gpu, cpu)
+        with torch.no_grad():
+            ref, out = cpu(x), gpu(x.to(DEVICE))
+        err = _rel_err(out, ref)
+        tag = name + ("_bn" if kw else "")
+        rows.append(f"{tag} {err:.2e}")
+        if tuple(out.shape) != (ZOO_BATCH, 1000) or not err <= \
+                VISION_TOL["logits"]:
+            raise AssertionError(f"zoo {tag}: card vs CPU error {err}, "
+                                 f"shape {tuple(out.shape)}")
+        del cpu, gpu
+    print(f"vision parity zoo [{card}]: eval logits card vs CPU at "
+          f"{ZOO_PX} px, batch {ZOO_BATCH}, worst rel: {', '.join(rows)}",
+          flush=True)
+    counts = _no_kernel_ran(ops, "vision parity")
+    print(f"vision parity: K1-K6 launches {counts}", flush=True)
+    _release(torch)
+
+
+def _timed(torch, step, sync_each):
+    """VISION_WARMUP calls of ``step(i)``, then VISION_STEPS timed calls;
+    ``step`` returns the loss (a float when ``sync_each``, else a tensor
+    read after the last call). Returns (seconds, losses)."""
+    losses = [step(i) for i in range(VISION_WARMUP)]
+    sync()
+    t0 = time.perf_counter()
+    for i in range(VISION_WARMUP, VISION_WARMUP + VISION_STEPS):
+        losses.append(step(i))
+    if not sync_each:
+        losses[-1].item()
+    dt = time.perf_counter() - t0
+    vals = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite loss: {vals}")
+    return dt, vals
+
+
+def phase_bench_resnet(torch, np, ops, card):
+    """bench_resnet: resnet18 on CIFAR shapes through hapi.Model.train_batch
+    with Momentum; images/s, ms a step, the loss; BatchNorm statistics must
+    move and no kernel of K1-K6 run."""
+    model, m, batches = resnet_bench(torch, np)
+    stats0 = model.bn1._mean.clone()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(ops)
+    dt, losses = _timed(
+        torch, lambda i: m.train_batch(*batches[i])[0][0], True)
+    b = RESNET_BENCH["batch"]
+    moved = (model.bn1._mean - stats0).abs().max().item()
+    print(f"bench_resnet [{card}]: images_per_s="
+          f"{b * VISION_STEPS / dt:.1f} ms_per_step="
+          f"{dt / VISION_STEPS * 1e3:.2f} loss={losses[-1]:.4f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"(resnet18, batch {b} x 3 x 32 x 32 fp32, Momentum lr "
+          f"{RESNET_BENCH['lr']}, hapi train_batch, {VISION_STEPS} timed "
+          f"steps); bn1._mean moved {moved:.3e}; losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    if not moved > 0:
+        raise AssertionError("bench_resnet: BatchNorm statistics did not "
+                             "move")
+    _no_kernel_ran(ops, "bench_resnet")
+    del model, m, batches
+    _release(torch)
+
+
+def vit_flops_per_image(cfg, n_params):
+    """bench.py:1725-1727: 6 N tokens + 12 L h tokens^2."""
+    n_tok = cfg.num_patches + 1
+    return 6.0 * n_params * n_tok + 12.0 * cfg.num_layers * \
+        cfg.hidden_size * n_tok * n_tok
+
+
+def phase_bench_vit(torch, np, ops, card):
+    """bench_vit: ViT-L/16 in bf16 through bench's SGD step; images/s, MFU
+    (bench's FLOP count over 989 TFLOP/s), peak memory."""
+    from paddle_tpu_torch.vision.models import vit_l_16
+
+    torch.cuda.reset_peak_memory_stats()
+    model = vit_l_16(dtype="bfloat16", device=DEVICE, seed=0)
+    cfg, b = model.config, VIT_BENCH_BATCH
+    imgs, labels = vit_bench_inputs(torch, np, cfg, b, DEVICE)
+    _reset_counts(ops)
+    dt, losses = _timed(torch, lambda i: sgd_bench_step(
+        torch, model, lambda: model.loss_fn(imgs, labels)), False)
+    n = _n_params(model)
+    ips = b * VISION_STEPS / dt
+    mfu = ips * vit_flops_per_image(cfg, n) / PEAK_FLOPS["bfloat16"]
+    print(f"bench_vit [{card}]: images_per_s={ips:.1f} mfu={mfu:.4f} "
+          f"ms_per_step={dt / VISION_STEPS * 1e3:.2f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} ({n / 1e6:.1f}M "
+          f"params, {cfg.image_size} px, {cfg.num_patches + 1} tokens, "
+          f"batch {b}, bf16, SGD lr {BENCH_SGD_LR}); losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    _no_kernel_ran(ops, "bench_vit")
+    del model, imgs, labels
+    _release(torch)
+
+
+def phase_bench_unet(torch, np, ops, card):
+    """bench_unet: the SD-class UNet in bf16 through bench's SGD step;
+    latents/s, peak memory."""
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = UNetConfig(**UNET_BENCH_CONFIG)
+    model = UNet2DConditionModel(cfg, device=DEVICE, seed=0)
+    b = UNET_BENCH_BATCH
+    batch = unet_bench_batch(torch, np, cfg, b, UNET_BENCH_HW,
+                             UNET_BENCH_CTX, DEVICE)
+    _reset_counts(ops)
+    dt, losses = _timed(torch, lambda i: sgd_bench_step(
+        torch, model, lambda: model.loss_fn(batch)), False)
+    print(f"bench_unet [{card}]: latents_per_s={b * VISION_STEPS / dt:.1f} "
+          f"ms_per_step={dt / VISION_STEPS * 1e3:.2f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"({_n_params(model) / 1e6:.1f}M params, channels "
+          f"{cfg.block_channels}, batch {b} x 4 x {UNET_BENCH_HW} x "
+          f"{UNET_BENCH_HW}, context {UNET_BENCH_CTX} x "
+          f"{cfg.cross_attention_dim}, bf16, SGD lr {BENCH_SGD_LR}); losses "
+          f"{[round(v, 4) for v in losses]}", flush=True)
+    _no_kernel_ran(ops, "bench_unet")
+    del model, batch
+    _release(torch)
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -5649,6 +6036,10 @@ def main():
     k1_gpt, k4_gpt = _phase("31 gpt serving", phase_gpt_serving, torch, np,
                             ops, card)
     bert = _phase("32 bert", phase_bert, torch, np, ops, card)
+    _phase("33 vision parity", phase_vision_parity, torch, np, ops, card)
+    _phase("34 bench_resnet", phase_bench_resnet, torch, np, ops, card)
+    _phase("35 bench_vit", phase_bench_vit, torch, np, ops, card)
+    _phase("36 bench_unet", phase_bench_unet, torch, np, ops, card)
     for path in (gpt_train, bert):
         lse_launches += path[0]
         k2_launches += path[1]

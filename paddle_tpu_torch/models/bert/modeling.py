@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device, resolve_dtype
+from ...nn.functional.common import dropout
 from ...ops.flash_attention import flash_attention
 from .._common import _layer_norm, _normal, _replaying
 
@@ -86,11 +87,7 @@ def _const(n, value, config, device):
 def _maybe_dropout(x, p, training, generator):
     """Inverted dropout (:111-117): keep with probability 1 - p, scale kept
     values by 1 / (1 - p); the identity outside training or at p = 0."""
-    if not training or p == 0.0:
-        return x
-    keep = torch.empty(x.shape, device=x.device).bernoulli_(
-        1.0 - p, generator=generator).bool()
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return dropout(x, p, training=training, generator=generator)
 
 
 def _encoder_attention(q, k, v, config):

@@ -24,6 +24,7 @@ import torch
 from ... import flags
 from ...ops import flash_attention as _flash
 from ...ops import flash_attention_rowmask
+from .common import dropout as _dropout
 
 _MASKED = -1e9  # the dense path's mask value (the JAX module's)
 
@@ -49,11 +50,7 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None,
                           device=q.device).tril(kl - ql)
         logits = torch.where(mask, logits, _MASKED)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    if dropout > 0.0:
-        keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
-            1.0 - dropout, generator=generator).bool()
-        probs = torch.where(keep, probs / (1.0 - dropout),
-                            torch.zeros_like(probs))
+    probs = _dropout(probs, dropout, generator=generator)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     return out.transpose(1, 2)
 

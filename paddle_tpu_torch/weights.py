@@ -2,11 +2,15 @@
 
 Both packages name parameters alike (``model.layers.0.self_attn.
 q_proj_weight``, ``gpt.layers.0.attn.qkv_weight``, ``bert.embeddings.
-word_embeddings_weight`` ...) and store projections as ``[in, out]``, so a
-JAX state dict loads as it is: no renames, no transposes. A tied
-embedding (GPT's ``gpt.wte``, BERT's MLM head) is one parameter in both. The JAX training
-engine keys its AdamW moments by the same names, so its optimizer state
-crosses over by name too (:func:`engine_state_from_jax`).
+word_embeddings_weight``, ``layer1.0.conv1.weight`` ...) and store
+projections as ``[in, out]`` and conv kernels as ``[out, in, kh, kw]``, so
+a JAX state dict loads as it is: no renames, no transposes. A JAX
+``Layer.state_dict()`` also holds the persistent buffers (BatchNorm's
+``_mean`` and ``_variance``), which the port registers under the same
+names. A tied embedding (GPT's ``gpt.wte``, BERT's MLM head) is one
+parameter in both. The JAX training engine keys its AdamW moments by the
+same names, so its optimizer state crosses over by name too
+(:func:`engine_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -19,26 +23,27 @@ import torch
 
 def load_jax_state(model: torch.nn.Module,
                    state: Mapping[str, np.ndarray]) -> None:
-    """Copy ``state`` (name -> array) into ``model``'s parameters, cast to
-    each parameter's dtype and device. Names and shapes must match exactly:
-    a missing, unexpected or misshapen entry raises before anything is
+    """Copy ``state`` (name -> array) into ``model``'s parameters and
+    persistent buffers (``model.state_dict()``'s names), cast to each
+    tensor's dtype and device. Names and shapes must match exactly: a
+    missing, unexpected or misshapen entry raises before anything is
     copied."""
-    own = dict(model.named_parameters())
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
     if missing or unexpected:
         raise KeyError(f"state does not match the model: missing {missing}, "
                        f"unexpected {unexpected}")
     arrays = {}
-    for name, p in own.items():
+    for name, t in own.items():
         arr = np.array(state[name])   # a private, writable copy
-        if tuple(arr.shape) != tuple(p.shape):
+        if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {name}: {arr.shape} vs "
-                             f"{tuple(p.shape)}")
+                             f"{tuple(t.shape)}")
         arrays[name] = _torch_wrappable(arr)
     with torch.no_grad():
-        for name, p in own.items():
-            p.copy_(torch.from_numpy(arrays[name]))
+        for name, t in own.items():
+            t.copy_(torch.from_numpy(arrays[name]))
 
 
 def _torch_wrappable(arr: np.ndarray) -> np.ndarray:

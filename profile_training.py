@@ -3,10 +3,9 @@
 
     python3 profile_training.py [ARM ...]   # from the root of a checkout
 
-Five arms (all of them unless named on the command line), each
-chip_smoke.py's training
-configuration at full width and depth with random weights from seed 0
-under Engine(lr=1e-4, clip 1.0):
+Eight arms (all of them unless named on the command line), each
+chip_smoke.py's training configuration at full width and depth with random
+weights from seed 0; the first five under Engine(lr=1e-4, clip 1.0):
 
   - dense: the headline config (bench.py's
     llama_pretrain_tokens_per_sec_per_chip: 853M params, 16 layers, 16 q /
@@ -20,10 +19,17 @@ under Engine(lr=1e-4, clip 1.0):
     to scatter at this shape;
   - bert: bench.py's bench_bert (BERT-base sequence classification, batch
     32 x seq 128, bf16, dropout 0) under Engine(lr=2e-5, clip 1.0,
-    loss_fn=model.loss_fn), as chip_smoke.py's phase 32 runs it.
+    loss_fn=model.loss_fn), as chip_smoke.py's phase 32 runs it;
+  - resnet: bench.py's bench_resnet (resnet18, batch 256 of 3 x 32 x 32
+    fp32, Momentum lr 0.1) through hapi.Model.train_batch, which reads
+    the loss on the host once a step (chip_smoke.py phase 34);
+  - vit: bench_vit (ViT-L/16, bf16, batch 32 at 224 px) and
+  - unet: bench_unet (the SD-class UNet, bf16, batch 8 of 32 x 32
+    latents, context 77), each through bench's step: the loss's gradients,
+    then p - 1e-4 g (phases 35 and 36).
 
-Each arm measures one train step (forward, loss, backward, clip, AdamW)
-after two warm-up steps, three ways (profile_serving.measure): device span
+Each arm measures one train step (forward, loss, backward and the
+update: clip and AdamW, Momentum, or SGD) after three warm-up steps, three ways (profile_serving.measure): device span
 (CUDA events), host enqueue (host clock without a synchronise) and device
 busy time (torch.profiler's kernel times, summed), with the top kernels by
 device time and the kernels per step. busy / span is the device's busy
@@ -70,6 +76,44 @@ def profile_bert(torch, np):
                  torch.from_numpy(labels).cuda(), batch, seq)
 
 
+def profile_vision(torch, np, name):
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.vision.models import vit_l_16
+
+    if name == "resnet":
+        model, m, batches = chip_smoke.resnet_bench(torch, np)
+        step = lambda: m.train_batch(*batches[0])   # noqa: E731
+        what = f"batch {chip_smoke.RESNET_BENCH['batch']} x 3 x 32 x 32"
+    elif name == "vit":
+        model = vit_l_16(dtype="bfloat16", seed=0)
+        imgs, labels = chip_smoke.vit_bench_inputs(
+            torch, np, model.config, chip_smoke.VIT_BENCH_BATCH, "cuda")
+        step = lambda: chip_smoke.sgd_bench_step(   # noqa: E731
+            torch, model, lambda: model.loss_fn(imgs, labels))
+        what = f"batch {chip_smoke.VIT_BENCH_BATCH} x 3 x 224 x 224 bf16"
+    else:
+        cfg = UNetConfig(**chip_smoke.UNET_BENCH_CONFIG)
+        model = UNet2DConditionModel(cfg, seed=0)
+        batch = chip_smoke.unet_bench_batch(
+            torch, np, cfg, chip_smoke.UNET_BENCH_BATCH,
+            chip_smoke.UNET_BENCH_HW, chip_smoke.UNET_BENCH_CTX, "cuda")
+        step = lambda: chip_smoke.sgd_bench_step(   # noqa: E731
+            torch, model, lambda: model.loss_fn(batch))
+        what = (f"batch {chip_smoke.UNET_BENCH_BATCH} x 4 x "
+                f"{chip_smoke.UNET_BENCH_HW} x {chip_smoke.UNET_BENCH_HW} "
+                f"bf16, context {chip_smoke.UNET_BENCH_CTX}")
+    n = sum(1 for _ in model.parameters())
+    profile_serving.measure(torch, f"{name} train step [{what}, {n} "
+                            f"parameter tensors]", step, STEPS, top=15)
+    syncs = chip_smoke._sync_count(torch, step)
+    print(f"{name}: synchronizing operations reported in one step: "
+          f"{len(syncs)}", flush=True)
+    for msg in syncs[:5]:
+        print(f"  {msg[:120]}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 def profile_step(torch, name, eng, model, ids, labels, batch, seq):
     profile_serving.measure(
         torch, f"{name} train step [{batch} x {seq}, "
@@ -102,7 +146,7 @@ def main():
                   chip_smoke.TRAIN_SEQ),
         "moe_auto": (chip_smoke.MOE_AUTO_CONFIG, chip_smoke.MOE_BATCH,
                      chip_smoke.MOE_SEQ),
-        "bert": None,
+        "bert": None, "resnet": None, "vit": None, "unet": None,
     }
     names = sys.argv[1:] or list(arms)
     unknown = [n for n in names if n not in arms]
@@ -111,10 +155,13 @@ def main():
               f"{list(arms)}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False   # as chip_smoke.py's main
     print(chip_smoke.card_line(), flush=True)
     for name in names:
         if name == "bert":
             profile_bert(torch, np)
+        elif name in ("resnet", "vit", "unet"):
+            profile_vision(torch, np, name)
         else:
             profile_arm(torch, np, name, *arms[name])
     return 0

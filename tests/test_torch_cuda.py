@@ -2041,3 +2041,61 @@ def test_bert_engine_step_on_card_matches_cpu(cuda, seq, head):
         err = (mg[name].cpu() - a).abs().max().item()
         scale = max(a.abs().max().item(), chip_smoke.BERT_MOMENT_FLOOR * top)
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_resnet18_train_batch_on_card_matches_cpu(cuda):
+    """chip_smoke.py phase 33 (a): 3 hapi train_batch steps of resnet18
+    (Momentum 0.9, lr 1e-3, batch 16 of 32 x 32) on the card and the CPU,
+    each started on the card from the CPU's parameters, BatchNorm
+    statistics and velocity; fp32 with TF32 off; the bounds are
+    chip_smoke.VISION_TOL's (it raises past them). No K1-K6 launch."""
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = (flash_attention.launches, flash_attention_forward.launches,
+         pgmm.launches)
+    chip_smoke._resnet_parity(torch, np, "card test")
+    assert (flash_attention.launches, flash_attention_forward.launches,
+            pgmm.launches) == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vit", "unet"])
+def test_vision_sgd_step_on_card_matches_cpu(cuda, name):
+    """One bench step (the loss's gradients, then p - 1e-4 g) of the tiny
+    ViT / UNet on the card and the CPU from the same weights (fp32, TF32
+    off): the loss within 1e-4 relative, every parameter after the step
+    within 1e-6 and every gradient within 1e-4 of its largest."""
+    import chip_smoke
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.vision.models import ViTConfig, VisionTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if name == "vit":
+        cfg = ViTConfig.tiny()
+        make = lambda dev: VisionTransformer(cfg, device=dev)  # noqa: E731
+        imgs, labels = chip_smoke.vit_bench_inputs(torch, np, cfg, 4, "cpu")
+        loss_of = lambda m, dev: m.loss_fn(  # noqa: E731
+            imgs.to(dev), labels.to(dev))
+    else:
+        cfg = UNetConfig.tiny()
+        make = lambda dev: UNet2DConditionModel(cfg, device=dev)  # noqa: E731
+        batch = chip_smoke.unet_bench_batch(torch, np, cfg, 2, 16, 6, "cpu")
+        loss_of = lambda m, dev: m.loss_fn(  # noqa: E731
+            {k: v.to(dev) for k, v in batch.items()})
+    cpu, card = make("cpu"), make(cuda)
+    card.load_state_dict(cpu.state_dict())
+    runs = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        grads = torch.autograd.grad(loss_of(m, dev), list(m.parameters()))
+        loss = chip_smoke.sgd_bench_step(torch, m, lambda: loss_of(m, dev))
+        runs.append((loss.item(), [g.cpu() for g in grads]))
+    (lc, gc), (lg, gg) = runs
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for (pname, pc), pg, a, b in zip(cpu.named_parameters(),
+                                     card.parameters(), gc, gg):
+        assert (b - a).abs().max() <= 1e-4 * max(1.0, a.abs().max()), pname
+        assert (pg.detach().cpu() - pc.detach()).abs().max() <= 1e-6, pname

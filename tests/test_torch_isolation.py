@@ -69,7 +69,21 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/models/gpt/__init__.py",
             "paddle_tpu_torch/models/bert/modeling.py",
             "paddle_tpu_torch/models/bert/__init__.py",
-            "paddle_tpu_torch/models/_common.py"} <= scanned
+            "paddle_tpu_torch/models/_common.py",
+            "paddle_tpu_torch/models/unet/modeling.py",
+            "paddle_tpu_torch/nn/initializer.py",
+            "paddle_tpu_torch/nn/clip.py",
+            "paddle_tpu_torch/nn/functional/conv.py",
+            "paddle_tpu_torch/nn/functional/pooling.py",
+            "paddle_tpu_torch/nn/functional/norm.py",
+            "paddle_tpu_torch/nn/functional/loss.py",
+            "paddle_tpu_torch/nn/layer/norm.py",
+            "paddle_tpu_torch/optimizer/optimizer.py",
+            "paddle_tpu_torch/hapi/model.py",
+            "paddle_tpu_torch/vision/models/lenet.py",
+            "paddle_tpu_torch/vision/models/resnet.py",
+            "paddle_tpu_torch/vision/models/vit.py",
+            "paddle_tpu_torch/vision/models/zoo.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -121,6 +135,46 @@ def test_gpt_and_bert_raise_without_a_card_unless_cpu_is_asked_for():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(None)
         assert next(build("cpu").parameters()).device.type == "cpu"
+
+
+def test_vision_and_diffusion_entry_points_raise_without_a_card():
+    """Every model constructor and factory of the vision slice, and each
+    layer with parameters, refuses a missing card unless ``device="cpu"``
+    is asked for, and then builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import UNet2DConditionModel, UNetConfig
+    from paddle_tpu_torch.vision import models as V
+
+    builds = [lambda dev: V.LeNet(device=dev),
+              lambda dev: V.VisionTransformer(V.ViTConfig.tiny(), device=dev),
+              lambda dev: UNet2DConditionModel(UNetConfig.tiny(), device=dev),
+              lambda dev: nn.Linear(2, 3, device=dev),
+              lambda dev: nn.Conv2D(2, 3, 1, device=dev)]
+    builds += [lambda dev, f=f: getattr(V, f)(device=dev, num_classes=4)
+               for f in ("resnet18", "resnet34", "resnet50", "resnet101",
+                         "resnet152", "squeezenet1_0", "squeezenet1_1",
+                         "mobilenet_v1", "mobilenet_v2", "alexnet")]
+    builds += [lambda dev, f=f: getattr(V, f)(device=dev, num_classes=0)
+               for f in ("vgg11", "vgg13", "vgg16", "vgg19")]
+    for build in builds:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(None)
+    for i in (0, 1, 2, 3, 4, 5, 10, 15):   # the cheap ones, one a family
+        assert next(builds[i]("cpu").parameters()).device.type == "cpu"
+    for cls in (V.ResNet, V.MobileNetV1, V.MobileNetV2, V.AlexNet,
+                V.SqueezeNet):
+        args = (V.resnet.BasicBlock, 18) if cls is V.ResNet else ()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        V.VGG(nn.Sequential())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nn.BatchNorm2D(3)
+    for factory in (V.vit_b_16, V.vit_l_16):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            factory()
 
 
 def test_kernel_build_raises_without_nvcc():
