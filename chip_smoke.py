@@ -425,6 +425,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bf16), batch 8 of 4 x 32 x 32 latents, context 77, bench's step: 1
      warm-up and 8 timed steps; latents/s, peak memory; losses finite, no
      K1-K6 launch.
+ 37. engine optimizer: Engine(model, optimizer=X). (a) card against CPU
+     at PARITY_CONFIG (2 layers, hidden 512, fp32, batch 2 x seq 200), 3
+     steps for each X of tests/test_torch_engine_optimizer.py (AdamW
+     under LinearWarmup(CosineAnnealingDecay) with apply_decay_param_fun
+     and a global-norm clip, Lamb, RAdam, NAdam, Adagrad, Momentum), the
+     schedule stepped on the host: losses within 1e-4 relative, parameters
+     within 2 x lr x steps, every accumulator within 1e-3 of its largest,
+     K1-lse/K2/K3 launched on the card. (b) the train config of phase 9
+     under AdamW(LinearWarmup(CosineAnnealingDecay(3e-4, T_max=1000),
+     100 warm-up steps), weight_decay=0.01, ClipGradByGlobalNorm(1.0)): 1
+     warm-up step under set_sync_debug_mode (0 synchronizing operations)
+     and 8 timed steps; ms a step, tokens/s, MFU, peak memory, launches a
+     step (16 each of K1-lse, K2, K3); then the built-in AdamW engine on
+     the same weights and batches, built after the first is freed.
+ 38. hapi fit (BASELINE config 1): first a card-vs-CPU fit of resnet18,
+     3 iterations of batch 32 at lr 1e-3 through the augmenting chain,
+     each card step started from the CPU's state (loss 1e-4 relative,
+     top-1/5 accuracy within one image, parameters 1e-4, statistics 2e-3).
+     Then resnet18(num_classes=10) on the card, Cifar10(mode="train",
+     size=50000) with RandomCrop(32, padding=4), RandomHorizontalFlip,
+     ToTensor and Normalize, Momentum(CosineAnnealingDecay(0.1, 200), 0.9,
+     weight decay 5e-4), Accuracy(topk=(1, 5)): fit(eval_data=
+     Cifar10(mode="test", size=10000), batch_size=256, epochs=1,
+     num_workers=4, callbacks=[ModelCheckpoint, EarlyStopping,
+     LRScheduler]) with this process's CUDA context live in the forked
+     workers' parent; images/s over the epoch beside phase 34's rate, the
+     share of it spent waiting on the loader; evaluate, predict, save and
+     load into a fresh model (equal state, equal eval loss); K1-K6 at 0
+     launches.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -436,7 +465,7 @@ the legacy engine of phase 15, the paged generate of phase 16, phase 21's
 prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
-phases 9, 13, 14, 30 and 32 (K1-lse also phase 20's forward); the
+phases 9, 13, 14, 30, 32 and 37 (b) (K1-lse also phase 20's forward); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
 The second-to-last line is a JSON object listing each kernel; the last is
@@ -862,6 +891,29 @@ UNET_BENCH_CONFIG = dict(block_channels=(128, 256, 512), layers_per_block=2,
 UNET_BENCH_BATCH, UNET_BENCH_HW, UNET_BENCH_CTX = 8, 32, 77
 BENCH_SGD_LR = 1e-4
 VISION_WARMUP, VISION_STEPS = 1, 8
+# phase 37: Engine(optimizer=). (a) card against CPU at PARITY_CONFIG's
+# depth (2 layers, fp32; LlamaConfig.tiny's head_dim 16 is below the
+# kernels' 64), 3 steps of each optimizer of
+# tests/test_torch_engine_optimizer.py, the schedule stepped on the host
+# after each step; (b) TRAIN_CONFIG at full width under AdamW with the
+# warm-up + cosine schedule below, 1 warm-up and OPT_TRAIN_STEPS timed
+# steps, then the built-in AdamW engine on the same weights and batches
+OPT_TRAIN_STEPS = 8
+OPT_TRAIN_SCHEDULE = dict(peak=3e-4, T_max=1000, warmup_steps=100)
+OPT_TRAIN_DECAY = 0.01
+# phase 38: BASELINE config 1 through hapi.Model.fit: resnet18 on the
+# synthetic CIFAR-10 at its split sizes (50000 train / 10000 test images),
+# RandomCrop(32, padding=4) + RandomHorizontalFlip + ToTensor + Normalize
+# (test: ToTensor + Normalize), batch 256, 4 loader workers, Momentum(0.9,
+# weight decay 5e-4) under CosineAnnealingDecay(0.1, T_max 200) stepped by
+# the LRScheduler callback; the card-vs-CPU fit first: 3 iterations of
+# batch 32 at lr 1e-3 (VISION_TOL's lr), each step started on the card
+# from the CPU's state
+HAPI_FIT = dict(train=50000, test=10000, batch=256, workers=4, lr=0.1,
+                T_max=200, momentum=0.9, weight_decay=5e-4)
+HAPI_PARITY = dict(batch=32, iters=3, lr=1e-3)
+CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
+CIFAR_STD = [0.2470, 0.2435, 0.2616]
 
 
 def card_line():
@@ -5859,6 +5911,7 @@ def phase_bench_resnet(torch, np, ops, card):
     _no_kernel_ran(ops, "bench_resnet")
     del model, m, batches
     _release(torch)
+    return b * VISION_STEPS / dt
 
 
 def vit_flops_per_image(cfg, n_params):
@@ -5919,6 +5972,416 @@ def phase_bench_unet(torch, np, ops, card):
     _no_kernel_ran(ops, "bench_unet")
     del model, batch
     _release(torch)
+
+
+def _opt_cases(pt):
+    """The optimizers of tests/test_torch_engine_optimizer.py."""
+    L, O = pt.optimizer.lr, pt.optimizer
+    return {
+        "adamw_warmup_cosine": lambda: O.AdamW(
+            learning_rate=L.LinearWarmup(L.CosineAnnealingDecay(
+                1e-3, T_max=10), warmup_steps=2, start_lr=0.0, end_lr=1e-3),
+            weight_decay=0.01,
+            apply_decay_param_fun=lambda n: "norm" not in n,
+            grad_clip=pt.nn.ClipGradByGlobalNorm(1.0)),
+        "lamb": lambda: O.Lamb(learning_rate=1e-3),
+        "radam": lambda: O.RAdam(learning_rate=1e-3),
+        "nadam": lambda: O.NAdam(learning_rate=1e-3),
+        "adagrad": lambda: O.Adagrad(learning_rate=1e-2,
+                                     initial_accumulator_value=0.1),
+        "momentum": lambda: O.Momentum(learning_rate=1e-2, momentum=0.9,
+                                       weight_decay=1e-2),
+    }
+
+
+def _opt_parity(torch, ops, name, make_opt, cfg, batches):
+    """3 Engine(optimizer=) steps on the card and on the CPU from the same
+    weights (fp32); returns the card's K1-lse/K2/K3 launches. Parameters
+    within 2 x lr x steps (an adaptive update normalises rounding noise to
+    up to lr a step), each accumulator within 1e-3 of its largest (or of
+    1e-3 of the largest of its kind, for a parameter whose gradient is
+    rounding noise), losses within 1e-4 relative."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=5)
+    card = LlamaForCausalLM(cfg, device=DEVICE, seed=5)
+    _copy_state(torch, card, cpu)
+    runs, lr_max = [], 0.0
+    counts0 = _read_counts(ops)
+    for model, dev in ((cpu, "cpu"), (card, DEVICE)):
+        opt = make_opt()
+        eng = Engine(model, optimizer=opt, loss_fn=model.loss_fn)
+        losses = []
+        for x, y in batches:
+            lr_max = max(lr_max, opt.get_lr())
+            losses.append(eng.step(x.to(dev), y.to(dev)))
+            opt._lr_step()
+        runs.append((eng, torch.stack(losses).cpu()))
+    sync()
+    c1 = _read_counts(ops)
+    counts = tuple(c1[k] - counts0[k] for k in ("k1_lse", "k2", "k3"))
+    (ec, lc), (eg, lg) = runs
+    loss_rel = ((lg - lc).abs() / lc.abs()).max().item()
+    sc, sg = ec.state_dict(), eg.state_dict()
+    p_err = max(((sg["model"][n].cpu() - a).abs().max().item(), n)
+                for n, a in sc["model"].items())
+    acc_err = (0.0, "")
+    for acc, d in sc["opt"].items():
+        top = max(a.abs().max().item() for a in d.values())
+        for n, a in d.items():
+            err = (sg["opt"][acc][n].cpu() - a).abs().max().item()
+            err /= max(a.abs().max().item(), 1e-3 * top, 1e-30)
+            acc_err = max(acc_err, (err, f"{acc}:{n}"))
+    steps = len(batches)
+    p_tol = 2 * lr_max * steps
+    print(f"engine optimizer parity {name} (card vs CPU, fp32, {steps} "
+          f"steps): losses card {[round(x, 6) for x in lg.tolist()]} cpu "
+          f"{[round(x, 6) for x in lc.tolist()]} max_rel={loss_rel:.3e}; "
+          f"params worst abs {p_err[0]:.3e} ({p_err[1]}, tol {p_tol:.3g}); "
+          f"accumulators {sorted(sc['opt'])} worst rel {acc_err[0]:.3e} "
+          f"({acc_err[1]}); card launches k1_lse/k2/k3={counts}",
+          flush=True)
+    if sorted(sg["opt"]) != sorted(sc["opt"]):
+        raise AssertionError(f"{name}: accumulators differ")
+    if not (loss_rel <= 1e-4 and p_err[0] <= p_tol
+            and acc_err[0] <= 1e-3
+            and min(counts) >= cfg.num_hidden_layers * steps):
+        raise AssertionError(f"engine optimizer {name} card vs CPU failed")
+    del ec, eg, cpu, card
+    return counts
+
+
+def _opt_train(torch, np, ops, cfg, batches, make_engine, what):
+    """One warm-up step (under sync-debug mode) and OPT_TRAIN_STEPS timed
+    steps of ``make_engine(model)`` (which returns the engine and what to
+    call after each step) on TRAIN_CONFIG from seed 0; the counts set to 0
+    just before the timed steps and read just after. Returns ms a step,
+    tokens/s, launches, losses, the warm-up step's host syncs and the
+    peak memory (GB)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng, after_step = make_engine(model)
+    losses = []
+
+    def warm():
+        losses.append(eng.step(batches[0], batches[0]))
+        after_step()
+
+    syncs = _sync_count(torch, warm)
+    sync()
+    _reset_counts(ops)
+    t0 = time.perf_counter()
+    for ids in batches:
+        losses.append(eng.step(ids, ids))
+        after_step()
+    losses[-1].item()           # one host read fences the chain
+    wall = time.perf_counter() - t0
+    counts = _read_counts(ops)
+    out = dict(ms=wall / len(batches) * 1e3, launches=counts,
+               losses=torch.stack(losses).float().cpu(), syncs=syncs,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tok_s=TRAIN_BATCH * TRAIN_SEQ * len(batches) / wall)
+    del eng, model
+    _release(torch)
+    print(f"{what}: {out['ms']:.2f} ms a step", flush=True)
+    return out
+
+
+def phase_engine_optimizer(torch, np, ops, card):
+    """(a) Engine(optimizer=X) card against CPU for each X; (b) the full-
+    width train step under the pluggable AdamW with its schedule, beside
+    the built-in AdamW engine; returns (b)'s K1-lse/K2/K3 launches."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn  # noqa: F401  (pt.nn)
+    import paddle_tpu_torch.optimizer  # noqa: F401  (pt.optimizer)
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig
+
+    pcfg = LlamaConfig(**PARITY_CONFIG)
+    rng = np.random.default_rng(5)
+    pb = [torch.from_numpy(rng.integers(0, pcfg.vocab_size,
+                                        (PARITY_BATCH, PARITY_SEQ)))
+          for _ in range(PARITY_STEPS)]
+    for name, make in _opt_cases(pt).items():
+        _opt_parity(torch, ops, name, make, pcfg, [(x, x) for x in pb])
+        _release(torch)
+
+    cfg = LlamaConfig(**TRAIN_CONFIG)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)).to(
+        DEVICE) for _ in range(OPT_TRAIN_STEPS)]
+    sch, L = OPT_TRAIN_SCHEDULE, pt.optimizer.lr
+    opts = []
+
+    def pluggable(model):
+        opt = pt.optimizer.AdamW(
+            learning_rate=L.LinearWarmup(
+                L.CosineAnnealingDecay(sch["peak"], T_max=sch["T_max"]),
+                warmup_steps=sch["warmup_steps"], start_lr=0.0,
+                end_lr=sch["peak"]),
+            weight_decay=OPT_TRAIN_DECAY,
+            grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+        opts.append(opt)
+        return Engine(model, optimizer=opt), opt._lr_step
+
+    def builtin(model):
+        return Engine(model, lr=sch["peak"], weight_decay=OPT_TRAIN_DECAY,
+                      clip_norm=1.0), lambda: None
+
+    r = _opt_train(torch, np, ops, cfg, batches, pluggable,
+                   "engine optimizer AdamW (pluggable)")
+    b = _opt_train(torch, np, ops, cfg, batches, builtin,
+                   "engine built-in AdamW")
+    L_, H, Q = cfg.num_hidden_layers, cfg.num_attention_heads, cfg.head_dim
+    flops_per_token = 6.0 * cfg.num_params() + 6.0 * L_ * (H * Q) * TRAIN_SEQ
+    per_step = {k: v / OPT_TRAIN_STEPS for k, v in r["launches"].items()}
+    for tag, x in (("pluggable AdamW", r), ("built-in AdamW", b)):
+        mfu = x["tok_s"] * flops_per_token / PEAK_FLOPS["bfloat16"]
+        print(f"engine optimizer [{card}] {tag}: ms_per_step={x['ms']:.2f} "
+              f"tokens_per_s={x['tok_s']:.1f} mfu={mfu:.4f} peak_mem_gb="
+              f"{x['peak_gb']:.2f} host_syncs_in_a_step={len(x['syncs'])} "
+              f"({cfg.num_params() / 1e6:.1f}M params, batch {TRAIN_BATCH} "
+              f"x seq {TRAIN_SEQ}, bf16, no remat, {OPT_TRAIN_STEPS} timed "
+              f"steps); losses {[round(v, 4) for v in x['losses'].tolist()]}",
+              flush=True)
+    print(f"engine optimizer [{card}]: pluggable/built-in step = "
+          f"{r['ms'] / b['ms']:.3f}; learning rate after the run "
+          f"{opts[0].get_lr():.6e} (LinearWarmup over "
+          f"{sch['warmup_steps']} steps to {sch['peak']}); launches a step "
+          f"k1_lse/k2/k3={[per_step[k] for k in ('k1_lse', 'k2', 'k3')]} "
+          f"serving_k1={r['launches']['k1']}", flush=True)
+    for x, what in ((r, "pluggable"), (b, "built-in")):
+        _check_losses(x["losses"], f"engine optimizer {what}")
+    if r["syncs"]:
+        raise AssertionError(f"the pluggable step synchronized: "
+                             f"{r['syncs']}")
+    need = cfg.num_hidden_layers
+    if any(per_step[k] != need for k in ("k1_lse", "k2", "k3")) or \
+            r["launches"]["k1"]:
+        raise AssertionError(f"engine optimizer launches a step "
+                             f"{per_step}, expected {need} each")
+    return tuple(r["launches"][k] for k in ("k1_lse", "k2", "k3"))
+
+
+class _TimedLoader:
+    """A DataLoader whose batches are timed as ``fit`` waits for them
+    (the workers' start included)."""
+
+    def __init__(self, loader):
+        self.loader, self.wait = loader, 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        t = time.perf_counter()
+        it = iter(self.loader)
+        self.wait += time.perf_counter() - t
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait += time.perf_counter() - t
+            yield batch
+
+
+def _cifar_fit(pt, device, seed, lr):
+    """resnet18 under HAPI_FIT's optimizer and metrics, at ``lr``."""
+    from paddle_tpu_torch import hapi, metric, nn
+    from paddle_tpu_torch.vision.models import resnet18
+
+    net = resnet18(num_classes=10, device=device, seed=seed)
+    opt = pt.optimizer.Momentum(
+        learning_rate=pt.optimizer.lr.CosineAnnealingDecay(
+            lr, T_max=HAPI_FIT["T_max"]),
+        momentum=HAPI_FIT["momentum"],
+        weight_decay=HAPI_FIT["weight_decay"], parameters=net.parameters())
+    m = hapi.Model(net)
+    m.prepare(opt, nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)))
+    return net, m
+
+
+def _cifar_data(size, mode, train):
+    from paddle_tpu_torch.vision import datasets as D
+    from paddle_tpu_torch.vision import transforms as T
+
+    aug = [T.RandomCrop(32, padding=4), T.RandomHorizontalFlip()] \
+        if train else []
+    return D.Cifar10(mode=mode, size=size, transform=T.Compose(
+        aug + [T.ToTensor(), T.Normalize(CIFAR_MEAN, CIFAR_STD)]))
+
+
+def _hapi_fit_parity(torch, np, pt, card):
+    """A short fit on the CPU and on the card from the same weights on the
+    same batches, each card step started from the CPU's state."""
+    from paddle_tpu_torch.hapi import callbacks as C
+
+    hp = HAPI_PARITY
+    cpu, cm = _cifar_fit(pt, "cpu", 33, hp["lr"])
+    gpu, gm = _cifar_fit(pt, DEVICE, 33, hp["lr"])
+    kept, logs, after = [], [[], []], []
+
+    class Keep(C.Callback):
+        def on_train_batch_begin(self, step, logs_=None):
+            vel = cm._optimizer._accumulators.get("velocity", {})
+            kept.append(({k: v.clone() for k, v in cpu.state_dict().items()},
+                         {n: vel[p].clone() for n, p in
+                          cpu.named_parameters() if p in vel}))
+
+        def on_train_batch_end(self, step, logs_=None):
+            logs[0].append(dict(logs_))
+
+    class Load(C.Callback):
+        def on_train_batch_begin(self, step, logs_=None):
+            state, vel = kept[step]
+            with torch.no_grad():
+                for k, v in gpu.state_dict().items():
+                    v.copy_(state[k])
+            named = dict(gpu.named_parameters())
+            gm._optimizer._accumulators["velocity"] = {
+                named[n]: v.to(DEVICE) for n, v in vel.items()}
+
+        def on_train_batch_end(self, step, logs_=None):
+            logs[1].append(dict(logs_))
+            after.append({k: v.detach().cpu().clone()
+                          for k, v in gpu.state_dict().items()})
+
+    ds = _cifar_data(hp["batch"] * hp["iters"], "train", True)
+    for m, cb in ((cm, Keep()), (gm, Load())):
+        np.random.seed(0)
+        m.fit(ds, batch_size=hp["batch"], epochs=1, num_iters=hp["iters"],
+              verbose=0, callbacks=[cb])
+    kept.append(({k: v.clone() for k, v in cpu.state_dict().items()}, {}))
+    worst = dict(loss=0.0, acc=0.0, param=(0.0, ""), stat=(0.0, ""))
+    for i, (lc, lg) in enumerate(zip(*logs)):
+        worst["loss"] = max(worst["loss"],
+                            abs(lg["loss"] - lc["loss"]) / abs(lc["loss"]))
+        worst["acc"] = max([worst["acc"]] + [abs(a - b) for a, b in
+                                            zip(lg["acc"], lc["acc"])])
+        ref = kept[i + 1][0]
+        for k, v in ref.items():
+            if k.endswith(("_mean", "_variance")):
+                worst["stat"] = max(worst["stat"],
+                                    (_rel_err(after[i][k], v), k))
+            else:
+                worst["param"] = max(worst["param"], (
+                    (after[i][k] - v).abs().max().item(), k))
+    print(f"hapi fit parity [{card}]: {hp['iters']} fit iterations card vs "
+          f"CPU (resnet18, batch {hp['batch']}, lr {hp['lr']}, the "
+          f"augmenting chain, Accuracy top-1/5): loss max_rel="
+          f"{worst['loss']:.3e}; accuracy worst diff {worst['acc']:.4f}; "
+          f"params worst abs {worst['param'][0]:.3e} ({worst['param'][1]});"
+          f" statistics worst rel {worst['stat'][0]:.3e} "
+          f"({worst['stat'][1]})", flush=True)
+    if not (len(logs[0]) == len(logs[1]) == hp["iters"]
+            and worst["loss"] <= VISION_TOL["loss"]
+            and worst["acc"] <= 1.0 / hp["batch"]
+            and worst["param"][0] <= VISION_TOL["param"]
+            and worst["stat"][0] <= VISION_TOL["stat"]):
+        raise AssertionError(f"hapi fit card vs CPU failed: {worst}")
+    del cpu, gpu, cm, gm
+
+
+def phase_hapi_fit(torch, np, ops, card, batch_rate):
+    """BASELINE config 1 through Model.fit with 4 loader workers, then
+    evaluate, predict, save and load into a fresh model."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer  # noqa: F401  (pt.optimizer)
+    from paddle_tpu_torch.hapi import callbacks as C
+    from paddle_tpu_torch.io import DataLoader
+
+    _hapi_fit_parity(torch, np, pt, card)
+    _release(torch)
+    hf = HAPI_FIT
+    t0 = time.perf_counter()
+    train = _cifar_data(hf["train"], "train", True)
+    test = _cifar_data(hf["test"], "test", False)
+    made = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    net, m = _cifar_fit(pt, DEVICE, 0, hf["lr"])
+    loader = _TimedLoader(DataLoader(train, batch_size=hf["batch"],
+                                     shuffle=True,
+                                     num_workers=hf["workers"]))
+    clock = {}
+
+    class Clock(C.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            clock["begin"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            clock["train_end"] = time.perf_counter()
+            clock["steps"] = step + 1
+
+        def on_epoch_end(self, epoch, logs=None):
+            clock["logs"] = dict(logs)
+
+    save_dir = _scratch_dir("hapi_fit")
+    _reset_counts(ops)
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    m.fit(loader, eval_data=test, batch_size=hf["batch"], epochs=1,
+          num_workers=hf["workers"], verbose=0,
+          callbacks=[C.ModelCheckpoint(save_dir=save_dir),
+                     C.EarlyStopping(), C.LRScheduler(), Clock()])
+    fit_s = time.perf_counter() - t0
+    counts = _no_kernel_ran(ops, "hapi fit")
+    train_s = clock["train_end"] - clock["begin"]
+    ips = hf["train"] / train_s
+    logs = clock["logs"]
+    shown = {k: round(v, 4) if isinstance(v, float) else
+             [round(x, 4) for x in v] for k, v in logs.items()}
+    print(f"hapi fit [{card}]: images_per_s={ips:.1f} (train_batch rate of "
+          f"phase 34 in this run: {batch_rate:.1f}) loader_wait_share="
+          f"{loader.wait / train_s:.4f} ({loader.wait:.2f} s of "
+          f"{train_s:.2f} s) fit_s={fit_s:.2f} (with eval of "
+          f"{hf['test']} and the checkpoints) steps={clock['steps']} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"data_made_s={made:.2f}; epoch logs {shown}; lr now "
+          f"{m._optimizer.get_lr():.5f}; K1-K6 launches {counts}",
+          flush=True)
+    if not (math.isfinite(logs["loss"]) and math.isfinite(logs["eval_loss"])
+            and clock["steps"] == len(loader)):
+        raise AssertionError(f"hapi fit: {logs}, {clock}")
+    written = sorted(os.listdir(save_dir))
+    if written != ["0.pdopt", "0.pdparams", "final.pdopt",
+                   "final.pdparams"]:
+        raise AssertionError(f"ModelCheckpoint wrote {written}")
+    t0 = time.perf_counter()
+    ev = m.evaluate(test, batch_size=hf["batch"], num_workers=hf["workers"],
+                    verbose=0)
+    ev_s = time.perf_counter() - t0
+    outs = m.predict(test, batch_size=hf["batch"],
+                     num_workers=hf["workers"])
+    n_out = sum(o.shape[0] for o in outs)
+    if not (n_out == hf["test"] and all(o.shape[1] == 10 and bool(
+            torch.isfinite(o).all()) for o in outs)):
+        raise AssertionError(f"predict gave {n_out} rows")
+    path = os.path.join(save_dir, "model")
+    m.save(path)
+    net2, m2 = _cifar_fit(pt, DEVICE, 1, hf["lr"])
+    m2.load(path)
+    same = all(torch.equal(a, b) for a, b in zip(
+        net.state_dict().values(), net2.state_dict().values()))
+    ev2 = m2.evaluate(test, batch_size=hf["batch"], num_workers=0, verbose=0)
+    rel = abs(ev2["loss"] - ev["loss"]) / abs(ev["loss"])
+    print(f"hapi evaluate/predict/save/load [{card}]: evaluate {ev} in "
+          f"{ev_s:.2f} s; predict {len(outs)} batches, {n_out} rows; "
+          f"reloaded model: state equal {same}, eval loss rel diff "
+          f"{rel:.3e}, acc {ev2['acc']}", flush=True)
+    if not (same and rel <= 1e-6 and ev2["acc"] == ev["acc"]):
+        raise AssertionError("the reloaded model differs")
+    _no_kernel_ran(ops, "hapi evaluate/predict")
+    del net, net2, m, m2, outs, train, test
+    _release(torch)
+    return counts
 
 
 def _k4_alive(torch, ops):
@@ -6037,10 +6500,14 @@ def main():
                             ops, card)
     bert = _phase("32 bert", phase_bert, torch, np, ops, card)
     _phase("33 vision parity", phase_vision_parity, torch, np, ops, card)
-    _phase("34 bench_resnet", phase_bench_resnet, torch, np, ops, card)
+    resnet_rate = _phase("34 bench_resnet", phase_bench_resnet, torch, np,
+                         ops, card)
     _phase("35 bench_vit", phase_bench_vit, torch, np, ops, card)
     _phase("36 bench_unet", phase_bench_unet, torch, np, ops, card)
-    for path in (gpt_train, bert):
+    opt_train = _phase("37 engine optimizer", phase_engine_optimizer, torch,
+                       np, ops, card)
+    _phase("38 hapi fit", phase_hapi_fit, torch, np, ops, card, resnet_rate)
+    for path in (gpt_train, bert, opt_train):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

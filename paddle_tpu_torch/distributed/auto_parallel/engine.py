@@ -16,9 +16,22 @@ model's own tensors ARE the engine's parameters, so ``sync_model`` has
 nothing to copy. ``step`` returns the loss as a device tensor and reads no
 value on the host (the clip stays on the device).
 
+``Engine(model, optimizer=opt)`` trains with any ``paddle_tpu_torch.
+optimizer.Optimizer`` instead (the JAX package's ``_build_opt_step``
+:484-514): the same loss and gradients, the global-norm clip in the
+gradients' dtype, then fp32 gradients into the optimizer's
+``_functional_update`` with ``lr = opt.get_lr()`` read on the host each
+step (an ``LRScheduler`` advances on the host) and the step counter as an
+fp32 device scalar; nothing is read back. Its accumulators live in
+``opt_state`` ({name: {param: tensor}}, created at the first step with the
+optimizer's init values) and cross over by parameter name in
+``state_dict()["opt"]``, the JAX engine's layout. An optimizer's clip must
+be a ``ClipGradByGlobalNorm``, whose ``clip_norm`` the engine takes unless
+the caller passed one.
+
 The engine runs where the model lives (the CUDA device unless the model was
-built with ``device="cpu"``). Meshes, pluggable optimizers, the numeric
-guard and pipeline parallelism arrive with later slices and raise here.
+built with ``device="cpu"``). Meshes, the numeric guard and pipeline
+parallelism arrive with later slices and raise here.
 """
 
 from __future__ import annotations
@@ -29,10 +42,14 @@ import numpy as np
 import torch
 
 from ..._later import later_slice
+from ...nn.clip import ClipGradByGlobalNorm
+from ...optimizer import Optimizer, name_parameters
 
 # what the caller can use until the slices arrive
-_ONE_DEVICE = ("; this slice trains on one device with the built-in AdamW "
-               "(Engine(model, mesh=None))")
+_ONE_DEVICE = ("; this slice trains on one device (Engine(model, "
+               "mesh=None), the built-in AdamW or optimizer=)")
+
+_DEFAULT_CLIP = object()   # the caller did not choose a clip_norm
 
 
 def _as_tensor(x, device, dtype=None):
@@ -58,7 +75,7 @@ class Engine:
         epsilon: float = 1e-8,
         weight_decay: float = 0.1,
         apply_decay_param_fun: Optional[Callable[[str], bool]] = None,
-        clip_norm: Optional[float] = 1.0,
+        clip_norm: Optional[float] = _DEFAULT_CLIP,
         loss_fn: Optional[Callable] = None,
         n_micro: Optional[int] = None,
         pp_remat: Optional[bool] = None,
@@ -75,9 +92,9 @@ class Engine:
                 or pp_schedule != "auto" or pp_remat_policy != "auto"):
             raise later_slice("pipeline parallelism (n_micro=, pp_*=)",
                               "distributed-training", "6", _ONE_DEVICE)
-        if optimizer is not None:
-            raise later_slice("pluggable optimizers (optimizer=)",
-                              "Paddle API surface", "8", _ONE_DEVICE)
+        if optimizer is not None and not isinstance(optimizer, Optimizer):
+            raise TypeError(f"optimizer= takes a paddle_tpu_torch.optimizer."
+                            f"Optimizer, got {type(optimizer).__name__}")
         if guard is not None:
             raise later_slice("the numeric guard (guard=)", "resilience",
                               "6", _ONE_DEVICE)
@@ -86,9 +103,11 @@ class Engine:
         self.beta1, self.beta2 = beta1, beta2
         self.epsilon = epsilon
         self.weight_decay = weight_decay
-        self.clip_norm = clip_norm
+        self.clip_norm = 1.0 if clip_norm is _DEFAULT_CLIP else clip_norm
         self._loss_fn = loss_fn
+        self._optimizer = optimizer
 
+        name_parameters(model)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self._param_names = [n for n, _ in named]
@@ -102,10 +121,23 @@ class Engine:
                                 for n in self._param_names]
         else:
             self._decay_mask = [p.ndim >= 2 for p in self.params]
-        self.m = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for p in self.params]
-        self.v = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for p in self.params]
+        if optimizer is None:
+            self.m = [torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device) for p in self.params]
+            self.v = [torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device) for p in self.params]
+        else:
+            oc = optimizer._grad_clip
+            if oc is not None:
+                # only the global-norm clip is the engine's; another clip
+                # must not be silently reinterpreted
+                if not isinstance(oc, ClipGradByGlobalNorm):
+                    raise ValueError(
+                        f"Engine supports ClipGradByGlobalNorm only, got "
+                        f"{type(oc).__name__}; pass clip_norm=... instead")
+                if clip_norm is _DEFAULT_CLIP:
+                    self.clip_norm = oc.clip_norm
+            self.opt_state = {}
         self.step_count = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
 
@@ -144,6 +176,18 @@ class Engine:
                 update = update + wd * pf
             p.copy_(pf - lr * update)
 
+    @torch.no_grad()
+    def _opt_update(self, grads):
+        grads = [g.float() for g in self._clip_grads(grads)]
+        # read on the host each step (a schedule advances there)
+        lr = torch.full((), self._optimizer.get_lr(), dtype=torch.float32,
+                        device=self.device)
+        new_p, self.opt_state = self._optimizer._functional_update(
+            grads, self.params, self.params, self.opt_state, lr,
+            self.step_count.float())
+        for p, v in zip(self.params, new_p):
+            p.copy_(v)
+
     def _to_device(self, input_ids, labels):
         return (_as_tensor(input_ids, self.device, torch.long),
                 _as_tensor(labels, self.device, torch.long))
@@ -160,7 +204,10 @@ class Engine:
             # gradient, as under jax.grad: weight decay still moves it
             grads = torch.autograd.grad(loss, self.params, allow_unused=True,
                                         materialize_grads=True)
-        self._adamw(grads)
+        if self._optimizer is None:
+            self._adamw(grads)
+        else:
+            self._opt_update(grads)
         return loss.detach()
 
     @torch.no_grad()
@@ -175,38 +222,57 @@ class Engine:
         return self.model
 
     def state_dict(self):
-        """Copies of the parameters, the fp32 moments (keyed by parameter
-        name, as the JAX engine keys them) and the step count."""
+        """Copies of the parameters and the step count, with the optimizer
+        state keyed by parameter name, as the JAX engine keys it: the fp32
+        moments ``m`` and ``v`` of the built-in AdamW, or a pluggable
+        optimizer's accumulators ``opt`` ({acc: {name: tensor}})."""
         with torch.no_grad():
-            return {
-                "model": {n: p.detach().clone()
-                          for n, p in zip(self._param_names, self.params)},
-                "step": self.step_count.clone(),
-                "m": {n: a.clone() for n, a in zip(self._param_names, self.m)},
-                "v": {n: a.clone() for n, a in zip(self._param_names, self.v)},
-            }
+            out = {"model": {n: p.detach().clone()
+                             for n, p in zip(self._param_names, self.params)},
+                   "step": self.step_count.clone()}
+            if self._optimizer is not None:
+                name_of = dict(zip(self.params, self._param_names))
+                out["opt"] = {acc: {name_of[p]: a.clone()
+                                    for p, a in d.items()}
+                              for acc, d in self.opt_state.items()}
+            else:
+                out["m"] = {n: a.clone()
+                            for n, a in zip(self._param_names, self.m)}
+                out["v"] = {n: a.clone()
+                            for n, a in zip(self._param_names, self.v)}
+            return out
+
+    @staticmethod
+    def _copy_in(name, dst, src):
+        src = _as_tensor(src, dst.device, dst.dtype)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"shape mismatch for {name}: "
+                             f"{tuple(src.shape)} vs {tuple(dst.shape)}")
+        dst.copy_(src)
 
     @torch.no_grad()
     def set_state_dict(self, state_dict):
         """Resume in place from a :meth:`state_dict` snapshot; arrays may be
         tensors or numpy arrays (for example a JAX engine's state carried by
         ``paddle_tpu_torch.weights.engine_state_from_jax``)."""
+        keys = ("m", "v") if self._optimizer is None else ()
         missing = [n for n in self._param_names
-                   if n not in state_dict["model"] or n not in state_dict["m"]
-                   or n not in state_dict["v"]]
+                   if n not in state_dict["model"]
+                   or any(n not in state_dict[k] for k in keys)]
         if missing:
             raise KeyError(f"state missing for params {missing}")
-        for name, p, mm, vv in zip(self._param_names, self.params, self.m,
-                                   self.v):
-            for dst, src in ((p, state_dict["model"][name]),
-                             (mm, state_dict["m"][name]),
-                             (vv, state_dict["v"][name])):
-                src = _as_tensor(src, dst.device, dst.dtype)
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"shape mismatch for {name}: "
-                                     f"{tuple(src.shape)} vs "
-                                     f"{tuple(dst.shape)}")
-                dst.copy_(src)
+        for name, p in zip(self._param_names, self.params):
+            self._copy_in(name, p, state_dict["model"][name])
+        if self._optimizer is None:
+            for name, mm, vv in zip(self._param_names, self.m, self.v):
+                self._copy_in(name, mm, state_dict["m"][name])
+                self._copy_in(name, vv, state_dict["v"][name])
+        else:
+            by_name = dict(zip(self._param_names, self.params))
+            self.opt_state = {
+                acc: {by_name[n]: _as_tensor(a, self.device)
+                      for n, a in d.items()}
+                for acc, d in state_dict["opt"].items()}
         self.step_count.copy_(_as_tensor(state_dict["step"], self.device,
                                          torch.int32))
         return self

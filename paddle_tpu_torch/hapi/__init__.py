@@ -1,3 +1,6 @@
-"""``paddle_tpu.hapi`` in the port: ``Model``'s batch steps."""
+"""``paddle_tpu.hapi`` in the port: ``Model``, its callbacks and
+``summary``."""
 
+from . import callbacks  # noqa: F401
 from .model import Model  # noqa: F401
+from .summary import summary  # noqa: F401

@@ -2,9 +2,12 @@
 ``ClipGradByGlobalNorm`` (``paddle_tpu/nn/clip.py`` :14-78).
 
 Each is called with ``[(param, grad), ...]`` and returns the pairs with
-the gradients clipped; a ``None`` gradient passes through. The port runs
-them on fp32 gradients, as the JAX package's ``hapi`` step does
-(``paddle_tpu/hapi/model.py`` :82-95), whose formulas these are.
+the gradients clipped; a ``None`` gradient passes through. As in the JAX
+package, the norms are taken in fp32 and each gradient is scaled in fp32
+and cast back to its own dtype (eager ``Optimizer.step()`` clips the raw
+gradients). ``hapi.Model`` and the training ``Engine`` apply their own
+clips to a clip object's settings (``paddle_tpu/hapi/model.py`` :80-95,
+``distributed/auto_parallel/engine.py`` :333-342).
 """
 
 from __future__ import annotations
@@ -39,9 +42,10 @@ class ClipGradByNorm(ClipGradBase):
         out = []
         for p, g in params_grads:
             if g is not None:
-                norm = torch.linalg.vector_norm(g.float())
-                g = g * (self.clip_norm / norm.clamp_min(1e-12)).clamp_max(
-                    1.0).to(g.dtype)
+                gf = g.float()
+                norm = torch.sqrt(torch.sum(torch.square(gf)))
+                g = (gf * (self.clip_norm / norm.clamp_min(1e-12)).clamp_max(
+                    1.0)).to(g.dtype)
             out.append((p, g))
         return out
 
@@ -58,7 +62,8 @@ class ClipGradByGlobalNorm(ClipGradBase):
         grads = [g for _, g in params_grads if g is not None]
         if not grads:
             return params_grads
-        norm = torch.stack([g.float().square().sum() for g in grads]).sum()
-        scale = self.clip_norm / norm.sqrt().clamp_min(self.clip_norm)
-        return [(p, None if g is None else g * scale.to(g.dtype))
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads))
+        scale = self.clip_norm / norm.clamp_min(self.clip_norm)
+        return [(p, None if g is None else (g.float() * scale).to(g.dtype))
                 for p, g in params_grads]

@@ -8,9 +8,11 @@ a JAX state dict loads as it is: no renames, no transposes. A JAX
 ``Layer.state_dict()`` also holds the persistent buffers (BatchNorm's
 ``_mean`` and ``_variance``), which the port registers under the same
 names. A tied embedding (GPT's ``gpt.wte``, BERT's MLM head) is one
-parameter in both. The JAX training engine keys its AdamW moments by the
-same names, so its optimizer state crosses over by name too
-(:func:`engine_state_from_jax`).
+parameter in both. The JAX training engine keys its AdamW moments (and a
+pluggable optimizer's accumulators) by the same names, so its optimizer
+state crosses over by name too (:func:`engine_state_from_jax`); an
+optimizer's own ``state_dict`` keys them by position in both packages
+(:func:`state_from_jax_optimizer`).
 """
 
 from __future__ import annotations
@@ -69,25 +71,51 @@ def state_from_jax_layer(jax_model) -> Dict[str, np.ndarray]:
             for name, p in jax_model.state_dict().items()}
 
 
+def _host_tree(x):
+    """Arrays (JAX, ``paddle_tpu`` Tensor, torch) in nested dicts, lists and
+    tuples as numpy arrays; other leaves (ints, floats, strings) as they
+    are."""
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    if isinstance(x, (torch.Tensor, np.ndarray)) or hasattr(x, "_data") \
+            or hasattr(x, "__array__"):
+        return _host(x)
+    return x
+
+
+def state_from_jax_optimizer(jax_opt) -> Dict[str, object]:
+    """A ``paddle_tpu`` optimizer's ``state_dict()`` (``{"step_count",
+    "accumulators": {name: {position: array}}, "LR_Scheduler"}``), or that
+    dict itself, or a JAX Engine's ``state_dict()["opt"]`` ({acc: {param
+    name: array}}), with every array on the host as numpy: the input of the
+    port's ``Optimizer.set_state_dict`` and of the ``"opt"`` entry of
+    ``Engine.set_state_dict``. Test-side helper: it imports nothing of the
+    JAX package."""
+    sd = jax_opt.state_dict() if hasattr(jax_opt, "state_dict") else jax_opt
+    return _host_tree(sd)
+
+
 def engine_state_from_jax(jax_engine) -> Dict[str, object]:
-    """A JAX ``Engine.state_dict()`` (built-in AdamW path) as host arrays:
-    ``{"model": {name: array}, "m": {name: array}, "v": {name: array},
-    "step": int}``. Names are the parameter names of both packages, so the
+    """A JAX ``Engine.state_dict()`` as host arrays: ``{"model": {name:
+    array}, "step": int}`` with the built-in AdamW's ``"m"`` and ``"v"``
+    ({name: array}) or a pluggable optimizer's ``"opt"`` ({acc: {name:
+    array}}). Names are the parameter names of both packages, so the
     result feeds the port's ``Engine.set_state_dict`` and compares with its
     ``state_dict()`` by name (:func:`engine_state_to_host`). Test-side
     helper: it imports nothing of the JAX package."""
-    sd = jax_engine.state_dict()
-    return {"model": {n: _host(a) for n, a in sd["model"].items()},
-            "m": {n: _host(a) for n, a in sd["m"].items()},
-            "v": {n: _host(a) for n, a in sd["v"].items()},
-            "step": int(_host(sd["step"]))}
+    return _engine_host(jax_engine.state_dict())
 
 
 def engine_state_to_host(engine) -> Dict[str, object]:
     """The port's ``Engine.state_dict()`` in the same host form as
     :func:`engine_state_from_jax` (fp32 numpy arrays by name, int step)."""
-    sd = engine.state_dict()
-    return {"model": {n: _host(a) for n, a in sd["model"].items()},
-            "m": {n: _host(a) for n, a in sd["m"].items()},
-            "v": {n: _host(a) for n, a in sd["v"].items()},
-            "step": int(sd["step"].item())}
+    return _engine_host(engine.state_dict())
+
+
+def _engine_host(sd) -> Dict[str, object]:
+    out = {k: _host_tree(sd[k]) for k in ("model", "m", "v", "opt")
+           if k in sd}
+    out["step"] = int(_host(sd["step"]))
+    return out

@@ -400,12 +400,12 @@ def test_token_step_clips_positions_to_the_table():
 
 
 def test_refusals_this_slice_touches_name_their_items(pair):
-    """sequence_parallel and pluggable optimizers stay refused, each
-    through later_slice naming its ROADMAP item (6 and 8)."""
+    """sequence_parallel stays refused through later_slice naming its
+    ROADMAP item (6); an optimizer that is not one raises TypeError."""
     from paddle_tpu_torch.models import LlamaConfig
 
     _, tm = pair
     with pytest.raises(NotImplementedError, match="sequence_parallel.*item 6"):
         LlamaConfig.tiny(sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="optimizer.*item 8"):
+    with pytest.raises(TypeError, match="Optimizer, got object"):
         Engine(tm, optimizer=object())

@@ -136,9 +136,9 @@ def test_three_engine_steps_match_jax(tie):
 
 
 def test_unported_training_paths_raise():
-    """What stays refused: Engine meshes, pluggable optimizers, the guard
-    and pipeline parallelism; invalid remat settings. Remat itself is
-    ported (tests/test_torch_remat.py)."""
+    """What stays refused: Engine meshes, the guard and pipeline
+    parallelism; an optimizer that is not one; invalid remat settings.
+    Remat itself is ported (tests/test_torch_remat.py)."""
     assert LlamaForCausalLM(LlamaConfig.tiny(recompute=True),
                             device="cpu").remat_policy() is not None
     with pytest.raises(ValueError, match="remat_policy"):
@@ -148,7 +148,7 @@ def test_unported_training_paths_raise():
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Engine(tm, mesh=object())
-    with pytest.raises(NotImplementedError, match="optimizer"):
+    with pytest.raises(TypeError, match="Optimizer, got object"):
         Engine(tm, optimizer=object())
     with pytest.raises(NotImplementedError, match="guard"):
         Engine(tm, guard=object())

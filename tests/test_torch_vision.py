@@ -209,27 +209,47 @@ def test_lenet_hapi_train_batch_optimizers_match_jax(case):
 
 
 def test_optimizer_step_and_refusals():
-    """``step()`` from ``.grad`` is the hapi update; what the port does not
+    """``step()`` from ``.grad`` is the hapi update; an LR scheduler, an
+    ``L2Decay`` object and parameter groups are taken; ``AdamW``,
+    ``prepare(metrics=)``, ``fit`` and ``save`` exist; what the port does not
     take raises naming its slice."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import metric, regularizer
+
     w = torch.nn.Parameter(torch.tensor([1.0, -2.0]))
-    opt = optimizer.Momentum(learning_rate=0.5, momentum=0.5,
-                             parameters=[w], weight_decay=0.1)
-    for expect in ([0.95, -1.9], [0.8775, -1.755]):
-        (w * torch.tensor([0.0, 0.0])).sum().backward()   # zero gradient
-        opt.step()
-        opt.clear_grad()
-        assert torch.allclose(w, torch.tensor(expect)), w
-        assert w.grad is None
-    assert opt._step_count == 2 and opt.get_lr() == 0.5
-    with pytest.raises(NotImplementedError, match="item 8"):
-        optimizer.SGD(learning_rate=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        optimizer.SGD(weight_decay=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        optimizer.AdamW
-    m = hapi.Model(torch.nn.Linear(2, 2))
-    for call in (lambda: m.prepare(metrics=[object()]), lambda: m.fit(),
-                 lambda: m.save("x"),
-                 lambda: m.train_batch(torch.zeros(1, 2), update=False)):
+    for decay in (0.1, regularizer.L2Decay(0.1)):
+        w.data = torch.tensor([1.0, -2.0])
+        opt = optimizer.Momentum(learning_rate=0.5, momentum=0.5,
+                                 parameters=[{"params": [w]}],
+                                 weight_decay=decay)
+        for expect in ([0.95, -1.9], [0.8775, -1.755]):
+            (w * torch.tensor([0.0, 0.0])).sum().backward()  # zero gradient
+            opt.step()
+            opt.clear_grad()
+            assert torch.allclose(w, torch.tensor(expect)), w
+            assert w.grad is None
+        assert opt._step_count == 2 and opt.get_lr() == 0.5
+    sched = optimizer.lr.StepDecay(0.5, step_size=1, gamma=0.5)
+    opt = optimizer.SGD(learning_rate=sched, parameters=[w])
+    opt._lr_step()
+    assert opt.get_lr() == 0.25 and opt.state_dict()["LR_Scheduler"][
+        "last_epoch"] == 1
+    assert isinstance(optimizer.AdamW(parameters=[w]), optimizer.Adam)
+    with pytest.raises(TypeError, match="L2Decay"):
+        optimizer.AdamW(parameters=[w], weight_decay=regularizer.L1Decay(1.0))
+    net = torch.nn.Linear(2, 2)
+    m = hapi.Model(net)
+    m.prepare(optimizer=optimizer.SGD(parameters=net.parameters()),
+              loss=nn.CrossEntropyLoss(), metrics=metric.Accuracy())
+    assert [x.name() for x in m._metrics] == ["acc"]
+    refused = (lambda: m.train_batch(torch.zeros(1, 2), update=False),
+               lambda: m.fit([], accumulate_grad_batches=2),
+               lambda: m.prepare(amp_configs={"level": "O1"}),
+               lambda: m.flops([1, 2]),
+               lambda: optimizer.SGD(parameters=[w]).minimize(object()),
+               lambda: paddle_tpu_torch.vision.transforms.ColorJitter,
+               lambda: paddle_tpu_torch.amp, lambda: paddle_tpu_torch.flops,
+               lambda: paddle_tpu_torch.ParamAttr)
+    for call in refused:
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
