@@ -9,6 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      PyTorch version at the serving prefill shape and at GQA, ragged,
      end-aligned and strided (q, k, v as views of one [b, s, 3, h, d]
      buffer) shapes, in bf16 (max abs error <= 2e-2) and fp32 (<= 1e-4),
+     and at FP16_CASES (phase 41's BERT shape [32, 128, 12/12, 64], not
+     causal, and the training shape [2, 4096, 16/4, 128], causal) in fp16
+     (<= 5e-3: fp16's rounding of O(1) outputs, P rounded to fp16),
      with kernel, plain and SDPA times, the roofline bound and the
      kernel's own device time (device_ms: the chained calls queued behind
      a spin kernel and timed by CUDA events, so without the host's gaps).
@@ -29,16 +32,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the MoE step's [8, 2048, 16/4, 64], the remat step's [4, 4096,
      16/4, 128], phase 30's GPT step [2, 2048, 32/32, 128] (q, k, v strided
      views) and phase 32's BERT step [32, 128, 12/12, 64] (not causal)
-     (bf16 at those five; lse max abs error <= 5e-3 bf16 /
-     1e-4 fp32, out as in 2), timed beside the no-lse path and SDPA's
-     forward, with device_ms.
+     (bf16 at those five), and at FP16_CASES in fp16 (lse max abs error
+     <= 5e-3 bf16 and fp16 / 1e-4 fp32, out as in 2), timed beside the
+     no-lse path and SDPA's forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
      on the same (q, k, v, o, lse, dout): the training shape, the MoE
      step's, the remat step's, GPT's and BERT's (bf16), MHA, ragged 77
      (not causal),
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
-     [b, s, 3, h, d] buffer, each also in fp32; max abs error <= tol x
-     max(1, max |plain|); at the training shape two runs must be bitwise
+     [b, s, 3, h, d] buffer, each also in fp32; FP16_CASES in fp16; max
+     abs error <= tol x max(1, max |plain|) (fp16: 5e-3, dS rounded to
+     fp16 before the dQ and dK products); at the training shape two runs
+     must be bitwise
      equal; K2 and K3 times (chained and device_ms) beside their bounds,
      the plain backward and SDPA's backward.
   6. serving: the llama-750M-class config at full width (12 layers), random
@@ -454,6 +459,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      share of it spent waiting on the loader; evaluate, predict, save and
      load into a fresh model (equal state, equal eval loss); K1-K6 at 0
      launches.
+ 39. (none: the fp16 flash kernels are held to their plain versions in
+     phases 2, 4 and 5.)
+ 40. dygraph AMP parity: a 2-layer TransformerEncoder of the Paddle layers
+     (hidden 256, 4 heads of 64, FFN 512, vocab 1024, batch 8 x seq 64)
+     built on the CPU from seed 19 and copied to the card; 3 steps of
+     auto_cast(O1, bf16) + GradScaler(1024).minimize + AdamW(1e-4, wd
+     0.01, global clip 1.0) on both: losses within 2e-2 relative, and the
+     unscaled gradients of the first step (which AdamW's update would
+     normalise away) by amp_grad_errors: each parameter's max abs error
+     <= AMP_GRAD_TOL of its largest CPU gradient; K1-lse/K2/K3 launched.
+ 41. dygraph AMP at BERT-base width (BASELINE config 2): Embedding(30522,
+     768) + learned positions (512) + LayerNorm, TransformerEncoder(12 x
+     TransformerEncoderLayer(768, 12, 3072, dropout 0, gelu)), Linear(768,
+     2) on the first token, F.cross_entropy; batch 32 x 128 (bench_bert's
+     shape), ids from np.random.default_rng(0); AdamW(2e-5, weight_decay
+     0.01, ClipGradByGlobalNorm(1.0)); the step JAX's form: auto_cast,
+     scaler.minimize(opt, scaler.scale(loss)), opt.clear_grad(). Three
+     arms: (a) O1 bf16, GradScaler(init_loss_scaling=1024); (b) O2 bf16
+     after amp.decorate, GradScaler(1024); (c) O1 fp16, GradScaler()'s
+     dynamic scaling. Each: 2 warm-up and 5 timed steps; ms a step,
+     tokens/s, peak memory, launches a step (12 each of K1-lse, K2, K3,
+     asserted), host syncs a step (exactly 1, the scaler's, asserted),
+     ops the dispatcher ran a step and host us an op of the forward's
+     enqueue (queued behind a spin kernel, so the card runs none of it
+     meanwhile). (c) also runs an eval forward under no_grad (12 primal fp16
+     K1 launches) and a step forced to overflow (scale 2^40): the scaler
+     must skip it (parameters unchanged bitwise, OVERFLOW in the health
+     word, scale halved). Phase 32's Engine BERT step is printed beside
+     them as a reading of another code path.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -465,7 +499,9 @@ the legacy engine of phase 15, the paged generate of phase 16, phase 21's
 prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
-phases 9, 13, 14, 30, 32 and 37 (b) (K1-lse also phase 20's forward); the
+phases 9, 13, 14, 30, 32, 37 (b) and 41 (a, b) (K1-lse also phase 20's
+forward); the fp16 rows count phase 41 (c)'s timed steps (and its eval
+forward for the primal K1); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
 The second-to-last line is a JSON object listing each kernel; the last is
@@ -489,10 +525,11 @@ import warnings
 import weakref
 
 DEVICE = "cuda"
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,  # H100 SXM, dense
+              "float32": 67e12}
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3
 L2_BYTES = 50 * 2 ** 20                               # H100 SXM L2 cache
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL = {"bfloat16": 2e-2, "float32": 1e-4, "float16": 5e-3}
 # Teacher-forced check: every emitted token's logit must lie within this
 # margin of the maximum logit at its position, counted in bf16 units in the
 # last place (ulps) of that maximum: ulp(x) = 2 ** (floor(log2 |x|) - 7).
@@ -535,7 +572,7 @@ K1_CASES = [
 ]
 # the train step's attention shape (bench.py:2013-2019 at batch 2)
 TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
-LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4}
+LSE_TOL = {"bfloat16": 5e-3, "float32": 1e-4, "float16": 5e-3}
 # the MoE step's attention shape (MOE_CONFIG below: batch 8 x seq 2048, 16 q
 # / 4 kv heads of 64)
 MOE_ATTN_SHAPE = ("moe", 8, 2048, 2048, 16, 4, 64, True)
@@ -912,6 +949,35 @@ OPT_TRAIN_DECAY = 0.01
 HAPI_FIT = dict(train=50000, test=10000, batch=256, workers=4, lr=0.1,
                 T_max=200, momentum=0.9, weight_decay=5e-4)
 HAPI_PARITY = dict(batch=32, iters=3, lr=1e-3)
+# The eager Paddle API: the fp16 kernel cases of phases 2, 4 and 5 (the
+# shapes phase 41's fp16 arm and the training line give the kernels); the
+# small encoder of phase 40's card-vs-CPU AMP parity; BERT-base width built from the
+# Paddle layers (BASELINE config 2: vocab 30522, hidden 768, 12 layers of
+# 12 heads, FFN 3072, 512 positions, 2 labels) at bench_bert's batch.
+FP16_CASES = (BERT_ATTN_SHAPE, TRAIN_SHAPE)
+SMALL_ENCODER = dict(vocab=1024, hidden=256, heads=4, ffn=512, layers=2,
+                     max_pos=128, labels=2)
+SMALL_AMP = dict(batch=8, seq=64, steps=3, lr=1e-4, seed=19, tol=2e-2)
+# The dygraph AMP parity's gradient check (phase 40, and tests/
+# test_torch_transformer.py against the JAX package): the first step's
+# unscaled gradients, each parameter's max abs error over its largest
+# reference gradient. 5e-2 is 6.4 bf16 epsilons (2^-7): the white ops
+# round inputs and outputs to bf16 at different points in the two runs,
+# and the backward compounds it over the layers. A parameter whose
+# largest reference gradient is below AMP_NOISE_SHARE (one bf16 rounding,
+# 2^-8) of the largest over all parameters is zero to rounding (the
+# attention's k biases: softmax ignores a shift of a row's logits) and is
+# measured against that largest instead.
+AMP_GRAD_TOL = 5e-2
+AMP_NOISE_SHARE = 2.0 ** -8
+DYGRAPH_BERT = dict(vocab=30522, hidden=768, heads=12, ffn=3072, layers=12,
+                    max_pos=512, labels=2)
+DYGRAPH = dict(batch=32, seq=128, warmup=2, steps=5, lr=2e-5)
+DYGRAPH_ARMS = (("a O1 bf16", "O1", "bfloat16", 1024.0),
+                ("b O2 bf16", "O2", "bfloat16", 1024.0),
+                ("c O1 fp16", "O1", "float16", None))
+OVERFLOW_SCALE = 2.0 ** 40
+READINGS = {}   # phase 32's Engine BERT step, read by phase 41
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
 
@@ -937,6 +1003,7 @@ def _kernel_name(mangled):
     name, rest = mangled[j:j + int(n.group(1))], mangled[j + int(n.group(1)):]
     args = (["float"] if rest.startswith("If") else []) + \
         (["bf16"] if rest.startswith("I13__nv_bfloat16") else []) + \
+        (["fp16"] if rest.startswith("I6__half") else []) + \
         (["int8"] if re.match(r"I(f|13__nv_bfloat16)a", rest) else []) + \
         re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
     return f"{name}<{','.join(args)}>"
@@ -1008,6 +1075,24 @@ def device_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def host_enqueue_s(torch, fn):
+    """The host's time to queue ``fn``'s work, in s, with the card held
+    by a spin kernel (about 0.2 s) so that no kernel of ``fn`` runs while
+    the host queues: a pure host cost unless the launch queue fills.
+    Returns (seconds, whether the card was still spinning when the host
+    was done)."""
+    sync()
+    torch.cuda._sleep(400_000_000)
+    mark = torch.cuda.Event()
+    mark.record()
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    idle = not mark.query()
+    sync()
+    return wall, idle
+
+
 def bound(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -1042,42 +1127,48 @@ def sdpa(F, q, k, v, causal):
 
 
 def phase_k1(torch, F, ops):
-    """K1 against its plain version; returns the main-path (prefill) row."""
+    """K1 against its plain version; returns the main-path rows: prefill in
+    bf16 and phase 41's BERT shape in fp16."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    row = None
-    for dname in ("bfloat16", "float32"):
+    row = fp16_row = None
+    cases = [(c, dn) for dn in ("bfloat16", "float32") for c in K1_CASES]
+    cases += [(c, "float16") for c in FP16_CASES]
+    for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
-        for name, b, s_q, s_kv, hq, hkv, d, causal in K1_CASES:
-            q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
-                                   hkv, d)
-            out = ops.flash_attention(q, k, v, causal=causal)
-            ref = ops.flash_attention_reference(q, k, v, causal)
-            sync()
-            err = (out.float() - ref.float()).abs().max().item()
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
-            dev_ms = device_ms(
-                torch, lambda: ops.flash_attention(q, k, v, causal=causal))
-            plain_ms = cuda_ms(
-                lambda: ops.flash_attention_reference(q, k, v, causal), 5, 1)
-            library_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal))
-            pairs = causal_pairs(s_q, s_kv, causal)
-            flops = 4 * d * hq * b * pairs
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            bound_ms, bound_by = bound(flops, nbytes, dname)
-            print(f"k1 case={name} dtype={dname} shape=[{b},{s_q}/{s_kv},"
-                  f"{hq}/{hkv},{d}] causal={causal} max_abs_err={err:.3e} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-                  f"bound_by={bound_by} device_ms={dev_ms:.4f}", flush=True)
-            if not err <= TOL[dname]:
-                raise AssertionError(f"K1 {name} {dname}: max abs error "
-                                     f"{err} > {TOL[dname]}")
-            if name == "prefill" and dname == "bfloat16":
-                row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms, device_ms=dev_ms)
-            del q, k, v, out, ref
-    return row
+        q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
+                               hkv, d)
+        out = ops.flash_attention(q, k, v, causal=causal)
+        ref = ops.flash_attention_reference(q, k, v, causal)
+        sync()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        dev_ms = device_ms(
+            torch, lambda: ops.flash_attention(q, k, v, causal=causal))
+        plain_ms = cuda_ms(
+            lambda: ops.flash_attention_reference(q, k, v, causal), 5, 1)
+        library_ms = cuda_ms(lambda: sdpa(F, q, k, v, causal))
+        pairs = causal_pairs(s_q, s_kv, causal)
+        flops = 4 * d * hq * b * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, dname)
+        print(f"k1 case={name} dtype={dname} shape=[{b},{s_q}/{s_kv},"
+              f"{hq}/{hkv},{d}] causal={causal} max_abs_err={err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+              f"bound_by={bound_by} device_ms={dev_ms:.4f}", flush=True)
+        if not err <= TOL[dname]:
+            raise AssertionError(f"K1 {name} {dname}: max abs error "
+                                 f"{err} > {TOL[dname]}")
+        got = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, device_ms=dev_ms)
+        if name == "prefill" and dname == "bfloat16":
+            row = got
+        if name == "bert" and dname == "float16":
+            fp16_row = got
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row, fp16_row
 
 
 def _k4_inputs(torch, gen, dtype, hq, hkv, d, page, maxp, lens_list):
@@ -1343,11 +1434,13 @@ def _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq, hkv, d):
 
 def phase_k1_lse(torch, F, ops):
     """K1 with its lse output against the plain forward-with-lse; returns
-    the main-path (training shape) row."""
+    the main-path rows: the training shape in bf16 and phase 41's BERT
+    shape in fp16."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    row = None
+    row = fp16_row = None
     cases = [(c, dn) for dn in ("bfloat16", "float32") for c in K1_CASES]
     cases += [(c, "bfloat16") for c in TRAIN_PATH_SHAPES]
+    cases += [(c, "float16") for c in FP16_CASES]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
         q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
@@ -1379,25 +1472,29 @@ def phase_k1_lse(torch, F, ops):
             raise AssertionError(f"K1-lse {name} {dname}: out error {err} "
                                  f"(tol {TOL[dname]}), lse error {lse_err} "
                                  f"(tol {LSE_TOL[dname]})")
-        if name == "train":
-            row = dict(max_abs_err=max(err, lse_err), ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms,
-                       device_ms=dev_ms)
+        got = dict(max_abs_err=max(err, lse_err), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms, device_ms=dev_ms)
+        if name == "train" and dname == "bfloat16":
+            row = got
+        if name == "bert" and dname == "float16":
+            fp16_row = got
         del q, k, v, out, lse
     torch.cuda.empty_cache()
-    return row
+    return row, fp16_row
 
 
 def phase_k2k3(torch, F, ops):
     """K2 and K3 against the plain backward on the same (q, k, v, o, lse,
-    dout); returns the main-path (training shape, bf16) rows."""
+    dout); returns the main-path rows (K2, K3): the training shape in bf16,
+    then phase 41's BERT shape in fp16."""
     # the module (the package attribute of that name is the function)
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    rows = None
+    rows, fp16_rows = None, None
     cases = [(c, dn) for c in BWD_CASES for dn in ("bfloat16", "float32")
              if not (c in TRAIN_PATH_SHAPES and dn == "float32")]
+    cases += [(c, "float16") for c in FP16_CASES]
     for (name, b, s_q, s_kv, hq, hkv, d, causal), dname in cases:
         dtype = getattr(torch, dname)
         q, k, v = _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq,
@@ -1467,18 +1564,20 @@ def phase_k2k3(torch, F, ops):
         if same is False:
             raise AssertionError(f"K2/K3 {name}: two runs on the same inputs "
                                  f"differ")
-        if name == "train":
-            rows = (dict(max_abs_err=errs["dq"][0], ms=dq_ms,
-                         plain_ms=plain_ms, bound_ms=dq_bound[0],
-                         bound_by=dq_bound[1], library_ms=library_ms,
-                         device_ms=dq_dev),
-                    dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-                         ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
-                         bound_by=dkv_bound[1], library_ms=library_ms,
-                         device_ms=dkv_dev))
+        got = (dict(max_abs_err=errs["dq"][0], ms=dq_ms, plain_ms=plain_ms,
+                    bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                    library_ms=library_ms, device_ms=dq_dev),
+               dict(max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+                    ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                    bound_by=dkv_bound[1], library_ms=library_ms,
+                    device_ms=dkv_dev))
+        if name == "train" and dname == "bfloat16":
+            rows = got
+        if name == "bert" and dname == "float16":
+            fp16_rows = got
         del q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
-    return rows
+    return rows + fp16_rows
 
 
 def _engine_steps(torch, Engine, model, batches, lr):
@@ -5652,6 +5751,7 @@ def phase_bert(torch, np, ops, card):
             raise AssertionError(f"the BERT {name} step synchronized "
                                  f"{len(syncs)} times")
         rows[name] = (counts["k1_lse"], counts["k2"], counts["k3"])
+        READINGS[f"bert {name}"] = (wall / steps * 1e3, tok_s)
         del eng, model, batches
         _release(torch)
     return tuple(a + b for a, b in zip(rows["seqcls"], rows["mlm"]))
@@ -6384,6 +6484,252 @@ def phase_hapi_fit(torch, np, ops, card, batch_rate):
     return counts
 
 
+def dygraph_encoder(pt, cfg, device):
+    """The Paddle-layer encoder classifier of phases 40-41 (and of
+    tests/test_torch_amp.py's card arm): token + learned position
+    embeddings, LayerNorm, a TransformerEncoder (dropout 0, gelu), a Linear
+    head on the first token. Weights from the global generator of
+    ``device`` (seed it first)."""
+    from paddle_tpu_torch import nn
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            h = cfg["hidden"]
+            self.word = nn.Embedding(cfg["vocab"], h, device=device)
+            self.pos = nn.Embedding(cfg["max_pos"], h, device=device)
+            self.norm = nn.LayerNorm(h, device=device)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                h, cfg["heads"], cfg["ffn"], dropout=0.0, activation="gelu",
+                device=device), cfg["layers"])
+            self.head = nn.Linear(h, cfg["labels"], device=device)
+
+        def forward(self, ids):
+            pos = pt.arange(ids.shape[1]).unsqueeze(0)
+            x = self.norm(self.word(ids) + self.pos(pos))
+            return self.head(self.encoder(x)[:, 0])
+
+    return Encoder()
+
+
+def dygraph_step(pt, model, opt, scaler, ids, labels, level, dtype,
+                 keep_grads=False):
+    """One step of JAX's form of the reference's dygraph AMP loop (the
+    scaler's minimize runs the backward); returns the unscaled loss. With
+    ``keep_grads`` the (unscaled) gradients stay for the caller to read
+    and clear."""
+    import paddle_tpu_torch.nn.functional as PF
+
+    with pt.amp.auto_cast(level=level, dtype=dtype):
+        loss = PF.cross_entropy(model(ids), labels)
+    scaler.minimize(opt, scaler.scale(loss))
+    if not keep_grads:
+        opt.clear_grad()
+    return loss
+
+
+def _dygraph_opt(pt, model, lr):
+    from paddle_tpu_torch import nn, optimizer
+
+    return optimizer.AdamW(lr, parameters=model.parameters(),
+                           weight_decay=0.01,
+                           grad_clip=nn.ClipGradByGlobalNorm(1.0))
+
+
+def _dygraph_batch(pt, np, cfg, batch, seq, device):
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg["vocab"], (batch, seq))
+    labels = rng.integers(0, cfg["labels"], (batch,))
+    return (pt.to_tensor(ids, place=device),
+            pt.to_tensor(labels, place=device))
+
+
+def amp_grad_errors(grads, refs):
+    """The dygraph AMP gradient check's readings (see AMP_GRAD_TOL):
+    ``grads`` and ``refs`` map parameter names to float64 numpy arrays.
+    Returns (worst error, its name, the names measured against the largest
+    gradient of all as noise)."""
+    import numpy as np
+
+    top = max(float(np.abs(r).max()) for r in refs.values())
+    worst, noise = (0.0, ""), []
+    for name, ref in refs.items():
+        scale = float(np.abs(ref).max())
+        if scale <= AMP_NOISE_SHARE * top:
+            noise.append(name)
+            scale = top
+        err = float(np.abs(grads[name] - ref).max()) / scale
+        worst = max(worst, (err, name))
+    return worst[0], worst[1], noise
+
+
+def _step_grads(model):
+    """{name: the parameter's gradient as float64 numpy} (a step's
+    gradients, read before the optimizer clears them)."""
+    return {n: p.grad.detach().double().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def phase_dygraph_parity(torch, np, ops, card):
+    """Phase 40: the small encoder card vs CPU, 3 dygraph AMP O1 bf16
+    steps."""
+    import paddle_tpu_torch as pt
+
+    c, a = SMALL_ENCODER, SMALL_AMP
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        pt.set_device(dev)   # the forward's positions: paddle.arange
+        pt.seed(a["seed"])
+        model = dygraph_encoder(pt, c, "cpu")
+        if dev != "cpu":
+            ref = model
+            model = dygraph_encoder(pt, c, dev)
+            model.set_state_dict(ref.state_dict())
+        opt = _dygraph_opt(pt, model, a["lr"])
+        scaler = pt.amp.GradScaler(init_loss_scaling=1024)
+        ids, labels = _dygraph_batch(pt, np, c, a["batch"], a["seq"], dev)
+        _reset_counts(ops)
+        grads, losses = None, []
+        for _ in range(a["steps"]):
+            losses.append(dygraph_step(
+                pt, model, opt, scaler, ids, labels, "O1", "bfloat16",
+                keep_grads=grads is None).item())
+            if grads is None:
+                grads = _step_grads(model)
+                opt.clear_grad()
+        runs[dev] = (losses, grads, _read_counts(ops))
+    pt.set_device(DEVICE)
+    (l_cpu, g_cpu, _), (l_card, g_card, counts) = runs["cpu"], runs[DEVICE]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(l_card, l_cpu))
+    L, n = c["layers"], a["steps"]
+    err, where, noise = amp_grad_errors(g_card, g_cpu)
+    print(f"dygraph parity [{card}]: losses card {l_card} cpu {l_cpu} "
+          f"(max rel err {loss_err:.3e}, tol {a['tol']}); step-1 gradients "
+          f"worst err {err:.3e} of the largest ({where}, tol "
+          f"{AMP_GRAD_TOL}; against the largest of all as noise: {noise}); "
+          f"card launches {counts}", flush=True)
+    if not (loss_err <= a["tol"] and err <= AMP_GRAD_TOL):
+        raise AssertionError(f"dygraph AMP card vs CPU: losses {loss_err}, "
+                             f"gradients {err} ({where})")
+    if [counts[k] for k in ("k1_lse", "k2", "k3")] != [L * n] * 3:
+        raise AssertionError(f"dygraph AMP parity: launches {counts}")
+    _release(torch)
+
+
+def phase_dygraph_bert(torch, np, ops, card):
+    """Phase 41: the three AMP arms at BERT-base width; returns the bf16
+    arms' (K1-lse, K2, K3) launches and the fp16 arm's (K1, K1-lse, K2,
+    K3) launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import op_registry
+    from paddle_tpu_torch.framework import numeric_guard
+
+    c, d = DYGRAPH_BERT, DYGRAPH
+    L, steps = c["layers"], d["steps"]
+    bf16_counts, fp16_counts = [0, 0, 0], None
+    pt.set_device(DEVICE)   # the forward's positions: paddle.arange
+    for arm, level, dtype, init_scale in DYGRAPH_ARMS:
+        torch.cuda.reset_peak_memory_stats()
+        pt.seed(0)
+        model = dygraph_encoder(pt, c, DEVICE)
+        opt = _dygraph_opt(pt, model, d["lr"])
+        if level == "O2":
+            model, opt = pt.amp.decorate(model, opt, level="O2", dtype=dtype)
+        scaler = (pt.amp.GradScaler() if init_scale is None
+                  else pt.amp.GradScaler(init_loss_scaling=init_scale))
+        ids, labels = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+
+        def step():
+            return dygraph_step(pt, model, opt, scaler, ids, labels, level,
+                                dtype)
+
+        for _ in range(d["warmup"]):
+            step()
+        sync()
+        _reset_counts(ops)
+        op_registry.dispatched = 0
+        t0 = time.perf_counter()
+        losses = [step() for _ in range(steps)]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(ops)
+        ops_per_step = op_registry.dispatched / steps
+        syncs = _sync_count(torch, step)
+
+        def forward():
+            with pt.amp.auto_cast(level=level, dtype=dtype):
+                return model(ids)
+
+        enqueue, queued = host_enqueue_s(torch, forward)
+        op_registry.dispatched = 0
+        forward()
+        fwd_ops = op_registry.dispatched
+        vals = torch.stack([x.detach() for x in losses]).float().cpu()
+        per_step = [counts[k] / steps for k in ("k1_lse", "k2", "k3")]
+        tok_s = d["batch"] * d["seq"] * steps / wall
+        print(f"dygraph bert {arm} [{card}]: ms_per_step="
+              f"{wall / steps * 1e3:.2f} tokens_per_s={tok_s:.1f} "
+              f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"launches per step k1_lse/k2/k3={per_step} primal_k1="
+              f"{counts['k1']} host_syncs_per_step={len(syncs)} "
+              f"dispatched_ops_per_step={ops_per_step:.0f} "
+              f"forward_host_us_per_op={enqueue / max(fwd_ops, 1) * 1e6:.1f}"
+              f" ({fwd_ops} ops, forward enqueue {enqueue * 1e3:.2f} ms "
+              f"behind a spin kernel, card idle throughout={queued}) "
+              f"loss_scale={scaler._scale} losses "
+              f"{[round(x, 4) for x in vals.tolist()]}", flush=True)
+        for msg in syncs[:5]:
+            print(f"  {msg[:160]}", flush=True)
+        if per_step != [L, L, L] or counts["k1"]:
+            raise AssertionError(f"dygraph bert {arm}: launches {counts}")
+        if len(syncs) != 1:
+            raise AssertionError(f"dygraph bert {arm}: {len(syncs)} host "
+                                 f"syncs a step, not the scaler's one")
+        if not bool(vals.isfinite().all()):
+            raise AssertionError(f"dygraph bert {arm}: losses {vals}")
+        if dtype == "bfloat16":
+            bf16_counts = [x + counts[k] for x, k in
+                           zip(bf16_counts, ("k1_lse", "k2", "k3"))]
+        else:
+            # eval forward: the primal fp16 K1, once a layer
+            _reset_counts(ops)
+            model.eval()
+            with pt.no_grad(), pt.amp.auto_cast(level=level, dtype=dtype):
+                model(ids)
+            model.train()
+            primal = _read_counts(ops)["k1"]
+            if primal != L:
+                raise AssertionError(f"dygraph bert eval: primal K1 "
+                                     f"{primal}")
+            fp16_counts = (primal, counts["k1_lse"], counts["k2"],
+                           counts["k3"])
+            # a step forced to overflow: the scaler must skip it
+            before = [p.detach().clone() for p in model.parameters()]
+            scale0 = OVERFLOW_SCALE
+            scaler.set_init_loss_scaling(scale0)
+            numeric_guard.consume_health()
+            step()
+            word = numeric_guard.consume_health()
+            same = all(torch.equal(a, p.detach()) for a, p in
+                       zip(before, model.parameters()))
+            print(f"dygraph bert overflow [{card}]: found_inf="
+                  f"{scaler._found_inf} parameters_unchanged={same} health="
+                  f"{numeric_guard.describe_health(word)} scale "
+                  f"{scale0} -> {scaler._scale}", flush=True)
+            if not (scaler._found_inf and same
+                    and word & numeric_guard.OVERFLOW
+                    and scaler._scale == scale0 / 2):
+                raise AssertionError("dygraph bert: the fp16 overflow step "
+                                     "was not skipped")
+        del model, opt, scaler, losses, ids, labels
+        _release(torch)
+    for name, (ms, tok_s) in READINGS.items():
+        print(f"reading, phase 32's Engine {name} step (another code path, "
+              f"not a target): ms_per_step={ms:.2f} tokens_per_s={tok_s:.1f}",
+              flush=True)
+    return tuple(bf16_counts), fp16_counts
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -6434,10 +6780,10 @@ def main():
             print(f"  {name}: {fn} registers={regs} spill_store_bytes="
                   f"{spill}", flush=True)
 
-    k1 = _phase("2 k1", phase_k1, torch, F, ops)
+    k1, k1_fp16 = _phase("2 k1", phase_k1, torch, F, ops)
     k4 = _phase("3 k4", phase_k4, torch, ops)
-    k1_lse = _phase("4 k1_lse", phase_k1_lse, torch, F, ops)
-    k2, k3 = _phase("5 k2k3", phase_k2k3, torch, F, ops)
+    k1_lse, k1_lse_fp16 = _phase("4 k1_lse", phase_k1_lse, torch, F, ops)
+    k2, k3, k2_fp16, k3_fp16 = _phase("5 k2k3", phase_k2k3, torch, F, ops)
     k1_launches, k4_launches = _phase("6 serving", phase_serving, torch, np,
                                       ops, card)
     k4_fused, fused_cold = _phase("7 fused serving", phase_serving_fused,
@@ -6507,7 +6853,10 @@ def main():
     opt_train = _phase("37 engine optimizer", phase_engine_optimizer, torch,
                        np, ops, card)
     _phase("38 hapi fit", phase_hapi_fit, torch, np, ops, card, resnet_rate)
-    for path in (gpt_train, bert, opt_train):
+    _phase("40 dygraph parity", phase_dygraph_parity, torch, np, ops, card)
+    dygraph_bf16, dygraph_fp16 = _phase("41 dygraph bert", phase_dygraph_bert,
+                                        torch, np, ops, card)
+    for path in (gpt_train, bert, opt_train, dygraph_bf16):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]
@@ -6567,6 +6916,16 @@ def main():
                         source="paddle_tpu_torch/ops/csrc/flash_bwd.cu",
                         replaces="paddle_tpu/ops/flash_attention.py:337",
                         **glse))
+    for kname, line, src, launches, row in zip(
+            ("flash_fwd_fp16", "flash_fwd_lse_fp16", "flash_bwd_dq_fp16",
+             "flash_bwd_dkv_fp16"), (117, 117, 337, 420),
+            ("flash_fwd.cu", "flash_fwd.cu", "flash_bwd.cu", "flash_bwd.cu"),
+            dygraph_fp16, (k1_fp16, k1_lse_fp16, k2_fp16, k3_fp16)):
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source=f"paddle_tpu_torch/ops/csrc/{src}",
+            replaces=f"paddle_tpu/ops/flash_attention.py:{line}",
+            launches=launches, **row))
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,11 @@
 """Device and dtype resolution for the port's entry points.
 
 The port runs on the CUDA device. A caller that names no device gets the
-current CUDA device; without a card that is an error, never a silent move
-to the CPU. ``device="cpu"`` is an explicit request for the plain PyTorch
+port's current place: the current CUDA device unless
+:func:`set_device` ("cpu" or "gpu"/"cuda[:i]", Paddle's
+``paddle.set_device``) chose another; without a card the CUDA place is an
+error, never a silent move to the CPU. ``device="cpu"`` (or
+``set_device("cpu")``) is an explicit request for the plain PyTorch
 versions of the kernels (the CPU tests use it).
 """
 
@@ -12,16 +15,46 @@ from typing import Optional, Union
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+# the place set by set_device (None: the current CUDA device)
+_PLACE: Optional[torch.device] = None
+
+
+def set_device(device: Union[str, torch.device]) -> torch.device:
+    """Make ``device`` the port's current place (``paddle.set_device``):
+    "cpu", or "gpu"/"cuda" with an optional ":index". Returns it; raises as
+    :func:`resolve_device` does for a card that is not there."""
+    global _PLACE
+    _PLACE = resolve_place(device if device is not None else "cuda")
+    return _PLACE
+
+
+def resolve_place(place=None) -> torch.device:
+    """A Paddle ``place`` argument as a device: None is the current place;
+    "gpu"/"gpu:i" is CUDA; otherwise as :func:`resolve_device`."""
+    if isinstance(place, str) and place.split(":")[0] == "gpu":
+        place = "cuda" + place[3:]
+    return resolve_device(place)
+
+
+def get_device() -> str:
+    """The current place as Paddle names it: "cpu" or "gpu:<index>"."""
+    dev = resolve_device()
+    return "cpu" if dev.type == "cpu" else f"gpu:{dev.index}"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """The device an entry point runs on: ``cuda`` when none is named.
+    """The device an entry point runs on: the current place (the CUDA
+    device unless :func:`set_device` chose another) when none is named.
 
     Raises ``RuntimeError`` when CUDA is asked for (or implied) and no card
     is present, and ``ValueError`` for device types the port does not run
     on."""
+    if device is None and _PLACE is not None:
+        return _PLACE
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -42,8 +75,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 def resolve_dtype(dtype: str) -> torch.dtype:
-    """``"float32"``/``"bfloat16"`` (the JAX package's config strings) ->
-    torch dtype."""
+    """``"float32"``/``"bfloat16"``/``"float16"`` (the JAX package's config
+    strings) -> torch dtype."""
     try:
         return _DTYPES[dtype]
     except KeyError:

@@ -86,18 +86,21 @@ class Model:
         """The optimizer's update of ``params`` in place from ``grads``."""
         opt = self._optimizer
         opt._step_count += 1
-        grads = [g.float() for g in grads]
-        if opt._grad_clip is not None:
-            grads = [g for _, g in opt._grad_clip(list(zip(params, grads)))]
-        dev = params[0].device
-        lr = torch.full((), opt.get_lr(), dtype=torch.float32, device=dev)
-        step = torch.full((), float(opt._step_count), dtype=torch.float32,
-                          device=dev)
-        new_vals, opt._accumulators = opt._functional_update(
-            grads, [p.detach() for p in params], params, opt._accumulators,
-            lr, step)
-        for p, v in zip(params, new_vals):
-            p.copy_(v)
+        # plain torch ops on the Paddle Parameters (no Python dispatch)
+        with torch._C.DisableTorchFunctionSubclass():
+            grads = [g.float() for g in grads]
+            if opt._grad_clip is not None:
+                grads = [g for _, g in opt._grad_clip(list(zip(params,
+                                                               grads)))]
+            dev = params[0].device
+            lr = torch.full((), opt.get_lr(), dtype=torch.float32, device=dev)
+            step = torch.full((), float(opt._step_count), dtype=torch.float32,
+                              device=dev)
+            new_vals, opt._accumulators = opt._functional_update(
+                grads, [p.detach() for p in params], params,
+                opt._accumulators, lr, step)
+            for p, v in zip(params, new_vals):
+                p.copy_(v)
 
     def train_batch(self, inputs, labels=None, update=True):
         if not update:
@@ -108,9 +111,11 @@ class Model:
         out = self.network(*_as_list(inputs))
         outs = list(out) if isinstance(out, (list, tuple)) else [out]
         loss = self._loss_of(outs, ys)
-        params = [p for p in self.network.parameters() if p.requires_grad]
-        grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                    materialize_grads=True)
+        with torch._C.DisableTorchFunctionSubclass():   # see _apply
+            params = [p for p in self.network.parameters()
+                      if p.requires_grad]
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        materialize_grads=True)
         self._apply(params, grads)
         metrics = self._update_metrics([o.detach() for o in outs], ys)
         return [loss.item()], metrics

@@ -3,7 +3,8 @@ conv.py`` :27-60, :105), NCHW.
 
 The JAX package computes it with ``lax.conv_general_dilated`` (an XLA op,
 no Pallas kernel), so the port calls torch's convolution: cuDNN on the
-card. Weights are ``[out, in / groups, kh, kw]`` in both.
+card. Weights are ``[out, in / groups, kh, kw]`` in both. The call goes
+through the op dispatcher under the JAX package's white ``OpDef("conv")``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ import math
 import torch.nn.functional as F
 
 from ..._later import later_slice
+from ...core.op_registry import AMP_WHITE, OpDef, apply_fn
+
+_CONV = OpDef("conv", None, amp=AMP_WHITE)
 
 
 def _pair(v):
@@ -56,11 +60,13 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
         raise later_slice(f"conv2d with data_format={data_format!r}",
                           "Paddle API surface", "8")
     stride, dilation = _pair(stride), _pair(dilation)
-    (top, bottom), (left, right) = _pads(padding, x.shape[2:],
-                                         weight.shape[2:], stride, dilation)
-    if top == bottom and left == right:
-        pad = (top, left)
-    else:
-        x = F.pad(x, (left, right, top, bottom))
-        pad = 0
-    return F.conv2d(x, weight, bias, stride, pad, dilation, groups)
+
+    def fn(a, w, b):
+        (top, bottom), (left, right) = _pads(padding, a.shape[2:],
+                                             w.shape[2:], stride, dilation)
+        if top == bottom and left == right:
+            return F.conv2d(a, w, b, stride, (top, left), dilation, groups)
+        return F.conv2d(F.pad(a, (left, right, top, bottom)), w, b, stride,
+                        0, dilation, groups)
+
+    return apply_fn("conv2d", fn, x, weight, bias, _opdef=_CONV)

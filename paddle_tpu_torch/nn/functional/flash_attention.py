@@ -13,8 +13,11 @@ attention``'s causal LT encodings run the kernels in their row-bound mode
 (:func:`paddle_tpu_torch.ops.flash_attention_rowmask`).
 
 Dropout draws its keep mask from ``generator`` (a ``torch.Generator`` on
-the tensors' device) or torch's default one; its bits cannot equal
-``jax.random``'s.
+the tensors' device) or the global generator of that device; its bits
+cannot equal ``jax.random``'s. ``scaled_dot_product_attention`` goes
+through the op dispatcher as a neutral op, as in the JAX package: under
+AMP it runs in the dtype its q/k/v arrive in (the white projections make
+them bf16 or fp16), which the kernels take.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from __future__ import annotations
 import torch
 
 from ... import flags
+from ...core.op_registry import apply_fn
 from ...ops import flash_attention as _flash
 from ...ops import flash_attention_rowmask
-from .common import dropout as _dropout
+from .common import dropout_train_kernel
 
 _MASKED = -1e9  # the dense path's mask value (the JAX module's)
 
@@ -50,7 +54,8 @@ def _xla_attention(q, k, v, bias=None, causal=False, scale=None,
                           device=q.device).tril(kl - ql)
         logits = torch.where(mask, logits, _MASKED)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    probs = _dropout(probs, dropout, generator=generator)
+    if dropout > 0.0:
+        probs = dropout_train_kernel(probs, dropout, generator=generator)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vh)
     return out.transpose(1, 2)
 
@@ -73,11 +78,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     is an additive bias, broadcast against [b, heads, s_q, s_kv]. Dropout
     applies only when ``training``."""
     drop = dropout_p if training else 0.0
-    bias = attn_mask
-    if bias is not None and bias.dtype == torch.bool:
-        bias = torch.where(bias, 0.0, _MASKED)
-    return _attention_impl(query, key, value, bias, is_causal, None, drop,
-                           generator)
+
+    def fn(q, k, v, *mask):
+        bias = mask[0] if mask else None
+        if bias is not None and bias.dtype == torch.bool:
+            bias = torch.where(bias, 0.0, _MASKED)
+        return _attention_impl(q, k, v, bias, is_causal, None, drop,
+                               generator)
+
+    args = [query, key, value] + ([attn_mask] if attn_mask is not None
+                                  else [])
+    return apply_fn("scaled_dot_product_attention", fn, *args)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

@@ -1,11 +1,16 @@
 """Cross entropy — port of ``cross_entropy`` (``paddle_tpu/nn/functional/
-loss.py:22``) for hard labels over the last axis."""
+loss.py:22``) for hard labels over the last axis, through the op
+dispatcher under the JAX package's black ``OpDef("cross_entropy")``
+(bf16/fp16 logits run in fp32 under AMP)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..._later import later_slice
+from ...core.op_registry import AMP_BLACK, OpDef, apply_fn
+
+_XENT = OpDef("cross_entropy", None, amp=AMP_BLACK)
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -24,6 +29,16 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                           "last", "Paddle API surface", "8")
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"unknown reduction {reduction!r}")
+    if weight is None:
+        return apply_fn("cross_entropy", lambda a, b: _xent(
+            a, b, None, ignore_index, reduction), input, label,
+            _opdef=_XENT)
+    return apply_fn("cross_entropy", lambda a, b, w: _xent(
+        a, b, w, ignore_index, reduction), input, label, weight,
+        _opdef=_XENT)
+
+
+def _xent(input, label, weight, ignore_index, reduction):
     logp = torch.log_softmax(input.float(), dim=-1)
     lbl = label.long()
     if lbl.dim() == logp.dim():

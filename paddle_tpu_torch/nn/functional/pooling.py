@@ -1,6 +1,6 @@
 """2-D pooling — port of ``max_pool2d``, ``avg_pool2d`` and
 ``adaptive_avg_pool2d`` (``paddle_tpu/nn/functional/pooling.py`` :17-129),
-NCHW.
+NCHW, neutral ops of the dispatcher.
 
 The JAX package pools with ``lax.reduce_window`` (an XLA op, no Pallas
 kernel); the port calls torch's pooling. Max pooling pads with -inf;
@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..._later import later_slice
+from ...core.op_registry import apply_fn
 
 
 def _pair(v):
@@ -41,8 +42,9 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
         raise later_slice("max_pool2d(return_mask=True)",
                           "Paddle API surface", "8")
     kernel = _pair(kernel_size)
-    return F.max_pool2d(x, kernel, _pair(stride or kernel), _pair(padding),
-                        ceil_mode=ceil_mode)
+    return apply_fn("max_pool2d", lambda a: F.max_pool2d(
+        a, kernel, _pair(stride or kernel), _pair(padding),
+        ceil_mode=ceil_mode), x)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -53,10 +55,12 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
         raise later_slice("avg_pool2d(divisor_override=...)",
                           "Paddle API surface", "8")
     kernel = _pair(kernel_size)
-    return F.avg_pool2d(x, kernel, _pair(stride or kernel), _pair(padding),
-                        ceil_mode=ceil_mode, count_include_pad=not exclusive)
+    return apply_fn("avg_pool2d", lambda a: F.avg_pool2d(
+        a, kernel, _pair(stride or kernel), _pair(padding),
+        ceil_mode=ceil_mode, count_include_pad=not exclusive), x)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     _check(data_format, "adaptive_avg_pool2d")
-    return F.adaptive_avg_pool2d(x, _pair(output_size))
+    return apply_fn("adaptive_avg_pool2d", lambda a: F.adaptive_avg_pool2d(
+        a, _pair(output_size)), x)

@@ -3,12 +3,11 @@ activation.py``."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class ReLU(nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -16,7 +15,7 @@ class ReLU(nn.Module):
         return F.relu(x)
 
 
-class ReLU6(nn.Module):
+class ReLU6(Layer):
     def __init__(self, name=None):
         super().__init__()
 

@@ -1,49 +1,72 @@
-"""``Linear`` and ``Dropout`` — port of ``paddle_tpu/nn/layer/common.py``
-(:19-68)."""
+"""``Linear``, ``Embedding`` and ``Dropout`` — port of ``paddle_tpu/nn/
+layer/common.py`` (:19-68), on :class:`Layer`."""
 
 from __future__ import annotations
 
-from torch import nn
-
-from ..._later import later_slice
 from ...device import resolve_device
 from .. import functional as F
 from .. import initializer as I
+from .layers import Layer, check_attr
 
 
-def _no_attr(weight_attr, bias_attr, what):
-    """``ParamAttr`` objects (initializers, per-parameter learning rates,
-    regularizers) are not ported; ``bias_attr=False`` (no bias) is."""
-    if weight_attr is not None or bias_attr not in (None, False):
-        raise later_slice(f"{what} with a ParamAttr", "Paddle API surface",
-                          "8")
-
-
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ weight + bias`` with ``weight`` ``[in, out]`` (Paddle's
-    layout, unlike ``torch.nn.Linear``): weight Xavier-normal, bias zero,
-    drawn from ``generator`` on ``device`` (default: the CUDA device;
-    raises without one unless ``device="cpu"``)."""
+    layout, unlike ``torch.nn.Linear``): weight Xavier-normal, bias zero
+    (``bias_attr=False``: none), drawn from ``generator`` (default: the
+    device's global generator) on ``device`` (default: the current place;
+    the CUDA device raises without a card)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, generator=None):
         super().__init__()
-        _no_attr(weight_attr, bias_attr, "Linear")
+        check_attr(weight_attr, "Linear")
+        check_attr(bias_attr, "Linear")
         dev = resolve_device(device)
         self.in_features, self.out_features = in_features, out_features
-        self.weight = I.create_parameter([in_features, out_features],
-                                         I.XavierNormal(), dev, generator)
-        self.bias = (None if bias_attr is False else I.create_parameter(
-            [out_features], I.Constant(0.0), dev))
+        self.weight = self.create_parameter(
+            [in_features, out_features], default_initializer=I.XavierNormal(),
+            device=dev, generator=generator)
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [out_features], is_bias=True, device=dev))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
+    def extra_repr(self):
+        return f"in_features={self.in_features}, out_features={self.out_features}"
 
-class Dropout(nn.Module):
-    """Inverted dropout in training mode, the identity in eval mode; the
-    keep masks come from ``generator`` (the owning model's) or torch's
-    default generator."""
+
+class Embedding(Layer):
+    """A ``[num_embeddings, embedding_dim]`` table, Xavier-normal, with row
+    ``padding_idx`` (if given) zeroed; ids at a non-negative ``padding_idx``
+    look up zeros (:func:`..functional.embedding`)."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 generator=None):
+        super().__init__()
+        check_attr(weight_attr, "Embedding")
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim],
+            default_initializer=I.XavierNormal(), device=device,
+            generator=generator)
+        if padding_idx is not None:
+            self.weight.detach()[padding_idx] = 0.0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    """Dropout in training mode, the identity (or the downscale) in eval
+    mode; the keep masks come from ``generator`` (the owning model's) or
+    the device's global generator."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
                  *, generator=None):

@@ -2,12 +2,11 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):

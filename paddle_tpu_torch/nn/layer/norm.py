@@ -1,17 +1,45 @@
-"""``BatchNorm2D`` — port of ``paddle_tpu/nn/layer/norm.py`` (:50-93)."""
+"""``LayerNorm`` and ``BatchNorm2D`` — port of ``paddle_tpu/nn/layer/
+norm.py`` (:13-93), on :class:`Layer`."""
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...device import resolve_device
 from .. import functional as F
 from .. import initializer as I
-from .common import _no_attr
+from .layers import Layer, check_attr
 
 
-class BatchNorm2D(nn.Module):
+class LayerNorm(Layer):
+    """Normalises over the trailing ``normalized_shape`` dims (statistics in
+    fp32, :func:`..functional.layer_norm`): ``weight`` ones, ``bias`` zeros
+    (``weight_attr`` / ``bias_attr`` False: none)."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        dev = resolve_device(device)
+        self.weight = None if weight_attr is False else self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0), device=dev)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True, device=dev)
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                            self._epsilon)
+
+    def extra_repr(self):
+        return (f"normalized_shape={self._normalized_shape}, "
+                f"epsilon={self._epsilon}")
+
+
+class BatchNorm2D(Layer):
     """Batch norm over axis 1: ``weight`` one, ``bias`` zero, and the
     running statistics as persistent fp32 buffers under the JAX package's
     names, ``_mean`` (zeros) and ``_variance`` (ones), so a JAX
@@ -22,15 +50,16 @@ class BatchNorm2D(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=None):
         super().__init__()
-        _no_attr(weight_attr, bias_attr, "BatchNorm2D")
+        check_attr(weight_attr, "BatchNorm2D")
+        check_attr(bias_attr, "BatchNorm2D")
         dev = resolve_device(device)
         self._num_features, self._momentum = num_features, momentum
         self._epsilon, self._data_format = epsilon, data_format
         self._use_global_stats = use_global_stats
-        self.weight = I.create_parameter([num_features], I.Constant(1.0),
-                                         dev)
-        self.bias = (None if bias_attr is False else I.create_parameter(
-            [num_features], I.Constant(0.0), dev))
+        self.weight = self.create_parameter(
+            [num_features], default_initializer=I.Constant(1.0), device=dev)
+        self.bias = (None if bias_attr is False else self.create_parameter(
+            [num_features], is_bias=True, device=dev))
         self.register_buffer("_mean", torch.zeros(num_features,
                                                   device=dev))
         self.register_buffer("_variance", torch.ones(num_features,

@@ -3,12 +3,11 @@ of ``paddle_tpu/nn/layer/pooling.py``."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
@@ -24,7 +23,7 @@ class MaxPool2D(nn.Module):
                             self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, divisor_override=None, data_format="NCHW",
                  name=None):
@@ -41,7 +40,7 @@ class AvgPool2D(nn.Module):
                             self.divisor_override, self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format

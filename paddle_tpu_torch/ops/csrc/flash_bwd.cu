@@ -20,9 +20,21 @@
 // operations per visible (q, k) pair and head (three and four products)
 // over a few MB of inputs, so at the training shape ([2, 4096, 16 q / 4 kv
 // heads, 128], causal) both are bounded by the bf16 tensor cores, far above
-// the line where HBM would limit them.
+// the line where HBM would limit them. At BERT fine-tuning's [32, 128,
+// 12 / 12, 64], non-causal, both are bounded by HBM (0.0114 ms each). fp16
+// has bf16's size and tensor-core rate: the same bounds.
 //
-// What the bf16 design does about it (TMA + wgmma; helpers in hopper.cuh):
+// fp16 (AMP's `auto_cast(dtype="float16")`; the TPU kernels compute in
+// whatever float dtype they are given): the bf16 kernels instantiated on
+// __half (element type T of the tensor maps, the .f16 wgmma forms, the P
+// and dS packing, the dO . O prologue and the stores). dS is rounded to T
+// before dQ = dS K and dK = dS^T Q. Under a loss scale (GradScaler's 2^15)
+// a dS past 65504 rounds to inf in fp16 where bf16 would hold it: dQ and
+// dK then carry inf (or NaN, inf times a zero), never a finite wrong
+// value, and the scaler's finiteness check sees it and skips the step.
+//
+// What the bf16 (and fp16) design does about it (TMA + wgmma; helpers in
+// hopper.cuh):
 //  - 384 threads a block: a producer warpgroup and two consumer warpgroups
 //    of 64 rows each. One producer thread loads the block's resident tiles
 //    once and streams the other operands' 64-row tiles through a ring of
@@ -399,9 +411,8 @@ dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: TMA + wgmma ------------------------------------------------------
+// ---- bf16 and fp16: TMA + wgmma ---------------------------------------------
 using namespace hopper;
-using bf16 = __nv_bfloat16;
 
 constexpr int RB = 128;      // rows a block owns: q rows (K2), k rows (K3)
 constexpr int SB = 64;       // rows a streamed tile: kv rows (K2), q rows (K3)
@@ -447,8 +458,8 @@ __device__ __forceinline__ int kv_tiles(int q_last, int s_kv, int offset,
 
 // d (+)= A B over the head_dim D for a 64 x 64 tile: A = 64 rows of a
 // resident operand (warpgroup cw's rows), B = a streamed SB-row tile, both
-// K-major.
-template <int D>
+// K-major, elements T.
+template <typename T, int D>
 __device__ __forceinline__ void product_res_tile(float (&d)[32],
                                                  const unsigned char* res,
                                                  const unsigned char* tile,
@@ -456,21 +467,23 @@ __device__ __forceinline__ void product_res_tile(float (&d)[32],
   using L = TcLayout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(
+    wgmma_ss_n64<T>(
         d, kmajor_desc(res + (kk / 4) * L::RES_PANEL + cw * 64 * 128, kk % 4),
         kmajor_desc(tile + (kk / 4) * L::TILE_PANEL, kk % 4), 1);
 }
 
-// The bf16 register A operand of a 64 x SB accumulator, by 16-deep step.
+// The register A operand (elements T) of a 64 x SB accumulator, by 16-deep
+// step.
+template <typename T>
 __device__ __forceinline__ void pack_tile(const float (&x)[32],
                                           uint32_t (&a)[SB / 16][4]) {
 #pragma unroll
-  for (int j = 0; j < SB / 16; ++j) pack_a(x, j, a[j]);
+  for (int j = 0; j < SB / 16; ++j) pack_a<T>(x, j, a[j]);
 }
 
 // d += A B over SB rows: A from registers (pack_tile), B = a streamed
 // SB x D tile read MN-major.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void product_reg_tile(float (&d)[D / 2],
                                                  const uint32_t (&a)[SB / 16][4],
                                                  const unsigned char* tile) {
@@ -478,9 +491,9 @@ __device__ __forceinline__ void product_reg_tile(float (&d)[D / 2],
   for (int j = 0; j < SB / 16; ++j) {
     const uint64_t db = mnmajor_desc(tile, j, TcLayout<D>::TILE_PANEL);
     if constexpr (D == 64)
-      wgmma_rs_n64(d, a[j], db);
+      wgmma_rs_n64<T>(d, a[j], db);
     else
-      wgmma_rs_n128(d, a[j], db);
+      wgmma_rs_n128<T>(d, a[j], db);
   }
 }
 
@@ -488,15 +501,15 @@ __device__ __forceinline__ void product_reg_tile(float (&d)[D / 2],
 // last q tiles first. Tensor maps: mq, mdo box {64, 1, RB, 1}; mk, mv box
 // {64, 1, SB, 1}. MODE: the mask beyond the causal one (flash_mask.cuh; a
 // masked mode masks every tile); GLSE: subtract the lse cotangent glse
-// [b, hq, s_q] from delta.
-template <int D, int MODE, bool GLSE>
+// [b, hq, s_q] from delta. T: the element type (bf16 or fp16).
+template <typename T, int D, int MODE, bool GLSE>
 __global__ void __launch_bounds__(NTC, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
              const __grid_constant__ CUtensorMap mk,
              const __grid_constant__ CUtensorMap mv,
              const __grid_constant__ CUtensorMap mdo,
-             const bf16* __restrict__ o, const bf16* __restrict__ dout,
-             const float* __restrict__ lse, bf16* __restrict__ dq,
+             const T* __restrict__ o, const T* __restrict__ dout,
+             const float* __restrict__ lse, T* __restrict__ dq,
              float* __restrict__ delta, int batch, int s_q, int s_kv, int hq,
              int group, Strides so, Strides sd, float scale, int causal,
              fmask::Args ma, const float* __restrict__ glse) {
@@ -560,18 +573,18 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
     const int rr = t >> 1, row = r0 + rr, c0 = (t & 1) * (D / 2);
     float acc = 0.f;
     if (row < s_q) {
-      const bf16* orow = o + b * so.b + h * so.h + row * so.s + c0;
-      const bf16* drow = dout + b * sd.b + h * sd.h + row * sd.s + c0;
+      const T* orow = o + b * so.b + h * so.h + row * so.s + c0;
+      const T* drow = dout + b * sd.b + h * sd.h + row * sd.s + c0;
 #pragma unroll
       for (int c = 0; c < D / 2; c += 8) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
         const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+        const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+        const uint32_t* d2 = reinterpret_cast<const uint32_t*>(&dv);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float2 of = __bfloat1622float2(o2[e]);
-          const float2 df = __bfloat1622float2(d2[e]);
+          const float2 of = Elem<T>::unpack(o2[e]);
+          const float2 df = Elem<T>::unpack(d2[e]);
           acc = fmaf(df.x, of.x, acc);
           acc = fmaf(df.y, of.y, acc);
         }
@@ -619,8 +632,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
       fence_regs(sv);
       fence_regs(dp);
       wgmma_fence();
-      product_res_tile<D>(sv, qs, ks, cw);   // S  = Q K^T
-      product_res_tile<D>(dp, dos, vs, cw);  // dP = dO V^T
+      product_res_tile<T, D>(sv, qs, ks, cw);   // S  = Q K^T
+      product_res_tile<T, D>(dp, dos, vs, cw);  // dP = dO V^T
       wgmma_commit();
       fmask::KvCols<MODE> cols;  // the tile's ids, read while S, dP run
       cols.load(mview, k0, s_kv, l);
@@ -653,32 +666,33 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap mq,
         }
       }
       uint32_t a[SB / 16][4];
-      pack_tile(sv, a);
+      pack_tile<T>(sv, a);
       fence_regs(acc);
       wgmma_fence();
-      product_reg_tile<D>(acc, a, ks);  // dQ += dS K
+      product_reg_tile<T, D>(acc, a, ks);  // dQ += dS K
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
     }
     if (t == 0) bar_arrive(&empty[s]);  // this stage may be refilled
   }
-  store_rows<D>(acc, dq + (static_cast<long long>(b) * s_q * hq + h) * D,
-                rows, s_q, static_cast<long long>(hq) * D, l);
+  store_rows<D, T>(acc, dq + (static_cast<long long>(b) * s_q * hq + h) * D,
+                   rows, s_q, static_cast<long long>(hq) * D, l);
 }
 
 // K3. Grid: one block per (RB-row k tile, kv head, batch), flattened with
 // the first k tiles first. Tensor maps: mk, mv box {64, 1, RB, 1}; mq, mdo
 // box {64, 1, SB, 1}. MODE as K2's: the block's kv ids or row bounds stay
-// in registers; a streamed q tile's ids are read while its S^T runs.
-template <int D, int MODE>
+// in registers; a streamed q tile's ids are read while its S^T runs. T as
+// K2's.
+template <typename T, int D, int MODE>
 __global__ void __launch_bounds__(NTC, 1)
 dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
               const __grid_constant__ CUtensorMap mk,
               const __grid_constant__ CUtensorMap mv,
               const __grid_constant__ CUtensorMap mdo,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dk, bf16* __restrict__ dv, int batch,
+              T* __restrict__ dk, T* __restrict__ dv, int batch,
               int s_q, int s_kv, int hq, int hkv, int group, float scale,
               int causal, fmask::Args ma) {
   using L = TcLayout<D>;
@@ -783,7 +797,7 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
       for (int i = 0; i < 32; ++i) sv[i] = 0.f;
       fence_regs(sv);
       wgmma_fence();
-      product_res_tile<D>(sv, ks, qs, cw);  // S^T = K Q^T
+      product_res_tile<T, D>(sv, ks, qs, cw);  // S^T = K Q^T
       wgmma_commit();
       int qid[16];  // kSeg: the q tile's ids, read while S^T runs
       if constexpr (MODE == fmask::kSeg)
@@ -809,15 +823,15 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
         sv[i] = p;  // P^T
       }
       uint32_t a[SB / 16][4];
-      pack_tile(sv, a);
+      pack_tile<T>(sv, a);
       float dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = 0.f;
       fence_regs(av);
       fence_regs(dp);
       wgmma_fence();
-      product_reg_tile<D>(av, a, dos);       // dV += P^T dO
-      product_res_tile<D>(dp, vs, dos, cw);  // dP^T = V dO^T
+      product_reg_tile<T, D>(av, a, dos);       // dV += P^T dO
+      product_res_tile<T, D>(dp, vs, dos, cw);  // dP^T = V dO^T
       wgmma_commit();
       wgmma_wait0();
       fence_regs(av);
@@ -827,10 +841,10 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
         const int col = 8 * (i >> 2) + 2 * (l % 4) + (i & 1);
         sv[i] = sv[i] * (dp[i] - dz[col]) * scale;  // dS^T
       }
-      pack_tile(sv, a);
+      pack_tile<T>(sv, a);
       fence_regs(ak);
       wgmma_fence();
-      product_reg_tile<D>(ak, a, qs);  // dK += dS^T Q
+      product_reg_tile<T, D>(ak, a, qs);  // dK += dS^T Q
       wgmma_commit();
       wgmma_wait0();
       fence_regs(ak);
@@ -839,8 +853,8 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap mq,
   }
   const long long base = static_cast<long long>(b) * s_kv * hkv + hk;
   const long long rs = static_cast<long long>(hkv) * D;
-  store_rows<D>(ak, dk + base * D, krow, s_kv, rs, l);
-  store_rows<D>(av, dv + base * D, krow, s_kv, rs, l);
+  store_rows<D, T>(ak, dk + base * D, krow, s_kv, rs, l);
+  store_rows<D, T>(av, dv + base * D, krow, s_kv, rs, l);
 }
 
 template <typename K>
@@ -848,6 +862,33 @@ int set_smem(K kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));
+}
+
+// K2 on the tensor cores, elements T.
+template <typename T, int D, int MODE, bool GLSE>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, void* dq, float* delta,
+                 int b, int s_q, int s_kv, int hq, int hkv, const Strides* st,
+                 float scale, int causal, const fmask::Args& ma,
+                 const float* glse, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = map_bshd<T>(&mq, q, b, s_q, hq, D, st[0].b, st[0].s, st[0].h,
+                         RB))) return err;
+  if ((err = map_bshd<T>(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s, st[1].h,
+                         SB))) return err;
+  if ((err = map_bshd<T>(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s, st[2].h,
+                         SB))) return err;
+  if ((err = map_bshd<T>(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
+                         st[4].h, RB))) return err;
+  const size_t smem = TcLayout<D>::kBytes;
+  if ((err = set_smem(dq_tc_kernel<T, D, MODE, GLSE>, smem))) return err;
+  const int blocks = (s_q + RB - 1) / RB * hq * b;
+  dq_tc_kernel<T, D, MODE, GLSE><<<blocks, NTC, smem, s>>>(
+      mq, mk, mv, mdo, static_cast<const T*>(o), static_cast<const T*>(dout),
+      lse, static_cast<T*>(dq), delta, b, s_q, s_kv, hq, hq / hkv, st[3],
+      st[4], scale, causal, ma, glse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int MODE, bool GLSE>
@@ -868,25 +909,39 @@ int launch_dq(int dtype, const void* q, const void* k, const void* v,
         static_cast<const float*>(dout), lse, static_cast<float*>(dq), delta,
         s_q, s_kv, hq, group, st[0], st[1], st[2], st[3], st[4], scale,
         causal, ma, glse);
+  } else if (dtype == 1) {
+    return launch_dq_tc<__nv_bfloat16, D, MODE, GLSE>(q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
+  } else if (dtype == 2) {
+    return launch_dq_tc<__half, D, MODE, GLSE>(q, k, v, o, dout, lse, dq, delta, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, glse, s);
   } else {
-    CUtensorMap mq, mk, mv, mdo;
-    int err;
-    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0].b, st[0].s,
-                        st[0].h, RB))) return err;
-    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s,
-                        st[1].h, SB))) return err;
-    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s,
-                        st[2].h, SB))) return err;
-    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
-                        st[4].h, RB))) return err;
-    const size_t smem = TcLayout<D>::kBytes;
-    if ((err = set_smem(dq_tc_kernel<D, MODE, GLSE>, smem))) return err;
-    const int blocks = (s_q + RB - 1) / RB * hq * b;
-    dq_tc_kernel<D, MODE, GLSE><<<blocks, NTC, smem, s>>>(
-        mq, mk, mv, mdo, static_cast<const bf16*>(o),
-        static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq), delta, b,
-        s_q, s_kv, hq, group, st[3], st[4], scale, causal, ma, glse);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 on the tensor cores, elements T.
+template <typename T, int D, int MODE>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int b, int s_q, int s_kv, int hq,
+                  int hkv, const Strides* st, float scale, int causal,
+                  const fmask::Args& ma, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  int err;
+  if ((err = map_bshd<T>(&mq, q, b, s_q, hq, D, st[0].b, st[0].s, st[0].h,
+                         SB))) return err;
+  if ((err = map_bshd<T>(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s, st[1].h,
+                         RB))) return err;
+  if ((err = map_bshd<T>(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s, st[2].h,
+                         RB))) return err;
+  if ((err = map_bshd<T>(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
+                         st[4].h, SB))) return err;
+  const size_t smem = TcLayout<D>::kBytes;
+  if ((err = set_smem(dkv_tc_kernel<T, D, MODE>, smem))) return err;
+  const int blocks = (s_kv + RB - 1) / RB * hkv * b;
+  dkv_tc_kernel<T, D, MODE><<<blocks, NTC, smem, s>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      b, s_q, s_kv, hq, hkv, hq / hkv, scale, causal, ma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -907,24 +962,12 @@ int launch_dkv(int dtype, const void* q, const void* k, const void* v,
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, static_cast<float*>(dk), static_cast<float*>(dv), s_q, s_kv,
         hq, hkv, group, st[0], st[1], st[2], st[4], scale, causal, ma);
+  } else if (dtype == 1) {
+    return launch_dkv_tc<__nv_bfloat16, D, MODE>(q, k, v, dout, lse, delta, dk, dv, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  } else if (dtype == 2) {
+    return launch_dkv_tc<__half, D, MODE>(q, k, v, dout, lse, delta, dk, dv, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
   } else {
-    CUtensorMap mq, mk, mv, mdo;
-    int err;
-    if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0].b, st[0].s,
-                        st[0].h, SB))) return err;
-    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[1].b, st[1].s,
-                        st[1].h, RB))) return err;
-    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[2].b, st[2].s,
-                        st[2].h, RB))) return err;
-    if ((err = map_bshd(&mdo, dout, b, s_q, hq, D, st[4].b, st[4].s,
-                        st[4].h, SB))) return err;
-    const size_t smem = TcLayout<D>::kBytes;
-    if ((err = set_smem(dkv_tc_kernel<D, MODE>, smem))) return err;
-    const int blocks = (s_kv + RB - 1) / RB * hkv * b;
-    dkv_tc_kernel<D, MODE><<<blocks, NTC, smem, s>>>(
-        mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), b, s_q, s_kv, hq, hkv, group, scale, causal,
-        ma);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -981,10 +1024,11 @@ int dkv_mode(int mode, int dtype, const void* q, const void* k,
 // K3). g_lse [b, hq, s_q] fp32, the cotangent of the forward's lse output,
 // or null: delta = rowsum(dout o) - g_lse. Masks as paddle_flash_fwd's
 // (flash_mask.cuh): q_seg/kv_seg, or start/end with hm, or all null; g_lse
-// only without a mask. dtype: 0 = float32, 1 = bfloat16 (16-byte aligned
-// pointers, strides multiples of 8). Returns the launch's cudaError_t
-// (bf16: cudaErrorNotSupported without the driver's tensor-map encoder,
-// cudaErrorInvalidValue if it refuses an operand's strides).
+// only without a mask. dtype: 0 = float32, 1 = bfloat16, 2 = float16 (1
+// and 2: 16-byte aligned pointers, strides multiples of 8). Returns the
+// launch's cudaError_t (bf16, fp16: cudaErrorNotSupported without the
+// driver's tensor-map encoder, cudaErrorInvalidValue if it refuses an
+// operand's strides).
 extern "C" int paddle_flash_bwd_dq(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,

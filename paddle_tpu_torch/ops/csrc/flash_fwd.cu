@@ -23,9 +23,21 @@
 //   dense training  [2, 4096, 16 q / 4 kv, 128]     0.1390 ms (operations)
 //   MoE training    [8, 2048, 16 q / 4 kv, 64]      0.0695 ms (operations)
 //   GQA prefill     [2, 1024, 16 q / 4 kv, 128]     0.0087 ms (operations)
+//   BERT fine-tune  [32, 128, 12 / 12, 64] non-causal 0.0076 ms (bytes)
 // so training is bounded by the tensor cores and short prefills by HBM.
+// fp16 has bf16's element size and tensor-core rate (989 TFLOP/s), so the
+// same bounds hold for it.
 //
-// What the bf16 design does about it (TMA + wgmma; helpers in hopper.cuh):
+// fp16 (the TPU kernel computes in whatever float dtype it is given; AMP's
+// `auto_cast(dtype="float16")` hands fp16 q/k/v to it): the bf16 design
+// below instantiated on __half, element type T of the tensor maps, of the
+// .f16 wgmma forms and of the P packing and the output stores. The softmax
+// stays fp32; P in [0, 1] rounds to fp16 with 11 significant bits, finer
+// than bf16's 8; an output past 65504 would store inf (softmax-weighted
+// means of v stay within v's range, so only an inf in v gives one).
+//
+// What the bf16 (and fp16) design does about it (TMA + wgmma; helpers in
+// hopper.cuh):
 //  - One block per (64 NCW q rows, q head, batch) over a flattened grid
 //    that launches the heaviest causal tiles (the last q rows) first:
 //    128 (NCW + 1) threads, a producer warpgroup, one thread of which
@@ -245,9 +257,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: TMA + wgmma ------------------------------------------------------
+// ---- bf16 and fp16: TMA + wgmma ---------------------------------------------
 using namespace hopper;
-using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -309,20 +320,21 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // S = Q K^T for a warpgroup's 64 q rows against a BN-row K tile, issued
 // (not waited for): Q rows of warpgroup cw of a block of RB, both operands
-// K-major.
-template <int D, int RB>
+// K-major, elements T.
+template <typename T, int D, int RB>
 __device__ __forceinline__ void issue_qk(float (&s)[BN / 2],
                                          const unsigned char* qs,
                                          const unsigned char* ks, int cw) {
   constexpr int QP = RB * 128, KP = BN * 128;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(s, kmajor_desc(qs + (kk / 4) * QP + cw * 64 * 128, kk % 4),
-                 kmajor_desc(ks + (kk / 4) * KP, kk % 4), kk > 0);
+    wgmma_ss_n64<T>(s,
+                    kmajor_desc(qs + (kk / 4) * QP + cw * 64 * 128, kk % 4),
+                    kmajor_desc(ks + (kk / 4) * KP, kk % 4), kk > 0);
 }
 
 // O += P V over a BN-row V tile read MN-major, P the register A operand.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[BN / 16][4],
                                          const unsigned char* vs) {
@@ -330,9 +342,9 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
   for (int j = 0; j < BN / 16; ++j) {
     const uint64_t db = mnmajor_desc(vs, j, BN * 128);
     if constexpr (D == 64)
-      wgmma_rs_n64(o, a[j], db);
+      wgmma_rs_n64<T>(o, a[j], db);
     else
-      wgmma_rs_n128(o, a[j], db);
+      wgmma_rs_n128<T>(o, a[j], db);
   }
 }
 
@@ -397,12 +409,14 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BN / 2], float (&m)[2],
 // last q tiles first. Tensor maps: mq box {64, 1, RB, 1}; mk, mv box
 // {64, 1, BN, 1}. lse may be null (the primal path). MODE: the mask
 // beyond the causal one (flash_mask.cuh); a masked mode masks every tile.
-template <int D, int NST, int NCW, int MODE>
+// T: the element type of q, k, v and out (bf16 or fp16); P is rounded to
+// it before P V.
+template <typename T, int D, int NST, int NCW, int MODE>
 __global__ void __launch_bounds__(128 * (NCW + 1), 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mk,
                     const __grid_constant__ CUtensorMap mv,
-                    bf16* __restrict__ out, float* __restrict__ lse,
+                    T* __restrict__ out, float* __restrict__ lse,
                     int batch, int s_q, int s_kv, int hq, int group,
                     float scale, int causal, fmask::Args ma) {
   using L = TcLayout<D, NST, NCW>;
@@ -472,7 +486,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {pt::kNegInf, pt::kNegInf}, lsum[2] = {0.f, 0.f};
-  uint32_t a[BN / 16][4];  // P of the previous tile, bf16
+  uint32_t a[BN / 16][4];  // P of the previous tile, in T
 
   // does kv tile `it` cross this warpgroup's diagonal or the sequence
   // end? (every tile, in a masked mode)
@@ -498,7 +512,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
       float sv[BN / 2];
       fence_regs(sv);
       wgmma_fence();
-      issue_qk<D, RB>(sv, qs, ring, cw);
+      issue_qk<T, D, RB>(sv, qs, ring, cw);
       wgmma_commit();
       fmask::KvCols<MODE> cols;  // the tile's ids, read while S runs
       cols.load(mview, 0, s_kv, l);
@@ -507,7 +521,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
       float alpha[2];
       softmax(sv, 0, alpha, cols);
 #pragma unroll
-      for (int j = 0; j < BN / 16; ++j) pack_a(sv, j, a[j]);
+      for (int j = 0; j < BN / 16; ++j) pack_a<T>(sv, j, a[j]);
     }
     for (int it = 1; it < nkw; ++it) {
       // S of tile it runs beside O += P V of tile it - 1
@@ -517,9 +531,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
       fence_regs(sv);
       fence_regs(o);
       wgmma_fence();
-      issue_qk<D, RB>(sv, qs, ring + s * L::STAGE, cw);
+      issue_qk<T, D, RB>(sv, qs, ring + s * L::STAGE, cw);
       wgmma_commit();
-      issue_pv<D>(o, a, ring + sp * L::STAGE + L::TILE);
+      issue_pv<T, D>(o, a, ring + sp * L::STAGE + L::TILE);
       wgmma_commit();
       fmask::KvCols<MODE> cols;
       cols.load(mview, it * BN, s_kv, l);
@@ -533,13 +547,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int j = 0; j < BN / 16; ++j) pack_a(sv, j, a[j]);
+      for (int j = 0; j < BN / 16; ++j) pack_a<T>(sv, j, a[j]);
     }
     {  // the last tile's P V
       const int sp = (nkw - 1) % NST;
       fence_regs(o);
       wgmma_fence();
-      issue_pv<D>(o, a, ring + sp * L::STAGE + L::TILE);
+      issue_pv<T, D>(o, a, ring + sp * L::STAGE + L::TILE);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(o);
@@ -561,8 +575,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
                         1.f / (lsum[1] > 0.f ? lsum[1] : 1.f)};
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] *= inv[(i >> 1) & 1];
-  store_rows<D>(o, out + (static_cast<long long>(b) * s_q * hq + h) * D, rows,
-                s_q, static_cast<long long>(hq) * D, l);
+  store_rows<D, T>(o, out + (static_cast<long long>(b) * s_q * hq + h) * D,
+                   rows, s_q, static_cast<long long>(hq) * D, l);
   if (lse != nullptr && l % 4 == 0) {
     const long long bh = static_cast<long long>(b) * hq + h;
 #pragma unroll
@@ -574,8 +588,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int D, int MODE>
-int launch_bf16(const void* q, const void* k, const void* v, void* out,
+template <typename T, int D, int MODE>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int s_q, int s_kv, int hq, int hkv,
                 const long long* st, float scale, int causal,
                 const fmask::Args& ma, cudaStream_t stream) {
@@ -584,28 +598,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   constexpr int RB = L::RB;
   CUtensorMap mq, mk, mv;
   int err;
-  if ((err = map_bshd(&mq, q, b, s_q, hq, D, st[0], st[1], st[2], RB)))
+  if ((err = map_bshd<T>(&mq, q, b, s_q, hq, D, st[0], st[1], st[2], RB)))
     return err;
   if (s_kv == 0) {
     // no key: no tile is loaded, but a map needs extents > 0; map q's
     // memory, which is never read through these maps
-    if ((err = map_bshd(&mk, q, b, s_q, hq, D, st[0], st[1], st[2], BN)))
+    if ((err = map_bshd<T>(&mk, q, b, s_q, hq, D, st[0], st[1], st[2], BN)))
       return err;
     mv = mk;
   } else {
-    if ((err = map_bshd(&mk, k, b, s_kv, hkv, D, st[3], st[4], st[5], BN)))
+    if ((err = map_bshd<T>(&mk, k, b, s_kv, hkv, D, st[3], st[4], st[5], BN)))
       return err;
-    if ((err = map_bshd(&mv, v, b, s_kv, hkv, D, st[6], st[7], st[8], BN)))
+    if ((err = map_bshd<T>(&mv, v, b, s_kv, hkv, D, st[6], st[7], st[8], BN)))
       return err;
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<D, NST, NCW, MODE>,
+      flash_fwd_tc_kernel<T, D, NST, NCW, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (s_q + RB - 1) / RB * hq * b;
-  flash_fwd_tc_kernel<D, NST, NCW, MODE>
+  flash_fwd_tc_kernel<T, D, NST, NCW, MODE>
       <<<blocks, L::THREADS, L::kBytes, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), lse, b, s_q, s_kv, hq, hq / hkv,
+      mq, mk, mv, static_cast<T*>(out), lse, b, s_q, s_kv, hq, hq / hkv,
       scale, causal, ma);
   return static_cast<int>(cudaGetLastError());
 }
@@ -640,9 +654,13 @@ int launch_mode(const void* q, const void* k, const void* v, void* out,
   if (dtype == 0 && d == 128)
     return launch<float, 128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
   if (dtype == 1 && d == 64)
-    return launch_bf16<64, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+    return launch_tc<__nv_bfloat16, 64, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
   if (dtype == 1 && d == 128)
-    return launch_bf16<128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+    return launch_tc<__nv_bfloat16, 128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (dtype == 2 && d == 64)
+    return launch_tc<__half, 64, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
+  if (dtype == 2 && d == 128)
+    return launch_tc<__half, 128, MODE>(q, k, v, out, lse, b, s_q, s_kv, hq, hkv, st, scale, causal, ma, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -651,13 +669,14 @@ int launch_mode(const void* q, const void* k, const void* v, void* out,
 // q [b, s_q, hq, d], k/v [b, s_kv, hkv, d] with the given element strides
 // (batch, seq, head; head_dim contiguous); out [b, s_q, hq, d] contiguous;
 // lse [b, hq, s_q] fp32 contiguous, or null to skip it (the primal path).
-// dtype: 0 = float32, 1 = bfloat16 (then the pointers are 16-byte aligned
-// and the strides multiples of 8). Masks (flash_mask.cuh), int32
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (for 1 and 2 the pointers
+// are 16-byte aligned and the strides multiples of 8). Masks (flash_mask.cuh), int32
 // contiguous: segment ids q_seg [b, s_q] and kv_seg [b, s_kv], or row
 // bounds start/end [b, hm, s_kv] (q head h reads bounds row (h / group) %
 // hm); all null for none, and not both kinds. Returns the launch's
-// cudaError_t (bf16: cudaErrorNotSupported without the driver's tensor-map
-// encoder, cudaErrorInvalidValue if it refuses an operand's strides).
+// cudaError_t (bf16 and fp16: cudaErrorNotSupported without the driver's
+// tensor-map encoder, cudaErrorInvalidValue if it refuses an operand's
+// strides).
 extern "C" int paddle_flash_fwd(const void* q, const void* k, const void* v,
                                 void* out, void* lse_ptr, const void* q_seg,
                                 const void* kv_seg, const void* start,

@@ -54,7 +54,7 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNEL_HEAD_DIMS = (64, 128)
 
 
@@ -234,15 +234,16 @@ def _check(q, k, v):
 
 
 def _check_kernel(q, *others):
-    """What the CUDA kernels take: one bf16/fp32 dtype, head_dim 64 or 128,
-    a contiguous head_dim, 16-byte rows for bf16, the grid limits and the
-    current device. Raises otherwise."""
+    """What the CUDA kernels take: one bf16/fp16/fp32 dtype, head_dim 64 or
+    128, a contiguous head_dim, 16-byte rows for bf16 and fp16, the grid
+    limits and the current device. Raises otherwise."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, "
                          f"not {q.device}")
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype
                                             for t in others):
-        raise TypeError(f"flash kernels take bf16 or fp32 (one dtype), got "
+        raise TypeError(f"flash kernels take bf16, fp16 or fp32 (one dtype), "
+                        f"got "
                         f"{[str(t.dtype) for t in (q, *others)]}")
     d = q.shape[3]
     if d not in _KERNEL_HEAD_DIMS:
@@ -250,10 +251,11 @@ def _check_kernel(q, *others):
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
     if any(t.stride(3) != 1 for t in (q, *others)):
         raise ValueError("flash kernels need a contiguous head_dim")
-    if q.dtype == torch.bfloat16 and any(
+    if q.dtype != torch.float32 and any(
             t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
             for t in (q, *others)):
-        raise ValueError("bf16 flash kernels read rows as 16-byte vectors: "
+        raise ValueError("bf16/fp16 flash kernels read rows as 16-byte "
+                         "vectors: "
                          "operands need 16-byte aligned storage and batch/"
                          "seq/head strides that are multiples of 8")
     if q.shape[0] > 65535 or q.shape[2] > 65535:
@@ -366,8 +368,9 @@ def _default_scale(q, scale):
 def flash_attention(q, k, v, causal: bool = False, scale=None):
     """Attention over ``[batch, seq, heads, head_dim]`` tensors (GQA when k/v
     have fewer heads; end-aligned causal mask when ``causal``). Returns q's
-    shape and dtype. CUDA tensors run the kernels (bf16 on the tensor cores
-    or fp32 on FMAs, head_dim 64 or 128, any sequence lengths); CPU tensors
+    shape and dtype. CUDA tensors run the kernels (bf16 and fp16 on the
+    tensor cores or fp32 on FMAs, head_dim 64 or 128, any sequence lengths;
+    another dtype raises); CPU tensors
     run the plain versions. Differentiable: with grad enabled and an input
     that requires grad, the forward keeps its lse and the backward runs
     :func:`flash_attention_backward`."""

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._later import later_slice
+from ..core.tensor import unwrap
 from ..framework.promotion import scale
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
@@ -190,18 +191,22 @@ class Optimizer:
         params = self._parameter_list
         if params is None:
             raise ValueError("optimizer created without parameters")
-        pg = [(p, p.grad) for p in params]
-        if self._grad_clip is not None:
-            pg = self._grad_clip(pg)
-        self._step_count += 1
-        for p, g in pg:
-            if g is None or not p.requires_grad:
-                continue
-            g = g.float()
-            d = self._decay_term(p, g.dtype, p)
-            if d is not None:
-                g = g + d
-            p.copy_(self._update(g, p.detach(), p, self.get_lr()))
+        # plain torch ops on Paddle Parameters: no Python dispatch, and no
+        # Paddle operator (the dispatcher) on their detached values
+        with torch._C.DisableTorchFunctionSubclass():
+            pg = [(p, p.grad) for p in params]
+            if self._grad_clip is not None:
+                pg = self._grad_clip(pg)
+            self._step_count += 1
+            for p, g in pg:
+                if g is None or not p.requires_grad:
+                    continue
+                g = unwrap(g).float()
+                val = p.detach()
+                d = self._decay_term(val, g.dtype, p)
+                if d is not None:
+                    g = g + d
+                p.copy_(self._update(g, val, p, self.get_lr()))
 
     @torch.no_grad()
     def _functional_update(self, grads, values, params, acc_state, lr,
@@ -214,14 +219,16 @@ class Optimizer:
         self._step_count = step
         try:
             new_vals = []
-            for g, v, p in zip(grads, values, params):
-                if g is None:
-                    new_vals.append(v)
-                    continue
-                d = self._decay_term(v, g.dtype, p)
-                if d is not None:
-                    g = g + d
-                new_vals.append(self._update(g, v, p, lr).to(v.dtype))
+            with torch._C.DisableTorchFunctionSubclass():
+                for g, v, p in zip(grads, values, params):
+                    if g is None:
+                        new_vals.append(v)
+                        continue
+                    g, v = unwrap(g), unwrap(v)
+                    d = self._decay_term(v, g.dtype, p)
+                    if d is not None:
+                        g = g + d
+                    new_vals.append(self._update(g, v, p, lr).to(v.dtype))
         finally:
             new_acc = self._accumulators
             self._accumulators = saved_acc

@@ -8,7 +8,10 @@ a JAX state dict loads as it is: no renames, no transposes. A JAX
 ``Layer.state_dict()`` also holds the persistent buffers (BatchNorm's
 ``_mean`` and ``_variance``), which the port registers under the same
 names. A tied embedding (GPT's ``gpt.wte``, BERT's MLM head) is one
-parameter in both. The JAX training engine keys its AdamW moments (and a
+parameter in both. The Paddle layers (``nn.Layer``: ``MultiHeadAttention``,
+the Transformer encoder and decoder stacks, ``Embedding``, ``LayerNorm``
+...) carry their ``named_parameters()`` names and ``[in, out]`` layouts
+too, and parameters that ``amp.decorate`` cast to bf16 cross in bf16. The JAX training engine keys its AdamW moments (and a
 pluggable optimizer's accumulators) by the same names, so its optimizer
 state crosses over by name too (:func:`engine_state_from_jax`); an
 optimizer's own ``state_dict`` keys them by position in both packages

@@ -2099,3 +2099,124 @@ def test_vision_sgd_step_on_card_matches_cpu(cuda, name):
                                      card.parameters(), gc, gg):
         assert (b - a).abs().max() <= 1e-4 * max(1.0, a.abs().max()), pname
         assert (pg.detach().cpu() - pc.detach()).abs().max() <= 1e-6, pname
+
+
+# ---- fp16 flash kernels and dygraph AMP (the eager Paddle API slice) ----
+# fp16 tolerance: 5e-3 max abs on O(1) outputs (fp16's rounding of the
+# output, P rounded to fp16 before P V; measured 1e-3 to 2e-3 on the
+# H100), gradients 5e-3 x max(1, max |plain|).
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal", [
+    (32, 128, 12, 12, 64, False),       # BERT-base fine-tuning
+    (2, 4096, 16, 4, 128, True)])       # the training shape
+def test_fp16_flash_kernels_match_plain(cuda, b, s, hq, hkv, d, causal):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(b, s, h, d, device=cuda, generator=g).half()
+                   for h in (hq, hkv, hkv, hq))
+    n0 = (flash_attention.launches, flash_attention_forward.launches,
+          flash_attention_backward.launches_dq,
+          flash_attention_backward.launches_dkv)
+    out = flash_attention(q, k, v, causal=causal)
+    o, lse = flash_attention_forward(q, k, v, causal=causal)
+    grads = flash_attention_backward(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_forward.launches,
+            flash_attention_backward.launches_dq,
+            flash_attention_backward.launches_dkv) == tuple(
+                x + 1 for x in n0)
+    assert out.dtype == o.dtype == torch.float16 and lse.dtype == torch.float32
+    ref = flash_attention_reference(q, k, v, causal)
+    ref_o, ref_lse = flash_attention_reference_lse(q, k, v, causal)
+    assert (out.float() - ref.float()).abs().max().item() <= 5e-3
+    assert (o.float() - ref_o.float()).abs().max().item() <= 5e-3
+    assert (lse - ref_lse).abs().max().item() <= 5e-3
+    refs = flash_attention_backward_reference(q, k, v, o, lse, do, causal)
+    for a, r in zip(grads, refs):
+        assert a.dtype == torch.float16
+        assert (a.float() - r.float()).abs().max().item() <= \
+            5e-3 * max(1.0, r.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_fp16_flash_refuses_mixed_dtypes(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda).half()
+    with pytest.raises(TypeError, match="fp16"):
+        flash_attention(q, q.bfloat16(), q)
+
+
+@pytest.mark.cuda
+def test_fp16_backward_overflow_is_non_finite_and_the_scaler_skips(cuda):
+    """Under a large loss scale dS overflows fp16 before the dK / dQ
+    products: the kernels give inf or NaN (never a finite wrong value), and
+    GradScaler sees it and skips the step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.framework import numeric_guard
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = (torch.randn(4, 128, 4, 64, device=cuda, generator=g) * 4).half()
+    k, v = (torch.randn(4, 128, 4, 64, device=cuda, generator=g).half()
+            for _ in range(2))
+    o, lse = flash_attention_forward(q, k, v)
+    do = (torch.randn(4, 128, 4, 64, device=cuda, generator=g)
+          .clamp(-1, 1) * 60000).half()
+    assert bool(torch.isfinite(do).all())
+    dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do)
+    assert not bool(torch.isfinite(dq).all())
+    assert not bool(torch.isfinite(dk).all())
+    # the same through the Paddle API: the scaler must skip the step
+    pt.seed(6)
+    mha = pnn.MultiHeadAttention(256, 4, device=cuda)
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=mha.parameters())
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 40)
+    before = [p.detach().clone() for p in mha.parameters()]
+    x = pt.to_tensor(np.random.default_rng(6).standard_normal(
+        (4, 128, 256)).astype(np.float32), place=cuda)
+    numeric_guard.consume_health()
+    n0 = flash_attention_backward.launches_dq
+    with pt.amp.auto_cast(dtype="float16"):
+        loss = mha(x).astype("float32").mean()
+    scaler.minimize(opt, scaler.scale(loss))
+    assert flash_attention_backward.launches_dq == n0 + 1
+    assert scaler._found_inf and scaler.get_init_loss_scaling() == 2.0 ** 39
+    assert numeric_guard.consume_health() & numeric_guard.OVERFLOW
+    for a, p in zip(before, mha.parameters()):
+        assert torch.equal(a, p.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_dygraph_amp_encoder_runs_the_flash_kernels(cuda, dtype):
+    """A Paddle-layer encoder step under auto_cast on the card: the white
+    projections hand low-precision q/k/v to the kernels (K1-lse forward,
+    K2 and K3 backward, once a layer), no dense attention, finite loss."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import op_registry
+
+    pt.seed(7)
+    model = chip_smoke.dygraph_encoder(pt, dict(
+        vocab=64, hidden=128, heads=2, ffn=256, layers=2, max_pos=64,
+        labels=2), cuda)
+    opt = pt.optimizer.AdamW(1e-4, parameters=model.parameters())
+    scaler = pt.amp.GradScaler()
+    rng = np.random.default_rng(7)
+    ids = pt.to_tensor(rng.integers(0, 64, (4, 32)), place=cuda)
+    labels = pt.to_tensor(rng.integers(0, 2, (4,)), place=cuda)
+    n0 = (flash_attention_forward.launches,
+          flash_attention_backward.launches_dq,
+          flash_attention_backward.launches_dkv)
+    prev = pt.device._PLACE
+    pt.set_device(cuda)
+    try:
+        loss = chip_smoke.dygraph_step(pt, model, opt, scaler, ids, labels,
+                                       "O1", dtype)
+    finally:
+        pt.device._PLACE = prev
+    assert op_registry.amp_state is None
+    assert (flash_attention_forward.launches,
+            flash_attention_backward.launches_dq,
+            flash_attention_backward.launches_dkv) == tuple(
+                x + 2 for x in n0)
+    assert bool(torch.isfinite(loss))

@@ -130,7 +130,7 @@ def test_flag_off_routes_every_call_to_the_dense_path(spy, flag_off):
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=ATOL)
     assert spy == {"flash": 0, "rowmask": 0, "dense": 1}
     with pytest.raises(KeyError, match="unknown flag"):
-        flags.get_flag("check_nan_inf")
+        flags.get_flag("eager_delete_tensor_gb")
 
 
 def _indices(kind, hm, seed):

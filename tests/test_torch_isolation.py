@@ -162,7 +162,8 @@ def test_vision_and_diffusion_entry_points_raise_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build(None)
     for i in (0, 1, 2, 3, 4, 5, 10, 15):   # the cheap ones, one a family
-        assert next(builds[i]("cpu").parameters()).device.type == "cpu"
+        assert next(iter(builds[i]("cpu").parameters())).device.type \
+            == "cpu"
     for cls in (V.ResNet, V.MobileNetV1, V.MobileNetV2, V.AlexNet,
                 V.SqueezeNet):
         args = (V.resnet.BasicBlock, 18) if cls is V.ResNet else ()

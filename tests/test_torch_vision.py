@@ -248,7 +248,8 @@ def test_optimizer_step_and_refusals():
                lambda: m.flops([1, 2]),
                lambda: optimizer.SGD(parameters=[w]).minimize(object()),
                lambda: paddle_tpu_torch.vision.transforms.ColorJitter,
-               lambda: paddle_tpu_torch.amp, lambda: paddle_tpu_torch.flops,
+               lambda: paddle_tpu_torch.amp.debugging,
+               lambda: paddle_tpu_torch.flops,
                lambda: paddle_tpu_torch.ParamAttr)
     for call in refused:
         with pytest.raises(NotImplementedError, match="item 8"):

@@ -213,8 +213,11 @@ def test_dropout_keep_rate_and_scale():
     assert torch.equal(layer(x), y)
     layer.eval()
     assert layer(x) is x
-    with pytest.raises(NotImplementedError, match="item 8"):
-        F.dropout(x, 0.25, axis=0)
+    # axis= (ported with the Paddle API slice): one keep draw per row
+    rows = F.dropout(torch.ones(256, 8), 0.25, axis=0,
+                     generator=torch.Generator().manual_seed(3))
+    assert torch.equal(rows.min(1).values, rows.max(1).values)
+    assert set(rows[:, 0].tolist()) == {0.0, torch.tensor(1 / 0.75).item()}
 
 
 @pytest.mark.parametrize("label_shape", ["n", "n1"])
