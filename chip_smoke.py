@@ -488,6 +488,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      must skip it (parameters unchanged bitwise, OVERFLOW in the health
      word, scale halved). Phase 32's Engine BERT step is printed beside
      them as a reading of another code path.
+ 42. the nn surface sweep (nn_sweep_cases): every activation, loss,
+     norm, pool, conv, resize and common functional and layer of the nn
+     slice and the recurrent layers, forward and backward, fp32 and bf16,
+     at NN_ACT / NN_LOGITS / NN_MAP / NN_MAP1 / NN_MAP3 / NN_SEQ sizes,
+     each against the same call on the CPU on the same values (fp32 for
+     the heavy bf16 cases): every output and gradient (inputs and layer
+     parameters) within NN_SWEEP_TOL of max(1, max |cpu|) and on the card;
+     then dropout2d/3d, alpha_dropout, rrelu and gumbel_softmax in training
+     on the card held to their rates. K1-K6 at 0 launches.
+ 43. the "large" PTB LSTM language model (LSTM_LM: Zaremba et al.,
+     arXiv:1409.2329 section 4.1; Embedding, Dropout, two one-layer LSTMs,
+     Linear, ParamAttr(Uniform(-0.04, 0.04)), SGD lr 1 with
+     ClipGradByGlobalNorm(10) through hapi.Model.train_batch, tokens from
+     seed 0): first at hidden 64 with dropout off, the first step's loss
+     and gradients card vs CPU (LSTM_LM_PARITY); then at full width 3
+     warm-up and 20 timed steps on one fixed batch: ms a step, tokens/s,
+     the phase's own peak memory (over what earlier phases hold), kernels
+     a step (torch.profiler, printed only), finite
+     losses and the eval loss on that batch falling. K1-K6 at 0 launches.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -980,6 +999,41 @@ OVERFLOW_SCALE = 2.0 ** 40
 READINGS = {}   # phase 32's Engine BERT step, read by phase 41
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
+# The nn surface (phases 42-43). The sweep's shapes: activations and
+# elementwise losses at [4, 512, 1024], class losses over [2048, 1024]
+# logits, norms, pools, resizes and 2-D convs at a ResNet stage's map (a
+# batch of 16 x [256, 28, 28]), 1-D ops at [16, 256, 784], 3-D ops at [2,
+# 64, 16, 28, 28], the recurrent layers at batch 16 x 64 steps x 512
+# features (hidden 512). The CPU references take most of the phase's time,
+# so the batches are half of a training batch's.
+# Each case's reference is the same call on the CPU on the same values:
+# in the case's dtype, except the "heavy" bf16 cases (convolutions, the
+# resize matmuls, bilinear, the recurrent layers) and the ops without a
+# CPU bf16 kernel, whose CPU reference runs in fp32 on the same
+# bf16-rounded values and parameters (CPU bf16 kernels there are slow or
+# absent; the card accumulates them in fp32). Error: max |card - cpu| over
+# max(1, max |cpu|), every output and every gradient (inputs and layer
+# parameters) of sum(out * cotangent); bf16's 3e-2 is about 8 bf16 ulps.
+NN_ACT = (4, 512, 1024)
+NN_LOGITS = (2048, 1024)
+NN_MAP = (16, 256, 28, 28)
+NN_MAP1 = (16, 256, 784)
+NN_MAP3 = (2, 64, 16, 28, 28)
+NN_SEQ = (16, 64, 512)
+NN_SWEEP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# Zaremba, Sutskever & Vinyals, "Recurrent Neural Network Regularization"
+# (arXiv:1409.2329), section 4.1, the "large" Penn Treebank LSTM: vocab
+# 10000, 2 layers of 1500 units, 35 steps unrolled, batch 20, dropout 0.65
+# on the non-recurrent connections, Uniform(-0.04, 0.04) init, SGD at lr 1
+# with the global gradient norm clipped at 10, the loss summed over the
+# steps and averaged over the batch. Tokens from seed 0 (PTB itself is not
+# on the machine). LSTM_LM_PARITY: the same model at hidden 64, dropout
+# off, card vs CPU on the first step's loss (relative) and gradients (max
+# abs error over each parameter's largest CPU gradient).
+LSTM_LM = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
+               dropout=0.65, init=0.04, lr=1.0, clip=10.0)
+LSTM_LM_TIMED = dict(warmup=3, steps=20)
+LSTM_LM_PARITY = dict(hidden=64, dropout=0.0, tol=1e-4)
 
 
 def card_line():
@@ -6730,6 +6784,610 @@ def phase_dygraph_bert(torch, np, ops, card):
     return tuple(bf16_counts), fp16_counts
 
 
+def nn_sweep_cases(torch):
+    """Phase 42's cases: (name, build, inputs, grad, heavy). ``build()``
+    returns the callable (a functional's closure or a layer built on the
+    CPU, which the sweep copies to the card); ``inputs`` are (kind, shape)
+    specs ("f" normal, "p" in (0.05, 0.95), "s" +-1, ("i", hi) integers);
+    ``grad`` lists the inputs differentiated; ``heavy`` cases take an fp32
+    CPU reference in bf16 (see NN_SWEEP_TOL)."""
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch import nn
+
+    A, L, M, M1, M3 = NN_ACT, NN_LOGITS, NN_MAP, NN_MAP1, NN_MAP3
+    b, t, h = NN_SEQ
+    cases = []
+
+    def add(name, build, inputs, grad=(0,), heavy=False):
+        cases.append((name, build, inputs, grad, heavy))
+
+    def fn(f):
+        return lambda: f
+
+    for name, kw in (
+            ("relu", {}), ("relu6", {}), ("leaky_relu", {}), ("elu", {}),
+            ("selu", {}), ("celu", {}), ("gelu", {}),
+            ("gelu", dict(approximate=True)), ("silu", {}), ("mish", {}),
+            ("hardswish", {}), ("hardsigmoid", {}), ("hardtanh", {}),
+            ("hardshrink", {}), ("softshrink", {}), ("tanhshrink", {}),
+            ("thresholded_relu", {}), ("softplus", {}), ("softsign", {}),
+            ("sigmoid", {}), ("logsigmoid", {}), ("tanh", {}),
+            ("softmax", {}), ("log_softmax", {}), ("rrelu", {}),
+            ("glu", {}), ("maxout", dict(groups=2, axis=-1))):
+        f = getattr(PF, name)
+        add(f"F.{name}{'_tanh' if kw.get('approximate') else ''}",
+            fn(lambda x, f=f, kw=kw: f(x, **kw)), [("f", A)])
+    add("F.prelu", fn(PF.prelu), [("f", M), ("p", (M[1],))], (0, 1))
+    # in place, into a copy (the inputs are shared with the reference)
+    add("F.relu_", fn(lambda x: PF.relu_(x.clone())), [("f", A)])
+    add("F.softmax_", fn(lambda x: PF.softmax_(x.clone())), [("f", A)])
+    for cls in ("ReLU", "ReLU6", "LeakyReLU", "ELU", "CELU", "SELU", "GELU",
+                "Silu", "Swish", "Mish", "Hardswish", "Hardsigmoid",
+                "Hardtanh", "Hardshrink", "Softshrink", "Tanhshrink",
+                "ThresholdedReLU", "Softplus", "Softsign", "Sigmoid",
+                "LogSigmoid", "Tanh", "Softmax", "LogSoftmax", "GLU",
+                "RReLU"):
+        add(f"nn.{cls}", lambda c=cls: getattr(nn, c)().eval(),
+            [("f", A)])
+    add("nn.Maxout", lambda: nn.Maxout(4), [("f", M)])
+    add("nn.PReLU", lambda: nn.PReLU(M[1], device="cpu"), [("f", M)])
+
+    logits, labels = ("f", L), (("i", L[1]), (L[0],))
+    add("F.cross_entropy", fn(lambda x, y: PF.cross_entropy(
+        x, y, ignore_index=3)), [logits, labels])
+    add("F.cross_entropy_weight_smooth", fn(lambda x, y, w: PF.cross_entropy(
+        x, y, w, label_smoothing=0.1)), [logits, labels, ("p", (L[1],))],
+        (0, 2))
+    add("F.cross_entropy_soft", fn(lambda x, y: PF.cross_entropy(
+        x, y, soft_label=True)), [logits, ("p", L)], (0, 1))
+    add("F.softmax_with_cross_entropy", fn(
+        lambda x, y: PF.softmax_with_cross_entropy(
+            x, y.unsqueeze(-1), return_softmax=True)), [logits, labels])
+    add("F.nll_loss", fn(lambda x, y: PF.nll_loss(
+        torch.log_softmax(x.float(), -1).to(x.dtype), y)), [logits, labels])
+    for name in ("mse_loss", "l1_loss", "smooth_l1_loss", "huber_loss",
+                 "square_error_cost"):
+        add(f"F.{name}", fn(getattr(PF, name)), [("f", A), ("f", A)], (0, 1))
+    add("F.binary_cross_entropy", fn(PF.binary_cross_entropy),
+        [("p", A), ("p", A)], (0, 1))
+    add("F.bce_with_logits", fn(lambda z, y, w:
+                                PF.binary_cross_entropy_with_logits(
+                                    z, y, pos_weight=w)),
+        [("f", A), ("p", A), ("p", (A[-1],))], (0, 2))
+    add("F.kl_div", fn(lambda x, y: PF.kl_div(x, y, "batchmean")),
+        [("f", A), ("p", A)], (0, 1))
+    add("F.margin_ranking_loss", fn(PF.margin_ranking_loss),
+        [("f", (1 << 20,)), ("f", (1 << 20,)), ("s", (1 << 20,))], (0, 1))
+    add("F.hinge_embedding_loss", fn(PF.hinge_embedding_loss),
+        [("f", A), ("s", A)])
+    add("F.cosine_embedding_loss", fn(PF.cosine_embedding_loss),
+        [("f", L), ("f", L), ("s", (L[0],))], (0, 1))
+    add("F.triplet_margin_loss", fn(PF.triplet_margin_loss),
+        [("f", L), ("f", L), ("f", L)], (0, 1, 2))
+    add("F.sigmoid_focal_loss", fn(PF.sigmoid_focal_loss),
+        [("f", A), ("p", A)])
+    add("F.log_loss", fn(PF.log_loss), [("p", (L[0], 1)), ("p", (L[0], 1))])
+    add("F.dice_loss", fn(PF.dice_loss), [("p", (64, 512, 32)),
+                                          (("i", 32), (64, 512, 1))])
+    for cls, ins, grad in (
+            ("CrossEntropyLoss", [logits, labels], (0,)),
+            ("NLLLoss", [logits, labels], (0,)),
+            ("MSELoss", [("f", A), ("f", A)], (0, 1)),
+            ("L1Loss", [("f", A), ("f", A)], (0, 1)),
+            ("SmoothL1Loss", [("f", A), ("f", A)], (0, 1)),
+            ("HuberLoss", [("f", A), ("f", A)], (0, 1)),
+            ("BCELoss", [("p", A), ("p", A)], (0, 1)),
+            ("BCEWithLogitsLoss", [("f", A), ("p", A)], (0, 1)),
+            ("KLDivLoss", [("f", A), ("p", A)], (0, 1)),
+            ("MarginRankingLoss", [("f", (1 << 20,)), ("f", (1 << 20,)),
+                                   ("s", (1 << 20,))], (0, 1)),
+            ("HingeEmbeddingLoss", [("f", A), ("s", A)], (0,)),
+            ("CosineEmbeddingLoss", [("f", L), ("f", L), ("s", (L[0],))],
+             (0, 1)),
+            ("TripletMarginLoss", [("f", L), ("f", L), ("f", L)], (0, 1, 2))):
+        add(f"nn.{cls}", lambda c=cls: getattr(nn, c)(), ins, grad)
+
+    c = M[1]
+    add("F.batch_norm_train", fn(lambda x: PF.batch_norm(
+        x, x.new_zeros(c, dtype=torch.float32),
+        x.new_ones(c, dtype=torch.float32), training=True)), [("f", M)])
+    add("F.instance_norm", fn(lambda x, w, bb: PF.instance_norm(
+        x, weight=w, bias=bb)), [("f", M), ("p", (c,)), ("f", (c,))],
+        (0, 1, 2))
+    add("F.group_norm", fn(lambda x, w, bb: PF.group_norm(x, 32, 1e-5, w,
+                                                           bb)),
+        [("f", M), ("p", (c,)), ("f", (c,))], (0, 1, 2))
+    add("F.group_norm_nhwc", fn(lambda x: PF.group_norm(
+        x, 32, data_format="NHWC")), [("f", (M[0], M[2], M[3], c))])
+    add("F.local_response_norm", fn(lambda x: PF.local_response_norm(x, 5)),
+        [("f", M)])
+    add("F.rms_norm", fn(PF.rms_norm), [("f", A), ("p", (A[-1],))], (0, 1))
+    add("F.layer_norm", fn(lambda x, w, bb: PF.layer_norm(x, A[-1], w, bb)),
+        [("f", A), ("p", (A[-1],)), ("f", (A[-1],))], (0, 1, 2))
+    add("F.spectral_norm", fn(lambda w, u, v: PF.spectral_norm(
+        w, u, v, power_iters=2)), [("f", (c, c * 9)), ("f", (c,)),
+                                   ("f", (c * 9,))], (0,), True)
+    for cls, shape in (("BatchNorm", M), ("BatchNorm1D", M1),
+                       ("BatchNorm2D", M), ("BatchNorm3D", M3),
+                       ("SyncBatchNorm", M), ("InstanceNorm1D", M1),
+                       ("InstanceNorm2D", M), ("InstanceNorm3D", M3)):
+        add(f"nn.{cls}", lambda k=cls, n=shape[1]: getattr(nn, k)(
+            n, device="cpu"), [("f", shape)])
+    add("nn.GroupNorm", lambda: nn.GroupNorm(32, c, device="cpu"),
+        [("f", M)])
+    add("nn.LocalResponseNorm", lambda: nn.LocalResponseNorm(5), [("f", M)])
+    add("nn.RMSNorm", lambda: nn.RMSNorm(A[-1], device="cpu"), [("f", A)])
+    add("nn.LayerNorm", lambda: nn.LayerNorm(A[-1], device="cpu"),
+        [("f", A)])
+
+    for n, shape in ((1, M1), (2, M), (3, M3)):
+        add(f"F.max_pool{n}d", fn(lambda x, n=n: getattr(
+            PF, f"max_pool{n}d")(x, 3, 2, 1)), [("f", shape)])
+        add(f"F.avg_pool{n}d", fn(lambda x, n=n: getattr(
+            PF, f"avg_pool{n}d")(x, 3, 2, 1, exclusive=False)),
+            [("f", shape)])
+        add(f"F.adaptive_avg_pool{n}d", fn(lambda x, n=n: getattr(
+            PF, f"adaptive_avg_pool{n}d")(x, 5)), [("f", shape)])
+        add(f"F.adaptive_max_pool{n}d_mask", fn(lambda x, n=n: getattr(
+            PF, f"adaptive_max_pool{n}d")(x, 5, return_mask=True)),
+            [("f", shape)])
+        for cls, args in (("MaxPool", (2,)), ("AvgPool", (2,)),
+                          ("AdaptiveAvgPool", (7,)),
+                          ("AdaptiveMaxPool", (7,))):
+            add(f"nn.{cls}{n}D", lambda k=f"{cls}{n}D", a=args: getattr(
+                nn, k)(*a), [("f", shape)])
+    add("F.max_pool2d_mask_ceil", fn(lambda x: PF.max_pool2d(
+        x, 3, 2, 0, return_mask=True, ceil_mode=True)), [("f", M)])
+    add("F.avg_pool2d_divisor", fn(lambda x: PF.avg_pool2d(
+        x, 3, 2, 1, divisor_override=4)), [("f", M)])
+    add("F.max_pool2d_nhwc", fn(lambda x: PF.max_pool2d(
+        x, 3, 2, 1, data_format="NHWC")), [("f", (M[0], M[2], M[3], c))])
+    add("F.lp_pool1d", fn(lambda x: PF.lp_pool1d(x, 2, 3, 2)),
+        [("f", M1)])
+    add("F.lp_pool2d", fn(lambda x: PF.lp_pool2d(x, 3, 3, 2)), [("f", M)])
+
+    for n, shape, co in ((1, M1, 64), (2, M, 64), (3, M3, 32)):
+        ci = shape[1]
+        k = (3,) * n
+        add(f"F.conv{n}d", fn(lambda x, w, bb, n=n: getattr(
+            PF, f"conv{n}d")(x, w, bb, padding=1)),
+            [("f", shape), ("f", (co, ci) + k), ("f", (co,))], (0, 1, 2),
+            True)
+        add(f"F.conv{n}d_transpose", fn(lambda x, w, bb, n=n: getattr(
+            PF, f"conv{n}d_transpose")(x, w, bb, stride=2, padding=1,
+                                       output_padding=1, groups=2)),
+            [("f", shape), ("f", (ci, co // 2) + k), ("f", (co,))],
+            (0, 1, 2), True)
+        add(f"nn.Conv{n}D", lambda n=n, ci=ci, co=co: getattr(
+            nn, f"Conv{n}D")(ci, co, 3, padding=1, device="cpu"),
+            [("f", shape)], (0,), True)
+        add(f"nn.Conv{n}DTranspose", lambda n=n, ci=ci, co=co: getattr(
+            nn, f"Conv{n}DTranspose")(ci, co, 2, stride=2, device="cpu"),
+            [("f", shape)], (0,), True)
+    add("F.conv2d_nhwc_groups", fn(lambda x, w: PF.conv2d(
+        x, w, padding=1, groups=32, data_format="NHWC")),
+        [("f", (M[0], M[2], M[3], c)), ("f", (c, c // 32, 3, 3))], (0, 1),
+        True)
+    add("nn.Conv2D_reflect", lambda: nn.Conv2D(
+        c, 64, 3, padding=1, padding_mode="reflect", device="cpu"),
+        [("f", M)], (0,), True)
+
+    for name, kw in (("dropout2d", {}), ("dropout3d", {}),
+                     ("alpha_dropout", {})):
+        add(f"F.{name}_eval", fn(lambda x, f=getattr(PF, name):
+                                 f(x, 0.3, training=False)),
+            [("f", M3 if name == "dropout3d" else M)])
+    for cls, shape in (("Dropout2D", M), ("Dropout3D", M3),
+                       ("AlphaDropout", A)):
+        add(f"nn.{cls}_eval", lambda k=cls: getattr(nn, k)(0.3).eval(),
+            [("f", shape)])
+    add("F.one_hot", fn(lambda y: PF.one_hot(y, L[1])), [labels], ())
+    add("F.label_smooth", fn(PF.label_smooth), [("p", L)])
+    add("F.cosine_similarity", fn(PF.cosine_similarity), [("f", L),
+                                                           ("f", L)],
+        (0, 1))
+    add("F.normalize", fn(PF.normalize), [("f", M)])
+    add("F.pad_reflect", fn(lambda x: PF.pad(x, [1, 2, 3, 0],
+                                             mode="reflect")), [("f", M)])
+    for mode, shape, size in (
+            ("nearest", M, (56, 56)), ("nearest", M, (14, 14)),
+            ("bilinear", M, (56, 56)), ("bilinear", M, (14, 14)),
+            ("bicubic", M, (56, 56)), ("bicubic", M, (14, 14)),
+            ("area", M, (14, 14)), ("linear", M1, (1568,)),
+            ("trilinear", M3, (32, 42, 42)), ("nearest", M3, (8, 14, 14))):
+        add(f"F.interpolate_{mode}_{'x'.join(map(str, size))}",
+            fn(lambda x, m=mode, s=size: PF.interpolate(
+                x, size=list(s), mode=m,
+                data_format="NC" + "DHW"[-len(s):])),
+            [("f", shape)], (0,), mode != "nearest")
+    add("F.interpolate_bilinear_align_corners", fn(lambda x: PF.interpolate(
+        x, scale_factor=2, mode="bilinear", align_corners=True)),
+        [("f", M)], (0,), True)
+    add("F.upsample", fn(lambda x: PF.upsample(x, scale_factor=2)),
+        [("f", M)])
+    add("F.unfold", fn(lambda x: PF.unfold(x, 3, paddings=1)),
+        [("f", (M[0], 64, 28, 28))])
+    add("F.fold", fn(lambda x: PF.fold(x, [28, 28], 3, paddings=1)),
+        [("f", (M[0], 64 * 9, 784))])
+    add("F.bilinear", fn(PF.bilinear), [("f", (512, 64)), ("f", (512, 64)),
+                                        ("f", (32, 64, 64)),
+                                        ("f", (1, 32))], (0, 1, 2, 3), True)
+    add("F.pixel_shuffle", fn(lambda x: PF.pixel_shuffle(x, 2)), [("f", M)])
+    add("F.pixel_unshuffle", fn(lambda x: PF.pixel_unshuffle(x, 2)),
+        [("f", M)])
+    add("F.channel_shuffle", fn(lambda x: PF.channel_shuffle(x, 8)),
+        [("f", M)])
+    for cls, args, shape, heavy in (
+            ("Identity", (), M, False), ("Flatten", (), M, False),
+            ("Upsample", (None, 2, "bilinear"), M, True),
+            ("UpsamplingBilinear2D", (None, 2), M, True),
+            ("UpsamplingNearest2D", (None, 2), M, False),
+            ("Pad1D", ([2, 1], "replicate"), M1, False),
+            ("Pad2D", ([1, 1, 2, 0],), M, False),
+            ("Pad3D", ([1, 0, 1, 0, 2, 1], "reflect"), M3, False),
+            ("ZeroPad2D", ([1, 2, 1, 0],), M, False),
+            ("PixelShuffle", (2,), M, False),
+            ("PixelUnshuffle", (2,), M, False),
+            ("ChannelShuffle", (4,), M, False),
+            ("Unfold", (3, 1, 1), (M[0], 64, 28, 28), False),
+            ("Fold", ([28, 28], 3, 1, 1), (M[0], 576, 784), False)):
+        add(f"nn.{cls}", lambda k=cls, a=args: getattr(nn, k)(*a),
+            [("f", shape)], (0,), heavy)
+    add("nn.CosineSimilarity", lambda: nn.CosineSimilarity(axis=-1),
+        [("f", L), ("f", L)], (0, 1))
+    add("nn.Bilinear", lambda: nn.Bilinear(64, 64, 32, device="cpu"),
+        [("f", (512, 64)), ("f", (512, 64))], (0, 1), True)
+
+    for cls, kw in (("SimpleRNN", {}), ("LSTM", {}), ("GRU", {})):
+        add(f"nn.{cls}", lambda k=cls: getattr(nn, k)(
+            h, h, 2, direction="bidirect", device="cpu").eval(),
+            [("f", NN_SEQ)], (0,), True)
+    for cls in ("SimpleRNNCell", "LSTMCell", "GRUCell"):
+        add(f"nn.{cls}", lambda k=cls: getattr(nn, k)(h, h, device="cpu"),
+            [("f", (b, h))], (0,), True)
+    add("nn.RNN(GRUCell)", lambda: nn.RNN(nn.GRUCell(h, h, device="cpu")),
+        [("f", (b, 16, h))], (0,), True)
+    return cases
+
+
+def _nn_inputs(torch, np, specs, seed):
+    """fp32 / int64 CPU tensors of ``specs`` (see nn_sweep_cases)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for kind, shape in specs:
+        if kind == "f":
+            arr = rng.standard_normal(shape, dtype=np.float32)
+        elif kind == "p":
+            arr = rng.uniform(0.05, 0.95, shape).astype(np.float32)
+        elif kind == "s":
+            arr = np.where(rng.standard_normal(shape) >= 0, 1.0,
+                           -1.0).astype(np.float32)
+        else:
+            arr = rng.integers(0, kind[1], shape)
+        out.append(torch.from_numpy(arr))
+    return out
+
+
+def _nn_flat(out):
+    if isinstance(out, (list, tuple)):
+        return [y for o in out for y in _nn_flat(o)]
+    return [out]
+
+
+def _nn_call(torch, np, f, params, ins, grad, dtype, device, seed):
+    """``f`` on ``ins`` cast to ``dtype`` (floats) on ``device``: its
+    outputs and the gradients of sum(out * cotangent) (fp32 cotangents
+    from ``seed``) for the inputs in ``grad`` and the parameters
+    ``params``."""
+    xs = [(x.to(dtype) if x.is_floating_point() else x).to(device)
+          for x in ins]
+    xs = [x.requires_grad_(i in grad) if x.is_floating_point() else x
+          for i, x in enumerate(xs)]
+    outs = _nn_flat(f(*xs))
+    floats = [o for o in outs if o.is_floating_point()]
+    wrt = [xs[i] for i in grad] + list(params)
+    grads = []
+    if wrt and any(o.requires_grad for o in floats):
+        rng = np.random.default_rng(seed)
+        loss = sum((o.float() * torch.from_numpy(rng.standard_normal(
+            tuple(o.shape), dtype=np.float32)).to(device)).sum()
+            for o in floats)
+        grads = list(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                         materialize_grads=True))
+    return outs, grads
+
+
+def _nn_case(torch, np, case, dtype, seed):
+    """One case in one dtype: ((worst error, what), outputs and gradients
+    compared, whether the CPU reference ran in fp32 for want of a CPU bf16
+    kernel)."""
+    import copy
+
+    name, build, specs, grad, heavy = case
+    ins = _nn_inputs(torch, np, specs, seed)
+    ins = [x.to(dtype) if x.is_floating_point() else x for x in ins]
+    f_cpu = build()
+    is_layer = isinstance(f_cpu, torch.nn.Module)
+    f_card = f_cpu
+    if is_layer:
+        f_cpu.to(dtype=dtype)
+        f_card = copy.deepcopy(f_cpu).to(DEVICE)
+    out = _nn_call(torch, np, f_card, list(f_card.parameters())
+                   if is_layer else [], ins, grad, dtype, DEVICE, seed + 1)
+    ref_dtype = torch.float32 if heavy else dtype
+    fallback = False
+    while True:
+        if is_layer:
+            f_cpu.to(dtype=ref_dtype)
+        try:
+            ref = _nn_call(torch, np, f_cpu, list(f_cpu.parameters())
+                           if is_layer else [], ins, grad, ref_dtype, "cpu",
+                           seed + 1)
+            break
+        except (NotImplementedError, RuntimeError) as e:
+            if ref_dtype != torch.bfloat16 or "BFloat16" not in str(e):
+                raise
+            ref_dtype, fallback = torch.float32, True
+    worst = (0.0, "")
+    for what, a, r in ([("out", a, r) for a, r in zip(out[0], ref[0])]
+                       + [("grad", a, r) for a, r in zip(out[1], ref[1])]):
+        if a.device.type != torch.device(DEVICE).type \
+                or tuple(a.shape) != tuple(r.shape):
+            raise AssertionError(f"nn sweep {name} {dtype}: {what} on "
+                                 f"{a.device} shape {tuple(a.shape)} vs "
+                                 f"{tuple(r.shape)}")
+        if not a.is_floating_point():
+            if not torch.equal(a.cpu(), r):
+                raise AssertionError(f"nn sweep {name}: {what} differs")
+            continue
+        worst = max(worst, (_rel_err(a, r), what))
+    return worst, len(out[0]) + len(out[1]), fallback
+
+
+def _nn_random_on_card(torch, card):
+    """The random functionals in training on the card: masks at their
+    rates (6 binomial standard deviations), whole channels for
+    dropout2d/3d, rrelu's slopes in [lower, upper], gumbel_softmax rows
+    distributions."""
+    import paddle_tpu_torch.nn.functional as PF
+
+    gen = torch.Generator(device=DEVICE).manual_seed(42)
+    x = torch.ones(NN_MAP, device=DEVICE)
+    d2 = PF.dropout2d(x, 0.25, generator=gen).flatten(2)
+    kept = (d2[..., 0] != 0).float().mean().item()
+    sd = (0.75 * 0.25 / d2[..., 0].numel()) ** 0.5
+    whole = bool((d2 == d2[..., :1]).all())
+    d3 = PF.dropout3d(torch.ones(NN_MAP3, device=DEVICE), 0.5,
+                      generator=gen).flatten(2)
+    a = PF.alpha_dropout(torch.randn(NN_ACT, device=DEVICE, generator=gen),
+                         0.2, generator=gen)
+    r = PF.rrelu(-torch.ones(NN_ACT, device=DEVICE), 0.1, 0.3,
+                 training=True, generator=gen)
+    g = PF.gumbel_softmax(torch.randn(NN_LOGITS, device=DEVICE,
+                                      generator=gen), generator=gen)
+    ok = (abs(kept - 0.75) < 6 * sd and whole
+          and bool((d3 == d3[..., :1]).all())
+          and abs(a.mean().item()) < 0.01 and abs(a.std().item() - 1) < 0.01
+          and -0.3 <= r.min().item() and r.max().item() <= -0.1
+          and torch.allclose(g.sum(-1), torch.ones(NN_LOGITS[0],
+                                                   device=DEVICE))
+          and all(t.device.type == torch.device(DEVICE).type
+                  for t in (d2, d3, a, r, g)))
+    print(f"nn sweep random [{card}]: dropout2d kept {kept:.5f} (0.75 +- "
+          f"{6 * sd:.5f}, whole channels {whole}), alpha_dropout mean "
+          f"{a.mean().item():.4f} std {a.std().item():.4f}, rrelu slopes "
+          f"[{-r.max().item():.4f}, {-r.min().item():.4f}]", flush=True)
+    if not ok:
+        raise AssertionError("nn sweep: a random functional on the card "
+                             "missed its rate")
+
+
+def phase_nn_sweep(torch, np, ops, card):
+    """Phase 42: every functional and layer of the nn slice, forward and
+    backward, fp32 and bf16, card against CPU (NN_SWEEP_TOL); K1-K6 must
+    not launch."""
+    import paddle_tpu_torch as pt
+
+    pt.set_device(DEVICE)
+    _reset_counts(ops)
+    cases = nn_sweep_cases(torch)
+    for name in NN_SWEEP_TOL:
+        dtype, tol = getattr(torch, name), NN_SWEEP_TOL[name]
+        t0 = time.perf_counter()
+        rows, tensors, fallbacks = [], 0, []
+        for i, case in enumerate(cases):
+            (err, what), n, fallback = _nn_case(torch, np, case, dtype,
+                                                1000 + i)
+            tensors += n
+            rows.append((err, case[0], what))
+            if fallback:
+                fallbacks.append(case[0])
+            if not err <= tol:
+                raise AssertionError(f"nn sweep {case[0]} {dtype}: {what} "
+                                     f"card vs CPU {err} > {tol}")
+        rows.sort(reverse=True)
+        print(f"nn sweep {dtype} [{card}]: {len(cases)} cases, {tensors} "
+              f"outputs and gradients on the card, worst card vs CPU "
+              f"error {rows[0][0]:.3e} ({rows[0][1]} {rows[0][2]}; tol "
+              f"{tol}) in {time.perf_counter() - t0:.1f}s; next: "
+              + ", ".join(f"{n} {w} {e:.2e}" for e, n, w in rows[1:6])
+              + (f"; CPU reference in fp32 (no CPU bf16 kernel): "
+                 f"{', '.join(fallbacks)}" if fallbacks else ""),
+              flush=True)
+        _release(torch)
+    _nn_random_on_card(torch, card)
+    counts = _no_kernel_ran(ops, "nn sweep")
+    print(f"nn sweep: K1-K6 launches {counts}", flush=True)
+    _release(torch)
+
+
+def lstm_lm(pt, cfg, hidden, dropout, device):
+    """Zaremba et al.'s PTB language model (LSTM_LM) of the Paddle layers:
+    Embedding, Dropout, two one-layer LSTMs with Dropout after each, a
+    Linear head; every weight Uniform(-init, init) through ParamAttr. The
+    hidden state starts at zero every batch (the paper carries it from one
+    batch to the next)."""
+    from paddle_tpu_torch import nn
+
+    def attr():
+        return pt.ParamAttr(initializer=nn.initializer.Uniform(
+            -cfg["init"], cfg["init"]))
+
+    def lstm():
+        return nn.LSTM(hidden, hidden, weight_ih_attr=attr(),
+                       weight_hh_attr=attr(), bias_ih_attr=attr(),
+                       bias_hh_attr=attr(), device=device)
+
+    class LSTMLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], hidden,
+                                          weight_attr=attr(), device=device)
+            self.dropout = nn.Dropout(dropout)
+            self.lstm1, self.lstm2 = lstm(), lstm()
+            self.head = nn.Linear(hidden, cfg["vocab"], weight_attr=attr(),
+                                  bias_attr=attr(), device=device)
+
+        def forward(self, ids):
+            x = self.dropout(self.embedding(ids))
+            x = self.dropout(self.lstm1(x)[0])
+            x = self.dropout(self.lstm2(x)[0])
+            return self.head(x)
+
+    return LSTMLM()
+
+
+def lstm_lm_loss():
+    """The paper's loss: cross entropy summed over the unrolled steps,
+    averaged over the batch."""
+    from paddle_tpu_torch import nn
+
+    class SequenceLoss(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ce = nn.CrossEntropyLoss(reduction="sum")
+
+        def forward(self, logits, labels):
+            return self.ce(logits, labels) / logits.shape[0]
+
+    return SequenceLoss()
+
+
+def _lstm_lm_parity(torch, np, pt, ids, labels, card):
+    """LSTM_LM_PARITY: the first step's loss and gradients, card vs CPU
+    from the same weights."""
+    p = LSTM_LM_PARITY
+    pt.seed(0)
+    cpu = lstm_lm(pt, LSTM_LM, p["hidden"], p["dropout"], "cpu")
+    gpu = lstm_lm(pt, LSTM_LM, p["hidden"], p["dropout"], DEVICE)
+    _copy_state(torch, gpu, cpu)
+    loss_fn, runs = lstm_lm_loss(), []
+    for m, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        loss = loss_fn(m(ids.to(dev)), labels.to(dev))
+        runs.append((loss.item(), torch.autograd.grad(
+            loss, list(m.parameters()))))
+    (lc, gc), (lg, gg) = runs
+    loss_rel = abs(lg - lc) / abs(lc)
+    names = [n for n, _ in cpu.named_parameters()]
+    worst = max((((b.cpu() - a).abs().max() / a.abs().max()).item(), n)
+                for n, a, b in zip(names, gc, gg))
+    on_card = all(g.device.type == torch.device(DEVICE).type for g in gg)
+    print(f"lstm lm parity [{card}]: hidden {p['hidden']}, dropout off, "
+          f"first step loss cpu {lc:.6f} card {lg:.6f} (rel {loss_rel:.3e});"
+          f" gradients worst {worst[0]:.3e} of the parameter's largest "
+          f"({worst[1]}, tol {p['tol']})", flush=True)
+    if not (loss_rel <= p["tol"] and worst[0] <= p["tol"] and on_card):
+        raise AssertionError(f"lstm lm card vs CPU: loss {loss_rel}, "
+                             f"gradients {worst}, on card {on_card}")
+
+
+def _kernels_per_step(torch, step):
+    """CUDA kernels torch.profiler records in one ``step()`` (copies and
+    memsets left out), or None when it records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def phase_lstm_lm(torch, np, ops, card):
+    """Phase 43: the large PTB LSTM of LSTM_LM trained through
+    hapi.Model.train_batch with SGD and the global-norm clip; K1-K6 must
+    not launch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import hapi, nn, optimizer
+
+    c, t = LSTM_LM, LSTM_LM_TIMED
+    pt.set_device(DEVICE)
+    _reset_counts(ops)
+    toks = np.random.default_rng(0).integers(0, c["vocab"],
+                                              (c["batch"], c["steps"] + 1))
+    ids = torch.from_numpy(toks[:, :-1])
+    labels = torch.from_numpy(toks[:, 1:])
+    _lstm_lm_parity(torch, np, pt, ids, labels, card)
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # what earlier phases still hold
+    pt.seed(0)
+    net = lstm_lm(pt, c, c["hidden"], c["dropout"], DEVICE)
+    loss_fn = lstm_lm_loss()
+    model = hapi.Model(net)
+    model.prepare(optimizer.SGD(c["lr"], parameters=net.parameters(),
+                                grad_clip=nn.ClipGradByGlobalNorm(c["clip"])),
+                  loss_fn)
+    x, y = ids.to(DEVICE), labels.to(DEVICE)
+
+    def eval_loss():
+        net.eval()
+        with torch.no_grad():
+            out = loss_fn(net(x), y).item()
+        net.train()
+        return out
+
+    def step():
+        return model.train_batch([x], [y])[0][0]
+
+    before = eval_loss()
+    losses = [step() for _ in range(t["warmup"])]
+    sync()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(t["steps"])]
+    sync()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    after = eval_loss()
+    kernels = _kernels_per_step(torch, step)
+    n_params = sum(p.numel() for p in net.parameters())
+    ms = wall / t["steps"] * 1e3
+    tok_s = c["batch"] * c["steps"] * t["steps"] / wall
+    print(f"lstm lm [{card}]: ms_per_step={ms:.2f} tokens_per_s={tok_s:.1f} "
+          f"peak_mem_gb={peak:.3f} (over the {base / 1e9:.3f} GB earlier "
+          f"phases hold) kernels_per_step="
+          f"{kernels if kernels else 'not measured (no device event)'} "
+          f"({n_params / 1e6:.2f}M params, vocab {c['vocab']}, 2 x LSTM "
+          f"{c['hidden']}, batch {c['batch']} x {c['steps']} steps, fp32, "
+          f"dropout {c['dropout']}, SGD lr {c['lr']} clip {c['clip']}, "
+          f"{t['steps']} timed steps after {t['warmup']}); eval loss on "
+          f"the fixed batch {before:.4f} -> {after:.4f} (per token "
+          f"{before / c['steps']:.4f} -> {after / c['steps']:.4f}, ln vocab "
+          f"{math.log(c['vocab']):.4f}); train losses "
+          f"{[round(v, 3) for v in losses]}", flush=True)
+    if not (all(math.isfinite(v) for v in losses + [before, after])
+            and after < before):
+        raise AssertionError(f"lstm lm: losses {losses}, eval {before} -> "
+                             f"{after}")
+    counts = _no_kernel_ran(ops, "lstm lm")
+    print(f"lstm lm: K1-K6 launches {counts}", flush=True)
+    del net, model
+    _release(torch)
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -6856,6 +7514,8 @@ def main():
     _phase("40 dygraph parity", phase_dygraph_parity, torch, np, ops, card)
     dygraph_bf16, dygraph_fp16 = _phase("41 dygraph bert", phase_dygraph_bert,
                                         torch, np, ops, card)
+    _phase("42 nn sweep", phase_nn_sweep, torch, np, ops, card)
+    _phase("43 lstm lm", phase_lstm_lm, torch, np, ops, card)
     for path in (gpt_train, bert, opt_train, dygraph_bf16):
         lse_launches += path[0]
         k2_launches += path[1]

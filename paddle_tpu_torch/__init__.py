@@ -9,8 +9,8 @@ from ``ops/csrc`` at first use). It imports ``torch`` and never ``jax`` or
 The top level is the eager Paddle API, as the JAX package's ``__init__``
 (:11-35) exports it: the dtypes, ``Tensor`` / ``Parameter`` (subclasses of
 ``torch.Tensor``), the ``paddle.*`` tensor functions (``to_tensor``,
-``matmul``, ``reshape`` ...), ``grad`` / ``no_grad``, ``seed`` and the RNG
-state, the flags, ``set_device`` / ``get_device`` and the ``amp``,
+``matmul``, ``reshape`` ...), ``grad`` / ``no_grad``, ``ParamAttr``,
+``seed`` and the RNG state, the flags, ``set_device`` / ``get_device`` and the ``amp``,
 ``autograd``, ``nn`` and ``tensor`` packages.
 
 Entry points (creation functions, layers, model construction,
@@ -36,7 +36,7 @@ from .core.tensor import Parameter, Tensor  # noqa: F401
 from .device import (get_device, resolve_device, resolve_dtype,  # noqa: F401
                      set_device)
 from .flags import get_flags, set_flags  # noqa: F401
-from .framework import load, save  # noqa: F401
+from .framework import ParamAttr, load, save  # noqa: F401
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa
 from .tensor import *  # noqa: F401,F403
 from .tensor import einsum  # noqa: F401
@@ -46,8 +46,6 @@ from . import amp, autograd, core, nn, optimizer, tensor  # noqa: F401,E402
 _LATER = {
     "flops": "paddle_tpu_torch.flops (XLA's cost model: torch has no "
              "counterpart that counts the same ops)",
-    "ParamAttr": "ParamAttr (per-parameter regularizers and learning "
-                 "rates)",
     "static": "paddle_tpu_torch.static", "jit": "paddle_tpu_torch.jit",
     "enable_static": "the static graph (enable_static: the op "
                      "dispatcher's static-graph interception)",

@@ -2,7 +2,9 @@
 ``ClipGradByGlobalNorm`` (``paddle_tpu/nn/clip.py`` :14-78).
 
 Each is called with ``[(param, grad), ...]`` and returns the pairs with
-the gradients clipped; a ``None`` gradient passes through. As in the JAX
+the gradients clipped; a ``None`` gradient, and that of a parameter whose
+``need_clip`` is False (``ParamAttr(need_clip=False)``), passes through
+and stays out of the global norm. As in the JAX
 package, the norms are taken in fp32 and each gradient is scaled in fp32
 and cast back to its own dtype (eager ``Optimizer.step()`` clips the raw
 gradients). ``hapi.Model`` and the training ``Engine`` apply their own
@@ -13,6 +15,10 @@ clips to a clip object's settings (``paddle_tpu/hapi/model.py`` :80-95,
 from __future__ import annotations
 
 import torch
+
+
+def _clipped(p, g):
+    return g is not None and getattr(p, "need_clip", True)
 
 
 class ClipGradBase:
@@ -28,7 +34,7 @@ class ClipGradByValue(ClipGradBase):
         self.min = min if min is not None else -max
 
     def __call__(self, params_grads):
-        return [(p, None if g is None else g.clamp(self.min, self.max))
+        return [(p, g.clamp(self.min, self.max) if _clipped(p, g) else g)
                 for p, g in params_grads]
 
 
@@ -41,7 +47,7 @@ class ClipGradByNorm(ClipGradBase):
     def __call__(self, params_grads):
         out = []
         for p, g in params_grads:
-            if g is not None:
+            if _clipped(p, g):
                 gf = g.float()
                 norm = torch.sqrt(torch.sum(torch.square(gf)))
                 g = (gf * (self.clip_norm / norm.clamp_min(1e-12)).clamp_max(
@@ -59,11 +65,11 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
 
     def __call__(self, params_grads):
-        grads = [g for _, g in params_grads if g is not None]
+        grads = [g for p, g in params_grads if _clipped(p, g)]
         if not grads:
             return params_grads
         norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                               for g in grads))
         scale = self.clip_norm / norm.clamp_min(self.clip_norm)
-        return [(p, None if g is None else (g.float() * scale).to(g.dtype))
-                for p, g in params_grads]
+        return [(p, (g.float() * scale).to(g.dtype) if _clipped(p, g)
+                 else g) for p, g in params_grads]

@@ -22,6 +22,8 @@ them bf16 or fp16), which the kernels take.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ... import flags
@@ -154,3 +156,23 @@ def flashmask_attention(query, key, value, startend_row_indices=None,
     return scaled_dot_product_attention(query, key, value, bias, dropout,
                                         causal, training,
                                         generator=generator)
+
+
+@contextlib.contextmanager
+def sdp_kernel(enable_math=True, enable_flash=True, enable_mem_efficient=True):
+    """Choose attention's backend inside the block (JAX :138 returns a
+    null context): ``enable_flash=False`` turns the ``use_pallas_attention``
+    flag off, so attention takes the dense path; with ``enable_math`` also
+    off no backend is left, which raises. The port has no third
+    ("memory-efficient") backend: the flash kernels are the one that saves
+    memory, so ``enable_mem_efficient`` alone selects nothing."""
+    if not (enable_flash or enable_math):
+        raise ValueError("sdp_kernel: enable_flash and enable_math are both "
+                         "off, which leaves no attention backend")
+    saved = flags.get_flag("use_pallas_attention")
+    if not enable_flash:
+        flags.set_flags({"use_pallas_attention": False})
+    try:
+        yield
+    finally:
+        flags.set_flags({"use_pallas_attention": saved})

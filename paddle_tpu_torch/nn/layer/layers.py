@@ -17,8 +17,10 @@ sublayer's subtree in order), ``parameters()`` as a list,
 persistable buffers (parameters first, then buffers, as the JAX package
 orders them); called the torch way (``prefix=`` or ``keep_vars=``, as a
 torch parent or ``weights.load_jax_state`` calls it) it is torch's.
-A ``ParamAttr`` (per-parameter initializer, learning rate, regularizer)
-arrives with a later slice: ``attr`` takes None and False only.
+``create_parameter(attr=ParamAttr(...))`` sets the parameter's
+initializer, name, trainability, learning-rate factor, regularizer and
+``need_clip`` (JAX ``layers.py`` :120-149, which leaves ``need_clip``
+out).
 """
 
 from __future__ import annotations
@@ -30,21 +32,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..._later import later_slice
 from ...core import dtype as dtype_mod
 from ...core.tensor import Parameter, Tensor
 from ...device import resolve_device
+from ...framework import ParamAttr
 from ...framework.random import generator as global_generator
 
 _layer_counter = collections.defaultdict(int)
 
 
 def check_attr(attr, what):
-    """``attr`` as ``create_parameter`` takes it: None or False. A
-    ``ParamAttr`` raises ``later_slice`` (item 8)."""
-    if attr is not None and attr is not False:
-        raise later_slice(f"{what} with a ParamAttr", "Paddle API surface",
-                          "8")
+    """``attr`` as ``create_parameter`` takes it: None, False (no
+    parameter), a ``ParamAttr`` or a name (Paddle's ``ParamAttr(name=)``
+    shorthand); returns it as None, False or a ``ParamAttr``."""
+    if attr is None or attr is False or isinstance(attr, ParamAttr):
+        return attr
+    if isinstance(attr, str):
+        return ParamAttr(name=attr)
+    raise TypeError(f"{what}: a parameter attribute is None, False, a "
+                    f"ParamAttr or a name, not {type(attr).__name__}")
 
 
 class Layer(nn.Module):
@@ -89,20 +95,32 @@ class Layer(nn.Module):
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None, *, device=None,
                          generator=None) -> Parameter:
-        """A ``Parameter`` of ``shape`` drawn by ``default_initializer``
-        (default: zeros for a bias, Xavier-normal otherwise) in ``dtype``
-        (default: the layer's) on ``device`` (default: the current place)
-        from ``generator`` (default: that device's global generator)."""
+        """A ``Parameter`` of ``shape`` drawn by ``attr.initializer``, else
+        ``default_initializer`` (default: zeros for a bias, Xavier-normal
+        otherwise), in ``dtype`` (default: the layer's) on ``device``
+        (default: the current place) from ``generator`` (default: that
+        device's global generator). A ``ParamAttr`` also sets the
+        parameter's name, ``trainable``, ``optimize_attr["learning_rate"]``,
+        ``regularizer`` and ``need_clip``."""
         from .. import initializer as I
 
-        check_attr(attr, "create_parameter")
+        attr = check_attr(attr, "create_parameter") or None
         dt = dtype_mod.convert_dtype(dtype) or self._dtype
         dev = resolve_device(device)
-        init = default_initializer
+        init = (attr.initializer if attr is not None else None) \
+            or default_initializer
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierNormal()
         gen = generator if generator is not None else global_generator(dev)
-        return Parameter(init(list(shape), dt, dev, gen))
+        if attr is None:
+            return Parameter(init(list(shape), dt, dev, gen))
+        p = Parameter(init(list(shape), dt, dev, gen), name=attr.name,
+                      trainable=attr.trainable)
+        p.attr_named = attr.name is not None
+        p.optimize_attr["learning_rate"] = attr.learning_rate
+        p.regularizer = attr.regularizer
+        p.need_clip = attr.need_clip
+        return p
 
     def create_tensor(self, name=None, dtype=None, persistable=False):
         t = torch.zeros((), dtype=dtype_mod.convert_dtype(dtype)

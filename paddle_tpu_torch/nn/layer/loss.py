@@ -1,4 +1,5 @@
-"""``CrossEntropyLoss`` — port of ``paddle_tpu/nn/layer/loss.py`` (:9-24)."""
+"""Loss layers — port of ``paddle_tpu/nn/layer/loss.py``: each holds its
+functional's settings and calls it (:mod:`..functional.loss`)."""
 
 from __future__ import annotations
 
@@ -21,3 +22,122 @@ class CrossEntropyLoss(Layer):
         return F.cross_entropy(input, label, self.weight, self.ignore_index,
                                self.reduction, self.soft_label, self.axis,
                                self.use_softmax, self.label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class HuberLoss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.huber_loss(input, label, self.delta, self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight, self.ignore_index = weight, ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, self.weight, self.ignore_index,
+                          self.reduction)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction, self.log_target = reduction, log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, *self.args)

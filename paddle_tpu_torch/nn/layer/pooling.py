@@ -1,5 +1,6 @@
-"""``MaxPool2D``, ``AvgPool2D`` and ``AdaptiveAvgPool2D`` — port of those
-of ``paddle_tpu/nn/layer/pooling.py``."""
+"""Pooling layers — port of ``paddle_tpu/nn/layer/pooling.py``: each
+holds its functional's arguments (:mod:`..functional.pooling`) and calls
+it."""
 
 from __future__ import annotations
 
@@ -7,43 +8,75 @@ from .. import functional as F
 from .layers import Layer
 
 
-class MaxPool2D(Layer):
-    def __init__(self, kernel_size, stride=None, padding=0,
-                 return_mask=False, ceil_mode=False, data_format="NCHW",
-                 name=None):
+class _Pool(Layer):
+    _fn = None
+
+    def __init__(self, kernel_size=None, stride=None, padding=0, **kwargs):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
                                                        padding)
-        self.return_mask, self.ceil_mode = return_mask, ceil_mode
-        self.data_format = data_format
+        self.kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            self.return_mask, self.ceil_mode,
-                            self.data_format)
+        return type(self)._fn(x, self.kernel_size, self.stride, self.padding,
+                              **self.kwargs)
 
 
-class AvgPool2D(Layer):
-    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW",
-                 name=None):
+class MaxPool1D(_Pool):
+    _fn = staticmethod(F.max_pool1d)
+
+
+class MaxPool2D(_Pool):
+    _fn = staticmethod(F.max_pool2d)
+
+
+class MaxPool3D(_Pool):
+    _fn = staticmethod(F.max_pool3d)
+
+
+class AvgPool1D(_Pool):
+    _fn = staticmethod(F.avg_pool1d)
+
+
+class AvgPool2D(_Pool):
+    _fn = staticmethod(F.avg_pool2d)
+
+
+class AvgPool3D(_Pool):
+    _fn = staticmethod(F.avg_pool3d)
+
+
+class _AdaptivePool(Layer):
+    _fn = None
+
+    def __init__(self, output_size, **kwargs):
         super().__init__()
-        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
-                                                       padding)
-        self.ceil_mode, self.exclusive = ceil_mode, exclusive
-        self.divisor_override, self.data_format = (divisor_override,
-                                                   data_format)
+        self.output_size = output_size
+        self.kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, x):
-        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            self.ceil_mode, self.exclusive,
-                            self.divisor_override, self.data_format)
+        return type(self)._fn(x, self.output_size, **self.kwargs)
 
 
-class AdaptiveAvgPool2D(Layer):
-    def __init__(self, output_size, data_format="NCHW", name=None):
-        super().__init__()
-        self.output_size, self.data_format = output_size, data_format
+class AdaptiveAvgPool1D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_avg_pool1d)
 
-    def forward(self, x):
-        return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+class AdaptiveAvgPool2D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_avg_pool2d)
+
+
+class AdaptiveAvgPool3D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_avg_pool3d)
+
+
+class AdaptiveMaxPool1D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_max_pool1d)
+
+
+class AdaptiveMaxPool2D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_max_pool2d)
+
+
+class AdaptiveMaxPool3D(_AdaptivePool):
+    _fn = staticmethod(F.adaptive_max_pool3d)

@@ -17,6 +17,12 @@ package:
   promote as JAX's strong fp32 scalars do (a bf16 operand goes to fp32).
   Nothing is read back to the host.
 
+Both give each parameter ``lr`` times its ``ParamAttr`` learning-rate
+factor, and its own regularizer in place of ``weight_decay`` where it has
+one. JAX's ``_functional_update`` (its hapi and Engine steps) leaves the
+factor out; the port applies it on both paths (ROADMAP, "Deliberate
+departures").
+
 torch's own promotion matches neither; :mod:`..framework.promotion` writes
 JAX's out. Accumulators are fp32 tensors on the parameter's device, keyed
 by the parameter object; ``state_dict`` keys them by the parameter's
@@ -47,9 +53,11 @@ _F32 = torch.float32
 
 def name_parameters(model: torch.nn.Module) -> torch.nn.Module:
     """Give each parameter of ``model`` its ``named_parameters()`` name as
-    ``.param_name``, the name ``AdamW(apply_decay_param_fun=)`` reads."""
+    ``.param_name``, the name ``AdamW(apply_decay_param_fun=)`` reads; a
+    parameter named by its ``ParamAttr(name=)`` keeps that name."""
     for n, p in model.named_parameters():
-        p.param_name = n
+        if not getattr(p, "attr_named", False):
+            p.param_name = n
     return model
 
 
@@ -67,6 +75,15 @@ def _as_f32(x):
     """A Python number as an fp32 0-dim tensor (as jnp ops on weak floats
     give); a tensor passes unchanged."""
     return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=_F32)
+
+
+def _param_lr(lr, p):
+    """The rate of ``p``'s update: ``lr`` times its ``ParamAttr``
+    learning-rate factor (``optimize_attr``, JAX ``optimizer.py:160``);
+    ``lr`` itself at the factor 1, so no op is added a parameter."""
+    factor = getattr(p, "optimize_attr", None)
+    factor = 1.0 if factor is None else factor.get("learning_rate", 1.0)
+    return lr if factor == 1.0 else lr * factor
 
 
 class Optimizer:
@@ -175,10 +192,14 @@ class Optimizer:
 
     def _decay_term(self, value, g_dtype, param=None):
         """The coupled decay added to the gradient, or None: a regularizer
-        object's own term (L1's ``coeff * sign(p)``), a number as L2."""
+        object's own term (L1's ``coeff * sign(p)``), a number as L2. A
+        parameter's own regularizer (``ParamAttr(regularizer=)``) replaces
+        the optimizer's ``weight_decay`` (the reference's precedence)."""
         if isinstance(self, _DecoupledWeightDecay):
             return None
-        wd = self._weight_decay
+        wd = getattr(param, "regularizer", None)
+        if not isinstance(wd, WeightDecayRegularizer):
+            wd = self._weight_decay
         if wd is None:
             return None
         if isinstance(wd, WeightDecayRegularizer):
@@ -206,7 +227,8 @@ class Optimizer:
                 d = self._decay_term(val, g.dtype, p)
                 if d is not None:
                     g = g + d
-                p.copy_(self._update(g, val, p, self.get_lr()))
+                p.copy_(self._update(g, val, p,
+                                     _param_lr(self.get_lr(), p)))
 
     @torch.no_grad()
     def _functional_update(self, grads, values, params, acc_state, lr,
@@ -228,7 +250,8 @@ class Optimizer:
                     d = self._decay_term(v, g.dtype, p)
                     if d is not None:
                         g = g + d
-                    new_vals.append(self._update(g, v, p, lr).to(v.dtype))
+                    new_vals.append(self._update(
+                        g, v, p, _param_lr(lr, p)).to(v.dtype))
         finally:
             new_acc = self._accumulators
             self._accumulators = saved_acc

@@ -3,7 +3,7 @@
 
     python3 profile_training.py [ARM ...]   # from the root of a checkout
 
-Eight arms (all of them unless named on the command line), each
+Nine arms (all of them unless named on the command line), each
 chip_smoke.py's training configuration at full width and depth with random
 weights from seed 0; the first five under Engine(lr=1e-4, clip 1.0):
 
@@ -26,7 +26,11 @@ weights from seed 0; the first five under Engine(lr=1e-4, clip 1.0):
   - vit: bench_vit (ViT-L/16, bf16, batch 32 at 224 px) and
   - unet: bench_unet (the SD-class UNet, bf16, batch 8 of 32 x 32
     latents, context 77), each through bench's step: the loss's gradients,
-    then p - 1e-4 g (phases 35 and 36).
+    then p - 1e-4 g (phases 35 and 36);
+  - lstm: the large PTB LSTM of chip_smoke.py phase 43 (LSTM_LM: vocab
+    10000, two LSTMs of 1500, batch 20 x 35 steps, fp32, dropout 0.65)
+    through hapi.Model.train_batch with SGD(lr 1) and the global-norm
+    clip at 10, which reads the loss on the host once a step.
 
 Each arm measures one train step (forward, loss, backward and the
 update: clip and AdamW, Momentum, or SGD) after three warm-up steps, three ways (profile_serving.measure): device span
@@ -114,6 +118,36 @@ def profile_vision(torch, np, name):
     torch.cuda.empty_cache()
 
 
+def profile_lstm(torch, np):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import hapi, nn, optimizer
+
+    c = chip_smoke.LSTM_LM
+    pt.set_device("cuda")
+    pt.seed(0)
+    net = chip_smoke.lstm_lm(pt, c, c["hidden"], c["dropout"], "cuda")
+    m = hapi.Model(net)
+    m.prepare(optimizer.SGD(c["lr"], parameters=net.parameters(),
+                            grad_clip=nn.ClipGradByGlobalNorm(c["clip"])),
+              chip_smoke.lstm_lm_loss())
+    toks = np.random.default_rng(0).integers(0, c["vocab"],
+                                             (c["batch"], c["steps"] + 1))
+    x = torch.from_numpy(toks[:, :-1]).cuda()
+    y = torch.from_numpy(toks[:, 1:]).cuda()
+    step = lambda: m.train_batch([x], [y])   # noqa: E731
+    profile_serving.measure(
+        torch, f"lstm train step [batch {c['batch']} x {c['steps']}, 2 x "
+        f"LSTM {c['hidden']}, vocab {c['vocab']}, fp32]", step, STEPS,
+        top=15)
+    syncs = chip_smoke._sync_count(torch, step)
+    print(f"lstm: synchronizing operations reported in one step: "
+          f"{len(syncs)} (train_batch reads the loss)", flush=True)
+    for msg in syncs[:5]:
+        print(f"  {msg[:120]}", flush=True)
+    del net, m
+    torch.cuda.empty_cache()
+
+
 def profile_step(torch, name, eng, model, ids, labels, batch, seq):
     profile_serving.measure(
         torch, f"{name} train step [{batch} x {seq}, "
@@ -147,6 +181,7 @@ def main():
         "moe_auto": (chip_smoke.MOE_AUTO_CONFIG, chip_smoke.MOE_BATCH,
                      chip_smoke.MOE_SEQ),
         "bert": None, "resnet": None, "vit": None, "unet": None,
+        "lstm": None,
     }
     names = sys.argv[1:] or list(arms)
     unknown = [n for n in names if n not in arms]
@@ -160,6 +195,8 @@ def main():
     for name in names:
         if name == "bert":
             profile_bert(torch, np)
+        elif name == "lstm":
+            profile_lstm(torch, np)
         elif name in ("resnet", "vit", "unet"):
             profile_vision(torch, np, name)
         else:

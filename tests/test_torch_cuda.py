@@ -2220,3 +2220,117 @@ def test_dygraph_amp_encoder_runs_the_flash_kernels(cuda, dtype):
             flash_attention_backward.launches_dkv) == tuple(
                 x + 2 for x in n0)
     assert bool(torch.isfinite(loss))
+
+
+# ---- the nn slice on the card: each against the same call on the CPU ----
+# (fp32 to 1e-4 and bf16 to 3e-2 of max(1, max |cpu|), TF32 off; bf16
+# references run in fp32 on the same bf16-rounded values and weights,
+# since torch's CPU RNN, resize and convolution kernels in bf16 are slow)
+
+def _card_vs_cpu(fn_card, fn_cpu, inputs, dtype, tol):
+    """Outputs and input gradients of sum(out * cotangent) on the card
+    and the CPU; asserts every card tensor is on the card."""
+    gen = torch.Generator().manual_seed(9)
+    res = []
+    for fn, dev, dt in ((fn_card, "cuda", dtype), (fn_cpu, "cpu",
+                                                    torch.float32)):
+        xs = [x.to(dtype).to(dt).to(dev).requires_grad_() for x in inputs]
+        out = fn(*xs)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        outs = [o for o in outs if torch.is_tensor(o)]
+        if not res:
+            cots = [torch.randn(o.shape, generator=gen) for o in outs]
+        loss = sum((o.float() * c.to(dev)).sum() for o, c in zip(outs,
+                                                                  cots))
+        grads = torch.autograd.grad(loss, xs)
+        res.append(outs + list(grads))
+    card, cpu = res
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.shape == b.shape
+        err = (a.detach().float().cpu() - b.detach()).abs().max() \
+            / b.detach().abs().max().clamp_min(1.0)
+        assert err.item() <= tol, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+@pytest.mark.parametrize("states", [False, True])
+def test_recurrent_layers_on_card_match_cpu(cuda, dtype, tol, cls, states):
+    """2 layers, bidirectional, batch 8 x 33 steps x 96 features, hidden
+    128, with and without initial states (LSTM: h and c)."""
+    import copy
+
+    from paddle_tpu_torch import nn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = getattr(nn, cls)(96, 128, 2, direction="bidirect", device="cpu")
+    cpu.to(dtype=dtype)
+    card = copy.deepcopy(cpu).to("cuda")
+    cpu.to(dtype=torch.float32)
+    g = torch.Generator().manual_seed(3)
+    inputs = [torch.randn(8, 33, 96, generator=g)]
+    if states:
+        inputs += [torch.randn(4, 8, 128, generator=g)
+                   for _ in range(2 if cls == "LSTM" else 1)]
+
+    def run(m):
+        def fn(x, *st):
+            init = None if not st else (st[0] if len(st) == 1 else st)
+            out, final = m(x, init)
+            return [out] + (list(final) if isinstance(final, tuple)
+                            else [final])
+        return fn
+
+    _card_vs_cpu(run(card), run(cpu), inputs, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("mode,shape,size", [
+    ("nearest", (2, 16, 28, 28), (56, 41)),
+    ("nearest", (2, 16, 28, 28), (14, 9)),
+    ("bilinear", (2, 16, 28, 28), (56, 41)),
+    ("bilinear", (2, 16, 28, 28), (14, 9)),
+    ("bicubic", (2, 16, 28, 28), (56, 41)),
+    ("bicubic", (2, 16, 28, 28), (14, 9)),
+    ("area", (2, 16, 28, 28), (14, 14)),
+    ("linear", (2, 16, 100), (257,)),
+    ("linear", (2, 16, 100), (33,)),
+    ("trilinear", (1, 8, 12, 14, 16), (20, 7, 30)),
+    ("nearest", (1, 8, 12, 14, 16), (5, 28, 9))])
+def test_interpolate_on_card_matches_cpu(cuda, dtype, tol, mode, shape,
+                                         size):
+    import paddle_tpu_torch.nn.functional as PF
+
+    fmt = "NC" + "DHW"[-len(size):]
+    fn = lambda x: PF.interpolate(x, size=list(size), mode=mode,  # noqa
+                                  data_format=fmt)
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(5))
+    _card_vs_cpu(fn, fn, [x], dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,padding", [(1, 1), (2, 1), (2, [1, 0, 2, 1]),
+                                       (3, 1)])
+def test_conv_transpose_groups_output_padding_on_card(cuda, dtype, tol, n,
+                                                      padding):
+    """conv{n}d_transpose with stride 2, groups 4, output_padding 1 and
+    dilation 2 (asymmetric padding crops a side at a time)."""
+    import paddle_tpu_torch.nn.functional as PF
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(7)
+    spatial = (9, 8, 7)[:n]
+    x = torch.randn((2, 16) + spatial, generator=g)
+    w = torch.randn((16, 6) + (3,) * n, generator=g) * 0.2
+    b = torch.randn(24, generator=g)
+    fn = getattr(PF, f"conv{n}d_transpose")
+    call = lambda x, w, b: fn(x, w, b, stride=2, padding=padding,  # noqa
+                              output_padding=1, groups=4, dilation=2)
+    _card_vs_cpu(call, call, [x, w, b], dtype, tol)

@@ -186,9 +186,9 @@ def test_create_parameter_defaults_and_refusals():
     assert torch.equal(b, torch.zeros(5))
     assert m.create_parameter([2], attr=False, dtype="bfloat16").dtype == \
         torch.bfloat16
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         m.create_parameter([2], attr=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(TypeError, match="ParamAttr"):
         pnn.LayerNorm(4, weight_attr=object())
     assert pnn.LayerNorm(4, weight_attr=False, bias_attr=False).weight is None
     assert pnn.Linear(2, 2, weight_attr=False).bias is not None

@@ -250,7 +250,7 @@ def test_optimizer_step_and_refusals():
                lambda: paddle_tpu_torch.vision.transforms.ColorJitter,
                lambda: paddle_tpu_torch.amp.debugging,
                lambda: paddle_tpu_torch.flops,
-               lambda: paddle_tpu_torch.ParamAttr)
+               lambda: paddle_tpu_torch.linalg)
     for call in refused:
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
