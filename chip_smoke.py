@@ -507,6 +507,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the phase's own peak memory (over what earlier phases hold), kernels
      a step (torch.profiler, printed only), finite
      losses and the eval loss on that batch falling. K1-K6 at 0 launches.
+ 44. the nn extras and linalg sweep (extras_sweep_cases): every function
+     and layer of nn/functional/extras.py and nn/layer/extras.py, the five
+     arguments the nn slice refused (conv_transpose "SAME", interpolate
+     align_mode=1, instance_norm's running statistics, soft-label cross
+     entropy with a weight, sequence_length on the packed recurrent layers,
+     RNN and BiRNN) and every paddle.linalg function, forward and
+     backward, fp32 (bf16 where the case takes it), each against the same
+     call on the CPU: CTC at EXTRAS_CTC, RNN-T at EXTRAS_RNNT, grid_sample
+     at EXTRAS_GRID, linalg batches at EXTRAS_LINALG, the packed GRU at
+     EXTRAS_GRU; the worst error per dtype within NN_SWEEP_TOL; then
+     feature_alpha_dropout, class_center_sample and a fractional pool's
+     draws on the card. K1-K6 at 0 launches.
+ 45. the DeepSpeech2-class CTC model (DS2: PaddleSpeech's Aishell-1 recipe,
+     two Conv2D + BatchNorm2D + Hardtanh(0, 20) blocks masked by frame,
+     three bidirectional GRUs of 1024 with sequence_length, Linear(2048,
+     4301), F.ctc_loss over the post-conv lengths; 61.2M fp32 parameters):
+     first at DS2_PARITY's small width the first step's loss and every
+     gradient card vs CPU; then at full width, batch 32 of 300-1200
+     frames from seed 0, Adam(1e-3) with ClipGradByGlobalNorm(5), eager
+     loss.backward / step / clear_grad, TF32 off: 2 warm-up and 8 timed
+     steps on one fixed batch: ms a step, utterances/s, frames/s, the
+     phase's own peak memory, kernels a step, finite losses and the eval
+     loss falling. K1-K6 at 0 launches.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -1034,6 +1057,38 @@ LSTM_LM = dict(vocab=10000, hidden=1500, layers=2, steps=35, batch=20,
                dropout=0.65, init=0.04, lr=1.0, clip=10.0)
 LSTM_LM_TIMED = dict(warmup=3, steps=20)
 LSTM_LM_PARITY = dict(hidden=64, dropout=0.0, tol=1e-4)
+# The DeepSpeech2 recipe PaddleSpeech ships for Aishell-1 (examples/aishell/
+# asr0/conf/deepspeech2.yaml; Amodei et al., arXiv:1512.02595): a 161-bin
+# linear spectrogram (20 ms window, 10 ms hop at 16 kHz), two Conv2D +
+# BatchNorm2D + Hardtanh(0, 20) blocks of 32 channels, three bidirectional
+# GRUs of 1024, a character softmax (4300 characters + blank; the recipe's
+# vocabulary file is not in the repository, so the size is of the order of
+# Aishell-1's character set) and CTC; Adam at 1e-3 with the global gradient
+# norm clipped at 5. Batch 32 of 300-1200 frames (3-12 s), labels of 8-30
+# characters, all from seed 0. Cut: the sequence-wise batch norm
+# PaddleSpeech keeps inside its GRU stack.
+# Phase 44's sizes: CTC [T, batch, classes] with labels 8-30 long; RNN-T
+# [batch, T, U + 1, classes]; grid_sample's input [n, c, h, w]; linalg
+# batches [b, n, n]; the packed GRU at phase 45's first-layer width.
+EXTRAS_CTC = dict(T=400, batch=32, classes=4301, labels=(8, 30))
+EXTRAS_RNNT = dict(batch=4, T=200, U=50, classes=1024)
+EXTRAS_GRID = (32, 64, 56, 56)
+EXTRAS_LINALG = (64, 128)
+EXTRAS_GRU = dict(batch=8, frames=400, input=1312, hidden=1024)
+# CTC's and RNN-T's fp32 tolerance: their log-domain recursions carry an
+# absolute error of about eps x |log-likelihood| (~3500 nats at T 400 over
+# 4301 classes: 4e-4), which the posteriors in the gradient inherit as a
+# relative error; 2e-3 is ~16 eps x |loss|.
+EXTRAS_LATTICE_TOL = 2e-3
+# The spectral cases' fp32 tolerance (eigvalsh, svdvals, eigh, svd,
+# pca_lowrank on values 1..n): a vector's error is ~eps x |A| / gap = eps x
+# n, and a gradient sums n of them (1.35e-4 seen at n 128); 1e-3.
+EXTRAS_SPECTRAL_TOL = 1e-3
+DS2 = dict(freq=161, channels=32, hidden=1024, layers=3, vocab=4301,
+           batch=32, frames=(300, 1200), labels=(8, 30), lr=1e-3, clip=5.0)
+DS2_TIMED = dict(warmup=2, steps=8)
+DS2_PARITY = dict(DS2, channels=4, hidden=32, vocab=30, batch=4,
+                  frames=(60, 120), labels=(3, 10), tol=1e-4)
 
 
 def card_line():
@@ -6790,7 +6845,11 @@ def nn_sweep_cases(torch):
     CPU, which the sweep copies to the card); ``inputs`` are (kind, shape)
     specs ("f" normal, "p" in (0.05, 0.95), "s" +-1, ("i", hi) integers);
     ``grad`` lists the inputs differentiated; ``heavy`` cases take an fp32
-    CPU reference in bf16 (see NN_SWEEP_TOL)."""
+    CPU reference in bf16 (see NN_SWEEP_TOL). Phase 44 adds ("a", array)
+    (the array itself), ("spd", shape) (symmetric positive definite) and
+    ("sym", shape) / ("sep", shape) (symmetric / general with eigen /
+    singular values 1..n, a gap of 1, so that the vectors, and the
+    gradients built from them, are well conditioned)."""
     import paddle_tpu_torch.nn.functional as PF
     from paddle_tpu_torch import nn
 
@@ -7055,7 +7114,22 @@ def _nn_inputs(torch, np, specs, seed):
     rng = np.random.default_rng(seed)
     out = []
     for kind, shape in specs:
-        if kind == "f":
+        if kind == "a":                 # a given array
+            out.append(torch.from_numpy(np.asarray(shape)))
+            continue
+        if kind == "spd":               # symmetric positive definite
+            a = rng.standard_normal(shape, dtype=np.float32)
+            n = shape[-1]
+            arr = (a @ np.swapaxes(a, -1, -2) / n + np.eye(n)).astype(
+                np.float32)
+        elif kind in ("sym", "sep"):    # eigen / singular values 1..n
+            n = shape[-1]
+            q1 = np.linalg.qr(rng.standard_normal(shape))[0]
+            q2 = q1 if kind == "sym" else np.linalg.qr(
+                rng.standard_normal(shape))[0]
+            arr = ((q1 * np.arange(1, n + 1)) @ np.swapaxes(q2, -1, -2)
+                   ).astype(np.float32)
+        elif kind == "f":
             arr = rng.standard_normal(shape, dtype=np.float32)
         elif kind == "p":
             arr = rng.uniform(0.05, 0.95, shape).astype(np.float32)
@@ -7074,11 +7148,12 @@ def _nn_flat(out):
     return [out]
 
 
-def _nn_call(torch, np, f, params, ins, grad, dtype, device, seed):
+def _nn_call(torch, np, f, params, ins, grad, dtype, device, seed, cots):
     """``f`` on ``ins`` cast to ``dtype`` (floats) on ``device``: its
-    outputs and the gradients of sum(out * cotangent) (fp32 cotangents
-    from ``seed``) for the inputs in ``grad`` and the parameters
-    ``params``."""
+    outputs and the gradients of sum(out * cotangent) for the inputs in
+    ``grad`` and the parameters ``params``. ``cots`` holds the fp32
+    cotangents: drawn from ``seed`` by the first call and appended to it,
+    reused by the later calls of the case (same shapes)."""
     xs = [(x.to(dtype) if x.is_floating_point() else x).to(device)
           for x in ins]
     xs = [x.requires_grad_(i in grad) if x.is_floating_point() else x
@@ -7088,23 +7163,25 @@ def _nn_call(torch, np, f, params, ins, grad, dtype, device, seed):
     wrt = [xs[i] for i in grad] + list(params)
     grads = []
     if wrt and any(o.requires_grad for o in floats):
-        rng = np.random.default_rng(seed)
-        loss = sum((o.float() * torch.from_numpy(rng.standard_normal(
-            tuple(o.shape), dtype=np.float32)).to(device)).sum()
-            for o in floats)
+        if not cots:
+            rng = np.random.default_rng(seed)
+            cots.extend(torch.from_numpy(rng.standard_normal(
+                tuple(o.shape), dtype=np.float32)) for o in floats)
+        loss = sum((o.float() * c.to(device)).sum()
+                   for o, c in zip(floats, cots))
         grads = list(torch.autograd.grad(loss, wrt, allow_unused=True,
                                          materialize_grads=True))
     return outs, grads
 
 
-def _nn_case(torch, np, case, dtype, seed):
-    """One case in one dtype: ((worst error, what), outputs and gradients
-    compared, whether the CPU reference ran in fp32 for want of a CPU bf16
-    kernel)."""
+def _nn_case(torch, np, case, dtype, seed, ins, cots):
+    """One case in one dtype on the case's fp32 inputs ``ins`` and
+    cotangents ``cots`` (see _nn_call): ((worst error, what), outputs and
+    gradients compared, whether the CPU reference ran in fp32 for want of
+    a CPU bf16 kernel)."""
     import copy
 
-    name, build, specs, grad, heavy = case
-    ins = _nn_inputs(torch, np, specs, seed)
+    name, build, specs, grad, heavy = case[:5]
     ins = [x.to(dtype) if x.is_floating_point() else x for x in ins]
     f_cpu = build()
     is_layer = isinstance(f_cpu, torch.nn.Module)
@@ -7113,7 +7190,8 @@ def _nn_case(torch, np, case, dtype, seed):
         f_cpu.to(dtype=dtype)
         f_card = copy.deepcopy(f_cpu).to(DEVICE)
     out = _nn_call(torch, np, f_card, list(f_card.parameters())
-                   if is_layer else [], ins, grad, dtype, DEVICE, seed + 1)
+                   if is_layer else [], ins, grad, dtype, DEVICE, seed + 1,
+                   cots)
     ref_dtype = torch.float32 if heavy else dtype
     fallback = False
     while True:
@@ -7122,7 +7200,7 @@ def _nn_case(torch, np, case, dtype, seed):
         try:
             ref = _nn_call(torch, np, f_cpu, list(f_cpu.parameters())
                            if is_layer else [], ins, grad, ref_dtype, "cpu",
-                           seed + 1)
+                           seed + 1, cots)
             break
         except (NotImplementedError, RuntimeError) as e:
             if ref_dtype != torch.bfloat16 or "BFloat16" not in str(e):
@@ -7142,6 +7220,55 @@ def _nn_case(torch, np, case, dtype, seed):
             continue
         worst = max(worst, (_rel_err(a, r), what))
     return worst, len(out[0]) + len(out[1]), fallback
+
+
+def _sweep(torch, np, cases, seed0, label, card):
+    """Phases 42 and 44: each case (name, build, inputs, grad, heavy, bf16,
+    tol) card against CPU in fp32 and, where ``bf16``, in bf16, within
+    ``tol`` (fp32) or NN_SWEEP_TOL; its inputs and cotangents drawn once
+    (from ``seed0`` + its index) for both dtypes. Prints a line a dtype
+    (the worst error over its tolerance, the next five, the seconds that
+    dtype took) and raises, after both, on any case beyond tolerance."""
+    stats = {name: dict(rows=[], tensors=0, fallbacks=[], secs=0.0, n=0)
+             for name in NN_SWEEP_TOL}
+    failed = []
+    for i, case in enumerate(cases):
+        t0 = time.perf_counter()
+        ins = _nn_inputs(torch, np, case[2], seed0 + i)
+        cots = []
+        share = (time.perf_counter() - t0) / (2 if case[5] else 1)
+        for name, tol in NN_SWEEP_TOL.items():
+            if name != "float32" and not case[5]:
+                continue
+            st, t1 = stats[name], time.perf_counter()
+            (err, what), n, fallback = _nn_case(
+                torch, np, case, getattr(torch, name), seed0 + i, ins, cots)
+            case_tol = case[6] if case[6] and name == "float32" else tol
+            st["rows"].append((err / case_tol, err, case[0], what, case_tol))
+            st["tensors"] += n
+            st["n"] += 1
+            st["secs"] += time.perf_counter() - t1 + share
+            if fallback:
+                st["fallbacks"].append(case[0])
+            if not err <= case_tol:
+                failed.append(f"{case[0]} {name} {what} {err:.3e} > "
+                              f"{case_tol}")
+    for name, st in stats.items():
+        rows = sorted(st["rows"], reverse=True)
+        print(f"{label} {getattr(torch, name)} [{card}]: {st['n']} cases, "
+              f"{st['tensors']} outputs and gradients on the card, worst "
+              f"card vs CPU error {rows[0][1]:.3e} ({rows[0][2]} "
+              f"{rows[0][3]}; tol {rows[0][4]}) in {st['secs']:.1f}s; next "
+              f"by error over tolerance: "
+              + ", ".join(f"{n} {w} {e:.2e} (tol {t})"
+                          for _, e, n, w, t in rows[1:6])
+              + (f"; CPU reference in fp32 (no CPU bf16 kernel): "
+                 f"{', '.join(st['fallbacks'])}" if st["fallbacks"] else ""),
+              flush=True)
+    if failed:
+        raise AssertionError(f"{label}, card vs CPU beyond tolerance: "
+                             + "; ".join(failed))
+    _release(torch)
 
 
 def _nn_random_on_card(torch, card):
@@ -7190,34 +7317,517 @@ def phase_nn_sweep(torch, np, ops, card):
 
     pt.set_device(DEVICE)
     _reset_counts(ops)
-    cases = nn_sweep_cases(torch)
-    for name in NN_SWEEP_TOL:
-        dtype, tol = getattr(torch, name), NN_SWEEP_TOL[name]
-        t0 = time.perf_counter()
-        rows, tensors, fallbacks = [], 0, []
-        for i, case in enumerate(cases):
-            (err, what), n, fallback = _nn_case(torch, np, case, dtype,
-                                                1000 + i)
-            tensors += n
-            rows.append((err, case[0], what))
-            if fallback:
-                fallbacks.append(case[0])
-            if not err <= tol:
-                raise AssertionError(f"nn sweep {case[0]} {dtype}: {what} "
-                                     f"card vs CPU {err} > {tol}")
-        rows.sort(reverse=True)
-        print(f"nn sweep {dtype} [{card}]: {len(cases)} cases, {tensors} "
-              f"outputs and gradients on the card, worst card vs CPU "
-              f"error {rows[0][0]:.3e} ({rows[0][1]} {rows[0][2]}; tol "
-              f"{tol}) in {time.perf_counter() - t0:.1f}s; next: "
-              + ", ".join(f"{n} {w} {e:.2e}" for e, n, w in rows[1:6])
-              + (f"; CPU reference in fp32 (no CPU bf16 kernel): "
-                 f"{', '.join(fallbacks)}" if fallbacks else ""),
-              flush=True)
-        _release(torch)
+    _sweep(torch, np, [c + (True, None) for c in nn_sweep_cases(torch)],
+           1000, "nn sweep", card)
     _nn_random_on_card(torch, card)
     counts = _no_kernel_ran(ops, "nn sweep")
     print(f"nn sweep: K1-K6 launches {counts}", flush=True)
+    _release(torch)
+
+
+def _unique_unpool(np, rng, nc, spatial, k):
+    """Pooled values' flat indices for max_unpool: one element of each
+    non-overlapping k-window (unique, so the scatter is defined)."""
+    out_sp = [s // k for s in spatial]
+    grids = np.meshgrid(*[np.arange(o) for o in out_sp], indexing="ij")
+    flat = np.zeros(tuple(nc) + tuple(out_sp), np.int64)
+    for d, g in enumerate(grids):
+        coord = g[None, None] * k + rng.integers(0, k, tuple(nc)
+                                                 + tuple(out_sp))
+        flat = flat * spatial[d] + coord
+    return flat.astype(np.int32), out_sp
+
+
+def extras_sweep_cases(torch, np):
+    """Phase 44's cases: (name, build, inputs, grad, heavy, bf16, tol) as
+    in nn_sweep_cases, bf16 marking the cases also run in bf16 and tol,
+    where not None, the case's fp32 tolerance (EXTRAS_LATTICE_TOL,
+    EXTRAS_SPECTRAL_TOL). The nn
+    extras (every functional and layer of nn/functional/extras.py and
+    nn/layer/extras.py), the five arguments the nn slice refused, and
+    every paddle.linalg function (fp32: cuSOLVER has no bf16). Functions
+    defined up to a sign or phase (qr, svd, eig, eigh, the low-rank SVDs)
+    compare their reconstructions and values."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch import nn
+
+    rng = np.random.default_rng(44)
+    M, A, L = NN_MAP, NN_ACT, NN_LOGITS
+    cases = []
+
+    def add(name, build, inputs, grad=(0,), heavy=False, bf16=True,
+            tol=None):
+        cases.append((name, build, inputs, grad, heavy, bf16, tol))
+
+    def fn(f):
+        return lambda: f
+
+    def arr(a):
+        return ("a", a)
+
+    # pools, unpools, padding
+    add("F.max_pool2d_with_mask", fn(lambda x: PF.max_pool2d_with_mask(
+        x, 3, 2, 1)), [("f", M)])
+    for n, sp in ((1, (M[2] * M[3],)), (2, M[2:]), (3, NN_MAP3[2:])):
+        nc = (M[0], M[1]) if n < 3 else NN_MAP3[:2]
+        idx, osp = _unique_unpool(np, rng, nc, sp, 2)
+        add(f"F.max_unpool{n}d", fn(lambda x, i, n=n: getattr(
+            PF, f"max_unpool{n}d")(x, i, 2)),
+            [("f", tuple(nc) + tuple(osp)), arr(idx)])
+    add("nn.MaxUnPool2D", lambda: nn.MaxUnPool2D(2),
+        [("f", (M[0], M[1], M[2] // 2, M[3] // 2)),
+         arr(_unique_unpool(np, rng, M[:2], M[2:], 2)[0])])
+    for n, shape, out in ((2, M, [11, 9]), (3, NN_MAP3, [7, 11, 9])):
+        add(f"F.fractional_max_pool{n}d_mask", fn(
+            lambda x, n=n, o=out: getattr(PF, f"fractional_max_pool{n}d")(
+                x, o, random_u=0.37, return_mask=True)), [("f", shape)])
+    add("nn.FractionalMaxPool2D", lambda: nn.FractionalMaxPool2D(
+        13, random_u=0.6), [("f", M)])
+    add("F.zeropad2d", fn(lambda x: PF.zeropad2d(x, [1, 2, 0, 3])),
+        [("f", M)])
+    add("nn.ZeroPad1D", lambda: nn.ZeroPad1D([2, 1]), [("f", NN_MAP1)])
+    add("nn.ZeroPad3D", lambda: nn.ZeroPad3D([1, 0, 2, 1, 0, 1]),
+        [("f", NN_MAP3)])
+    add("nn.LPPool1D", lambda: nn.LPPool1D(2, 3, 2), [("f", NN_MAP1)])
+    add("nn.LPPool2D", lambda: nn.LPPool2D(3, 2), [("f", M)])
+
+    # losses
+    lab = ("i", L[1]), (L[0],)
+    add("F.soft_margin_loss", fn(PF.soft_margin_loss), [("f", A), ("s", A)],
+        (0,))
+    add("F.multi_label_soft_margin_loss", fn(
+        lambda x, y, w: PF.multi_label_soft_margin_loss(x, y, w)),
+        [("f", L), ("a", rng.integers(0, 2, L).astype(np.float32)),
+         ("p", (L[1],))])
+    add("F.multi_margin_loss", fn(lambda x, y, w: PF.multi_margin_loss(
+        x, y, 2, 0.7, w)), [("f", L), lab, ("p", (L[1],))])
+    add("F.poisson_nll_loss", fn(lambda x, y: PF.poisson_nll_loss(
+        x, y, full=True)), [("f", A), ("p", A)])
+    add("F.gaussian_nll_loss", fn(lambda x, y, v: PF.gaussian_nll_loss(
+        x, y, v, full=True)), [("f", A), ("f", A), ("p", A)], (0, 1, 2))
+    add("F.pairwise_distance", fn(lambda x, y: PF.pairwise_distance(
+        x, y, 3.0)), [("f", L), ("f", L)], (0, 1))
+    add("F.triplet_margin_with_distance_loss", fn(
+        lambda a, p, n: PF.triplet_margin_with_distance_loss(
+            a, p, n, swap=True)), [("f", L), ("f", L), ("f", L)], (0, 1, 2))
+    add("F.npair_loss", fn(PF.npair_loss), [("f", (512, 256)),
+                                            ("f", (512, 256)),
+                                            (("i", 64), (512,))], (0, 1))
+    add("F.margin_cross_entropy", fn(lambda x, y: PF.margin_cross_entropy(
+        torch.tanh(x), y, return_softmax=True)), [("f", L), lab])
+    for cls, ins, grad in (
+            ("SoftMarginLoss", [("f", A), ("s", A)], (0,)),
+            ("MultiMarginLoss", [("f", L), lab], (0,)),
+            ("PoissonNLLLoss", [("f", A), ("p", A)], (0,)),
+            ("GaussianNLLLoss", [("f", A), ("f", A), ("p", A)], (0, 1, 2)),
+            ("TripletMarginWithDistanceLoss", [("f", L), ("f", L),
+                                               ("f", L)], (0, 1, 2)),
+            ("PairwiseDistance", [("f", L), ("f", L)], (0, 1))):
+        add(f"nn.{cls}", lambda c=cls: getattr(nn, c)(), ins, grad)
+    add("nn.MultiLabelSoftMarginLoss", lambda: nn.MultiLabelSoftMarginLoss(),
+        [("f", L), ("a", rng.integers(0, 2, L).astype(np.float32))])
+
+    # CTC and RNN-T at EXTRAS_CTC / EXTRAS_RNNT
+    t, b, c = EXTRAS_CTC["T"], EXTRAS_CTC["batch"], EXTRAS_CTC["classes"]
+    lo, hi = EXTRAS_CTC["labels"]
+    ll = rng.integers(lo, hi + 1, b)
+    ctc_in = [("f", (t, b, c)), arr(rng.integers(1, c, (b, hi))),
+              arr(rng.integers(t // 2, t + 1, b)), arr(ll)]
+    for red in ("mean", "none"):
+        add(f"F.ctc_loss_{red}", fn(lambda x, y, il, ll, r=red: PF.ctc_loss(
+            x, y, il, ll, reduction=r)), ctc_in, (0,), False, red == "mean",
+            EXTRAS_LATTICE_TOL)
+    add("F.ctc_loss_norm_by_times", fn(lambda x, y, il, ll: PF.ctc_loss(
+        x, y, il, ll, norm_by_times=True)), ctc_in, (0,), False, False,
+        EXTRAS_LATTICE_TOL)
+    add("nn.CTCLoss", lambda: nn.CTCLoss(reduction="sum"), ctc_in, (0,),
+        False, False, EXTRAS_LATTICE_TOL)
+    rb, rt, ru, rc = (EXTRAS_RNNT[k] for k in ("batch", "T", "U", "classes"))
+    rnnt_in = [("f", (rb, rt, ru + 1, rc)), arr(rng.integers(1, rc, (rb, ru))),
+               arr(np.array([rt, rt - 37, rt // 2, rt - 1][:rb])),
+               arr(np.array([ru, ru - 9, ru // 3, 1][:rb]))]
+    add("F.rnnt_loss_fastemit", fn(lambda x, y, tl, ul: PF.rnnt_loss(
+        x, y, tl, ul, fastemit_lambda=0.01)), rnnt_in, (0,), False, False,
+        EXTRAS_LATTICE_TOL)
+    add("nn.RNNTLoss", lambda: nn.RNNTLoss(reduction="none"), rnnt_in, (0,),
+        False, False, EXTRAS_LATTICE_TOL)
+
+    # hierarchical sigmoid, adaptive softmax
+    hv, hf = 1000, 256
+    add("F.hsigmoid_loss", fn(lambda x, y, w, bb: PF.hsigmoid_loss(
+        x, y, hv, w, bb)), [("f", (512, hf)), (("i", hv), (512,)),
+                            ("f", (hv - 1, hf)), ("f", (hv - 1,))],
+        (0, 2, 3))
+    table = np.array([[0, 1, 3, -1], [0, 1, 4, 6], [0, 2, 5, -1],
+                      [0, 2, 5, 7]])
+    code = np.array([[0, 0, 1, 0], [0, 1, 0, 1], [1, 0, 1, 0], [1, 0, 0, 1]])
+    add("F.hsigmoid_loss_custom", fn(lambda x, y, w: PF.hsigmoid_loss(
+        x, y, 4, w, path_table=table, path_code=code)),
+        [("f", (512, hf)), (("i", 4), (512,)), ("f", (8, hf))], (0, 2))
+    add("nn.HSigmoidLoss", lambda: nn.HSigmoidLoss(hf, hv, device="cpu"),
+        [("f", (512, hf)), (("i", hv), (512,))])
+    add("nn.AdaptiveLogSoftmaxWithLoss", lambda: nn.AdaptiveLogSoftmaxWithLoss(
+        512, 20000, [2000, 10000], head_bias=True, device="cpu"),
+        [("f", (256, 512)), (("i", 20000), (256,))], (0,), True)
+
+    # sampling, shifts, masks
+    n, ch, hh, ww = EXTRAS_GRID
+    add("F.affine_grid", fn(lambda th: PF.affine_grid(th, [n, ch, hh, ww])),
+        [("f", (n, 2, 3))])
+    add("F.affine_grid_3d", fn(lambda th: PF.affine_grid(
+        th, [2, 3, 8, 16, 16], align_corners=False)), [("f", (2, 3, 4))])
+    for mode, pm, ac in (("bilinear", "zeros", True),
+                         ("bilinear", "border", False),
+                         ("bilinear", "reflection", True),
+                         ("bilinear", "reflection", False),
+                         ("nearest", "zeros", False),
+                         ("nearest", "reflection", True)):
+        add(f"F.grid_sample_{mode}_{pm}_{ac}", fn(
+            lambda x, g, m=mode, p=pm, a=ac: PF.grid_sample(
+                x, g * 1.2, m, p, a)),
+            [("f", (n, ch, hh, ww)), ("p", (n, hh, ww, 2))],
+            (0, 1) if mode == "bilinear" else (0,))
+    add("F.temporal_shift", fn(lambda x: PF.temporal_shift(x, 8)),
+        [("f", M)])
+    add("F.softmax_2d", fn(PF.softmax_2d), [("f", M)])
+    add("nn.Softmax2D", lambda: nn.Softmax2D(), [("f", M)])
+    add("nn.Unflatten", lambda: nn.Unflatten(1, [16, 16]), [("f", M)])
+    add("F.sequence_mask", fn(lambda x: PF.sequence_mask(x, 512, "float32")),
+        [(("i", 512), (4096,))], ())
+    sb, sh, ss, sd = 4, 8, 256, 64
+    rows = rng.integers(1, 32, (sb, sh, ss))
+    off = np.concatenate([np.zeros((sb, sh, 1), np.int64),
+                          np.cumsum(rows, -1)], -1).astype(np.int32)
+    cols = rng.integers(0, ss, (sb, sh, int(off[..., -1].max())))
+    add("F.sparse_attention", fn(lambda q, k, v, o, c, m: PF.sparse_attention(
+        q, k, v, o, c, key_padding_mask=m)),
+        [("f", (sb, sh, ss, sd))] * 3 + [arr(off), arr(cols.astype(np.int32)),
+                                         arr((rng.uniform(size=(sb, ss)) > 0.1)
+                                             .astype(np.float32))],
+        (0, 1, 2))
+    add("F.gather_tree", fn(PF.gather_tree), [(("i", 1000), (64, 32, 8)),
+                                              (("i", 8), (64, 32, 8))], ())
+    for name, args in (("elu_", (0.7,)), ("hardtanh_", (-0.5, 0.4)),
+                       ("leaky_relu_", (0.2,)), ("tanh_", ()),
+                       ("thresholded_relu_", (0.3,))):
+        add(f"F.{name}", fn(lambda x, n=name, a=args: getattr(PF, n)(
+            x * 1.0, *a)), [("f", A)])
+    add("F.feature_alpha_dropout_eval", fn(lambda x: PF.feature_alpha_dropout(
+        x, 0.3, training=False)), [("f", M)])
+    add("nn.SpectralNorm", lambda: nn.SpectralNorm([256, 64, 3, 3],
+                                                   power_iters=3,
+                                                   device="cpu"),
+        [("f", (256, 64, 3, 3))], (0,), True)
+
+    # the five arguments
+    add("F.conv2d_transpose_same", fn(lambda x, w: PF.conv2d_transpose(
+        x, w, stride=2, padding="SAME")), [("f", M), ("f", (M[1], 64, 3, 3))],
+        (0, 1), True)
+    add("F.interpolate_bilinear_align_mode1", fn(lambda x: PF.interpolate(
+        x, size=[41, 50], mode="bilinear", align_mode=1)), [("f", M)], (0,),
+        True)
+    add("F.interpolate_trilinear_align_mode1", fn(lambda x: PF.interpolate(
+        x, scale_factor=1.5, mode="trilinear", align_mode=1,
+        data_format="NCDHW")), [("f", NN_MAP3)], (0,), True)
+    add("F.instance_norm_running", fn(lambda x, rm, rv: PF.instance_norm(
+        x, rm, rv, use_input_stats=False)),
+        [("f", M), ("f", (M[1],)), ("p", (M[1],))])
+    add("F.cross_entropy_soft_weight", fn(lambda x, y, w: PF.cross_entropy(
+        x, y, w, soft_label=True)), [("f", L), ("p", L), ("p", (L[1],))],
+        (0, 1, 2))
+    b_, t_, h_ = NN_SEQ
+    lens = rng.integers(t_ // 4, t_ + 1, b_)
+
+    class _SeqLen(torch.nn.Module):
+        """A recurrent layer called with ``sequence_length`` (host ints)."""
+
+        def __init__(self, layer, lengths):
+            super().__init__()
+            self.layer, self.lengths = layer, lengths
+
+        def forward(self, x):
+            return self.layer(x, sequence_length=self.lengths)
+
+    for cls in ("SimpleRNN", "LSTM", "GRU"):
+        add(f"nn.{cls}_sequence_length", lambda k=cls: _SeqLen(getattr(nn, k)(
+            h_, h_, 2, direction="bidirect", device="cpu").eval(), lens),
+            [("f", NN_SEQ)], (0,), True)
+    add("nn.BiRNN_sequence_length", lambda: _SeqLen(nn.BiRNN(
+        nn.GRUCell(h_, h_, device="cpu"), nn.GRUCell(h_, h_, device="cpu")),
+        lens), [("f", (b_, 16, h_))], (0,), True)
+    g = EXTRAS_GRU
+    glens = rng.integers(g["frames"] // 4, g["frames"] + 1, g["batch"])
+    add("nn.GRU_ds2_width_sequence_length", lambda: _SeqLen(nn.GRU(
+        g["input"], g["hidden"], direction="bidirect", device="cpu").eval(),
+        glens), [("f", (g["batch"], g["frames"], g["input"]))], (0,), True,
+        False)
+
+    # paddle.linalg (fp32; bf16 only for the products and norms)
+    lb, ln = EXTRAS_LINALG
+    sq, spd = ("f", (lb, ln, ln)), ("spd", (lb, ln, ln))
+    sym, sep = ("sym", (lb, ln, ln)), ("sep", (lb, ln, ln))
+    well = ("a", (rng.standard_normal((lb, ln, ln)) * 0.3 / ln ** 0.5
+                  + np.eye(ln)).astype(np.float32))
+    LA = pt.linalg
+
+    def la(name, f, inputs, grad=(0,), bf16=False, tol=None):
+        add(f"linalg.{name}", fn(f), inputs, grad, False, bf16, tol)
+
+    la("dot", LA.dot, [("f", (4096, 256)), ("f", (4096, 256))], (0, 1), True)
+    la("bmm", LA.bmm, [sq, sq], (0, 1), True)
+    la("mv", LA.mv, [("f", (4096, 1024)), ("f", (1024,))], (0, 1), True)
+    la("multi_dot", lambda a, b, c: LA.multi_dot([a, b, c]),
+       [("f", (512, 256)), ("f", (256, 1024)), ("f", (1024, 64))], (0, 1, 2),
+       True)
+    for p, ax in ((None, None), ("fro", [1, 2]), ("nuc", [1, 2]), (2, -1),
+                  ("inf", None), (1, [1, 2])):
+        la(f"norm_{p}_{ax}", lambda a, p=p, ax=ax: LA.norm(a, p, ax), [sq],
+           (0,), p in (None, "fro", 2))
+    la("vector_norm", lambda a: LA.vector_norm(a, 3.0, [1, 2]), [sq])
+    la("matrix_norm", lambda a: LA.matrix_norm(a, 2), [sq])
+    la("cond", LA.cond, [well], ())
+    la("cholesky", lambda a: LA.cholesky(a, upper=True), [spd])
+    chol = ("a", np.linalg.cholesky(well[1] @ np.swapaxes(well[1], -1, -2))
+            .astype(np.float32))
+    la("cholesky_solve", LA.cholesky_solve, [("f", (lb, ln, 16)), chol],
+       (0, 1))
+    la("cholesky_inverse", LA.cholesky_inverse, [chol])
+    la("inv", LA.inv, [well])
+    la("pinv", LA.pinv, [("f", (lb, ln, ln // 2))])
+    la("det", LA.det, [well])
+    la("slogdet", LA.slogdet, [well])
+    la("solve", LA.solve, [well, ("f", (lb, ln, 16))], (0, 1))
+    la("triangular_solve", lambda a, b: LA.triangular_solve(
+        a, b, upper=False, transpose=True), [("a", np.tril(
+            rng.standard_normal((lb, ln, ln)) * 0.1).astype(np.float32)
+            + 2 * np.eye(ln, dtype=np.float32)), ("f", (lb, ln, 16))], (0, 1))
+    la("lstsq", LA.lstsq, [("f", (256, 128)), ("f", (256, 16))], ())
+    la("lu", LA.lu, [well], ())
+    lu_np = torch.linalg.lu_factor(torch.from_numpy(well[1]))
+    la("lu_unpack", LA.lu_unpack, [arr(lu_np[0].numpy()),
+                                   arr(lu_np[1].numpy())], ())
+    la("matrix_power", lambda a: LA.matrix_power(a, 3), [well])
+    low = rng.standard_normal((lb, ln, 8)) @ rng.standard_normal((8, ln))
+    la("matrix_rank", LA.matrix_rank, [arr(low.astype(np.float32))], ())
+    la("matrix_exp", LA.matrix_exp, [("a", (rng.standard_normal(
+        (lb, 32, 32)) * 0.1).astype(np.float32))])
+    la("eigvalsh", LA.eigvalsh, [sym], tol=EXTRAS_SPECTRAL_TOL)
+    la("svdvals", LA.svdvals, [sep], tol=EXTRAS_SPECTRAL_TOL)
+    la("cross", lambda a, b: LA.cross(a, b), [("f", (64, 3, 4096)),
+                                             ("f", (64, 3, 4096))], (0, 1),
+       True)
+    geqrf = torch.geqrf(torch.from_numpy(rng.standard_normal(
+        (lb, ln, 64)).astype(np.float32)))
+    la("householder_product", LA.householder_product,
+       [arr(geqrf[0].numpy()), arr(geqrf[1].numpy())], (0, 1))
+    la("ormqr", lambda a, tau, y: LA.ormqr(a, tau, y, transpose=True),
+       [arr(geqrf[0].numpy()), arr(geqrf[1].numpy()), ("f", (lb, ln, 16))],
+       (2,))
+    la("corrcoef", LA.corrcoef, [("f", (128, 4096))])
+    la("cov", lambda a, fw, aw: LA.cov(a, fweights=fw, aweights=aw),
+       [("f", (128, 4096)), arr(rng.integers(1, 4, 4096)),
+        ("p", (4096,))], (0,))
+    # Hopper's fp8 MMA accumulates with ~14 bits of mantissa (DeepSeek-V3
+    # report, section 3.3.2; 2.9e-4 seen): tolerance 1e-3
+    add("linalg.fp8_gemm", fn(lambda a, b, bb: LA.fp8_fp8_half_gemm_fused(
+        a, b, bb, output_dtype="float32", activation_type="gelu")),
+        [("f", (1024, 512)), ("f", (512, 1024)), ("f", (1024,))], (), False,
+        False, 1e-3)
+    # up to sign or phase: reconstructions and values
+    la("qr", lambda a: (lambda q, r: (q @ r, r.abs(), q.mT @ q))(
+        *LA.qr(a)), [well])
+    la("svd", lambda a: (lambda u, s, v: (u * s[..., None, :] @ v.mT, s))(
+        *LA.svd(a)), [sep], tol=EXTRAS_SPECTRAL_TOL)
+    la("eigh", lambda a: (lambda w, v: (w, v * w[..., None, :] @ v.mT))(
+        *LA.eigh(a)), [sym], tol=EXTRAS_SPECTRAL_TOL)
+
+    def _sorted(w):
+        w = w[torch.argsort(w.imag, stable=True)]
+        w = w[torch.argsort(w.real, stable=True)]
+        return torch.stack([w.real, w.imag])
+
+    la("eig_values", lambda a: _sorted(LA.eig(a)[0]), [("f", (ln, ln))], ())
+    la("eigvals", lambda a: _sorted(LA.eigvals(a)), [("f", (ln, ln))], ())
+    la("pca_lowrank", lambda a: (lambda u, s, v: (u * s @ v.T, s))(
+        *LA.pca_lowrank(a, 8)), [("sep", (128, 128))],
+       tol=EXTRAS_SPECTRAL_TOL)
+    # a rank-8 matrix sketched by 12 vectors (oversampled: the sketch's
+    # conditioning, and so its error, does not hang on one 8 x 8 draw);
+    # the two devices' generators draw different sketches
+    la("svd_lowrank", lambda a: (lambda u, s, v: u * s[..., None, :] @ v.mT)(
+        *LA.svd_lowrank(a, 12, niter=0)), [arr(low.astype(np.float32))], (),
+       tol=EXTRAS_SPECTRAL_TOL)
+    return cases
+
+
+def _extras_random_on_card(torch, card):
+    """The random extras on the card: feature_alpha_dropout drops whole
+    channels at its rate; class_center_sample keeps every positive, sorted,
+    its remap inverting; a fractional pool without random_u draws new
+    intervals from the port's CPU generator."""
+    import paddle_tpu_torch.nn.functional as PF
+
+    gen = torch.Generator(device=DEVICE).manual_seed(44)
+    x = torch.randn(NN_MAP, device=DEVICE, generator=gen)
+    y = PF.feature_alpha_dropout(x, 0.3, generator=gen)
+    q, alpha_p = 0.7, -1.7580993408473766
+    a = (q + alpha_p ** 2 * q * 0.3) ** -0.5
+    # a dropped element is exactly a alpha' + b in fp32 (a kept one equals
+    # it only where x == alpha'); isclose would also take kept neighbours
+    dropped = y == a * torch.full_like(y, alpha_p) - a * alpha_p * 0.3
+    frac = dropped.flatten(2).float().mean(-1)
+    rate = frac.mean().item()
+    sd = (0.3 * 0.7 / frac.numel()) ** 0.5
+    labels = torch.randint(0, 50000, (4096,), device=DEVICE, generator=gen)
+    remap, chosen = PF.class_center_sample(labels, 50000, 8192)
+    kept = bool(torch.equal(chosen[remap], labels)
+                and (chosen[1:] > chosen[:-1]).all())
+    z = torch.randn(NN_MAP, device=DEVICE, generator=gen)
+    draws = {tuple(PF.fractional_max_pool2d(z, 11).flatten()[:64].tolist())
+             for _ in range(4)}
+    ok = (bool(((frac == 0) | (frac == 1)).all()) and abs(rate - 0.3) < 6 * sd
+          and kept and len(draws) > 1
+          and all(t.device.type == "cuda" for t in (y, remap, chosen)))
+    print(f"extras sweep random [{card}]: feature_alpha_dropout dropped "
+          f"{rate:.5f} of whole channels (0.3 +- {6 * sd:.5f}); "
+          f"class_center_sample kept every positive of 4096 labels among "
+          f"8192 of 50000 classes: {kept}; fractional pool draws "
+          f"{len(draws)} distinct of 4", flush=True)
+    if not ok:
+        raise AssertionError("extras sweep: a random extra on the card "
+                             "missed its rule")
+
+
+def phase_extras_sweep(torch, np, ops, card):
+    """Phase 44: every new function and layer of the nn extras, the five
+    arguments and paddle.linalg, forward and backward, card against CPU
+    (fp32, and bf16 where the case takes it; NN_SWEEP_TOL); K1-K6 must not
+    launch."""
+    import paddle_tpu_torch as pt
+
+    pt.set_device(DEVICE)
+    _reset_counts(ops)
+    _sweep(torch, np, extras_sweep_cases(torch, np), 4400, "extras sweep",
+           card)
+    _extras_random_on_card(torch, card)
+    counts = _no_kernel_ran(ops, "extras sweep")
+    print(f"extras sweep: K1-K6 launches {counts}", flush=True)
+    _release(torch)
+
+
+def _ds2_parity(torch, np, pt, card):
+    """DS2_PARITY: the first step's loss and every gradient, card vs CPU
+    from the same weights (BatchNorm in training)."""
+    p = DS2_PARITY
+    feats, lens, labels, lab_lens = ds2_batch(np, p, 45)
+    runs = []
+    pt.seed(0)
+    cpu = deepspeech2(pt, p, "cpu")
+    gpu = deepspeech2(pt, p, DEVICE)
+    _copy_state(torch, gpu, cpu)
+    for m, dev in ((cpu, "cpu"), (gpu, DEVICE)):
+        pt.set_device(dev)
+        loss = ds2_loss(pt, m, pt.to_tensor(feats), lens,
+                        pt.to_tensor(labels), pt.to_tensor(lab_lens))
+        runs.append((loss.item(), torch.autograd.grad(
+            loss, list(m.parameters()))))
+    pt.set_device(DEVICE)
+    (lc, gc), (lg, gg) = runs
+    loss_rel = abs(lg - lc) / abs(lc)
+    top = max(a.abs().max().item() for a in gc)
+    names = [n for n, _ in cpu.named_parameters()]
+    worst = max((((b.cpu() - a).abs().max()
+                  / max(a.abs().max().item(), top / 256)).item(), n)
+                for n, a, b in zip(names, gc, gg))
+    on_card = all(g.device.type == "cuda" for g in gg)
+    print(f"ds2 parity [{card}]: channels {p['channels']}, GRUs of "
+          f"{p['hidden']}, {p['vocab']} classes, batch {p['batch']} of "
+          f"{lens.min()}-{lens.max()} frames: first step loss cpu {lc:.6f} "
+          f"card {lg:.6f} (rel {loss_rel:.3e}); gradients worst "
+          f"{worst[0]:.3e} of the parameter's largest (or 2^-8 of the "
+          f"largest of all) ({worst[1]}, tol {p['tol']})", flush=True)
+    if not (loss_rel <= p["tol"] and worst[0] <= p["tol"] and on_card):
+        raise AssertionError(f"ds2 card vs CPU: loss {loss_rel}, gradients "
+                             f"{worst}, on card {on_card}")
+
+
+def phase_ds2(torch, np, ops, card):
+    """Phase 45: the DeepSpeech2-class acoustic model of DS2 trained with
+    CTC (Adam, the global-norm clip; eager loss.backward / step /
+    clear_grad) on one fixed batch; K1-K6 must not launch."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+
+    c, t = DS2, DS2_TIMED
+    pt.set_device(DEVICE)
+    _reset_counts(ops)
+    t_parity = time.perf_counter()
+    _ds2_parity(torch, np, pt, card)
+    t_parity = time.perf_counter() - t_parity
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pt.seed(0)
+    model = deepspeech2(pt, c, DEVICE)
+    opt = optimizer.Adam(c["lr"], parameters=model.parameters(),
+                         grad_clip=nn.ClipGradByGlobalNorm(c["clip"]))
+    feats, lens, labels, lab_lens = ds2_batch(np, c, 0)
+    x, y, yl = (pt.to_tensor(a) for a in (feats, labels, lab_lens))
+
+    def step():
+        loss = ds2_loss(pt, model, x, lens, y, yl)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    def eval_loss():
+        model.eval()
+        with torch.no_grad():
+            out = ds2_loss(pt, model, x, lens, y, yl).item()
+        model.train()
+        return out
+
+    before = eval_loss()
+    losses = [step().item() for _ in range(t["warmup"])]
+    sync()
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(t["steps"])]
+    sync()
+    wall = time.perf_counter() - t0
+    losses += [v.item() for v in timed]
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    after = eval_loss()
+    t_prof = time.perf_counter()
+    kernels = _kernels_per_step(torch, step)
+    t_prof = time.perf_counter() - t_prof
+    n_params = sum(p.numel() for p in model.parameters())
+    ms = wall / t["steps"] * 1e3
+    frames = int(lens.sum())
+    print(f"ds2 [{card}]: ms_per_step={ms:.2f} utterances_per_s="
+          f"{c['batch'] * t['steps'] / wall:.1f} frames_per_s="
+          f"{frames * t['steps'] / wall:.1f} peak_mem_gb={peak:.3f} (over "
+          f"the {base / 1e9:.3f} GB earlier phases hold) kernels_per_step="
+          f"{kernels if kernels else 'not measured (no device event)'} "
+          f"({n_params / 1e6:.2f}M params; 2 x Conv2D(32) + BatchNorm2D + "
+          f"Hardtanh(0, 20), 3 x bidirectional GRU {c['hidden']} with "
+          f"sequence_length, Linear(2048, {c['vocab']}), CTC; batch "
+          f"{c['batch']} of {lens.min()}-{lens.max()} frames ({frames} in "
+          f"all), labels {lab_lens.min()}-{lab_lens.max()}; fp32, TF32 off; "
+          f"Adam lr {c['lr']} clip {c['clip']}; {t['steps']} timed steps "
+          f"after {t['warmup']}; cut: the sequence-wise batch norm inside "
+          f"the GRU stack); eval loss on the fixed batch {before:.4f} -> "
+          f"{after:.4f}; train losses {[round(v, 3) for v in losses]}; "
+          f"the parity check took {t_parity:.1f}s, the profiled step "
+          f"{t_prof:.1f}s", flush=True)
+    if not (all(math.isfinite(v) for v in losses + [before, after])
+            and after < before):
+        raise AssertionError(f"ds2: losses {losses}, eval {before} -> "
+                             f"{after}")
+    counts = _no_kernel_ran(ops, "ds2")
+    print(f"ds2: K1-K6 launches {counts}", flush=True)
+    del model, opt
     _release(torch)
 
 
@@ -7303,16 +7913,17 @@ def _lstm_lm_parity(torch, np, pt, ids, labels, card):
 
 def _kernels_per_step(torch, step):
     """CUDA kernels torch.profiler records in one ``step()`` (copies and
-    memsets left out), or None when it records none."""
+    memsets left out), or None when it records none. Only device activity
+    is traced, and the raw events are counted (building the profiler's
+    event tree takes seconds for a step of 10^4 kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    n = sum(1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset")))
+    n = sum(1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.name().startswith(("Memcpy", "Memset")))
     return n or None
 
 
@@ -7386,6 +7997,72 @@ def phase_lstm_lm(torch, np, ops, card):
     print(f"lstm lm: K1-K6 launches {counts}", flush=True)
     del net, model
     _release(torch)
+
+
+def deepspeech2(P, cfg, device=None):
+    """DS2's acoustic model of ``P``'s Paddle layers (the port, or any
+    package with Paddle's API): ``forward(x [batch, frames, freq], lengths
+    (host ints))`` returns the per-frame logits [batch, frames / 3, vocab]
+    and the post-conv lengths. Each conv block's output is multiplied by
+    the frame mask; the GRUs take the lengths as ``sequence_length``."""
+    import numpy as np
+
+    nn = P.nn
+    kw = {} if device is None else {"device": device}
+    c, h = cfg["channels"], cfg["hidden"]
+    feat = c * ((((cfg["freq"] - 1) // 2 + 1) - 1) // 2 + 1)
+
+    class DeepSpeech2(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2D(1, c, (41, 11), (2, 3), (20, 5), **kw)
+            self.bn1 = nn.BatchNorm2D(c, **kw)
+            self.conv2 = nn.Conv2D(c, c, (21, 11), (2, 1), (10, 5), **kw)
+            self.bn2 = nn.BatchNorm2D(c, **kw)
+            self.act = nn.Hardtanh(0.0, 20.0)
+            self.rnns = nn.LayerList([
+                nn.GRU(feat if i == 0 else 2 * h, h, direction="bidirect",
+                       **kw) for i in range(cfg["layers"])])
+            self.head = nn.Linear(2 * h, cfg["vocab"], **kw)
+
+        def forward(self, x, lengths):
+            lens = (np.asarray(lengths) - 1) // 3 + 1
+            y = x.transpose([0, 2, 1]).unsqueeze(1)       # [b, 1, freq, t]
+            y = self.act(self.bn1(self.conv1(y)))
+            mask = P.to_tensor((np.arange(y.shape[3])[None] < lens[:, None])
+                               .astype(np.float32)[:, None, None, :])
+            y = y * mask
+            y = self.act(self.bn2(self.conv2(y))) * mask
+            b, ch, f, t = y.shape
+            y = y.transpose([0, 3, 1, 2]).reshape([b, t, ch * f])
+            for rnn in self.rnns:
+                y = rnn(y, sequence_length=lens)[0]
+            return self.head(y), lens
+
+    return DeepSpeech2()
+
+
+def ds2_batch(np, cfg, seed):
+    """Features [batch, frames, freq] (normal; zero past each length),
+    lengths, labels [batch, longest] in 1..vocab-1 (0 is the blank) and
+    label lengths, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(cfg["frames"][0], cfg["frames"][1] + 1, cfg["batch"])
+    feats = rng.standard_normal((cfg["batch"], int(lens.max()), cfg["freq"]),
+                                dtype=np.float32)
+    feats *= (np.arange(feats.shape[1])[None] < lens[:, None])[..., None]
+    lab_lens = rng.integers(cfg["labels"][0], cfg["labels"][1] + 1,
+                            cfg["batch"])
+    labels = rng.integers(1, cfg["vocab"], (cfg["batch"], int(lab_lens.max())))
+    return feats, lens, labels, lab_lens
+
+
+def ds2_loss(P, model, feats, lens, labels, lab_lens, reduction="mean"):
+    """CTC of the model's logits over each row's post-conv length."""
+    logits, out_lens = model(feats, lens)
+    return P.nn.functional.ctc_loss(logits.transpose([1, 0, 2]), labels,
+                                    P.to_tensor(out_lens), lab_lens,
+                                    reduction=reduction)
 
 
 def _k4_alive(torch, ops):
@@ -7516,6 +8193,8 @@ def main():
                                         torch, np, ops, card)
     _phase("42 nn sweep", phase_nn_sweep, torch, np, ops, card)
     _phase("43 lstm lm", phase_lstm_lm, torch, np, ops, card)
+    _phase("44 extras sweep", phase_extras_sweep, torch, np, ops, card)
+    _phase("45 ds2", phase_ds2, torch, np, ops, card)
     for path in (gpt_train, bert, opt_train, dygraph_bf16):
         lse_launches += path[0]
         k2_launches += path[1]

@@ -10,8 +10,9 @@ The top level is the eager Paddle API, as the JAX package's ``__init__``
 (:11-35) exports it: the dtypes, ``Tensor`` / ``Parameter`` (subclasses of
 ``torch.Tensor``), the ``paddle.*`` tensor functions (``to_tensor``,
 ``matmul``, ``reshape`` ...), ``grad`` / ``no_grad``, ``ParamAttr``,
-``seed`` and the RNG state, the flags, ``set_device`` / ``get_device`` and the ``amp``,
-``autograd``, ``nn`` and ``tensor`` packages.
+``seed`` and the RNG state, the flags, ``set_device`` / ``get_device``, the
+``amp``, ``autograd``, ``nn`` and ``tensor`` packages and ``linalg`` (the
+module ``tensor/linalg.py``, as in the JAX package).
 
 Entry points (creation functions, layers, model construction,
 ``_init_paged_caches`` and the serving engine) run on the current place:
@@ -39,7 +40,7 @@ from .flags import get_flags, set_flags  # noqa: F401
 from .framework import ParamAttr, load, save  # noqa: F401
 from .framework.random import get_rng_state, seed, set_rng_state  # noqa
 from .tensor import *  # noqa: F401,F403
-from .tensor import einsum  # noqa: F401
+from .tensor import einsum, linalg  # noqa: F401
 from . import amp, autograd, core, nn, optimizer, tensor  # noqa: F401,E402
 
 # what the JAX package's top level has and a later slice brings
@@ -49,8 +50,6 @@ _LATER = {
     "static": "paddle_tpu_torch.static", "jit": "paddle_tpu_torch.jit",
     "enable_static": "the static graph (enable_static: the op "
                      "dispatcher's static-graph interception)",
-    "linalg": "paddle_tpu_torch.linalg (tensor/linalg.py: bmm, mv, dot, "
-              "norm, the decompositions)",
     "profiler": "paddle_tpu_torch.profiler",
 }
 

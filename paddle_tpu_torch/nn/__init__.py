@@ -2,20 +2,17 @@
 ``torch.nn.Module`` with Paddle's API), the containers, every activation,
 loss, normalisation, pooling, convolution, recurrent and common layer of
 the JAX package's modules of those names, the Transformer family, the
-gradient clips and the initializers, in the JAX package's parameter names
-and layouts. The functionals are in ``nn.functional``.
-
-The layers of the JAX package's ``nn/layer/extras.py`` (CTC and RNN-T
-losses, ``BeamSearchDecoder``, ``SpectralNorm``, ``LayerDict`` ...)
-arrive with a later slice: each of their names raises ``later_slice``
-(ROADMAP Queue 1, item 8) here.
+gradient clips and the initializers, and the long tail of its
+``nn/layer/extras.py`` (CTC and RNN-T losses, ``BiRNN``,
+``BeamSearchDecoder`` / ``dynamic_decode``, ``SpectralNorm``,
+``LayerDict`` ...), in the JAX package's parameter names and layouts. The
+functionals are in ``nn.functional``.
 """
 
 from __future__ import annotations
 
 import numpy as np  # noqa: F401
 
-from .._later import later_slice
 from ..core import dtype as dtype_mod  # noqa: F401
 from ..core.tensor import Parameter, Tensor  # noqa: F401
 from . import functional, initializer  # noqa: F401
@@ -38,6 +35,17 @@ from .layer.common import (AlphaDropout, Bilinear,  # noqa: F401
                            ZeroPad2D)
 from .layer.conv import (Conv1D, Conv1DTranspose, Conv2D,  # noqa: F401
                          Conv2DTranspose, Conv3D, Conv3DTranspose)
+from .layer.extras import (AdaptiveLogSoftmaxWithLoss,  # noqa: F401
+                           BeamSearchDecoder, BiRNN, CTCLoss,
+                           FeatureAlphaDropout, FractionalMaxPool2D,
+                           FractionalMaxPool3D, GaussianNLLLoss,
+                           HSigmoidLoss, LayerDict, LPPool1D, LPPool2D,
+                           MaxUnPool1D, MaxUnPool2D, MaxUnPool3D,
+                           MultiLabelSoftMarginLoss, MultiMarginLoss,
+                           PairwiseDistance, PoissonNLLLoss, RNNCellBase,
+                           RNNTLoss, SoftMarginLoss, Softmax2D, SpectralNorm,
+                           TripletMarginWithDistanceLoss, Unflatten,
+                           ZeroPad1D, ZeroPad3D, dynamic_decode)
 from .layer.layers import (Layer, LayerList, ParameterList,  # noqa: F401
                            Sequential)
 from .layer.loss import (BCELoss, BCEWithLogitsLoss,  # noqa: F401
@@ -59,21 +67,3 @@ from .layer.rnn import (GRU, LSTM, RNN, GRUCell, LSTMCell,  # noqa: F401
 from .layer.transformer import (MultiHeadAttention, Transformer,  # noqa: F401
                                 TransformerDecoder, TransformerDecoderLayer,
                                 TransformerEncoder, TransformerEncoderLayer)
-
-# the names of the JAX package's nn/layer/extras.py not ported yet
-EXTRAS = frozenset((
-    "AdaptiveLogSoftmaxWithLoss", "BeamSearchDecoder", "BiRNN", "CTCLoss",
-    "FeatureAlphaDropout", "FractionalMaxPool2D", "FractionalMaxPool3D",
-    "GaussianNLLLoss", "HSigmoidLoss", "LPPool1D", "LPPool2D", "LayerDict",
-    "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D", "MultiLabelSoftMarginLoss",
-    "MultiMarginLoss", "PairwiseDistance", "PoissonNLLLoss", "RNNCellBase",
-    "RNNTLoss", "SoftMarginLoss", "Softmax2D", "SpectralNorm",
-    "TripletMarginWithDistanceLoss", "Unflatten", "ZeroPad1D", "ZeroPad3D",
-    "dynamic_decode"))
-
-
-def __getattr__(name):
-    if name in EXTRAS:
-        raise later_slice(f"paddle.nn.{name} (nn/layer/extras.py)",
-                          "Paddle API surface", "8")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

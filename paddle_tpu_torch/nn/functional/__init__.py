@@ -4,17 +4,15 @@ every activation, loss, normalisation, pooling, convolution and common
 functional of the JAX package's modules of those names, and the flash
 and flashmask attention entry points and the packed (varlen) ones.
 
-The rest of the JAX package's ``nn/functional/extras.py`` (CTC and RNN-T
-losses, ``grid_sample``, the fractional and unpooling pools ...) arrives
-with a later slice: each of its names raises ``later_slice`` (ROADMAP
-Queue 1, item 8) here.
+and the long tail of the JAX package's ``nn/functional/extras.py``
+(CTC and RNN-T losses, ``grid_sample``, the fractional and unpooling
+pools, beams, the in-place activations ...).
 """
 
 from __future__ import annotations
 
 import numpy as np  # noqa: F401
 
-from ..._later import later_slice
 from ...core.op_registry import (AMP_BLACK, AMP_WHITE, OpDef,  # noqa: F401
                                  apply_fn)
 from ...core.tensor import Tensor, unwrap  # noqa: F401
@@ -33,8 +31,20 @@ from .common import (alpha_dropout, bilinear, channel_shuffle,  # noqa: F401
                      pixel_unshuffle, unfold, upsample)
 from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
                    conv2d_transpose, conv3d, conv3d_transpose)
-from .extras import (flash_attn_qkvpacked,  # noqa: F401
-                     flash_attn_varlen_qkvpacked)
+from .extras import (adaptive_log_softmax_with_loss,  # noqa: F401
+                     affine_grid, class_center_sample, ctc_loss, elu_,
+                     feature_alpha_dropout, flash_attn_qkvpacked,
+                     flash_attn_varlen_qkvpacked, fractional_max_pool2d,
+                     fractional_max_pool3d, gather_tree, gaussian_nll_loss,
+                     grid_sample, hardtanh_, hsigmoid_loss, leaky_relu_,
+                     margin_cross_entropy, max_pool2d_with_mask,
+                     max_unpool1d, max_unpool2d, max_unpool3d,
+                     multi_label_soft_margin_loss, multi_margin_loss,
+                     npair_loss, pairwise_distance, poisson_nll_loss,
+                     rnnt_loss, sequence_mask, soft_margin_loss, softmax_2d,
+                     sparse_attention, tanh_, temporal_shift,
+                     thresholded_relu_, triplet_margin_with_distance_loss,
+                     zeropad2d)
 from .flash_attention import (flash_attention,  # noqa: F401
                               flashmask_attention,
                               scaled_dot_product_attention, sdp_kernel)
@@ -53,24 +63,3 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
                       avg_pool2d, avg_pool3d, lp_pool1d, lp_pool2d,
                       max_pool1d, max_pool2d, max_pool3d)
-
-# the names of the JAX package's nn/functional/extras.py not ported yet
-EXTRAS = frozenset((
-    "adaptive_log_softmax_with_loss", "affine_grid", "class_center_sample",
-    "ctc_loss", "elu_", "feature_alpha_dropout", "fractional_max_pool2d",
-    "fractional_max_pool3d", "gather_tree", "gaussian_nll_loss",
-    "grid_sample", "hardtanh_", "hsigmoid_loss", "leaky_relu_",
-    "margin_cross_entropy", "max_pool2d_with_mask", "max_unpool1d",
-    "max_unpool2d", "max_unpool3d", "multi_label_soft_margin_loss",
-    "multi_margin_loss", "npair_loss", "pairwise_distance",
-    "poisson_nll_loss", "rnnt_loss", "sequence_mask", "soft_margin_loss",
-    "softmax_2d", "sparse_attention", "tanh_", "temporal_shift",
-    "thresholded_relu_", "triplet_margin_with_distance_loss",
-    "zeropad2d"))
-
-
-def __getattr__(name):
-    if name in EXTRAS:
-        raise later_slice(f"paddle.nn.functional.{name} (nn/functional/"
-                          f"extras.py)", "Paddle API surface", "8")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -133,9 +133,17 @@ def tanhshrink(x, name=None):
     return apply_fn("tanhshrink", F.tanhshrink, x)
 
 
+def _in_dtype(v, a):
+    """The Python scalar ``v`` rounded to a's dtype, as JAX's weak typing
+    rounds it before comparing (torch's CPU kernels compare a bf16 input
+    with the unrounded scalar, its CUDA kernels with the rounded one)."""
+    return float(torch.tensor(v, dtype=a.dtype)) if a.is_floating_point() \
+        else v
+
+
 def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
     return apply_fn("thresholded_relu", lambda a: F.threshold(
-        a, threshold, value), x)
+        a, _in_dtype(threshold, a), value), x)
 
 
 def softplus(x, beta=1.0, threshold=20.0, name=None):

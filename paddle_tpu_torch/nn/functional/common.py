@@ -12,8 +12,11 @@ shrinking (antialiasing), each output's weights normalised to sum 1 and
 zero where its sample falls outside the input. One weight matrix an axis,
 applied by a matmul in the input's dtype. ``align_corners=True`` (which
 the JAX package ignores) is Paddle's meaning, torch's
-``interpolate(align_corners=True)``; ``align_mode=1`` raises
-``later_slice``.
+``interpolate(align_corners=True)``. So is ``align_mode=1`` for
+``linear`` / ``bilinear`` / ``trilinear`` without ``align_corners``: the
+asymmetric source index ``i * in / out`` (``1 / scale_factor`` when that
+is given), its weights built on the host in fp32 likewise; the other
+modes ignore it, as Paddle's do.
 
 ``pixel_shuffle`` / ``pixel_unshuffle`` in NHWC order the channels as in
 NCHW (Paddle's kernels); the JAX package's NHWC forms order them
@@ -30,7 +33,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..._later import later_slice
 from ...core.op_registry import AMP_WHITE, OpDef, apply_fn
 from ...core.tensor import Tensor
 from ...framework.random import generator as global_generator
@@ -236,6 +238,31 @@ def _resize(a, axes, sizes, method):
     return a
 
 
+def _asymmetric_weights(n_in, n_out, ratio):
+    """[n_in, n_out] fp32 weights of Paddle's linear resize with
+    ``align_mode=1``: output i reads ``src = ratio * i`` (no half-pixel
+    shift), between ``floor(src)`` and the next sample (the last sample
+    alone at the end)."""
+    f32 = np.float32
+    src = f32(ratio) * np.arange(n_out, dtype=f32)
+    lo = np.floor(src).astype(np.int64).clip(0, n_in - 1)
+    frac = (src - lo).astype(f32)
+    hi = np.minimum(lo + 1, n_in - 1)
+    w = np.zeros((n_in, n_out), f32)
+    cols = np.arange(n_out)
+    np.add.at(w, (lo, cols), f32(1) - frac)
+    np.add.at(w, (hi, cols), frac)
+    return w
+
+
+def _resize_asymmetric(a, axes, sizes, ratios):
+    for ax, n_out, r in zip(axes, sizes, ratios):
+        w = torch.from_numpy(_asymmetric_weights(a.shape[ax], n_out, r))
+        a = torch.matmul(a.movedim(ax, -1),
+                         w.to(a.device, a.dtype)).movedim(-1, ax)
+    return a
+
+
 def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 align_corners=False, align_mode=0, data_format="NCHW",
                 name=None):
@@ -245,9 +272,8 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
         raise ValueError(f"unknown interpolation mode {mode!r}")
     if align_corners and mode not in _TORCH_ALIGNED:
         raise ValueError(f"align_corners=True with mode {mode!r}")
-    if align_mode != 0 and not align_corners and _RESIZE[mode] != "nearest":
-        raise later_slice("interpolate(align_mode=1)", "Paddle API surface",
-                          "8")
+    asymmetric = align_mode == 1 and not align_corners \
+        and mode in ("linear", "bilinear", "trilinear")
     cf = data_format.startswith("NC")
 
     def fn(a):
@@ -265,6 +291,11 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                                 align_corners=True)
             return out if cf else out.movedim(1, -1)
         first = 2 if cf else 1
+        if asymmetric:
+            ratios = ([1.0 / f for f in sf] if size is None
+                      else [s / t for s, t in zip(spatial, tgt)])
+            return _resize_asymmetric(a, range(first, first + len(tgt)), tgt,
+                                      ratios)
         return _resize(a, range(first, first + len(tgt)), tgt, _RESIZE[mode])
 
     return apply_fn("interpolate", fn, x)

@@ -12,10 +12,14 @@ the JAX package's white ``OpDef("conv")`` (``_conv_nd`` :39), as
 Padding takes Paddle's forms: an int, one value a spatial dim, two a dim
 (``[before_0, after_0, before_1, ...]``), per-dimension pairs (the last n
 of a list of pairs), "SAME" (XLA's: ceil(size / stride) outputs, the
-smaller half before) or "VALID". A transpose's padding crops its output;
-there "SAME" (which the JAX package reads as "VALID") raises
-``later_slice``, and ``output_size`` (which it ignores) is Paddle's: it
-picks the ``output_padding`` that reaches that size.
+smaller half before) or "VALID". A transpose's padding crops its output.
+There "SAME" (which the JAX package reads as "VALID") is Paddle's: the
+padding of a "SAME" conv of the input, ``max((ceil(in / s) - 1) s + k -
+in, 0)`` split with the smaller half before and the dilation taken as 1,
+so the output is ``in x stride`` when the stride divides the input and
+the kernel is no smaller than the stride. ``output_size`` (which the JAX
+package ignores) is Paddle's: it picks the ``output_padding`` that
+reaches that size.
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ import math
 
 import torch.nn.functional as F
 
-from ..._later import later_slice
 from ...core.op_registry import AMP_WHITE, OpDef, apply_fn
 
 _CONV = OpDef("conv", None, amp=AMP_WHITE)
@@ -117,10 +120,11 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
 
 def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
                        groups, dilation, output_size, n, data_format):
-    if isinstance(padding, str) and padding.upper() == "SAME":
-        raise later_slice("conv_transpose with padding='SAME'",
-                          "Paddle API surface", "8")
     stride, dilation = _tuplize(stride, n), _tuplize(dilation, n)
+    if isinstance(padding, str) and padding.upper() == "SAME":
+        # the SAME padding of a conv of the input at dilation 1 (Paddle's
+        # UpdatePaddingAndDilation)
+        dilation = (1,) * n
     opad = _tuplize(output_padding, n)
 
     def fn(a, w, *b):

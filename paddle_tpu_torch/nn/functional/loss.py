@@ -11,9 +11,9 @@ labels, or their summed weights), the same class axis.
 Two departures: ``nll_loss`` takes the classes on axis 1 of an input of
 any rank (Paddle's layout; the JAX package gathers along the last axis
 when the input has more than two dims), and ``cross_entropy`` with soft
-labels and a ``weight`` raises ``later_slice`` (the JAX package drops the
-weight there; Paddle weighs each row by its labels' weights, which no
-torch call gives).
+labels and a ``weight`` is Paddle's (the JAX package drops the weight
+there): each row's loss times ``label @ weight``, ``"mean"`` divided by
+the sum of those row weights.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..._later import later_slice
 from ...core.op_registry import AMP_BLACK, OpDef, apply_fn
 
 _XENT = OpDef("cross_entropy", None, amp=AMP_BLACK)
@@ -58,11 +57,11 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     ``label_smoothing`` mixes the one-hot with the uniform distribution,
     and ``"mean"`` divides the sum by the number of kept labels (with
     ``weight``: by their summed weights). Soft labels: the
-    (smoothed) distributions themselves; ``"mean"`` is over the rows."""
+    (smoothed) distributions themselves; ``"mean"`` is over the rows, and
+    a ``weight`` scales each row by ``label @ weight`` (the smoothed
+    label), ``"mean"`` then dividing by the summed row weights (1 where
+    they sum to 0), Paddle's rule."""
     _check(reduction)
-    if soft_label and weight is not None:
-        raise later_slice("cross_entropy with soft labels and a weight",
-                          "Paddle API surface", "8")
 
     def fn(logits, lab, *w):
         ax = axis % logits.ndim
@@ -74,7 +73,14 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             soft = lab.movedim(ax, -1)
             if label_smoothing > 0:
                 soft = soft * (1 - label_smoothing) + label_smoothing / n_class
-            return _reduce(-(soft * lp).sum(-1), reduction)
+            loss = -(soft * lp).sum(-1)
+            if w:
+                row_w = soft.to(w[0].dtype) @ w[0]
+                loss = loss * row_w
+                if reduction == "mean":
+                    total = row_w.sum()
+                    return loss.sum() / (total + (total == 0).to(total.dtype))
+            return _reduce(loss, reduction)
         li = lab.long()
         if li.ndim == logits.ndim:
             li = li.squeeze(ax)

@@ -22,8 +22,9 @@ a bf16 input in fp32, so in bf16 the port is the more exact of the two
 (their difference is bf16 rounding of the JAX side's statistics). The
 affine weights multiply after the cast, in the promoted type, as in JAX.
 ``instance_norm`` normalises by each sample's own statistics, which is
-all the JAX package and Paddle's dygraph kernel do: running statistics
-or ``use_input_stats=False`` raise ``later_slice``.
+all the JAX package does; given running statistics it is torch's
+``instance_norm`` with them (``use_input_stats=False`` normalises by
+them).
 
 ``local_response_norm`` is the JAX package's ``x / (k + alpha *
 sum(x^2 over size channels))^beta`` (Paddle and torch divide the sum by
@@ -36,7 +37,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..._later import later_slice
 from ...core.op_registry import apply_fn
 
 
@@ -126,11 +126,27 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
                   bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
                   data_format="NCHW", name=None):
     """Each (sample, channel) normalised over its spatial dims
-    (:105-121)."""
-    if running_mean is not None or running_var is not None \
-            or not use_input_stats:
-        raise later_slice("instance_norm with running statistics",
-                          "Paddle API surface", "8")
+    (:105-121). The running statistics (which the JAX package ignores) are
+    torch's ``instance_norm``'s: with ``use_input_stats=False`` the input
+    is normalised with ``running_mean`` / ``running_var``; with input
+    statistics the given running buffers are updated in place, Paddle's
+    ``momentum`` (0.9 keeps 90% of the old value)."""
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("instance_norm takes running_mean and running_var "
+                         "together")
+    if running_mean is not None:
+        def stats_fn(a, rm, rv, *wb):
+            w, b = _split_wb(wb, weight, bias)
+            out = F.instance_norm(_to_nc(a, data_format), rm, rv,
+                                  use_input_stats=use_input_stats,
+                                  momentum=1.0 - momentum, eps=eps)
+            return _from_nc(_affine(out, w, b), data_format)
+
+        return apply_fn("instance_norm", stats_fn, x, running_mean,
+                        running_var, *_opt(weight, bias))
+    if not use_input_stats:
+        raise ValueError("instance_norm(use_input_stats=False) needs "
+                         "running_mean and running_var")
 
     def fn(a, *wb):
         w, b = _split_wb(wb, weight, bias)

@@ -15,19 +15,26 @@ reversed, as in the JAX package. Parameters carry the JAX package's names
 ``bias_hh_...``: torch's too), shapes ``[gates * hidden, in]`` and
 initializer ``Uniform(-1 / sqrt(hidden), 1 / sqrt(hidden))``.
 
-Two arguments the JAX package ignores: ``dropout`` between stacked layers
-is Paddle's (in training, on every layer's output but the last; torch's
-fused op does it, its masks from torch's own generator of the device),
-and ``sequence_length`` raises ``later_slice``. The cells take their
+Two arguments the JAX package ignores are Paddle's here. ``dropout``
+between stacked layers: in training, on every layer's output but the
+last (torch's fused op does it, its masks from torch's own generator of
+the device). ``sequence_length`` [batch]: the stack runs as one call of
+the fused op's packed form over the rows sorted by length (the initial
+states permuted to match, the final ones back), so outputs past a row's
+length are zero, its final states are those of its last valid step, and
+its reverse direction starts there; the lengths are read on the host, as
+torch's packing needs. ``RNN`` takes it too: past a row's length the
+state is frozen and the output zero. The cells take their
 ``weight_*_attr`` / ``bias_*_attr`` (which the JAX cells drop).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn.utils.rnn import pack_padded_sequence
 
-from ..._later import later_slice
 from ...core.op_registry import apply_fn
+from ...core.tensor import unwrap
 from ...device import resolve_device
 from .. import initializer as I
 from .layers import Layer, check_attr
@@ -94,10 +101,10 @@ class _RNNBase(Layer):
         """``(outputs, final_states)``: outputs [batch, time, dirs x
         hidden] ([time, batch, ...] when ``time_major``), states [layers x
         dirs, batch, hidden] (LSTM: the pair (h, c)); initial states
-        default to zeros."""
-        if sequence_length is not None:
-            raise later_slice(f"{type(self).__name__}(sequence_length=...)",
-                              "Paddle API surface", "8")
+        default to zeros; ``sequence_length`` [batch] (see the module
+        docstring)."""
+        lengths = None if sequence_length is None else torch.as_tensor(
+            unwrap(sequence_length)).to("cpu", torch.int64)
         mode, lstm = self.mode, self.mode == "LSTM"
         states = (list(initial_states) if lstm else [initial_states]) \
             if initial_states is not None else []
@@ -122,11 +129,22 @@ class _RNNBase(Layer):
                                     self.hidden_size)
                 hx = [zeros, zeros] if lstm else [zeros]
             hx = [h.to(dt) for h in hx]
-            if lstm:
-                return op(x, tuple(hx), weights, has_bias, nl, drop, train,
-                          bi, batch_first)
-            return op(x, hx[0], weights, has_bias, nl, drop, train, bi,
-                      batch_first)
+            if lengths is None:
+                return op(x, tuple(hx) if lstm else hx[0], weights,
+                          has_bias, nl, drop, train, bi, batch_first)
+            packed = pack_padded_sequence(x, lengths, batch_first,
+                                          enforce_sorted=False)
+            order, back = packed.sorted_indices, packed.unsorted_indices
+            hx = [h.index_select(1, order) for h in hx]
+            res = op(packed.data, packed.batch_sizes,
+                     tuple(hx) if lstm else hx[0], weights, has_bias, nl,
+                     drop, train, bi)
+            # pad_packed_sequence without its lengths (a copy to the host)
+            out = torch._VF._pad_packed_sequence(
+                res[0], packed.batch_sizes, batch_first, 0.0,
+                x.shape[1 if batch_first else 0])[0]
+            return ((out.index_select(0 if batch_first else 1, back),)
+                    + tuple(h.index_select(1, back) for h in res[1:]))
 
         res = apply_fn("rnn_" + mode.lower(), fn, inputs,
                        *[self._parameters[n] for n in self._flat_names],
@@ -281,9 +299,20 @@ class GRUCell(_CellBase):
         return h, h
 
 
+def nest_map(fn, *nests):
+    """``fn`` over matching nests (tuples, lists) of tensors."""
+    if isinstance(nests[0], (tuple, list)):
+        return type(nests[0])(nest_map(fn, *parts)
+                              for parts in zip(*nests))
+    return fn(*nests)
+
+
 class RNN(Layer):
     """A cell run over time, one step at a time (the JAX package's Python
-    loop, :258-281); ``is_reverse`` runs it from the last step back."""
+    loop, :258-281); ``is_reverse`` runs it from the last step back. With
+    ``sequence_length`` a row's state past its length stays as it was
+    (``where(t < length, new, old)``; so the reverse direction starts at
+    its last valid step) and its output there is zero."""
 
     def __init__(self, cell, is_reverse=False, time_major=False):
         super().__init__()
@@ -291,16 +320,22 @@ class RNN(Layer):
         self.is_reverse, self.time_major = is_reverse, time_major
 
     def forward(self, inputs, initial_states=None, sequence_length=None):
-        if sequence_length is not None:
-            raise later_slice("RNN(sequence_length=...)",
-                              "Paddle API surface", "8")
         xt = inputs if self.time_major else torch.transpose(inputs, 0, 1)
         steps = range(xt.shape[0])
         if self.is_reverse:
             steps = reversed(steps)
+        lengths = None if sequence_length is None else torch.as_tensor(
+            unwrap(sequence_length)).to(xt.device)
         outs, state = {}, initial_states
         for t in steps:
-            outs[t], state = self.cell(xt[t], state)
+            out, new = self.cell(xt[t], state)
+            if lengths is not None:
+                live = (t < lengths)[:, None]
+                old = state if state is not None \
+                    else nest_map(torch.zeros_like, new)
+                new = nest_map(lambda n, o: torch.where(live, n, o), new, old)
+                out = torch.where(live, out, 0.0)
+            outs[t], state = out, new
         out = torch.stack([outs[t] for t in range(xt.shape[0])], 0)
         return (out if self.time_major else torch.transpose(out, 0, 1)), \
             state

@@ -23,8 +23,9 @@ import torch
 from .._later import later_slice
 from ..core.op_registry import apply_fn
 from ..core.tensor import Tensor, unwrap
-from . import creation, manipulation, math, random, search
+from . import creation, linalg, manipulation, math, random, search
 from .creation import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
@@ -99,24 +100,26 @@ _MANIPULATION_METHODS = [
 _SEARCH_METHODS = ["argmax", "argmin", "argsort", "sort", "topk",
                    "kthvalue", "mode", "searchsorted", "bucketize"]
 _CREATION_METHODS = ["tril", "triu", "diag"]
+# the JAX list's linalg methods (:136-137) and the four linalg names of its
+# extras: installed where torch.Tensor lacks the name
+_LINALG_METHODS = [
+    "dot", "bmm", "mv", "norm", "cholesky", "qr", "svd", "inv", "pinv",
+    "det", "slogdet", "solve", "triangular_solve", "matrix_power", "cross",
+    "cholesky_inverse", "lu_unpack", "ormqr", "svd_lowrank"]
 # methods whose functions come with later slices (item 8)
 _LATER_METHODS = {
-    "tensor/linalg.py": [
-        "dot", "bmm", "mv", "norm", "cholesky", "qr", "svd", "inv", "pinv",
-        "det", "slogdet", "solve", "triangular_solve", "matrix_power",
-        "cross"],
     "tensor/extras.py": [
-        "addmm", "block_diag", "cdist", "cholesky_inverse",
+        "addmm", "block_diag", "cdist",
         "cumulative_trapezoid", "diagonal_scatter", "diff", "dist", "dsplit",
         "frexp", "gammainc", "gammaincc", "gammaln", "histogram_bin_edges",
         "histogramdd", "hsplit", "i0e", "i1e", "index_fill", "inverse",
         "is_complex", "is_empty", "is_floating_point", "is_integer", "isin",
         "isneginf", "isposinf", "isreal", "ldexp", "logcumsumexp", "logit",
-        "lu_unpack", "masked_scatter", "multigammaln", "nanquantile",
+        "masked_scatter", "multigammaln", "nanquantile",
         "polygamma", "reduce_as", "renorm", "reverse", "select_scatter",
-        "sgn", "signbit", "sinc", "slice_scatter", "svd_lowrank",
+        "sgn", "signbit", "sinc", "slice_scatter",
         "tensor_split", "top_p_sampling", "trapezoid", "unflatten", "unfold",
-        "vander", "vsplit", "as_strided", "ormqr"],
+        "vander", "vsplit", "as_strided"],
     "tensor/toplevel_extras.py": ["stft", "istft"],
 }
 # in-place variants of the JAX package's list (:160-162)
@@ -201,6 +204,9 @@ def _install():
                        (creation, _CREATION_METHODS)):
         for name in names:
             setattr(T, name, getattr(mod, name))
+    for name in _LINALG_METHODS:
+        if not hasattr(torch.Tensor, name):
+            setattr(T, name, getattr(linalg, name))
     for module, names in _LATER_METHODS.items():
         for name in names:
             if not hasattr(torch.Tensor, name):

@@ -31,6 +31,11 @@ weights from seed 0; the first five under Engine(lr=1e-4, clip 1.0):
     10000, two LSTMs of 1500, batch 20 x 35 steps, fp32, dropout 0.65)
     through hapi.Model.train_batch with SGD(lr 1) and the global-norm
     clip at 10, which reads the loss on the host once a step.
+  - ds2: the DeepSpeech2-class CTC model of chip_smoke.py phase 45 (DS2:
+    two Conv2D(32) + BatchNorm2D + Hardtanh blocks, three bidirectional
+    GRUs of 1024 with sequence_length, Linear(2048, 4301), CTC; batch 32
+    of 300-1200 frames, fp32, TF32 off) with Adam and the global-norm clip
+    at 5 (loss.backward, step, clear_grad; the CTC lengths are host ints).
 
 Each arm measures one train step (forward, loss, backward and the
 update: clip and AdamW, Momentum, or SGD) after three warm-up steps, three ways (profile_serving.measure): device span
@@ -148,6 +153,37 @@ def profile_lstm(torch, np):
     torch.cuda.empty_cache()
 
 
+def profile_ds2(torch, np):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, optimizer
+
+    c = chip_smoke.DS2
+    pt.set_device("cuda")
+    pt.seed(0)
+    model = chip_smoke.deepspeech2(pt, c, "cuda")
+    opt = optimizer.Adam(c["lr"], parameters=model.parameters(),
+                         grad_clip=nn.ClipGradByGlobalNorm(c["clip"]))
+    feats, lens, labels, lab_lens = chip_smoke.ds2_batch(np, c, 0)
+    x, y, yl = (pt.to_tensor(a) for a in (feats, labels, lab_lens))
+
+    def step():
+        chip_smoke.ds2_loss(pt, model, x, lens, y, yl).backward()
+        opt.step()
+        opt.clear_grad()
+
+    profile_serving.measure(
+        torch, f"ds2 train step [batch {c['batch']} of {lens.min()}-"
+        f"{lens.max()} frames, 3 x bidirectional GRU {c['hidden']}, vocab "
+        f"{c['vocab']}, fp32]", step, STEPS, top=15)
+    syncs = chip_smoke._sync_count(torch, step)
+    print(f"ds2: synchronizing operations reported in one step: "
+          f"{len(syncs)}", flush=True)
+    for msg in syncs[:5]:
+        print(f"  {msg[:120]}", flush=True)
+    del model, opt
+    torch.cuda.empty_cache()
+
+
 def profile_step(torch, name, eng, model, ids, labels, batch, seq):
     profile_serving.measure(
         torch, f"{name} train step [{batch} x {seq}, "
@@ -182,6 +218,7 @@ def main():
                      chip_smoke.MOE_SEQ),
         "bert": None, "resnet": None, "vit": None, "unet": None,
         "lstm": None,
+        "ds2": None,
     }
     names = sys.argv[1:] or list(arms)
     unknown = [n for n in names if n not in arms]
@@ -197,6 +234,8 @@ def main():
             profile_bert(torch, np)
         elif name == "lstm":
             profile_lstm(torch, np)
+        elif name == "ds2":
+            profile_ds2(torch, np)
         elif name in ("resnet", "vit", "unet"):
             profile_vision(torch, np, name)
         else:

@@ -2334,3 +2334,246 @@ def test_conv_transpose_groups_output_padding_on_card(cuda, dtype, tol, n,
     call = lambda x, w, b: fn(x, w, b, stride=2, padding=padding,  # noqa
                               output_padding=1, groups=4, dilation=2)
     _card_vs_cpu(call, call, [x, w, b], dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+@pytest.mark.parametrize("mode", ["eval", "train"])
+@pytest.mark.parametrize("lengths", [False, True])
+def test_recurrent_backward_after_an_eval_call_on_card(cuda, cls, mode,
+                                                       lengths):
+    """cuDNN refuses an RNN backward after an eval-mode call unless the
+    layer calls it in training form whenever autograd records: an eval
+    call under no_grad, then a call in ``mode`` whose loss is
+    differentiated (with and without ``sequence_length``, the packed
+    form); the gradients of the input and every parameter equal the
+    CPU's within 1e-4 of their largest."""
+    import copy
+
+    from paddle_tpu_torch import nn
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = getattr(nn, cls)(48, 64, 2, direction="bidirect", device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(6, 19, 48, generator=g)
+    cot = torch.randn(6, 19, 128, generator=g)
+    seq = torch.tensor([19, 4, 11, 19, 1, 7]) if lengths else None
+    grads = []
+    for m, dev in ((cpu, "cpu"), (card, "cuda")):
+        m.eval()
+        with torch.no_grad():
+            m(x.to(dev), sequence_length=seq)
+        m.train() if mode == "train" else m.eval()
+        xi = x.to(dev).requires_grad_()
+        out = m(xi, sequence_length=seq)[0]
+        loss = (out * cot.to(dev)).sum()
+        grads.append(torch.autograd.grad(loss, [xi] + list(m.parameters())))
+    for a, b in zip(grads[0], grads[1]):
+        assert b.device.type == "cuda"
+        err = (b.cpu() - a).abs().max() / a.abs().max().clamp_min(1e-6)
+        assert err.item() <= 1e-4, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+@pytest.mark.parametrize("time_major", [False, True])
+def test_sequence_length_on_card_matches_cpu(cuda, cls, time_major):
+    """The packed call with unsorted lengths (initial states permuted to
+    match): outputs, final states and gradients card vs CPU (1e-4)."""
+    import copy
+
+    from paddle_tpu_torch import nn
+
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = getattr(nn, cls)(32, 48, 2, direction="bidirect",
+                           time_major=time_major, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    g = torch.Generator().manual_seed(23)
+    x = torch.randn((23, 5, 32) if time_major else (5, 23, 32), generator=g)
+    h0 = torch.randn(4, 5, 48, generator=g)
+    seq = torch.tensor([9, 23, 2, 17, 23])
+
+    def run(m):
+        def fn(x, h):
+            init = (h, h * 0.5) if cls == "LSTM" else h
+            out, final = m(x, init, sequence_length=seq)
+            return [out] + (list(final) if isinstance(final, tuple)
+                            else [final])
+        return fn
+
+    _card_vs_cpu(run(card), run(cpu), [x, h0], torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduction", ["mean", "none"])
+def test_ctc_loss_on_card_matches_cpu(cuda, reduction):
+    """T 120, batch 6, 80 classes, one infeasible row (its loss 1e30 and
+    its gradient zero on the card; the other rows compared): the card's
+    CTC (atomics in its backward) within 1e-3 of the CPU's (the log-domain
+    recursion's error is about eps x |log-likelihood|, ~6e-5 here;
+    chip_smoke.EXTRAS_LATTICE_TOL)."""
+    import paddle_tpu_torch.nn.functional as PF
+
+    g = torch.Generator().manual_seed(25)
+    x = torch.randn(120, 6, 80, generator=g)
+    labels = torch.randint(1, 80, (6, 30), generator=g)
+    il = torch.tensor([120, 90, 20, 120, 61, 100])
+    ll = torch.tensor([30, 12, 25, 1, 30, 0])
+    keep = torch.tensor([0, 1, 3, 4, 5])
+    cut = (lambda v: v) if reduction == "mean" else (lambda v: v[keep.to(
+        v.device)])
+    fn = lambda x: cut(PF.ctc_loss(  # noqa: E731
+        x, labels.to(x.device), il.to(x.device), ll.to(x.device),
+        reduction=reduction))
+    xc = x.cuda().requires_grad_()
+    out = PF.ctc_loss(xc, labels.cuda(), il.cuda(), ll.cuda(),
+                      reduction="none")
+    assert out[2].item() == np.float32(1e30)
+    out.sum().backward()
+    assert not xc.grad[:, 2].any()
+    _card_vs_cpu(fn, fn, [x], torch.float32, 1e-3)
+
+
+@pytest.mark.cuda
+def test_rnnt_loss_on_card_matches_cpu(cuda):
+    import paddle_tpu_torch.nn.functional as PF
+
+    g = torch.Generator().manual_seed(27)
+    x = torch.randn(3, 40, 13, 64, generator=g)
+    labels = torch.randint(1, 64, (3, 12), generator=g)
+    tl, ul = torch.tensor([40, 31, 7]), torch.tensor([12, 5, 12])
+    fn = lambda x: PF.rnnt_loss(  # noqa: E731
+        x, labels.to(x.device), tl.to(x.device), ul.to(x.device),
+        fastemit_lambda=0.01, reduction="none")
+    _card_vs_cpu(fn, fn, [x], torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_grid_sample_on_card_matches_cpu(cuda, mode, padding_mode,
+                                         align_corners):
+    import paddle_tpu_torch.nn.functional as PF
+
+    g = torch.Generator().manual_seed(29)
+    x = torch.randn(4, 8, 17, 23, generator=g)
+    grid = torch.rand(4, 11, 13, 2, generator=g) * 2.6 - 1.3
+    fn = lambda x, gr: PF.grid_sample(  # noqa: E731
+        x, gr, mode, padding_mode, align_corners)
+    if mode == "bilinear":
+        _card_vs_cpu(fn, fn, [x, grid], torch.float32, 1e-4)
+    else:   # nearest: no gradient reaches the grid
+        near = lambda x: fn(x, grid.to(x.device))  # noqa: E731
+        _card_vs_cpu(near, near, [x], torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 384), (40, 24, 56)])
+@pytest.mark.parametrize("out", ["float16", "bfloat16", "float32"])
+def test_fp8_gemm_on_card_matches_cpu(cuda, shape, out):
+    """fp8_fp8_half_gemm_fused: ``torch._scaled_mm`` at widths of 16s, the
+    fp32 product of the cast values otherwise, against the CPU's plain
+    version (the same fp8 values, fp32 sums in another order), within
+    the tolerances below of the largest output; values beyond +-464 NaN
+    on both."""
+    from paddle_tpu_torch import linalg
+
+    m, k, n = shape
+    g = torch.Generator().manual_seed(31)
+    a = torch.randn(m, k, generator=g) * 4
+    b = torch.randn(n, k, generator=g) * 4
+    bias = torch.randn(n, generator=g)
+    a[0, 0] = 500.0
+    call = lambda a, b, bias: linalg.fp8_fp8_half_gemm_fused(  # noqa
+        a, b, bias, transpose_y=True, scale=0.25, output_dtype=out,
+        activation_type="gelu")
+    ref = call(a, b, bias).float()
+    got = call(a.cuda(), b.cuda(), bias.cuda())
+    assert got.device.type == "cuda"
+    assert torch.isnan(got[0]).all() and torch.isnan(ref[0]).all()
+    # Hopper's fp8 MMA accumulates with ~14 bits of mantissa (2.9e-4 seen
+    # in fp32); a half output then rounds to one ulp (fp16 9.8e-4, bf16
+    # 7.8e-3 of the value)
+    tol = {"float32": 1e-3, "float16": 2e-3, "bfloat16": 1e-2}[out]
+    err = (got[1:].float().cpu() - ref[1:]).abs().max() \
+        / ref[1:].abs().max()
+    assert err.item() <= tol, err.item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "inv", "det", "slogdet", "solve", "cholesky", "cholesky_solve",
+    "triangular_solve", "matrix_exp", "matrix_power", "pinv", "lstsq",
+    "eigvalsh", "svdvals", "qr", "svd", "eigh", "lu", "householder_product",
+    "cholesky_inverse", "norm_nuc", "cond", "matrix_rank", "cov",
+    "corrcoef", "multi_dot", "cross", "eig"])
+def test_linalg_on_card_matches_cpu(cuda, name):
+    """Each function card vs CPU on [16, 96, 96] batches (fp32, 1e-4 of
+    the largest output and gradient); the sign- or phase-free forms of
+    qr, svd, eigh and eig (reconstructions, values); the eigen and
+    singular value cases on matrices whose values are 1..96."""
+    from paddle_tpu_torch import linalg as LA
+
+    g = torch.Generator().manual_seed(33)
+    a = torch.randn(16, 96, 96, generator=g)
+    well = a * 0.3 / 96 ** 0.5 + torch.eye(96)
+    spd = well @ well.mT
+    # eigen / singular values 1..96: the vectors (and the gradients built
+    # from them) well conditioned
+    q1 = torch.linalg.qr(torch.randn(16, 96, 96, generator=g))[0]
+    q2 = torch.linalg.qr(torch.randn(16, 96, 96, generator=g))[0]
+    vals = torch.arange(1, 97, dtype=torch.float32)
+    sym, sep = (q1 * vals) @ q1.mT, (q1 * vals) @ q2.mT
+    chol = torch.linalg.cholesky(spd)
+    rhs = torch.randn(16, 96, 8, generator=g)
+
+    def sorted_eig(w):
+        w = w[..., torch.argsort(w.imag, stable=True)]
+        w = w[..., torch.argsort(w.real, stable=True)]
+        return torch.stack([w.real, w.imag])
+
+    geqrf = torch.geqrf(torch.randn(16, 96, 32, generator=g))
+    cases = {
+        "inv": (LA.inv, [well]), "det": (LA.det, [well]),
+        "slogdet": (LA.slogdet, [well]), "solve": (LA.solve, [well, rhs]),
+        "cholesky": (LA.cholesky, [spd]),
+        "cholesky_solve": (LA.cholesky_solve, [rhs, chol]),
+        "triangular_solve": (lambda t, b: LA.triangular_solve(
+            t, b, upper=False, transpose=True), [chol, rhs]),
+        "matrix_exp": (LA.matrix_exp, [a[:, :16, :16] * 0.2]),
+        "matrix_power": (lambda x: LA.matrix_power(x, 3), [well]),
+        "pinv": (LA.pinv, [a[:, :, :48]]),
+        "lstsq": (lambda x, y: LA.lstsq(x, y)[0], [a[0, :, :40], rhs[0]]),
+        "eigvalsh": (LA.eigvalsh, [sym]), "svdvals": (LA.svdvals, [sep]),
+        "qr": (lambda x: (lambda q, r: (q @ r, r.abs()))(*LA.qr(x)), [a]),
+        "svd": (lambda x: (lambda u, s, v: (u * s[..., None, :] @ v.mT, s))(
+            *LA.svd(x)), [sep]),
+        "eigh": (lambda x: (lambda w, v: (w, v * w[..., None, :] @ v.mT))(
+            *LA.eigh(x)), [sym]),
+        "lu": (lambda x: LA.lu(x)[0], [well]),
+        "householder_product": (LA.householder_product, list(geqrf)),
+        "cholesky_inverse": (LA.cholesky_inverse, [chol]),
+        "norm_nuc": (lambda x: LA.norm(x, "nuc", [1, 2]), [a]),
+        "cond": (LA.cond, [well]),
+        "matrix_rank": (LA.matrix_rank, [a[:, :, :8] @ a[:, :8, :]]),
+        "cov": (LA.cov, [a[0]]), "corrcoef": (LA.corrcoef, [a[0]]),
+        "multi_dot": (lambda x, y, z: LA.multi_dot([x, y, z]),
+                      [a[0], a[1], a[2]]),
+        "cross": (LA.cross, [a[:, :3], a[:, 3:6]]),
+        "eig": (lambda x: sorted_eig(LA.eig(x)[0]), [a[0]]),
+    }
+    fn, inputs = cases[name]
+    if name in ("matrix_rank", "lu", "eig", "lstsq", "cond"):
+        got, ref = fn(*[x.cuda() for x in inputs]), fn(*inputs)
+        got = got if isinstance(got, (tuple, list)) else [got]
+        ref = ref if isinstance(ref, (tuple, list)) else [ref]
+        for x, y in zip(got, ref):
+            assert x.device.type == "cuda"
+            err = (x.float().cpu() - y.float()).abs().max() \
+                / y.float().abs().max().clamp_min(1.0)
+            assert err.item() <= 1e-4, err.item()
+        return
+    _card_vs_cpu(fn, fn, inputs, torch.float32, 1e-4)

@@ -425,8 +425,24 @@ def test_paddle_meanings_the_jax_package_drops():
         ref = torch.nn.functional.interpolate(x, size=[5, 13], mode=mode,
                                               align_corners=True)
         assert torch.equal(out, ref)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PF.interpolate(x, scale_factor=2, mode="bilinear", align_mode=1)
+    # align_mode=1 (Paddle's, which JAX ignores): source index i * in /
+    # out, no half-pixel shift; at scale 2 the even outputs copy the input
+    # and the odd ones average two neighbours (the last repeats)
+    out = PF.interpolate(x, scale_factor=2, mode="bilinear", align_mode=1)
+    xe = torch.cat([x, x[..., -1:]], -1)
+    rows = torch.stack([x, (xe[..., :-1] + xe[..., 1:]) / 2], -1).flatten(-2)
+    rows_e = torch.cat([rows, rows[..., -1:, :]], -2)
+    ref = torch.stack([rows, (rows_e[..., :-1, :] + rows_e[..., 1:, :]) / 2],
+                      -2).flatten(-3, -2)
+    assert torch.allclose(out, ref, atol=1e-6)
+    out = PF.interpolate(x[:, :, 0], size=[5], mode="linear", align_mode=1,
+                         data_format="NCW")
+    src = np.arange(5) * x.shape[-1] / 5
+    lo = np.floor(src).astype(int)
+    hi = np.minimum(lo + 1, x.shape[-1] - 1)
+    w = torch.from_numpy((src - lo).astype(np.float32))
+    ref = x[:, :, 0, lo] * (1 - w) + x[:, :, 0, hi] * w
+    assert torch.allclose(out, ref, atol=1e-6)
     for shuffle, r, shape in ((PF.pixel_shuffle, 2, (2, 3, 4, 8)),
                               (PF.pixel_unshuffle, 2, (2, 4, 6, 3))):
         a = torch.from_numpy(F(*shape))
@@ -439,10 +455,30 @@ def test_paddle_meanings_the_jax_package_drops():
     assert tuple(out.shape) == (2, 6, 10, 10) and torch.equal(out, ref)
     with pytest.raises(ValueError, match="output_size"):
         PF.conv2d_transpose(a, w, stride=2, padding=1, output_size=[12, 12])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PF.conv2d_transpose(a, w, stride=2, padding="SAME")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PF.instance_norm(a, torch.zeros(4), torch.ones(4))
+    # padding="SAME" (Paddle's, which JAX reads as "VALID"): the padding
+    # of a SAME conv of the input, so 5 x 5 at stride 2 and kernel 3 pads
+    # 2 (one each side) and 4 x 4 at stride 2 gives 8 x 8
+    out = PF.conv2d_transpose(a, w, stride=2, padding="SAME")
+    ref = torch.nn.functional.conv_transpose2d(a, w, None, 2, 1)
+    assert tuple(out.shape) == (2, 6, 9, 9) and torch.equal(out, ref)
+    a4 = a[..., :4, :4]
+    out = PF.conv2d_transpose(a4, w, stride=2, padding="SAME", dilation=2)
+    full = torch.nn.functional.conv_transpose2d(a4, w, None, 2)
+    assert tuple(out.shape) == (2, 6, 8, 8)
+    assert torch.equal(out, full[..., :8, :8])
+    # running statistics (which JAX ignores): torch's instance_norm with
+    # them, normalising by them without input statistics, Paddle's momentum
+    rm, rv = torch.from_numpy(F(4)), torch.from_numpy(POS(4))
+    out = PF.instance_norm(a, rm, rv, use_input_stats=False)
+    ref = (a - rm[:, None, None]) / torch.sqrt(rv[:, None, None] + 1e-5)
+    assert torch.allclose(out, ref, atol=1e-5)
+    rm2, rv2 = rm.clone(), rv.clone()
+    out = PF.instance_norm(a, rm2, rv2, momentum=0.8)
+    assert torch.allclose(out, PF.instance_norm(a), atol=1e-6)
+    n = a.shape[2] * a.shape[3]
+    batch_var = a.var((2, 3), unbiased=False).mean(0) * n / (n - 1)
+    assert torch.allclose(rm2, 0.8 * rm + 0.2 * a.mean((0, 2, 3)), atol=1e-6)
+    assert torch.allclose(rv2, 0.8 * rv + 0.2 * batch_var, atol=1e-5)
 
 
 def test_lp_pool_ceil_mode_sums_the_in_bounds_window():
@@ -467,26 +503,21 @@ def test_sdp_kernel_selects_the_dense_path():
 
 def test_manifest_names_are_ported_or_refused():
     """Every name of ``tools/api_manifest.json``'s ``paddle.nn`` and
-    ``paddle.nn.functional`` lists exists in the port or raises
-    ``later_slice`` naming item 8, except the JAX modules' own imports of
-    ``jax`` / ``jax.numpy`` and its key source ``next_key``, which the
-    port, importing no JAX, has not."""
+    ``paddle.nn.functional`` lists exists in the port, none raising
+    ``later_slice``, except the JAX modules' own imports of ``jax`` /
+    ``jax.numpy`` and its key source ``next_key``, which the port,
+    importing no JAX, has not."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, "tools", "api_manifest.json")) as f:
         manifest = json.load(f)
     jax_only = {"jax", "jnp", "next_key"}
     for key, mod in (("paddle.nn", pt.nn), ("paddle.nn.functional", PF)):
-        refused = []
+        assert not hasattr(mod, "EXTRAS"), key
         for name in manifest[key]:
             if name in jax_only:
                 assert not hasattr(mod, name), name
                 continue
-            try:
-                getattr(mod, name)
-            except NotImplementedError as e:
-                assert "item 8" in str(e), (name, e)
-                refused.append(name)
-        assert sorted(refused) == sorted(mod.EXTRAS), key
+            assert getattr(mod, name) is not None, (key, name)
 
 
 @pytest.mark.parametrize("name", ["group_norm", "instance_norm", "rms_norm",

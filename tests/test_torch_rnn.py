@@ -181,8 +181,13 @@ def test_rnn_defaults_dropout_and_refusals():
     a = one(x)[0]
     one.eval()
     assert torch.equal(a, one(x)[0])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        m(x, sequence_length=torch.tensor([7, 7, 7, 7]))
+    # sequence_length (Paddle's; tests/test_torch_rnn_sequence_length.py
+    # holds it against JAX row by row): full lengths equal the plain call,
+    # a shorter row's outputs stop at its length
+    m.eval()
+    compare(m(x, sequence_length=torch.tensor([7, 7, 7, 7]))[0], ref, 1e-6)
+    short = m(x, sequence_length=torch.tensor([7, 3, 7, 7]))[0]
+    assert not short[1, 3:].any() and short[1, :3].abs().sum() > 0
     with pytest.raises(ValueError, match="both False or neither"):
         pt.nn.GRU(3, 4, bias_ih_attr=False)
     cell = pt.nn.LSTMCell(3, 4, bias_ih_attr=False, bias_hh_attr=False)

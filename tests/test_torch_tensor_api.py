@@ -488,6 +488,7 @@ def test_inplace_and_operator_methods_match_jax():
 # every name _install maps, checked by name on the port's Tensor
 from paddle_tpu_torch.tensor import (_CREATION_METHODS,  # noqa: E402
                                      _INPLACE, _LATER_METHODS,
+                                     _LINALG_METHODS,
                                      _MANIPULATION_METHODS, _MATH_METHODS,
                                      _SEARCH_METHODS)
 
@@ -509,6 +510,16 @@ def test_later_slice_methods_raise_or_stay_torch():
                 continue
             with pytest.raises(NotImplementedError, match="item 8"):
                 getattr(t, name)()
+    # the linalg methods are ported: Paddle's where torch's Tensor lacks
+    # the name, torch's where it has it (paddle.linalg holds Paddle's)
+    assert "tensor/linalg.py" not in _LATER_METHODS
+    for name in _LINALG_METHODS:
+        if hasattr(torch.Tensor, name):
+            assert getattr(pt.Tensor, name) is getattr(torch.Tensor, name)
+        else:
+            assert getattr(pt.Tensor, name) is getattr(pt.linalg, name)
+    w = pt.to_tensor(F(3, 3) + 3 * np.eye(3, dtype=np.float32))
+    assert torch.allclose(w.inv() @ w, torch.eye(3), atol=1e-5)
 
 
 def test_random_functions_shapes_ranges_and_seed():

@@ -243,9 +243,17 @@ def test_cross_entropy_matches_jax(label_shape, reduction, weighted):
 
 def test_cross_entropy_refuses_what_it_does_not_take():
     x, y = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        F.cross_entropy(x, torch.full((2, 3), 1 / 3), soft_label=True,
-                        weight=torch.ones(3))
+    # soft labels with a weight are ported (Paddle's rule): each row's loss
+    # times label @ weight; "mean" divides by those row weights' sum
+    logits = torch.tensor([[0.5, -1.0, 2.0], [1.5, 0.2, -0.3]])
+    soft = torch.tensor([[0.2, 0.3, 0.5], [0.6, 0.4, 0.0]])
+    wt = torch.tensor([1.0, 2.0, 0.5])
+    rows = -(soft * torch.log_softmax(logits, -1)).sum(-1) * (soft @ wt)
+    for reduction, ref in (("none", rows), ("sum", rows.sum()),
+                           ("mean", rows.sum() / (soft @ wt).sum())):
+        out = F.cross_entropy(logits, soft, wt, soft_label=True,
+                              reduction=reduction)
+        _close(out, ref.numpy(), 1e-6)
     with pytest.raises(ValueError, match="reduction"):
         F.cross_entropy(x, y, reduction="batchmean")
 
