@@ -82,7 +82,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (73 pages), 16 requests of a random 8-token motif tiled 8 times,
      max_new (i % 4 + 1) x 16. Four engines on one model (spec off, spec
      k=4, int8, spec + int8) and twins of the two int8 engines serve the
-     wave cold, then 3 warm waves each, interleaved (best of 3). Prints
+     wave cold, then 2 warm waves each, interleaved (best of 2). Prints
      useful tokens/s, spec steps and replays, acceptance rate, K4 launches
      on fp and int8 pools, the int8 headroom (bf16 pool bytes over int8
      pages + scales, from the live tensors), how many spec streams differ
@@ -530,6 +530,50 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      steps on one fixed batch: ms a step, utterances/s, frames/s, the
      phase's own peak memory, kernels a step, finite losses and the eval
      loss falling. K1-K6 at 0 launches.
+ 46. the tensor extras sweep (tensor_sweep_cases): every function of
+     tensor/extras.py and tensor/toplevel_extras.py, fft, signal and audio
+     (the functions and the four feature layers), and each of the 68
+     in-place variants and where_, forward and backward, fp32 (bf16 where
+     the case takes it) at TX_* sizes, card against CPU within
+     NN_SWEEP_TOL; the CPU references of phases 42, 44 and 46 come from a
+     process started at phase 1 (RefClient, ROADMAP Queue 1 p). Then
+     log_normal, standard_gamma and the fills log_normal_, cauchy_ and
+     geometric_ (continuous) by their moments on the card, and
+     top_p_sampling on TOP_P logits: every draw in its row's nucleus,
+     TOP_P_DRAWS draws of one row against the nucleus's renormalised
+     probabilities (chi-square p > 1e-3), the same seed the same draws.
+     K1-K6 at 0 launches.
+ 47. amp.debugging on phase 41's BERT-base encoder (DYGRAPH_BERT, seed-0
+     weights and batch): an fp32 step (forward, cross entropy, backward)
+     dumped twice by dump_tensor_stats (compare_accuracy flags 0 rows), an
+     O1 bf16 step dumped (aligned with the fp32 dump op for op, no MISSING
+     row; flagged count and worst op printed), collect_operator_stats
+     equal to the white ops the O1 dump holds, the tensor checker on an
+     inf planted in layer 3's linear1 weight (raises naming linear; warn
+     mode warns, the health word carries NAN/INF bits), and the step's ms
+     and host syncs with the dump off and on (at most 1 more). 12 each of
+     K1-lse, K2, K3 a dumped step.
+ 48. the profiler: 4 steps of phase 9's Llama train step under
+     Profiler(make_scheduler(closed=1, ready=1, record=2),
+     profile_memory=True, on_trace_ready=export_chrome_tracing(
+     build/chip_smoke/profiler)) with RecordEvent scopes around the batch
+     and the step: OverView's steps and OperatorView's calls 4,
+     MemoryView's peak within 5% of max_memory_allocated, the device
+     trace's flash_fwd_tc_kernel, dq_tc_kernel and dkv_tc_kernel counts
+     equal to the wrappers' counters over the 2 recorded steps (2 x 16
+     each), ms a step recorded against not. Then phase 6's legacy engine
+     (16 requests of PROFILE_SERVE_NEW tokens) under a Profiler with
+     TraceRecorder(mirror_host_events=True): the recorder's span names and
+     counts in OperatorView, K1 and K4 in the device trace equal to the
+     wrappers' counters. Where Kineto records no CUDA kernel on the
+     machine the profiler must refuse, and the trace counts print as not
+     measured.
+ 49. DS2's front end: audio.features.Spectrogram(DS2_FRONT) and a log on
+     phase 45's batch shape (32 waveforms of 3-12 s at 16 kHz from seed 0,
+     161 bins, 302-1174 frames), card against CPU, ms a batch; one DS2
+     step at phase 45's width on the card's features (finite loss), and
+     phase 45's card-vs-CPU parity on the first rows' features. K1-K6 at
+     0 launches.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -541,8 +585,9 @@ the legacy engine of phase 15, the paged generate of phase 16, phase 21's
 prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
-phases 9, 13, 14, 30, 32, 37 (b) and 41 (a, b) (K1-lse also phase 20's
-forward); the fp16 rows count phase 41 (c)'s timed steps (and its eval
+phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps and 48's
+recorded steps (K1-lse also phase 20's forward); K1 and K4 also count
+phase 48's profiled serving wave; the fp16 rows count phase 41 (c)'s timed steps (and its eval
 forward for the primal K1); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
@@ -552,6 +597,8 @@ of the repository, it exits non-zero before printing any result.
 """
 
 import collections
+import contextlib
+import csv
 import gc
 import importlib
 import itertools
@@ -748,7 +795,7 @@ DISAGG_KILL_AT, DISAGG_KILL_AFTER = 2, 8
 # PROC_OP_S every wire op
 PROC_PRESETS = "paddle_tpu_torch.inference.procfleet.presets"
 PROC_SPAWN_S, PROC_OP_S = 180.0, 120.0
-PROC_TIMED = 3
+PROC_TIMED = 2          # cut from 3 to keep the whole run's time
 PROC_TIER_STRIDE = 3
 LOSS_ENGINE = dict(max_batch=2, max_len=32, page_size=8, block_size=2,
                    prefix_cache=True)
@@ -793,7 +840,8 @@ SPEC_ENGINE = dict(max_batch=8, max_len=128, page_size=16, block_size=4,
                    fused=True)
 SPEC_EXTRA_BLOCKS, SPEC_K = 8, 4
 SPEC_MOTIF, SPEC_REPS, SPEC_MAX_NEW = 8, 8, 64
-SPEC_TIMED = 3          # best-of-3 waves a engine, interleaved
+SPEC_TIMED = 2          # best-of-2 waves a engine, interleaved (cut
+#                         from 3 to keep the whole run's time)
 # context of the spec-step timing: the wave's mean (64 + 64 / 2)
 SPEC_STEP_CTX = 96
 # context of the decode-step timing: the wave's mean (64 + 40 / 2 ~ 84-96)
@@ -1089,6 +1137,27 @@ DS2 = dict(freq=161, channels=32, hidden=1024, layers=3, vocab=4301,
 DS2_TIMED = dict(warmup=2, steps=8)
 DS2_PARITY = dict(DS2, channels=4, hidden=32, vocab=30, batch=4,
                   frames=(60, 120), labels=(3, 10), tol=1e-4)
+# Phase 46's sizes: elementwise [64, 1024], batched matrices [16, 64, 64],
+# cdist's two point sets, histogramdd's samples, 8 one-second 16 kHz
+# waveforms for signal and audio; top_p_sampling on [128, 32000] logits
+# and TOP_P_DRAWS draws of one row for the chi-square test.
+TX_ELEM = (64, 1024)
+TX_MAT = (16, 64, 64)
+TX_CDIST = ((8, 256, 64), (8, 128, 64))
+TX_HIST = (4096, 3)
+TX_SIGNAL = (8, 16000)
+TOP_P = (128, 32000)
+TOP_P_DRAWS = 4096
+# DS2's front end (PaddleSpeech examples/aishell/asr0/conf/deepspeech2.yaml:
+# a 161-bin linear spectrogram, 20 ms window, 10 ms hop at 16 kHz); phase
+# 49 cuts the parity batch's features to this many frames
+DS2_FRONT = dict(n_fft=320, hop_length=160, win_length=320, window="hann",
+                 power=2.0)
+DS2_FRONT_PARITY_FRAMES = 120
+# Phase 48: steps under the profiler (closed 1, ready 1, record 2) and the
+# serving arm's new tokens a request
+PROFILE_STEPS = 4
+PROFILE_SERVE_NEW = 8
 
 
 def card_line():
@@ -6843,7 +6912,8 @@ def nn_sweep_cases(torch):
     """Phase 42's cases: (name, build, inputs, grad, heavy). ``build()``
     returns the callable (a functional's closure or a layer built on the
     CPU, which the sweep copies to the card); ``inputs`` are (kind, shape)
-    specs ("f" normal, "p" in (0.05, 0.95), "s" +-1, ("i", hi) integers);
+    specs ("f" normal, "p" in (0.05, 0.95), "pos" |normal| + 0.5, "s" +-1,
+    "mask" bool, ("i", hi) integers);
     ``grad`` lists the inputs differentiated; ``heavy`` cases take an fp32
     CPU reference in bf16 (see NN_SWEEP_TOL). Phase 44 adds ("a", array)
     (the array itself), ("spd", shape) (symmetric positive definite) and
@@ -7133,6 +7203,11 @@ def _nn_inputs(torch, np, specs, seed):
             arr = rng.standard_normal(shape, dtype=np.float32)
         elif kind == "p":
             arr = rng.uniform(0.05, 0.95, shape).astype(np.float32)
+        elif kind == "pos":             # |normal| + 0.5
+            arr = (np.abs(rng.standard_normal(shape)) + 0.5).astype(
+                np.float32)
+        elif kind == "mask":
+            arr = rng.standard_normal(shape) > 0
         elif kind == "s":
             arr = np.where(rng.standard_normal(shape) >= 0, 1.0,
                            -1.0).astype(np.float32)
@@ -7174,15 +7249,65 @@ def _nn_call(torch, np, f, params, ins, grad, dtype, device, seed, cots):
     return outs, grads
 
 
-def _nn_case(torch, np, case, dtype, seed, ins, cots):
+def _seed_build(torch, seed):
+    """Seed the port's generators and torch's before a case's ``build()``,
+    so a layer built here and in the reference process holds the same
+    weights."""
+    import paddle_tpu_torch as pt
+
+    pt.seed(seed)
+    torch.manual_seed(seed)
+
+
+def _cpu_ref(torch, np, case, dtype, seed, ins, cots):
+    """A case's CPU reference in ``dtype`` (fp32 for a heavy case, and for
+    one whose op has no CPU bf16 kernel): (outputs, gradients, whether it
+    fell back to fp32), the layer built from ``seed``."""
+    from paddle_tpu_torch import device
+
+    build, grad, heavy = case[1], case[3], case[4]
+    ins = [x.to(dtype) if x.is_floating_point() else x for x in ins]
+    place, device._PLACE = device._PLACE, torch.device("cpu")
+    try:
+        return _cpu_call(torch, np, build, grad, dtype,
+                         torch.float32 if heavy else dtype, seed, ins, cots)
+    finally:
+        device._PLACE = place
+
+
+def _cpu_call(torch, np, build, grad, dtype, ref_dtype, seed, ins, cots):
+    """_cpu_ref's calls, on the CPU place (see there)."""
+    fallback = False
+    while True:
+        _seed_build(torch, seed)
+        f_cpu = build()
+        is_layer = isinstance(f_cpu, torch.nn.Module)
+        if is_layer:   # rounded to dtype first, as the card's copy is
+            f_cpu.to(device="cpu", dtype=dtype).to(dtype=ref_dtype)
+        try:
+            outs, grads = _nn_call(torch, np, f_cpu, list(f_cpu.parameters())
+                                   if is_layer else [], ins, grad, ref_dtype,
+                                   "cpu", seed + 1, cots)
+            break
+        except (NotImplementedError, RuntimeError) as e:
+            if ref_dtype != torch.bfloat16 or "BFloat16" not in str(e):
+                raise
+            ref_dtype, fallback = torch.float32, True
+    return ([o.detach() for o in outs], [g.detach() for g in grads],
+            fallback)
+
+
+def _nn_case(torch, np, case, dtype, seed, ins, cots, ref):
     """One case in one dtype on the case's fp32 inputs ``ins`` and
-    cotangents ``cots`` (see _nn_call): ((worst error, what), outputs and
-    gradients compared, whether the CPU reference ran in fp32 for want of
-    a CPU bf16 kernel)."""
+    cotangents ``cots`` (see _nn_call), held to its CPU reference ``ref``
+    (_cpu_ref): ((worst error, what), outputs and gradients compared,
+    whether the CPU reference ran in fp32 for want of a CPU bf16
+    kernel)."""
     import copy
 
     name, build, specs, grad, heavy = case[:5]
     ins = [x.to(dtype) if x.is_floating_point() else x for x in ins]
+    _seed_build(torch, seed)
     f_cpu = build()
     is_layer = isinstance(f_cpu, torch.nn.Module)
     f_card = f_cpu
@@ -7192,23 +7317,11 @@ def _nn_case(torch, np, case, dtype, seed, ins, cots):
     out = _nn_call(torch, np, f_card, list(f_card.parameters())
                    if is_layer else [], ins, grad, dtype, DEVICE, seed + 1,
                    cots)
-    ref_dtype = torch.float32 if heavy else dtype
-    fallback = False
-    while True:
-        if is_layer:
-            f_cpu.to(dtype=ref_dtype)
-        try:
-            ref = _nn_call(torch, np, f_cpu, list(f_cpu.parameters())
-                           if is_layer else [], ins, grad, ref_dtype, "cpu",
-                           seed + 1, cots)
-            break
-        except (NotImplementedError, RuntimeError) as e:
-            if ref_dtype != torch.bfloat16 or "BFloat16" not in str(e):
-                raise
-            ref_dtype, fallback = torch.float32, True
+    ref_outs, ref_grads, fallback = ref
     worst = (0.0, "")
-    for what, a, r in ([("out", a, r) for a, r in zip(out[0], ref[0])]
-                       + [("grad", a, r) for a, r in zip(out[1], ref[1])]):
+    for what, a, r in ([("out", a, r) for a, r in zip(out[0], ref_outs)]
+                       + [("grad", a, r) for a, r in zip(out[1],
+                                                         ref_grads)]):
         if a.device.type != torch.device(DEVICE).type \
                 or tuple(a.shape) != tuple(r.shape):
             raise AssertionError(f"nn sweep {name} {dtype}: {what} on "
@@ -7222,16 +7335,141 @@ def _nn_case(torch, np, case, dtype, seed, ins, cots):
     return worst, len(out[0]) + len(out[1]), fallback
 
 
+def sweep_specs(torch, np):
+    """The sweeps whose CPU references the reference process computes, in
+    the order main() runs them: (label, cases, seed0)."""
+    return [("nn sweep", [c + (True, None) for c in nn_sweep_cases(torch)],
+             1000),
+            ("extras sweep", extras_sweep_cases(torch, np), 4400),
+            ("tensor extras sweep", tensor_sweep_cases(torch, np), 4600)]
+
+
+def _sweep_refs(torch, np, label, cases, seed0):
+    """Yield ((label, case index, dtype name), reference) for every case
+    and dtype of a sweep, in _sweep's order."""
+    for i, case in enumerate(cases):
+        ins = _nn_inputs(torch, np, case[2], seed0 + i)
+        cots = []
+        for name in NN_SWEEP_TOL:
+            if name != "float32" and not case[5]:
+                continue
+            yield (label, i, name), _cpu_ref(
+                torch, np, case, getattr(torch, name), seed0 + i, ins, cots)
+
+
+def _ref_worker(conn, core, root):
+    """The reference process (started at phase 1, ROADMAP Queue 1 p): the
+    sweeps' CPU references computed off the card's critical path, each
+    saved under ``root`` and its path sent to main() (in _sweep's order,
+    with the seconds since the process started when it was ready; bytes
+    through the pipe itself took 18-23 s a sweep). It runs on the CPU
+    only, one thread pinned to ``core`` (with 3 threads, niced or not, its
+    OpenMP barriers thrashed against main()'s own CPU references)."""
+    import queue
+    import threading
+    import traceback
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    if core is not None:
+        os.sched_setaffinity(0, {core})
+    torch.set_num_threads(1)
+    pt.set_device("cpu")
+    q = queue.Queue()
+
+    def sender():
+        while True:
+            item = q.get()
+            conn.send(item)
+            if item[0] is None:
+                return
+
+    t = threading.Thread(target=sender, daemon=True)
+    t.start()
+    try:
+        for label, cases, seed0 in sweep_specs(torch, np):
+            for key, ref in _sweep_refs(torch, np, label, cases, seed0):
+                path = os.path.join(root, "_".join(map(str, key)) + ".pt")
+                torch.save(ref, path)
+                q.put((key, path, time.perf_counter() - t0))
+        q.put((None, "done", time.perf_counter() - t0))
+    except BaseException:
+        q.put((None, traceback.format_exc(), time.perf_counter() - t0))
+    t.join()
+    conn.close()
+
+
+class RefClient:
+    """main()'s side of the reference process: ``get(key)`` returns the
+    next reference, which must be ``key``'s. The process gets the last
+    core of this one's affinity set, and this process (its torch threads
+    and the children it starts) the others, until ``close``."""
+
+    def __init__(self):
+        import multiprocessing
+
+        import torch
+
+        self.cores = sorted(os.sched_getaffinity(0))
+        self.threads = torch.get_num_threads()
+        core = self.cores[-1] if len(self.cores) > 1 else None
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.root = _scratch_dir("refs")
+        self.proc = ctx.Process(target=_ref_worker,
+                                args=(child, core, self.root), daemon=True)
+        self.proc.start()
+        child.close()
+        if core is not None:
+            os.sched_setaffinity(0, set(self.cores[:-1]))
+            torch.set_num_threads(min(self.threads, len(self.cores) - 1))
+        self.waited = 0.0
+        self.ready_at = 0.0
+
+    def get(self, torch, key):
+        t0 = time.perf_counter()
+        got, path, self.ready_at = self.conn.recv()
+        if got != key:
+            raise AssertionError(f"reference process: expected {key}, got "
+                                 f"{got}: {path if got is None else ''}")
+        ref = torch.load(path, weights_only=False, mmap=True)
+        os.remove(path)     # the mapping outlives the name
+        self.waited += time.perf_counter() - t0
+        return ref
+
+    def close(self):
+        import torch
+
+        self.conn.close()
+        self.proc.terminate()
+        self.proc.join(10)
+        shutil.rmtree(self.root, ignore_errors=True)
+        os.sched_setaffinity(0, set(self.cores))
+        torch.set_num_threads(self.threads)
+
+
+# main()'s reference process (None: each sweep computes its references
+# inline, as a phase run alone does)
+REFS = None
+
+
 def _sweep(torch, np, cases, seed0, label, card):
-    """Phases 42 and 44: each case (name, build, inputs, grad, heavy, bf16,
-    tol) card against CPU in fp32 and, where ``bf16``, in bf16, within
-    ``tol`` (fp32) or NN_SWEEP_TOL; its inputs and cotangents drawn once
-    (from ``seed0`` + its index) for both dtypes. Prints a line a dtype
-    (the worst error over its tolerance, the next five, the seconds that
-    dtype took) and raises, after both, on any case beyond tolerance."""
+    """Phases 42, 44 and 46: each case (name, build, inputs, grad, heavy,
+    bf16, tol) card against CPU in fp32 and, where ``bf16``, in bf16,
+    within ``tol`` (fp32) or NN_SWEEP_TOL; its inputs and cotangents drawn
+    once (from ``seed0`` + its index) for both dtypes; the CPU references
+    from the reference process (REFS) where main() started one. Prints a
+    line a dtype (the worst error over its tolerance, the next five, the
+    seconds that dtype took on the card) and raises, after both, on any
+    case beyond tolerance."""
     stats = {name: dict(rows=[], tensors=0, fallbacks=[], secs=0.0, n=0)
              for name in NN_SWEEP_TOL}
     failed = []
+    waited = REFS.waited if REFS is not None else 0.0
     for i, case in enumerate(cases):
         t0 = time.perf_counter()
         ins = _nn_inputs(torch, np, case[2], seed0 + i)
@@ -7240,14 +7478,19 @@ def _sweep(torch, np, cases, seed0, label, card):
         for name, tol in NN_SWEEP_TOL.items():
             if name != "float32" and not case[5]:
                 continue
-            st, t1 = stats[name], time.perf_counter()
+            st, dt = stats[name], getattr(torch, name)
+            if REFS is not None:
+                ref = REFS.get(torch, (label, i, name))
+            else:
+                ref = _cpu_ref(torch, np, case, dt, seed0 + i, ins, cots)
+            t_ref = time.perf_counter()
             (err, what), n, fallback = _nn_case(
-                torch, np, case, getattr(torch, name), seed0 + i, ins, cots)
+                torch, np, case, dt, seed0 + i, ins, cots, ref)
             case_tol = case[6] if case[6] and name == "float32" else tol
             st["rows"].append((err / case_tol, err, case[0], what, case_tol))
             st["tensors"] += n
             st["n"] += 1
-            st["secs"] += time.perf_counter() - t1 + share
+            st["secs"] += time.perf_counter() - t_ref + share
             if fallback:
                 st["fallbacks"].append(case[0])
             if not err <= case_tol:
@@ -7265,6 +7508,10 @@ def _sweep(torch, np, cases, seed0, label, card):
               + (f"; CPU reference in fp32 (no CPU bf16 kernel): "
                  f"{', '.join(st['fallbacks'])}" if st["fallbacks"] else ""),
               flush=True)
+    if REFS is not None:
+        print(f"{label}: CPU references from the reference process (the "
+              f"last ready {REFS.ready_at:.1f}s after it started; waited "
+              f"{REFS.waited - waited:.1f}s for them)", flush=True)
     if failed:
         raise AssertionError(f"{label}, card vs CPU beyond tolerance: "
                              + "; ".join(failed))
@@ -7716,11 +7963,14 @@ def phase_extras_sweep(torch, np, ops, card):
     _release(torch)
 
 
-def _ds2_parity(torch, np, pt, card):
+def _ds2_parity(torch, np, pt, card, feats=None, lens=None):
     """DS2_PARITY: the first step's loss and every gradient, card vs CPU
-    from the same weights (BatchNorm in training)."""
+    from the same weights (BatchNorm in training), on ds2_batch's
+    features or on ``feats`` [batch, frames, freq] of ``lens``."""
     p = DS2_PARITY
-    feats, lens, labels, lab_lens = ds2_batch(np, p, 45)
+    drawn, drawn_lens, labels, lab_lens = ds2_batch(np, p, 45)
+    if feats is None:
+        feats, lens = drawn, drawn_lens
     runs = []
     pt.seed(0)
     cpu = deepspeech2(pt, p, "cpu")
@@ -7829,6 +8079,864 @@ def phase_ds2(torch, np, ops, card):
     print(f"ds2: K1-K6 launches {counts}", flush=True)
     del model, opt
     _release(torch)
+
+
+def tensor_sweep_cases(torch, np):
+    """Phase 46's cases, as extras_sweep_cases: every function of
+    tensor/extras.py and tensor/toplevel_extras.py, fft, signal and the
+    audio functions and layers, each in-place variant of the family, at
+    TX_* sizes. Complex results are compared through view_as_real; the
+    functions whose JAX counterpart refuses bf16, or that take complex or
+    integer inputs, run in fp32 only; reductions (heavy) take an fp32 CPU
+    reference in bf16. The pairwise norms and logcumsumexp run in fp32
+    only: in bf16 their gradients follow rounding (the inf-norm's argmax,
+    the 1-norm's signs, a running log-sum over 65536 terms), 4e-2 to 8e-1
+    off an fp32 reference on the CPU itself."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import audio
+    from paddle_tpu_torch.tensor import toplevel_extras as tx
+
+    rng = np.random.default_rng(46)
+    E, M, S = TX_ELEM, TX_MAT, TX_SIGNAL
+    R = torch.view_as_real
+    cases = []
+
+    def add(name, f, inputs, grad=(0,), heavy=False, bf16=True, tol=None):
+        cases.append((name, lambda f=f: f, inputs, grad, heavy, bf16, tol))
+
+    def with_inf():
+        a = rng.standard_normal(E).astype(np.float32)
+        a.flat[:64] = np.inf
+        a.flat[64:128] = -np.inf
+        a.flat[128:192] = -0.0
+        return ("a", a)
+
+    nans = rng.standard_normal(E).astype(np.float32)
+    nans.flat[::7] = np.nan
+    ints = ("a", rng.integers(-3, 4, E))
+    # ---- tensor/extras.py ----
+    for n in ("isreal", "isneginf", "isposinf", "signbit"):
+        add(n, getattr(pt, n), [with_inf()], ())
+    add("addmm", lambda i, a, b: pt.addmm(i, a, b, 0.5, 2.0),
+        [("f", (256, 512)), ("f", (256, 1024)), ("f", (1024, 512))],
+        (0, 1, 2), True)
+    for p in (2.0, 1.0, float("inf")):
+        add(f"cdist p={p}", lambda a, b, p=p: pt.cdist(a, b, p),
+            [("f", TX_CDIST[0]), ("f", TX_CDIST[1])], (0, 1), True, False)
+    for p in (2, 0, float("inf"), 1.5):
+        add(f"dist p={p}", lambda a, b, p=p: pt.dist(a, b, p),
+            [("f", E), ("f", E)], (0, 1) if p else (), True)
+    add("diff", lambda a: pt.diff(a), [("f", E)])
+    add("diff n=2 axis=0 prepend append", lambda a, b, c: pt.diff(
+        a, 2, 0, b, c), [("f", E), ("f", (3, E[1])), ("f", (2, E[1]))],
+        (0, 1, 2))
+    add("frexp", pt.frexp, [("f", E)], ())
+    add("ldexp", pt.ldexp, [("f", E), ints])
+    add("gammaln", pt.gammaln, [("pos", E)])
+    add("gammainc", pt.gammainc, [("pos", E), ("pos", E)], (1,))
+    add("gammaincc", pt.gammaincc, [("pos", E), ("pos", E)], (1,))
+    add("multigammaln", lambda a: pt.multigammaln(a + 1.5, 3), [("pos", E)])
+    for n in (0, 1, 2):
+        add(f"polygamma n={n}", lambda a, n=n: pt.polygamma(a, n),
+            [("pos", E)])
+    for n in ("i0e", "i1e", "sgn", "sinc"):
+        add(n, getattr(pt, n), [("f", E)])
+    add("logit", pt.logit, [("p", E)])
+    add("logit eps", lambda a: pt.logit(a, 0.1), [("p", E)])
+    add("logcumsumexp", pt.logcumsumexp, [("f", E)], (0,), True, False)
+    add("logcumsumexp axis", lambda a: pt.logcumsumexp(a, axis=1),
+        [("f", E)], (0,), True, False)
+    add("isin", pt.isin, [(("i", 1000), E),
+                          ("a", rng.integers(0, 1000, 300))], ())
+    add("isin invert", lambda a, b: pt.isin(a, b, invert=True),
+        [(("i", 1000), E), ("a", rng.integers(0, 1000, 300))], ())
+    add("trapezoid dx", lambda a: pt.trapezoid(a, dx=0.5), [("f", E)],
+        (0,), True)
+    add("trapezoid x", lambda a, x: pt.trapezoid(a, x, axis=0),
+        [("f", E), ("a", np.sort(rng.standard_normal(E[0])).astype(
+            np.float32))], (0,), True)
+    add("cumulative_trapezoid", lambda a: pt.cumulative_trapezoid(
+        a, dx=0.5), [("f", E)], (0,), True)
+    add("nanquantile", lambda a: pt.nanquantile(a, 0.3, axis=1,
+                                                keepdim=True),
+        [("a", nans)], ())
+    add("nanquantile q list", lambda a: pt.nanquantile(
+        a, [0.1, 0.5, 0.9], axis=0, interpolation="midpoint"),
+        [("a", nans)], ())
+    add("reduce_as", pt.reduce_as, [("f", (8,) + E), ("f", (E[0], 1))],
+        (0,), True)
+    add("renorm", lambda a: pt.renorm(a, 2.0, 0, 20.0), [("f", E)], (0,),
+        True)
+    add("vander", lambda a: pt.vander(a, 16, True), [("f", (E[0],))])
+    add("inverse", pt.inverse, [("spd", M)], (0,), False, False)
+    add("block_diag", lambda a, b: pt.block_diag([a, b]),
+        [("f", (64, 32)), ("f", (16, 48))], (0, 1))
+    for n in ("hsplit", "vsplit", "dsplit"):
+        add(n, lambda a, n=n: getattr(pt, n)(a, 2), [("f", M)])
+        add(f"{n} indices", lambda a, n=n: getattr(pt, n)(a, [3, 9]),
+            [("f", M)])
+    add("tensor_split", lambda a: pt.tensor_split(a, 3, axis=1), [("f", E)])
+    add("tensor_split indices", lambda a: pt.tensor_split(a, [7, 33]),
+        [("f", E)])
+    add("reverse", lambda a: pt.reverse(a, [0, 2]), [("f", M)])
+    add("unflatten", lambda a: pt.unflatten(a, 1, [32, 32]), [("f", E)])
+    add("unfold", lambda a: pt.unfold(a, 1, 64, 16), [("f", E)])
+    add("as_strided", lambda a: pt.as_strided(a, [60, 128, 64],
+                                              [1024, 8, 1], 3), [("f", E)])
+    add("index_fill", lambda a, i: pt.index_fill(a, i, 1, 2.5),
+        [("f", E), ("a", rng.choice(E[1], 100, replace=False))])
+    add("masked_scatter", pt.masked_scatter,
+        [("f", E), ("mask", E), ("f", (E[0] * E[1],))], (0, 2))
+    for off in (0, 5, -5):
+        add(f"diagonal_scatter offset={off}", lambda a, b, o=off:
+            pt.diagonal_scatter(a, b, o, 1, 2),
+            [("f", M), ("f", (M[0], M[1] - abs(off)))], (0, 1))
+    add("select_scatter", lambda a, b: pt.select_scatter(a, b, 1, 9),
+        [("f", M), ("f", (M[0], M[2]))], (0, 1))
+    add("slice_scatter", lambda a, b: pt.slice_scatter(
+        a, b, [1, 2], [4, 0], [60, 64], [4, 2]),
+        [("f", M), ("f", (M[0], 14, 32))], (0, 1))
+    add("histogram_bin_edges", lambda a: pt.histogram_bin_edges(a, 50),
+        [("f", E)], ())
+    add("histogram_bin_edges range", lambda a: pt.histogram_bin_edges(
+        a, 50, -1.0, 2.0), [("f", E)], ())
+    add("histogramdd", lambda a: pt.histogramdd(a, bins=8),
+        [("f", TX_HIST)], ())
+    add("histogramdd ranges density", lambda a: pt.histogramdd(
+        a, bins=[4, 8, 16], ranges=[-1, 1, -2, 2, -3, 3], density=True),
+        [("f", TX_HIST)], ())
+    add("histogramdd weights", lambda a, w: pt.histogramdd(
+        a, bins=6, weights=w), [("f", TX_HIST), ("pos", TX_HIST[:1])], ())
+    # ---- tensor/toplevel_extras.py ----
+    add("mm", pt.mm, [("f", (256, 512)), ("f", (512, 128))], (0, 1), True)
+    for p in (2.0, 1.0, float("inf")):
+        add(f"pdist p={p}", lambda a, p=p: pt.pdist(a, p),
+            [("f", (256, 64))], (0,), True, False)
+    for n in ("hstack", "vstack", "dstack", "column_stack", "row_stack"):
+        add(n, lambda a, b, n=n: getattr(pt, n)([a, b]),
+            [("f", E), ("f", E)], (0, 1))
+    add("cartesian_prod", lambda a, b: pt.cartesian_prod([a, b]),
+        [("f", (64,)), ("f", (32,))], (0, 1))
+    # each element's gradient sums ~2000 cotangents: the CPU sums them in
+    # bf16 one by one, the card's index backward in fp32 (heavy: an fp32
+    # reference)
+    add("combinations", lambda a: pt.combinations(a, 3), [("f", (64,))],
+        (0,), True)
+    add("combinations with_replacement", lambda a: pt.combinations(
+        a, 2, True), [("f", (64,))], (0,), True)
+    add("shape", pt.shape, [("f", M)], ())
+    add("rank", pt.rank, [("f", M)], ())
+    # ---- fft ----
+    for n in ("fft", "ifft", "rfft", "ihfft"):
+        add(n, lambda a, n=n: R(getattr(pt.fft, n)(a)), [("f", E)])
+        add(f"{n} n axis ortho", lambda a, n=n: R(getattr(pt.fft, n)(
+            a, 48, 0, "ortho")), [("f", E)])
+    for n in ("irfft", "hfft"):
+        add(n, lambda a, n=n: getattr(pt.fft, n)(torch.view_as_complex(a)),
+            [("f", E + (2,))], (0,), False, False)
+    for n in ("fft2", "ifft2", "rfft2", "fftn", "ifftn", "rfftn"):
+        add(n, lambda a, n=n: R(getattr(pt.fft, n)(a)), [("f", M)])
+    for n in ("irfft2", "irfftn"):
+        add(n, lambda a, n=n: getattr(pt.fft, n)(torch.view_as_complex(a)),
+            [("f", M + (2,))], (0,), False, False)
+    add("fftshift", pt.fft.fftshift, [("f", M)])
+    add("ifftshift axes", lambda a: pt.fft.ifftshift(a, axes=[1]),
+        [("f", M)])
+    add("fftfreq", lambda a: [pt.fft.fftfreq(1000, 0.5),
+                              pt.fft.rfftfreq(1000, 0.25)], [("f", (1,))],
+        (), False, False)
+    # ---- signal ----
+    add("frame", lambda a: pt.signal.frame(a, 400, 160), [("f", S)])
+    add("frame axis=0", lambda a: pt.signal.frame(a, 400, 160, axis=0),
+        [("f", S[::-1])])
+    add("overlap_add", lambda a: pt.signal.overlap_add(a, 160),
+        [("f", (S[0], 400, 98))])
+    add("overlap_add axis=0", lambda a: pt.signal.overlap_add(a, 160, 0),
+        [("f", (98, 400, S[0]))])
+    for kw in (dict(), dict(center=False), dict(win_length=320),
+               dict(normalized=True), dict(onesided=False)):
+        tag = " ".join(f"{k}={v}" for k, v in kw.items())
+        add(f"stft {tag}".strip(), lambda a, kw=kw: R(pt.signal.stft(
+            a, 400, 160, **kw)), [("f", S)])
+    add("stft window", lambda a, w: R(pt.signal.stft(a, 320, 160, window=w)),
+        [("f", S), ("a", np.hanning(320).astype(np.float32))])
+    add("istft(stft)", lambda a, w: pt.signal.istft(pt.signal.stft(
+        a, 320, 160, window=w), 320, 160, window=w, length=S[1]),
+        [("f", S), ("a", np.hanning(320).astype(np.float32) + 0.05)])
+    add("istft nola floor", lambda a: pt.signal.istft(
+        torch.view_as_complex(a), 8, 8, window=torch.tensor(
+            [0, 0, 1, 1, 1, 1, 0, 0.0], device=a.device), center=False),
+        [("f", (S[0], 5, 500, 2))], (0,), False, False)
+    # ---- audio ----
+    A = audio.functional
+    add("power_to_db", lambda a: A.power_to_db(a * a, 1.0, 1e-10, 80.0),
+        [("f", E)], (0,), False, False)
+    add("hz_to_mel mel_to_hz", lambda a: [A.hz_to_mel(a * 4000),
+                                          A.mel_to_hz(a * 40, True)],
+        [("pos", E)], (0,), False, False)
+    for cls, kw in (("Spectrogram", DS2_FRONT),
+                    ("MelSpectrogram", dict(sr=16000, n_fft=512,
+                                            n_mels=80)),
+                    ("LogMelSpectrogram", dict(sr=16000, n_fft=512,
+                                               n_mels=80, top_db=80.0)),
+                    ("MFCC", dict(sr=16000, n_mfcc=40, n_fft=512,
+                                  n_mels=80))):
+        cases.append((f"audio.{cls}", lambda c=cls, kw=kw: getattr(
+            audio.features, c)(**kw), [("f", S)], (0,), False, False, None))
+    # ---- the in-place family ----
+    two = ("floor_divide", "remainder", "mod", "floor_mod", "pow", "divide",
+           "multiply", "copysign", "hypot", "equal", "less_than",
+           "less_equal", "greater_equal", "greater_than", "gammainc",
+           "gammaincc")
+    intg = ("bitwise_and", "bitwise_or", "bitwise_xor", "gcd", "lcm",
+            "bitwise_left_shift", "bitwise_right_shift")
+    extra = dict(cumsum=(1,), cumprod=(1,), unsqueeze=(0,), squeeze=(1,),
+                 triu=(1,), tril=(-1,), cast=("float64",),
+                 transpose=([1, 0],), renorm=(2.0, 0, 20.0),
+                 multigammaln=(2,), polygamma=(1,), masked_fill=(0.5,))
+    for base in tx.INPLACE_BASES:
+        fn = getattr(pt, base + "_")
+        ex = extra.get(base, ())
+        if base in intg:
+            specs, grad, b16 = [(("i", 64), E), (("i", 4), E)], (), False
+        elif base == "bitwise_not":
+            specs, grad, b16 = [(("i", 64), E)], (), False
+        elif base in ("logical_and", "logical_or"):
+            specs, grad, b16 = [("mask", E), ("mask", E)], (), False
+        elif base == "logical_not":
+            specs, grad, b16 = [("mask", E)], (), False
+        elif base in two:
+            specs, grad, b16 = [("pos", E), ("pos", E)], (0,), True
+        elif base == "addmm":
+            specs, grad, b16 = [("f", (256, 256)), ("f", (256, 512)),
+                                ("f", (512, 256))], (0, 1, 2), True
+        elif base == "squeeze":
+            specs, grad, b16 = [("f", (E[0], 1, E[1]))], (0,), True
+        elif base in ("ldexp",):
+            specs, grad, b16 = [("f", E), ints], (0,), True
+        elif base in ("masked_fill",):
+            specs, grad, b16 = [("f", E), ("mask", E)], (0,), True
+        elif base == "masked_scatter":
+            specs, grad, b16 = [("f", E), ("mask", E),
+                                ("f", (E[0] * E[1],))], (0, 2), True
+        elif base == "nan_to_num":
+            specs, grad, b16 = [with_inf()], (0,), True
+        elif base in ("acos", "logit"):
+            specs, grad, b16 = [("p", E)], (0,), True
+        else:
+            specs, grad, b16 = [("pos", E)], (0,), True
+        if base in ("cast", "cumprod", "multigammaln", "polygamma"):
+            b16 = False
+        if base in ("equal", "less_than", "less_equal", "greater_equal",
+                    "greater_than", "t", "unsqueeze", "squeeze", "transpose",
+                    "flatten", "cast", "floor_divide"):
+            grad = ()     # a new dtype or shape (no in-place autograd), or
+            #               no derivative (floor_divide)
+        if base in ("gammainc", "gammaincc"):
+            grad = (1,)   # torch has no gradient for the first argument
+
+        def f(x, *rest, fn=fn, ex=ex):
+            return fn(x.clone(), *rest, *ex)
+
+        add(f"{base}_", f, specs, grad, base in ("addmm", "cumsum"), b16)
+    add("where_", lambda c, x, y: pt.where_(c, x.clone(), y),
+        [("mask", E), ("f", E), ("f", E)], (1, 2))
+    return cases
+
+
+def _moments_ok(x, mean, std, n_sd=6.0):
+    """|sample mean - mean| within n_sd standard errors and the sample std
+    within 2% of std."""
+    m, s = x.mean().item(), x.std().item()
+    return abs(m - mean) <= n_sd * std / x.numel() ** 0.5 \
+        and abs(s - std) <= 0.02 * std, m, s
+
+
+def _tensor_random_on_card(torch, np, card):
+    """The random functions on the card by their moments (log_normal,
+    standard_gamma and the in-place fills log_normal_, cauchy_ by its
+    quartiles, geometric_ continuous), and top_p_sampling on TOP_P logits:
+    every draw inside its row's nucleus (JAX's keep rule), TOP_P_DRAWS
+    draws of one row against the nucleus's renormalised probabilities
+    (chi-square, p > 1e-3), and the same seed giving the same draws."""
+    import scipy.stats
+
+    import paddle_tpu_torch as pt
+
+    n = 1 << 22
+    pt.seed(46)
+    lines, ok = [], True
+    w = pt.log_normal(0.5, 0.25, [n])
+    good, m, sd = _moments_ok(torch.log(w), 0.5, 0.25)
+    ok &= good and w.device.type == torch.device(DEVICE).type
+    lines.append(f"log_normal log-mean {m:.5f} log-std {sd:.5f}")
+    g = pt.standard_gamma(pt.full([n], 3.0))
+    good, m, sd = _moments_ok(g, 3.0, 3.0 ** 0.5)
+    ok &= good
+    lines.append(f"standard_gamma(3) mean {m:.5f} std {sd:.5f}")
+    x = pt.zeros([n])
+    x.log_normal_(1.0, 0.5)
+    good, m, sd = _moments_ok(torch.log(x), 1.0, 0.5)
+    ok &= good
+    lines.append(f"log_normal_ log-mean {m:.5f} log-std {sd:.5f}")
+    pt.cauchy_(x, 1.0, 2.0)
+    q = torch.quantile(x[:1 << 20], torch.tensor([0.25, 0.5, 0.75],
+                                                 device=x.device)).tolist()
+    ok &= abs(q[1] - 1.0) < 0.02 and abs((q[2] - q[0]) / 2 - 2.0) < 0.02
+    lines.append(f"cauchy_ median {q[1]:.4f} half-IQR {(q[2] - q[0]) / 2:.4f}")
+    pt.geometric_(x, 0.3)
+    mean_g = 1 / -math.log1p(-0.3)
+    frac = (x != torch.floor(x)).float().mean().item()
+    good, m, sd = _moments_ok(x, mean_g, mean_g)
+    ok &= good and frac > 0.99
+    lines.append(f"geometric_(0.3) mean {m:.5f} (continuous {mean_g:.5f}), "
+                 f"non-integer share {frac:.4f}")
+    rows, vocab = TOP_P
+    gen = torch.Generator(device=DEVICE).manual_seed(46)
+    logits = torch.randn(rows, vocab, device=DEVICE, generator=gen) * 4
+    ps = torch.rand(rows, device=DEVICE, generator=gen) * 0.8 + 0.1
+    vals, idx = pt.top_p_sampling(logits, ps, seed=1)
+    probs = torch.softmax(logits.float(), -1)
+    sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    keep = (torch.cumsum(sp, -1) - sp) <= ps[:, None]
+    rank = (order == idx).float().argmax(-1)
+    inside = bool(keep.gather(1, rank[:, None]).all())
+    same = torch.equal(idx, pt.top_p_sampling(logits, ps, seed=1)[1])
+    other = not torch.equal(idx, pt.top_p_sampling(logits, ps, seed=2)[1])
+    row = logits[:1].expand(TOP_P_DRAWS, vocab).contiguous()
+    draws = pt.top_p_sampling(row, 0.5, seed=3)[1].flatten()
+    sp0 = torch.sort(torch.softmax(logits[0].float(), -1), descending=True,
+                     stable=True)
+    k0 = (torch.cumsum(sp0.values, 0) - sp0.values) <= 0.5
+    expect = (sp0.values[k0] / sp0.values[k0].sum()).double().cpu().numpy()
+    pos = {int(t): j for j, t in enumerate(sp0.indices[k0].tolist())}
+    counts = np.zeros(len(expect))
+    outside = 0
+    for t in draws.tolist():
+        if t in pos:
+            counts[pos[t]] += 1
+        else:
+            outside += 1
+    # cells pooled (largest first) until each expects >= 5 draws
+    exp_n = expect * TOP_P_DRAWS
+    pool_o, pool_e, acc_o, acc_e = [], [], 0.0, 0.0
+    for o, e in zip(counts, exp_n):
+        acc_o, acc_e = acc_o + o, acc_e + e
+        if acc_e >= 5:
+            pool_o.append(acc_o)
+            pool_e.append(acc_e)
+            acc_o = acc_e = 0.0
+    if acc_e:
+        pool_o[-1] += acc_o
+        pool_e[-1] += acc_e
+    chi = float(sum((o - e) ** 2 / e for o, e in zip(pool_o, pool_e)))
+    pval = float(scipy.stats.chi2.sf(chi, max(len(pool_o) - 1, 1)))
+    ok &= inside and same and other and outside == 0 and pval > 1e-3
+    lines.append(f"top_p_sampling on [{rows}, {vocab}]: every draw in its "
+                 f"row's nucleus {inside}, same seed same draws {same}, "
+                 f"another seed other draws {other}; {TOP_P_DRAWS} draws of "
+                 f"row 0 (p 0.5, nucleus {len(expect)} tokens): chi2 {chi:.2f}"
+                 f" over {len(pool_o) - 1} dof, p {pval:.4f}, outside the "
+                 f"nucleus {outside}")
+    print(f"tensor extras random [{card}]: " + "; ".join(lines), flush=True)
+    if not ok:
+        raise AssertionError("tensor extras sweep: a random function on the "
+                             "card missed its law")
+
+
+def phase_tensor_sweep(torch, np, ops, card):
+    """Phase 46: every function of tensor/extras.py, toplevel_extras.py,
+    fft, signal and audio, and each in-place variant, forward and
+    backward, fp32 (bf16 where the case takes it), card against CPU
+    (NN_SWEEP_TOL); then the random functions by their moments and
+    top_p_sampling; K1-K6 must not launch."""
+    import paddle_tpu_torch as pt
+
+    pt.set_device(DEVICE)
+    _reset_counts(ops)
+    _sweep(torch, np, tensor_sweep_cases(torch, np), 4600,
+           "tensor extras sweep", card)
+    _tensor_random_on_card(torch, np, card)
+    counts = _no_kernel_ran(ops, "tensor extras sweep")
+    print(f"tensor extras sweep: K1-K6 launches {counts}", flush=True)
+    _release(torch)
+
+
+# the ops whose OpDef AMP casts to low precision (white): linear, conv
+# and matmul, as in the JAX package (core/op_registry.py's docstring)
+WHITE_OPDEFS = ("linear", "conv", "matmul")
+
+
+def _white_ops(recs):
+    """{op: calls} of the dumped records (first outputs) of the white
+    OpDefs: what O1 ran in low precision."""
+    return dict(collections.Counter(r["op"] for r in recs if r["out"] == 0
+                                    and r["op"] in WHITE_OPDEFS))
+
+
+def phase_amp_debugging(torch, np, ops, card):
+    """Phase 47: amp.debugging on phase 41's BERT-base dygraph encoder
+    (DYGRAPH_BERT, seed-0 weights and batch): one fp32 step (forward,
+    cross entropy, backward) dumped twice (compare_accuracy flags 0 rows),
+    one O1 bf16 step dumped and compared with the fp32 dump (aligned op
+    for op: no MISSING row; flagged count and worst op printed), the op
+    statistics of the O1 step equal to the white ops its dump holds, the
+    tensor checker on an inf planted in one layer's weight (raises naming
+    the first op; warn mode warns and the health word carries the bits),
+    and the step's ms and host syncs with the dump on and off. Returns the
+    dumped steps' K1-lse, K2 and K3 launches (12 each a step)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import numeric_guard
+
+    dbg = pt.amp.debugging
+    c, d = DYGRAPH_BERT, DYGRAPH
+    L = c["layers"]
+    pt.set_device(DEVICE)
+    pt.seed(0)
+    model = dygraph_encoder(pt, c, DEVICE)
+    ids, labels = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+    root = _scratch_dir("amp_debugging")
+
+    def step(amp=None):
+        with pt.amp.auto_cast(**amp) if amp else contextlib.nullcontext():
+            loss = pt.nn.functional.cross_entropy(model(ids), labels)
+        loss.backward()
+        model.clear_gradients()
+        return loss
+
+    def dumped(path, amp=None):
+        with dbg.dump_tensor_stats(path):
+            return step(amp)
+
+    def dumped_o1(path):
+        """The O1 bf16 step dumped, its op statistics collected inside
+        auto_cast (they live in its AMP state)."""
+        with dbg.dump_tensor_stats(path):
+            with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                with dbg.enable_operator_stats_collection():
+                    loss = pt.nn.functional.cross_entropy(model(ids),
+                                                          labels)
+                    got = dbg.collect_operator_stats()
+            loss.backward()
+            model.clear_gradients()
+        return got
+
+    step()
+    sync()
+    _reset_counts(ops)
+    paths = [os.path.join(root, f"{n}.jsonl") for n in ("a", "b", "o1")]
+    dumped(paths[0])
+    dumped(paths[1])
+    stats = dumped_o1(paths[2])
+    counts = _read_counts(ops)
+    launches = (counts["k1_lse"], counts["k2"], counts["k3"])
+    same = dbg.compare_accuracy(paths[0], paths[1],
+                                os.path.join(root, "fp32.csv"))
+    mixed = dbg.compare_accuracy(paths[0], paths[2],
+                                 os.path.join(root, "bf16.csv"))
+    recs = [json.loads(line) for line in open(paths[2])]
+    missing = [r for r in mixed if r["status"].startswith("MISSING")]
+    with open(os.path.join(root, "bf16.csv")) as f:
+        rows = [r for r in csv.DictReader(f) if r["status"] != "MISSING_IN_A"
+                and r["status"] != "MISSING_IN_B"]
+    worst = max(rows, key=lambda r: float(r["max_abs_err"]) / max(
+        float(r["max_abs_a"]), 1e-6), default=None)
+    white = _white_ops(recs)
+    print(f"amp debugging [{card}]: BERT-base dygraph step (batch "
+          f"{d['batch']} x {d['seq']}, {L} layers): {len(recs)} records a "
+          f"dumped step; fp32 vs fp32 flagged {len(same)}; fp32 vs O1 bf16 "
+          f"flagged {len(mixed)} of {len(recs)} at rtol 1e-2 (missing "
+          f"{len(missing)}; largest max |x| change: "
+          f"{worst['op'] if worst else None} call "
+          f"{worst['call'] if worst else None}, "
+          f"{worst['max_abs_a'] if worst else None} -> "
+          f"{worst['max_abs_b'] if worst else None}); operator stats "
+          f"{stats} (white ops in the dump {white}); launches k1_lse/k2/k3 "
+          f"{launches} over 3 dumped steps", flush=True)
+    if same or missing or stats != white or not stats:
+        raise AssertionError(f"amp debugging: fp32 dumps flagged {same[:3]},"
+                             f" missing {missing[:3]}, stats {stats} vs "
+                             f"{white}")
+    if list(launches) != [3 * L] * 3:
+        raise AssertionError(f"amp debugging: launches {launches}")
+
+    # host syncs and ms a step, the dump off and on
+    def timed(fn, n=3):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    off_ms = timed(step)
+    on_ms = timed(lambda: dumped(paths[1]))
+    off_syncs = _sync_count(torch, step)
+    on_syncs = _sync_count(torch, lambda: dumped(paths[1]))
+    print(f"amp debugging [{card}]: ms a step dump off {off_ms:.2f} on "
+          f"{on_ms:.2f}; host syncs a step off {len(off_syncs)} on "
+          f"{len(on_syncs)} (the dump's one read of every record's "
+          f"statistics; JAX's recorder reads 4 host scalars an output, "
+          f"{4 * len(recs)} a step)", flush=True)
+    if len(on_syncs) - len(off_syncs) > 1:
+        raise AssertionError(f"amp debugging: the dump adds "
+                             f"{len(on_syncs) - len(off_syncs)} host syncs "
+                             f"a step: {on_syncs[:3]}")
+
+    # the tensor checker on an inf in layer 3's first FFN weight
+    w = model.encoder.layers[3].linear1.weight
+    saved = w.detach().clone()
+    with torch.no_grad():
+        w[0, 0] = float("inf")
+    try:
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+            debug_mode=dbg.DebugMode.CHECK_NAN_INF_AND_ABORT))
+        try:
+            with torch.no_grad():
+                model(ids)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+            debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+        numeric_guard.consume_health()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with torch.no_grad():
+                model(ids)
+        word = numeric_guard.consume_health()
+    finally:
+        dbg.disable_tensor_checker()
+        with torch.no_grad():
+            w.copy_(saved)
+    warned = [str(m.message) for m in seen if "Operator" in str(m.message)]
+    print(f"amp debugging checker [{card}]: abort mode raised "
+          f"{raised!r}; warn mode warned {len(warned)} times (first "
+          f"{warned[0] if warned else None!r}), health "
+          f"{numeric_guard.describe_health(word)}", flush=True)
+    if not (raised and raised.startswith("Operator linear") and warned
+            and word & (numeric_guard.NAN_GRAD | numeric_guard.INF_GRAD)):
+        raise AssertionError("amp debugging: the tensor checker missed the "
+                             "planted inf")
+    del model
+    _release(torch)
+    return launches
+
+
+def _trace_kernels(prof_mod, path, names):
+    """{name: calls} of the events of a device trace whose names hold
+    each of ``names`` (demangled or not)."""
+    res = prof_mod.load_profiler_result(path)
+    out = {}
+    for n in names:
+        hits = {k: d["calls"] for k, d in res.summary.items() if n in k}
+        out[n] = sum(hits.values())
+        if len(hits) > 1:
+            print(f"  trace names holding {n}: {hits}", flush=True)
+    return out, len(res.events)
+
+
+def _kineto_records_cuda(torch):
+    """Whether torch.profiler records CUDA kernels on this machine (one
+    small matmul traced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.ones(64, 64, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a @ a
+        torch.cuda.synchronize()
+    return any(e.device_type() == torch.autograd.DeviceType.CUDA
+               for e in prof.profiler.kineto_results.events())
+
+
+def phase_profiler(torch, np, ops, card):
+    """Phase 48: the profiler around phase 9's Llama train step (852.6M,
+    batch 2 x 4096, bf16): 4 steps under Profiler(make_scheduler(closed=1,
+    ready=1, record=2), profile_memory=True, on_trace_ready=
+    export_chrome_tracing(build/chip_smoke/profiler)) with RecordEvent
+    scopes around the batch and the step: OverView's steps and
+    OperatorView's calls equal the steps taken, MemoryView's peak within
+    5% of torch.cuda.max_memory_allocated(), the device trace's
+    flash_fwd_tc_kernel / dq_tc_kernel / dkv_tc_kernel counts equal to the
+    wrappers' counters over the 2 recorded steps (2 x 16 each), and the
+    step's ms recorded against not. Then the legacy serving engine of
+    phase 6 (its llama-750M class, 8 slots, 16 short requests) under a
+    Profiler with TraceRecorder(mirror_host_events=True): the recorder's
+    span names and counts in OperatorView, K1 and K4 in the device trace
+    equal to the wrappers' counters. Where Kineto records no CUDA activity
+    on the machine, the profiler must refuse (raise) and the trace counts
+    are printed as not measured. Returns (K1-lse, K2, K3, K1, K4)
+    launches."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cuda_traced = _kineto_records_cuda(torch)
+    root = _scratch_dir("profiler")
+    cfg = LlamaConfig(**TRAIN_CONFIG)
+    L = cfg.num_hidden_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    eng = Engine(model, lr=1e-4, clip_norm=1.0)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+               .astype(np.int32) for _ in range(PROFILE_STEPS)]
+    warm = torch.from_numpy(batches[0]).to(DEVICE)
+    for _ in range(TRAIN_WARMUP):
+        eng.step(warm, warm)
+    sync()
+    P._host_events.reset()
+    prof = P.Profiler(scheduler=P.make_scheduler(closed=1, ready=1,
+                                                 record=2),
+                      profile_memory=True,
+                      on_trace_ready=P.export_chrome_tracing(root))
+    ms, recorded, losses = [], [0, 0, 0], []
+    refused = None
+    try:
+        prof.start()
+        for i, b in enumerate(batches):
+            _reset_counts(ops)
+            t0 = time.perf_counter()
+            with P.RecordEvent("batch"):
+                ids = torch.from_numpy(b).to(DEVICE)
+            with P.RecordEvent("step"):
+                losses.append(eng.step(ids, ids))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            c = _read_counts(ops)
+            if prof._tracing:
+                recorded = [x + c[k] for x, k in zip(
+                    recorded, ("k1_lse", "k2", "k3"))]
+            prof.step()
+        prof.stop()
+    except RuntimeError as e:
+        if cuda_traced:
+            raise
+        refused = str(e)
+    table = prof.summary() if refused is None else ""
+    lines = table.splitlines()
+
+    def row(name):
+        r = next((ln.split() for ln in lines if ln.split()[:1] == [name]),
+                 None)
+        return r
+
+    steps_row = row("steps")
+    peak_rows = [float(ln.split()[2]) for ln in lines
+                 if ln.split()[:1] in (["batch"], ["step"])
+                 and len(ln.split()) == 3]
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    vals = torch.stack([x.detach() for x in losses]).float().cpu()
+    print(f"profiler [{card}]: Llama {cfg.num_params() / 1e6:.1f}M batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} bf16, {PROFILE_STEPS} steps (closed "
+          f"1, ready 1, record 2): ms a step {[round(x, 2) for x in ms]} "
+          f"(recorded: steps 3-4); OverView steps "
+          f"{steps_row[1] if steps_row else None}; OperatorView step/batch "
+          f"calls {row('step')[1] if row('step') else None}/"
+          f"{row('batch')[1] if row('batch') else None}; MemoryView peak "
+          f"{max(peak_rows) if peak_rows else None} MB vs "
+          f"max_memory_allocated {peak_mb:.2f} MB; losses "
+          f"{[round(x, 4) for x in vals.tolist()]}", flush=True)
+    if not bool(vals.isfinite().all()):
+        raise AssertionError(f"profiler: losses {vals}")
+    if refused is not None:
+        print(f"profiler [{card}]: Kineto records no CUDA activity on this "
+              f"machine; Profiler(targets=[GPU]) refused as designed "
+              f"({refused}); device-trace counts not measured", flush=True)
+        del eng, model
+        _release(torch)
+        return tuple(recorded) + (0, 0)
+    if not (steps_row and int(steps_row[1]) == PROFILE_STEPS
+            and row("step")[1] == row("batch")[1] == str(PROFILE_STEPS)
+            and peak_rows and abs(max(peak_rows) - peak_mb) <= 0.05 * peak_mb):
+        raise AssertionError("profiler: the summary's views disagree with "
+                             "the steps taken or the peak memory")
+    trace = os.path.join(root, "device_trace.json")
+    got, n_events = _trace_kernels(P, trace, ("flash_fwd_tc_kernel",
+                                              "dq_tc_kernel",
+                                              "dkv_tc_kernel"))
+    want = dict(zip(("flash_fwd_tc_kernel", "dq_tc_kernel",
+                     "dkv_tc_kernel"), recorded))
+    print(f"profiler device trace [{card}]: {n_events} events, "
+          f"{os.path.getsize(trace) / 2 ** 20:.1f} MB; kernels {got} vs the "
+          f"wrappers' counters over the recorded steps {want}; overhead: "
+          f"recorded steps {ms[2]:.2f}/{ms[3]:.2f} ms against "
+          f"{ms[1]:.2f} (ready) and {ms[0]:.2f} (closed)", flush=True)
+    if got != want or recorded != [2 * L] * 3:
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        ops_seen = collections.Counter(e["name"] for e in events
+                                       if e.get("cat") == "cpu_op"
+                                       and "paddle_tpu_torch::" in e["name"])
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "flash_fwd_tc_kernel" in e["name"]]
+        print(f"profiler trace diagnosis: custom ops {dict(ops_seen)}; "
+              f"flash_fwd kernel start times (us) "
+              f"{sorted(e['ts'] for e in kernels)[:4]} ...; trace keys "
+              f"{[k for k in json.load(open(trace)) if k != 'traceEvents']}",
+              flush=True)
+        raise AssertionError(f"profiler: trace {got} vs counters {want}")
+    del eng, model, losses
+    _release(torch)
+    k1, k4 = _profiled_serving(torch, np, ops, card, P, root)
+    return tuple(recorded) + (k1, k4)
+
+
+def _profiled_serving(torch, np, ops, card, P, root):
+    """The serving arm of phase 48 (see phase_profiler); returns its K1
+    and K4 launches."""
+    from paddle_tpu_torch.inference.serving import (ContinuousBatchingEngine,
+                                                    Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import TraceRecorder
+
+    model = LlamaForCausalLM(LlamaConfig(**SERVE_CONFIG), device=DEVICE,
+                             seed=0)
+    tracer = TraceRecorder(mirror_host_events=True)
+    eng = ContinuousBatchingEngine(model, device=DEVICE, tracer=tracer,
+                                   **ENGINE)
+    warm, prompts, _, rng = _legacy_wave(np, model.config.vocab_size)
+    out = os.path.join(root, "serving")
+    # step 0 (READY, Kineto's warm-up): the warm-up wave; step 1 recorded
+    prof = P.Profiler(scheduler=P.make_scheduler(ready=1, record=1),
+                      on_trace_ready=P.export_chrome_tracing(out))
+    prof.start()
+    for p in warm:
+        eng.add_request(Request(p, max_new_tokens=4))
+    eng.run_until_done()
+    sync()
+    prof.step()
+    tracer.events.clear()
+    P._host_events.reset()
+    ops.flash_attention.launches = 0
+    ops.paged_decode_attention.launches = 0
+    reqs = [Request(p, max_new_tokens=PROFILE_SERVE_NEW) for p in prompts]
+    for r in reqs:
+        eng.add_request(r)
+    eng.run_until_done()
+    sync()
+    prof.step()
+    prof.stop()
+    k1 = ops.flash_attention.launches
+    k4 = ops.paged_decode_attention.launches
+    spans = collections.Counter(e["name"] for e in tracer.events
+                                if e["ph"] == "X")
+    table = prof.summary()
+    calls = {ln.split()[0]: int(ln.split()[1]) for ln in table.splitlines()
+             if ln.split()[:1] and ln.split()[0] in spans}
+    got, n_events = _trace_kernels(P, os.path.join(out, "device_trace.json"),
+                                   ("flash_fwd_tc_kernel",
+                                    "paged_decode_kernel"))
+    print(f"profiler serving [{card}]: {len(reqs)} requests of "
+          f"{PROFILE_SERVE_NEW} new tokens on the legacy engine; recorder "
+          f"spans {dict(spans)} vs OperatorView calls {calls}; device trace "
+          f"{n_events} events, kernels {got} vs counters K1 {k1} K4 {k4}",
+          flush=True)
+    if not (spans and calls == dict(spans) and all(
+            len(r.output) == PROFILE_SERVE_NEW for r in reqs)
+            and got == {"flash_fwd_tc_kernel": k1,
+                        "paged_decode_kernel": k4} and k1 and k4):
+        raise AssertionError("profiler serving: spans or kernels disagree")
+    del eng, model
+    _release(torch)
+    return k1, k4
+
+
+def ds2_waves(np, cfg, seed):
+    """Phase 45's batch shape as 16 kHz waveforms: ds2_batch's frame
+    counts (302-1174 from seed 0) as (frames - 1) x hop samples each
+    (normal, zero past each length), padded to the longest; returns
+    (waves [batch, samples], frame counts)."""
+    rng = np.random.default_rng(seed)
+    _, lens, _, _ = ds2_batch(np, cfg, seed)
+    hop = DS2_FRONT["hop_length"]
+    n = (lens - 1) * hop
+    waves = rng.standard_normal((cfg["batch"], int(n.max())),
+                                dtype=np.float32) * 0.1
+    waves *= np.arange(waves.shape[1])[None] < n[:, None]
+    return waves, lens
+
+
+def ds2_front_end(pt, spec_layer, waves):
+    """DS2's features: the linear power spectrogram's log
+    (log(spec + 1e-14), PaddleSpeech's eps), [batch, frames, freq]."""
+    spec = spec_layer(waves)                       # [batch, freq, frames]
+    return pt.log(spec + 1e-14).transpose([0, 2, 1]), spec
+
+
+def phase_ds2_front(torch, np, ops, card):
+    """Phase 49: audio.features.Spectrogram(DS2_FRONT) and a log on phase
+    45's batch shape (32 waveforms of 3-12 s at 16 kHz, 161 bins, 302-1174
+    frames), card against CPU (the power within 1e-4 of its largest, the
+    log features within 1e-3 where the power is above 1e-6 of its
+    largest), ms a batch on the card; then one DS2 training step at full
+    width fed by the card's features (finite loss), and phase 45's
+    card-vs-CPU parity (DS2_PARITY) on the first rows' features."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import audio, nn, optimizer
+
+    c = DS2
+    _reset_counts(ops)
+    waves, lens = ds2_waves(np, c, 0)
+    out = {}
+    for dev in ("cpu", DEVICE):
+        pt.set_device(dev)
+        layer = audio.features.Spectrogram(**DS2_FRONT)
+        x = pt.to_tensor(waves)
+        out[dev] = ds2_front_end(pt, layer, x)
+    pt.set_device(DEVICE)
+    feats, spec = out[DEVICE]
+    ref_feats, ref_spec = out["cpu"]
+    top = ref_spec.abs().max().item()
+    spec_err = (spec.cpu() - ref_spec).abs().max().item() / top
+    live = (ref_spec >= 1e-6 * top).transpose([0, 2, 1])
+    feat_err = ((feats.cpu() - ref_feats).abs() * live).max().item()
+    ms = cuda_ms(lambda: ds2_front_end(pt, layer, x), 10, 2)
+    frames = feats.shape[1]
+    print(f"ds2 front end [{card}]: Spectrogram(n_fft 320, hop 160, win 320,"
+          f" hann, power 2) + log on {waves.shape[0]} waveforms of "
+          f"{(lens.min() - 1) * 160 / 16000:.2f}-"
+          f"{(lens.max() - 1) * 160 / 16000:.2f} s at 16 kHz (padded to "
+          f"{waves.shape[1]} samples): features {list(feats.shape)} "
+          f"({feats.shape[2]} bins, {frames} frames, rows' lengths "
+          f"{lens.min()}-{lens.max()}); card vs CPU power error "
+          f"{spec_err:.3e} of its largest (tol 1e-4), log error "
+          f"{feat_err:.3e} where the power is live (tol 1e-3); "
+          f"ms_per_batch={ms:.3f}", flush=True)
+    if not (spec_err <= 1e-4 and feat_err <= 1e-3 and feats.shape[2]
+            == c["freq"] and frames == int(lens.max())
+            and feats.device.type == torch.device(DEVICE).type):
+        raise AssertionError(f"ds2 front end: power {spec_err}, log "
+                             f"{feat_err}, shape {list(feats.shape)}")
+    # one full-width DS2 step on the card's features
+    _, _, labels, lab_lens = ds2_batch(np, c, 0)
+    pt.seed(0)
+    model = deepspeech2(pt, c, DEVICE)
+    opt = optimizer.Adam(c["lr"], parameters=model.parameters(),
+                         grad_clip=nn.ClipGradByGlobalNorm(c["clip"]))
+    loss = ds2_loss(pt, model, feats.detach(), lens, pt.to_tensor(labels),
+                    pt.to_tensor(lab_lens))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    value = loss.item()
+    n_params = sum(q.numel() for q in model.parameters())
+    print(f"ds2 front end [{card}]: one DS2 step ({n_params / 1e6:.1f}M "
+          f"params) on these features: loss {value:.4f}", flush=True)
+    if not math.isfinite(value):
+        raise AssertionError(f"ds2 front end: loss {value}")
+    del model, opt
+    _release(torch)
+    # the parity of phase 45 on the features of the first rows
+    p = DS2_PARITY
+    n = p["batch"]
+    cut = min(int(lens[:n].max()), DS2_FRONT_PARITY_FRAMES)
+    f_small = feats[:n, :cut].cpu().numpy()
+    l_small = np.minimum(lens[:n], cut)
+    _ds2_parity(torch, np, pt, card, f_small, l_small)
+    _no_kernel_ran(ops, "ds2 front end")
 
 
 def lstm_lm(pt, cfg, hidden, dropout, device):
@@ -8100,6 +9208,8 @@ def main():
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops import _build
 
+    global REFS
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     start = time.perf_counter()
@@ -8107,6 +9217,16 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    # the sweeps' CPU references, computed meanwhile (ROADMAP Queue 1 p)
+    REFS = RefClient()
+    try:
+        return _main(torch, np, F, ops, _build, card, start)
+    finally:
+        REFS.close()
+
+
+def _main(torch, np, F, ops, _build, card, start):
+    """The phases of main(), the reference process running."""
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.2f}s", flush=True)
@@ -8195,7 +9315,17 @@ def main():
     _phase("43 lstm lm", phase_lstm_lm, torch, np, ops, card)
     _phase("44 extras sweep", phase_extras_sweep, torch, np, ops, card)
     _phase("45 ds2", phase_ds2, torch, np, ops, card)
-    for path in (gpt_train, bert, opt_train, dygraph_bf16):
+    _phase("46 tensor extras sweep", phase_tensor_sweep, torch, np, ops,
+           card)
+    debug_launches = _phase("47 amp debugging", phase_amp_debugging, torch,
+                            np, ops, card)
+    prof_launches = _phase("48 profiler", phase_profiler, torch, np, ops,
+                           card)
+    _phase("49 ds2 front end", phase_ds2_front, torch, np, ops, card)
+    k1_launches += prof_launches[3]
+    k4_launches += prof_launches[4]
+    for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
+                 prof_launches):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

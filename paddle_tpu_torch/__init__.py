@@ -7,12 +7,17 @@ from ``ops/csrc`` at first use). It imports ``torch`` and never ``jax`` or
 ``paddle_tpu``.
 
 The top level is the eager Paddle API, as the JAX package's ``__init__``
-(:11-35) exports it: the dtypes, ``Tensor`` / ``Parameter`` (subclasses of
+exports it: the dtypes, ``Tensor`` / ``Parameter`` (subclasses of
 ``torch.Tensor``), the ``paddle.*`` tensor functions (``to_tensor``,
-``matmul``, ``reshape`` ...), ``grad`` / ``no_grad``, ``ParamAttr``,
-``seed`` and the RNG state, the flags, ``set_device`` / ``get_device``, the
-``amp``, ``autograd``, ``nn`` and ``tensor`` packages and ``linalg`` (the
-module ``tensor/linalg.py``, as in the JAX package).
+``matmul``, ``reshape``, the long tail of ``tensor/extras.py`` and
+``toplevel_extras.py``, the in-place family ``abs_`` ... ``where_``),
+``grad`` / ``no_grad``, ``ParamAttr``, ``seed`` and the RNG state, the
+flags, ``set_device`` / ``get_device`` and the places, ``Model``,
+``summary``, ``create_parameter``, the packages (``amp``, ``audio``,
+``fft``, ``signal``, ``profiler``, ``nn``, ``vision``, ``hapi`` ...) and
+``linalg``. What a later slice brings (``jit``, ``static``, ``flops``,
+``DataParallel`` and the packages of ROADMAP item 8.8) raises
+``later_slice`` naming its item.
 
 Entry points (creation functions, layers, model construction,
 ``_init_paged_caches`` and the serving engine) run on the current place:
@@ -25,6 +30,8 @@ no card.
 
 from __future__ import annotations
 
+import torch as _torch
+
 from ._later import later_slice
 from . import io, metric, regularizer  # noqa: F401
 from .core.autograd_engine import (enable_grad, grad, no_grad,  # noqa: F401
@@ -34,7 +41,8 @@ from .core.dtype import (bfloat16, bool_ as bool, complex64,  # noqa: F401
                          get_default_dtype, int8, int16, int32, int64,
                          set_default_dtype, uint8)
 from .core.tensor import Parameter, Tensor  # noqa: F401
-from .device import (get_device, resolve_device, resolve_dtype,  # noqa: F401
+from .device import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401
+                     TPUPlace, get_device, resolve_device, resolve_dtype,
                      set_device)
 from .flags import get_flags, set_flags  # noqa: F401
 from .framework import ParamAttr, load, save  # noqa: F401
@@ -42,27 +50,107 @@ from .framework.random import get_rng_state, seed, set_rng_state  # noqa
 from .tensor import *  # noqa: F401,F403
 from .tensor import einsum, linalg  # noqa: F401
 from . import amp, autograd, core, nn, optimizer, tensor  # noqa: F401,E402
+from . import audio, fft, profiler, signal  # noqa: F401,E402
+from . import (distributed, hapi, incubate, inference,  # noqa: F401,E402
+               observability, vision)
+from .hapi.model import Model  # noqa: F401,E402
 
-# what the JAX package's top level has and a later slice brings
+# what the JAX package's top level has and a later slice brings:
+# name -> (what, slice, ROADMAP Queue 1 item)
+_API = "Paddle API surface"
 _LATER = {
-    "flops": "paddle_tpu_torch.flops (XLA's cost model: torch has no "
-             "counterpart that counts the same ops)",
-    "static": "paddle_tpu_torch.static", "jit": "paddle_tpu_torch.jit",
-    "enable_static": "the static graph (enable_static: the op "
-                     "dispatcher's static-graph interception)",
-    "profiler": "paddle_tpu_torch.profiler",
+    "flops": ("paddle_tpu_torch.flops (XLA's cost model: torch has no "
+              "counterpart that counts the same ops)", _API, "8.6"),
+    "static": ("paddle_tpu_torch.static", _API, "8.5"),
+    "jit": ("paddle_tpu_torch.jit", _API, "8.5"),
+    "to_static": ("paddle_tpu_torch.to_static (paddle_tpu_torch.jit)",
+                  _API, "8.5"),
+    "enable_static": ("the static graph (enable_static: the op "
+                      "dispatcher's static-graph interception)", _API,
+                      "8.5"),
+    "DataParallel": ("paddle_tpu_torch.DataParallel",
+                     "distributed training", "6"),
 }
+for _pkg in ("sparse", "text", "distribution", "geometric", "quantization",
+             "onnx", "hub", "utils", "dataset", "version"):
+    _LATER[_pkg] = (f"paddle_tpu_torch.{_pkg}", _API, "8.8")
+
+
+def create_parameter(shape, dtype="float32", name=None, attr=None,
+                     is_bias=False, default_initializer=None):
+    """A standalone trainable parameter on the current place (reference:
+    python/paddle/tensor/creation.py create_parameter): zeros for a bias,
+    Xavier-uniform otherwise, unless an initializer is given."""
+    from .nn import initializer as I
+
+    init = default_initializer or (I.Constant(0.0) if is_bias
+                                   else I.XavierUniform())
+    return Parameter(init(shape, dtype), dtype=dtype, name=name)
+
+
+def create_tensor(dtype="float32", name=None, persistable=False):
+    """A 0-dim zero tensor of ``dtype`` on the current place."""
+    from .core.dtype import convert_dtype
+
+    return _torch.zeros((), dtype=convert_dtype(dtype),
+                        device=resolve_device()).as_subclass(Tensor)
 
 
 def in_dynamic_mode() -> bool:
     return True
 
 
+def in_static_mode() -> bool:
+    return False
+
+
+def disable_static(place=None):
+    """The port runs eagerly only: nothing to switch off."""
+
+
 def is_compiled_with_cuda() -> bool:
     return True
 
 
+def is_compiled_with_rocm() -> bool:
+    return False
+
+
+def is_compiled_with_xpu() -> bool:
+    return False
+
+
+def is_compiled_with_cinn() -> bool:
+    return False
+
+
+def is_compiled_with_distribute() -> bool:
+    return True
+
+
+def device_count() -> int:
+    """The cards torch sees (``torch.cuda.device_count()``)."""
+    return _torch.cuda.device_count()
+
+
+def set_printoptions(**kwargs):
+    """numpy's and torch's print options (precision, threshold,
+    edgeitems, linewidth)."""
+    import numpy as _np
+
+    opts = {k: v for k, v in kwargs.items()
+            if k in ("precision", "threshold", "edgeitems", "linewidth")}
+    _np.set_printoptions(**opts)
+    _torch.set_printoptions(**opts)
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    from .hapi.summary import summary as _summary
+
+    return _summary(net, input_size, dtypes, input)
+
+
 def __getattr__(name):
     if name in _LATER:
-        raise later_slice(_LATER[name], "Paddle API surface", "8")
+        raise later_slice(*_LATER[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

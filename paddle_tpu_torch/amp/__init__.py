@@ -20,7 +20,8 @@ to the AMP dtype in place (each ``Parameter`` keeps its identity, so an
 optimizer built before it holds the same objects), except the norm layers
 and ``excluded_layers``. ``master_weight``, ``save_dtype`` and
 ``master_grad`` are accepted and ignored, as in the JAX package.
-``amp.debugging`` arrives with a later slice.
+``amp.debugging`` holds the nan/inf checker, op statistics and the
+tensor-stats dumps (``dump_tensor_stats`` / ``compare_accuracy``).
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ import contextlib
 
 import torch
 
-from .._later import later_slice
 from ..core import op_registry
 from ..core.dtype import convert_dtype, dtype_name
+from . import debugging  # noqa: F401
 from .amp_lists import BLACK_LIST, WHITE_LIST
 from .grad_scaler import AmpScaler, GradScaler  # noqa: F401
 
@@ -130,10 +131,3 @@ def is_bfloat16_supported(device=None):
     """bf16 compute: the card, and torch on the CPU."""
     return True
 
-
-def __getattr__(name):
-    if name == "debugging":
-        raise later_slice("paddle_tpu_torch.amp.debugging (tensor stats "
-                          "dumps, check_numerics, operator-stats "
-                          "collection)", "Paddle API surface", "8")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

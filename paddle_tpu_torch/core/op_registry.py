@@ -30,9 +30,14 @@ The nan/inf check (``FLAGS_check_nan_inf``) reads every floating output
 to the host, so it is off by default; ``check_nan_inf_level`` 0 raises
 ``FloatingPointError``, 1 or more warns; either way the counts land in the
 numeric health word. The JAX dispatcher's static-graph interception
-(:138-147) has no port: ``enable_static`` raises ``later_slice`` (item 8).
-Nor has its tensor-stats hook (``stats_recorder``), which only
-``amp.debugging`` sets: it comes with that module (item 8).
+(:138-147) has no port: ``enable_static`` raises ``later_slice`` (item
+8.5).
+
+The tensor-stats hook ``stats_recorder`` (JAX :67, read at :230-231 and
+:239-240), which ``amp.debugging.dump_tensor_stats`` sets, is called with
+the op's name and its tensor outputs after the nan/inf check; with no
+recorder set an op pays one ``is None`` test. ``profile_scope`` is
+declared, as in JAX, and read by nothing.
 """
 
 from __future__ import annotations
@@ -80,6 +85,12 @@ def get_op(name: str) -> OpDef:
 
 # ---- AMP hook (set by paddle_tpu_torch.amp) ----
 amp_state = None  # type: Optional[Any]
+
+# ---- profiler hook (declared as in the JAX package; nothing reads it) ----
+profile_scope = None  # type: Optional[Callable]
+
+# ---- tensor-stats dump hook (set by paddle_tpu_torch.amp.debugging) ----
+stats_recorder = None  # type: Optional[Any]
 
 #: ops dispatched since the last reset (a plain counter; callers reset it)
 dispatched = 0
@@ -175,4 +186,6 @@ def apply_fn(name: str, fn: Callable, *args, _opdef: Optional[OpDef] = None,
     out = fn(*plain, **kwargs)
     if flags._FLAGS["check_nan_inf"]:   # read once an op: no name check
         _check_nan_inf(name, _flat_tensors(out))
+    if stats_recorder is not None:
+        stats_recorder.record(name, _flat_tensors(out))
     return _outputs(out, paddle or not torch_plain)

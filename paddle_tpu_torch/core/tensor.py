@@ -100,6 +100,19 @@ class Tensor(torch.Tensor):
     def value(self):
         return self
 
+    def __deepcopy__(self, memo):
+        """A detached copy (same dtype, device, ``stop_gradient`` and
+        attributes): torch's own protocol cannot build this subclass."""
+        if id(self) in memo:
+            return memo[id(self)]
+        out = self.detach().as_subclass(torch.Tensor).clone().as_subclass(
+            type(self))
+        if self.requires_grad:
+            out.requires_grad_(True)
+        out.__dict__.update(self.__dict__)
+        memo[id(self)] = out
+        return out
+
     def get_tensor(self):
         return self
 

@@ -22,6 +22,39 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 _PLACE: Optional[torch.device] = None
 
 
+class CPUPlace:
+    """Paddle's host place: ``to_tensor(x, place=CPUPlace())``."""
+
+    def __repr__(self):
+        return "Place(cpu)"
+
+
+class CUDAPlace:
+    """Paddle's card place: ``CUDAPlace(i)`` is ``cuda:i``."""
+
+    def __init__(self, i=0):
+        self.index = int(i)
+
+    def __repr__(self):
+        return f"Place(gpu:{self.index})"
+
+
+class CUDAPinnedPlace:
+    """Page-locked host memory: ``to_tensor(data, place=CUDAPinnedPlace())``
+    gives a pinned CPU tensor (fast, asynchronous copies to the card)."""
+
+    def __repr__(self):
+        return "Place(gpu_pinned)"
+
+
+class TPUPlace:
+    """The JAX package's TPU place; the port runs on no TPU, and a tensor
+    asked for there is an error."""
+
+    def __init__(self, i=0):
+        self.index = int(i)
+
+
 def set_device(device: Union[str, torch.device]) -> torch.device:
     """Make ``device`` the port's current place (``paddle.set_device``):
     "cpu", or "gpu"/"cuda" with an optional ":index". Returns it; raises as
@@ -33,7 +66,14 @@ def set_device(device: Union[str, torch.device]) -> torch.device:
 
 def resolve_place(place=None) -> torch.device:
     """A Paddle ``place`` argument as a device: None is the current place;
-    "gpu"/"gpu:i" is CUDA; otherwise as :func:`resolve_device`."""
+    "gpu"/"gpu:i" and ``CUDAPlace(i)`` are CUDA, ``CPUPlace()`` and
+    ``CUDAPinnedPlace()`` the CPU; otherwise as :func:`resolve_device`."""
+    if isinstance(place, (CPUPlace, CUDAPinnedPlace)):
+        place = "cpu"
+    elif isinstance(place, CUDAPlace):
+        place = f"cuda:{place.index}"
+    elif isinstance(place, TPUPlace):
+        raise ValueError("TPUPlace: the port runs on CUDA or the CPU")
     if isinstance(place, str) and place.split(":")[0] == "gpu":
         place = "cuda" + place[3:]
     return resolve_device(place)

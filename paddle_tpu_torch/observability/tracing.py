@@ -48,7 +48,6 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from .._later import later_slice
 from .metrics import DEFAULT_LATENCY_BUCKETS_MS, MetricsRegistry
 
 __all__ = ["TraceRecorder"]
@@ -72,9 +71,10 @@ class TraceRecorder:
     buffer (oldest-first retention would reorder Perfetto lanes, so the
     buffer STOPS recording and counts drops instead — ``dropped``);
     per-request bookkeeping is bounded by ``max_requests`` with
-    terminal-request eviction. ``mirror_host_events=True`` (feeding span
-    durations into the profiler's host-event table) needs the port's
-    profiler, a later slice, and raises ``NotImplementedError``.
+    terminal-request eviction. ``mirror_host_events=True`` additionally
+    feeds span durations into ``paddle_tpu_torch.profiler``'s host-event
+    table so ``Profiler.summary()``'s OperatorView shows serving spans
+    beside model scopes.
     ``clock`` is any zero-arg callable returning seconds (default
     ``time.perf_counter``; a ``VirtualClock`` for replay).
     """
@@ -83,15 +83,10 @@ class TraceRecorder:
                  max_events: int = 200_000, max_requests: int = 100_000,
                  mirror_host_events: bool = False,
                  clock=time.perf_counter):
-        if mirror_host_events:
-            raise later_slice(
-                "TraceRecorder(mirror_host_events=True), the mirror of "
-                "tracing spans into the profiler's host-event table,",
-                "profiler", "8")
         self.registry = registry if registry is not None else MetricsRegistry()
         self.max_events = int(max_events)
         self.max_requests = int(max_requests)
-        self.mirror_host_events = False
+        self.mirror_host_events = bool(mirror_host_events)
         self._clock = clock
         self._t0 = clock()
         # ONE recorder is shared by every replica of a fleet — under
@@ -204,6 +199,11 @@ class TraceRecorder:
                         "pid": int(tags.get("replica", 0)),
                         "tid": int(rid or 0),
                         "args": self._args(rid, tags, extra)})
+        if self.mirror_host_events:
+            from ..profiler import _host_events
+
+            _host_events.start(name, t0)
+            _host_events.stop(name, t1)
 
     # -- request lifecycle -------------------------------------------------
     def _track(self, rid: int) -> None:

@@ -10,26 +10,33 @@ port of ``paddle_tpu/tensor/__init__.py``.
 Those methods take Paddle's arguments, so a name torch also has
 (``reshape``, ``sum``, ``transpose`` ...) has Paddle's meaning on a Paddle
 tensor; ``numel``, ``size``, ``dim``, ``to``, ``cuda`` and ``cpu`` stay
-torch's. A method whose function lives in a module of a later slice
-(``tensor/linalg.py``, ``tensor/extras.py``, ``tensor/toplevel_extras.py``)
-raises ``later_slice`` naming item 8, unless ``torch.Tensor`` has a method
-of that name, which then stays torch's until its slice.
+torch's. The methods of ``tensor/linalg.py`` and ``tensor/extras.py`` are
+installed where ``torch.Tensor`` lacks the name; where it has it
+(``diff``, ``unfold``, ``renorm``, ``frexp``, ``polygamma``, ``logit``,
+``inverse``, ``as_strided``, ``tensor_split``, ``stft`` ...) torch's method
+stays and the top-level function is Paddle's. The in-place family
+(``toplevel_extras.INPLACE_BASES``, the random fills) is Paddle's on the
+Tensor and at the top level alike.
 """
 
 from __future__ import annotations
 
+import builtins
+
 import torch
 
-from .._later import later_slice
 from ..core.op_registry import apply_fn
 from ..core.tensor import Tensor, unwrap
-from . import creation, linalg, manipulation, math, random, search
+from . import creation, extras, linalg, manipulation, math, random, search
+from . import toplevel_extras
 from .creation import *  # noqa: F401,F403
+from .extras import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
 from .math import *  # noqa: F401,F403
 from .random import *  # noqa: F401,F403
 from .search import *  # noqa: F401,F403
+from .toplevel_extras import *  # noqa: F401,F403
 
 
 def einsum(equation, *operands):
@@ -106,22 +113,6 @@ _LINALG_METHODS = [
     "dot", "bmm", "mv", "norm", "cholesky", "qr", "svd", "inv", "pinv",
     "det", "slogdet", "solve", "triangular_solve", "matrix_power", "cross",
     "cholesky_inverse", "lu_unpack", "ormqr", "svd_lowrank"]
-# methods whose functions come with later slices (item 8)
-_LATER_METHODS = {
-    "tensor/extras.py": [
-        "addmm", "block_diag", "cdist",
-        "cumulative_trapezoid", "diagonal_scatter", "diff", "dist", "dsplit",
-        "frexp", "gammainc", "gammaincc", "gammaln", "histogram_bin_edges",
-        "histogramdd", "hsplit", "i0e", "i1e", "index_fill", "inverse",
-        "is_complex", "is_empty", "is_floating_point", "is_integer", "isin",
-        "isneginf", "isposinf", "isreal", "ldexp", "logcumsumexp", "logit",
-        "masked_scatter", "multigammaln", "nanquantile",
-        "polygamma", "reduce_as", "renorm", "reverse", "select_scatter",
-        "sgn", "signbit", "sinc", "slice_scatter",
-        "tensor_split", "top_p_sampling", "trapezoid", "unflatten", "unfold",
-        "vander", "vsplit", "as_strided"],
-    "tensor/toplevel_extras.py": ["stft", "istft"],
-}
 # in-place variants of the JAX package's list (:160-162)
 _INPLACE = ["add", "subtract", "multiply", "divide", "clip", "scale", "exp",
             "sqrt", "rsqrt", "floor", "ceil", "round", "reciprocal", "tanh",
@@ -129,21 +120,18 @@ _INPLACE = ["add", "subtract", "multiply", "divide", "clip", "scale", "exp",
             "transpose", "abs"]
 
 
-def _later_method(module, name):
-    def method(self, *args, **kwargs):
-        raise later_slice(f"Tensor.{name} (paddle_tpu/{module})",
-                          "Paddle API surface", "8")
-
-    method.__name__ = name
-    return method
-
-
 def _inplace(fn, name):
     """``x.<op>_(...)``: the op's result written into x, recorded by
     torch's autograd as an in-place copy. A result of another shape or
     dtype replaces x's data, which torch allows only outside autograd."""
     def method(self, *args, **kwargs):
-        out = unwrap(fn(self, *args, **kwargs))
+        # in a graph the op runs on a copy of x: its backward may save x,
+        # which the write below changes
+        graph = torch.is_grad_enabled() and builtins.any(
+            isinstance(a, torch.Tensor) and a.requires_grad
+            for a in (self,) + args)
+        src = self.clone() if graph else self
+        out = unwrap(fn(src, *args, **kwargs))
         if tuple(out.shape) == tuple(self.shape) and out.dtype == self.dtype:
             unwrap(self).copy_(out)
         elif self.requires_grad:
@@ -207,12 +195,15 @@ def _install():
     for name in _LINALG_METHODS:
         if not hasattr(torch.Tensor, name):
             setattr(T, name, getattr(linalg, name))
-    for module, names in _LATER_METHODS.items():
-        for name in names:
-            if not hasattr(torch.Tensor, name):
-                setattr(T, name, _later_method(module, name))
+    for name in extras.__all__:
+        if name not in ("is_tensor", "block_diag") \
+                and not hasattr(torch.Tensor, name):
+            setattr(T, name, getattr(extras, name))
     for name in _INPLACE:
         setattr(T, name + "_", _inplace(getattr(Tensor, name), name + "_"))
+    for name, fn in _INPLACE_FAMILY.items():
+        if name != "where_":
+            setattr(T, name, fn)
     T.astype = lambda s, dtype: manipulation.cast(s, dtype)
     T.mm = math.matmul
     T.zero_ = lambda s: s.set_value(torch.zeros_like(unwrap(s)))
@@ -220,4 +211,7 @@ def _install():
     T.rank = lambda s: s.ndim
 
 
+# the in-place family as top-level functions (and Tensor methods, above)
+_INPLACE_FAMILY = toplevel_extras.inplace_variants(globals())
+globals().update(_INPLACE_FAMILY)
 _install()

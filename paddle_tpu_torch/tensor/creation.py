@@ -19,7 +19,7 @@ import torch
 from ..core import dtype as dtype_mod
 from ..core.op_registry import apply_fn
 from ..core.tensor import Tensor, unwrap
-from ..device import resolve_place
+from ..device import CUDAPinnedPlace, resolve_place
 
 
 def _dt(dtype, default=None):
@@ -53,7 +53,10 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
         if dt is None and (arr.dtype == np.float64 or isinstance(data,
                                                                  float)):
             dt = dtype_mod.get_default_dtype()
-        t = torch.as_tensor(arr).to(device=dev, dtype=dt).as_subclass(Tensor)
+        t = torch.as_tensor(arr).to(device=dev, dtype=dt, copy=True
+                                    ).as_subclass(Tensor)
+    if isinstance(place, CUDAPinnedPlace):
+        t = t.pin_memory()
     if not stop_gradient:
         if t.is_leaf:
             t.requires_grad_(True)

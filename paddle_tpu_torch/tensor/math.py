@@ -186,6 +186,7 @@ imag = _unary("imag", lambda a: torch.imag(a).clone() if a.is_complex()
               else torch.zeros_like(a))
 deg2rad = _unary("deg2rad", _float_in(torch.deg2rad))
 rad2deg = _unary("rad2deg", _float_in(torch.rad2deg))
+exponent = None  # the JAX module's placeholder (not in paddle)
 
 
 def isnan(x, name=None):
@@ -505,10 +506,11 @@ def var(x, axis=None, unbiased=True, keepdim=False, name=None):
         keepdim=keepdim), x)
 
 
-def _quantile(a, q, axis, keepdim, method, nan=False):
+def _quantile(a, q, axis, keepdim, method, nan=False, fn=None):
     """torch.quantile over an axis, a tuple of axes (moved last and
-    flattened) or every element (None)."""
-    fn = torch.nanquantile if nan else torch.quantile
+    flattened) or every element (None); ``fn`` (torch.quantile's
+    signature) replaces torch's function."""
+    fn = fn or (torch.nanquantile if nan else torch.quantile)
     if axis is None:
         out = fn(a.reshape(-1), q, interpolation=method)
         return out.reshape(out.shape + (1,) * a.ndim) if keepdim else out

@@ -2577,3 +2577,161 @@ def test_linalg_on_card_matches_cpu(cuda, name):
             assert err.item() <= 1e-4, err.item()
         return
     _card_vs_cpu(fn, fn, inputs, torch.float32, 1e-4)
+
+
+@pytest.mark.cuda
+def test_stats_dump_of_a_bert_layer_step_syncs_once(cuda, tmp_path):
+    """amp.debugging.dump_tensor_stats keeps each record's statistics on
+    the card and reads them once when the scope closes: one host sync for
+    a BERT-width encoder layer's forward and backward (JAX's recorder
+    reads 4 host scalars an output)."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as pt_device
+    from paddle_tpu_torch import nn
+
+    prev = pt_device._PLACE
+    pt.set_device("gpu")
+    try:
+        pt.seed(0)
+        layer = nn.TransformerEncoderLayer(768, 12, 3072, dropout=0.0,
+                                           activation="gelu")
+        x = pt.randn([8, 128, 768])
+        x.stop_gradient = False
+
+        def step():
+            layer(x).sum().backward()
+
+        step()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with pt.amp.debugging.dump_tensor_stats(
+                        str(tmp_path / "d.jsonl")) as rec:
+                    step()
+                    pending = len(rec._pending)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message).lower()]
+        assert pending >= 10 and len(rec.records) == pending
+        assert len(syncs) <= 1, [str(w.message) for w in syncs]
+    finally:
+        pt_device._PLACE = prev
+
+
+@pytest.mark.cuda
+def test_profiler_device_trace_counts_the_flash_kernels(cuda, tmp_path):
+    """The profiler's device trace (Kineto) names K1-lse, K2 and K3 as
+    often as their wrappers' counters say, over two recorded training
+    steps of a small Llama after a warm-up (READY) step."""
+    import re
+
+    from paddle_tpu_torch import profiler as P
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256,
+                      dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=cuda, seed=0)
+    eng = Engine(model, lr=1e-4)
+    ids = torch.randint(0, 256, (2, 128), device=cuda)
+    eng.step(ids, ids)
+    prof = P.Profiler(targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+                      scheduler=P.make_scheduler(ready=1, record=2),
+                      on_trace_ready=P.export_chrome_tracing(str(tmp_path)))
+    prof.start()
+    eng.step(ids, ids)          # READY: Kineto's warm-up, not recorded
+    prof.step()
+    n0 = (flash_attention_forward.launches,
+          flash_attention_backward.launches_dq,
+          flash_attention_backward.launches_dkv)
+    for _ in range(2):
+        eng.step(ids, ids)
+        prof.step()
+    prof.stop()
+    counts = (flash_attention_forward.launches - n0[0],
+              flash_attention_backward.launches_dq - n0[1],
+              flash_attention_backward.launches_dkv - n0[2])
+    res = P.load_profiler_result(str(tmp_path / "device_trace.json"))
+    got = tuple(sum(d["calls"] for k, d in res.summary.items() if n in k)
+                for n in ("flash_fwd_tc_kernel", "dq_tc_kernel",
+                          "dkv_tc_kernel"))
+    assert counts == (4, 4, 4) and got == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(center=False),
+                                dict(win_length=320, normalized=True)])
+def test_stft_istft_on_card_match_cpu(cuda, kw):
+    """signal.stft / istft card vs CPU (fp32, 1e-4 of the largest), and
+    the round trip. istft is compared where the window envelope (the
+    overlap-added squared window it divides by) is at least 1e-3 of its
+    largest: without centring the first and last samples divide by
+    envelopes down to ~1e-9 (a Hann window's edges), which turn the FFTs'
+    last-place differences into ~5e-3 (seen on an H100)."""
+    from paddle_tpu_torch import signal
+
+    g = torch.Generator().manual_seed(49)
+    x = torch.randn(4, 2, 16000, generator=g)
+    w = torch.hann_window(kw.get("win_length", 400), periodic=True)
+    spec = signal.stft(x, 400, 160, window=w, **kw)
+    spec_c = signal.stft(x.cuda(), 400, 160, window=w.cuda(), **kw)
+    assert spec_c.device.type == "cuda"
+    err = (torch.view_as_real(spec_c).cpu() - torch.view_as_real(spec)
+           ).abs().max() / torch.view_as_real(spec).abs().max()
+    assert err.item() <= 1e-4
+    back = signal.istft(spec, 400, 160, window=w, length=16000, **kw)
+    back_c = signal.istft(spec_c, 400, 160, window=w.cuda(), length=16000,
+                          **kw)
+    lo = (400 - w.shape[0]) // 2
+    w_p = torch.nn.functional.pad(w, (lo, 400 - w.shape[0] - lo))
+    env = signal.overlap_add((w_p * w_p)[:, None].expand(
+        400, spec.shape[-1]).contiguous(), 160)
+    if kw.get("center", True):
+        env = env[200:env.shape[0] - 200]
+    live = env[:16000] >= 1e-3 * env.max()
+    assert live.float().mean().item() > 0.9
+    assert ((back_c.cpu() - back).abs() * live).max().item() <= 1e-4
+    if kw.get("center", True):
+        assert (back_c.cpu() - x).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_top_p_sampling_on_card_same_seed_same_draw(cuda):
+    import paddle_tpu_torch as pt
+
+    g = torch.Generator(device=cuda).manual_seed(46)
+    logits = torch.randn(64, 32000, device=cuda, generator=g) * 4
+    a = pt.top_p_sampling(logits, 0.7, seed=11)
+    b = pt.top_p_sampling(logits, 0.7, seed=11)
+    c = pt.top_p_sampling(logits, 0.7, seed=12)
+    assert a[1].device.type == "cuda" and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], b[0]) and not torch.equal(a[1], c[1])
+    probs = torch.softmax(logits, -1)
+    sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    keep = (torch.cumsum(sp, -1) - sp) <= 0.7
+    rank = (order == a[1]).float().argmax(-1)
+    assert bool(keep.gather(1, rank[:, None]).all())
+
+
+@pytest.mark.cuda
+def test_nanquantile_on_card_with_bf16_nans(cuda):
+    """A NaN cast from bf16 carries its sign bit, which torch's CUDA sort
+    puts first (its CPU sort last): paddle.nanquantile sorts NaNs as
+    +inf and agrees with the CPU on bf16 data."""
+    import paddle_tpu_torch as pt
+
+    g = torch.Generator().manual_seed(46)
+    x = torch.randn(64, 1024, generator=g)
+    x.view(-1)[::7] = float("nan")
+    x = x.bfloat16()
+    assert bool(torch.signbit(x[torch.isnan(x)]).all())
+    for q, kw in ((0.3, dict(axis=1, keepdim=True)),
+                  ([0.1, 0.5, 0.9], dict(axis=0, interpolation="midpoint"))):
+        ref = pt.nanquantile(x, q, **kw).float()
+        got = pt.nanquantile(x.cuda(), q, **kw).float().cpu()
+        assert torch.equal(torch.isnan(ref), torch.isnan(got))
+        assert (got - ref).nan_to_num().abs().max().item() <= 1e-2

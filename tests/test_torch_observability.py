@@ -353,8 +353,18 @@ def test_recorder_script_equal_jax():
 
 
 def test_mirror_host_events_names_its_slice():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tobs.TraceRecorder(mirror_host_events=True)
+    """The profiler mirror was refused until the profiler's slice; now a
+    span's duration lands in the profiler's host-event table, as JAX's
+    recorder feeds it."""
+    from paddle_tpu_torch import profiler
+
+    profiler._host_events.reset()
+    tr = tobs.TraceRecorder(mirror_host_events=True)
+    assert tr.mirror_host_events
+    tr.span("decode_block", 3, 1.0, 1.25)
+    assert profiler._host_events.counts["decode_block"] == 1
+    assert profiler._host_events.totals["decode_block"] == 0.25
+    profiler._host_events.reset()
 
 
 def test_concurrent_stamping_is_exact():

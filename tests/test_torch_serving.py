@@ -158,19 +158,27 @@ def test_seeded_stream_independent_of_batch_composition(pair):
 # (tests/test_torch_spec.py, tests/test_torch_kv_int8.py,
 # tests/test_torch_brownout.py)
 # (tracing is ported: tests/test_torch_observability.py; the recorder's
-# profiler mirror is the later slice that still raises)
+# profiler mirror, refused until the profiler's slice, now serves: its
+# case checks the engine's spans land in the profiler's table)
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=2), "mesh"),
     (dict(mirror_host_events=True), "tracing"),
 ])
 def test_unported_paths_raise(pair, kw, match):
-    _, tm, _ = pair
+    _, tm, prompts = pair
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference.serving import Request
     from paddle_tpu_torch.observability import TraceRecorder
+    if "mirror_host_events" in kw:
+        profiler._host_events.reset()
+        eng = _port_engine(tm, tracer=TraceRecorder(**kw))
+        eng.add_request(Request(list(prompts[0]), max_new_tokens=3))
+        eng.run_until_done()
+        assert profiler._host_events.counts["decode_block"] >= 1
+        profiler._host_events.reset()
+        return
     with pytest.raises(NotImplementedError, match=match):
-        if "mirror_host_events" in kw:
-            _port_engine(tm, tracer=TraceRecorder(**kw))
-        else:
-            _port_engine(tm, **kw)
+        _port_engine(tm, **kw)
 
 
 def test_brownout_engine_builds_and_serves(pair):

@@ -487,8 +487,7 @@ def test_inplace_and_operator_methods_match_jax():
 
 # every name _install maps, checked by name on the port's Tensor
 from paddle_tpu_torch.tensor import (_CREATION_METHODS,  # noqa: E402
-                                     _INPLACE, _LATER_METHODS,
-                                     _LINALG_METHODS,
+                                     _INPLACE, _LINALG_METHODS,
                                      _MANIPULATION_METHODS, _MATH_METHODS,
                                      _SEARCH_METHODS)
 
@@ -503,16 +502,25 @@ def test_tensor_method_installed(name):
 
 
 def test_later_slice_methods_raise_or_stay_torch():
+    """The methods of tensor/extras.py were refused (``later_slice``) until
+    their slice; now each is Paddle's where torch's Tensor lacks the name
+    and torch's where it has it (the top-level function is Paddle's), as
+    for linalg below. stft / istft stay torch's too."""
+    from paddle_tpu_torch.tensor import extras
+
     t = pt.to_tensor(F(3, 3))
-    for module, names in _LATER_METHODS.items():
-        for name in names:
-            if hasattr(torch.Tensor, name):
-                continue
-            with pytest.raises(NotImplementedError, match="item 8"):
-                getattr(t, name)()
+    for name in extras.__all__:
+        if name in ("is_tensor", "block_diag"):
+            continue
+        if hasattr(torch.Tensor, name):
+            assert getattr(pt.Tensor, name) is getattr(torch.Tensor, name)
+        else:
+            assert getattr(pt.Tensor, name) is getattr(extras, name)
+            assert getattr(t, name).__self__ is t
+    for name in ("stft", "istft"):
+        assert getattr(pt.Tensor, name) is getattr(torch.Tensor, name)
     # the linalg methods are ported: Paddle's where torch's Tensor lacks
     # the name, torch's where it has it (paddle.linalg holds Paddle's)
-    assert "tensor/linalg.py" not in _LATER_METHODS
     for name in _LINALG_METHODS:
         if hasattr(torch.Tensor, name):
             assert getattr(pt.Tensor, name) is getattr(torch.Tensor, name)
@@ -573,8 +581,6 @@ def test_op_sweep_symbols_covered():
         else:
             ok = name in PTensor.__dict__ and not getattr(
                 PTensor.__dict__[name], "__name__", "").startswith("_later")
-            ok = ok and name not in {n for ns in _LATER_METHODS.values()
-                                     for n in ns}
         if ok:
             have.add(s)
     print(f"op-sweep checklist: the port covers {len(have)} of {len(syms)} "

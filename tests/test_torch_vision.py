@@ -248,10 +248,11 @@ def test_optimizer_step_and_refusals():
                lambda: m.flops([1, 2]),
                lambda: optimizer.SGD(parameters=[w]).minimize(object()),
                lambda: paddle_tpu_torch.vision.transforms.ColorJitter,
-               lambda: paddle_tpu_torch.amp.debugging,
                lambda: paddle_tpu_torch.flops)
     for call in refused:
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
+    # amp.debugging is ported (tests/test_torch_amp_debugging.py)
+    assert callable(paddle_tpu_torch.amp.debugging.compare_accuracy)
     # paddle.linalg is ported (tests/test_torch_linalg.py)
     assert paddle_tpu_torch.linalg.inv is paddle_tpu_torch.inv
