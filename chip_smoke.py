@@ -574,6 +574,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      step at phase 45's width on the card's features (finite loss), and
      phase 45's card-vs-CPU parity on the first rows' features. K1-K6 at
      0 launches.
+ 50. jit.to_static on phase 41's arm (a) (O1 bf16, GradScaler(1024),
+     AdamW, seed-0 weights and batch): the compiled step's first loss and
+     gradients against the eager step's (SMALL_AMP["tol"],
+     AMP_GRAD_TOL), the first step's seconds (Dynamo capture and the
+     Inductor compile), JIT_STATIC warm-up and timed steps: ms a step
+     beside phase 41 (a)'s in this run, one Dynamo graph, no graph break
+     or recompile, 12 each of K1-lse, K2, K3 a step, losses that fall.
+ 51. deployment of the encoder in eval with bf16 weights: jit.save with
+     InputSpec([32, 128], "int64") under build/chip_smoke/deploy,
+     jit.load and inference.create_predictor: logits identical to the
+     eager model's or within DEPLOY_ULPS bf16 ulps of each row's
+     largest, also from a fresh process that imports only
+     paddle_tpu_torch.inference; 12 primal K1 launches (the op
+     paddle_tpu_torch::flash_fwd) a forward; ms a batch for eager, loaded
+     and Predictor; Config.enable_bf16 on an fp32 save within
+     BF16_WEIGHT_TOL of the fp32 logits.
+ 52. the encoder in fp32 as a static program (enable_static,
+     program_guard, static.data, cross entropy, AdamW.minimize,
+     Executor.run): the first loss against the eager fp32 step's
+     (STATIC_LOSS_TOL), JIT_STATIC warm-up and timed steps with the loss
+     falling, one cached signature, the recorded ops and
+     apply_default_passes' counts, 12 each of K1-lse, K2, K3 a step.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -585,9 +607,10 @@ the legacy engine of phase 15, the paged generate of phase 16, phase 21's
 prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
-phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps and 48's
-recorded steps (K1-lse also phase 20's forward); K1 and K4 also count
-phase 48's profiled serving wave; the fp16 rows count phase 41 (c)'s timed steps (and its eval
+phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps, 48's
+recorded steps, 50 and 52 (K1-lse also phase 20's forward); K1 and K4
+also count phase 48's profiled serving wave; K1 also phase 51's checked
+forwards (eager, loaded, Predictor); the fp16 rows count phase 41 (c)'s timed steps (and its eval
 forward for the primal K1); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
@@ -1068,6 +1091,24 @@ DYGRAPH_ARMS = (("a O1 bf16", "O1", "bfloat16", 1024.0),
                 ("c O1 fp16", "O1", "float16", None))
 OVERFLOW_SCALE = 2.0 ** 40
 READINGS = {}   # phase 32's Engine BERT step, read by phase 41
+DYGRAPH_MS = {}  # phase 41's ms a step by arm, read by phase 50
+# jit and static (phases 50-52) on phase 41's encoder, batch and weights:
+# warm-up and timed steps of the to_static arm and of the static program,
+# iterations of each deployment timing. The compiled step's first loss
+# and gradients against the eager step's: SMALL_AMP["tol"] and
+# AMP_GRAD_TOL, as phase 40 reads them. The deployed bf16 logits against
+# the eager ones: identical, else within DEPLOY_ULPS bf16 ulps of each
+# row's largest logit (the exported graph may round at other points).
+# enable_bf16 on an fp32 save against the fp32 logits: BF16_WEIGHT_TOL of
+# the largest (the weights rounded to 8 bits, through 12 layers). The
+# static program's first fp32 loss (TF32 off) against the eager fp32
+# step's: STATIC_LOSS_TOL relative (the compiled graph fuses the
+# elementwise ops, so fp32 sums round at other points).
+JIT_STATIC = dict(warmup=2, steps=5, deploy_iters=10, static_warmup=1,
+                  static_steps=3)
+DEPLOY_ULPS = 2
+BF16_WEIGHT_TOL = 5e-2
+STATIC_LOSS_TOL = 1e-4
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
 # The nn surface (phases 42-43). The sweep's shapes: activations and
@@ -6845,6 +6886,7 @@ def phase_dygraph_bert(torch, np, ops, card):
         vals = torch.stack([x.detach() for x in losses]).float().cpu()
         per_step = [counts[k] / steps for k in ("k1_lse", "k2", "k3")]
         tok_s = d["batch"] * d["seq"] * steps / wall
+        DYGRAPH_MS[arm] = wall / steps * 1e3
         print(f"dygraph bert {arm} [{card}]: ms_per_step="
               f"{wall / steps * 1e3:.2f} tokens_per_s={tok_s:.1f} "
               f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
@@ -9173,6 +9215,318 @@ def ds2_loss(P, model, feats, lens, labels, lab_lens, reduction="mean"):
                                     reduction=reduction)
 
 
+def _graph_break_count(torch):
+    return sum(torch._dynamo.utils.counters["graph_break"].values())
+
+
+def phase_to_static_bert(torch, np, ops, card):
+    """Phase 50: phase 41's arm (a) (O1 bf16, GradScaler(1024), AdamW)
+    with pt.jit.to_static(model): the first step's loss and gradients
+    against the eager step's on the same seed-0 weights and batch, then
+    JIT_STATIC warm-up and timed steps; one Dynamo graph for the forward,
+    no graph break and no recompile across the timed steps, 12 each of
+    K1-lse, K2, K3 a step, finite losses that fall. Returns the timed
+    steps' (K1-lse, K2, K3) launches."""
+    import paddle_tpu_torch as pt
+
+    c, d, j = DYGRAPH_BERT, DYGRAPH, JIT_STATIC
+    L = c["layers"]
+    pt.set_device(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    pt.seed(0)
+    eager = dygraph_encoder(pt, c, DEVICE)
+    model = dygraph_encoder(pt, c, DEVICE)
+    model.set_state_dict(eager.state_dict())
+    pt.jit.to_static(model)
+    ids, labels = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+    breaks0 = _graph_break_count(torch)
+    first = {}
+    for name, m in (("eager", eager), ("compiled", model)):
+        # the compiled arm's optimizer and scaler go on to the timed steps
+        opt = _dygraph_opt(pt, m, d["lr"])
+        scaler = pt.amp.GradScaler(init_loss_scaling=1024)
+        sync()
+        t0 = time.perf_counter()
+        loss = dygraph_step(pt, m, opt, scaler, ids, labels, "O1",
+                            "bfloat16", keep_grads=True)
+        sync()
+        first[name] = (loss.item(), _step_grads(m),
+                       time.perf_counter() - t0)
+        opt.clear_grad()
+    del eager
+    _release(torch)
+    (l_e, g_e, _), (l_c, g_c, compile_s) = first["eager"], first["compiled"]
+    loss_err = abs(l_c - l_e) / abs(l_e)
+    err, where, noise = amp_grad_errors(g_c, g_e)
+
+    def step():
+        return dygraph_step(pt, model, opt, scaler, ids, labels, "O1",
+                            "bfloat16")
+
+    warm, losses = [], [l_c]
+    for _ in range(j["warmup"]):
+        t0 = time.perf_counter()
+        losses.append(step().item())
+        warm.append(time.perf_counter() - t0)
+    graphs0 = model.forward.traces
+    sync()
+    _reset_counts(ops)
+    t0 = time.perf_counter()
+    timed = [step() for _ in range(j["steps"])]
+    sync()
+    wall = time.perf_counter() - t0
+    counts = _read_counts(ops)
+    losses += [x.item() for x in timed]
+    graphs, breaks = model.forward.traces, _graph_break_count(torch) - breaks0
+    per_step = [counts[k] / j["steps"] for k in ("k1_lse", "k2", "k3")]
+    eager_ms = DYGRAPH_MS.get("a O1 bf16")
+    ms = wall / j["steps"] * 1e3
+    print(f"to_static bert [{card}]: first step (Dynamo capture + Inductor "
+          f"compile of forward and backward) {compile_s:.2f} s, warm-up "
+          f"steps {[round(x, 3) for x in warm]} s; ms_per_step={ms:.2f} "
+          f"(phase 41 (a) eager in this run: "
+          f"{'not measured' if eager_ms is None else f'{eager_ms:.2f}'}) "
+          f"tokens_per_s={d['batch'] * d['seq'] / ms * 1e3:.1f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+          f"graphs {graphs} (before the timed steps {graphs0}), graph "
+          f"breaks {breaks}; first step vs eager: loss {l_c:.6f} / "
+          f"{l_e:.6f} (rel err {loss_err:.3e}, tol {SMALL_AMP['tol']}), "
+          f"gradients worst err {err:.3e} of the largest ({where}, tol "
+          f"{AMP_GRAD_TOL}; as noise: {len(noise)} leaves); launches per "
+          f"step k1_lse/k2/k3={per_step} primal_k1={counts['k1']}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if not (loss_err <= SMALL_AMP["tol"] and err <= AMP_GRAD_TOL):
+        raise AssertionError(f"to_static bert vs eager: loss {loss_err}, "
+                             f"gradients {err} ({where})")
+    if graphs != 1 or graphs0 != graphs or breaks:
+        raise AssertionError(f"to_static bert: {graphs} graphs ({graphs0} "
+                             f"before the timed steps), {breaks} breaks")
+    if per_step != [L, L, L] or counts["k1"]:
+        raise AssertionError(f"to_static bert: launches {counts}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"to_static bert: losses {losses}")
+    del model, opt, scaler, timed
+    _release(torch)
+    return counts["k1_lse"], counts["k2"], counts["k3"]
+
+
+def _bf16_ulp_err(np, ref, got):
+    """(largest |got - ref|, whether each row's is within DEPLOY_ULPS bf16
+    ulps of that row's largest |ref|)."""
+    ref = ref.astype(np.float64)
+    diff = np.abs(got.astype(np.float64) - ref)
+    top = np.abs(ref).max(axis=-1)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(top, 1e-30))) - 7)
+    return float(diff.max()), bool((diff.max(axis=-1)
+                                    <= DEPLOY_ULPS * ulp).all())
+
+
+def _timed_ms(fn, iters):
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_deploy_bert(torch, np, ops, card):
+    """Phase 51: the encoder in eval, its weights cast to bf16: jit.save
+    with InputSpec([batch, seq], "int64") under build/, jit.load and
+    create_predictor(Config(path)); logits against the eager model's
+    (identical, else within DEPLOY_ULPS bf16 ulps of each row's largest);
+    the .pdmodel run by a fresh process that imports only
+    paddle_tpu_torch.inference; 12 primal K1 launches a forward; ms a
+    batch for eager, loaded and Predictor; enable_bf16 on an fp32 save
+    against the fp32 logits. Returns the checked forwards' primal K1
+    launches (eager, loaded, Predictor)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference
+
+    c, d, j = DYGRAPH_BERT, DYGRAPH, JIT_STATIC
+    L = c["layers"]
+    pt.set_device(DEVICE)
+    pt.seed(0)
+    model = dygraph_encoder(pt, c, DEVICE)
+    model.eval()
+    fp32_state = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+    model.to(torch.bfloat16)
+    ids, _ = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+    ids_np = ids.cpu().numpy()
+    root = _scratch_dir("deploy")
+    path = os.path.join(root, "bert")
+    spec = [pt.static.InputSpec([d["batch"], d["seq"]], "int64")]
+    t0 = time.perf_counter()
+    pt.jit.save(model, path, input_spec=spec)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = pt.jit.load(path)
+    pred = inference.create_predictor(inference.Config(path))
+    load_s = time.perf_counter() - t0
+    k1 = {}
+    with torch.no_grad():
+        outs = {}
+        for name, fn in (("eager", lambda: model(ids)),
+                         ("loaded", lambda: loaded(ids)),
+                         ("predictor", lambda: pred.run([ids_np])[0])):
+            _reset_counts(ops)
+            out = fn()
+            sync()
+            k1[name] = ops.flash_attention.launches
+            outs[name] = (out.float().cpu().numpy()
+                          if isinstance(out, torch.Tensor) else out)
+        ms = {"eager": _timed_ms(lambda: model(ids), j["deploy_iters"]),
+              "loaded": _timed_ms(lambda: loaded(ids), j["deploy_iters"]),
+              "predictor": _timed_ms(lambda: pred.run([ids_np]),
+                                     j["deploy_iters"])}
+    ref = outs["eager"]
+    errs = {n: _bf16_ulp_err(np, ref, outs[n]) for n in ("loaded", "predictor")}
+    same = {n: bool(np.array_equal(ref, outs[n])) for n in errs}
+
+    # a fresh process that imports only paddle_tpu_torch.inference
+    ids_path = os.path.join(root, "ids.npy")
+    out_path = os.path.join(root, "fresh.npy")
+    np.save(ids_path, ids_np)
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "import paddle_tpu_torch.inference as inf\n"
+            f"ids = np.load({ids_path!r})\n"
+            f"(o,) = inf.create_predictor(inf.Config({path!r})).run([ids])\n"
+            f"np.save({out_path!r}, o)\n"
+            "fa = sys.modules['paddle_tpu_torch.ops.flash_attention']\n"
+            "print(fa.flash_attention.launches)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, env=env)
+    fresh_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"deploy bert: the fresh process failed: "
+                             f"{res.stderr[-2000:]}")
+    fresh = np.load(out_path)
+    fresh_k1 = int(res.stdout.split()[-1])
+    fresh_err = _bf16_ulp_err(np, ref, fresh)
+
+    # enable_bf16 on an fp32 save
+    model32 = dygraph_encoder(pt, c, DEVICE)
+    model32.set_state_dict(fp32_state)
+    model32.eval()
+    path32 = os.path.join(root, "bert32")
+    pt.jit.save(model32, path32, input_spec=spec)
+    cfg = inference.Config(path32)
+    cfg.enable_bf16()
+    with torch.no_grad():
+        ref32 = model32(ids).float().cpu().numpy()
+    (got16,) = inference.create_predictor(cfg).run([ids_np])
+    err16 = float(np.abs(got16 - ref32).max()) / max(
+        1.0, float(np.abs(ref32).max()))
+    print(f"deploy bert [{card}]: jit.save {save_s:.2f} s (torch.export of "
+          f"the bf16 forward), jit.load + create_predictor {load_s:.2f} s; "
+          f"logits vs eager: identical {same}, largest diff / within "
+          f"{DEPLOY_ULPS} bf16 ulps of each row's largest "
+          f"{ {n: e for n, e in errs.items()} }; fresh process "
+          f"({fresh_s:.1f} s, K1 launches {fresh_k1}) {fresh_err}; primal "
+          f"K1 a forward {k1}; ms a batch { {n: round(v, 3) for n, v in ms.items()} }; "
+          f"enable_bf16 on the fp32 save vs fp32 eager: {err16:.3e} of the "
+          f"largest (tol {BF16_WEIGHT_TOL})", flush=True)
+    for name, (_, ok) in list(errs.items()) + [("fresh", fresh_err)]:
+        if not ok:
+            raise AssertionError(f"deploy bert: {name} logits off "
+                                 f"{errs.get(name, fresh_err)}")
+    if set(k1.values()) != {L} or fresh_k1 != L:
+        raise AssertionError(f"deploy bert: primal K1 {k1}, fresh "
+                             f"{fresh_k1}")
+    if not err16 <= BF16_WEIGHT_TOL:
+        raise AssertionError(f"deploy bert: enable_bf16 {err16}")
+    del model, model32, loaded, pred
+    _release(torch)
+    return sum(k1.values())
+
+
+def phase_static_bert(torch, np, ops, card):
+    """Phase 52: the encoder in fp32 (TF32 off) as a static program:
+    static.data ids [batch, seq] int64 and labels [batch] int64, cross
+    entropy, AdamW.minimize, Executor.run; the first step's loss against
+    the eager fp32 step's on the same weights and batch (STATIC_LOSS_TOL),
+    JIT_STATIC warm-up and timed steps with the loss falling, one cached
+    signature, the recorded ops and apply_default_passes' counts (on a
+    clone), 12 each of K1-lse, K2, K3 a step; disable_static() after.
+    Returns the timed steps' (K1-lse, K2, K3) launches."""
+    import paddle_tpu_torch as pt
+
+    c, d, j = DYGRAPH_BERT, DYGRAPH, JIT_STATIC
+    L = c["layers"]
+    pt.set_device(DEVICE)
+    pt.seed(0)
+    ref = dygraph_encoder(pt, c, DEVICE)
+    model = dygraph_encoder(pt, c, DEVICE)
+    model.set_state_dict(ref.state_dict())
+    ids, labels = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+    opt = _dygraph_opt(pt, ref, d["lr"])
+    loss = pt.nn.functional.cross_entropy(ref(ids), labels)
+    loss.backward()
+    opt.step()
+    eager_loss = loss.item()
+    del ref, opt, loss
+    _release(torch)
+    pt.enable_static()
+    try:
+        main = pt.static.Program()
+        with pt.static.program_guard(main):
+            x = pt.static.data("ids", [d["batch"], d["seq"]], "int64")
+            y = pt.static.data("labels", [d["batch"]], "int64")
+            loss = pt.nn.functional.cross_entropy(model(x), y)
+            _dygraph_opt(pt, model, d["lr"]).minimize(loss)
+        n_ops = main.num_ops
+        passes = pt.static.apply_default_passes(main.clone(), [loss])
+        exe = pt.static.Executor()
+        feed = {"ids": ids, "labels": labels}
+        t0 = time.perf_counter()
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0])]
+        compile_s = time.perf_counter() - t0
+        for _ in range(j["static_warmup"]):
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0]))
+        sync()
+        _reset_counts(ops)
+        t0 = time.perf_counter()
+        for _ in range(j["static_steps"]):
+            losses.append(float(exe.run(main, feed=feed,
+                                        fetch_list=[loss])[0]))
+        wall = time.perf_counter() - t0
+        counts = _read_counts(ops)
+        sigs = exe.cache_signatures()
+    finally:
+        pt.disable_static()
+    err = abs(losses[0] - eager_loss) / abs(eager_loss)
+    per_step = [counts[k] / j["static_steps"] for k in ("k1_lse", "k2",
+                                                         "k3")]
+    print(f"static bert [{card}]: {n_ops} recorded ops, passes on a clone "
+          f"{passes}; first run (record replay, Dynamo capture, Inductor "
+          f"compile) {compile_s:.2f} s; first loss {losses[0]:.6f} vs eager "
+          f"fp32 {eager_loss:.6f} (rel err {err:.3e}, tol {STATIC_LOSS_TOL})"
+          f"; ms_per_step={wall / j['static_steps'] * 1e3:.2f} (a fetched "
+          f"loss read each step); cached signatures {len(sigs)}; launches "
+          f"per step k1_lse/k2/k3={per_step} primal_k1={counts['k1']}; "
+          f"losses {[round(x, 5) for x in losses]}", flush=True)
+    if not err <= STATIC_LOSS_TOL:
+        raise AssertionError(f"static bert: loss {losses[0]} vs eager "
+                             f"{eager_loss}")
+    if per_step != [L, L, L] or counts["k1"] or len(sigs) != 1:
+        raise AssertionError(f"static bert: launches {counts}, signatures "
+                             f"{sigs}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"static bert: losses {losses}")
+    del model, exe, main
+    _release(torch)
+    return counts["k1_lse"], counts["k2"], counts["k3"]
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -9196,7 +9550,17 @@ def _phase(name, fn, *args):
     return out
 
 
+def _compile_caches():
+    """Inductor's and Triton's caches under the checkout's build/ (listed
+    in .gitignore), not the temporary directory."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(root, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(root, "triton"))
+
+
 def main():
+    _compile_caches()
     import torch
 
     if not torch.cuda.is_available():
@@ -9322,10 +9686,17 @@ def _main(torch, np, F, ops, _build, card, start):
     prof_launches = _phase("48 profiler", phase_profiler, torch, np, ops,
                            card)
     _phase("49 ds2 front end", phase_ds2_front, torch, np, ops, card)
+    static_bert = _phase("50 to_static bert", phase_to_static_bert, torch,
+                         np, ops, card)
+    k1_deploy = _phase("51 deploy bert", phase_deploy_bert, torch, np, ops,
+                       card)
+    static_prog = _phase("52 static bert", phase_static_bert, torch, np,
+                         ops, card)
+    k1_launches += k1_deploy
     k1_launches += prof_launches[3]
     k4_launches += prof_launches[4]
     for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
-                 prof_launches):
+                 prof_launches, static_bert, static_prog):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

@@ -15,9 +15,11 @@ exports it: the dtypes, ``Tensor`` / ``Parameter`` (subclasses of
 flags, ``set_device`` / ``get_device`` and the places, ``Model``,
 ``summary``, ``create_parameter``, the packages (``amp``, ``audio``,
 ``fft``, ``signal``, ``profiler``, ``nn``, ``vision``, ``hapi`` ...) and
-``linalg``. What a later slice brings (``jit``, ``static``, ``flops``,
-``DataParallel`` and the packages of ROADMAP item 8.8) raises
-``later_slice`` naming its item.
+``linalg``; ``jit`` (``to_static`` on ``torch.compile``, ``save``/``load``
+on ``torch.export``), ``static`` (``enable_static`` / ``disable_static``,
+``Program``, ``Executor``) and ``onnx``. What a later slice brings
+(``flops``, ``DataParallel`` and the other packages of ROADMAP item 8.8)
+raises ``later_slice`` naming its item.
 
 Entry points (creation functions, layers, model construction,
 ``_init_paged_caches`` and the serving engine) run on the current place:
@@ -53,7 +55,9 @@ from . import amp, autograd, core, nn, optimizer, tensor  # noqa: F401,E402
 from . import audio, fft, profiler, signal  # noqa: F401,E402
 from . import (distributed, hapi, incubate, inference,  # noqa: F401,E402
                observability, vision)
+from . import jit, onnx, static  # noqa: F401,E402
 from .hapi.model import Model  # noqa: F401,E402
+from .jit.api import to_static  # noqa: F401,E402
 
 # what the JAX package's top level has and a later slice brings:
 # name -> (what, slice, ROADMAP Queue 1 item)
@@ -61,18 +65,11 @@ _API = "Paddle API surface"
 _LATER = {
     "flops": ("paddle_tpu_torch.flops (XLA's cost model: torch has no "
               "counterpart that counts the same ops)", _API, "8.6"),
-    "static": ("paddle_tpu_torch.static", _API, "8.5"),
-    "jit": ("paddle_tpu_torch.jit", _API, "8.5"),
-    "to_static": ("paddle_tpu_torch.to_static (paddle_tpu_torch.jit)",
-                  _API, "8.5"),
-    "enable_static": ("the static graph (enable_static: the op "
-                      "dispatcher's static-graph interception)", _API,
-                      "8.5"),
     "DataParallel": ("paddle_tpu_torch.DataParallel",
                      "distributed training", "6"),
 }
 for _pkg in ("sparse", "text", "distribution", "geometric", "quantization",
-             "onnx", "hub", "utils", "dataset", "version"):
+             "hub", "utils", "dataset", "version"):
     _LATER[_pkg] = (f"paddle_tpu_torch.{_pkg}", _API, "8.8")
 
 
@@ -97,15 +94,27 @@ def create_tensor(dtype="float32", name=None, persistable=False):
 
 
 def in_dynamic_mode() -> bool:
-    return True
+    from .core import static_graph
+
+    return not static_graph.static_mode_enabled()
 
 
 def in_static_mode() -> bool:
-    return False
+    from .core import static_graph
+
+    return static_graph.static_mode_enabled()
+
+
+def enable_static():
+    from .core import static_graph
+
+    static_graph.enable_static_mode()
 
 
 def disable_static(place=None):
-    """The port runs eagerly only: nothing to switch off."""
+    from .core import static_graph
+
+    static_graph.disable_static_mode()
 
 
 def is_compiled_with_cuda() -> bool:

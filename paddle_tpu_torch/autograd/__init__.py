@@ -146,8 +146,12 @@ def jacobian(ys, xs, batch_axis=None):
 
 
 def hessian(func_out, xs):
-    raise NotImplementedError("use jax.hessian via paddle_tpu.jit for "
-                              "higher-order AD")
+    """Refused, as in the JAX package: ``paddle.autograd.hessian`` of an
+    output tensor is not ported."""
+    raise NotImplementedError(
+        "paddle_tpu_torch.autograd.hessian is not supported: take "
+        "second derivatives with paddle_tpu_torch.grad(..., "
+        "create_graph=True) twice, or torch.func.hessian of a function")
 
 
 def saved_tensors_hooks(*args, **kwargs):

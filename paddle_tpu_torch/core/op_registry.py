@@ -29,9 +29,22 @@ op, whatever the op lists name, runs in the dtypes it is given.
 The nan/inf check (``FLAGS_check_nan_inf``) reads every floating output
 to the host, so it is off by default; ``check_nan_inf_level`` 0 raises
 ``FloatingPointError``, 1 or more warns; either way the counts land in the
-numeric health word. The JAX dispatcher's static-graph interception
-(:138-147) has no port: ``enable_static`` raises ``later_slice`` (item
-8.5).
+numeric health word.
+
+The static-graph interception follows JAX's (:138-147): after AMP and
+before the call, an op with a positional symbolic ``Variable``, or a
+creation op (no tensor argument) while ``static_graph.recording_constants()``
+holds, is recorded into the current ``Program`` (``static_graph.record_op``)
+instead of run. Until static mode is first enabled or a ``Variable`` made
+(``static_graph.active``) this costs one check an op.
+
+Inside a region that ``torch.compile`` or ``torch.export`` traces
+(``jit.to_static``, ``jit.save``, the static ``Executor``), the dispatcher
+returns the function's plain outputs, skips the host-side checks and hooks
+(they read values) and does not count: ``jit`` unwraps Paddle tensors at
+the region's boundary and wraps its outputs after the call, as JAX's
+``_tree_unwrap`` / ``_tree_wrap`` do. The AMP state is read inside the
+region, so the compiled graph is guarded on it.
 
 The tensor-stats hook ``stats_recorder`` (JAX :67, read at :230-231 and
 :239-240), which ``amp.debugging.dump_tensor_stats`` sets, is called with
@@ -48,6 +61,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .. import flags
+from . import static_graph
 from .tensor import Tensor, unwrap
 
 # AMP categories (reference: python/paddle/amp/amp_lists.py)
@@ -118,7 +132,9 @@ def _check_nan_inf(name, outs):
 
 
 def _amp_cast(args, op):
-    """The positional arguments after AMP's casts for ``op`` (JAX :118-136)."""
+    """The positional arguments after AMP's casts for ``op`` (JAX :118-136).
+    Beside a symbolic ``Variable`` every cast is a recorded op, so a
+    captured parameter stays late-bound."""
     cat = amp_state.classify(op.name, op.amp)
     if cat == AMP_WHITE:
         tgt, cast = amp_state.dtype, torch.float32
@@ -128,14 +144,24 @@ def _amp_cast(args, op):
         tgt, cast = torch.float32, _LOW
     else:
         return args
-    return tuple(_cast(a, tgt) if isinstance(a, torch.Tensor)
+    sym = static_graph.active[0] and any(
+        isinstance(a, static_graph.Variable) for a in args)
+    return tuple(_cast(a, tgt, sym) if isinstance(a, torch.Tensor)
                  and (a.dtype == cast if cast is torch.float32
                       else a.dtype in cast) else a for a in args)
 
 
-def _cast(a, dtype):
+def _astype(a, dtype):
+    return a.to(dtype)
+
+
+def _cast(a, dtype, sym=False):
     """``a`` in ``dtype``, a Paddle tensor staying one (the cast itself on
-    the plain view: no Python dispatch of the subclass)."""
+    the plain view: no Python dispatch of the subclass); recorded when
+    ``sym``."""
+    if sym:
+        return static_graph.record_op("cast", _astype, (a,),
+                                      {"dtype": dtype})
     if isinstance(a, Tensor):
         return unwrap(a).to(dtype).as_subclass(Tensor)
     return a.to(dtype)
@@ -170,10 +196,19 @@ def apply_fn(name: str, fn: Callable, *args, _opdef: Optional[OpDef] = None,
     docstring). Positional args may be tensors (Paddle or plain) or static
     values; kwargs are static and never cast."""
     global dispatched
-    dispatched += 1
+    compiling = torch.compiler.is_compiling()
+    if not compiling:
+        dispatched += 1
     if (_opdef is not None and _opdef.amp != AMP_NEUTRAL
             and amp_state is not None and amp_state.enabled):
         args = _amp_cast(args, _opdef)
+    if static_graph.active[0] and (
+            any(isinstance(a, static_graph.Variable) for a in args)
+            or (static_graph.recording_constants()
+                and not any(isinstance(a, torch.Tensor) for a in args))):
+        return static_graph.record_op(name, fn, args, kwargs)
+    if compiling:
+        return fn(*[unwrap(a) for a in args], **kwargs)
     paddle = torch_plain = False
     plain = []
     for a in args:

@@ -9,6 +9,14 @@ the generator of their result's device. The bits cannot equal
 ``jax.random``'s (threefry keys against torch's Philox and CPU engines):
 the same seed gives a reproducible run of each package, not the same
 numbers.
+
+Inside a region that ``torch.compile`` or ``torch.export`` traces
+(``paddle_tpu_torch.jit``, the static ``Executor``) a ``torch.Generator``
+cannot be a graph input, so :func:`generator` returns None there and the
+random ops draw from torch's default generator of their device, which
+``seed`` reseeds too. :func:`next_host_seed` and :func:`explicitly_seeded`
+are the JAX module's: the static Executor seeds each run of a stochastic
+program from the first, and the program records the second.
 """
 
 from __future__ import annotations
@@ -19,7 +27,8 @@ from typing import Dict
 import torch
 
 _LOCK = threading.Lock()
-_STATE = {"seed": 0}
+_STATE = {"seed": 0, "seeded": False}
+_HOST_COUNTER = [0]
 _GENERATORS: Dict[torch.device, torch.Generator] = {}
 
 
@@ -30,10 +39,16 @@ def _key(device) -> torch.device:
     return dev
 
 
-def generator(device) -> torch.Generator:
+def generator(device):
     """The global generator of ``device``, seeded from the process seed at
-    first use."""
+    first use; None inside a traced region (torch's default generator of
+    the device serves there) and for the meta device (a static program's
+    shape inference)."""
+    if torch.compiler.is_compiling():
+        return None
     dev = _key(device)
+    if dev.type == "meta":
+        return None
     with _LOCK:
         gen = _GENERATORS.get(dev)
         if gen is None:
@@ -47,9 +62,25 @@ def seed(s: int) -> int:
     later) with ``s``."""
     with _LOCK:
         _STATE["seed"] = int(s)
+        _STATE["seeded"] = True
+        _HOST_COUNTER[0] = 0   # next_host_seed restarts: a reseed reproduces
         for gen in _GENERATORS.values():
             gen.manual_seed(int(s))
+    torch.manual_seed(int(s))
     return int(s)
+
+
+def explicitly_seeded() -> bool:
+    """Has ``seed`` been called in this process? A stochastic op recorded
+    into a static program without it is not reproducible run to run."""
+    return _STATE["seeded"]
+
+
+def next_host_seed() -> int:
+    """A fresh uint32 seed, reproducible under ``seed`` (the static
+    Executor seeds each run of a stochastic program from it)."""
+    _HOST_COUNTER[0] += 1
+    return hash((_STATE["seed"], _HOST_COUNTER[0])) & 0xFFFFFFFF
 
 
 def get_rng_state():
@@ -64,3 +95,4 @@ def set_rng_state(state) -> None:
     """Restore states from :func:`get_rng_state`."""
     for dev, s in state.items():
         generator(dev).set_state(s)
+    _STATE["seeded"] = True

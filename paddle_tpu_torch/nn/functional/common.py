@@ -50,9 +50,12 @@ def linear(x, weight, bias=None, name=None):
                     weight, bias, _opdef=_LINEAR)
 
 
-def dropout_eval_kernel(a, p=0.5, axis=None, mode="upscale_in_train"):
+def dropout_eval_kernel(a, p=0.5, axis=None, mode="upscale_in_train",
+                        generator=None):
     """Test-mode dropout: the identity, or ``a * (1 - p)`` for
-    ``mode="downscale_in_infer"``."""
+    ``mode="downscale_in_infer"``. ``generator`` is taken and unused: a
+    static program's test clone runs this kernel with the train kernel's
+    arguments."""
     return a if mode == "upscale_in_train" else a * (1 - p)
 
 

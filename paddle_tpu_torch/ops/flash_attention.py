@@ -27,9 +27,11 @@ implementation, which launches ``csrc/flash_fwd.cu`` (K1,
 which runs the plain versions :func:`flash_attention_reference_lse`
 (``_xla_reference_lse`` :736) and :func:`flash_attention_backward_reference`
 (the kernels' formulas: P from the saved lse, delta from the stored
-output, not autograd through the forward). The no-lse serving forward
-launches K1 directly, or runs :func:`flash_attention_reference` on CPU
-tensors.
+output, not autograd through the forward). The no-lse primal forward is
+the op ``paddle_tpu_torch::flash_fwd``, so a compiled or exported graph
+holds it as one node: its CUDA implementation launches K1 without the lse
+and counts ``flash_attention.launches``; its CPU implementation runs
+:func:`flash_attention_reference`.
 
 Three variants take the kernels' other operands: :func:`flash_attention_
 varlen` (segment ids, :891) and :func:`flash_attention_rowmask` (per-kv-
@@ -380,15 +382,33 @@ def flash_attention(q, k, v, causal: bool = False, scale=None):
                                     or v.requires_grad):
         return torch.ops.paddle_tpu_torch.flash_fwd_lse(q, k, v, bool(causal),
                                                         scale)[0]
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
+    return torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, bool(causal), scale)
+
+
+#: launches of the primal (no-lse) forward kernel (counted inside the op's
+#: CUDA implementation); callers reset it to 0
+flash_attention.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, scale: float) -> torch.Tensor:
+    """K1 without its lse output on CUDA tensors (the primal forward, as
+    a graph of ``to_static``, ``jit.save`` or the ``Predictor`` holds it)."""
     out, _ = _launch_forward(q, k, v, causal, scale, with_lse=False)
     flash_attention.launches += 1
     return out
 
 
-#: launches of the primal (no-lse) forward kernel; callers reset it to 0
-flash_attention.launches = 0
+@_flash_fwd.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, causal, scale):
+    return flash_attention_reference(q, k, v, causal, scale).contiguous()
+
+
+@_flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 def flash_attention_forward(q, k, v, causal: bool = False, scale=None):
@@ -420,7 +440,10 @@ def _flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_fwd_lse.register_kernel("cpu")
 def _flash_fwd_lse_cpu(q, k, v, causal, scale):
-    return flash_attention_reference_lse(q, k, v, causal, scale)
+    # contiguous, as the CUDA implementation's and the fake's outputs: a
+    # compiled graph plans its views on the fake's strides
+    out, lse = flash_attention_reference_lse(q, k, v, causal, scale)
+    return out.contiguous(), lse.contiguous()
 
 
 @_flash_fwd_lse.register_fake
@@ -536,13 +559,14 @@ def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_bwd.register_kernel("cpu")
 def _flash_bwd_cpu(q, k, v, o, lse, dout, causal, scale):
-    return flash_attention_backward_reference(q, k, v, o, lse, dout, causal,
-                                              scale)
+    return tuple(g.contiguous() for g in flash_attention_backward_reference(
+        q, k, v, o, lse, dout, causal, scale))
 
 
 @_flash_bwd.register_fake
 def _flash_bwd_fake(q, k, v, o, lse, dout, causal, scale):
-    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
 
 
 def _flash_fwd_lse_setup(ctx, inputs, output):

@@ -42,7 +42,6 @@ from typing import List
 import numpy as np
 import torch
 
-from .._later import later_slice
 from ..core.tensor import unwrap
 from ..framework.promotion import scale
 from ..regularizer import L2Decay, WeightDecayRegularizer
@@ -260,9 +259,24 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        if not isinstance(loss, torch.Tensor):
-            raise later_slice("Optimizer.minimize on a static-graph loss",
-                              "Paddle API surface", "8")
+        from ..core import static_graph
+
+        if isinstance(loss, static_graph.Variable):
+            # static mode (JAX :193-211): mark the program for training —
+            # the Executor computes the gradients over the replay and
+            # applies this optimizer each run()
+            prog = loss.block.program
+            params = list(parameters or self._parameter_list
+                          or prog.all_parameters())
+            skip = set(map(id, no_grad_set or []))
+            params = [p for p in params
+                      if getattr(p, "trainable", True) and id(p) not in skip]
+            if not self._parameter_list:
+                self._parameter_list = params
+            self._static_params = params
+            prog._loss = loss
+            prog._optimizer = self
+            return None, [(p, None) for p in params]
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in (self._parameter_list or [])]

@@ -65,6 +65,12 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     return t
 
 
+def _made(t):
+    """A made tensor as a Paddle tensor; plain inside a traced region
+    (see ``core/op_registry``)."""
+    return t if torch.compiler.is_compiling() else t.as_subclass(Tensor)
+
+
 def _shape(shape):
     if isinstance(shape, torch.Tensor):
         return tuple(int(s) for s in shape.tolist())
@@ -129,29 +135,30 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
     dt = _dt(dtype)
     if dt is None and any(isinstance(v, float) for v in (start, end, step)):
         dt = dtype_mod.get_default_dtype()
-    return torch.arange(start, end, step, dtype=dt,
-                        device=resolve_place()).as_subclass(Tensor)
+    return _made(torch.arange(start, end, step, dtype=dt,
+                              device=resolve_place()))
 
 
 def linspace(start, stop, num, dtype=None, name=None):
     dt = _dt(dtype, dtype_mod.get_default_dtype())
-    return torch.linspace(_host_value(start), _host_value(stop),
-                          int(_host_value(num)), dtype=dt,
-                          device=resolve_place()).as_subclass(Tensor)
+    return _made(torch.linspace(_host_value(start), _host_value(stop),
+                                int(_host_value(num)), dtype=dt,
+                                device=resolve_place()))
 
 
 def logspace(start, stop, num, base=10.0, dtype=None, name=None):
     dt = _dt(dtype, dtype_mod.get_default_dtype())
-    return torch.logspace(_host_value(start), _host_value(stop),
-                          int(_host_value(num)), base=_host_value(base),
-                          dtype=dt, device=resolve_place()).as_subclass(Tensor)
+    return _made(torch.logspace(_host_value(start), _host_value(stop),
+                                int(_host_value(num)),
+                                base=_host_value(base), dtype=dt,
+                                device=resolve_place()))
 
 
 def eye(num_rows, num_columns=None, dtype=None, name=None):
     dt = _dt(dtype, dtype_mod.get_default_dtype())
     m = int(num_columns) if num_columns is not None else int(num_rows)
-    return torch.eye(int(num_rows), m, dtype=dt,
-                     device=resolve_place()).as_subclass(Tensor)
+    return _made(torch.eye(int(num_rows), m, dtype=dt,
+                           device=resolve_place()))
 
 
 def diag(x, offset=0, padding_value=0, name=None):

@@ -2735,3 +2735,173 @@ def test_nanquantile_on_card_with_bf16_nans(cuda):
         got = pt.nanquantile(x.cuda(), q, **kw).float().cpu()
         assert torch.equal(torch.isnan(ref), torch.isnan(got))
         assert (got - ref).nan_to_num().abs().max().item() <= 1e-2
+
+
+# ---- jit and static on the card: K1's primal forward as a custom op, a
+# compiled encoder step, a jit.load in a fresh process, an Executor run ----
+
+SMALL_BERT = dict(vocab=64, hidden=128, heads=2, ffn=256, layers=2,
+                  max_pos=64, labels=2)
+
+
+@pytest.fixture
+def card_place(cuda):
+    import paddle_tpu_torch as pt
+
+    prev = pt.device._PLACE
+    pt.set_device(cuda)
+    yield cuda
+    pt.device._PLACE = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [False, True])
+def test_primal_flash_op_matches_plain_and_the_eager_launch(cuda, dtype,
+                                                            causal):
+    """``paddle_tpu_torch::flash_fwd`` against the plain version (2e-2 in
+    bf16, 1e-4 in fp32) and byte-equal to K1 launched directly; the op
+    counts its launch, the direct launch does not."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen, device=cuda,
+                           dtype=dtype) for _ in range(3))
+    scale = 64 ** -0.5
+    n0 = flash_attention.launches
+    out = torch.ops.paddle_tpu_torch.flash_fwd(q, k, v, causal, scale)
+    direct, _ = fa._launch_forward(q, k, v, causal, scale, with_lse=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    assert torch.equal(out, direct)
+    ref = flash_attention_reference(q.float(), k.float(), v.float(), causal,
+                                    scale)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((out.float() - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_to_static_encoder_step_on_card_runs_the_flash_kernels(card_place):
+    """A compiled (Inductor) O1 bf16 step of a 2-layer encoder: one graph,
+    K1-lse, K2 and K3 once a layer, loss within 2e-2 of the eager step's
+    on the same weights."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    pt.seed(7)
+    eager = chip_smoke.dygraph_encoder(pt, SMALL_BERT, card_place)
+    model = chip_smoke.dygraph_encoder(pt, SMALL_BERT, card_place)
+    model.set_state_dict(eager.state_dict())
+    pt.jit.to_static(model)
+    rng = np.random.default_rng(7)
+    ids = pt.to_tensor(rng.integers(0, 64, (4, 32)), place=card_place)
+    labels = pt.to_tensor(rng.integers(0, 2, (4,)), place=card_place)
+    losses = []
+    for m in (eager, model):
+        opt = pt.optimizer.AdamW(1e-4, parameters=m.parameters())
+        scaler = pt.amp.GradScaler(init_loss_scaling=1024)
+        n0 = (flash_attention_forward.launches,
+              flash_attention_backward.launches_dq,
+              flash_attention_backward.launches_dkv)
+        losses.append(float(chip_smoke.dygraph_step(
+            pt, m, opt, scaler, ids, labels, "O1", "bfloat16")))
+        assert (flash_attention_forward.launches,
+                flash_attention_backward.launches_dq,
+                flash_attention_backward.launches_dkv) == tuple(
+                    x + 2 for x in n0)
+    assert model.forward.traces == 1
+    assert abs(losses[1] - losses[0]) <= 2e-2 * abs(losses[0])
+
+
+@pytest.mark.cuda
+def test_jit_load_is_the_first_k1_launch_of_a_fresh_process(card_place,
+                                                            tmp_path):
+    """A bf16 encoder saved here and run by a process that imports only
+    ``paddle_tpu_torch.inference``: K1's primal op launches there once a
+    layer, and the logits equal this process's eager ones within 2 bf16
+    ulps of each row's largest."""
+    import subprocess
+    import sys
+
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    pt.seed(7)
+    model = chip_smoke.dygraph_encoder(pt, SMALL_BERT, card_place)
+    model.eval()
+    model.to(torch.bfloat16)
+    ids = np.random.default_rng(7).integers(0, 64, (4, 32))
+    path = str(tmp_path / "enc")
+    pt.jit.save(model, path, input_spec=[pt.static.InputSpec([4, 32],
+                                                             "int64")])
+    with torch.no_grad():
+        ref = model(pt.to_tensor(ids, place=card_place)).float().cpu()
+    np.save(tmp_path / "ids.npy", ids)
+    code = ("import sys\n"
+            "import numpy as np\n"
+            "import paddle_tpu_torch.inference as inf\n"
+            f"ids = np.load({str(tmp_path / 'ids.npy')!r})\n"
+            f"(o,) = inf.create_predictor(inf.Config({path!r})).run([ids])\n"
+            f"np.save({str(tmp_path / 'out.npy')!r}, o)\n"
+            "fa = sys.modules['paddle_tpu_torch.ops.flash_attention']\n"
+            "print(fa.flash_attention.launches)\n")
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env=dict(__import__("os").environ,
+                                  PYTHONPATH=root))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.split()[-1]) == SMALL_BERT["layers"]
+    got = torch.from_numpy(np.load(tmp_path / "out.npy"))
+    err, ok = chip_smoke._bf16_ulp_err(np, ref.numpy(), got.numpy())
+    assert ok, err
+
+
+@pytest.mark.cuda
+def test_executor_trains_an_encoder_program_on_card(card_place):
+    """A static program of the 2-layer encoder (fp32, TF32 off): the first
+    loss within 1e-4 of the eager fp32 step's, K1-lse, K2 and K3 once a
+    layer a run, one cached signature."""
+    import chip_smoke
+    import paddle_tpu_torch as pt
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pt.seed(7)
+        ref = chip_smoke.dygraph_encoder(pt, SMALL_BERT, card_place)
+        model = chip_smoke.dygraph_encoder(pt, SMALL_BERT, card_place)
+        model.set_state_dict(ref.state_dict())
+        rng = np.random.default_rng(7)
+        ids = rng.integers(0, 64, (4, 32))
+        labels = rng.integers(0, 2, (4,))
+        want = float(pt.nn.functional.cross_entropy(
+            ref(pt.to_tensor(ids, place=card_place)),
+            pt.to_tensor(labels, place=card_place)))
+        pt.enable_static()
+        try:
+            main = pt.static.Program()
+            with pt.static.program_guard(main):
+                x = pt.static.data("ids", [4, 32], "int64")
+                y = pt.static.data("labels", [4], "int64")
+                loss = pt.nn.functional.cross_entropy(model(x), y)
+                pt.optimizer.AdamW(1e-4, parameters=model.parameters()
+                                   ).minimize(loss)
+            exe = pt.static.Executor()
+            got = []
+            for _ in range(2):
+                n0 = (flash_attention_forward.launches,
+                      flash_attention_backward.launches_dq,
+                      flash_attention_backward.launches_dkv)
+                got.append(float(exe.run(main, feed={"ids": ids,
+                                                     "labels": labels},
+                                         fetch_list=[loss])[0]))
+                assert (flash_attention_forward.launches,
+                        flash_attention_backward.launches_dq,
+                        flash_attention_backward.launches_dkv) == tuple(
+                            x + 2 for x in n0)
+        finally:
+            pt.disable_static()
+        assert len(exe.cache_signatures()) == 1
+        assert abs(got[0] - want) <= 1e-4 * abs(want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -1,7 +1,8 @@
 """The eager top level is whole: every public name of ``paddle_tpu``'s top
 level is on ``paddle_tpu_torch`` or raises ``later_slice`` naming its
-ROADMAP item (8.5 ``jit`` / ``static``, 8.6 ``flops``, 8.8 the remaining
-packages, 6 ``DataParallel``). Left out are the JAX package's internals,
+ROADMAP item (8.6 ``flops``, 8.8 the remaining packages, 6
+``DataParallel``); ``jit``, ``static``, ``to_static``, ``enable_static``
+and ``onnx`` are ported (item 8.5) and work. Left out are the JAX package's internals,
 which the port (importing no JAX) has not: ``jax``, ``jnp``, ``next_key``,
 ``native`` and ``wrap``; ``extras`` / ``toplevel_extras`` are the modules'
 names and exist on both.
@@ -43,9 +44,54 @@ def test_refusals_are_the_listed_ones():
         except NotImplementedError:
             refused.append(name)
     assert sorted(refused) == sorted([
-        "DataParallel", "dataset", "distribution", "enable_static", "flops",
-        "geometric", "hub", "jit", "onnx", "quantization", "sparse",
-        "static", "text", "to_static", "utils", "version"])
+        "DataParallel", "dataset", "distribution", "flops", "geometric",
+        "hub", "quantization", "sparse", "text", "utils", "version"])
+
+
+def _jit_works():
+    import numpy as np
+
+    sf = pt.to_static(lambda x: x * 3.0)
+    out = sf(pt.to_tensor(np.ones(2, np.float32)))
+    assert sf is not None and float(out.sum()) == 6.0
+    assert pt.jit.to_static is pt.to_static
+
+
+def _static_works():
+    import numpy as np
+
+    pt.enable_static()
+    try:
+        assert pt.in_static_mode()
+        main = pt.static.Program()
+        with pt.static.program_guard(main):
+            y = pt.static.data("x", [2], "float32") + 1.0
+        (o,) = pt.static.Executor().run(
+            main, feed={"x": np.ones(2, np.float32)}, fetch_list=[y])
+        assert o.tolist() == [2.0, 2.0]
+    finally:
+        pt.disable_static()
+    assert pt.in_dynamic_mode()
+
+
+def _onnx_works():
+    assert callable(pt.onnx.export)
+
+
+@pytest.mark.parametrize("name,check", [
+    ("jit", _jit_works), ("to_static", _jit_works),
+    ("static", _static_works), ("enable_static", _static_works),
+    ("onnx", _onnx_works)])
+def test_the_jit_and_static_names_work(name, check):
+    from paddle_tpu_torch import device as pt_device
+
+    assert getattr(pt, name) is not None
+    prev = pt_device._PLACE
+    pt.set_device("cpu")
+    try:
+        check()
+    finally:
+        pt_device._PLACE = prev
 
 
 def test_top_level_odds_and_ends():

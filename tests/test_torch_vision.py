@@ -246,12 +246,15 @@ def test_optimizer_step_and_refusals():
                lambda: m.fit([], accumulate_grad_batches=2),
                lambda: m.prepare(amp_configs={"level": "O1"}),
                lambda: m.flops([1, 2]),
-               lambda: optimizer.SGD(parameters=[w]).minimize(object()),
                lambda: paddle_tpu_torch.vision.transforms.ColorJitter,
                lambda: paddle_tpu_torch.flops)
     for call in refused:
         with pytest.raises(NotImplementedError, match="item 8"):
             call()
+    # static minimize is ported (tests/test_torch_static.py); a loss that
+    # is neither a Variable nor a tensor fails as in the JAX package
+    with pytest.raises(AttributeError, match="backward"):
+        optimizer.SGD(parameters=[w]).minimize(object())
     # amp.debugging is ported (tests/test_torch_amp_debugging.py)
     assert callable(paddle_tpu_torch.amp.debugging.compare_accuracy)
     # paddle.linalg is ported (tests/test_torch_linalg.py)
