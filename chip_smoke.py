@@ -575,7 +575,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      phase 45's card-vs-CPU parity on the first rows' features. K1-K6 at
      0 launches.
  50. jit.to_static on phase 41's arm (a) (O1 bf16, GradScaler(1024),
-     AdamW, seed-0 weights and batch): the compiled step's first loss and
+     AdamW, seed-0 weights and batch) at 4 of the encoder's 12 layers
+     (JIT_BERT): the compiled step's first loss and
      gradients against the eager step's (SMALL_AMP["tol"],
      AMP_GRAD_TOL), the first step's seconds (Dynamo capture and the
      Inductor compile), JIT_STATIC warm-up and timed steps: ms a step
@@ -592,10 +593,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      BF16_WEIGHT_TOL of the fp32 logits.
  52. the encoder in fp32 as a static program (enable_static,
      program_guard, static.data, cross entropy, AdamW.minimize,
-     Executor.run): the first loss against the eager fp32 step's
-     (STATIC_LOSS_TOL), JIT_STATIC warm-up and timed steps with the loss
-     falling, one cached signature, the recorded ops and
-     apply_default_passes' counts, 12 each of K1-lse, K2, K3 a step.
+     Executor.run) at JIT_BERT's 4 layers: the first loss against the
+     eager fp32 step's (STATIC_LOSS_TOL), JIT_STATIC warm-up and timed
+     steps with the loss falling, one cached signature, the recorded ops
+     and apply_default_passes' counts, one each of K1-lse, K2, K3 a layer
+     a step.
+ 53. model compression of phase 41's encoder (BERT-base, batch 32 x 128):
+     (a) QAT (73 QuantedLinear; O1 bf16 steps with 12 each of K1-lse, K2,
+     K3 and a falling loss, ms beside phase 41 (a)); (b) PTQ calibrated on
+     4 batches (12 primal K1 a forward), converted: 73 int8 products
+     (torch._int_mm; the head's N = 2 padded to 8) and 12 primal K1 a
+     forward, logits against the fake-quant model's within the head's
+     one-step bound, ms beside the bf16 eval forward, the int8 GEMM
+     against the dense int8 peak; (c) ASP 2:4 (mask_1d) with decorate:
+     every pruned weight 2:4 at density 0.5 after the steps.
+ 54. the incubate.nn.functional fused family against CPU runs:
+     fused_multi_transformer at GPT-3 6.7B width over 2 layers (prefill 8
+     x 512, 16 decode steps; 2 + 2 x 16 K1), masked_multihead_attention
+     on a dense [2, 8, 32, 2048, 128] cache, the other thirteen at
+     BERT-base width in bf16 and fp32 (FAMILY_TOL).
+ 55. the packages against CPU runs (PACKAGE_TOL): sparse matmul and
+     masked_matmul at 4096^2, 1% density; every distribution's log_prob,
+     entropy and KL on 10^6 elements; send_u_recv sum, mean, max at
+     ogbn-arxiv's size; viterbi_decode at 64 x 128 x 50; a custom_op and
+     a cpp_extension op on card tensors; flops of the encoder.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -608,9 +629,10 @@ prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
 phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps, 48's
-recorded steps, 50 and 52 (K1-lse also phase 20's forward); K1 and K4
-also count phase 48's profiled serving wave; K1 also phase 51's checked
-forwards (eager, loaded, Predictor); the fp16 rows count phase 41 (c)'s timed steps (and its eval
+recorded steps, 50, 52 and 53's (a) and (c) (K1-lse also phase 20's
+forward); K1 and K4 also count phase 48's profiled serving wave; K1 also
+phase 51's checked forwards (eager, loaded, Predictor), phase 53 (b)'s
+calibration and int8 forwards and phase 54's checked calls; the fp16 rows count phase 41 (c)'s timed steps (and its eval
 forward for the primal K1); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
@@ -1106,9 +1128,41 @@ DYGRAPH_MS = {}  # phase 41's ms a step by arm, read by phase 50
 # elementwise ops, so fp32 sums round at other points).
 JIT_STATIC = dict(warmup=2, steps=5, deploy_iters=10, static_warmup=1,
                   static_steps=3)
+# phases 50 and 52 compile the encoder at 4 of its 12 layers (the Inductor
+# compiles dominate their time); phase 51 exports all 12
+JIT_BERT = dict(DYGRAPH_BERT, layers=4)
 DEPLOY_ULPS = 2
 BF16_WEIGHT_TOL = 5e-2
 STATIC_LOSS_TOL = 1e-4
+# Model compression (phase 53) on phase 41's encoder: QAT warm-up and
+# timed steps, PTQ calibration batches, ASP steps, forwards a timing, the
+# int8 GEMM's [M, K] x [K, N] (a BERT-base FFN product at 32 x 128
+# tokens) against the H100 SXM's dense int8 peak.
+COMPRESS = dict(warmup=2, steps=5, calib=4, asp_steps=5, forward_iters=10,
+                int8_gemm=(4096, 768, 3072))
+INT8_PEAK = 1979e12
+# The fused family (phase 54): fused_multi_transformer at GPT-3 6.7B width
+# (BASELINE config 4's hidden, heads and ffn) over 2 of its 32 layers,
+# prefill 8 x 512 then 16 decode steps; masked_multihead_attention on a
+# dense cache [2, batch, heads, max_seq, head_dim]. Card against the CPU
+# run in fp32 on the same bf16-rounded values: max |card - cpu| over
+# max(1, max |cpu|) within FAMILY_TOL of the card's dtype (bf16's 3e-2 is
+# about 8 bf16 ulps, as NN_SWEEP_TOL reads it).
+FMT = dict(hidden=4096, heads=32, ffn=16384, layers=2, batch=8, prefill=512,
+           decode=16)
+MMHA = dict(batch=8, heads=32, max_seq=2048, head_dim=128)
+FAMILY_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# The packages (phase 55): a 4096 x 4096 sparse matrix at 1% density
+# (times [4096, 1024] for matmul; [4096, 512] x [512, 4096] sampled for
+# masked_matmul), distributions over 10^6 elements, ogbn-arxiv's published
+# size (OGB: 169,343 papers, 1,166,243 citation edges, 128-dim features),
+# a CRF batch of 64 x 128 steps x 50 tags. Card against CPU in fp32 within
+# PACKAGE_TOL (transcendentals and summation order differ by ulps).
+SPARSE = dict(n=4096, density=0.01, cols=1024, k=512)
+DIST_N = 10 ** 6
+OGBN_ARXIV = dict(nodes=169343, edges=1166243, features=128)
+VITERBI = dict(batch=64, seq=128, tags=50)
+PACKAGE_TOL = 1e-4
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
 # The nn surface (phases 42-43). The sweep's shapes: activations and
@@ -6755,8 +6809,8 @@ def _dygraph_opt(pt, model, lr):
                            grad_clip=nn.ClipGradByGlobalNorm(1.0))
 
 
-def _dygraph_batch(pt, np, cfg, batch, seq, device):
-    rng = np.random.default_rng(0)
+def _dygraph_batch(pt, np, cfg, batch, seq, device, seed=0):
+    rng = np.random.default_rng(seed)
     ids = rng.integers(0, cfg["vocab"], (batch, seq))
     labels = rng.integers(0, cfg["labels"], (batch,))
     return (pt.to_tensor(ids, place=device),
@@ -9220,16 +9274,16 @@ def _graph_break_count(torch):
 
 
 def phase_to_static_bert(torch, np, ops, card):
-    """Phase 50: phase 41's arm (a) (O1 bf16, GradScaler(1024), AdamW)
-    with pt.jit.to_static(model): the first step's loss and gradients
-    against the eager step's on the same seed-0 weights and batch, then
-    JIT_STATIC warm-up and timed steps; one Dynamo graph for the forward,
-    no graph break and no recompile across the timed steps, 12 each of
-    K1-lse, K2, K3 a step, finite losses that fall. Returns the timed
-    steps' (K1-lse, K2, K3) launches."""
+    """Phase 50: phase 41's arm (a) (O1 bf16, GradScaler(1024), AdamW) at
+    JIT_BERT's 4 layers with pt.jit.to_static(model): the first step's
+    loss and gradients against the eager step's on the same seed-0
+    weights and batch, then JIT_STATIC warm-up and timed steps; one Dynamo
+    graph for the forward, no graph break and no recompile across the
+    timed steps, one each of K1-lse, K2, K3 a layer a step, finite losses
+    that fall. Returns the timed steps' (K1-lse, K2, K3) launches."""
     import paddle_tpu_torch as pt
 
-    c, d, j = DYGRAPH_BERT, DYGRAPH, JIT_STATIC
+    c, d, j = JIT_BERT, DYGRAPH, JIT_STATIC
     L = c["layers"]
     pt.set_device(DEVICE)
     torch.cuda.reset_peak_memory_stats()
@@ -9284,7 +9338,7 @@ def phase_to_static_bert(torch, np, ops, card):
     print(f"to_static bert [{card}]: first step (Dynamo capture + Inductor "
           f"compile of forward and backward) {compile_s:.2f} s, warm-up "
           f"steps {[round(x, 3) for x in warm]} s; ms_per_step={ms:.2f} "
-          f"(phase 41 (a) eager in this run: "
+          f"at {L} layers (phase 41 (a) eager at 12 layers in this run: "
           f"{'not measured' if eager_ms is None else f'{eager_ms:.2f}'}) "
           f"tokens_per_s={d['batch'] * d['seq'] / ms * 1e3:.1f} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
@@ -9448,17 +9502,18 @@ def phase_deploy_bert(torch, np, ops, card):
 
 
 def phase_static_bert(torch, np, ops, card):
-    """Phase 52: the encoder in fp32 (TF32 off) as a static program:
-    static.data ids [batch, seq] int64 and labels [batch] int64, cross
-    entropy, AdamW.minimize, Executor.run; the first step's loss against
-    the eager fp32 step's on the same weights and batch (STATIC_LOSS_TOL),
-    JIT_STATIC warm-up and timed steps with the loss falling, one cached
-    signature, the recorded ops and apply_default_passes' counts (on a
-    clone), 12 each of K1-lse, K2, K3 a step; disable_static() after.
-    Returns the timed steps' (K1-lse, K2, K3) launches."""
+    """Phase 52: the encoder at JIT_BERT's 4 layers in fp32 (TF32 off) as
+    a static program: static.data ids [batch, seq] int64 and labels
+    [batch] int64, cross entropy, AdamW.minimize, Executor.run; the first
+    step's loss against the eager fp32 step's on the same weights and
+    batch (STATIC_LOSS_TOL), JIT_STATIC warm-up and timed steps with the
+    loss falling, one cached signature, the recorded ops and
+    apply_default_passes' counts (on a clone), one each of K1-lse, K2, K3
+    a layer a step; disable_static() after. Returns the timed steps'
+    (K1-lse, K2, K3) launches."""
     import paddle_tpu_torch as pt
 
-    c, d, j = DYGRAPH_BERT, DYGRAPH, JIT_STATIC
+    c, d, j = JIT_BERT, DYGRAPH, JIT_STATIC
     L = c["layers"]
     pt.set_device(DEVICE)
     pt.seed(0)
@@ -9505,7 +9560,7 @@ def phase_static_bert(torch, np, ops, card):
     err = abs(losses[0] - eager_loss) / abs(eager_loss)
     per_step = [counts[k] / j["static_steps"] for k in ("k1_lse", "k2",
                                                          "k3")]
-    print(f"static bert [{card}]: {n_ops} recorded ops, passes on a clone "
+    print(f"static bert [{card}]: {L} layers, {n_ops} recorded ops, passes on a clone "
           f"{passes}; first run (record replay, Dynamo capture, Inductor "
           f"compile) {compile_s:.2f} s; first loss {losses[0]:.6f} vs eager "
           f"fp32 {eager_loss:.6f} (rel err {err:.3e}, tol {STATIC_LOSS_TOL})"
@@ -9526,6 +9581,664 @@ def phase_static_bert(torch, np, ops, card):
     _release(torch)
     return counts["k1_lse"], counts["k2"], counts["k3"]
 
+
+def _count_layers(model, cls):
+    return sum(isinstance(m, cls) for m in model.sublayers())
+
+
+def phase_compression(torch, np, ops, card):
+    """Phase 53: model compression of phase 41's BERT-base encoder (batch
+    32 x 128, seed-0 weights). (a) QAT: QuantConfig() puts QuantedLinear
+    in place of the 73 Linears; COMPRESS warm-up and timed O1 bf16 steps
+    (GradScaler(1024), AdamW): 12 each of K1-lse, K2, K3 a step, a finite
+    loss that falls, ms a step beside phase 41 (a)'s. (b) PTQ: absmax
+    observers calibrated on COMPRESS["calib"] batches in eval (12 primal
+    K1 a forward), convert: 73 ConvertedLinear, the int8 forward with 73
+    int8 products (torch._int_mm, none routed to a float product) and 12
+    primal K1; its logits against the fake-quant model's on the same
+    scales within the head's one-step bound (below); ms a batch beside the
+    float model's bf16 eval forward; the int8 GEMM at COMPRESS["int8_gemm"]
+    against the dense int8 peak and bf16's. (c) ASP: prune_model(2, 4,
+    "mask_1d") and decorate(AdamW): every pruned weight 2:4 at density
+    0.5 after COMPRESS["asp_steps"] O1 bf16 steps, 12 each of K1-lse, K2,
+    K3 a step. Returns ((a)'s and (c)'s K1-lse, K2, K3 launches, (b)'s
+    checked forwards' primal K1 launches)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.incubate import asp
+
+    c, d, q = DYGRAPH_BERT, DYGRAPH, COMPRESS
+    L = c["layers"]
+    n_linear = 6 * L + 1
+    pt.set_device(DEVICE)
+    ids, labels = _dygraph_batch(pt, np, c, d["batch"], d["seq"], DEVICE)
+    eager_ms = DYGRAPH_MS.get("a O1 bf16")
+    train = [0, 0, 0]
+
+    def timed_steps(model, opt, scaler, n_warm, n_steps):
+        def step():
+            return dygraph_step(pt, model, opt, scaler, ids, labels, "O1",
+                                "bfloat16")
+
+        losses = [step().item() for _ in range(n_warm)]
+        sync()
+        _reset_counts(ops)
+        t0 = time.perf_counter()
+        timed = [step() for _ in range(n_steps)]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = _read_counts(ops)
+        losses += [x.item() for x in timed]
+        for i, k in enumerate(("k1_lse", "k2", "k3")):
+            train[i] += counts[k]
+        per = [counts[k] / n_steps for k in ("k1_lse", "k2", "k3")]
+        return wall / n_steps * 1e3, per, counts, losses
+
+    # (a) QAT
+    pt.seed(0)
+    model = dygraph_encoder(pt, c, DEVICE)
+    Q.QAT(Q.QuantConfig()).quantize(model)
+    nq = _count_layers(model, Q.QuantedLinear)
+    opt = _dygraph_opt(pt, model, d["lr"])
+    scaler = pt.amp.GradScaler(init_loss_scaling=1024)
+    ms, per, counts, losses = timed_steps(model, opt, scaler, q["warmup"],
+                                          q["steps"])
+    print(f"compression (a) QAT [{card}]: {nq} QuantedLinear; ms_per_step="
+          f"{ms:.2f} (phase 41 (a) eager float in this run: "
+          f"{'not measured' if eager_ms is None else f'{eager_ms:.2f}'}) "
+          f"tokens_per_s={d['batch'] * d['seq'] / ms * 1e3:.1f}; launches "
+          f"per step k1_lse/k2/k3={per} primal_k1={counts['k1']}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if nq != n_linear or per != [L, L, L] or counts["k1"]:
+        raise AssertionError(f"QAT: {nq} quanted layers, launches {counts}")
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"QAT: losses {losses}")
+    del model, opt, scaler
+    _release(torch)
+
+    # (b) PTQ, convert, the int8 forward
+    pt.seed(0)
+    model = dygraph_encoder(pt, c, DEVICE)
+    model.eval()
+    k1_checked = 0
+    with torch.no_grad():
+        def bf16_forward():
+            with pt.amp.auto_cast(level="O1", dtype="bfloat16"):
+                return model(ids)
+
+        bf16_ms = _timed_ms(bf16_forward, q["forward_iters"])
+        ptq = Q.PTQ()
+        ptq.quantize(model)
+        calib_k1 = []
+        for i in range(q["calib"]):
+            batch, _ = _dygraph_batch(pt, np, c, d["batch"], d["seq"],
+                                      DEVICE, seed=100 + i)
+            _reset_counts(ops)
+            model(batch)
+            sync()
+            calib_k1.append(ops.flash_attention.launches)
+        k1_checked += sum(calib_k1)
+        for layer in model.sublayers():
+            if isinstance(layer, Q.QuantedLinear):
+                layer._calibrating = False
+        fake = model(ids).float()
+        fake_ms = _timed_ms(lambda: model(ids), q["forward_iters"])
+        ptq.convert(model)
+        nconv = _count_layers(model, Q.ConvertedLinear)
+        Q.quantized_linear.launches = 0
+        _reset_counts(ops)
+        int8 = model(ids).float()
+        sync()
+        int8_products, int8_k1 = (Q.quantized_linear.launches,
+                                  ops.flash_attention.launches)
+        k1_checked += int8_k1
+        int8_ms = _timed_ms(lambda: model(ids), q["forward_iters"])
+    head = model.head
+    w_head = head.qweight.float() * (head._w_scale / head._w_qmax)
+    a_step = float(head._a_scale) / head._a_qmax
+    # every head input one activation step off, all in the worst direction
+    tol = a_step * float(w_head.abs().sum(0).max())
+    err = float((int8 - fake).abs().max())
+    print(f"compression (b) PTQ [{card}]: calibration primal K1 a forward "
+          f"{calib_k1}; {nconv} ConvertedLinear; int8 forward: "
+          f"{int8_products} int8 products (torch._int_mm), primal K1 "
+          f"{int8_k1}; logits vs the fake-quant model on the same scales: "
+          f"max abs diff {err:.4e} (bound {tol:.4e}: the head's "
+          f"activation step {a_step:.4e} x its largest column |w| sum; "
+          f"largest |logit| {float(fake.abs().max()):.4f}); ms a batch: "
+          f"int8 {int8_ms:.3f}, fake-quant fp32 {fake_ms:.3f}, float "
+          f"model bf16 eval (O1) {bf16_ms:.3f}", flush=True)
+    if calib_k1 != [L] * q["calib"] or int8_k1 != L:
+        raise AssertionError(f"PTQ: primal K1 {calib_k1}, {int8_k1}")
+    if nconv != n_linear or int8_products != n_linear:
+        raise AssertionError(f"PTQ: {nconv} converted, {int8_products} "
+                             f"int8 products")
+    if not (bool(torch.isfinite(int8).all()) and err <= tol):
+        raise AssertionError(f"PTQ: int8 logits off by {err} (bound {tol})")
+    del model, fake, int8
+    _release(torch)
+    m, k, n = q["int8_gemm"]
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    a8 = torch.randint(-127, 128, (m, k), device=DEVICE, dtype=torch.int8,
+                       generator=g)
+    b8 = torch.randint(-127, 128, (n, k), device=DEVICE, dtype=torch.int8,
+                       generator=g).t()   # column-major, as ConvertedLinear
+    exact = torch.equal(Q.int8_matmul(a8, b8).cpu(),
+                        torch._int_mm(a8.cpu(), b8.cpu().contiguous()))
+    ms8 = device_ms(torch, lambda: Q.int8_matmul(a8, b8))
+    b_row = b8.contiguous()
+    ms8_row = device_ms(torch, lambda: torch._int_mm(a8, b_row))
+    ab, bb = a8.to(torch.bfloat16), b8.to(torch.bfloat16)
+    ms16 = device_ms(torch, lambda: ab @ bb)
+    ops8 = 2.0 * m * n * k
+    bound8 = max(ops8 / INT8_PEAK * 1e3,
+                 (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3)
+    print(f"int8 GEMM [{m}, {k}] x [{k}, {n}] [{card}]: exact vs the CPU "
+          f"{exact}; device_ms {ms8:.4f} ({ops8 / ms8 / 1e9:.1f} TOPS, "
+          f"{bound8 / ms8:.1%} of the bound {bound8:.4f} ms at "
+          f"{INT8_PEAK / 1e12:.0f} TOPS dense int8; B column-major); "
+          f"_int_mm on a row-major B {ms8_row:.4f} ms; bf16 matmul "
+          f"{ms16:.4f} ms", flush=True)
+    if not exact:
+        raise AssertionError("int8 GEMM differs from the CPU's")
+    del a8, b8, b_row, ab, bb
+
+    # (c) ASP
+    pt.seed(0)
+    model = dygraph_encoder(pt, c, DEVICE)
+    t0 = time.perf_counter()
+    masks = asp.prune_model(model, 2, 4, "mask_1d")
+    prune_s = time.perf_counter() - t0
+    opt = asp.decorate(_dygraph_opt(pt, model, d["lr"]))
+    scaler = pt.amp.GradScaler(init_loss_scaling=1024)
+    ms, per, counts, losses = timed_steps(model, opt, scaler, 0,
+                                          q["asp_steps"])
+    pruned = [p for n_, p in model.named_parameters() if n_ in masks]
+    sparse_ok = all(asp.check_sparsity(p.detach().t(), "1d") for p in pruned)
+    density = sorted({asp.calculate_density(p) for p in pruned})
+    print(f"compression (c) ASP [{card}]: prune_model {prune_s:.2f} s "
+          f"({len(masks)} weights); {q['asp_steps']} steps ms_per_step="
+          f"{ms:.2f}; after them 2:4 {sparse_ok}, densities {density}; "
+          f"launches per step k1_lse/k2/k3={per}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if not (len(masks) == n_linear and sparse_ok and density == [0.5]):
+        raise AssertionError(f"ASP: {len(masks)} masks, 2:4 {sparse_ok}, "
+                             f"densities {density}")
+    if per != [L, L, L] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ASP: launches {counts}, losses {losses}")
+    del model, opt, scaler
+    _release(torch)
+    return tuple(train), k1_checked
+
+
+def _rel(torch, got, ref):
+    """max |got - ref| / max(1, max |ref|), on the CPU in fp32."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def _fmt_weights(torch, cfg, gen):
+    """fused_multi_transformer's per-layer weights at GPT-3 6.7B width,
+    fp32 on the CPU from ``gen``, rounded to bf16 (the card's dtype)."""
+    h, f, L = cfg["hidden"], cfg["ffn"], cfg["layers"]
+
+    def w(*shape, scale=0.02, one=False):
+        t = torch.randn(shape, generator=gen) * scale + (1.0 if one else 0.0)
+        return t.to(torch.bfloat16).float()
+
+    return dict(
+        ln_scales=[w(h, one=True) for _ in range(L)],
+        ln_biases=[w(h) for _ in range(L)],
+        qkv_weights=[w(3 * h, h) for _ in range(L)],
+        qkv_biases=[w(3 * h) for _ in range(L)],
+        linear_weights=[w(h, h) for _ in range(L)],
+        linear_biases=[w(h) for _ in range(L)],
+        ffn_ln_scales=[w(h, one=True) for _ in range(L)],
+        ffn_ln_biases=[w(h) for _ in range(L)],
+        ffn1_weights=[w(h, f) for _ in range(L)],
+        ffn1_biases=[w(f) for _ in range(L)],
+        ffn2_weights=[w(f, h) for _ in range(L)],
+        ffn2_biases=[w(h) for _ in range(L)])
+
+
+def _fmt_run(torch, IF, ws, x, steps, device, dtype, nh, cache_len):
+    kw = {k: [t.to(device, dtype) for t in v] for k, v in ws.items()}
+    b, s, h = x.shape
+    caches = [torch.zeros(2, b, nh, cache_len, h // nh, device=device,
+                          dtype=dtype) for _ in range(len(ws["ln_scales"]))]
+    outs, times = [], []
+    for i, xi in enumerate([x] + steps):
+        t0 = time.perf_counter()
+        outs.append(IF.fused_multi_transformer(
+            xi.to(device, dtype), cache_kvs=caches, num_heads=nh,
+            time_step=None if i == 0 else s + i - 1, **kw))
+        if device != "cpu":
+            sync()
+        times.append(time.perf_counter() - t0)
+    return outs, caches, times
+
+
+def phase_fused_family(torch, np, ops, card):
+    """Phase 54: the incubate.nn.functional fused family on the card
+    against CPU runs of the same functions on the same (bf16-rounded)
+    values in fp32. fused_multi_transformer at GPT-3 6.7B width (FMT: 2
+    layers, hidden 4096, 32 heads of 128, ffn 16384, bf16, weights from
+    seed 0): prefill 8 x 512 into per-layer caches, then 16 decode steps
+    through time_step; 2 K1 launches the prefill and 2 each decode step
+    (a 1-row query over the longer end-aligned causal key); every output
+    and the caches against the CPU run of batch row 0 (the rows are
+    independent) within FAMILY_TOL["bfloat16"]. masked_multihead_attention
+    on a dense cache MMHA ([2, 8, 32, 2048, 128] bf16), written in place.
+    The other thirteen at BERT-base width (32 x 128 tokens, hidden 768,
+    12 heads of 64, ffn 3072) in bf16 and fp32 (TF32 off), each within
+    FAMILY_TOL of its dtype; variable_length_memory_efficient_attention
+    launches K1 once a call. Returns the checked calls' primal K1
+    launches."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    f = FMT
+    gen = torch.Generator().manual_seed(0)
+    nh, s, steps_n = f["heads"], f["prefill"], f["decode"]
+    ws = _fmt_weights(torch, f, gen)
+    x = torch.randn(f["batch"], s, f["hidden"], generator=gen)
+    steps = [torch.randn(f["batch"], 1, f["hidden"], generator=gen)
+             for _ in range(steps_n)]
+    cache_len = s + steps_n
+    with torch.no_grad():
+        _reset_counts(ops)
+        outs, caches, times = _fmt_run(torch, IF, ws, x, steps, DEVICE,
+                                       torch.bfloat16, nh, cache_len)
+        k1 = ops.flash_attention.launches
+        ref, ref_caches, ref_times = _fmt_run(
+            torch, IF, ws, x[:1], [t[:1] for t in steps], "cpu",
+            torch.float32, nh, cache_len)
+    errs = [_rel(torch, o[:1], r) for o, r in zip(outs, ref)]
+    cerr = max(_rel(torch, c_[:, :1], r) for c_, r in zip(caches,
+                                                          ref_caches))
+    want_k1 = f["layers"] * (1 + steps_n)
+    tok_prefill = f["batch"] * s / times[0]
+    decode_ms = sum(times[2:]) / max(len(times) - 2, 1) * 1e3
+    print(f"fused_multi_transformer [{card}]: GPT-3 6.7B width, "
+          f"{f['layers']} layers, bf16: prefill {f['batch']} x {s} "
+          f"{times[0] * 1e3:.2f} ms ({tok_prefill:.1f} tokens/s, first call "
+          f"included), decode steps {decode_ms:.3f} ms each (steps 2-"
+          f"{steps_n}); K1 launches {k1} (want {want_k1}); row 0 vs the CPU "
+          f"fp32 run: prefill {errs[0]:.3e}, decode worst "
+          f"{max(errs[1:]):.3e}, caches {cerr:.3e} (tol "
+          f"{FAMILY_TOL['bfloat16']}); CPU run {sum(ref_times):.2f} s",
+          flush=True)
+    if k1 != want_k1:
+        raise AssertionError(f"fused_multi_transformer: K1 {k1}")
+    if max(errs + [cerr]) > FAMILY_TOL["bfloat16"]:
+        raise AssertionError(f"fused_multi_transformer: {errs}, {cerr}")
+    del outs, caches, ref, ref_caches, ws
+    _release(torch)
+    k1_total = k1
+
+    # masked_multihead_attention on a dense cache
+    m = MMHA
+    b, h, ms_, hd = m["batch"], m["heads"], m["max_seq"], m["head_dim"]
+    cache = (torch.randn(2, b, h, ms_, hd, generator=gen) * 0.5).to(
+        torch.bfloat16)
+    xq = torch.randn(b, 3 * h * hd, generator=gen).to(torch.bfloat16)
+    lens = torch.randint(1, ms_ - 1, (b, 1), generator=gen,
+                         dtype=torch.int32)
+    card_cache, xq_d, lens_d = cache.to(DEVICE), xq.to(DEVICE), lens.to(
+        DEVICE)
+    with torch.no_grad():
+        out, _ = IF.masked_multihead_attention(xq_d, card_cache,
+                                               sequence_lengths=lens_d)
+        cpu_cache = cache.float()
+        ref, _ = IF.masked_multihead_attention(xq.float(), cpu_cache,
+                                               sequence_lengths=lens)
+        written = all(torch.equal(
+            card_cache[j, r, :, int(lens[r])].cpu(),
+            xq.reshape(b, 3, h, hd)[r, 1 + j]) for j in (0, 1)
+            for r in range(b))
+        ms_mmha = device_ms(torch, lambda: IF.masked_multihead_attention(
+            xq_d, card_cache, sequence_lengths=lens_d))
+    e = _rel(torch, out, ref)
+    nbytes = card_cache.numel() * 2
+    print(f"masked_multihead_attention [{card}]: cache {list(cache.shape)} "
+          f"bf16, lengths {lens.reshape(-1).tolist()}: error {e:.3e} (tol "
+          f"{FAMILY_TOL['bfloat16']}), cache written at each row's "
+          f"position {written}; device_ms {ms_mmha:.4f} (reads the whole "
+          f"cache, as in JAX: bound {nbytes / PEAK_BYTES * 1e3:.4f} ms, "
+          f"bytes)", flush=True)
+    if e > FAMILY_TOL["bfloat16"] or not written:
+        raise AssertionError(f"masked_multihead_attention: {e}, {written}")
+    del cache, card_cache, cpu_cache
+    _release(torch)
+
+    # the other thirteen at BERT-base width, bf16 and fp32
+    B, S, H, NH, FF = 32, 128, 768, 12, 3072
+    HD = H // NH
+
+    def r(*shape, scale=1.0, one=False):
+        t = torch.randn(shape, generator=gen) * scale + (1.0 if one else 0.0)
+        return t.to(torch.bfloat16).float()
+
+    xs, res = r(B, S, H), r(B, S, H)
+    vec = [r(H, scale=0.1) for _ in range(6)]
+    gamma = r(H, scale=0.1, one=True)
+    qk = [r(B, S, NH, HD) for _ in range(3)]
+    w_in, w_out = r(H, FF, scale=0.02), r(FF, H, scale=0.02)
+    b_ff = r(FF, scale=0.1)
+    qkv_w = r(3, NH, HD, H, scale=0.02)
+    qkv_b = r(3, NH, HD, scale=0.1)
+    proj = r(H, H, scale=0.02)
+    mask = torch.where(torch.rand(B, 1, S, S, generator=gen) < 0.9, 0.0,
+                       -1e4)
+    cases = {
+        "fused_rms_norm": lambda t: IF.fused_rms_norm(
+            t(xs), t(gamma), t(vec[0]), residual=t(res)),
+        "fused_layer_norm": lambda t: IF.fused_layer_norm(
+            t(xs), t(gamma), t(vec[0]), residual=t(res)),
+        "swiglu": lambda t: IF.swiglu(t(xs), t(res)),
+        "fused_rotary_position_embedding": lambda t: torch.cat(
+            IF.fused_rotary_position_embedding(t(qk[0]), t(qk[1]))[:2]),
+        "fused_bias_act": lambda t: IF.fused_bias_act(t(xs), t(vec[1])),
+        "fused_linear": lambda t: IF.fused_linear(t(xs), t(w_in), t(b_ff)),
+        "fused_linear_activation": lambda t: IF.fused_linear_activation(
+            t(xs).reshape(-1, H), t(w_in), t(b_ff)),
+        "fused_dropout_add": lambda t: IF.fused_dropout_add(
+            t(xs), t(res), p=0.1, training=False),
+        "fused_matmul_bias": lambda t: IF.fused_matmul_bias(
+            t(xs), t(w_in), t(b_ff)),
+        "fused_bias_dropout_residual_layer_norm":
+            lambda t: IF.fused_bias_dropout_residual_layer_norm(
+                t(xs), t(res), t(vec[1]), t(gamma), t(vec[2]),
+                dropout_rate=0.1, training=False),
+        "fused_multi_head_attention":
+            lambda t: IF.fused_multi_head_attention(
+                t(xs), t(qkv_w), t(proj), pre_layer_norm=True,
+                pre_ln_scale=t(gamma), pre_ln_bias=t(vec[3]),
+                qkv_bias=t(qkv_b), linear_bias=t(vec[4]),
+                attn_mask=t(mask), training=False),
+        "fused_feedforward": lambda t: IF.fused_feedforward(
+            t(xs), t(w_in), t(w_out), t(b_ff), t(vec[5]), t(gamma),
+            t(vec[0]), activation="gelu", pre_layer_norm=True,
+            training=False),
+        "variable_length_memory_efficient_attention":
+            lambda t: IF.variable_length_memory_efficient_attention(
+                t(qk[0]), t(qk[1]), t(qk[2]), causal=True),
+    }
+    worst = {}
+    with torch.no_grad():
+        for name, fn in cases.items():
+            ref = fn(lambda a: a)
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                _reset_counts(ops)
+                got = fn(lambda a: a.to(DEVICE, dt))
+                sync()
+                n_k1 = ops.flash_attention.launches
+                k1_total += n_k1
+                want = 1 if name.startswith("variable_length") else 0
+                e = _rel(torch, got, ref)
+                worst[f"{name} {dtype}"] = (e, n_k1)
+                if e > FAMILY_TOL[dtype] or n_k1 != want:
+                    raise AssertionError(f"{name} {dtype}: error {e}, K1 "
+                                         f"{n_k1}")
+    print(f"fused family at BERT-base width [{card}]: error vs CPU fp32 "
+          f"(tol {FAMILY_TOL}) and K1 launches: "
+          f"{ {k: (round(v[0], 6), v[1]) for k, v in worst.items()} }",
+          flush=True)
+    print("fused_multi_transformer against the port's GPT block: not held; "
+          "the block's MLP is the tanh GELU (jax.nn.gelu's default) and "
+          "fused_multi_transformer's Paddle's exact GELU, so they compute "
+          "other functions", flush=True)
+    _release(torch)
+    return k1_total
+
+
+_CPP_OPS = r"""
+#include <cstdint>
+extern "C" const char* pt_op_list() { return "relu6"; }
+extern "C" void relu6(const float* x, float* y, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) {
+        float v = x[i] < 0 ? 0 : x[i];
+        y[i] = v > 6 ? 6 : v;
+    }
+}
+extern "C" void relu6_grad(const float* x, const float* gy, float* gx,
+                           int64_t n) {
+    for (int64_t i = 0; i < n; ++i)
+        gx[i] = (x[i] > 0 && x[i] < 6) ? gy[i] : 0;
+}
+"""
+
+
+def _on_float_ids(pt, model):
+    """``model`` behind a cast of its input to int64 ids (``flops`` feeds
+    a float32 zero input)."""
+    class OnFloatIds(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.m = model
+
+        def forward(self, x):
+            return self.m(x.long())
+
+    return OnFloatIds()
+
+
+def phase_packages(torch, np, ops, card):
+    """Phase 55: the packages on the card against CPU runs: sparse matmul
+    (SpMM) and masked_matmul (SDDMM, against cuSPARSE's sampled_addmm) at
+    SPARSE; every distribution's log_prob, entropy and KL on DIST_N-element
+    batches; send_u_recv sum, mean and max on a graph of ogbn-arxiv's
+    published size (OGBN_ARXIV; edges from seed 0, no dataset read);
+    viterbi_decode at VITERBI; a custom_op with a vjp and a cpp_extension
+    op (g++, a host round trip) on card tensors; flops of the encoder
+    beside 2 x its parameters x tokens. Errors max |card - cpu| / max(1,
+    max |cpu|) within PACKAGE_TOL; K1-K6 not launched."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distribution as D
+    from paddle_tpu_torch import geometric, sparse, text
+    from paddle_tpu_torch.utils import cpp_extension, custom_op
+
+    gen = torch.Generator().manual_seed(0)
+    tol = PACKAGE_TOL
+    _reset_counts(ops)
+    report = {}
+
+    # sparse
+    sp = SPARSE
+    n = sp["n"]
+    nnz = int(n * n * sp["density"])
+    flat = torch.randperm(n * n, generator=gen)[:nnz]
+    idx = torch.stack([flat // n, flat % n])
+    vals = torch.randn(nnz, generator=gen)
+    dense = torch.randn(n, sp["cols"], generator=gen)
+    xs = torch.randn(n, sp["k"], generator=gen)
+    ys = torch.randn(sp["k"], n, generator=gen)
+    A = sparse.sparse_coo_tensor(idx.to(DEVICE), vals.to(DEVICE), [n, n])
+    Ac = sparse.sparse_coo_tensor(idx, vals, [n, n], place="cpu")
+    d_dense, d_x, d_y = dense.to(DEVICE), xs.to(DEVICE), ys.to(DEVICE)
+    got = sparse.matmul(A, d_dense)
+    e_mm = _rel(torch, got, sparse.matmul(Ac, dense))
+    ms_mm = cuda_ms(lambda: sparse.matmul(A, d_dense))
+    got = sparse.masked_matmul(d_x, d_y, A)
+    e_sd = _rel(torch, got.values, sparse.masked_matmul(xs, ys, Ac).values)
+    ms_sd = cuda_ms(lambda: sparse.masked_matmul(d_x, d_y, A))
+    csr = torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce(
+    ).to_sparse_csr().to(DEVICE)
+    ms_lib = cuda_ms(lambda: torch.sparse.sampled_addmm(csr, d_x, d_y,
+                                                         beta=0.0))
+    ms_dense = cuda_ms(lambda: d_x @ d_y)
+    report["sparse"] = (e_mm, e_sd)
+    print(f"sparse [{card}]: {n}x{n} at {sp['density']:.0%} ({nnz} "
+          f"entries): matmul with [{n}, {sp['cols']}] error {e_mm:.3e}, "
+          f"ms {ms_mm:.4f} (torch.sparse.mm, cuSPARSE; CUDA events "
+          f"over chained calls); masked_matmul of [{n}, {sp['k']}] x "
+          f"[{sp['k']}, {n}] error {e_sd:.3e}, ms {ms_sd:.4f} (gathers, in chunks of "
+          f"{sparse._SDDMM_CHUNK}); cuSPARSE sampled_addmm {ms_lib:.4f}; "
+          f"the dense product {ms_dense:.4f}", flush=True)
+    del A, d_dense, d_x, d_y, csr
+    _release(torch)
+
+    # distributions
+    nd = DIST_N
+
+    def u(lo, hi):
+        return torch.rand(nd, generator=gen) * (hi - lo) + lo
+
+    a1, a2, loc, real = u(0.5, 2.5), u(0.5, 2.5), torch.randn(
+        nd, generator=gen), torch.randn(nd, generator=gen)
+    p1, unit, cnt = u(0.1, 0.9), u(0.05, 0.95), torch.randint(
+        0, 6, (nd,), generator=gen).float()
+    dists = {
+        "Normal": ((loc, a1), real), "Uniform": ((loc, loc + a1), loc + 0.3),
+        "Bernoulli": ((p1,), (unit > 0.5).float()),
+        "Exponential": ((a1,), a2), "Beta": ((a1, a2), unit),
+        "Gamma": ((a1, a2), a2), "Cauchy": ((loc, a1), real),
+        "Laplace": ((loc, a1), real), "LogNormal": ((loc, a1 * 0.3), a2),
+        "Gumbel": ((loc, a1), real), "Geometric": ((p1,), cnt),
+        "Poisson": ((a1 * 3,), cnt),
+        "Binomial": ((torch.full((nd,), 6.0), p1), cnt),
+        "Chi2": ((a1 * 3,), a2), "StudentT": ((a1 * 3, loc, a1), real),
+        "ContinuousBernoulli": ((p1,), unit),
+    }
+    kl_pairs = {"Normal", "Uniform", "Laplace", "Poisson", "Geometric"}
+    derr = {}
+    t0 = time.perf_counter()
+    for name, (args, value) in dists.items():
+        cls = getattr(D, name)
+        dc = cls(*[a.to(DEVICE) for a in args])
+        dh = cls(*args)
+        derr[name] = _rel(torch, dc.log_prob(value.to(DEVICE)),
+                          dh.log_prob(value))
+        try:
+            ent = (dc.entropy(), dh.entropy())
+        except NotImplementedError:
+            ent = None
+        if ent is not None:
+            derr[name] = max(derr[name], _rel(torch, *ent))
+        if name in kl_pairs:
+            q_args = [a.flip(0) for a in args]
+            derr[name] = max(derr[name], _rel(
+                torch, D.kl_divergence(dc, cls(*[a.to(DEVICE)
+                                                 for a in q_args])),
+                D.kl_divergence(dh, cls(*q_args))))
+    sync()
+    dist_s = time.perf_counter() - t0
+    report["distribution"] = max(derr.values())
+    print(f"distributions [{card}]: log_prob, entropy and KL on {nd} "
+          f"elements, card vs CPU: { {k: float(f'{v:.3e}') for k, v in derr.items()} } "
+          f"(tol {tol}); {dist_s:.2f} s with the CPU runs", flush=True)
+
+    # send_u_recv on ogbn-arxiv's size
+    g = OGBN_ARXIV
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.integers(0, g["nodes"], g["edges"]))
+    dst = torch.from_numpy(rng.integers(0, g["nodes"], g["edges"]))
+    feat = torch.randn(g["nodes"], g["features"], generator=gen)
+    d_feat, d_src, d_dst = feat.to(DEVICE), src.to(DEVICE), dst.to(DEVICE)
+    gerr, gms = {}, {}
+    for op in ("sum", "mean", "max"):
+        gerr[op] = _rel(torch, geometric.send_u_recv(d_feat, d_src, d_dst,
+                                                     op),
+                        geometric.send_u_recv(feat, src, dst, op))
+        gms[op] = device_ms(torch, lambda: geometric.send_u_recv(
+            d_feat, d_src, d_dst, op), iters=10)
+    gbytes = (g["edges"] * g["features"] * 4 * 2 + g["edges"] * 16
+              + g["nodes"] * g["features"] * 4)
+    lib = device_ms(torch, lambda: torch.zeros_like(d_feat).index_add_(
+        0, d_dst, d_feat[d_src]), iters=10)
+    report["geometric"] = max(gerr.values())
+    print(f"send_u_recv [{card}]: {g['nodes']} nodes, {g['edges']} edges, "
+          f"{g['features']} features (ogbn-arxiv's size, seed-0 edges): "
+          f"error {gerr}, device_ms {gms} (bound "
+          f"{gbytes / PEAK_BYTES * 1e3:.4f} ms, bytes: a gathered row "
+          f"read and added per edge; index_add_ alone {lib:.4f})",
+          flush=True)
+    del d_feat, d_src, d_dst, feat
+    _release(torch)
+
+    # viterbi
+    v = VITERBI
+    emit = torch.randn(v["batch"], v["seq"], v["tags"], generator=gen)
+    trans = torch.randn(v["tags"], v["tags"], generator=gen)
+    lens = torch.randint(1, v["seq"] + 1, (v["batch"],), generator=gen)
+    e_d, t_d, l_d = emit.to(DEVICE), trans.to(DEVICE), lens.to(DEVICE)
+    sc, path = text.viterbi_decode(e_d, t_d, l_d)
+    rsc, rpath = text.viterbi_decode(emit, trans, lens)
+    e_v = _rel(torch, sc, rsc)
+    same = torch.equal(path.cpu(), rpath)
+    ms_v = cuda_ms(lambda: text.viterbi_decode(e_d, t_d, l_d), iters=5)
+    report["viterbi"] = e_v
+    print(f"viterbi_decode [{card}]: {v['batch']} x {v['seq']} x "
+          f"{v['tags']} tags: scores error {e_v:.3e}, paths equal {same}; "
+          f"ms {ms_v:.3f} ({v['seq'] - 1} steps forward and back)",
+          flush=True)
+    if not same:
+        raise AssertionError("viterbi_decode: paths differ from the CPU's")
+
+    # a custom op with a vjp, and a cpp_extension op
+    @custom_op("chip_smoke_scaled_tanh",
+               vjp=lambda x, g_: g_ * 2.0 * (1 - torch.tanh(x) ** 2))
+    def scaled_tanh(x):
+        return 2.0 * torch.tanh(x)
+
+    xc = torch.randn(1 << 20, generator=gen)
+    xd = xc.to(DEVICE).clone().requires_grad_(True)
+    scaled_tanh(xd).sum().backward()
+    xh = xc.clone().requires_grad_(True)
+    scaled_tanh(xh).sum().backward()
+    e_op = max(_rel(torch, scaled_tanh(xd), scaled_tanh(xh)),
+               _rel(torch, xd.grad, xh.grad))
+    root = _scratch_dir("cpp_extension")
+    src_path = os.path.join(root, "ops.cc")
+    with open(src_path, "w") as fh:
+        fh.write(_CPP_OPS)
+    t0 = time.perf_counter()
+    ext = cpp_extension.load("chip_smoke_ops", [src_path])
+    build_s = time.perf_counter() - t0
+    xe = (xc * 4).to(DEVICE).clone().requires_grad_(True)
+    ye = ext.relu6(xe)
+    (ye * 3).sum().backward()
+    ref_y = (xc * 4).clamp(0, 6)
+    inside = ((xc * 4) > 0) & ((xc * 4) < 6)
+    e_cpp = max(_rel(torch, ye, ref_y),
+                _rel(torch, xe.grad, inside.float() * 3))
+    on_card = ye.device == xe.device and xe.grad.device == xe.device
+    ms_cpp = cuda_ms(lambda: ext.relu6(xe.detach()), iters=5)
+    report["ops"] = (e_op, e_cpp)
+    print(f"custom_op and cpp_extension [{card}]: custom_op (vjp) on "
+          f"{xc.numel()} elements error {e_op:.3e}; cpp_extension relu6 "
+          f"(g++ {build_s:.2f} s) error {e_cpp:.3e}, results on the card "
+          f"{on_card}, {ms_cpp:.3f} ms a call (one host round trip)",
+          flush=True)
+
+    counts = _read_counts(ops)
+
+    # flops of the encoder (its forward launches K1, not counted here)
+    pt.set_device(DEVICE)
+    pt.seed(0)
+    enc = dygraph_encoder(pt, DYGRAPH_BERT, DEVICE)
+    d = DYGRAPH
+    tokens = d["batch"] * d["seq"]
+    t0 = time.perf_counter()
+    counted = pt.flops(_on_float_ids(pt, enc), [d["batch"], d["seq"]])
+    flops_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in enc.parameters())
+    print(f"flops of the encoder [{card}]: {counted} for {tokens} tokens "
+          f"(XLA's rules over the aten ops, {flops_s:.2f} s); 2 x "
+          f"{n_params} parameters x tokens = {2 * n_params * tokens} "
+          f"(ratio {counted / (2 * n_params * tokens):.4f}: the embedding "
+          f"tables are parameters that do no product, the attention's "
+          f"products are not parameters)", flush=True)
+    del enc
+    worst = max([report["distribution"], report["geometric"],
+                 report["viterbi"], *report["sparse"], *report["ops"]])
+    if worst > tol or not on_card:
+        raise AssertionError(f"packages: errors {report}, cpp op on the "
+                             f"card {on_card}")
+    if any(counts.values()):
+        raise AssertionError(f"packages: port kernels ran: {counts}")
+    _release(torch)
 
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
@@ -9692,11 +10405,17 @@ def _main(torch, np, F, ops, _build, card, start):
                        card)
     static_prog = _phase("52 static bert", phase_static_bert, torch, np,
                          ops, card)
-    k1_launches += k1_deploy
+    compress_train, compress_k1 = _phase("53 compression",
+                                         phase_compression, torch, np, ops,
+                                         card)
+    family_k1 = _phase("54 fused family", phase_fused_family, torch, np, ops,
+                       card)
+    _phase("55 packages", phase_packages, torch, np, ops, card)
+    k1_launches += k1_deploy + compress_k1 + family_k1
     k1_launches += prof_launches[3]
     k4_launches += prof_launches[4]
     for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
-                 prof_launches, static_bert, static_prog):
+                 prof_launches, static_bert, static_prog, compress_train):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

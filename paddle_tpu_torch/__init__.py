@@ -17,8 +17,10 @@ flags, ``set_device`` / ``get_device`` and the places, ``Model``,
 ``fft``, ``signal``, ``profiler``, ``nn``, ``vision``, ``hapi`` ...) and
 ``linalg``; ``jit`` (``to_static`` on ``torch.compile``, ``save``/``load``
 on ``torch.export``), ``static`` (``enable_static`` / ``disable_static``,
-``Program``, ``Executor``) and ``onnx``. What a later slice brings
-(``flops``, ``DataParallel`` and the other packages of ROADMAP item 8.8)
+``Program``, ``Executor``) and ``onnx``; ``flops`` (XLA's cost model's
+rules over one forward's aten ops) and the packages ``sparse``, ``text``,
+``distribution``, ``geometric``, ``quantization``, ``hub``, ``utils``,
+``dataset`` and ``version``. ``DataParallel`` (distributed training)
 raises ``later_slice`` naming its item.
 
 Entry points (creation functions, layers, model construction,
@@ -56,21 +58,17 @@ from . import audio, fft, profiler, signal  # noqa: F401,E402
 from . import (distributed, hapi, incubate, inference,  # noqa: F401,E402
                observability, vision)
 from . import jit, onnx, static  # noqa: F401,E402
+from . import (dataset, distribution, geometric, hub,  # noqa: F401,E402
+               quantization, sparse, text, utils, version)
 from .hapi.model import Model  # noqa: F401,E402
 from .jit.api import to_static  # noqa: F401,E402
 
 # what the JAX package's top level has and a later slice brings:
 # name -> (what, slice, ROADMAP Queue 1 item)
-_API = "Paddle API surface"
 _LATER = {
-    "flops": ("paddle_tpu_torch.flops (XLA's cost model: torch has no "
-              "counterpart that counts the same ops)", _API, "8.6"),
     "DataParallel": ("paddle_tpu_torch.DataParallel",
                      "distributed training", "6"),
 }
-for _pkg in ("sparse", "text", "distribution", "geometric", "quantization",
-             "hub", "utils", "dataset", "version"):
-    _LATER[_pkg] = (f"paddle_tpu_torch.{_pkg}", _API, "8.8")
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,
@@ -151,6 +149,14 @@ def set_printoptions(**kwargs):
             if k in ("precision", "threshold", "edgeitems", "linewidth")}
     _np.set_printoptions(**opts)
     _torch.set_printoptions(**opts)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """FLOPs of one forward at ``input_size``, counted by XLA's cost
+    model's rules (:mod:`paddle_tpu_torch.hapi.flops`)."""
+    from .hapi.flops import flops as _flops
+
+    return _flops(net, input_size, custom_ops, print_detail)
 
 
 def summary(net, input_size=None, dtypes=None, input=None):

@@ -31,7 +31,6 @@ import os
 import numpy as np
 import torch
 
-from .._later import later_slice
 from ..framework import io as fio
 from ..io import DataLoader
 from ..io.dataset import Dataset
@@ -39,8 +38,14 @@ from ..optimizer import name_parameters
 from .callbacks import CallbackList
 
 
-def _item8(what):
-    return later_slice(what, "Paddle API surface", "8")
+def _refuse(what):
+    """The refusal of an argument that the JAX package takes and ignores
+    (ROADMAP Queue 1, item 8.7: refused, not ported, since accepting it
+    would ignore it and honouring it would add what the JAX package
+    lacks)."""
+    return NotImplementedError(
+        f"{what} is not supported: the JAX package takes it and ignores it "
+        f"(ROADMAP Queue 1, item 8.7)")
 
 
 def _as_list(x):
@@ -57,7 +62,7 @@ def _host(x):
 class Model:
     def __init__(self, network, inputs=None, labels=None):
         if inputs is not None or labels is not None:
-            raise _item8("Model(inputs=..., labels=...) input specs")
+            raise _refuse("Model(inputs=..., labels=...) input specs")
         self.network = name_parameters(network)
         self._optimizer = None
         self._loss = None
@@ -68,7 +73,7 @@ class Model:
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, jit=True):
         if amp_configs is not None:
-            raise _item8("Model.prepare(amp_configs=...) (paddle.amp)")
+            raise _refuse("Model.prepare(amp_configs=...) (paddle.amp)")
         self._optimizer = optimizer
         self._loss = loss
         if metrics is not None:
@@ -104,7 +109,7 @@ class Model:
 
     def train_batch(self, inputs, labels=None, update=True):
         if not update:
-            raise _item8("Model.train_batch(update=False) (gradient "
+            raise _refuse("Model.train_batch(update=False) (gradient "
                          "accumulation)")
         self.network.train()
         ys = _as_list(labels)
@@ -173,7 +178,7 @@ class Model:
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None):
         if accumulate_grad_batches != 1:
-            raise _item8("Model.fit(accumulate_grad_batches=...) (gradient "
+            raise _refuse("Model.fit(accumulate_grad_batches=...) (gradient "
                          "accumulation)")
         if isinstance(train_data, Dataset):
             train_loader = DataLoader(train_data, batch_size=batch_size,
@@ -286,6 +291,8 @@ class Model:
 
         return summary(self.network, input_size)
 
-    def flops(self, *args, **kwargs):
-        raise _item8("Model.flops (it asks XLA's cost model, which torch "
-                     "has no counterpart of)")
+    def flops(self, input_size, print_detail=False):
+        """FLOPs of one forward at ``input_size`` (``paddle.flops``)."""
+        from .flops import flops
+
+        return flops(self.network, input_size, print_detail=print_detail)

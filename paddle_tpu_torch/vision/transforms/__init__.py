@@ -6,8 +6,11 @@ the same crops and flips. ``Resize`` is ``jax.image.resize``'s linear
 ``normalize`` return CPU torch tensors.
 
 The breadth transforms (``ColorJitter``, ``RandomResizedCrop``, ``rotate``
-...) draw from the JAX package's host seed stream, which has no port yet:
-they raise, naming the slice that brings them."""
+...; JAX :183 on) are the JAX package's numpy code; the random ones draw
+from ``numpy.random.default_rng(next_host_seed())``, the JAX package's
+host seed stream (``framework.random``), so under one ``paddle.seed``
+their outputs are byte-equal to JAX's. The geometric ones sample nearest,
+as in JAX; another ``interpolation`` raises."""
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import numpy as np
 
 import torch
 
-from ..._later import later_slice
+from ...framework.random import next_host_seed
 
 
 class Compose:
@@ -213,17 +216,360 @@ def center_crop(img, output_size):
     return CenterCrop(output_size)(np.asarray(img))
 
 
-_LATER = ("crop", "vflip", "pad", "adjust_brightness", "adjust_contrast",
-          "adjust_saturation", "adjust_hue", "to_grayscale", "rotate",
-          "affine", "perspective", "erase", "SaturationTransform",
-          "ContrastTransform", "HueTransform", "ColorJitter", "Pad",
-          "RandomResizedCrop", "RandomRotation", "RandomAffine",
-          "RandomPerspective", "Grayscale", "RandomErasing")
+# ---------------------------------------------------------------------------
+# the breadth transforms (JAX :183 on): numpy on the host, random ones
+# drawing from the host seed stream
+# ---------------------------------------------------------------------------
+
+def _rng():
+    """numpy's generator seeded from the host seed stream (the JAX
+    package's: ``next_host_seed`` restarts at ``paddle.seed``)."""
+    return np.random.default_rng(next_host_seed())
 
 
-def __getattr__(name):
-    if name in _LATER:
-        raise later_slice(f"paddle_tpu_torch.vision.transforms.{name}",
-                          "Paddle API surface", "8",
-                          " (with the host seed stream it draws from)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def _nearest_only(fname, interpolation):
+    if interpolation != "nearest":
+        raise NotImplementedError(
+            f"{fname}(interpolation={interpolation!r}): only 'nearest' (the "
+            f"JAX package takes the argument and samples nearest)")
+
+
+def _as_hwc(img):
+    """Normalize to HWC for the geometry ops; returns (arr, restore_fn).
+    CHW detection mirrors RandomCrop/CenterCrop in this module."""
+    arr = np.asarray(img)
+    chw = arr.ndim == 3 and arr.shape[0] in (1, 3) and arr.shape[2] not in (1, 3)
+    if chw:
+        return arr.transpose(1, 2, 0), lambda a: a.transpose(2, 0, 1)
+    return arr, lambda a: a
+
+
+def crop(img, top, left, height, width):
+    arr, restore = _as_hwc(img)
+    return restore(arr[top:top + height, left:left + width])
+
+
+def vflip(img):
+    arr, restore = _as_hwc(img)
+    return restore(arr[::-1].copy())
+
+
+def pad(img, padding, fill=0, padding_mode="constant"):
+    if isinstance(padding, int):
+        padding = [padding] * 4
+    elif len(padding) == 2:  # (left/right, top/bottom) — reference API form
+        padding = [padding[0], padding[1], padding[0], padding[1]]
+    l, t, r, b = padding
+    mode = {"constant": "constant", "edge": "edge", "reflect": "reflect",
+            "symmetric": "symmetric"}[padding_mode]
+    kw = {"constant_values": fill} if padding_mode == "constant" else {}
+    arr, restore = _as_hwc(img)
+    cfg = [(t, b), (l, r)] + ([(0, 0)] if arr.ndim == 3 else [])
+    return restore(np.pad(arr, cfg, mode=mode, **kw))
+
+
+def adjust_brightness(img, brightness_factor):
+    arr = np.asarray(img).astype(np.float32) * brightness_factor
+    return np.clip(arr, 0, 255).astype(np.asarray(img).dtype)
+
+
+def adjust_contrast(img, contrast_factor):
+    arr = np.asarray(img).astype(np.float32)
+    mean = arr.mean()
+    out = mean + contrast_factor * (arr - mean)
+    return np.clip(out, 0, 255).astype(np.asarray(img).dtype)
+
+
+def adjust_saturation(img, saturation_factor):
+    arr = np.asarray(img).astype(np.float32)
+    gray = arr.mean(-1, keepdims=True) if arr.ndim == 3 else arr
+    out = gray + saturation_factor * (arr - gray)
+    return np.clip(out, 0, 255).astype(np.asarray(img).dtype)
+
+
+def adjust_hue(img, hue_factor):
+    """Rotate hue by hue_factor in [-0.5, 0.5] (HSV roundtrip)."""
+    arr = np.asarray(img).astype(np.float32) / 255.0
+    r, g, b = arr[..., 0], arr[..., 1], arr[..., 2]
+    mx, mn = arr.max(-1), arr.min(-1)
+    diff = mx - mn + 1e-8
+    h = np.zeros_like(mx)
+    h = np.where(mx == r, ((g - b) / diff) % 6, h)
+    h = np.where(mx == g, (b - r) / diff + 2, h)
+    h = np.where(mx == b, (r - g) / diff + 4, h)
+    h = (h / 6.0 + hue_factor) % 1.0
+    s = np.where(mx > 0, diff / (mx + 1e-8), 0)
+    v = mx
+    i = np.floor(h * 6)
+    f = h * 6 - i
+    p, q, t = v * (1 - s), v * (1 - f * s), v * (1 - (1 - f) * s)
+    i = i.astype(np.int32) % 6
+    out = np.stack([
+        np.choose(i, [v, q, p, p, t, v]),
+        np.choose(i, [t, v, v, q, p, p]),
+        np.choose(i, [p, p, t, v, v, q])], -1)
+    return np.clip(out * 255, 0, 255).astype(np.asarray(img).dtype)
+
+
+def to_grayscale(img, num_output_channels=1):
+    arr = np.asarray(img).astype(np.float32)
+    gray = arr[..., 0] * 0.299 + arr[..., 1] * 0.587 + arr[..., 2] * 0.114
+    out = np.repeat(gray[..., None], num_output_channels, -1)
+    return out.astype(np.asarray(img).dtype)
+
+
+def rotate(img, angle, interpolation="nearest", expand=False, center=None,
+           fill=0):
+    """Rotation via inverse-mapped nearest sampling (pure numpy).
+    expand=True enlarges the canvas to hold the whole rotated image."""
+    _nearest_only("rotate", interpolation)
+    arr, restore = _as_hwc(img)
+    h, w = arr.shape[:2]
+    cy, cx = ((h - 1) / 2, (w - 1) / 2) if center is None else (center[1], center[0])
+    rad = np.deg2rad(angle)
+    cos, sin = np.cos(rad), np.sin(rad)
+    if expand:
+        oh = int(np.ceil(abs(h * cos) + abs(w * sin)))
+        ow = int(np.ceil(abs(w * cos) + abs(h * sin)))
+        ocy, ocx = (oh - 1) / 2, (ow - 1) / 2
+    else:
+        oh, ow, ocy, ocx = h, w, cy, cx
+    yy, xx = np.meshgrid(np.arange(oh), np.arange(ow), indexing="ij")
+    xs = cos * (xx - ocx) + sin * (yy - ocy) + cx
+    ys = -sin * (xx - ocx) + cos * (yy - ocy) + cy
+    xi = np.round(xs).astype(np.int64)
+    yi = np.round(ys).astype(np.int64)
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    out_shape = (oh, ow) + arr.shape[2:]
+    out = np.full(out_shape, fill, arr.dtype)
+    out[valid] = arr[yi[valid], xi[valid]]
+    return restore(out)
+
+
+def affine(img, angle=0.0, translate=(0, 0), scale=1.0, shear=(0.0, 0.0),
+           interpolation="nearest", fill=0, center=None):
+    """Inverse-mapped affine transform (rotation+translate+scale+shear)."""
+    _nearest_only("affine", interpolation)
+    arr, restore = _as_hwc(img)
+    h, w = arr.shape[:2]
+    cy, cx = ((h - 1) / 2, (w - 1) / 2) if center is None else (center[1], center[0])
+    rad = np.deg2rad(angle)
+    sx, sy = np.deg2rad(shear[0]), np.deg2rad(shear[1])
+    # forward matrix M = T(center+translate) R S Shear T(-center); invert it
+    m00 = scale * (np.cos(rad) + np.tan(sy) * np.sin(rad))
+    m01 = scale * (np.tan(sx) * np.cos(rad) + np.sin(rad))
+    m10 = scale * (-np.sin(rad) + np.tan(sy) * np.cos(rad))
+    m11 = scale * (-np.tan(sx) * np.sin(rad) + np.cos(rad))
+    M = np.array([[m00, m01], [m10, m11]], np.float64)
+    Minv = np.linalg.inv(M)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    dx = xx - cx - translate[0]
+    dy = yy - cy - translate[1]
+    xs = Minv[0, 0] * dx + Minv[0, 1] * dy + cx
+    ys = Minv[1, 0] * dx + Minv[1, 1] * dy + cy
+    xi, yi = np.round(xs).astype(np.int64), np.round(ys).astype(np.int64)
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    out = np.full_like(arr, fill)
+    out[valid] = arr[yi[valid], xi[valid]]
+    return restore(out)
+
+
+def perspective(img, startpoints, endpoints, interpolation="nearest", fill=0):
+    """4-point perspective warp via the homography solve."""
+    _nearest_only("perspective", interpolation)
+    arr, restore = _as_hwc(img)
+    h, w = arr.shape[:2]
+    A = []
+    for (x, y), (u, v) in zip(endpoints, startpoints):
+        A.append([x, y, 1, 0, 0, 0, -u * x, -u * y])
+        A.append([0, 0, 0, x, y, 1, -v * x, -v * y])
+    B = np.array([c for pt in startpoints for c in pt], np.float64)
+    coef = np.linalg.lstsq(np.asarray(A, np.float64), B, rcond=None)[0]
+    H = np.append(coef, 1.0).reshape(3, 3)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    denom = H[2, 0] * xx + H[2, 1] * yy + H[2, 2]
+    xs = (H[0, 0] * xx + H[0, 1] * yy + H[0, 2]) / denom
+    ys = (H[1, 0] * xx + H[1, 1] * yy + H[1, 2]) / denom
+    xi, yi = np.round(xs).astype(np.int64), np.round(ys).astype(np.int64)
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    out = np.full_like(arr, fill)
+    out[valid] = arr[yi[valid], xi[valid]]
+    return restore(out)
+
+
+def erase(img, i, j, h, w, v, inplace=False):
+    arr, restore = _as_hwc(img)
+    arr = arr if inplace else arr.copy()
+    arr[i:i + h, j:j + w] = v
+    return restore(arr)
+
+
+class SaturationTransform(BaseTransform):
+    def __init__(self, value):
+        self.value = value
+
+    def _apply_image(self, img):
+        if self.value == 0:
+            return img
+        f = _rng().uniform(max(0, 1 - self.value), 1 + self.value)
+        return adjust_saturation(img, f)
+
+
+class ContrastTransform(BaseTransform):
+    def __init__(self, value):
+        self.value = value
+
+    def _apply_image(self, img):
+        if self.value == 0:
+            return img
+        f = _rng().uniform(max(0, 1 - self.value), 1 + self.value)
+        return adjust_contrast(img, f)
+
+
+class HueTransform(BaseTransform):
+    def __init__(self, value):
+        self.value = value
+
+    def _apply_image(self, img):
+        if self.value == 0:
+            return img
+        return adjust_hue(img, _rng().uniform(-self.value, self.value))
+
+
+class ColorJitter(BaseTransform):
+    def __init__(self, brightness=0, contrast=0, saturation=0, hue=0):
+        self.t = [BrightnessTransform(brightness), ContrastTransform(contrast),
+                  SaturationTransform(saturation), HueTransform(hue)]
+
+    def _apply_image(self, img):
+        order = _rng().permutation(4)
+        for i in order:
+            img = self.t[i](img)
+        return img
+
+
+class Pad(BaseTransform):
+    def __init__(self, padding, fill=0, padding_mode="constant"):
+        self.padding, self.fill, self.mode = padding, fill, padding_mode
+
+    def _apply_image(self, img):
+        return pad(img, self.padding, self.fill, self.mode)
+
+
+class RandomResizedCrop(BaseTransform):
+    def __init__(self, size, scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
+                 interpolation="bilinear"):
+        if interpolation != "bilinear":
+            raise NotImplementedError(
+                f"RandomResizedCrop(interpolation={interpolation!r}): only "
+                f"'bilinear' (the JAX package takes the argument and "
+                f"resizes bilinearly)")
+        self.size = (size, size) if isinstance(size, int) else tuple(size)
+        self.scale, self.ratio = scale, ratio
+
+    def _apply_image(self, img):
+        arr = np.asarray(img)
+        h, w = arr.shape[:2]
+        rng = _rng()
+        for _ in range(10):
+            area = h * w * rng.uniform(*self.scale)
+            ar = np.exp(rng.uniform(np.log(self.ratio[0]), np.log(self.ratio[1])))
+            cw = int(round(np.sqrt(area * ar)))
+            ch = int(round(np.sqrt(area / ar)))
+            if cw <= w and ch <= h:
+                top = rng.integers(0, h - ch + 1)
+                left = rng.integers(0, w - cw + 1)
+                return resize(crop(arr, top, left, ch, cw), self.size)
+        return resize(arr, self.size)
+
+
+class RandomRotation(BaseTransform):
+    def __init__(self, degrees, interpolation="nearest", expand=False,
+                 center=None, fill=0):
+        self.degrees = ((-degrees, degrees) if isinstance(degrees, (int, float))
+                        else tuple(degrees))
+        self.kw = dict(interpolation=interpolation, expand=expand,
+                       center=center, fill=fill)
+
+    def _apply_image(self, img):
+        return rotate(img, _rng().uniform(*self.degrees), **self.kw)
+
+
+class RandomAffine(BaseTransform):
+    def __init__(self, degrees, translate=None, scale=None, shear=None,
+                 interpolation="nearest", fill=0, center=None):
+        _nearest_only("RandomAffine", interpolation)
+        self.degrees = ((-degrees, degrees) if isinstance(degrees, (int, float))
+                        else tuple(degrees))
+        self.translate, self.scale_rng, self.shear = translate, scale, shear
+        self.fill, self.center = fill, center
+
+    def _apply_image(self, img):
+        rng = _rng()
+        h, w = np.asarray(img).shape[:2]
+        angle = rng.uniform(*self.degrees)
+        tr = ((rng.uniform(-self.translate[0], self.translate[0]) * w,
+               rng.uniform(-self.translate[1], self.translate[1]) * h)
+              if self.translate else (0, 0))
+        sc = rng.uniform(*self.scale_rng) if self.scale_rng else 1.0
+        if self.shear is None:
+            sh = (0.0, 0.0)
+        elif isinstance(self.shear, (int, float)):
+            sh = (rng.uniform(-self.shear, self.shear), 0.0)
+        else:  # (min, max) range, or (xmin, xmax, ymin, ymax)
+            vals = list(self.shear)
+            sh_x = rng.uniform(vals[0], vals[1])
+            sh_y = rng.uniform(vals[2], vals[3]) if len(vals) == 4 else 0.0
+            sh = (sh_x, sh_y)
+        return affine(img, angle, tr, sc, sh, fill=self.fill,
+                      center=self.center)
+
+
+class RandomPerspective(BaseTransform):
+    def __init__(self, prob=0.5, distortion_scale=0.5,
+                 interpolation="nearest", fill=0):
+        _nearest_only("RandomPerspective", interpolation)
+        self.prob, self.d = prob, distortion_scale
+
+    def _apply_image(self, img):
+        rng = _rng()
+        if rng.uniform() > self.prob:
+            return np.asarray(img)
+        h, w = np.asarray(img).shape[:2]
+        dx, dy = self.d * w / 2, self.d * h / 2
+        start = [(0, 0), (w - 1, 0), (w - 1, h - 1), (0, h - 1)]
+        end = [(rng.uniform(0, dx), rng.uniform(0, dy)),
+               (w - 1 - rng.uniform(0, dx), rng.uniform(0, dy)),
+               (w - 1 - rng.uniform(0, dx), h - 1 - rng.uniform(0, dy)),
+               (rng.uniform(0, dx), h - 1 - rng.uniform(0, dy))]
+        return perspective(img, start, end)
+
+
+class Grayscale(BaseTransform):
+    def __init__(self, num_output_channels=1):
+        self.n = num_output_channels
+
+    def _apply_image(self, img):
+        return to_grayscale(img, self.n)
+
+
+class RandomErasing(BaseTransform):
+    def __init__(self, prob=0.5, scale=(0.02, 0.33), ratio=(0.3, 3.3),
+                 value=0, inplace=False):
+        self.prob, self.scale, self.ratio, self.value = prob, scale, ratio, value
+
+    def _apply_image(self, img):
+        rng = _rng()
+        arr = np.asarray(img)
+        if rng.uniform() > self.prob:
+            return arr
+        h, w = arr.shape[:2]
+        for _ in range(10):
+            area = h * w * rng.uniform(*self.scale)
+            ar = np.exp(rng.uniform(np.log(self.ratio[0]), np.log(self.ratio[1])))
+            eh, ew = int(round(np.sqrt(area / ar))), int(round(np.sqrt(area * ar)))
+            if eh < h and ew < w:
+                top = rng.integers(0, h - eh)
+                left = rng.integers(0, w - ew)
+                return erase(arr, top, left, eh, ew, self.value)
+        return arr

@@ -2905,3 +2905,114 @@ def test_executor_trains_an_encoder_program_on_card(card_place):
         assert abs(got[0] - want) <= 1e-4 * abs(want)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# ---- quantization, the fused family and ASP on the card --------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (5, 12, 3), (16, 768, 2),
+                                   (17, 20, 33), (64, 768, 3072)])
+def test_int8_matmul_pads_and_is_exact_on_card(cuda, m, k, n):
+    """``torch._int_mm`` on the card takes M > 16 and K, N multiples of 8;
+    smaller or ragged operands are padded with zeros: the int32 result
+    equals the CPU's exactly, and each call counts one launch."""
+    from paddle_tpu_torch.quantization import int8_matmul, quantized_linear
+
+    g = torch.Generator().manual_seed(m * 1000 + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    quantized_linear.launches = 0
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert quantized_linear.launches == 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    assert torch.equal(got.cpu(), a.int() @ b.int())
+
+
+@pytest.mark.cuda
+def test_converted_linear_on_card_matches_cpu(card_place):
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import quantization as Q
+
+    pt.seed(3)
+    lin = pt.nn.Linear(64, 10)
+    lin_cpu = copy.deepcopy(lin).to("cpu")
+    x = torch.randn(2, 9, 64, device=card_place)
+    w_scale = lin.weight.detach().abs().amax(0)
+    conv = Q.ConvertedLinear(lin, w_scale, x.abs().max())
+    cpu = Q.ConvertedLinear(lin_cpu, w_scale.cpu(), x.abs().max().cpu())
+    Q.quantized_linear.launches = 0
+    got = conv(x)
+    assert Q.quantized_linear.launches == 1
+    torch.testing.assert_close(got.cpu(), cpu(x.cpu()), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_multi_transformer_runs_k1_in_prefill_and_decode(cuda):
+    """2 layers: one K1 a layer in the prefill and one a layer in each
+    cached decode step (a 1-row query over the longer end-aligned causal
+    key), against the CPU run within bf16 tolerance."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+
+    g = torch.Generator().manual_seed(0)
+    L, b, s, nh, hd, ffn, steps = 2, 2, 64, 4, 64, 512, 3
+    d = nh * hd
+
+    def w(*shape, scale=0.05):
+        return torch.randn(shape, generator=g) * scale
+
+    ws = dict(ln_scales=[1 + w(d) for _ in range(L)],
+              ln_biases=[w(d) for _ in range(L)],
+              qkv_weights=[w(3 * d, d) for _ in range(L)],
+              qkv_biases=[w(3 * d) for _ in range(L)],
+              linear_weights=[w(d, d) for _ in range(L)],
+              linear_biases=[w(d) for _ in range(L)],
+              ffn_ln_scales=[1 + w(d) for _ in range(L)],
+              ffn_ln_biases=[w(d) for _ in range(L)],
+              ffn1_weights=[w(d, ffn) for _ in range(L)],
+              ffn1_biases=[w(ffn) for _ in range(L)],
+              ffn2_weights=[w(ffn, d) for _ in range(L)],
+              ffn2_biases=[w(d) for _ in range(L)])
+    x = torch.randn(b, s, d, generator=g)
+    xs = [torch.randn(b, 1, d, generator=g) for _ in range(steps)]
+
+    def run(dev, dtype):
+        kw = {k: [t.to(dev, dtype) for t in v] for k, v in ws.items()}
+        caches = [torch.zeros(2, b, nh, s + steps, hd, device=dev,
+                              dtype=dtype) for _ in range(L)]
+        outs = [IF.fused_multi_transformer(x.to(dev, dtype), cache_kvs=caches,
+                                           num_heads=nh, **kw)]
+        for i, xi in enumerate(xs):
+            outs.append(IF.fused_multi_transformer(
+                xi.to(dev, dtype), cache_kvs=caches, time_step=s + i,
+                num_heads=nh, **kw))
+        return [o.float().cpu() for o in outs]
+
+    flash_attention.launches = 0
+    got = run(cuda, torch.bfloat16)
+    assert flash_attention.launches == L * (1 + steps)
+    ref = run("cpu", torch.float32)
+    for a, r in zip(got, ref):
+        assert float((a - r).abs().max()) <= 3e-2 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_asp_keeps_two_four_after_a_step_on_card(card_place):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.incubate import asp
+
+    pt.seed(1)
+    net = pt.nn.Sequential(pt.nn.Linear(64, 128), pt.nn.ReLU(),
+                           pt.nn.Linear(128, 16))
+    masks = asp.prune_model(net, 2, 4, "mask_1d")
+    opt = asp.decorate(pt.optimizer.AdamW(1e-2,
+                                          parameters=net.parameters()))
+    x = torch.randn(32, 64, device=card_place)
+    (net(x) ** 2).mean().backward()
+    opt.step()
+    for name, p in net.named_parameters():
+        if name in masks:
+            assert asp.check_sparsity(p.detach().t(), "1d"), name
+            assert asp.calculate_density(p) == 0.5, name

@@ -141,9 +141,10 @@ def test_resize_matches_jax_image_resize(shape, size):
 
 
 def test_breadth_transforms_wait_for_a_later_slice():
+    """They came (tests/test_torch_transforms.py holds them to JAX's)."""
     for name in ("ColorJitter", "RandomResizedCrop", "rotate", "Pad"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            getattr(TT, name)
+        assert getattr(TT, name) is not None
+        assert callable(getattr(JT, name))
 
 
 # ---- datasets of io, random_split ----

@@ -60,18 +60,43 @@ def test_make_scheduler_is_jax(kw):
         [e.name for e in jprof.ProfilerTarget]
 
 
+class _Clock:
+    """The clock both profilers read (``time.perf_counter`` and the host
+    tracer's ``time.perf_counter_ns``), advanced only by :meth:`run`: the
+    scopes' durations, and so the order a sort by time gives, are the
+    same on a loaded machine (a 0.5 ms sleep can outlast a 3 ms one under
+    a parallel test run)."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+    def ns(self):
+        return int(round(self.t * 1e9))
+
+    def run(self, seconds):
+        self.t += seconds
+
+
 def _summary(mod, sorted_by=None, profile_memory=True):
-    mod._host_events.reset()
-    p = mod.Profiler(timer_only=True, profile_memory=profile_memory)
-    p.start()
-    for _ in range(3):
-        with mod.RecordEvent("op.matmul"):
-            time.sleep(0.003)
-        with mod.RecordEvent("op.norm"):
-            time.sleep(0.0005)
-        p.step(num_samples=8)
-    p.stop()
-    return p, p.summary(sorted_by=sorted_by)
+    from unittest import mock
+
+    clock = _Clock()
+    with mock.patch.object(time, "perf_counter", clock), \
+            mock.patch.object(time, "perf_counter_ns", clock.ns):
+        mod._host_events.reset()
+        p = mod.Profiler(timer_only=True, profile_memory=profile_memory)
+        p.start()
+        for _ in range(3):
+            with mod.RecordEvent("op.matmul"):
+                clock.run(0.003)
+            with mod.RecordEvent("op.norm"):
+                clock.run(0.0005)
+            p.step(num_samples=8)
+        p.stop()
+        return p, p.summary(sorted_by=sorted_by)
 
 
 def _shape(table):

@@ -1,11 +1,19 @@
 """The eager top level is whole: every public name of ``paddle_tpu``'s top
 level is on ``paddle_tpu_torch`` or raises ``later_slice`` naming its
-ROADMAP item (8.6 ``flops``, 8.8 the remaining packages, 6
-``DataParallel``); ``jit``, ``static``, ``to_static``, ``enable_static``
-and ``onnx`` are ported (item 8.5) and work. Left out are the JAX package's internals,
-which the port (importing no JAX) has not: ``jax``, ``jnp``, ``next_key``,
-``native`` and ``wrap``; ``extras`` / ``toplevel_extras`` are the modules'
-names and exist on both.
+ROADMAP item (only ``DataParallel``, item 6, is left); ``jit``,
+``static``, ``to_static``, ``enable_static`` and ``onnx`` are ported (item
+8.5) and work. Left out are the JAX package's internals, which the port
+(importing no JAX) has not: ``jax``, ``jnp``, ``next_key``, ``native`` and
+``wrap``; ``extras`` / ``toplevel_extras`` are the modules' names and
+exist on both.
+
+The packages of item 8.6-8.8 (``incubate.nn.functional``,
+``quantization``, ``incubate.asp``, ``sparse``, ``distribution``,
+``geometric``, ``text``, ``dataset``, ``hub``, ``utils``, ``version`` and
+the transforms) are whole too: each public name that the JAX module
+defines or lists in ``__all__`` (not the names it imports, such as
+``jax``, ``jnp`` or ``Tensor``) resolves in the port's module of the same
+path.
 """
 
 import re
@@ -43,9 +51,61 @@ def test_refusals_are_the_listed_ones():
             getattr(pt, name)
         except NotImplementedError:
             refused.append(name)
-    assert sorted(refused) == sorted([
-        "DataParallel", "dataset", "distribution", "flops", "geometric",
-        "hub", "quantization", "sparse", "text", "utils", "version"])
+    assert sorted(refused) == ["DataParallel"]
+
+
+PACKAGES = ("incubate.nn.functional", "quantization", "incubate.asp",
+            "sparse", "distribution", "distribution.extras", "geometric",
+            "text", "dataset", "dataset.common", "dataset.uci_housing",
+            "dataset.mnist", "dataset.cifar", "hub", "utils",
+            "utils.custom_op", "utils.cpp_extension", "version",
+            "vision.transforms")
+
+
+def _defined_names(mod):
+    """The public names ``mod`` defines (or lists in ``__all__``), not the
+    ones it imports from elsewhere."""
+    import types
+
+    names = set(getattr(mod, "__all__", ()))
+    for n in dir(mod):
+        if n.startswith("_"):
+            continue
+        obj = getattr(mod, n)
+        owner = getattr(obj, "__module__", None)
+        if isinstance(obj, types.ModuleType):
+            owner = obj.__name__
+        if owner is not None and owner.startswith(mod.__name__):
+            names.add(n)
+    return sorted(names)
+
+
+PACKAGE_NAMES = []
+for _pkg in PACKAGES:
+    import importlib
+
+    _jm = importlib.import_module(f"paddle_tpu.{_pkg}")
+    PACKAGE_NAMES += [(_pkg, n) for n in _defined_names(_jm)]
+
+
+def test_the_packages_have_their_names():
+    assert len(PACKAGE_NAMES) > 200
+    assert ("incubate.nn.functional", "fused_multi_transformer") \
+        in PACKAGE_NAMES
+
+
+@pytest.mark.parametrize("pkg,name", PACKAGE_NAMES)
+def test_package_name_is_ported(pkg, name):
+    import importlib
+
+    mod = importlib.import_module(f"paddle_tpu_torch.{pkg}")
+    getattr(mod, name)
+
+
+def test_flops_and_model_flops():
+    net = pt.nn.Linear(64, 32, device="cpu")
+    assert pt.flops(net, [8, 64]) == 2 * 8 * 64 * 32 + 8 * 32
+    assert pt.Model(net).flops([2, 64]) == 2 * 2 * 64 * 32 + 2 * 32
 
 
 def _jit_works():
