@@ -31,13 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      version at the K1 cases, the training shape [2, 4096, 16/4, 128],
      the MoE step's [8, 2048, 16/4, 64], the remat step's [4, 4096,
      16/4, 128], phase 30's GPT step [2, 2048, 32/32, 128] (q, k, v strided
-     views) and phase 32's BERT step [32, 128, 12/12, 64] (not causal)
-     (bf16 at those five), and at FP16_CASES in fp16 (lse max abs error
+     views), phase 32's BERT step [32, 128, 12/12, 64] (not causal) and
+     phase 56 (b)'s per-rank shard [1, 4096, 16/4, 128] (bf16 at those
+     six), and at FP16_CASES in fp16 (lse max abs error
      <= 5e-3 bf16 and fp16 / 1e-4 fp32, out as in 2), timed beside the
      no-lse path and SDPA's forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
      on the same (q, k, v, o, lse, dout): the training shape, the MoE
-     step's, the remat step's, GPT's and BERT's (bf16), MHA, ragged 77
+     step's, the remat step's, GPT's, BERT's and phase 56 (b)'s dp shard
+     (bf16), MHA, ragged 77
      (not causal),
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
      [b, s, 3, h, d] buffer, each also in fp32; FP16_CASES in fp16; max
@@ -617,6 +619,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      entropy and KL on 10^6 elements; send_u_recv sum, mean, max at
      ogbn-arxiv's size; viterbi_decode at 64 x 128 x 50; a custom_op and
      a cpp_extension op on card tensors; flops of the encoder.
+ 56. distributed training (paddle_tpu_torch.distributed): (a) one NCCL
+     rank, TRAIN_CONFIG at full width and depth, Engine over
+     make_mesh(MESH_1) against Engine(mesh=None) from the same seed-0
+     weights on DIST_STEPS seeded batches: losses within DIST_LOSS_RTOL,
+     K1-lse, K2 and K3 launched 16 times a step on both paths, each
+     step's ms, the median's difference and each path's host enqueue of
+     one step; (b) dp=2 as two processes sharing the card over gloo,
+     DIST_DP_LAYERS of the 16 layers at full width, one sequence a rank,
+     against one process's mesh=None steps over the same global batch
+     (losses within DIST_LOSS_RTOL, gathered parameters within 2 * lr *
+     steps plus one bf16 ulp), each rank's step ms and the collectives of
+     one step (CommDebugMode). The ranks are killed after DIST_SPAWN_S.
+     (tp and fsdp need DTensor's functional all-gather, which gloo ends
+     with SIGSEGV on CUDA tensors: DIST_GLOO_MESHES.)
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -629,7 +645,8 @@ prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
 phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps, 48's
-recorded steps, 50, 52 and 53's (a) and (c) (K1-lse also phase 20's
+recorded steps, 50, 52, 53's (a) and (c) and 56 (a)'s mesh path (56 (b)'s
+ranks count their own, printed, not added) (K1-lse also phase 20's
 forward); K1 and K4 also count phase 48's profiled serving wave; K1 also
 phase 51's checked forwards (eager, loaded, Predictor), phase 53 (b)'s
 calibration and int8 forwards and phase 54's checked calls; the fp16 rows count phase 41 (c)'s timed steps (and its eval
@@ -717,9 +734,11 @@ REMAT_ATTN_SHAPE = ("remat", 4, 4096, 4096, 16, 4, 128, True)
 # [32, 128], 12/12 heads of 64, not causal)
 GPT_ATTN_SHAPE = ("gpt_train", 2, 2048, 2048, 32, 32, 128, True)
 BERT_ATTN_SHAPE = ("bert", 32, 128, 128, 12, 12, 64, False)
+# phase 56 (b)'s per-rank shard of the training shape (dp=2: one sequence)
+DP_SHARD_SHAPE = ("dp_shard", 1, 4096, 4096, 16, 4, 128, True)
 # the main paths' attention shapes, which K1-lse and K2/K3 run in bf16 only
 TRAIN_PATH_SHAPES = (TRAIN_SHAPE, MOE_ATTN_SHAPE, REMAT_ATTN_SHAPE,
-                     GPT_ATTN_SHAPE, BERT_ATTN_SHAPE)
+                     GPT_ATTN_SHAPE, BERT_ATTN_SHAPE, DP_SHARD_SHAPE)
 # the cases whose q, k and v are views of one [b, s, 3, h, d] buffer
 STRIDED_CASES = ("strided", "gpt_prefill", "gpt_train")
 # phases 18-20: the masked and lse-cotangent modes at the dense training
@@ -749,6 +768,7 @@ BWD_CASES = [
     REMAT_ATTN_SHAPE,
     GPT_ATTN_SHAPE,
     BERT_ATTN_SHAPE,
+    DP_SHARD_SHAPE,
     ("mha", 2, 1024, 1024, 16, 16, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
@@ -1163,6 +1183,32 @@ DIST_N = 10 ** 6
 OGBN_ARXIV = dict(nodes=169343, edges=1166243, features=128)
 VITERBI = dict(batch=64, seq=128, tags=50)
 PACKAGE_TOL = 1e-4
+# Distributed training (phase 56). (a) one NCCL rank at TRAIN_CONFIG's full
+# width and depth: Engine over make_mesh(MESH_1) against Engine(mesh=None)
+# on the same seed-0 weights and DIST_STEPS seeded batches of TRAIN_BATCH x
+# TRAIN_SEQ; bf16, so the losses agree within DIST_LOSS_RTOL (the same ops
+# on the same tensors; the clip's global norm sums its squares in another
+# order). (b) two ranks sharing the card over gloo, dp=2, at full width
+# with DIST_DP_LAYERS of the 16 layers, one sequence each, against one
+# process's mesh=None steps over the same global batch: losses within
+# DIST_LOSS_RTOL, each gathered parameter within 2 * lr * steps (Adam
+# normalises each update; an element whose bf16 gradient rounds otherwise
+# moves by up to lr a step) plus one bf16 ulp of its magnitude.
+MESH_1 = {"dp": 1, "fsdp": 1, "tp": 1}
+DIST_STEPS, DIST_LR, DIST_LOSS_RTOL = 3, 1e-4, 2e-3
+DIST_DP_LAYERS = 4
+# (b)'s meshes over the two ranks. gloo runs torch.distributed's
+# all_reduce, broadcast, all_gather_into_tensor and reduce_scatter_tensor
+# on CUDA tensors (tests/test_torch_cuda.py::
+# test_gloo_collectives_on_cuda_tensors), but the functional all-gather
+# that DTensor's Shard -> Replicate calls (_functional_collectives.
+# all_gather_tensor, in wait_tensor) ends the process with SIGSEGV there
+# (torch 2.11+cu128; PERF.md section 7), and tp and fsdp gather: so dp
+# only, whose collectives are all-reduces. tp and fsdp are held against
+# the JAX package on the CPU (tests/test_torch_dist_engine.py).
+DIST_GLOO_MESHES = ({"dp": 2},)
+DIST_SPAWN_S = 300        # the two ranks' whole run, then they are killed
+DIST_BACKEND = "nccl"     # (a)'s one-rank world
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
 # The nn surface (phases 42-43). The sweep's shapes: activations and
@@ -10240,6 +10286,188 @@ def phase_packages(torch, np, ops, card):
         raise AssertionError(f"packages: port kernels ran: {counts}")
     _release(torch)
 
+# ---- phase 56: distributed training -----------------------------------
+
+def _start_world(rank, world, port, backend):
+    """This process as rank ``rank`` of a torch.distributed world."""
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(world),
+                      PADDLE_RANK_IN_NODE=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port), PADDLE_DISTRI_BACKEND=backend)
+    from paddle_tpu_torch.distributed import init_parallel_env
+
+    init_parallel_env()
+
+
+def _dist_batches(torch, np, cfg, batch, steps):
+    rng = np.random.default_rng(56)
+    return [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, TRAIN_SEQ)).astype(np.int32)).to(DEVICE)
+        for _ in range(steps)]
+
+
+def _dist_steps(torch, ops, eng, batches):
+    """The engine's steps on ``batches``, each timed to its end, with every
+    launch count set to 0 just before and read just after."""
+    sync()
+    _reset_counts(ops)
+    losses, ms = [], []
+    for ids in batches:
+        t0 = time.perf_counter()
+        losses.append(eng.step(ids, ids))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _read_counts(ops)
+    return torch.stack(losses).float().cpu(), ms, counts
+
+
+def phase_dist_one_rank(torch, np, ops, card):
+    """(a): one NCCL rank, the full-width dense step through the mesh path
+    against mesh=None; returns the mesh path's (K1-lse, K2, K3) launches."""
+    from paddle_tpu_torch.distributed import Engine, destroy_process_group
+    from paddle_tpu_torch.distributed.auto_parallel import make_mesh
+    from paddle_tpu_torch.distributed.parallel import free_port
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**TRAIN_CONFIG)
+    _start_world(0, 1, free_port(), DIST_BACKEND)
+    batches = _dist_batches(torch, np, cfg, TRAIN_BATCH, DIST_STEPS)
+    runs = {}
+    for arm in ("mesh=None", "mesh"):
+        torch.cuda.empty_cache()
+        model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+        mesh = make_mesh(MESH_1) if arm == "mesh" else None
+        eng = Engine(model, mesh, lr=DIST_LR, clip_norm=1.0)
+        losses, ms, counts = _dist_steps(torch, ops, eng, batches)
+        host_s, spinning = host_enqueue_s(
+            torch, lambda: eng.step(batches[0], batches[0]))
+        runs[arm] = dict(losses=losses, ms=ms, counts=counts, host_s=host_s,
+                         spinning=spinning)
+        del eng, model
+    destroy_process_group()
+    torch.cuda.empty_cache()
+    a, b = runs["mesh=None"], runs["mesh"]
+    rel = ((b["losses"] - a["losses"]).abs() / a["losses"].abs()).max().item()
+    keys = ("k1_lse", "k2", "k3")
+    print(f"dist (a) [{card}]: one NCCL rank, mesh {MESH_1}, "
+          f"{cfg.num_hidden_layers} layers, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, bf16, {DIST_STEPS} steps: losses mesh "
+          f"{[round(x, 5) for x in b['losses'].tolist()]} mesh=None "
+          f"{[round(x, 5) for x in a['losses'].tolist()]} max_rel={rel:.3e}"
+          f"; launches k1_lse/k2/k3 mesh {[b['counts'][k] for k in keys]} "
+          f"mesh=None {[a['counts'][k] for k in keys]}", flush=True)
+    for arm, r in runs.items():
+        print(f"dist (a) {arm}: step ms {[round(x, 2) for x in r['ms']]} "
+              f"median {sorted(r['ms'])[1]:.2f}; host enqueue of one step "
+              f"{r['host_s'] * 1e3:.2f} ms (card still on the spin when "
+              f"queued: {r['spinning']})", flush=True)
+    print(f"dist (a): the mesh path adds "
+          f"{sorted(b['ms'])[1] - sorted(a['ms'])[1]:.2f} ms a step (median)"
+          f" and {(b['host_s'] - a['host_s']) * 1e3:.2f} ms of host "
+          f"enqueue", flush=True)
+    _check_losses(a["losses"], "dist (a)")
+    need = DIST_STEPS * cfg.num_hidden_layers
+    if not (rel <= DIST_LOSS_RTOL and all(
+            b["counts"][k] == a["counts"][k] == need for k in keys)):
+        raise AssertionError(f"dist (a): losses max_rel {rel} (tol "
+                             f"{DIST_LOSS_RTOL}) or launches differ from "
+                             f"{need} each")
+    return tuple(b["counts"][k] for k in keys)
+
+
+def _dist_rank(meshes, n_layers, out_path):
+    """One rank of phase 56 (b) (a spawned process sharing the card): for
+    each mesh of ``meshes``, Engine over it on DIST_STEPS global batches,
+    each rank keeping its shard; rank 0 saves each mesh's losses, step ms,
+    launches, the collectives of one more step (CommDebugMode) and the
+    gathered state after the compared steps."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed import (Engine, destroy_process_group,
+                                              init_parallel_env)
+    from paddle_tpu_torch.distributed.auto_parallel import make_mesh
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    init_parallel_env()
+    rank = torch.distributed.get_rank()
+    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=n_layers))
+    batches = _dist_batches(torch, np, cfg, TRAIN_BATCH, DIST_STEPS)
+    out = {}
+    for axes in meshes:
+        eng = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0),
+                     make_mesh(axes), lr=DIST_LR, clip_norm=1.0)
+        losses, ms, counts = _dist_steps(torch, ops, eng, batches)
+        state = eng.state_dict()
+        with CommDebugMode() as comm:
+            eng.step(batches[0], batches[0])
+            sync()
+        comms = {str(k).split(".")[-1]: v
+                 for k, v in comm.get_comm_counts().items()}
+        print(f"dist (b) rank {rank} {axes}: step ms "
+              f"{[round(x, 2) for x in ms]}; launches k1_lse/k2/k3 "
+              f"{[counts[k] for k in ('k1_lse', 'k2', 'k3')]}; collectives "
+              f"a step {comms}", flush=True)
+        out[str(axes)] = dict(
+            losses=losses, ms=ms, counts=counts, comms=comms,
+            model={n: t.cpu() for n, t in state["model"].items()})
+        del eng, state
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(out, out_path)
+    destroy_process_group()
+
+
+def phase_dist_dp(torch, np, ops, card):
+    """(b): two processes sharing the card over gloo on each mesh of
+    DIST_GLOO_MESHES, against one process's mesh=None steps over the same
+    global batch."""
+    from paddle_tpu_torch.distributed import Engine, spawn
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=DIST_DP_LAYERS))
+    out = os.path.join(_scratch_dir("dist"), "ranks.pt")
+    spawn(_dist_rank, args=(DIST_GLOO_MESHES, DIST_DP_LAYERS, out),
+          nprocs=2, backend="gloo", timeout=DIST_SPAWN_S)
+    got_all = torch.load(out)
+    batches = _dist_batches(torch, np, cfg, TRAIN_BATCH, DIST_STEPS)
+    ref = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0), lr=DIST_LR,
+                 clip_norm=1.0)
+    losses, ms, counts = _dist_steps(torch, ops, ref, batches)
+    ref_model = {n: p.float().cpu()
+                 for n, p in ref.state_dict()["model"].items()}
+    del ref
+    torch.cuda.empty_cache()
+    p_tol = 2 * DIST_LR * DIST_STEPS
+    need = DIST_STEPS * DIST_DP_LAYERS
+    for axes in DIST_GLOO_MESHES:
+        got = got_all[str(axes)]
+        rel = ((got["losses"] - losses).abs() / losses.abs()).max().item()
+        worst, far = (0.0, ""), []
+        for name, want in ref_model.items():
+            err = (got["model"][name].float() - want).abs()
+            worst = max(worst, (err.max().item(), name))
+            if bool((err > p_tol + want.abs() * 2.0 ** -8).any()):
+                far.append(name)
+        print(f"dist (b) [{card}]: {axes} over gloo, two ranks on one card,"
+              f" {DIST_DP_LAYERS} layers at full width, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} global, bf16: losses "
+              f"{[round(x, 5) for x in got['losses'].tolist()]} mesh=None "
+              f"{[round(x, 5) for x in losses.tolist()]} max_rel={rel:.3e}; "
+              f"params worst abs {worst[0]:.3e} ({worst[1]}; tol {p_tol} + "
+              f"one bf16 ulp); rank 0 step ms "
+              f"{[round(x, 2) for x in got['ms']]} against mesh=None "
+              f"{[round(x, 2) for x in ms]}; collectives a step "
+              f"{got['comms']}", flush=True)
+        if not (rel <= DIST_LOSS_RTOL and not far and all(
+                got["counts"][k] == need for k in ("k1_lse", "k2", "k3"))):
+            raise AssertionError(f"dist (b) {axes}: losses max_rel {rel}, "
+                                 f"params beyond tolerance {far}, or "
+                                 f"launches {got['counts']} != {need}")
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -10411,11 +10639,15 @@ def _main(torch, np, F, ops, _build, card, start):
     family_k1 = _phase("54 fused family", phase_fused_family, torch, np, ops,
                        card)
     _phase("55 packages", phase_packages, torch, np, ops, card)
+    dist_a = _phase("56a dist one rank", phase_dist_one_rank, torch, np,
+                    ops, card)
+    _phase("56b dist dp2", phase_dist_dp, torch, np, ops, card)
     k1_launches += k1_deploy + compress_k1 + family_k1
     k1_launches += prof_launches[3]
     k4_launches += prof_launches[4]
     for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
-                 prof_launches, static_bert, static_prog, compress_train):
+                 prof_launches, static_bert, static_prog, compress_train,
+                 dist_a):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

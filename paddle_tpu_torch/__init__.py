@@ -20,8 +20,8 @@ on ``torch.export``), ``static`` (``enable_static`` / ``disable_static``,
 ``Program``, ``Executor``) and ``onnx``; ``flops`` (XLA's cost model's
 rules over one forward's aten ops) and the packages ``sparse``, ``text``,
 ``distribution``, ``geometric``, ``quantization``, ``hub``, ``utils``,
-``dataset`` and ``version``. ``DataParallel`` (distributed training)
-raises ``later_slice`` naming its item.
+``dataset`` and ``version``; ``DataParallel`` (``distributed``'s, which
+averages gradients over its group).
 
 Entry points (creation functions, layers, model construction,
 ``_init_paged_caches`` and the serving engine) run on the current place:
@@ -63,12 +63,11 @@ from . import (dataset, distribution, geometric, hub,  # noqa: F401,E402
 from .hapi.model import Model  # noqa: F401,E402
 from .jit.api import to_static  # noqa: F401,E402
 
+from .distributed import DataParallel  # noqa: F401,E402
+
 # what the JAX package's top level has and a later slice brings:
 # name -> (what, slice, ROADMAP Queue 1 item)
-_LATER = {
-    "DataParallel": ("paddle_tpu_torch.DataParallel",
-                     "distributed training", "6"),
-}
+_LATER = {}
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,

@@ -1,3 +1,100 @@
-"""Training engines of the port (single-device ``Engine`` in this slice)."""
+"""``paddle_tpu.distributed`` for the port, on ``torch.distributed``.
 
-from .auto_parallel import Engine  # noqa: F401
+One process per rank (``init_parallel_env``, ``spawn``): the collectives
+of ``communication``, the process meshes, placements and logical-axis
+rules of ``auto_parallel`` on DTensor, the ``Engine`` over dp/fsdp/tp
+meshes with Megatron sequence parallelism, the tensor- and
+sequence-parallel layers of ``fleet``, and the sharded checkpoints of
+``checkpoint``, which reshard on load. What is left of item 6 raises
+``later_slice`` naming its part: the numeric guard and its resilience
+trainer, the store, ``ps``/``rpc``, ``sharding`` (group_sharded) and the
+MoE ``utils``.
+"""
+
+from . import auto_parallel, checkpoint, communication, fleet  # noqa: F401
+from . import parallel, resilience  # noqa: F401
+from ._refuse import EP, FLEET, GUARD, PS, STORE, refuse
+from .auto_parallel import (  # noqa: F401
+    Engine,
+    Partial,
+    Placement,
+    ProcessMesh,
+    Replicate,
+    Shard,
+    ShardingStage1,
+    ShardingStage2,
+    ShardingStage3,
+    Strategy,
+    dtensor_from_local,
+    dtensor_to_local,
+    get_mesh,
+    reshard,
+    set_mesh,
+    shard_dataloader,
+    shard_layer,
+    shard_optimizer,
+    shard_tensor,
+    to_static,
+    unshard_dtensor,
+)
+from .checkpoint import (  # noqa: F401
+    CheckpointCorruptionError,
+    load_state_dict,
+    save_state_dict,
+    wait_async_save,
+)
+from .communication.functional import (  # noqa: F401
+    P2POp,
+    all_gather,
+    all_gather_into_tensor,
+    all_gather_object,
+    all_reduce,
+    all_to_all,
+    all_to_all_single,
+    alltoall,
+    alltoall_single,
+    barrier,
+    batch_isend_irecv,
+    broadcast,
+    broadcast_object_list,
+    irecv,
+    isend,
+    recv,
+    reduce,
+    reduce_scatter,
+    scatter,
+    scatter_object_list,
+    send,
+)
+from .communication.group import (  # noqa: F401
+    Group,
+    ReduceOp,
+    destroy_process_group,
+    get_group,
+    new_group,
+)
+from .parallel import (  # noqa: F401
+    DataParallel,
+    ParallelEnv,
+    get_rank,
+    get_world_size,
+    init_parallel_env,
+    is_initialized,
+    spawn,
+)
+
+#: JAX names a later part of item 6 brings: name -> part
+_LATER = {
+    "BadBatchRecorder": GUARD, "GuardPolicy": GUARD,
+    "NumericAnomalyError": GUARD, "NumericWatchdog": GUARD,
+    "CheckpointPublisher": GUARD, "StaleGenerationError": GUARD,
+    "CommTaskManager": GUARD, "get_comm_task_manager": GUARD,
+    "TCPStore": STORE, "launch": STORE, "ps": PS, "rpc": PS,
+    "auto_tuner": PS, "sharding": FLEET, "utils": EP,
+}
+
+
+def __getattr__(name):
+    if name in _LATER:
+        raise refuse(f"paddle_tpu_torch.distributed.{name}", _LATER[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

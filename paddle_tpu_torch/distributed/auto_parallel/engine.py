@@ -1,5 +1,6 @@
-"""Single-device training engine — port of
-``paddle_tpu/distributed/auto_parallel/engine.py`` (``mesh=None``).
+"""The training engine — port of
+``paddle_tpu/distributed/auto_parallel/engine.py``, on one device
+(``mesh=None``) and over a mesh of ``dp``, ``fsdp`` and ``tp``.
 
 ``Engine(model).step(ids, labels)`` runs the JAX package's train step
 (``_build_step`` :415-420): the step counter advances first, then the
@@ -30,8 +31,30 @@ be a ``ClipGradByGlobalNorm``, whose ``clip_norm`` the engine takes unless
 the caller passed one.
 
 The engine runs where the model lives (the CUDA device unless the model was
-built with ``device="cpu"``). Meshes, the numeric guard and pipeline
-parallelism arrive with later slices and raise here.
+built with ``device="cpu"``).
+
+``Engine(model, mesh)`` trains over a ``DeviceMesh`` (``make_mesh``), one
+process per rank, each running the same program on its shards (the JAX
+engine is one controller over every device; the port is SPMD). The model
+is built from the same seed on every rank; ``shard_params`` makes each
+parameter a DTensor placed by its logical axes (rank 0's values are
+broadcast first where the mesh covers the world). The step is the one
+above on DTensors: the model's ``constrain`` calls and the fsdp weight
+gathers put the collectives where JAX's rules put them, the attention
+kernels and the fused CE run on each rank's local shards, and the loss
+comes back replicated. The gradients are reduced to their parameters'
+placements (the dp all-reduce, the fsdp reduce-scatter), the global norm
+sums every shard once, and AdamW (fp32 moments sharded like their
+parameters, JAX's ZeRO) or ``optimizer=`` updates each rank's local
+shards in place. ``shard_batch`` keeps the rank's ``dp x fsdp`` rows of
+the global batch that every rank holds; ``step`` reads nothing on the
+host. ``state_dict`` gathers whole tensors; ``set_state_dict`` takes each
+rank's chunk of a snapshot, so a run saved on one mesh resumes on
+another.
+
+Still refused, each naming its part of item 6: ``sep > 1`` (ring
+attention), ``pp`` and the ``n_micro``/``pp_*`` arguments, an ``ep``
+axis or an MoE model over a mesh, and ``guard=``.
 """
 
 from __future__ import annotations
@@ -41,13 +64,14 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from ..._later import later_slice
+from torch.distributed.tensor import DTensor
+
 from ...nn.clip import ClipGradByGlobalNorm
 from ...optimizer import Optimizer, name_parameters
-
-# what the caller can use until the slices arrive
-_ONE_DEVICE = ("; this slice trains on one device (Engine(model, "
-               "mesh=None), the built-in AdamW or optimizer=)")
+from .._refuse import EP, GUARD, PP, RING, refuse
+from .logical_sharding import (DEFAULT_RULES, axis_rules, current_mesh,
+                               local_chunk, logical_placements, shard_params)
+from .process_mesh import as_device_mesh
 
 _DEFAULT_CLIP = object()   # the caller did not choose a clip_norm
 
@@ -55,6 +79,25 @@ _DEFAULT_CLIP = object()   # the caller did not choose a clip_norm
 def _as_tensor(x, device, dtype=None):
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return t.to(device=device, dtype=dtype)
+
+
+def _local(t):
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+class _LocalParam:
+    """What the optimizer's update rules see of a sharded parameter: its
+    local shard's shape and device, every other attribute (its name, its
+    ``ParamAttr`` settings) the parameter's own. The JAX engine hands its
+    optimizer a ``_ParamProxy`` alike."""
+
+    def __init__(self, p):
+        self._p = p
+        self.shape = tuple(_local(p).shape)
+        self.device = p.device
+
+    def __getattr__(self, name):
+        return getattr(self._p, name)
 
 
 class Engine:
@@ -76,6 +119,7 @@ class Engine:
         weight_decay: float = 0.1,
         apply_decay_param_fun: Optional[Callable[[str], bool]] = None,
         clip_norm: Optional[float] = _DEFAULT_CLIP,
+        rules=None,
         loss_fn: Optional[Callable] = None,
         n_micro: Optional[int] = None,
         pp_remat: Optional[bool] = None,
@@ -85,19 +129,19 @@ class Engine:
         optimizer=None,
         guard=None,
     ):
-        if mesh is not None:
-            raise later_slice("mesh training (mesh=)",
-                              "distributed-training", "6", _ONE_DEVICE)
+        mesh = as_device_mesh(mesh) if mesh is not None else current_mesh()
         if (n_micro is not None or pp_remat is not None or pp_interleave != 1
                 or pp_schedule != "auto" or pp_remat_policy != "auto"):
-            raise later_slice("pipeline parallelism (n_micro=, pp_*=)",
-                              "distributed-training", "6", _ONE_DEVICE)
+            raise refuse("pipeline parallelism (n_micro=, pp_*=)", PP)
         if optimizer is not None and not isinstance(optimizer, Optimizer):
             raise TypeError(f"optimizer= takes a paddle_tpu_torch.optimizer."
                             f"Optimizer, got {type(optimizer).__name__}")
         if guard is not None:
-            raise later_slice("the numeric guard (guard=)", "resilience",
-                              "6", _ONE_DEVICE)
+            raise refuse("the numeric guard (guard=)", GUARD)
+        if mesh is not None:
+            self._check_mesh(mesh, model)
+        self.mesh = mesh
+        self.rules = tuple(rules) if rules is not None else DEFAULT_RULES
         self.model = model
         self.lr = lr
         self.beta1, self.beta2 = beta1, beta2
@@ -108,6 +152,9 @@ class Engine:
         self._optimizer = optimizer
 
         name_parameters(model)
+        if mesh is not None:
+            with axis_rules(mesh, self.rules):
+                shard_params(model, mesh)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
         self._param_names = [n for n, _ in named]
@@ -121,11 +168,15 @@ class Engine:
                                 for n in self._param_names]
         else:
             self._decay_mask = [p.ndim >= 2 for p in self.params]
+        # what the update reads and writes: each rank's local shards
+        self._proxies = ([_LocalParam(p) for p in self.params]
+                         if mesh is not None else self.params)
         if optimizer is None:
-            self.m = [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in self.params]
-            self.v = [torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for p in self.params]
+            # fp32 moments placed like their parameters (ZeRO over fsdp)
+            self.m = [torch.zeros_like(p, dtype=torch.float32)
+                      for p in self.params]
+            self.v = [torch.zeros_like(p, dtype=torch.float32)
+                      for p in self.params]
         else:
             oc = optimizer._grad_clip
             if oc is not None:
@@ -141,6 +192,22 @@ class Engine:
         self.step_count = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
 
+    @staticmethod
+    def _check_mesh(mesh, model):
+        shape = dict(zip(mesh.mesh_dim_names or (), mesh.shape))
+        if shape.get("sep", 1) > 1:
+            raise refuse("a sep axis over 1 (context parallelism)", RING)
+        if shape.get("pp", 1) > 1:
+            raise refuse("a pp axis over 1", PP)
+        if shape.get("ep", 1) > 1:
+            raise refuse("an ep axis over 1", EP)
+        cfg = getattr(model, "config", None)
+        if getattr(cfg, "num_experts", 1) > 1:
+            raise refuse("an MoE model over a mesh", EP)
+        unknown = set(shape) - {"dp", "fsdp", "sep", "tp", "pp", "ep"}
+        if unknown:
+            raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+
     # ---- the step ----
     def _loss(self, input_ids, labels):
         fn = self._loss_fn or self.model.loss_fn
@@ -149,11 +216,28 @@ class Engine:
     def _clip_grads(self, grads):
         if self.clip_norm is None:
             return grads
-        gsq = sum(torch.sum(torch.square(g.float())) for g in grads)
+        if self.mesh is None:
+            gsq = sum(torch.sum(torch.square(g.float())) for g in grads)
+        else:
+            gsq = self._mesh_sumsq(grads)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-6),
                             max=1.0)
-        return [g * scale.to(g.dtype) for g in grads]
+        # each rank scales its local shards
+        return [_local(g) * scale.to(g.dtype) for g in grads]
+
+    @staticmethod
+    def _mesh_sumsq(grads):
+        """The squared global norm over every shard, each counted once (JAX
+        :333-342): the local sums of squares add up per placement (partial
+        over the sharded axes, replicated over the others), and each group
+        is reduced once."""
+        groups = {}
+        for g in grads:
+            sq = torch.sum(torch.square(g.float()))
+            key = tuple(sq.placements)
+            groups[key] = sq if key not in groups else groups[key] + sq
+        return sum(sq.full_tensor() for sq in groups.values())
 
     @torch.no_grad()
     def _adamw(self, grads):
@@ -167,6 +251,7 @@ class Engine:
         grads = self._clip_grads(grads)
         for p, mm, vv, g, decay in zip(self.params, self.m, self.v, grads,
                                        self._decay_mask):
+            p, mm, vv, g = _local(p), _local(mm), _local(vv), _local(g)
             gf = g.float()
             mm.mul_(b1).add_((1.0 - b1) * gf)
             vv.mul_(b2).add_((1.0 - b2) * gf * gf)
@@ -182,15 +267,60 @@ class Engine:
         # read on the host each step (a schedule advances there)
         lr = torch.full((), self._optimizer.get_lr(), dtype=torch.float32,
                         device=self.device)
+        locals_ = [_local(p) for p in self.params]
         new_p, self.opt_state = self._optimizer._functional_update(
-            grads, self.params, self.params, self.opt_state, lr,
-            self.step_count.float())
-        for p, v in zip(self.params, new_p):
+            [_local(g) for g in grads], locals_, self._proxies,
+            self.opt_state, lr, self.step_count.float())
+        for p, v in zip(locals_, new_p):
             p.copy_(v)
 
+    def shard_batch(self, *arrays):
+        """The host batch (the same global batch on every rank) as DTensors
+        on the mesh: each rank keeps its rows of the ``dp x fsdp`` split
+        and its columns of the ``sep`` one (JAX ``_batch_sharding``). With
+        no mesh, tensors on the engine's device."""
+        out = []
+        for a in arrays:
+            t = _as_tensor(a, self.device)
+            if self.mesh is not None:
+                axes = ("batch", "seq") + (None,) * (t.ndim - 2)
+                pl = logical_placements(axes[:t.ndim], self.mesh, self.rules)
+                ways = [1] * t.ndim
+                for i, p in enumerate(pl):
+                    if p.is_shard():
+                        ways[p.dim] *= self.mesh.size(i)
+                for d, n in enumerate(ways):
+                    # JAX's device_put refuses an uneven batch sharding too
+                    if t.shape[d] % n:
+                        raise ValueError(
+                            f"dim {d} of a {tuple(t.shape)} batch does not "
+                            f"divide over the {n} ranks that shard it")
+                t = DTensor.from_local(
+                    local_chunk(t, self.mesh, pl).contiguous(), self.mesh,
+                    pl, run_check=False, shape=t.shape, stride=t.stride())
+            out.append(t)
+        return tuple(out) if len(out) > 1 else out[0]
+
     def _to_device(self, input_ids, labels):
-        return (_as_tensor(input_ids, self.device, torch.long),
-                _as_tensor(labels, self.device, torch.long))
+        if self.mesh is None:
+            return (_as_tensor(input_ids, self.device, torch.long),
+                    _as_tensor(labels, self.device, torch.long))
+        return tuple(
+            x if isinstance(x, DTensor) else self.shard_batch(
+                _as_tensor(x, self.device, torch.long))
+            for x in (input_ids, labels))
+
+    def _run_loss(self, ids, lbl):
+        if self.mesh is None:
+            return self._loss(ids, lbl)
+        with axis_rules(self.mesh, self.rules):
+            return self._loss(ids, lbl)
+
+    @staticmethod
+    def _replicated_value(loss):
+        """The loss as a plain device scalar (under a mesh: the replicated
+        value every rank holds)."""
+        return loss.to_local() if isinstance(loss, DTensor) else loss
 
     def step(self, input_ids, labels):
         """Run one train step; returns the loss as a device scalar tensor."""
@@ -198,63 +328,91 @@ class Engine:
         with torch.no_grad():
             self.step_count += 1
         with torch.enable_grad():
-            loss = self._loss(ids, lbl)
+            loss = self._run_loss(ids, lbl)
             # a parameter the loss does not read (BERT's token-type table
             # without token types, the MLM head's pooler) gets a zero
             # gradient, as under jax.grad: weight decay still moves it
             grads = torch.autograd.grad(loss, self.params, allow_unused=True,
                                         materialize_grads=True)
+        if self.mesh is not None:
+            # partial sums over dp/fsdp reduced to the parameters' own
+            # placements: the dp all-reduce and the fsdp reduce-scatter
+            grads = [g if tuple(g.placements) == tuple(p.placements)
+                     else g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, self.params)]
         if self._optimizer is None:
             self._adamw(grads)
         else:
             self._opt_update(grads)
-        return loss.detach()
+        return self._replicated_value(loss.detach())
 
     @torch.no_grad()
     def eval_loss(self, input_ids, labels):
         """The loss at the current parameters (no update)."""
         ids, lbl = self._to_device(input_ids, labels)
-        return self._loss(ids, lbl)
+        return self._replicated_value(self._run_loss(ids, lbl))
 
     # ---- state ----
     def sync_model(self):
         """The model, whose tensors the engine updates in place."""
         return self.model
 
+    def _whole(self, t, like=None):
+        """A copy of ``t`` whole: a DTensor gathered, a sharded parameter's
+        local accumulator (``like``: the parameter) placed as its parameter
+        and gathered."""
+        if isinstance(t, DTensor):
+            return t.full_tensor()
+        if like is not None and isinstance(like, DTensor):
+            if tuple(t.shape) == tuple(_local(like).shape):
+                return DTensor.from_local(
+                    t, like.device_mesh, like.placements, run_check=False,
+                    shape=like.shape, stride=like.stride()).full_tensor()
+        return t.clone()
+
     def state_dict(self):
         """Copies of the parameters and the step count, with the optimizer
         state keyed by parameter name, as the JAX engine keys it: the fp32
         moments ``m`` and ``v`` of the built-in AdamW, or a pluggable
-        optimizer's accumulators ``opt`` ({acc: {name: tensor}})."""
+        optimizer's accumulators ``opt`` ({acc: {name: tensor}}). Under a
+        mesh every tensor is gathered whole (a collective call)."""
         with torch.no_grad():
-            out = {"model": {n: p.detach().clone()
+            out = {"model": {n: self._whole(p.detach())
                              for n, p in zip(self._param_names, self.params)},
                    "step": self.step_count.clone()}
             if self._optimizer is not None:
-                name_of = dict(zip(self.params, self._param_names))
-                out["opt"] = {acc: {name_of[p]: a.clone()
-                                    for p, a in d.items()}
-                              for acc, d in self.opt_state.items()}
+                idx = {id(k): i for i, k in enumerate(self._proxies)}
+                out["opt"] = {
+                    acc: {self._param_names[idx[id(k)]]: self._whole(
+                        a, self.params[idx[id(k)]]) for k, a in d.items()}
+                    for acc, d in self.opt_state.items()}
             else:
-                out["m"] = {n: a.clone()
+                out["m"] = {n: self._whole(a)
                             for n, a in zip(self._param_names, self.m)}
-                out["v"] = {n: a.clone()
+                out["v"] = {n: self._whole(a)
                             for n, a in zip(self._param_names, self.v)}
             return out
 
     @staticmethod
     def _copy_in(name, dst, src):
+        """``dst`` := ``src`` (whole); a DTensor takes this rank's chunk."""
         src = _as_tensor(src, dst.device, dst.dtype)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{tuple(src.shape)} vs {tuple(dst.shape)}")
-        dst.copy_(src)
+        if isinstance(dst, DTensor):
+            _local(dst).copy_(local_chunk(src, dst.device_mesh,
+                                          dst.placements))
+        else:
+            dst.copy_(src)
 
     @torch.no_grad()
     def set_state_dict(self, state_dict):
         """Resume in place from a :meth:`state_dict` snapshot; arrays may be
         tensors or numpy arrays (for example a JAX engine's state carried by
-        ``paddle_tpu_torch.weights.engine_state_from_jax``)."""
+        ``paddle_tpu_torch.weights.engine_state_from_jax``). Each tensor is
+        whole; under a mesh each rank keeps its chunk, so a snapshot of
+        any mesh resumes on this engine's (JAX :603-640)."""
         keys = ("m", "v") if self._optimizer is None else ()
         missing = [n for n in self._param_names
                    if n not in state_dict["model"]
@@ -268,11 +426,19 @@ class Engine:
                 self._copy_in(name, mm, state_dict["m"][name])
                 self._copy_in(name, vv, state_dict["v"][name])
         else:
-            by_name = dict(zip(self._param_names, self.params))
-            self.opt_state = {
-                acc: {by_name[n]: _as_tensor(a, self.device)
-                      for n, a in d.items()}
-                for acc, d in state_dict["opt"].items()}
+            by_name = dict(zip(self._param_names,
+                               zip(self.params, self._proxies)))
+            self.opt_state = {}
+            for acc, d in state_dict["opt"].items():
+                sub = self.opt_state[acc] = {}
+                for n, a in d.items():
+                    p, key = by_name[n]
+                    a = _as_tensor(a, self.device)
+                    if (isinstance(p, DTensor)
+                            and tuple(a.shape) == tuple(p.shape)):
+                        a = local_chunk(a, p.device_mesh,
+                                        p.placements).clone()
+                    sub[key] = a
         self.step_count.copy_(_as_tensor(state_dict["step"], self.device,
                                          torch.int32))
         return self

@@ -42,6 +42,10 @@ Sites the port consults:
 ``net.send``          chaos transport, each frame sent (detail =
                       ``peer:MSGTYPE``; :func:`wire_faults`)
 ``net.recv``          chaos transport, each frame read (detail = peer)
+``checkpoint.shard``  sharded checkpoint save, each shard file's bytes
+                      after their digests were recorded (detail = the
+                      file name; :func:`corrupt`'s data actions)
+``collective``        ``distributed.barrier`` (detail = ``barrier``)
 ====================  =====================================================
 
 Plans, counters and draws work exactly as the JAX package's, so the same

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..device import resolve_dtype
 from ..nn.functional.flash_attention import _xla_attention
@@ -29,14 +31,55 @@ def _layer_norm(x, w, b, eps):
 
 
 def _attention(q, k, v, config):
-    """Causal attention on [b, s, h, d] tensors: the single-device branches
-    of the JAX package's ``_attention`` (llama :320-365), the flash
-    kernels, or with ``config.use_flash_attention`` False the dense
-    ``_xla_attention`` (plain tensor ops on either device, as in the JAX
-    package)."""
-    if config.use_flash_attention:
-        return flash_attention(q, k, v, causal=True)
+    """Causal attention on [b, s, h, d] tensors: the JAX package's
+    ``_attention`` (llama :320-365), the flash kernels, or with
+    ``config.use_flash_attention`` False the dense ``_xla_attention``
+    (plain tensor ops on either device, as in the JAX package). DTensors
+    (a mesh) go through :func:`_mesh_attention`."""
+    fn = _flash_causal if config.use_flash_attention else _xla_causal
+    if isinstance(q, DTensor):
+        return _mesh_attention(q, k, v, fn)
+    return fn(q, k, v)
+
+
+def _flash_causal(q, k, v):
+    return flash_attention(q, k, v, causal=True)
+
+
+def _xla_causal(q, k, v):
     return _xla_attention(q, k, v, causal=True)
+
+
+def _mesh_attention(q, k, v, fn):
+    """``fn`` on each rank's shard, the port of the mesh branches of JAX's
+    ``_attention`` (:346-360): DTensor has no sharding rule for the flash
+    ops, so they run under ``local_map`` on the local tensors, as JAX runs
+    them under ``shard_map`` over (batch, heads). On a one-rank mesh the
+    local tensors are the whole ones, so this is the plain call (JAX
+    :339-340). Where batch or heads do not divide the mesh, or a tensor is
+    sharded on another dim, q/k/v are gathered whole and every rank runs
+    the same kernels on them (JAX drops to ``_xla_attention`` there; on
+    the card the port keeps the kernel), then the output takes q's
+    placements again."""
+    mesh = q.device_mesh
+    pl = tuple(q.placements)
+    even = all(t.shape[d] % mesh.size(i) == 0
+               for t in (q, k, v) for i, p in enumerate(t.placements)
+               if p.is_shard() for d in (p.dim,))
+    local_ok = (even and tuple(k.placements) == pl
+                and tuple(v.placements) == pl
+                and all(p.is_replicate() or (p.is_shard() and p.dim in (0, 2))
+                        for p in pl))
+    if local_ok:
+        return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+                         in_grad_placements=(pl, pl, pl),
+                         device_mesh=mesh)(q, k, v)
+    rep = (Replicate(),) * mesh.ndim
+    whole = [t.redistribute(mesh, rep) for t in (q, k, v)]
+    out = local_map(fn, out_placements=list(rep), in_placements=(rep, rep, rep),
+                    in_grad_placements=(rep, rep, rep),
+                    device_mesh=mesh)(*whole)
+    return out.redistribute(mesh, pl)
 
 
 def _replaying(fn, generators):

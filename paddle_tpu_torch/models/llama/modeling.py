@@ -69,12 +69,18 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from ..._later import later_slice
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
+
 from ...device import resolve_device, resolve_dtype
+from ...distributed.auto_parallel.logical_sharding import (annotate,
+                                                           constrain,
+                                                           gather_fsdp)
 from ...incubate.distributed.models.moe import MoELayer, SwiGLUExpertFFN
 from ...nn.functional.flash_attention import _xla_attention
 from ...ops.flash_attention import flash_attention
-from ...ops.fused_ce import fused_linear_cross_entropy
+from ...ops.fused_ce import (fused_linear_cross_entropy,
+                             fused_linear_cross_entropy_parts)
 from ...ops.paged_attention import (append_paged_kv, paged_decode_attention,
                                     paged_prefill_attention)
 from .._common import _attention, _normal, _replaying
@@ -131,9 +137,6 @@ class LlamaConfig:
             raise ValueError(f"remat_every must be >= 1 (got {remat_every}); "
                              "use recompute=False to disable remat")
         self.remat_every = remat_every
-        if sequence_parallel:
-            raise later_slice("sequence_parallel=True",
-                              "distributed-training", "6")
         self.use_flash_attention = use_flash_attention
         self.sequence_parallel = sequence_parallel
         self.num_experts = num_experts
@@ -207,21 +210,22 @@ class LlamaAttention(nn.Module):
         h, hd = config.hidden_size, config.head_dim
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
-        self.q_proj_weight = _normal((h, self.num_heads * hd), config, device,
-                                     gen)
-        self.k_proj_weight = _normal((h, self.num_kv_heads * hd), config,
-                                     device, gen)
-        self.v_proj_weight = _normal((h, self.num_kv_heads * hd), config,
-                                     device, gen)
-        self.o_proj_weight = _normal((self.num_heads * hd, h), config, device,
-                                     gen)
+        self.q_proj_weight = annotate(_normal(
+            (h, self.num_heads * hd), config, device, gen), "embed", "heads")
+        self.k_proj_weight = annotate(_normal(
+            (h, self.num_kv_heads * hd), config, device, gen),
+            "embed", "heads")
+        self.v_proj_weight = annotate(_normal(
+            (h, self.num_kv_heads * hd), config, device, gen),
+            "embed", "heads")
+        self.o_proj_weight = annotate(_normal(
+            (self.num_heads * hd, h), config, device, gen), "heads", "embed")
 
     def _qkv(self, x):
-        b, s, _ = x.shape
         hd = self.config.head_dim
-        q = (x @ self.q_proj_weight).reshape(b, s, -1, hd)
-        k = (x @ self.k_proj_weight).reshape(b, s, -1, hd)
-        v = (x @ self.v_proj_weight).reshape(b, s, -1, hd)
+        q = _split_heads(x @ gather_fsdp(self.q_proj_weight), hd)
+        k = _split_heads(x @ gather_fsdp(self.k_proj_weight), hd)
+        v = _split_heads(x @ gather_fsdp(self.v_proj_weight), hd)
         return q, k, v
 
     def forward(self, hidden, cos, sin):
@@ -229,16 +233,23 @@ class LlamaAttention(nn.Module):
 
     def qkv_heads(self, hidden, cos, sin):
         """The rope'd heads q, k, v [b, s, heads, d]: what the JAX package
-        names ``attn_q/k/v`` (:182-189)."""
-        q, k, v = self._qkv(hidden)
+        names ``attn_q/k/v`` (:182-189). Under a mesh the input is whole
+        over the sequence first (Megatron-SP's all-gather into the
+        projections) and the heads sharded by their logical axes."""
+        q, k, v = self._qkv(constrain(hidden, "batch", "seq", "embed"))
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
+        k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+        v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
         return q, k, v
 
     def attend(self, q, k, v):
-        """Causal attention over the heads, then the output projection."""
-        b, s = q.shape[:2]
-        return (_attention(q, k, v, self.config).reshape(b, s, -1)
-                @ self.o_proj_weight)
+        """Causal attention over the heads, then the output projection
+        (under a mesh: its partial sums reduced to the residual stream's
+        placements)."""
+        out = (_merge_heads(_attention(q, k, v, self.config))
+               @ gather_fsdp(self.o_proj_weight))
+        return constrain(out, *_resid_axes(self.config))
 
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
         """Paged-KV chunk step at absolute positions [pos, pos+s) for every
@@ -323,26 +334,37 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj_weight = _normal((h, m), config, device, gen)
-        self.up_proj_weight = _normal((h, m), config, device, gen)
-        self.down_proj_weight = _normal((m, h), config, device, gen)
+        self.config = config
+        self.gate_proj_weight = annotate(
+            _normal((h, m), config, device, gen), "embed", "mlp")
+        self.up_proj_weight = annotate(
+            _normal((h, m), config, device, gen), "embed", "mlp")
+        self.down_proj_weight = annotate(
+            _normal((m, h), config, device, gen), "mlp", "embed")
 
     def forward(self, x):
-        return self.act(x) @ self.down_proj_weight
+        return self.down(self.act(x))
+
+    def down(self, act):
+        return constrain(act @ gather_fsdp(self.down_proj_weight),
+                         *_resid_axes(self.config))
 
     def act(self, x):
         """The swiglu product, what the JAX package names ``mlp_act``
         (:387-388)."""
-        return F.silu(x @ self.gate_proj_weight) * (x @ self.up_proj_weight)
+        x = constrain(x, "batch", "seq", "embed")
+        act = (F.silu(x @ gather_fsdp(self.gate_proj_weight))
+               * (x @ gather_fsdp(self.up_proj_weight)))
+        return constrain(act, "batch", "seq", "mlp")
 
 
 class LlamaRMSNorm(nn.Module):
     def __init__(self, config: LlamaConfig, device):
         super().__init__()
         self.eps = config.rms_norm_eps
-        self.weight = nn.Parameter(
+        self.weight = annotate(nn.Parameter(
             torch.ones(config.hidden_size, dtype=resolve_dtype(config.dtype),
-                       device=device))
+                       device=device)), "norm")
 
     def forward(self, x):
         dt = x.dtype
@@ -395,7 +417,9 @@ class LlamaDecoderLayer(nn.Module):
             y, aux = self.mlp.forward_with_aux(h)
         else:
             y, aux = self.mlp(h), None
-        return x + y, aux
+        # the residual stream's placements between blocks (:443-449):
+        # sequence-sharded over tp under sequence_parallel
+        return constrain(x + y, *_resid_axes(self.config)), aux
 
     def ffn(self, h):
         """The MLP of the serving and generation hooks. An MoE layer's aux
@@ -447,8 +471,9 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         self.config = config
-        self.embed_tokens_weight = _normal(
-            (config.vocab_size, config.hidden_size), config, device, gen)
+        self.embed_tokens_weight = annotate(_normal(
+            (config.vocab_size, config.hidden_size), config, device, gen),
+            "vocab_in", "embed")
         # partial remat: layer i is checkpointed iff i % remat_every == 0
         self._remat_policy = remat_policy_of(config)
         every = config.remat_every
@@ -471,11 +496,18 @@ class LlamaModel(nn.Module):
         return tables
 
     def embed(self, ids):
+        if isinstance(ids, DTensor):
+            # the table whole over fsdp before the lookup (:505-507)
+            return F.embedding(ids, gather_fsdp(self.embed_tokens_weight))
         return self.embed_tokens_weight[ids.long()]
 
     def forward(self, input_ids):
-        x = self.embed(input_ids)
+        x = constrain(self.embed(input_ids), "batch", "seq", "embed")
         cos, sin = self.rope_tables(input_ids.shape[1], x.dtype, x.device)
+        if isinstance(x, DTensor):
+            cos, sin = (DTensor.from_local(
+                t, x.device_mesh, (Replicate(),) * x.device_mesh.ndim,
+                run_check=False) for t in (cos, sin))
         # remat only while autograd records, as JAX applies it only under
         # tracing (:522): serving and no_grad forwards never checkpoint
         remat = torch.is_grad_enabled()
@@ -552,7 +584,8 @@ def _remat(layer, policy, x, cos, sin):
         return region(layer.forward_from_qkv, x, q, k, v)
     if "mlp_act" in names and layer.config.num_experts <= 1:
         x, act = region(layer.forward_to_act, x, cos, sin)
-        return x + act @ layer.mlp.down_proj_weight, None
+        return constrain(x + layer.mlp.down(act),
+                         *_resid_axes(layer.config)), None
     return region(layer.forward_with_aux, x, cos, sin)
 
 
@@ -616,8 +649,9 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         if config.tie_word_embeddings:
             self.register_parameter("lm_head_weight", None)
         else:
-            self.lm_head_weight = _normal(
-                (config.hidden_size, config.vocab_size), config, dev, gen)
+            self.lm_head_weight = annotate(_normal(
+                (config.hidden_size, config.vocab_size), config, dev, gen),
+                "embed", "vocab")
 
     def _lm_head_w(self):
         """[hidden, vocab] projection — tied embedding transpose or lm_head."""
@@ -661,6 +695,9 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
     def _lm_loss(self, hidden, labels):
         """Shifted CE from final hidden states; fused and chunked by
         default."""
+        if isinstance(hidden, DTensor):
+            return _mesh_lm_loss(hidden, self._lm_head_w(), labels,
+                                 self.config)
         if self.config.fused_ce:
             return fused_linear_cross_entropy(
                 hidden, self._lm_head_w(), labels,
@@ -771,18 +808,91 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         return logits[:, -1].float(), caches
 
 
+def _whole_over_split(t, dim, groups):
+    """``t`` made whole over the mesh axes that shard ``dim`` when they do
+    not split it at ``groups`` boundaries (heads that do not divide tp):
+    DTensor cannot split or merge such a dim in place."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = tuple(t.placements)
+    ways = 1
+    for i, p in enumerate(pl):
+        if p.is_shard(dim):
+            ways *= t.device_mesh.size(i)
+    if groups % ways == 0:
+        return t
+    return t.redistribute(t.device_mesh, tuple(
+        Replicate() if p.is_shard(dim) else p for p in pl))
+
+
+def _split_heads(t, hd):
+    """[b, s, n * hd] -> [b, s, n, hd]."""
+    b, s, width = t.shape
+    return _whole_over_split(t, 2, width // hd).reshape(b, s, -1, hd)
+
+
+def _merge_heads(t):
+    """[b, s, n, hd] -> [b, s, n * hd]."""
+    b, s, n, _ = t.shape
+    return _whole_over_split(t, 2, n).reshape(b, s, -1)
+
+
+def _resid_axes(config):
+    """The residual stream's logical axes (:443-449)."""
+    return ("batch", "seq_sp" if config.sequence_parallel else "seq",
+            "embed")
+
+
+def _mesh_lm_loss(hidden, w, labels, config):
+    """The shifted CE under a mesh. The fused CE (``_ChunkedNLL``, raw
+    pointers) cannot take a DTensor, so it runs under ``local_map`` on each
+    rank's rows against the whole lm head (gathered over fsdp and tp); the
+    rows' NLL sum and valid count come out as partial sums over the batch's
+    axes, are reduced, and divide. The head's gradient is likewise partial
+    over the batch's axes."""
+    mesh = hidden.device_mesh
+    hidden = constrain(hidden, "batch", "seq", "embed")
+    rep = (Replicate(),) * mesh.ndim
+    w = w.redistribute(mesh, rep)
+    hp = tuple(hidden.placements)
+    part = tuple(Partial() if p.is_shard() else Replicate() for p in hp)
+
+    def parts(h, wl, lb):
+        if config.fused_ce:
+            return fused_linear_cross_entropy_parts(
+                h, wl, lb, chunk=config.fused_ce_chunk)
+        return LlamaPretrainingCriterion.parts(h @ wl, lb)
+
+    total, count = local_map(
+        parts, out_placements=(part, part),
+        in_placements=(hp, rep, tuple(labels.placements)),
+        in_grad_placements=(hp, part, tuple(labels.placements)),
+        device_mesh=mesh)(
+            hidden, w, labels)
+    total, count = total.redistribute(mesh, rep), count.redistribute(mesh,
+                                                                     rep)
+    return total / count.clamp_min(1.0)
+
+
 class LlamaPretrainingCriterion(nn.Module):
     """Shifted causal-LM cross entropy with an fp32 softmax."""
 
     @staticmethod
     def compute(logits, labels, ignore_index: int = -100):
+        total, count = LlamaPretrainingCriterion.parts(logits, labels,
+                                                       ignore_index)
+        return total / count.clamp_min(1.0)
+
+    @staticmethod
+    def parts(logits, labels, ignore_index: int = -100):
+        """(the summed NLL, the count of valid positions), fp32."""
         lg = logits[:, :-1, :].float()
         lb = labels[:, 1:].long()
         logz = torch.logsumexp(lg, dim=-1)
         mask = lb != ignore_index
         picked = lg.gather(-1, torch.where(mask, lb, 0)[..., None])[..., 0]
         nll = torch.where(mask, logz - picked, 0.0)
-        return nll.sum() / mask.sum().float().clamp_min(1.0)
+        return nll.sum(), mask.sum().float()
 
     def forward(self, prediction_scores, masked_lm_labels):
         return self.compute(prediction_scores, masked_lm_labels)

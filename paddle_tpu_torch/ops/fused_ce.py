@@ -88,6 +88,18 @@ def fused_linear_cross_entropy(hidden, w, labels, ignore_index: int = -100,
     (logits[:, :-1] against labels[:, 1:]) like
     ``LlamaPretrainingCriterion``. Returns the mean NLL over the positions
     whose label is not ``ignore_index`` (fp32 scalar tensor)."""
+    total, count = fused_linear_cross_entropy_parts(hidden, w, labels,
+                                                    ignore_index, chunk,
+                                                    shift)
+    return total / count.clamp_min(1.0)
+
+
+def fused_linear_cross_entropy_parts(hidden, w, labels,
+                                     ignore_index: int = -100,
+                                     chunk: int = 1024, shift: bool = True):
+    """(the summed NLL, the count of positions whose label is not
+    ``ignore_index``), both fp32 scalars: the mean's two halves, which a
+    mesh reduces over the batch's ranks before it divides."""
     if shift:
         hidden = hidden[:, :-1]
         labels = labels[:, 1:]
@@ -99,5 +111,4 @@ def fused_linear_cross_entropy(hidden, w, labels, ignore_index: int = -100,
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=ignore_index)
     valid = (labels != ignore_index).float()
-    total = _ChunkedNLL.apply(hidden, w, labels, valid, chunk)
-    return total / valid.sum().clamp_min(1.0)
+    return _ChunkedNLL.apply(hidden, w, labels, valid, chunk), valid.sum()

@@ -3016,3 +3016,105 @@ def test_asp_keeps_two_four_after_a_step_on_card(card_place):
         if name in masks:
             assert asp.check_sparsity(p.detach().t(), "1d"), name
             assert asp.calculate_density(p) == 0.5, name
+
+
+# ---- distributed training on the card ---------------------------------
+
+def _dist_cfg():
+    """A small Llama whose heads the flash kernels take (head_dim 64); the
+    same config as tests/torch_dist_worker.py's card suite."""
+    return LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                            num_key_value_heads=4)
+
+def _dist_world(suite, tmp_path, inputs=None):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_dist_harness import launch
+
+    if inputs is not None:
+        np.savez(tmp_path / f"{suite}_in.npz", **inputs)
+    return launch(suite, tmp_path, nprocs=2, timeout=300).wait()
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_on_cuda_tensors(cuda, tmp_path):
+    """Two ranks sharing the card over gloo (the chip machine has one card
+    and NCCL refuses two ranks on one device): all_reduce and broadcast,
+    which dp needs, and all_gather_into_tensor and reduce_scatter_tensor,
+    which tp and fsdp need, all run on CUDA tensors. (DTensor's
+    Shard -> Replicate goes through the functional all-gather instead,
+    which gloo ends with SIGSEGV on CUDA tensors in torch 2.11, so
+    chip_smoke.py phase 56 (b) runs dp only; PERF.md section 7.)"""
+    res = _dist_world("cuda_gloo", tmp_path)
+    x = [np.arange(8, dtype=np.float32) + r for r in range(2)]
+    want = [{"all_reduce": x[0] + x[1], "broadcast": x[1],
+             "all_gather_into_tensor": np.concatenate(x),
+             "reduce_scatter_tensor": (x[0] + x[1])[4 * r:4 * r + 4]}
+            for r in range(2)]
+    for r in range(2):
+        for name, value in want[r].items():
+            status, got = res[r][name]
+            assert status == "ok", (name, got)
+            np.testing.assert_array_equal(got, value)
+
+
+@pytest.mark.cuda
+def test_one_rank_mesh_on_card_matches_mesh_none(card_place):
+    """A one-rank NCCL mesh {dp, fsdp, tp: 1} trains as mesh=None (fp32):
+    the same losses, and K1-lse, K2 and K3 launched as often."""
+    import os
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import destroy_process_group, \
+        init_parallel_env
+    from paddle_tpu_torch.distributed.auto_parallel import make_mesh
+    from paddle_tpu_torch.distributed.parallel import free_port
+
+    os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1",
+                      MASTER_PORT=str(free_port()))
+    init_parallel_env()
+    try:
+        assert dist.get_backend() == "nccl"
+        rng = np.random.default_rng(4)
+        batches = [rng.integers(0, 256, (2, 64)) for _ in range(3)]
+        out = {}
+        for arm in ("none", "mesh"):
+            model = LlamaForCausalLM(_dist_cfg(), seed=3)
+            mesh = make_mesh({"dp": 1, "fsdp": 1, "tp": 1}) \
+                if arm == "mesh" else None
+            eng = Engine(model, mesh, lr=1e-3)
+            flash_attention_forward.launches = 0
+            flash_attention_backward.launches_dq = 0
+            flash_attention_backward.launches_dkv = 0
+            losses = [float(eng.step(b, b)) for b in batches]
+            out[arm] = (losses, (flash_attention_forward.launches,
+                                 flash_attention_backward.launches_dq,
+                                 flash_attention_backward.launches_dkv))
+        np.testing.assert_allclose(out["mesh"][0], out["none"][0],
+                                   rtol=1e-5)
+        assert out["mesh"][1] == out["none"][1] == (6, 6, 6)
+    finally:
+        destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_dp2_sharing_the_card_matches_mesh_none(card_place, tmp_path):
+    """dp=2 as two processes sharing the card over gloo (fp32, small)
+    against one process's mesh=None steps over the same global batch:
+    losses within 2e-4, parameters within 2 * lr * steps."""
+    rng = np.random.default_rng(6)
+    batches = [rng.integers(0, 256, (4, 64)) for _ in range(3)]
+    res = _dist_world("cuda_dp", tmp_path,
+                      {f"ids{i}": b for i, b in enumerate(batches)})
+    eng = Engine(LlamaForCausalLM(_dist_cfg(), seed=3), lr=1e-3)
+    losses = [float(eng.step(b, b)) for b in batches]
+    ref = eng.state_dict()["model"]
+    for r in range(2):
+        np.testing.assert_allclose(res[r]["losses"], losses, rtol=2e-4)
+        assert res[r]["launches"] == [6, 6, 6]
+    for name, p in ref.items():
+        err = np.abs(res[0]["model"][name] - p.float().cpu().numpy()).max()
+        assert err <= 2 * 1e-3 * 3, (name, err)

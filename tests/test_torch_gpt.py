@@ -400,12 +400,17 @@ def test_token_step_clips_positions_to_the_table():
 
 
 def test_refusals_this_slice_touches_name_their_items(pair):
-    """sequence_parallel stays refused through later_slice naming its
-    ROADMAP item (6); an optimizer that is not one raises TypeError."""
-    from paddle_tpu_torch.models import LlamaConfig
+    """sequence_parallel is ported with the distributed slice (item 6's
+    first half): the flag is taken and, with no mesh, changes nothing; an
+    optimizer that is not one raises TypeError."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     _, tm = pair
-    with pytest.raises(NotImplementedError, match="sequence_parallel.*item 6"):
-        LlamaConfig.tiny(sequence_parallel=True)
+    assert LlamaConfig.tiny(sequence_parallel=True).sequence_parallel
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 8)))
+    a, b = (LlamaForCausalLM(LlamaConfig.tiny(sequence_parallel=sp),
+                             device="cpu", seed=1).loss_fn(ids, ids)
+            for sp in (False, True))
+    assert torch.equal(a, b)
     with pytest.raises(TypeError, match="Optimizer, got object"):
         Engine(tm, optimizer=object())

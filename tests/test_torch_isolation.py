@@ -62,6 +62,26 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             "paddle_tpu_torch/distributed/resilience/__init__.py",
             "paddle_tpu_torch/distributed/resilience/faults.py",
             "paddle_tpu_torch/distributed/resilience/watchdog.py",
+            "paddle_tpu_torch/distributed/__init__.py",
+            "paddle_tpu_torch/distributed/_refuse.py",
+            "paddle_tpu_torch/distributed/parallel.py",
+            "paddle_tpu_torch/distributed/communication/group.py",
+            "paddle_tpu_torch/distributed/communication/functional.py",
+            "paddle_tpu_torch/distributed/auto_parallel/api.py",
+            "paddle_tpu_torch/distributed/auto_parallel/engine.py",
+            "paddle_tpu_torch/distributed/auto_parallel/"
+            "logical_sharding.py",
+            "paddle_tpu_torch/distributed/auto_parallel/placement.py",
+            "paddle_tpu_torch/distributed/auto_parallel/process_mesh.py",
+            "paddle_tpu_torch/distributed/checkpoint/metadata.py",
+            "paddle_tpu_torch/distributed/checkpoint/integrity.py",
+            "paddle_tpu_torch/distributed/checkpoint/save_state_dict.py",
+            "paddle_tpu_torch/distributed/checkpoint/load_state_dict.py",
+            "paddle_tpu_torch/distributed/fleet/__init__.py",
+            "paddle_tpu_torch/distributed/fleet/utils/"
+            "sequence_parallel_utils.py",
+            "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+            "parallel_layers/mp_layers.py",
             "paddle_tpu_torch/inference/recovery.py",
             "paddle_tpu_torch/inference/fleet.py",
             "paddle_tpu_torch/inference/disagg.py",
@@ -123,6 +143,29 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked_for():
         ContinuousBatchingEngine(model, max_batch=2, max_len=32, page_size=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         LlamaForCausalLM(cfg, device="cuda")
+
+
+def test_distributed_start_raises_without_a_card_unless_cpu_is_asked_for():
+    """``init_parallel_env`` picks NCCL on the card and gloo only when the
+    caller asked for the CPU; without a card it raises before it starts a
+    world."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import device as pt_device
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.distributed.parallel import _backend
+
+    prev, pt_device._PLACE = pt_device._PLACE, None
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_parallel_env()
+    finally:
+        pt_device._PLACE = prev
+    assert not dist.is_initialized()
+    assert _backend(torch.device("cpu")) == "gloo"
+    assert _backend(torch.device("cuda", 0)) == "nccl"
 
 
 def test_gpt_and_bert_raise_without_a_card_unless_cpu_is_asked_for():

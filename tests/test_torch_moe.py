@@ -368,7 +368,9 @@ def test_bf16_moe_model_keeps_an_fp32_gate():
 
 
 def test_unported_moe_paths_raise():
-    """What stays refused: sequence_parallel and an unknown dispatch.
+    """What stays refused: an unknown dispatch (sequence_parallel is
+    ported; MoE over a mesh is refused by the Engine,
+    tests/test_torch_distributed.py).
     Every dispatch, the switch gate, the experts' dense forward and MoE
     serving are ported (they build here, and tests/test_torch_moe_dispatch.py
     and tests/test_torch_moe_serving.py hold them against JAX), and so is
@@ -404,8 +406,15 @@ def test_unported_moe_paths_raise():
     _close(tx.loss_fn(torch.from_numpy(ids), torch.from_numpy(ids)).item(),
            float(jx.loss_fn(jnp.asarray(ids), jnp.asarray(ids))),
            what="xla loss")
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        LlamaConfig.tiny(sequence_parallel=True)
+    # sequence_parallel is ported (item 6's first half): with no mesh an
+    # MoE model takes it and computes as without
+    sp = LlamaForCausalLM(LlamaConfig.tiny(num_experts=4,
+                                           sequence_parallel=True),
+                          device="cpu", seed=2)
+    ref = LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu",
+                           seed=2)
+    t = torch.from_numpy(ids)
+    assert torch.equal(sp.loss_fn(t, t), ref.loss_fn(t, t))
     with pytest.raises(ValueError, match="remat_policy"):
         LlamaConfig.tiny(num_experts=4, remat_policy="most")
     with pytest.raises(ValueError, match="remat_every"):

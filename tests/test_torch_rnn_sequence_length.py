@@ -56,15 +56,87 @@ def _cots(shapes, seed):
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
+# the JAX per-row references, shared between cases that differ only in
+# layout (time_major): the same layer, weights, inputs and cotangents give
+# the same rows, kept here in batch-major layout (the eager per-row JAX
+# calls are most of this file's time)
+_JAX_ROWS = {}
+
+
+def _ref_key(jm, x, st, lens, nstate, batch_dim, cot_out, cot_st):
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, a in sorted(state_from_jax_layer(jm).items()):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for a in [x, np.asarray(lens), cot_out, *st, *cot_st]:
+        h.update(np.ascontiguousarray(a).tobytes())
+    conf = sorted((k, v) for k, v in vars(jm).items()
+                  if not k.startswith("_") and k != "time_major"
+                  and isinstance(v, (int, float, str, bool, type(None))))
+    kinds = tuple(type(m).__name__ for m in jm.sublayers(include_self=True))
+    return (kinds, tuple(conf), nstate, batch_dim, len(st), h.hexdigest())
+
+
+def _jax_rows(jm, x, st, lens, nstate, time_major, batch_dim, cot_out,
+              cot_st, pack):
+    """The JAX layer run on each row alone, cut to its length: per row its
+    outputs, final states and the gradients of sum(out * cot) +
+    sum(states * cot) for the input and the initial states (batch-major),
+    and the parameters' gradients summed over the rows."""
+    key = _ref_key(jm, x, st, lens, nstate, batch_dim, cot_out, cot_st)
+    if key in _JAX_ROWS:
+        return _JAX_ROWS[key]
+    rows = []
+    jgrad = {n: 0.0 for n, _ in jm.named_parameters()}
+    for b, n in enumerate(lens):
+        xb = x[b:b + 1, :n]
+        xb = xb.transpose(1, 0, 2) if time_major else xb
+        jx = jp.to_tensor(xb, stop_gradient=False)
+        sl = (slice(None), slice(b, b + 1)) if batch_dim == 1 \
+            else (slice(b, b + 1),)
+        jst = [jp.to_tensor(s[sl], stop_gradient=False) for s in st]
+        for p in jm.parameters():
+            p.clear_gradient()
+        jout = jm(jx, pack(jst))
+        o = as_np(jout[0])
+        o = o.transpose(1, 0, 2) if time_major else o
+        jl = (jout[0] * jp.to_tensor(
+            cot_out[b:b + 1, :n].transpose(1, 0, 2) if time_major
+            else cot_out[b:b + 1, :n])).sum()
+        for s, c in zip(_states(jout), cot_st):
+            jl = jl + (s * jp.to_tensor(c[sl])).sum()
+        jl.backward()
+        gjx = as_np(jx.grad)
+        gjx = gjx.transpose(1, 0, 2) if time_major else gjx
+        rows.append({"o": o, "states": [as_np(s) for s in _states(jout)],
+                     "gx": gjx, "gst": [as_np(js.grad) for js in jst]})
+        for name, p in jm.named_parameters():
+            jgrad[name] = jgrad[name] + as_np(p.grad)
+    _JAX_ROWS[key] = ref = {"rows": rows, "pgrad": jgrad}
+    return ref
+
+
 def _check(make, nstate, time_major, with_states, lens=LENS, batch_dim=1,
-           n_st=L):
+           n_st=L, data_key=None):
     """The port's batched call with ``sequence_length`` against the JAX
     layer per row. ``batch_dim``: the batch axis of the states (1 for the
-    fused layers' [layers x dirs, batch, hidden], 0 for a cell's)."""
+    fused layers' [layers x dirs, batch, hidden], 0 for a cell's).
+    ``data_key``: draw the inputs from a generator seeded by it (the same
+    inputs for cases that differ only in layout, so they share the JAX
+    rows) instead of the shared stream."""
     jm, tm = _pair(make)
-    x = F(B, T, IN)
+    draw = F
+    if data_key is not None:
+        import zlib
+
+        rng = np.random.default_rng(zlib.crc32(data_key.encode()))
+
+        def draw(*shape):
+            return rng.standard_normal(shape).astype(np.float32)
+    x = draw(B, T, IN)
     xin = x.transpose(1, 0, 2) if time_major else x
-    st = [F(n_st, B, H) if batch_dim == 1 else F(B, H)
+    st = [draw(n_st, B, H) if batch_dim == 1 else draw(B, H)
           for _ in range(nstate)] if with_states else []
 
     def pack(ts):
@@ -88,39 +160,22 @@ def _check(make, nstate, time_major, with_states, lens=LENS, batch_dim=1,
     gx = as_np(tx.grad)
     gx = gx.transpose(1, 0, 2) if time_major else gx
     pgrad = {n: as_np(p.grad) for n, p in tm.named_parameters()}
-    jgrad = {n: 0.0 for n, _ in jm.named_parameters()}
+    ref = _jax_rows(jm, x, st, lens, nstate, time_major, batch_dim, cot_out,
+                    cot_st, pack)
     for b, n in enumerate(lens):
-        xb = x[b:b + 1, :n]
-        xb = xb.transpose(1, 0, 2) if time_major else xb
-        jx = jp.to_tensor(xb, stop_gradient=False)
+        row = ref["rows"][b]
         sl = (slice(None), slice(b, b + 1)) if batch_dim == 1 \
             else (slice(b, b + 1),)
-        jst = [jp.to_tensor(s[sl], stop_gradient=False) for s in st]
-        for p in jm.parameters():
-            p.clear_gradient()
-        jout = jm(jx, pack(jst))
-        o = as_np(jout[0])
-        o = o.transpose(1, 0, 2) if time_major else o
-        compare(out_t[b:b + 1, :n], o, 1e-5)
+        compare(out_t[b:b + 1, :n], row["o"], 1e-5)
         assert not out_t[b, n:].any()
-        for s_t, s_j in zip(_states(tout), _states(jout)):
-            compare(as_np(s_t)[sl], as_np(s_j), 1e-5)
-        jl = (jout[0] * jp.to_tensor(
-            cot_out[b:b + 1, :n].transpose(1, 0, 2) if time_major
-            else cot_out[b:b + 1, :n])).sum()
-        for s, c in zip(_states(jout), cot_st):
-            jl = jl + (s * jp.to_tensor(c[sl])).sum()
-        jl.backward()
-        gjx = as_np(jx.grad)
-        gjx = gjx.transpose(1, 0, 2) if time_major else gjx
-        compare(gx[b:b + 1, :n], gjx, 1e-5)
+        for s_t, s_j in zip(_states(tout), row["states"]):
+            compare(as_np(s_t)[sl], s_j, 1e-5)
+        compare(gx[b:b + 1, :n], row["gx"], 1e-5)
         assert not gx[b, n:].any()
-        for ts, js in zip(tst, jst):
-            compare(as_np(ts.grad)[sl], as_np(js.grad), 1e-5)
-        for name, p in jm.named_parameters():
-            jgrad[name] = jgrad[name] + as_np(p.grad)
+        for ts, g in zip(tst, row["gst"]):
+            compare(as_np(ts.grad)[sl], g, 1e-5)
     for name in pgrad:
-        compare(pgrad[name], jgrad[name], 1e-5)
+        compare(pgrad[name], ref["pgrad"][name], 1e-5)
 
 
 CLASSES = {"SimpleRNN": 1, "LSTM": 2, "GRU": 1}
@@ -135,7 +190,8 @@ def test_packed_layer_matches_jax_row_by_row(cls, direction, time_major,
     _check(lambda P: getattr(P.nn, cls)(IN, H, L, direction=direction,
                                         time_major=time_major),
            CLASSES[cls], time_major, with_states,
-           n_st=L * (2 if direction == "bidirect" else 1))
+           n_st=L * (2 if direction == "bidirect" else 1),
+           data_key=f"{cls}-{direction}-{with_states}")
 
 
 @pytest.mark.parametrize("cls", list(CLASSES))

@@ -1,6 +1,7 @@
 """The eager top level is whole: every public name of ``paddle_tpu``'s top
-level is on ``paddle_tpu_torch`` or raises ``later_slice`` naming its
-ROADMAP item (only ``DataParallel``, item 6, is left); ``jit``,
+level is on ``paddle_tpu_torch`` (``DataParallel`` too, since the
+distributed slice) or would raise ``later_slice`` naming its ROADMAP item
+(none is left); ``jit``,
 ``static``, ``to_static``, ``enable_static`` and ``onnx`` are ported (item
 8.5) and work. Left out are the JAX package's internals, which the port
 (importing no JAX) has not: ``jax``, ``jnp``, ``next_key``, ``native`` and
@@ -51,7 +52,71 @@ def test_refusals_are_the_listed_ones():
             getattr(pt, name)
         except NotImplementedError:
             refused.append(name)
-    assert sorted(refused) == ["DataParallel"]
+    assert sorted(refused) == []
+
+
+#: the distributed packages: each JAX name is on the port or raises
+#: ``later_slice`` naming the part of item 6 that brings it (the serving
+#: mesh's rules: item 7; the collective gate's programs: item 9)
+DIST_PACKAGES = ("distributed", "distributed.auto_parallel",
+                 "distributed.checkpoint", "distributed.fleet",
+                 "distributed.communication",
+                 "distributed.fleet.meta_parallel",
+                 "distributed.fleet.utils.sequence_parallel_utils")
+
+
+def _dist_names():
+    """The public names of each package that come from the JAX package's
+    distributed stack (the top level's re-exports from elsewhere in the
+    JAX package too), not those a module imports from outside it, and
+    every submodule of a package. Modules are listed from the package's
+    files, not from its attributes, which depend on what else was
+    imported before."""
+    import importlib
+    import pkgutil
+    import types
+
+    out = []
+    for pkg in DIST_PACKAGES:
+        mod = importlib.import_module(f"paddle_tpu.{pkg}")
+        scope = "paddle_tpu." if pkg == "distributed" \
+            else "paddle_tpu.distributed"
+        names = set()
+        for n in dir(mod):
+            obj = getattr(mod, n)
+            owner = getattr(obj, "__module__", None)
+            if (not n.startswith("_")
+                    and not isinstance(obj, types.ModuleType)
+                    and owner is not None and owner.startswith(scope)):
+                names.add(n)
+        if hasattr(mod, "__path__"):
+            names |= {m.name for m in pkgutil.iter_modules(mod.__path__)
+                      if not m.name.startswith("_")}
+        out += [(pkg, n) for n in sorted(names)]
+    return out
+
+
+DIST_NAMES = _dist_names()
+
+
+def test_the_distributed_packages_have_their_names():
+    assert len(DIST_NAMES) > 150
+    assert ("distributed", "DataParallel") in DIST_NAMES
+
+
+@pytest.mark.parametrize("pkg,name", DIST_NAMES)
+def test_distributed_name_is_ported_or_names_its_part(pkg, name):
+    import importlib
+
+    mod = importlib.import_module(f"paddle_tpu_torch.{pkg}")
+    try:
+        getattr(mod, name)
+    except NotImplementedError as e:
+        assert re.search(r"item (6|7|9)\b", str(e)), str(e)
+        if "item 6" in str(e):
+            assert "item 6's part" in str(e), str(e)
+        return
+    assert hasattr(mod, name)
 
 
 PACKAGES = ("incubate.nn.functional", "quantization", "incubate.asp",

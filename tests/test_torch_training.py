@@ -136,9 +136,11 @@ def test_three_engine_steps_match_jax(tie):
 
 
 def test_unported_training_paths_raise():
-    """What stays refused: Engine meshes, the guard and pipeline
-    parallelism; an optimizer that is not one; invalid remat settings.
-    Remat itself is ported (tests/test_torch_remat.py)."""
+    """What stays refused: the guard and pipeline parallelism, each naming
+    its part of item 6; a mesh that is not one (meshes are ported:
+    tests/test_torch_dist_engine.py); an optimizer that is not one;
+    invalid remat settings. Remat itself is ported
+    (tests/test_torch_remat.py)."""
     assert LlamaForCausalLM(LlamaConfig.tiny(recompute=True),
                             device="cpu").remat_policy() is not None
     with pytest.raises(ValueError, match="remat_policy"):
@@ -146,13 +148,14 @@ def test_unported_training_paths_raise():
     with pytest.raises(ValueError, match="remat_every"):
         LlamaConfig.tiny(remat_every=0)
     tm = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="not a mesh"):
         Engine(tm, mesh=object())
     with pytest.raises(TypeError, match="Optimizer, got object"):
         Engine(tm, optimizer=object())
-    with pytest.raises(NotImplementedError, match="guard"):
+    with pytest.raises(NotImplementedError, match="guard.*item 6's part"):
         Engine(tm, guard=object())
-    with pytest.raises(NotImplementedError, match="pipeline"):
+    with pytest.raises(NotImplementedError,
+                       match="pipeline.*item 6's part: pipeline"):
         Engine(tm, n_micro=2)
 
 
