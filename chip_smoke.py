@@ -19,8 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      fp32: 8 rows of lengths 0 to 640 at 16/16 and 16/4 heads of 128 (the
      main-path row is 16/16 bf16), the serving wave's decode shape (8 rows
      of 384 to 640 tokens), a long GQA case (4 rows of up to 4096 tokens,
-     32/8 heads) and the fused engine's decode shape (128 rows of 49 to 128
-     tokens, 8 pages each); each with device_ms and its share of the bound,
+     32/8 heads), the fused engine's decode shape (128 rows of 49 to 128
+     tokens, 8 pages each) and phase 57 (b)'s fleets' (4 rows of 17 to 64
+     tokens, 8/8 heads of 64); each with device_ms and its share of the bound,
      also with the pages cold in L2 (cold_ms: calls cycle through input
      sets that need twice the L2 cache), zero rows exactly zero and two
      calls bitwise equal. Then 12 launches at the wave's shape captured in
@@ -32,14 +33,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the MoE step's [8, 2048, 16/4, 64], the remat step's [4, 4096,
      16/4, 128], phase 30's GPT step [2, 2048, 32/32, 128] (q, k, v strided
      views), phase 32's BERT step [32, 128, 12/12, 64] (not causal) and
-     phase 56 (b)'s per-rank shard [1, 4096, 16/4, 128] (bf16 at those
-     six), and at FP16_CASES in fp16 (lse max abs error
+     phase 56 (b)'s per-rank shard [1, 4096, 16/4, 128], phase 57 (a)'s
+     guarded step [8, 1024, 16/4, 64] and 57 (b)'s trainer [4, 512, 8/8,
+     64] (bf16 at those eight), and at FP16_CASES in fp16 (lse max abs error
      <= 5e-3 bf16 and fp16 / 1e-4 fp32, out as in 2), timed beside the
      no-lse path and SDPA's forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
      on the same (q, k, v, o, lse, dout): the training shape, the MoE
-     step's, the remat step's, GPT's, BERT's and phase 56 (b)'s dp shard
-     (bf16), MHA, ragged 77
+     step's, the remat step's, GPT's, BERT's, phase 56 (b)'s dp shard and
+     phase 57's two steps (bf16), MHA, ragged 77
      (not causal),
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
      [b, s, 3, h, d] buffer, each also in fp32; FP16_CASES in fp16; max
@@ -185,7 +187,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      through model.generate in batches of 8 to 64 new tokens, greedy, with
      the dense cache (plain attention) and the paged cache (K1 prefill, K4
      decode: exactly 12 and 12 x 63 launches a batch), beside the
-     prefix-cache engine on the same wave, best of 3 interleaved waves:
+     prefix-cache engine on the same wave, best of 2 interleaved waves:
      useful tokens/s of each and the engine's over dense generate's
      (bench_serving's vs_baseline). Paged streams against dense (count),
      every token within the teacher-forced margin.
@@ -334,8 +336,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      /metrics) over the PT-PROC wire: (a) bench.py bench_fleet's process
      arm (:826-886) on phase 6's legacy engine and wave: a
      ProcFleetRouter of 1 worker, then 2 (parallel_step), brownout depth
-     10**9, a warm pass and the best of 3; every stream byte-equal to the
-     same wave through one engine in this process (best of 3 too);
+     10**9, a warm pass, a checked pass and one timed pass; every stream
+     byte-equal to the same wave through one engine in this process (best
+     of 3);
      prints fleet_proc_tokens_per_sec of both arms, their ratio (both
      workers share this card: overhead and time-slicing, not scale-out)
      and 1 worker's over the in-process engine's, each
@@ -633,6 +636,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      one step (CommDebugMode). The ranks are killed after DIST_SPAWN_S.
      (tp and fsdp need DTensor's functional all-gather, which gloo ends
      with SIGSEGV on CUDA tensors: DIST_GLOO_MESHES.)
+ 57. the numeric guard and the resilience trainer: (a) bench.py
+     bench_guard's config (GUARD_CONFIG), a plain and a GuardPolicy()
+     Engine from the same seed-0 weights, GUARD_ITERS steps a wave,
+     interleaved best of GUARD_WAVES: guard_overhead_pct, every timed
+     guarded step's word 0, its losses, parameters and moments bitwise
+     the plain engine's, one each of K1-lse, K2, K3 a layer a step;
+     then a nan_grad and a loss_spike step under a FaultPlan: NAN_GRAD
+     and SPIKE, every parameter and moment bit-identical, the counter
+     advancing. (b) bench_checkpoint_publish's config (PUBLISH_CONFIG,
+     PUBLISH_ENGINE): a guarded ResilientTrainer (rollback policy) with
+     async saves whose loss_spike rolls it back once, its replayed losses
+     equal to an uninterrupted run's byte for byte where the steps before
+     the rollback are (else within PUBLISH_REPLAY_RTOL); then
+     CheckpointPublisher.publish swaps a warm 2-replica FleetRouter
+     (checkpoint_publish_time_s, shards, parameters, generation), whose
+     greedy streams equal a cold fleet's from the same checkpoint token
+     for token; a flipped byte in the shard is refused with the serving
+     weights intact.
 K4's "launches" in the kernels line counts the serving phases' waves on
 fp pools (phases 6, 7, 7c, 15-17, 23-28, 29's launches in this
 process: (a)'s reference wave and (d)'s loopback workers; a spawned
@@ -645,11 +666,13 @@ prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
 phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps, 48's
-recorded steps, 50, 52, 53's (a) and (c) and 56 (a)'s mesh path (56 (b)'s
-ranks count their own, printed, not added) (K1-lse also phase 20's
+recorded steps, 50, 52, 53's (a) and (c), 56 (a)'s mesh path (56 (b)'s
+ranks count their own, printed, not added), 57 (a)'s timed waves and
+57 (b)'s trainer (K1-lse also phase 20's
 forward); K1 and K4 also count phase 48's profiled serving wave; K1 also
 phase 51's checked forwards (eager, loaded, Predictor), phase 53 (b)'s
-calibration and int8 forwards and phase 54's checked calls; the fp16 rows count phase 41 (c)'s timed steps (and its eval
+calibration and int8 forwards and phase 54's checked calls; K1 and K4
+also phase 57 (b)'s fleets' waves; the fp16 rows count phase 41 (c)'s timed steps (and its eval
 forward for the primal K1); the
 masked and l-bar rows count the main-path runs of phases 18-20; each
 read with the counts set to 0 just before it.
@@ -720,6 +743,9 @@ K1_CASES = [
     # phase 31's GPT-3 6.7B legacy prefill (8 prompts of the 512 bucket,
     # 32/32 heads of 128), q, k and v views of its fused [b, s, 3h] product
     ("gpt_prefill", 8, 512, 512, 32, 32, 128, True),
+    # phase 57 (b)'s fleets: each replica prefills its 4 slots' 16-token
+    # prompts in one group (PUBLISH_CONFIG: 8/8 heads of 64)
+    ("publish_prefill", 4, 16, 16, 8, 8, 64, True),
 ]
 # the train step's attention shape (bench.py:2013-2019 at batch 2)
 TRAIN_SHAPE = ("train", 2, 4096, 4096, 16, 4, 128, True)
@@ -736,9 +762,15 @@ GPT_ATTN_SHAPE = ("gpt_train", 2, 2048, 2048, 32, 32, 128, True)
 BERT_ATTN_SHAPE = ("bert", 32, 128, 128, 12, 12, 64, False)
 # phase 56 (b)'s per-rank shard of the training shape (dp=2: one sequence)
 DP_SHARD_SHAPE = ("dp_shard", 1, 4096, 4096, 16, 4, 128, True)
+# phase 57's steps: (a) bench_guard's (GUARD_CONFIG at batch 8 x seq 1024:
+# 16 q / 4 kv heads of 64) and (b) the trainer's (PUBLISH_CONFIG at
+# PUBLISH_BATCH: 8/8 heads of 64)
+GUARD_ATTN_SHAPE = ("guard", 8, 1024, 1024, 16, 4, 64, True)
+PUBLISH_ATTN_SHAPE = ("publish", 4, 512, 512, 8, 8, 64, True)
 # the main paths' attention shapes, which K1-lse and K2/K3 run in bf16 only
 TRAIN_PATH_SHAPES = (TRAIN_SHAPE, MOE_ATTN_SHAPE, REMAT_ATTN_SHAPE,
-                     GPT_ATTN_SHAPE, BERT_ATTN_SHAPE, DP_SHARD_SHAPE)
+                     GPT_ATTN_SHAPE, BERT_ATTN_SHAPE, DP_SHARD_SHAPE,
+                     GUARD_ATTN_SHAPE, PUBLISH_ATTN_SHAPE)
 # the cases whose q, k and v are views of one [b, s, 3, h, d] buffer
 STRIDED_CASES = ("strided", "gpt_prefill", "gpt_train")
 # phases 18-20: the masked and lse-cotangent modes at the dense training
@@ -769,6 +801,8 @@ BWD_CASES = [
     GPT_ATTN_SHAPE,
     BERT_ATTN_SHAPE,
     DP_SHARD_SHAPE,
+    GUARD_ATTN_SHAPE,
+    PUBLISH_ATTN_SHAPE,
     ("mha", 2, 1024, 1024, 16, 16, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
@@ -796,6 +830,10 @@ K4_CASES = [
     ("gpt_wave", 32, 32, 128, 16, 40, [384 + i * 256 // 7 for i in range(8)]),
     ("gpt_fused", 32, 32, 128, 16, 8,
      [49 + i * 79 // 127 for i in range(128)]),
+    # phase 57 (b)'s fleets (PUBLISH_ENGINE): a replica's 4 rows of 8/8
+    # heads of 64, 16 pages of 16 a row, contexts from the first decode
+    # step (16-token prompts) to the last (48 new tokens)
+    ("publish", 8, 8, 64, 16, 16, [17, 33, 48, 64]),
 ]
 K4_GRAPH_LAYERS = 12   # one decode step of the serving config's 12 layers
 # K4 on int8 pools (QuantizedKVPool): the main-path row's shape and the
@@ -860,7 +898,7 @@ DISAGG_KILL_AT, DISAGG_KILL_AFTER = 2, 8
 # PROC_OP_S every wire op
 PROC_PRESETS = "paddle_tpu_torch.inference.procfleet.presets"
 PROC_SPAWN_S, PROC_OP_S = 180.0, 120.0
-PROC_TIMED = 2          # cut from 3 to keep the whole run's time
+PROC_TIMED = 1          # cut from 3, then 2, to keep the whole run's time
 PROC_TIER_STRIDE = 3
 LOSS_ENGINE = dict(max_batch=2, max_len=32, page_size=8, block_size=2,
                    prefix_cache=True)
@@ -870,12 +908,13 @@ LOSS_REQUESTS, LOSS_PROMPT, LOSS_MAX_NEW, LOSS_OP_S = 8, 6, 8, 5.0
 # arms use a 4-layer, hidden-512 model: a cut that does not carry over),
 # with bench's TPU engine geometry and traffic verbatim: 4 slots, max_len
 # 256, page 16, block 8, prefix cache; 12 requests of 16-token prompts
-# (seed 0), max_new_tokens 48, seeds 700 + i; best-of-4 interleaved waves,
-# each engine first in two of them (bench's best-of-3 runs bare first in
-# every round, which mixes the order into the comparison)
+# (seed 0), max_new_tokens 48, seeds 700 + i; best-of-2 interleaved waves
+# (cut from 4 to keep the whole run's time), each engine first in one of
+# them (bench's best-of-3 runs bare first in every round, which mixes the
+# order into the comparison)
 OBS_ENGINE = dict(max_batch=4, max_len=256, page_size=16, block_size=8)
 OBS_REQUESTS, OBS_PROMPT, OBS_MAX_NEW, OBS_SEED0 = 12, 16, 48, 700
-OBS_TIMED = 4
+OBS_TIMED = 2
 #: the span chain every served request must hold, in order
 OBS_CHAIN = ("submit", "admit", "first_token", "finish")
 # the open-loop burst of bench_slo_burst (seed 23) and bench_disagg (seed
@@ -959,8 +998,9 @@ MOE_LEGACY_REQUESTS = 16
 # requests of 64-token prompts sharing 48, generate() in batches of 8 with
 # max_new_tokens 64 (every row decoded to the batch's max), beside the
 # prefix-cache engine (8 slots, max_len 128, page 16, block 16, 8 extra
-# blocks) on the same wave; best of GEN_TIMED interleaved waves each
-GEN_REQUESTS, GEN_BATCH, GEN_TIMED = 16, 8, 3
+# blocks) on the same wave; best of GEN_TIMED interleaved waves each (cut
+# from 3 to keep the whole run's time)
+GEN_REQUESTS, GEN_BATCH, GEN_TIMED = 16, 8, 2
 GEN_ENGINE = dict(max_batch=8, max_len=128, page_size=16, block_size=16)
 GEN_EXTRA_BLOCKS = 8
 # phase 17: phase 7's wave with brownout=True under a pool pressure
@@ -1209,6 +1249,36 @@ DIST_DP_LAYERS = 4
 DIST_GLOO_MESHES = ({"dp": 2},)
 DIST_SPAWN_S = 300        # the two ranks' whole run, then they are killed
 DIST_BACKEND = "nccl"     # (a)'s one-rank world
+# The numeric guard and the resilience trainer (phase 57). (a) bench.py
+# bench_guard's config (:1802-1808), not cut: a plain and a GuardPolicy()
+# engine from the same seed-0 weights, GUARD_ITERS seeded batches a wave,
+# interleaved best of GUARD_WAVES, guard_overhead_pct as bench.py:1834;
+# then a nan_grad and (after the warm-up) a loss_spike step under a
+# FaultPlan, each leaving every parameter and moment bit-identical.
+# (b) bench_checkpoint_publish's config (:672-678), not cut, and its
+# 2-replica fleet of legacy engines: a guarded ResilientTrainer (rollback
+# policy, no re-warm) takes PUBLISH_STEPS steps of PUBLISH_BATCH with
+# async saves every PUBLISH_SAVE_EVERY, a loss_spike at PUBLISH_SPIKE_AT
+# rolls it back; the replayed losses equal an uninterrupted run's byte
+# for byte where two runs of one step are bitwise equal on the card, else
+# within PUBLISH_REPLAY_RTOL. Then CheckpointPublisher.publish swaps the
+# warm fleet; its greedy streams equal a cold fleet's built from the same
+# checkpoint, token for token; a flipped byte in one shard is refused
+# with the serving weights intact.
+GUARD_CONFIG = dict(vocab_size=32000, hidden_size=1024,
+                    intermediate_size=2816, num_hidden_layers=8,
+                    num_attention_heads=16, num_key_value_heads=4,
+                    max_position_embeddings=2048, dtype="bfloat16")
+GUARD_BATCH, GUARD_SEQ, GUARD_ITERS, GUARD_WAVES = 8, 1024, 8, 3
+PUBLISH_CONFIG = dict(vocab_size=32000, hidden_size=512,
+                      intermediate_size=1408, num_hidden_layers=4,
+                      num_attention_heads=8, num_key_value_heads=8,
+                      max_position_embeddings=512, dtype="bfloat16")
+PUBLISH_ENGINE = dict(max_batch=4, max_len=256, page_size=16, block_size=8)
+PUBLISH_REQUESTS, PUBLISH_NEW = 8, 48
+PUBLISH_BATCH = (4, 512)
+PUBLISH_STEPS, PUBLISH_SAVE_EVERY, PUBLISH_SPIKE_AT = 8, 2, 5
+PUBLISH_REPLAY_RTOL = 1e-3
 CIFAR_MEAN = [0.4914, 0.4822, 0.4465]
 CIFAR_STD = [0.2470, 0.2435, 0.2616]
 # The nn surface (phases 42-43). The sweep's shapes: activations and
@@ -9486,7 +9556,9 @@ def phase_deploy_bert(torch, np, ops, card):
     errs = {n: _bf16_ulp_err(np, ref, outs[n]) for n in ("loaded", "predictor")}
     same = {n: bool(np.array_equal(ref, outs[n])) for n in errs}
 
-    # a fresh process that imports only paddle_tpu_torch.inference
+    # a fresh process that imports only paddle_tpu_torch.inference runs the
+    # .pdmodel beside the untimed enable_bf16 case (its import and CUDA
+    # context take seconds of host time; it launches one forward)
     ids_path = os.path.join(root, "ids.npy")
     out_path = os.path.join(root, "fresh.npy")
     np.save(ids_path, ids_np)
@@ -9500,36 +9572,48 @@ def phase_deploy_bert(torch, np, ops, card):
             "print(fa.flash_attention.launches)\n")
     env = dict(os.environ, PYTHONPATH=os.path.dirname(
         os.path.abspath(__file__)))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=600, env=env)
-    fresh_s = time.perf_counter() - t0
-    if res.returncode != 0:
+    fresh_t0 = time.perf_counter()
+    fresh_proc = subprocess.Popen([sys.executable, "-c", code],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        # enable_bf16 on an fp32 save
+        model32 = dygraph_encoder(pt, c, DEVICE)
+        model32.set_state_dict(fp32_state)
+        model32.eval()
+        path32 = os.path.join(root, "bert32")
+        pt.jit.save(model32, path32, input_spec=spec)
+        cfg = inference.Config(path32)
+        cfg.enable_bf16()
+        with torch.no_grad():
+            ref32 = model32(ids).float().cpu().numpy()
+        (got16,) = inference.create_predictor(cfg).run([ids_np])
+        err16 = float(np.abs(got16 - ref32).max()) / max(
+            1.0, float(np.abs(ref32).max()))
+    except BaseException:
+        fresh_proc.kill()       # no process outlives the phase
+        fresh_proc.communicate()
+        raise
+    try:
+        stdout, stderr = fresh_proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        fresh_proc.kill()
+        fresh_proc.communicate()
+        raise AssertionError("deploy bert: the fresh process ran past 600 s")
+    fresh_s = time.perf_counter() - fresh_t0
+    if fresh_proc.returncode != 0:
         raise AssertionError(f"deploy bert: the fresh process failed: "
-                             f"{res.stderr[-2000:]}")
+                             f"{stderr[-2000:]}")
     fresh = np.load(out_path)
-    fresh_k1 = int(res.stdout.split()[-1])
+    fresh_k1 = int(stdout.split()[-1])
     fresh_err = _bf16_ulp_err(np, ref, fresh)
-
-    # enable_bf16 on an fp32 save
-    model32 = dygraph_encoder(pt, c, DEVICE)
-    model32.set_state_dict(fp32_state)
-    model32.eval()
-    path32 = os.path.join(root, "bert32")
-    pt.jit.save(model32, path32, input_spec=spec)
-    cfg = inference.Config(path32)
-    cfg.enable_bf16()
-    with torch.no_grad():
-        ref32 = model32(ids).float().cpu().numpy()
-    (got16,) = inference.create_predictor(cfg).run([ids_np])
-    err16 = float(np.abs(got16 - ref32).max()) / max(
-        1.0, float(np.abs(ref32).max()))
     print(f"deploy bert [{card}]: jit.save {save_s:.2f} s (torch.export of "
           f"the bf16 forward), jit.load + create_predictor {load_s:.2f} s; "
           f"logits vs eager: identical {same}, largest diff / within "
           f"{DEPLOY_ULPS} bf16 ulps of each row's largest "
           f"{ {n: e for n, e in errs.items()} }; fresh process "
-          f"({fresh_s:.1f} s, K1 launches {fresh_k1}) {fresh_err}; primal "
+          f"({fresh_s:.1f} s beside the enable_bf16 case, K1 launches "
+          f"{fresh_k1}) {fresh_err}; primal "
           f"K1 a forward {k1}; ms a batch { {n: round(v, 3) for n, v in ms.items()} }; "
           f"enable_bf16 on the fp32 save vs fp32 eager: {err16:.3e} of the "
           f"largest (tol {BF16_WEIGHT_TOL})", flush=True)
@@ -10468,6 +10552,275 @@ def phase_dist_dp(torch, np, ops, card):
                                  f"launches {got['counts']} != {need}")
 
 
+# ---- phase 57: the numeric guard and the resilience trainer -------------
+def _state_snapshot(eng):
+    """Copies of an engine's parameters and AdamW moments."""
+    return [t.detach().clone() for t in eng.params + eng.m + eng.v]
+
+
+def _state_equal(torch, eng, snap):
+    return all(torch.equal(t.detach(), s) for t, s in zip(
+        eng.params + eng.m + eng.v, snap))
+
+
+def phase_guard(torch, np, ops, card):
+    """57 (a): bench_guard at full width; returns the timed waves'
+    (K1-lse, K2, K3) launches (both engines)."""
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+    from paddle_tpu_torch.framework import numeric_guard as ng
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**GUARD_CONFIG)
+    rng = np.random.default_rng(0)
+    batches = [torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (GUARD_BATCH, GUARD_SEQ)).astype(np.int32)).to(
+        DEVICE) for _ in range(GUARD_ITERS)]
+    torch.cuda.empty_cache()
+
+    def make(guard):
+        eng = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0),
+                     lr=1e-4, clip_norm=1.0, guard=guard)
+        eng.step(batches[0], batches[0])
+        sync()
+        return eng
+
+    words, losses = [], {"plain": [], "guarded": []}
+
+    def wave(eng, name):
+        sync()
+        t0 = time.perf_counter()
+        for ids in batches:
+            losses[name].append(eng.step(ids, ids))
+            if eng.guard is not None:
+                words.append(eng.last_health)
+        sync()
+        return time.perf_counter() - t0
+
+    plain, guarded = make(None), make(ng.GuardPolicy())
+    dt = {"plain": float("inf"), "guarded": float("inf")}
+    _reset_counts(ops)
+    for _ in range(GUARD_WAVES):
+        dt["plain"] = min(dt["plain"], wave(plain, "plain"))
+        dt["guarded"] = min(dt["guarded"], wave(guarded, "guarded"))
+    counts = _read_counts(ops)
+    pct = (dt["guarded"] - dt["plain"]) / dt["plain"] * 100.0
+    words = torch.stack(words).cpu().tolist()
+    for name in losses:
+        losses[name] = torch.stack(losses[name]).float().cpu()
+        _check_losses(losses[name], f"guard {name}")
+    # a healthy guarded step is the plain step's arithmetic: the same
+    # losses, parameters and moments, bit for bit
+    same = (torch.equal(losses["plain"], losses["guarded"]),
+            _state_equal(torch, guarded, plain.params + plain.m + plain.v))
+    # the fault drills on the guarded engine (warm: every step healthy)
+    drills = {}
+    plan = FaultPlan(seed=57, specs=[
+        FaultSpec("numeric.step", "nan_grad", at=0),
+        FaultSpec("numeric.step", "loss_spike", at=1)])
+    with plan:
+        for name in ("nan_grad", "loss_spike"):
+            snap = _state_snapshot(guarded)
+            n0 = int(guarded.step_count)
+            guarded.step(batches[0], batches[0])
+            drills[name] = (int(guarded.last_health),
+                            _state_equal(torch, guarded, snap),
+                            int(guarded.step_count) - n0)
+            del snap
+    n_params = sum(p.numel() for p in guarded.params)
+    need = 2 * GUARD_WAVES * GUARD_ITERS * cfg.num_hidden_layers
+    print(f"guard (a) [{card}]: guard_overhead_pct {pct:.4f} (guarded vs "
+          f"unguarded step, llama {n_params / 1e6:.1f}M, batch "
+          f"{GUARD_BATCH} x seq {GUARD_SEQ}, {cfg.dtype}, {GUARD_ITERS} steps "
+          f"best of {GUARD_WAVES}: {dt['guarded'] * 1e3:.2f} ms against "
+          f"{dt['plain'] * 1e3:.2f} ms a wave, "
+          f"{dt['guarded'] * 1e3 / GUARD_ITERS:.2f} / "
+          f"{dt['plain'] * 1e3 / GUARD_ITERS:.2f} ms a step); words of the "
+          f"timed guarded steps {sorted(set(words))}; launches k1_lse/k2/k3 "
+          f"{[counts[k] for k in ('k1_lse', 'k2', 'k3')]} (need {need} "
+          f"each); guarded against plain, bitwise: losses {same[0]}, "
+          f"parameters and moments {same[1]}; drills (word, state "
+          f"bit-identical, counter advance) {drills}", flush=True)
+    del plain, guarded
+    _release(torch)
+    if any(words):
+        raise AssertionError(f"guard (a): a healthy timed step's word was "
+                             f"not 0: {words}")
+    if not all(same):
+        raise AssertionError(f"guard (a): the guarded engine's healthy steps "
+                             f"differ from the plain engine's (losses, "
+                             f"state bitwise equal: {same}): "
+                             f"{losses['plain'].tolist()} against "
+                             f"{losses['guarded'].tolist()}")
+    if not all(counts[k] == need for k in ("k1_lse", "k2", "k3")):
+        raise AssertionError(f"guard (a): launches {counts} != {need} each")
+    want = {"nan_grad": ng.NAN_GRAD, "loss_spike": ng.SPIKE}
+    for name, (word, same, adv) in drills.items():
+        if not (word & want[name] and same and adv == 1):
+            raise AssertionError(f"guard (a) {name}: word {word}, state "
+                                 f"bit-identical {same}, counter +{adv}")
+    return tuple(counts[k] for k in ("k1_lse", "k2", "k3"))
+
+
+def _publish_data(np, vocab):
+    def data_fn(step):
+        ids = np.random.default_rng(5700 + step).integers(
+            0, vocab, PUBLISH_BATCH).astype(np.int32)
+        return ids, ids
+    return data_fn
+
+
+def phase_lifecycle(torch, np, ops, card):
+    """57 (b): train -> checkpoint -> publish -> serve at
+    bench_checkpoint_publish's config; returns (K1-lse, K2, K3) of the
+    trainer's steps and (K1, K4) of the fleets' waves."""
+    from paddle_tpu_torch.distributed import (CheckpointCorruptionError,
+                                              CheckpointPublisher, Engine,
+                                              GuardPolicy, ResilientTrainer)
+    from paddle_tpu_torch.distributed.resilience import (FaultPlan,
+                                                         FaultSpec,
+                                                         lifecycle)
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            FleetRouter, Request)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**PUBLISH_CONFIG)
+    data_fn = _publish_data(np, cfg.vocab_size)
+    policy = GuardPolicy(action="rollback", warmup_steps=3, rewarm_steps=0)
+
+    def build(alive):
+        return Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0),
+                      lr=1e-4, clip_norm=1.0, guard=policy)
+
+    root = _scratch_dir("lifecycle")
+    lifecycle.reset_lifecycle_stats()
+    # the uninterrupted run (one save, at its end)
+    ref = ResilientTrainer(build, os.path.join(root, "ref"),
+                           save_every=PUBLISH_STEPS).fit(
+        data_fn, PUBLISH_STEPS)
+    del ref["engine"]
+    ckpt = os.path.join(root, "ckpt")
+    trainer = ResilientTrainer(build, ckpt, save_every=PUBLISH_SAVE_EVERY)
+    sync()
+    _reset_counts(ops)
+    t0 = time.perf_counter()
+    with FaultPlan(seed=57, specs=[FaultSpec(
+            "numeric.step", "loss_spike", at=PUBLISH_SPIKE_AT)]):
+        out = trainer.fit(data_fn, PUBLISH_STEPS)
+    sync()
+    fit_s = time.perf_counter() - t0
+    train_counts = _read_counts(ops)
+    del out["engine"]
+    _release(torch)
+    tail = range(out["rollback_at"][0] + 1, PUBLISH_STEPS + 1) \
+        if out["rollback_at"] else range(0)
+    # the same steps from the same seed twice, before the spike: is a step
+    # bitwise repeatable on the card?
+    deterministic = all(out["losses"][s] == ref["losses"][s]
+                        for s in range(1, out["rollback_at"][0] + 1))
+    replay_err = max((abs(out["losses"][s] - ref["losses"][s])
+                      / abs(ref["losses"][s]) for s in tail), default=None)
+    replay_ok = all(
+        (out["losses"][s] == ref["losses"][s]) if deterministic
+        else abs(out["losses"][s] - ref["losses"][s])
+        <= PUBLISH_REPLAY_RTOL * abs(ref["losses"][s]) for s in tail)
+    print(f"lifecycle (b) train [{card}]: {PUBLISH_STEPS} guarded steps of "
+          f"{PUBLISH_BATCH[0]} x {PUBLISH_BATCH[1]}, async saves every "
+          f"{PUBLISH_SAVE_EVERY}, loss_spike at step {PUBLISH_SPIKE_AT + 1}:"
+          f" rollbacks {out['numeric_rollbacks']} to {out['rollback_at']},"
+          f" events {out['numeric_events']}; {fit_s:.2f} s; the steps "
+          f"before the rollback's checkpoint, run twice from one seed, "
+          f"bitwise equal on the card: {deterministic}; replayed "
+          f"losses against the uninterrupted run max rel {replay_err} "
+          f"({'byte for byte' if deterministic else 'tol ' + str(PUBLISH_REPLAY_RTOL)}); "
+          f"launches k1_lse/k2/k3 "
+          f"{[train_counts[k] for k in ('k1_lse', 'k2', 'k3')]}",
+          flush=True)
+    if not (out["numeric_rollbacks"] == 1 and replay_ok
+            and out["final_step"] == PUBLISH_STEPS):
+        raise AssertionError(f"lifecycle (b) train: {out}, ref "
+                             f"{ref['losses']}")
+    _check_losses(torch.tensor([out["losses"][s]
+                                for s in sorted(out["losses"])]),
+                  "lifecycle train")
+
+    # the serving fleet: warm, then the publish swaps it
+    serve = LlamaForCausalLM(cfg, device=DEVICE, seed=1)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (PUBLISH_ENGINE[
+        "page_size"],)).astype(np.int32) for _ in range(PUBLISH_REQUESTS)]
+
+    def fleet_of(model, name):
+        return FleetRouter(lambda: ContinuousBatchingEngine(
+            model, device=DEVICE, **PUBLISH_ENGINE),
+            os.path.join(root, name), num_replicas=2)
+
+    def run(fleet):
+        reqs = [Request(p, max_new_tokens=PUBLISH_NEW) for p in prompts]
+        for r in reqs:
+            fleet.submit(r)
+        fleet.run_until_done(max_steps=100000)
+        sync()
+        if any(r.failed or len(r.output) != PUBLISH_NEW for r in reqs):
+            raise AssertionError("lifecycle (b): a request failed or came "
+                                 "short")
+        return [list(r.output) for r in reqs]
+
+    _zero_serving_counts(ops)
+    fleet = fleet_of(serve, "warm")
+    before = run(fleet)
+    pub = CheckpointPublisher(ckpt).publish(serve, fleet)
+    swapped = run(fleet)
+    fleet.close()
+    cold_model = LlamaForCausalLM(cfg, device=DEVICE, seed=2)
+    CheckpointPublisher(ckpt).load_weights(cold_model, pub["step"])
+    cold_fleet = fleet_of(cold_model, "cold")
+    cold = run(cold_fleet)
+    cold_fleet.close()
+    serve_counts = _serving_counts(ops)
+    # a flipped byte in one shard: refused, the serving weights intact
+    shard = os.path.join(ckpt, f"step_{pub['step']:08d}", "0_0.distcp")
+    with open(shard, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(shard, "wb") as f:
+        f.write(bytes(blob))
+    held = {n: t.clone() for n, t in serve.state_dict().items()}
+    try:
+        CheckpointPublisher(ckpt).publish(serve)
+        refused = None
+    except CheckpointCorruptionError as e:
+        refused = e.code
+    intact = all(torch.equal(t, held[n])
+                 for n, t in serve.state_dict().items())
+    stats = lifecycle.lifecycle_stats()
+    differ = sum(a != b for a, b in zip(swapped, cold))
+    print(f"lifecycle (b) publish [{card}]: checkpoint_publish_time_s "
+          f"{pub['time_s']:.4f} (digest-verify {pub['shards']} shard(s) + "
+          f"in-place load of {pub['params']} params + rolling hot-swap of 2 "
+          f"warm replicas, gen {pub['generation']}, step {pub['step']}); "
+          f"swapped streams against a cold fleet from the checkpoint: "
+          f"{differ} of {len(cold)} differ (streams before the publish "
+          f"differ from after in {sum(a != b for a, b in zip(before, swapped))}"
+          f"); corrupt shard refused: {refused}, serving weights intact: "
+          f"{intact}; lifecycle stats {stats}; launches k1/k4 "
+          f"{[serve_counts[k] for k in ('k1', 'k4')]}", flush=True)
+    del serve, cold_model, held
+    _release(torch)
+    if differ or refused is None or not intact \
+            or stats["publish_total"] != 1 \
+            or stats["publish_failures"] != 1:
+        raise AssertionError(f"lifecycle (b) publish: {differ} streams "
+                             f"differ, refused {refused}, intact {intact}, "
+                             f"stats {stats}")
+    if not (min(train_counts[k] for k in ("k1_lse", "k2", "k3")) > 0
+            and serve_counts["k1"] > 0 and serve_counts["k4"] > 0):
+        raise AssertionError(f"lifecycle (b): a kernel of the path did "
+                             f"not launch: {train_counts} {serve_counts}")
+    return (tuple(train_counts[k] for k in ("k1_lse", "k2", "k3")),
+            (serve_counts["k1"], serve_counts["k4"]))
+
+
 def _k4_alive(torch, ops):
     """After a worker's SIGKILL this process's context still launches K4
     and agrees with the plain version."""
@@ -10642,12 +10995,17 @@ def _main(torch, np, F, ops, _build, card, start):
     dist_a = _phase("56a dist one rank", phase_dist_one_rank, torch, np,
                     ops, card)
     _phase("56b dist dp2", phase_dist_dp, torch, np, ops, card)
+    guard_train = _phase("57a guard", phase_guard, torch, np, ops, card)
+    life_train, (k1_life, k4_life) = _phase(
+        "57b lifecycle", phase_lifecycle, torch, np, ops, card)
+    k1_launches += k1_life
+    k4_launches += k4_life
     k1_launches += k1_deploy + compress_k1 + family_k1
     k1_launches += prof_launches[3]
     k4_launches += prof_launches[4]
     for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
                  prof_launches, static_bert, static_prog, compress_train,
-                 dist_a):
+                 dist_a, guard_train, life_train):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

@@ -5,15 +5,22 @@ of ``communication``, the process meshes, placements and logical-axis
 rules of ``auto_parallel`` on DTensor, the ``Engine`` over dp/fsdp/tp
 meshes with Megatron sequence parallelism, the tensor- and
 sequence-parallel layers of ``fleet``, and the sharded checkpoints of
-``checkpoint``, which reshard on load. What is left of item 6 raises
-``later_slice`` naming its part: the numeric guard and its resilience
-trainer, the store, ``ps``/``rpc``, ``sharding`` (group_sharded) and the
+``checkpoint``, which reshard on load, with the generation-fenced
+``LATEST`` pointer, and the numeric guard with its resilience trainer and
+checkpoint publisher (``resilience``). What is left of item 6 raises
+``later_slice`` naming its part: the store (with the collective watchdog
+``CommTaskManager``), ``ps``/``rpc``, ``sharding`` (group_sharded) and the
 MoE ``utils``.
 """
 
 from . import auto_parallel, checkpoint, communication, fleet  # noqa: F401
 from . import parallel, resilience  # noqa: F401
-from ._refuse import EP, FLEET, GUARD, PS, STORE, refuse
+from ..framework.numeric_guard import (  # noqa: F401
+    BadBatchRecorder,
+    GuardPolicy,
+    NumericAnomalyError,
+)
+from ._refuse import EP, FLEET, PS, STORE, refuse
 from .auto_parallel import (  # noqa: F401
     Engine,
     Partial,
@@ -39,6 +46,7 @@ from .auto_parallel import (  # noqa: F401
 )
 from .checkpoint import (  # noqa: F401
     CheckpointCorruptionError,
+    StaleGenerationError,
     load_state_dict,
     save_state_dict,
     wait_async_save,
@@ -83,12 +91,13 @@ from .parallel import (  # noqa: F401
     spawn,
 )
 
+from .resilience import NumericWatchdog  # noqa: F401
+from .resilience.lifecycle import CheckpointPublisher  # noqa: F401
+from .resilience.trainer import ResilientTrainer  # noqa: F401
+
 #: JAX names a later part of item 6 brings: name -> part
 _LATER = {
-    "BadBatchRecorder": GUARD, "GuardPolicy": GUARD,
-    "NumericAnomalyError": GUARD, "NumericWatchdog": GUARD,
-    "CheckpointPublisher": GUARD, "StaleGenerationError": GUARD,
-    "CommTaskManager": GUARD, "get_comm_task_manager": GUARD,
+    "CommTaskManager": STORE, "get_comm_task_manager": STORE,
     "TCPStore": STORE, "launch": STORE, "ps": PS, "rpc": PS,
     "auto_tuner": PS, "sharding": FLEET, "utils": EP,
 }

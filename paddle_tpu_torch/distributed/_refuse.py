@@ -11,7 +11,6 @@ PP = "pipeline parallelism (pp)"
 EP = "MoE over an ep mesh"
 FLEET = "fleet and ZeRO (topology, meta_optimizers, group_sharded)"
 STORE = "the store, launch and elastic"
-GUARD = "the numeric guard and resilience trainer"
 PS = "ps, rpc and auto_tuner"
 
 

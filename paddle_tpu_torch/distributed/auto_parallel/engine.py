@@ -52,9 +52,30 @@ host. ``state_dict`` gathers whole tensors; ``set_state_dict`` takes each
 rank's chunk of a snapshot, so a run saved on one mesh resumes on
 another.
 
+``Engine(model, guard=GuardPolicy(...))`` is the guarded step (JAX
+:253-269, ``_build_guard_step`` :433-482): the same loss, gradients,
+clip and AdamW, plus the on-device health word of ``framework.
+numeric_guard.guard_step`` over the unclipped gradients, kept in
+``last_health`` (an int32 device scalar; the caller reads it, ``step``
+does not). The fault plan's code for the step (``numeric_inject_code``
+of the host step index) scales the loss by ``SPIKE_INJECT_FACTOR`` inside
+the differentiated function or adds NaN to every gradient. Unless the
+policy only warns, a step whose word is non-zero leaves the parameters
+and both moments bit-identical: the update is computed out of place and
+each tensor takes its old or its new values by ``torch.where`` on the
+word, on the device; the step counter advances either way. ``lr_scale``
+(the watchdog's re-warm) multiplies the learning rate. Over a mesh each
+rank tests its local gradient shards and the ``[nan, inf]`` flags are
+OR-ed over the mesh's ranks (an all-reduce of two ints along each axis
+of more than one rank), so every rank computes the same word and skips or
+applies the same step.
+
+Batches keep their dtype (JAX :533): integer arrays become int64 token
+ids, floating ones stay floating.
+
 Still refused, each naming its part of item 6: ``sep > 1`` (ring
 attention), ``pp`` and the ``n_micro``/``pp_*`` arguments, an ``ep``
-axis or an MoE model over a mesh, and ``guard=``.
+axis or an MoE model over a mesh.
 """
 
 from __future__ import annotations
@@ -63,12 +84,15 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
+from ...framework import numeric_guard
 from ...nn.clip import ClipGradByGlobalNorm
 from ...optimizer import Optimizer, name_parameters
-from .._refuse import EP, GUARD, PP, RING, refuse
+from ..resilience.faults import numeric_inject_code
+from .._refuse import EP, PP, RING, refuse
 from .logical_sharding import (DEFAULT_RULES, axis_rules, current_mesh,
                                local_chunk, logical_placements, shard_params)
 from .process_mesh import as_device_mesh
@@ -79,6 +103,14 @@ _DEFAULT_CLIP = object()   # the caller did not choose a clip_norm
 def _as_tensor(x, device, dtype=None):
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     return t.to(device=device, dtype=dtype)
+
+
+def _as_batch(x, device):
+    """A batch array on ``device``: integers as int64 token ids, floating
+    arrays in their own dtype (the JAX engine's ``jnp.asarray``)."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(device=device, dtype=None if t.is_floating_point()
+                else torch.long)
 
 
 def _local(t):
@@ -136,8 +168,10 @@ class Engine:
         if optimizer is not None and not isinstance(optimizer, Optimizer):
             raise TypeError(f"optimizer= takes a paddle_tpu_torch.optimizer."
                             f"Optimizer, got {type(optimizer).__name__}")
-        if guard is not None:
-            raise refuse("the numeric guard (guard=)", GUARD)
+        if guard is not None and optimizer is not None:
+            raise ValueError(
+                "numeric guard supports the built-in AdamW path only "
+                "(pass guard=None with a pluggable optimizer)")
         if mesh is not None:
             self._check_mesh(mesh, model)
         self.mesh = mesh
@@ -192,6 +226,17 @@ class Engine:
         self.step_count = torch.zeros((), dtype=torch.int32,
                                       device=self.device)
 
+        # the numeric guard: the detector state and the last health word
+        # stay on the device; the re-warm factor and the fault plan's step
+        # index are the host's
+        self.guard = guard
+        self.guard_state = None
+        self.last_health = None
+        self.lr_scale = 1.0
+        self._host_step = 0
+        if guard is not None:
+            self.guard_state = numeric_guard.guard_init_state(self.device)
+
     @staticmethod
     def _check_mesh(mesh, model):
         shape = dict(zip(mesh.mesh_dim_names or (), mesh.shape))
@@ -239,13 +284,24 @@ class Engine:
             groups[key] = sq if key not in groups else groups[key] + sq
         return sum(sq.full_tensor() for sq in groups.values())
 
+    def _lr(self, scale=1.0):
+        lr = self.lr(self.step_count) if callable(self.lr) else self.lr
+        if scale != 1.0:
+            # JAX multiplies by the fp32 scale it was handed (:391-395)
+            lr = (lr * float(np.float32(scale)) if callable(self.lr)
+                  else float(np.float32(lr) * np.float32(scale)))
+        return lr
+
     @torch.no_grad()
-    def _adamw(self, grads):
+    def _adamw(self, grads, bad=None, lr_scale=1.0):
+        """AdamW in place. With ``bad`` (the guard's skip, a device bool)
+        the new moments go to fresh tensors, and each parameter and moment
+        then keeps its old values where ``bad`` is set, so a skipped step
+        leaves them bit-identical (NaN x 0 would not)."""
         b1, b2, eps, wd = self.beta1, self.beta2, self.epsilon, \
             self.weight_decay
-        step = self.step_count
-        lr = self.lr(step) if callable(self.lr) else self.lr
-        stepf = step.float()
+        lr = self._lr(lr_scale)
+        stepf = self.step_count.float()
         bc1 = 1.0 - b1 ** stepf
         bc2 = 1.0 - b2 ** stepf
         grads = self._clip_grads(grads)
@@ -253,13 +309,21 @@ class Engine:
                                        self._decay_mask):
             p, mm, vv, g = _local(p), _local(mm), _local(vv), _local(g)
             gf = g.float()
-            mm.mul_(b1).add_((1.0 - b1) * gf)
-            vv.mul_(b2).add_((1.0 - b2) * gf * gf)
-            update = (mm / bc1) / (torch.sqrt(vv / bc2) + eps)
+            mm2, vv2 = (mm, vv) if bad is None else (torch.empty_like(mm),
+                                                     torch.empty_like(vv))
+            torch.mul(mm, b1, out=mm2).add_((1.0 - b1) * gf)
+            torch.mul(vv, b2, out=vv2).add_((1.0 - b2) * gf * gf)
+            update = (mm2 / bc1) / (torch.sqrt(vv2 / bc2) + eps)
             pf = p.float()
             if decay:
                 update = update + wd * pf
-            p.copy_(pf - lr * update)
+            new_p = pf - lr * update
+            if bad is None:
+                p.copy_(new_p)
+            else:
+                p.copy_(torch.where(bad, p, new_p.to(p.dtype)))
+                mm.copy_(torch.where(bad, mm, mm2))
+                vv.copy_(torch.where(bad, vv, vv2))
 
     @torch.no_grad()
     def _opt_update(self, grads):
@@ -303,18 +367,25 @@ class Engine:
 
     def _to_device(self, input_ids, labels):
         if self.mesh is None:
-            return (_as_tensor(input_ids, self.device, torch.long),
-                    _as_tensor(labels, self.device, torch.long))
+            return (_as_batch(input_ids, self.device),
+                    _as_batch(labels, self.device))
         return tuple(
             x if isinstance(x, DTensor) else self.shard_batch(
-                _as_tensor(x, self.device, torch.long))
+                _as_batch(x, self.device))
             for x in (input_ids, labels))
 
     def _run_loss(self, ids, lbl):
         if self.mesh is None:
             return self._loss(ids, lbl)
         with axis_rules(self.mesh, self.rules):
-            return self._loss(ids, lbl)
+            loss = self._loss(ids, lbl)
+        if isinstance(loss, DTensor) and any(
+                p.is_partial() for p in loss.placements):
+            # a loss that reduces over sharded rows itself (a plain mean)
+            # is a partial value: reduce it, as JAX's global mean is
+            loss = loss.redistribute(loss.device_mesh,
+                                     [Replicate()] * loss.device_mesh.ndim)
+        return loss
 
     @staticmethod
     def _replicated_value(loss):
@@ -325,10 +396,17 @@ class Engine:
     def step(self, input_ids, labels):
         """Run one train step; returns the loss as a device scalar tensor."""
         ids, lbl = self._to_device(input_ids, labels)
+        inject = numeric_guard.INJECT_NONE
+        if self.guard is not None:
+            self._host_step += 1
+            inject = numeric_inject_code(str(self._host_step))
         with torch.no_grad():
             self.step_count += 1
         with torch.enable_grad():
             loss = self._run_loss(ids, lbl)
+            if inject == numeric_guard.INJECT_LOSS_SPIKE:
+                loss = (loss.float()
+                        * numeric_guard.SPIKE_INJECT_FACTOR).to(loss.dtype)
             # a parameter the loss does not read (BERT's token-type table
             # without token types, the MLM head's pooler) gets a zero
             # gradient, as under jax.grad: weight decay still moves it
@@ -340,11 +418,46 @@ class Engine:
             grads = [g if tuple(g.placements) == tuple(p.placements)
                      else g.redistribute(p.device_mesh, p.placements)
                      for g, p in zip(grads, self.params)]
-        if self._optimizer is None:
+        loss = self._replicated_value(loss.detach())
+        if self.guard is not None:
+            self._guarded_update(loss, grads, inject)
+        elif self._optimizer is None:
             self._adamw(grads)
         else:
             self._opt_update(grads)
-        return self._replicated_value(loss.detach())
+        return loss
+
+    def _or_ranks(self, flags):
+        """``flags`` OR-ed over the mesh's ranks: a MAX all-reduce along
+        each axis of more than one rank (the mesh's own groups)."""
+        for dim, n in enumerate(self.mesh.shape):
+            if n > 1:
+                dist.all_reduce(flags, op=dist.ReduceOp.MAX,
+                                group=self.mesh.get_group(dim))
+        return flags
+
+    @torch.no_grad()
+    def _guarded_update(self, loss, grads, inject):
+        if inject == numeric_guard.INJECT_NAN_GRAD:
+            grads = [g + float("nan") for g in grads]
+        pol = self.guard
+        word, self.guard_state = numeric_guard.guard_step(
+            loss, [_local(g) for g in grads], self.guard_state,
+            spike_factor=pol.spike_factor, warmup_steps=pol.warmup_steps,
+            reduce_flags=self._or_ranks if self.mesh is not None else None)
+        self.last_health = word
+        self._adamw(grads, (word & pol.skip_mask) != 0, self.lr_scale)
+
+    def release(self):
+        """Drop the engine's references to the model, its parameters and
+        moments and its device state, so their memory can go before a
+        replacement engine is built (the resilience trainer's rollback).
+        The engine cannot step afterwards."""
+        self.model = None
+        self.params, self.m, self.v = [], [], []
+        self._proxies = []
+        self.opt_state = {}
+        self.guard_state = self.last_health = None
 
     @torch.no_grad()
     def eval_loss(self, input_ids, labels):

@@ -15,6 +15,11 @@ global read.
   blocks) to take out of circulation at this event.
 - :func:`device_loss` — ``lose``: the number of devices the engine's tp
   group loses at this event.
+- :func:`numeric_inject_code` / :func:`poison_arrays` — numeric faults:
+  ``nan_grad`` and ``loss_spike`` resolve to the code the guarded Engine
+  step applies on the device (``framework.numeric_guard.INJECT_*``),
+  seen only through the health word; ``poison_batch`` NaNs seeded
+  positions of the host batch's floating arrays before it ships.
 
 Sites the port consults:
 
@@ -46,6 +51,9 @@ Sites the port consults:
                       after their digests were recorded (detail = the
                       file name; :func:`corrupt`'s data actions)
 ``collective``        ``distributed.barrier`` (detail = ``barrier``)
+``numeric.step``      guarded Engine train step (detail = host step index)
+``data.batch``        resilient trainer, batch about to ship (detail =
+                      step)
 ====================  =====================================================
 
 Plans, counters and draws work exactly as the JAX package's, so the same
@@ -55,8 +63,7 @@ JAX plan and a port plan are installed independently. The data hook
 :func:`corrupt` draws from ``plan.rng_for(spec)`` in the JAX package's
 order, so one plan damages the same bytes in both packages; so does the
 transport hook :func:`wire_faults`, whose due specs the chaos transport
-interprets. The numeric hooks (``numeric_inject_code``,
-``poison_arrays``) arrive with the slice that consults them.
+interprets, and so does :func:`poison_arrays`.
 """
 
 from __future__ import annotations
@@ -68,8 +75,8 @@ import time
 from typing import List, Optional, Sequence
 
 __all__ = ["FaultSpec", "FaultPlan", "ComposedFaultPlan", "FaultInjected",
-           "maybe_inject", "corrupt", "active_plan", "resource_hold",
-           "wire_faults", "device_loss"]
+           "maybe_inject", "corrupt", "active_plan", "numeric_inject_code",
+           "poison_arrays", "resource_hold", "wire_faults", "device_loss"]
 
 
 class FaultInjected(ConnectionError):
@@ -284,3 +291,53 @@ def device_loss(detail: str = "") -> int:
         if s.action == "lose":
             total += max(0, int(s.arg))
     return total
+
+
+def numeric_inject_code(detail: str = "") -> int:
+    """Numeric hook the guarded Engine step consults once a step (site
+    ``numeric.step``): ``nan_grad`` -> 1 (NaN added to every gradient),
+    ``loss_spike`` -> 2 (the loss, and so the gradients, scaled by
+    ``SPIKE_INJECT_FACTOR`` inside the differentiated function). No plan
+    -> 0 (one global read)."""
+    plan = _ACTIVE
+    if plan is None:
+        return 0
+    for s in plan.fire("numeric.step", detail):
+        if s.action == "nan_grad":
+            return 1
+        if s.action == "loss_spike":
+            return 2
+    return 0
+
+
+def poison_arrays(detail, arrays):
+    """Data-plane numeric hook (site ``data.batch``): the due
+    ``poison_batch`` specs NaN ``arg`` seeded positions (default 1% of the
+    elements, at least one) of each floating array of the host batch (a
+    tuple of numpy arrays); integer arrays (token ids) pass untouched. The
+    positions are drawn from ``plan.rng_for(spec)`` in the JAX package's
+    order. No plan -> the batch unchanged."""
+    plan = _ACTIVE
+    if plan is None:
+        return arrays
+    due = [s for s in plan.fire("data.batch", str(detail))
+           if s.action == "poison_batch"]
+    if not due:
+        return arrays
+    import numpy as np
+
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        if not np.issubdtype(a.dtype, np.floating) or a.size == 0:
+            out.append(a)
+            continue
+        a = np.array(a, copy=True)
+        flat = a.reshape(-1)
+        for s in due:
+            n = int(s.arg) or max(1, flat.size // 100)
+            rng = plan.rng_for(s)
+            for _ in range(n):
+                flat[rng.randrange(flat.size)] = np.nan
+        out.append(a)
+    return tuple(out)

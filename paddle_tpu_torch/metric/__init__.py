@@ -56,7 +56,11 @@ class Accuracy(Metric):
         label = torch.as_tensor(label, device=pred.device)
         if label.ndim == pred.ndim and label.shape[-1] == 1:
             label = label[..., 0]
-        top = torch.argsort(pred, dim=-1, descending=True)[..., :self.maxk]
+        # stable: tied predictions rank by index on every call (an
+        # unstable CUDA sort can move a tied label across k between two
+        # calls; JAX's numpy quicksort orders ties its own fixed way)
+        top = torch.argsort(pred, dim=-1, descending=True,
+                            stable=True)[..., :self.maxk]
         return (top == label[..., None]).to(torch.float32)
 
     def update(self, correct, *args):
@@ -153,6 +157,6 @@ def accuracy(input, label, k=1, correct=None, total=None, name=None):
     lab = torch.as_tensor(label, device=pred.device)
     if lab.ndim == pred.ndim and lab.shape[-1] == 1:
         lab = lab[..., 0]
-    topk = torch.argsort(pred, dim=-1, descending=True)[..., :k]
+    topk = torch.argsort(pred, dim=-1, descending=True, stable=True)[..., :k]
     hit = (topk == lab[..., None]).any(dim=-1)
     return hit.to(torch.float32).mean()

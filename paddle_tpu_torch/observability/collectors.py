@@ -36,10 +36,10 @@ Adapters (register with ``MetricsRegistry.register_collector``):
   ``pt_transport_*`` families, and every live worker's own ``/metrics``
   re-labeled ``replica="<idx>"``. Over an in-process fleet it renders the
   ``pt_procfleet_*`` and ``pt_transport_*`` families at zero.
-
-Later slices of the port, refused with ``NotImplementedError`` when asked
-for: :func:`guard_collector` (the numeric guard, ROADMAP Queue 1 item 6)
-and :func:`checkpoint_collector` (the checkpoint lifecycle, item 6).
+- :func:`guard_collector` — the eager health word and, given a
+  ``NumericWatchdog``, its rollback and window-skip budgets.
+- :func:`checkpoint_collector` — the checkpoint lifecycle's publish
+  counters, published generation and phase gauge.
 
 Nothing here touches device state.
 """
@@ -51,7 +51,6 @@ import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List
 
-from .._later import later_slice
 from .metrics import MetricFamily, parse_prometheus_text
 
 __all__ = ["checkpoint_collector", "engine_collector", "fleet_collector",
@@ -213,10 +212,32 @@ def retry_collector():
 
 
 def guard_collector(watchdog=None):
-    """Numeric-guard escalation surface (``pt_guard_*``): needs the port's
-    numeric guard, a later slice."""
-    raise later_slice("guard_collector (framework/numeric_guard.py)",
-                      "resilience", "6")
+    """Numeric-guard escalation surface: the eager health-event
+    accumulator (``framework/numeric_guard.py``) and, when a
+    ``NumericWatchdog`` is passed, its skip/rollback budgets."""
+
+    def collect() -> Iterable[MetricFamily]:
+        from ..framework.numeric_guard import health_events, peek_health
+
+        fams = [
+            MetricFamily("pt_guard_health_events_total", "counter",
+                         "eager health-word events recorded").add(
+                len(health_events())),
+            MetricFamily("pt_guard_health_word", "gauge",
+                         "current un-consumed health word").add(
+                peek_health()),
+        ]
+        if watchdog is not None:
+            fams.append(MetricFamily(
+                "pt_guard_rollbacks_total", "counter",
+                "watchdog rollback escalations").add(watchdog.rollbacks))
+            fams.append(MetricFamily(
+                "pt_guard_window_skips", "gauge",
+                "skips inside the current escalation window").add(
+                len(watchdog._window_skips)))
+        return fams
+
+    return collect
 
 
 # supervisor stats NOT auto-exported as pt_supervisor_*: the elastic
@@ -424,12 +445,44 @@ def tracer_collector(tracer, **labels):
 
 
 def checkpoint_collector(stats_fn=None):
-    """Checkpoint-lifecycle families (``pt_checkpoint_*``,
-    ``pt_lifecycle_phase``): needs the checkpoint lifecycle, a later
-    slice."""
-    raise later_slice(
-        "checkpoint_collector (distributed/resilience/lifecycle.py)",
-        "resilience", "6")
+    """Checkpoint-lifecycle families: ``pt_checkpoint_generation`` (the
+    newest generation published to serving),
+    ``pt_checkpoint_publish_total`` / ``pt_checkpoint_publish_failures``
+    (CheckpointPublisher outcomes) and ``pt_lifecycle_phase`` (one 0/1
+    gauge per phase of the train -> serve arc; exactly one sample is 1).
+    Reads the module-level stats of ``distributed.resilience.lifecycle``,
+    imported at scrape time; ``stats_fn`` scrapes another source. With no
+    publisher yet every family renders at zero / phase ``idle``."""
+
+    def collect() -> Iterable[MetricFamily]:
+        from ..distributed.resilience.lifecycle import (LIFECYCLE_PHASES,
+                                                        lifecycle_stats)
+
+        stats = (stats_fn or lifecycle_stats)()
+        fams = [
+            MetricFamily(
+                "pt_checkpoint_generation", "gauge",
+                "newest checkpoint generation published to serving").add(
+                stats.get("generation", 0)),
+            MetricFamily(
+                "pt_checkpoint_publish_total", "counter",
+                "checkpoints handed to the serving fleet").add(
+                stats.get("publish_total", 0)),
+            MetricFamily(
+                "pt_checkpoint_publish_failures", "counter",
+                "publishes refused (corrupt manifest, stale generation, "
+                "swap failure)").add(stats.get("publish_failures", 0)),
+        ]
+        phase = MetricFamily(
+            "pt_lifecycle_phase", "gauge",
+            "current phase of the train->serve lifecycle (1 = active)")
+        current = stats.get("phase", "idle")
+        for p in LIFECYCLE_PHASES:
+            phase.add(1.0 if p == current else 0.0, phase=p)
+        fams.append(phase)
+        return fams
+
+    return collect
 
 
 def slo_collector(monitor):

@@ -453,10 +453,10 @@ class TraceRecorder:
     def publish(self, t0: float, step: int, generation: int, shards: int,
                 ok: bool = True, t1: Optional[float] = None,
                 tags: Optional[dict] = None) -> None:
-        """A checkpoint handed from training to serving (the checkpoint
-        lifecycle, a later slice of the port): manifest verify -> in-place
-        weight load -> rolling fleet swap, one span covering the whole
-        handoff."""
+        """A checkpoint handed from training to serving
+        (``distributed.resilience.lifecycle.CheckpointPublisher``):
+        manifest verify -> in-place weight load -> rolling fleet swap, one
+        span covering the whole handoff."""
         self.span("publish", None, t0, t1, tags, step=int(step),
                   generation=int(generation), shards=int(shards),
                   ok=bool(ok))

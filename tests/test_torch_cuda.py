@@ -3118,3 +3118,99 @@ def test_dp2_sharing_the_card_matches_mesh_none(card_place, tmp_path):
     for name, p in ref.items():
         err = np.abs(res[0]["model"][name] - p.float().cpu().numpy()).max()
         assert err <= 2 * 1e-3 * 3, (name, err)
+
+
+def _parent_adamw(eng, grads):
+    """The unguarded AdamW as it was before the guard came (in place:
+    ``mm.mul_(b1).add_(...)``, ``p.copy_(...)``), on ``eng``'s tensors."""
+    b1, b2, eps, wd = eng.beta1, eng.beta2, eng.epsilon, eng.weight_decay
+    stepf = eng.step_count.float()
+    bc1, bc2 = 1.0 - b1 ** stepf, 1.0 - b2 ** stepf
+    grads = eng._clip_grads(grads)
+    with torch.no_grad():
+        for p, mm, vv, g, decay in zip(eng.params, eng.m, eng.v, grads,
+                                       eng._decay_mask):
+            gf = g.float()
+            mm.mul_(b1).add_((1.0 - b1) * gf)
+            vv.mul_(b2).add_((1.0 - b2) * gf * gf)
+            update = (mm / bc1) / (torch.sqrt(vv / bc2) + eps)
+            pf = p.float()
+            if decay:
+                update = update + wd * pf
+            p.copy_(pf - eng.lr * update)
+
+
+@pytest.mark.cuda
+def test_guarded_skip_on_card_is_bit_identical(card_place):
+    """bf16 on the card: a nan_grad step and a loss_spike step (after the
+    warm-up) leave every parameter and moment bit-identical, the counter
+    advancing; the healthy guarded steps launch K1-lse, K2 and K3 once a
+    layer each and give the unguarded engine's numbers bitwise."""
+    from paddle_tpu_torch.distributed import GuardPolicy
+    from paddle_tpu_torch.distributed.resilience import FaultPlan, FaultSpec
+
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_key_value_heads=4, dtype="bfloat16")
+    rng = np.random.default_rng(8)
+    batches = [rng.integers(0, 256, (2, 64)) for _ in range(6)]
+    plain = Engine(LlamaForCausalLM(cfg, seed=3), lr=1e-3)
+    eng = Engine(LlamaForCausalLM(cfg, seed=3), lr=1e-3,
+                 guard=GuardPolicy(warmup_steps=2))
+    flash_attention_forward.launches = 0
+    for b in batches[:4]:
+        assert torch.equal(eng.step(b, b), plain.step(b, b))
+        assert int(eng.last_health) == 0
+    assert flash_attention_forward.launches == 2 * 4 * cfg.num_hidden_layers
+    for a, b in zip(eng.params + eng.m + eng.v,
+                    plain.params + plain.m + plain.v):
+        assert torch.equal(a, b)
+    with FaultPlan(specs=[FaultSpec("numeric.step", "nan_grad", at=0),
+                          FaultSpec("numeric.step", "loss_spike", at=1)]):
+        for b, bit in zip(batches[4:], (1, 8)):
+            before = [t.detach().clone() for t in eng.params + eng.m + eng.v]
+            n = int(eng.step_count)
+            eng.step(b, b)
+            assert int(eng.last_health) & bit
+            assert int(eng.step_count) == n + 1
+            assert all(torch.equal(t, s) for t, s in zip(
+                eng.params + eng.m + eng.v, before))
+
+
+@pytest.mark.cuda
+def test_unguarded_step_on_card_is_the_parents_arithmetic(card_place):
+    """guard=None: three steps give bitwise the numbers of the in-place
+    AdamW the engine ran before the guard came (``_parent_adamw``)."""
+    cfg = LlamaConfig.tiny(hidden_size=256, intermediate_size=512,
+                           num_key_value_heads=4, dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    batches = [torch.from_numpy(rng.integers(0, 256, (2, 64))).cuda()
+               for _ in range(3)]
+    eng = Engine(LlamaForCausalLM(cfg, seed=5), lr=1e-3)
+    ref = Engine(LlamaForCausalLM(cfg, seed=5), lr=1e-3)
+    for b in batches:
+        loss = eng.step(b, b)
+        with torch.no_grad():
+            ref.step_count += 1
+        ref_loss = ref.model.loss_fn(b, b)
+        grads = torch.autograd.grad(ref_loss, ref.params, allow_unused=True,
+                                    materialize_grads=True)
+        _parent_adamw(ref, grads)
+        assert torch.equal(loss, ref_loss.detach())
+    for a, b in zip(eng.params + eng.m + eng.v, ref.params + ref.m + ref.v):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_accuracy_ties_rank_by_index_on_card(cuda):
+    """Tied predictions: the card's top-k equals the CPU's, call after
+    call (an unstable CUDA sort moved a tied label across k between two
+    evaluations of one model)."""
+    from paddle_tpu_torch.metric import Accuracy
+
+    g = torch.Generator().manual_seed(38)
+    pred = torch.randint(0, 3, (4096, 10), generator=g).float()
+    label = torch.randint(0, 10, (4096,), generator=g)
+    acc = Accuracy(topk=(1, 5))
+    ref = acc.compute(pred, label)
+    for _ in range(3):
+        assert torch.equal(acc.compute(pred.to(cuda), label).cpu(), ref)

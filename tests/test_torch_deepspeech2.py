@@ -12,9 +12,14 @@ after the step within 1e-5.
 padded frames in), the port's batched per-row CTC losses against the JAX
 model run on each row alone, cut to its length (1e-5 relative), and the
 gradients of their sum against the per-row JAX gradients summed (1e-4).
+The JAX losses and gradients of (a) and of each row of (b) come from one
+``jax.jit`` of ``jax.value_and_grad`` over the model's parameters (and
+(a)'s running statistics), swapped in as the JAX engine does
+(``paddle_tpu.jit.api._Swap``): the eager tape would compile every op of
+every shape anew.
 """
 
-import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
+import jax  # (JAX on the CPU, as tests/conftest.py sets it)
 import numpy as np
 import pytest
 import torch
@@ -22,6 +27,9 @@ import torch
 import chip_smoke
 import paddle_tpu as jp
 import paddle_tpu_torch as pt
+from paddle_tpu.core import autograd_engine
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.jit.api import _Swap
 from paddle_tpu_torch import device as pt_device
 from paddle_tpu_torch.weights import load_jax_state, state_from_jax_layer
 from torch_nn_parity import as_np
@@ -67,14 +75,31 @@ def test_full_lengths_match_jax_in_training():
     jm, tm = _pair(True)
     feats, lens, labels, lab_lens = chip_smoke.ds2_batch(np, CFG, 0)
     lens = np.full_like(lens, feats.shape[1])
-    losses = []
-    for P, m in ((jp, jm), (pt, tm)):
-        loss = chip_smoke.ds2_loss(P, m, P.to_tensor(feats), lens,
-                                   P.to_tensor(labels), P.to_tensor(lab_lens))
-        loss.backward()
-        losses.append(float(loss))
-    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
-    _grads_close(tm, {n: as_np(p.grad) for n, p in jm.named_parameters()},
+    loss = chip_smoke.ds2_loss(pt, tm, pt.to_tensor(feats), lens,
+                               pt.to_tensor(labels), pt.to_tensor(lab_lens))
+    loss.backward()
+    # the JAX step as one jit: the parameters and the batch norms' running
+    # statistics swapped in, the statistics' updates returned
+    named = list(jm.named_parameters())
+    params = [p for _, p in named]
+    buffers = [b for _, b in jm.named_buffers()]
+
+    def step(ps, bs, x, lab):
+        with autograd_engine.no_grad(), _Swap(params + buffers,
+                                              list(ps) + list(bs)):
+            jl = chip_smoke.ds2_loss(jp, jm, Tensor(x), lens, Tensor(lab),
+                                     jp.to_tensor(lab_lens))
+            # a traced batch norm stages its update (hapi/model.py
+            # threads it through the same way)
+            return jl._data, [b.__dict__.pop("_pending_update", b._data)
+                              for b in buffers]
+
+    (jl, stats), grads = jax.jit(jax.value_and_grad(step, has_aux=True))(
+        [p._data for p in params], [b._data for b in buffers], feats, labels)
+    for b, a in zip(buffers, stats):
+        b._data = a
+    assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
+    _grads_close(tm, {n: np.asarray(g) for (n, _), g in zip(named, grads)},
                  1e-4)
     for (n, a), b in zip(tm.state_dict().items(), jm.state_dict().values()):
         np.testing.assert_allclose(as_np(a), as_np(b), rtol=1e-5, atol=1e-5,
@@ -89,18 +114,26 @@ def test_differing_lengths_match_per_row_jax_runs():
                                pt.to_tensor(labels), pt.to_tensor(lab_lens),
                                reduction="none")
     loss.sum().backward()
-    jgrads = {n: 0.0 for n, _ in jm.named_parameters()}
+    named = list(jm.named_parameters())
+    tensors = [p for _, p in named]
+
+    def row_loss(params, x, lab, n, lab_len):
+        with autograd_engine.no_grad(), _Swap(tensors, params):
+            jl = chip_smoke.ds2_loss(jp, jm, Tensor(x), np.array([n]),
+                                     Tensor(lab), np.array([lab_len]),
+                                     reduction="none")
+        return jl._data.sum()
+
+    params = [p._data for p in tensors]
+    jgrads = {n: 0.0 for n, _ in named}
     for b, n in enumerate(lens):
-        for p in jm.parameters():
-            p.clear_gradient()
-        jl = chip_smoke.ds2_loss(jp, jm, jp.to_tensor(feats[b:b + 1, :n]),
-                                 lens[b:b + 1],
-                                 jp.to_tensor(labels[b:b + 1, :lab_lens[b]]),
-                                 jp.to_tensor(lab_lens[b:b + 1]),
-                                 reduction="none")
-        ref = float(as_np(jl)[0])
+        f = jax.jit(jax.value_and_grad(
+            lambda ps, x, lab, n=int(n), k=int(lab_lens[b]):
+            row_loss(ps, x, lab, n, k)))
+        jl, grads = f(params, feats[b:b + 1, :n],
+                      labels[b:b + 1, :lab_lens[b]])
+        ref = float(jl)
         assert abs(float(loss[b]) - ref) <= 1e-5 * abs(ref), (b, ref)
-        jl.sum().backward()
-        for name, p in jm.named_parameters():
-            jgrads[name] = jgrads[name] + as_np(p.grad)
+        for (name, _), g in zip(named, grads):
+            jgrads[name] = jgrads[name] + np.asarray(g)
     _grads_close(tm, jgrads, 1e-4)

@@ -212,8 +212,8 @@ def test_mesh_refusals_name_their_part(world):
 
 def _refusals():
     import paddle_tpu_torch.distributed as D
-    from paddle_tpu_torch.distributed import auto_parallel, checkpoint, \
-        fleet
+    from paddle_tpu_torch.distributed import auto_parallel, \
+        communication, fleet
     from paddle_tpu_torch.distributed.communication import functional as cf
     from paddle_tpu_torch.distributed.fleet import meta_parallel
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -227,7 +227,9 @@ def _refusals():
         ("n_micro", lambda: engine(n_micro=2), "pipeline parallelism"),
         ("pp_schedule", lambda: engine(pp_schedule="zb"),
          "pipeline parallelism"),
-        ("guard", lambda: engine(guard=object()), "numeric guard"),
+        ("ResilientTrainer_elastic",
+         lambda: D.ResilientTrainer(None, "unused", elastic=object()),
+         "the store, launch and elastic"),
         ("ppermute", lambda: cf.ppermute(None, "sep", []), "ring attention"),
         ("axis_index", lambda: cf.axis_index("sep"), "ring attention"),
         ("fleet.init", lambda: fleet.init, "fleet and ZeRO"),
@@ -237,9 +239,12 @@ def _refusals():
         ("PipelineLayer", lambda: meta_parallel.PipelineLayer,
          "pipeline parallelism"),
         ("TCPStore", lambda: D.TCPStore, "the store, launch and elastic"),
-        ("GuardPolicy", lambda: D.GuardPolicy, "numeric guard"),
-        ("NumericWatchdog", lambda: D.NumericWatchdog, "numeric guard"),
-        ("read_latest", lambda: checkpoint.read_latest, "numeric guard"),
+        ("CommTaskManager", lambda: D.CommTaskManager,
+         "the store, launch and elastic"),
+        ("get_comm_task_manager", lambda: D.get_comm_task_manager,
+         "the store, launch and elastic"),
+        ("communication.watchdog", lambda: communication.watchdog,
+         "the store, launch and elastic"),
         ("ps", lambda: D.ps, "ps, rpc and auto_tuner"),
         ("rpc", lambda: D.rpc, "ps, rpc and auto_tuner"),
         ("utils", lambda: D.utils, "MoE over an ep mesh"),

@@ -141,7 +141,8 @@ def test_three_steps_match_the_jax_engine(name):
 def test_clip_rules_and_refusals():
     """A non-global-norm clip raises JAX's ValueError; a global-norm clip's
     clip_norm becomes the engine's unless the caller passed one; guard=
-    stays refused; LBFGS has no per-tensor rule to run."""
+    with a pluggable optimizer raises JAX's ValueError; LBFGS has no
+    per-tensor rule to run."""
     _, tm = _pair()
     with pytest.raises(ValueError, match="ClipGradByGlobalNorm only"):
         Engine(tm, optimizer=pt.optimizer.SGD(
@@ -152,7 +153,7 @@ def test_clip_rules_and_refusals():
     assert Engine(tm, optimizer=pt.optimizer.SGD(grad_clip=clip),
                   clip_norm=None).clip_norm is None
     assert Engine(tm, optimizer=pt.optimizer.SGD()).clip_norm == 1.0
-    with pytest.raises(NotImplementedError, match="guard.*item 6"):
+    with pytest.raises(ValueError, match="built-in AdamW path only"):
         Engine(tm, optimizer=pt.optimizer.SGD(), guard=object())
     eng = Engine(tm, optimizer=pt.optimizer.LBFGS())
     ids, lb = _batch(0)

@@ -81,3 +81,25 @@ def test_accuracy_function(k):
     got = TM.accuracy(torch.from_numpy(pred), torch.from_numpy(label), k=k)
     assert got.ndim == 0 and got.dtype == torch.float32
     assert abs(got.item() - ref) <= 1e-7
+
+
+def test_tied_predictions_rank_by_index():
+    """Ties rank by index, the same on every call: the functional
+    ``accuracy`` equals the JAX one (``jnp.argsort`` is stable), and
+    ``Accuracy.compute`` keeps the lowest-index tied classes in its top k
+    (the JAX class sorts with numpy's quicksort, whose tie order is its
+    own: the port does not follow it)."""
+    pred = np.array([[1.0, 3.0, 3.0, 3.0, 0.5, 3.0, 3.0, 3.0]] * 2,
+                    np.float32)
+    label = np.array([6, 7])
+    for k in (1, 5):
+        np.testing.assert_allclose(
+            float(TM.accuracy(torch.from_numpy(pred),
+                              torch.from_numpy(label), k=k)),
+            float(np.asarray(JM.accuracy(paddle.to_tensor(pred),
+                                         paddle.to_tensor(label),
+                                         k=k)._data)), rtol=1e-7)
+    got = TM.Accuracy(topk=(1, 5)).compute(torch.from_numpy(pred),
+                                           torch.from_numpy(label))
+    np.testing.assert_array_equal(got.numpy(), [[0, 0, 0, 0, 1],
+                                                [0, 0, 0, 0, 0]])

@@ -783,12 +783,34 @@ def test_engine_finished_copies_the_retry_registry_as_jax(pkgs):
 
 
 def test_later_collectors_name_their_slices():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tobs.guard_collector()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tobs.checkpoint_collector()
-    # the process fleet's collector is ported (item 3b): over an object
-    # that is no fleet it renders JAX's families at zero, as JAX's does
+    """The guard and checkpoint collectors (ported with the resilience
+    trainer) render JAX's families; the process fleet's over an object
+    that is no fleet renders them at zero, as JAX's does."""
+    from paddle_tpu.distributed.resilience import lifecycle as jlife
+    from paddle_tpu.distributed.resilience import watchdog as jwd
+    from paddle_tpu.framework import numeric_guard as jng
+    from paddle_tpu_torch.distributed.resilience import lifecycle as tlife
+    from paddle_tpu_torch.distributed.resilience import watchdog as twd
+    from paddle_tpu_torch.framework import numeric_guard as tng
+
+    dumps = []
+    for obs, ng, wdm, life in ((tobs, tng, twd, tlife),
+                               (jobs, jng, jwd, jlife)):
+        ng.consume_health()
+        life.reset_lifecycle_stats()
+        wd = wdm.NumericWatchdog(ng.GuardPolicy(max_skips_per_window=1))
+        wd.observe(3, ng.SPIKE)
+        ng.record_health(ng.INF_GRAD, "check")
+        life.set_lifecycle_phase("train")
+        reg = obs.MetricsRegistry()
+        reg.register_collector(obs.guard_collector(wd))
+        reg.register_collector(obs.checkpoint_collector())
+        dumps.append(reg.dump())
+        ng.consume_health()
+        life.reset_lifecycle_stats()
+    assert dumps[0] == dumps[1]
+    assert "pt_guard_window_skips 1" in dumps[0]
+    assert 'pt_lifecycle_phase{phase="train"} 1' in dumps[0]
     port = tobs.MetricsRegistry()
     port.register_collector(tobs.procfleet_collector(None))
     ref = jobs.MetricsRegistry()

@@ -136,11 +136,12 @@ def test_three_engine_steps_match_jax(tie):
 
 
 def test_unported_training_paths_raise():
-    """What stays refused: the guard and pipeline parallelism, each naming
-    its part of item 6; a mesh that is not one (meshes are ported:
-    tests/test_torch_dist_engine.py); an optimizer that is not one;
-    invalid remat settings. Remat itself is ported
-    (tests/test_torch_remat.py)."""
+    """What stays refused: pipeline parallelism, naming its part of item
+    6; the guard with a pluggable optimizer (JAX's ValueError; the guard
+    itself is ported: tests/test_torch_numeric_guard.py); a mesh that is
+    not one (meshes are ported: tests/test_torch_dist_engine.py); an
+    optimizer that is not one; invalid remat settings. Remat itself is
+    ported (tests/test_torch_remat.py)."""
     assert LlamaForCausalLM(LlamaConfig.tiny(recompute=True),
                             device="cpu").remat_policy() is not None
     with pytest.raises(ValueError, match="remat_policy"):
@@ -152,8 +153,10 @@ def test_unported_training_paths_raise():
         Engine(tm, mesh=object())
     with pytest.raises(TypeError, match="Optimizer, got object"):
         Engine(tm, optimizer=object())
-    with pytest.raises(NotImplementedError, match="guard.*item 6's part"):
-        Engine(tm, guard=object())
+    from paddle_tpu_torch.framework.numeric_guard import GuardPolicy
+    from paddle_tpu_torch.optimizer import SGD
+    with pytest.raises(ValueError, match="guard supports the built-in"):
+        Engine(tm, guard=GuardPolicy(), optimizer=SGD())
     with pytest.raises(NotImplementedError,
                        match="pipeline.*item 6's part: pipeline"):
         Engine(tm, n_micro=2)
