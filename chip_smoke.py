@@ -33,15 +33,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the MoE step's [8, 2048, 16/4, 64], the remat step's [4, 4096,
      16/4, 128], phase 30's GPT step [2, 2048, 32/32, 128] (q, k, v strided
      views), phase 32's BERT step [32, 128, 12/12, 64] (not causal) and
-     phase 56 (b)'s per-rank shard [1, 4096, 16/4, 128], phase 57 (a)'s
-     guarded step [8, 1024, 16/4, 64] and 57 (b)'s trainer [4, 512, 8/8,
-     64] (bf16 at those eight), and at FP16_CASES in fp16 (lse max abs error
+     phase 56 (b)'s per-rank shard and pp microbatch [1, 4096, 16/4,
+     128], phase 57 (a)'s guarded step [8, 1024, 16/4, 64], 57 (b)'s
+     trainer [4, 512, 8/8, 64] and 56 (b)'s ring attention stripe pairs
+     over sep=2 [2, 1024, 16/4, 128] (stripes of fp32 tensors, each cast
+     to a contiguous bf16 copy as the ring casts them; the diagonal pair
+     causal, the other not) (bf16 at those ten), and at FP16_CASES in fp16 (lse max abs error
      <= 5e-3 bf16 and fp16 / 1e-4 fp32, out as in 2), timed beside the
      no-lse path and SDPA's forward, with device_ms.
   5. K2/K3 (flash backward, csrc/flash_bwd.cu) against the plain backward
      on the same (q, k, v, o, lse, dout): the training shape, the MoE
-     step's, the remat step's, GPT's, BERT's, phase 56 (b)'s dp shard and
-     phase 57's two steps (bf16), MHA, ragged 77
+     step's, the remat step's, GPT's, BERT's, phase 56 (b)'s dp shard,
+     phase 57's two steps and 56 (b)'s two ring stripe pairs (bf16), MHA,
+     ragged 77
      (not causal),
      end-aligned 200/520 at head_dim 64 and q, k, v as strided views of one
      [b, s, 3, h, d] buffer, each also in fp32; FP16_CASES in fp16; max
@@ -218,7 +222,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      2048, 1024 and 1024 tokens a row; (b) 2 indices, hm = 4: kv head h
      hides rows [c + W_h, min(c + W_h + 512, 4096)) from column c, W_h in
      256, 512, 1024, 2048. Checked and timed as phase 18.
- 20. lse cotangent (flash_attention_with_lse) at the training shape: loss
+ 20. lse cotangent (flash_attention_with_lse) at the training shape and
+     at ring attention's two stripe pairs (phase 56 (b)'s sep=2): loss
      (out g).sum() + (lse h).sum() with seeded g and h, gradients through
      autograd against the plain backward with l-bar; K2 with l-bar timed as
      phase 18 (SDPA's forward and backward, which take no lse cotangent,
@@ -317,8 +322,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      fleet steps and wall time. (b) the observatory of
      tools/traffic_replay.py run_replay (observatory_replay: its seeded
      burst on a VirtualClock, 2-slot engines, SLOAutoscaler min 1 max 3)
-     on the card, autoscaler off and on: each report equal to the same
-     replay of a 1-layer tiny model on the CPU.
+     on the card (SERVE_CONFIG's width at OBSERVATORY_LAYERS of its 12
+     layers), autoscaler off and on: each report equal to the same replay
+     of a 1-layer tiny model on the CPU.
  28. disagg under burst (bench.py bench_disagg, :1259): the seed-29 burst
      replayed wall-clock into a unified 2-replica FleetRouter, then a
      TieredRouter of one prefill and one decode replica, both of 26 (a)'s
@@ -628,14 +634,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      weights on DIST_STEPS seeded batches: losses within DIST_LOSS_RTOL,
      K1-lse, K2 and K3 launched 16 times a step on both paths, each
      step's ms, the median's difference and each path's host enqueue of
-     one step; (b) dp=2 as two processes sharing the card over gloo,
-     DIST_DP_LAYERS of the 16 layers at full width, one sequence a rank,
-     against one process's mesh=None steps over the same global batch
-     (losses within DIST_LOSS_RTOL, gathered parameters within 2 * lr *
-     steps plus one bf16 ulp), each rank's step ms and the collectives of
-     one step (CommDebugMode). The ranks are killed after DIST_SPAWN_S.
-     (tp and fsdp need DTensor's functional all-gather, which gloo ends
-     with SIGSEGV on CUDA tensors: DIST_GLOO_MESHES.)
+     one step; (b) two processes sharing the card over gloo,
+     DIST_DP_LAYERS of the 16 layers at full width, on each mesh of
+     DIST_GLOO_MESHES: dp=2 (one sequence a rank), sep=2 (ring attention,
+     zigzag), pp=2 (GPipe over 2 microbatches, VPP with 2 chunks a stage,
+     zero-bubble), against one process's mesh=None steps over the same
+     global batch (losses within DIST_LOSS_RTOL; gathered parameters
+     within 2 * lr * steps + |w| / 256, sep=2 within 2 * lr * steps plus
+     DIST_SEP_ULPS bf16 ulps; each parameter's update from the seed-0
+     weights within DIST_UPDATE_RTOL of mesh=None's, and a planted fault,
+     pp stage 1's blocks left at their initial values, caught by that
+     check), K1-lse, K2 (dense or GLSE) and K3 launched on each rank as
+     its schedule implies (_dist_need),
+     each mesh's step ms, the collectives (CommDebugMode) and
+     point-to-point transfers of one step. The ranks are killed after
+     DIST_SPAWN_S. (tp and fsdp need DTensor's functional all-gather,
+     which gloo ends with SIGSEGV on CUDA tensors: DIST_GLOO_MESHES.)
  57. the numeric guard and the resilience trainer: (a) bench.py
      bench_guard's config (GUARD_CONFIG), a plain and a GuardPolicy()
      Engine from the same seed-0 weights, GUARD_ITERS steps a wave,
@@ -666,10 +680,10 @@ prefill rows, phase 23's legacy arm and phase 29 (a)'s reference wave to
 phase 6's wave, and phase 31's legacy wave; K5's adds phase 15's served
 waves to phase 12's steps; K1-lse, K2 and K3 count the timed steps of
 phases 9, 13, 14, 30, 32, 37 (b), 41 (a, b), 47's dumped steps, 48's
-recorded steps, 50, 52, 53's (a) and (c), 56 (a)'s mesh path (56 (b)'s
-ranks count their own, printed, not added), 57 (a)'s timed waves and
-57 (b)'s trainer (K1-lse also phase 20's
-forward); K1 and K4 also count phase 48's profiled serving wave; K1 also
+recorded steps, 50, 52, 53's (a) and (c), 56 (a)'s mesh path, 56 (b)'s
+two ranks' compared steps (each read by its own process, on every mesh;
+its GLSE K2 in the l-bar row), 57 (a)'s timed waves and 57 (b)'s trainer
+(K1-lse also phase 20's forwards); K1 and K4 also count phase 48's profiled serving wave; K1 also
 phase 51's checked forwards (eager, loaded, Predictor), phase 53 (b)'s
 calibration and int8 forwards and phase 54's checked calls; K1 and K4
 also phase 57 (b)'s fleets' waves; the fp16 rows count phase 41 (c)'s timed steps (and its eval
@@ -767,12 +781,23 @@ DP_SHARD_SHAPE = ("dp_shard", 1, 4096, 4096, 16, 4, 128, True)
 # PUBLISH_BATCH: 8/8 heads of 64)
 GUARD_ATTN_SHAPE = ("guard", 8, 1024, 1024, 16, 4, 64, True)
 PUBLISH_ATTN_SHAPE = ("publish", 4, 512, 512, 8, 8, 64, True)
+# phase 56 (b)'s ring attention over {"sep": 2}: a rank's stripe pairs of
+# the training shape (its 2 x 2048 rows cut into two stripes of 1024), the
+# diagonal pairs causal and the others full; q, k and v are stripes of the
+# rank's fp32 [2, 2048, h, 128] tensors, each cast to a contiguous bf16
+# copy, as the ring holds its shards in fp32 and casts each stripe for its
+# kernel (K2 runs in GLSE mode there: phase 20). Its pp microbatch [1, 4096] is DP_SHARD_SHAPE.
+RING_DIAG_SHAPE = ("ring_diag", 2, 1024, 1024, 16, 4, 128, True)
+RING_FULL_SHAPE = ("ring_full", 2, 1024, 1024, 16, 4, 128, False)
 # the main paths' attention shapes, which K1-lse and K2/K3 run in bf16 only
 TRAIN_PATH_SHAPES = (TRAIN_SHAPE, MOE_ATTN_SHAPE, REMAT_ATTN_SHAPE,
                      GPT_ATTN_SHAPE, BERT_ATTN_SHAPE, DP_SHARD_SHAPE,
-                     GUARD_ATTN_SHAPE, PUBLISH_ATTN_SHAPE)
+                     GUARD_ATTN_SHAPE, PUBLISH_ATTN_SHAPE, RING_DIAG_SHAPE,
+                     RING_FULL_SHAPE)
 # the cases whose q, k and v are views of one [b, s, 3, h, d] buffer
 STRIDED_CASES = ("strided", "gpt_prefill", "gpt_train")
+# the cases whose q, k and v are ring attention's stripes
+RING_CASES = ("ring_diag", "ring_full")
 # phases 18-20: the masked and lse-cotangent modes at the dense training
 # line's attention width (bench.py:2013-2019: 16 q / 4 kv heads of 128,
 # batch 2 x seq 4096, bf16). varlen packs the batch into one row of 8192
@@ -803,6 +828,8 @@ BWD_CASES = [
     DP_SHARD_SHAPE,
     GUARD_ATTN_SHAPE,
     PUBLISH_ATTN_SHAPE,
+    RING_DIAG_SHAPE,
+    RING_FULL_SHAPE,
     ("mha", 2, 1024, 1024, 16, 16, 128, True),
     ("ragged", 2, 77, 77, 16, 16, 128, False),
     ("end_aligned", 2, 200, 520, 16, 4, 64, True),
@@ -926,7 +953,11 @@ BURST_SLO_SEED, BURST_DISAGG_SEED = 23, 29
 BURST_TTFT_MS = 1500.0
 # the observatory of tools/traffic_replay.py run_replay (:78-120): its
 # selftest burst workload (seed 17), 2-slot engines, a VirtualClock at
-# 0.05 s a fleet step, the SLO and the autoscaler's knobs
+# 0.05 s a fleet step, the SLO and the autoscaler's knobs; on the card
+# over OBSERVATORY_LAYERS of SERVE_CONFIG's 12 layers at its width (the
+# report is the virtual clock's and the scheduler's, the same for any
+# model: the CPU run's is a 1-layer tiny model's)
+OBSERVATORY_LAYERS = 2
 OBSERVATORY_ENGINE = dict(max_batch=2, max_len=32, page_size=8, block_size=2,
                           prefix_cache=True)
 OBSERVATORY_SLO = dict(ttft_ms=500.0, inter_token_ms=None,
@@ -1233,21 +1264,52 @@ PACKAGE_TOL = 1e-4
 # process's mesh=None steps over the same global batch: losses within
 # DIST_LOSS_RTOL, each gathered parameter within 2 * lr * steps (Adam
 # normalises each update; an element whose bf16 gradient rounds otherwise
-# moves by up to lr a step) plus one bf16 ulp of its magnitude.
+# moves by up to lr a step) + |w| / 256 (one bf16 rounding). The same two
+# ranks then train the same model and batch on (b)'s other meshes, held to
+# the same tolerances: sep=2 (ring attention, zigzag) and pp=2 (GPipe with
+# n_micro=2, VPP with pp_interleave=2, zero-bubble). sep=2 alone is held
+# to 2 * lr * steps plus DIST_SEP_ULPS bf16 ulps (the ulp at |w| + 2 * lr *
+# steps): its ring sums attention in another order, so more elements
+# whose gradient is near 0 take the other sign of Adam's lr-sized update,
+# and each run rounds each step's update to bf16, up to half an ulp (where
+# |w| is in [2**-7, 2**-5), lr = 1e-4 rounds to 2**-13 = 1.22e-4, so an
+# element whose sign differs at all three steps is 6 * 2**-13 = 7.3e-4
+# apart, over 2 * lr * steps = 6e-4).
+# That the drift is rounding and not a fault is held on the card by
+# tests/test_torch_cuda.py::test_sep2_fp32_parameters_within_the_lr_bound
+# (the same sep=2 run in fp32, within 2 * lr * steps plus fp32 rounding).
+# The bound of 2 * lr * steps exceeds what three steps move most weights,
+# so each parameter's update (w after the steps minus the seed-0 w) is also
+# held to mesh=None's: |du - du_ref| <= DIST_UPDATE_RTOL * |du_ref| in the
+# 2-norm over the tensor (a parameter never updated reads 1, an update of
+# the wrong sign 2); a planted fault, the blocks of pp stage 1 left at
+# their seed-0 values, must fail it on every mesh.
 MESH_1 = {"dp": 1, "fsdp": 1, "tp": 1}
 DIST_STEPS, DIST_LR, DIST_LOSS_RTOL = 3, 1e-4, 2e-3
 DIST_DP_LAYERS = 4
+DIST_SEP_ULPS = {"sep2": DIST_STEPS}
+DIST_UPDATE_RTOL = 0.5
 # (b)'s meshes over the two ranks. gloo runs torch.distributed's
 # all_reduce, broadcast, all_gather_into_tensor and reduce_scatter_tensor
 # on CUDA tensors (tests/test_torch_cuda.py::
 # test_gloo_collectives_on_cuda_tensors), but the functional all-gather
 # that DTensor's Shard -> Replicate calls (_functional_collectives.
 # all_gather_tensor, in wait_tensor) ends the process with SIGSEGV there
-# (torch 2.11+cu128; PERF.md section 7), and tp and fsdp gather: so dp
-# only, whose collectives are all-reduces. tp and fsdp are held against
-# the JAX package on the CPU (tests/test_torch_dist_engine.py).
-DIST_GLOO_MESHES = ({"dp": 2},)
-DIST_SPAWN_S = 300        # the two ranks' whole run, then they are killed
+# (torch 2.11+cu128; PERF.md section 7), and tp and fsdp gather: so no tp
+# or fsdp. dp's collectives are all-reduces; sep's exchanges are c10d's
+# all_gather_into_tensor (the zigzag permutation) and point-to-point
+# sends through host copies (the ring); pp's are point-to-point sends,
+# broadcasts and all-reduces. tp and fsdp are held against the JAX package
+# on the CPU (tests/test_torch_dist_engine.py). Each entry: (label, mesh,
+# Engine keywords).
+DIST_GLOO_MESHES = (
+    ("dp2", {"dp": 2}, {}),
+    ("sep2", {"sep": 2}, {}),
+    ("pp2", {"pp": 2}, {"n_micro": 2}),
+    ("pp2_vpp", {"pp": 2}, {"pp_interleave": 2}),
+    ("pp2_zb", {"pp": 2}, {"pp_schedule": "zb"}),
+)
+DIST_SPAWN_S = 600        # the two ranks' whole run, then they are killed
 DIST_BACKEND = "nccl"     # (a)'s one-rank world
 # The numeric guard and the resilience trainer (phase 57). (a) bench.py
 # bench_guard's config (:1802-1808), not cut: a plain and a GuardPolicy()
@@ -1813,7 +1875,17 @@ def _inputs(torch, gen, dtype, b, s_q, s_kv, hq, hkv, d):
 
 def _case_inputs(torch, gen, dtype, name, b, s_q, s_kv, hq, hkv, d):
     """q, k, v of a kernel case; STRIDED_CASES take them as strided views
-    of one [b, s, 3, h, d] buffer (s_q = s_kv, hq = hkv)."""
+    of one [b, s, 3, h, d] buffer (s_q = s_kv, hq = hkv), RING_CASES as
+    the ring's stripes of fp32 [b, 2 s, h, d] tensors, each cast to
+    ``dtype`` (a contiguous copy, as the ring's _block_attn_lse casts
+    them): the diagonal pair the first stripes of q and k/v, the full pair
+    q's second stripe against k/v's first."""
+    if name in RING_CASES:
+        q, k, v = _inputs(torch, gen, torch.float32, b, 2 * s_q, 2 * s_kv,
+                          hq, hkv, d)
+        lo = s_q if name == "ring_full" else 0
+        return (q[:, lo:lo + s_q].to(dtype), k[:, :s_kv].to(dtype),
+                v[:, :s_kv].to(dtype))
     if name in STRIDED_CASES:
         qkv = torch.randn(b, s_q, 3, hq, d, device=DEVICE,
                           generator=gen).to(dtype)
@@ -2422,12 +2494,14 @@ def _reset_counts(ops):
         fn.launches = 0
     ops.flash_attention_backward.launches_dq = 0
     ops.flash_attention_backward.launches_dkv = 0
+    ops.flash_attention_backward.launches_glse = 0
 
 
 def _read_counts(ops):
     return dict(k1=ops.flash_attention.launches,
                 k1_lse=ops.flash_attention_forward.launches,
                 k2=ops.flash_attention_backward.launches_dq,
+                k2_glse=ops.flash_attention_backward.launches_glse,
                 k3=ops.flash_attention_backward.launches_dkv,
                 k5=ops.pgmm.launches, k6=ops.pgmm_dw.launches)
 
@@ -4139,13 +4213,26 @@ def phase_flashmask(torch, F, ops):
 
 
 def phase_lse_cotangent(torch, F, ops):
-    """flash_attention_with_lse at the training shape, loss (out g).sum() +
-    (lse h).sum(): K2 takes l-bar. Returns (the flash_bwd_dq_glse row, K1
+    """flash_attention_with_lse, loss (out g).sum() + (lse h).sum(): K2
+    takes l-bar, at the training shape and at ring attention's two stripe
+    pairs (RING_DIAG_SHAPE, RING_FULL_SHAPE: phase 56 (b)'s sep=2 runs K2
+    in this mode). Returns (the training shape's flash_bwd_dq_glse row, K1
     with lse launches of the main path)."""
+    row, lse_launches = None, 0
+    for shape in (TRAIN_SHAPE, RING_DIAG_SHAPE, RING_FULL_SHAPE):
+        got, n = _lse_cotangent_case(torch, F, ops, shape)
+        lse_launches += n
+        if shape is TRAIN_SHAPE:
+            row = got
+    return row, lse_launches
+
+
+def _lse_cotangent_case(torch, F, ops, shape):
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    _, b, s, _, hq, hkv, d, causal = TRAIN_SHAPE
+    name, b, s, _, hq, hkv, d, causal = shape
     gen = torch.Generator(device=DEVICE).manual_seed(20)
-    q, k, v = _inputs(torch, gen, torch.bfloat16, b, s, s, hq, hkv, d)
+    q, k, v = _case_inputs(torch, gen, torch.bfloat16, name, b, s, s, hq,
+                           hkv, d)
     g = torch.randn(b, s, hq, d, device=DEVICE, generator=gen).to(
         torch.bfloat16)
     h = torch.randn(b, hq, s, device=DEVICE, generator=gen)
@@ -4159,18 +4246,18 @@ def phase_lse_cotangent(torch, F, ops):
     want = {"flash_attention_forward.launches": 1,
             "flash_attention_backward.launches_glse": 1,
             "flash_attention_backward.launches_dkv": 1}
-    print(f"lse cotangent main path launches: {counts}", flush=True)
+    print(f"lse cotangent {name} main path launches: {counts}", flush=True)
     if counts != want:
-        raise AssertionError(f"lse cotangent: launches {counts}, expected "
-                             f"{want}")
+        raise AssertionError(f"lse cotangent {name}: launches {counts}, "
+                             f"expected {want}")
     refs = ops.flash_attention_backward_reference(
         q, k, v, out.detach(), lse.detach(), g, causal, g_lse=h)
     errs = _grad_errs(grads, refs)
     worst = max(rel for _, rel in errs.values())
-    print("lse cotangent through autograd vs plain: " + " ".join(
+    print(f"lse cotangent {name} through autograd vs plain: " + " ".join(
         f"{n_}_rel={rel:.3e}" for n_, (_, rel) in errs.items()), flush=True)
     if not worst <= TOL["bfloat16"]:
-        raise AssertionError(f"lse cotangent: gradient error {worst}")
+        raise AssertionError(f"lse cotangent {name}: gradient error {worst}")
     del grads, refs, out, lse, qg, kg, vg, loss
     torch.cuda.empty_cache()
     # the yardstick: SDPA forward and backward (no lse cotangent)
@@ -4183,8 +4270,8 @@ def phase_lse_cotangent(torch, F, ops):
         torch, *(x.transpose(1, 2) for x in (q, k, v)), None, causal))
     del qs, ks, vs, lo
     pairs = causal_pairs(s, s, causal) * b * hq
-    rows = _mode_rows(torch, F, fa, "lse cotangent", q, k, v, g, causal,
-                      None, None, pairs, g_lse=h, library=library)
+    rows = _mode_rows(torch, F, fa, f"lse cotangent {name}", q, k, v, g,
+                      causal, None, None, pairs, g_lse=h, library=library)
     row = rows[1]
     row["launches"] = counts["flash_attention_backward.launches_glse"]
     return row, counts["flash_attention_forward.launches"]
@@ -5413,9 +5500,9 @@ def phase_slo_burst(torch, np, ops, card, model):
     """(a) bench.py bench_slo_burst on the SERVE_CONFIG model: the seeded
     burst replayed wall-clock, open-loop, into a 2-replica FleetRouter of
     bench's 4-slot engine; (b) the observatory (tools/traffic_replay.py
-    run_replay) on the card, autoscaler off and on, against the same
-    replay of a 1-layer tiny model on the CPU. Returns K4's launches in
-    the measured replays."""
+    run_replay) on the card (OBSERVATORY_LAYERS of the model's depth),
+    autoscaler off and on, against the same replay of a 1-layer tiny
+    model on the CPU. Returns K4's launches in the measured replays."""
     from paddle_tpu_torch import observability as O
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             Request)
@@ -5464,11 +5551,15 @@ def phase_slo_burst(torch, np, ops, card, model):
 
     cpu_model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
                                  device="cpu", seed=0)
+    obs_model = LlamaForCausalLM(LlamaConfig(**dict(
+        SERVE_CONFIG, num_hidden_layers=OBSERVATORY_LAYERS)), device=DEVICE,
+        seed=0)
     for on in (False, True):
         arm = "on" if on else "off"
         ops.paged_decode_attention.launches = 0
         t0 = time.perf_counter()
-        card_rep = observatory_replay(model, _scratch_dir(f"obs_{arm}"), on)
+        card_rep = observatory_replay(obs_model, _scratch_dir(f"obs_{arm}"),
+                                      on)
         card_s = time.perf_counter() - t0
         k4 += ops.paged_decode_attention.launches
         cpu_rep = observatory_replay(cpu_model, _scratch_dir(f"obs_cpu_{arm}"),
@@ -10459,97 +10550,269 @@ def phase_dist_one_rank(torch, np, ops, card):
     return tuple(b["counts"][k] for k in keys)
 
 
-def _dist_rank(meshes, n_layers, out_path):
+def _dist_need(label, n_layers):
+    """K1-lse, K2 (dense), K2 (GLSE) and K3 launches on each rank over
+    DIST_STEPS steps of a (b) mesh: dp=2, the rank's L layers once a step
+    each; sep=2, ring attention's 2n + 1 = 5 stripe pairs a layer, forward
+    and backward, K2 in GLSE mode (the merge differentiates each pair's
+    lse); pp=2, the stage's L/2 layers (VPP: two chunks of L/4) for each
+    of the 2 microbatches; zero-bubble runs the flash backward twice a
+    layer and microbatch, in B (the activation's cotangent) and again in W
+    (the q, k, v weights' gradients need dq, dk, dv)."""
+    s = DIST_STEPS
+    if label == "dp2":
+        n = n_layers * s
+        return dict(k1_lse=n, k2=n, k2_glse=0, k3=n)
+    if label == "sep2":
+        n = 5 * n_layers * s
+        return dict(k1_lse=n, k2=0, k2_glse=n, k3=n)
+    n = n_layers // 2 * 2 * s
+    twice = 2 if label == "pp2_zb" else 1
+    return dict(k1_lse=n, k2=twice * n, k2_glse=0, k3=twice * n)
+
+
+@contextlib.contextmanager
+def _c10d_calls(torch):
+    """{name: calls} of torch.distributed's collectives made inside the
+    block (the module functions, counted as they are called)."""
+    dist = torch.distributed
+    names = ("all_reduce", "broadcast", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    counts = {}
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n, saved[n]))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(dist, n, saved[n])
+
+
+def _param_errors(torch, got, ref, init, ulps=None, mant=7):
+    """``got``'s parameters against ``ref``'s, both trained from ``init``
+    ({name: tensor}, on the card): each element within p_tol = 2 * lr *
+    steps plus |w| * 2**-(mant + 1) (one rounding of a float with ``mant``
+    mantissa bits), or, with ``ulps``, plus ``ulps`` ulps at |w| + p_tol;
+    each parameter's update within DIST_UPDATE_RTOL of ``ref``'s (2-norms;
+    a parameter that ``ref`` does not move must not move). Returns (worst
+    abs error, its name), the names past the first bound (``far``) and the
+    second (``stale``), the elements past p_tol + |w| / 256, the element
+    count, the worst error over its tolerance, and (the worst update
+    error, its name)."""
+    p_tol = 2 * DIST_LR * DIST_STEPS
+    worst, far, stale, beyond, total_n, ratio = (0.0, ""), [], [], 0, 0, 0.0
+    upd = (0.0, "")
+    for name, want in ref.items():
+        want, g, w0 = want.float(), got[name].float(), init[name].float()
+        err = (g - want).abs()
+        worst = max(worst, (err.max().item(), name))
+        if ulps is None:
+            tol = p_tol + want.abs() * 2.0 ** -(mant + 1)
+        else:
+            tol = p_tol + ulps * torch.exp2(
+                torch.floor(torch.log2(want.abs() + p_tol)) - mant)
+        beyond += int((err > p_tol + want.abs() * 2.0 ** -8).sum())
+        total_n += err.numel()
+        ratio = max(ratio, (err / tol).max().item())
+        if bool((err > tol).any()):
+            far.append(name)
+        du_ref = want - w0
+        n_ref = du_ref.norm().item()
+        n_err = (g - w0 - du_ref).norm().item()
+        rel = n_err / n_ref if n_ref > 0 else (0.0 if n_err == 0
+                                               else float("inf"))
+        upd = max(upd, (rel, name))
+        if rel > DIST_UPDATE_RTOL:
+            stale.append(name)
+    return dict(worst=worst, far=far, stale=stale, beyond=beyond,
+                total_n=total_n, ratio=ratio, upd=upd)
+
+
+def _stage1_layers(axes, kw, n_layers):
+    """The layers pipeline stage 1 of 2 holds on a pp mesh (VPP: its
+    chunks, in vpp_layer_order), else the second half."""
+    from paddle_tpu_torch.distributed.auto_parallel.pipeline import \
+        vpp_layer_order
+
+    v = kw.get("pp_interleave", 1) if "pp" in axes else 1
+    order = vpp_layer_order(n_layers, 2, v)
+    half = n_layers // 2
+    return sorted(order[half:])
+
+
+def _dist_rank(meshes, n_layers, dtype, ref_path, init_path, out_path):
     """One rank of phase 56 (b) (a spawned process sharing the card): for
-    each mesh of ``meshes``, Engine over it on DIST_STEPS global batches,
-    each rank keeping its shard; rank 0 saves each mesh's losses, step ms,
-    launches, the collectives of one more step (CommDebugMode) and the
-    gathered state after the compared steps."""
+    each (label, mesh, keywords) of ``meshes``, Engine over it on
+    DIST_STEPS global batches, each rank keeping its shard; every rank
+    saves each mesh's losses, step ms and launches, rank 0 also the
+    collectives and point-to-point transfers of one more step and its
+    gathered parameters' errors against the mesh=None run's
+    (``ref_path``; both from ``init_path``'s weights), held on the card,
+    and those of a planted fault: the same parameters with pp stage 1's
+    blocks (_stage1_layers) put back to their initial values."""
     import numpy as np
     import torch
+    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
 
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.distributed import (Engine, destroy_process_group,
                                               init_parallel_env)
     from paddle_tpu_torch.distributed.auto_parallel import make_mesh
+    from paddle_tpu_torch.distributed.communication.functional import \
+        exchange
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     init_parallel_env()
     rank = torch.distributed.get_rank()
-    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=n_layers))
+    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=n_layers,
+                             dtype=dtype))
     batches = _dist_batches(torch, np, cfg, TRAIN_BATCH, DIST_STEPS)
-    out = {}
-    for axes in meshes:
-        eng = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0),
-                     make_mesh(axes), lr=DIST_LR, clip_norm=1.0)
-        losses, ms, counts = _dist_steps(torch, ops, eng, batches)
-        state = eng.state_dict()
-        with CommDebugMode() as comm:
-            eng.step(batches[0], batches[0])
-            sync()
-        comms = {str(k).split(".")[-1]: v
-                 for k, v in comm.get_comm_counts().items()}
-        print(f"dist (b) rank {rank} {axes}: step ms "
-              f"{[round(x, 2) for x in ms]}; launches k1_lse/k2/k3 "
-              f"{[counts[k] for k in ('k1_lse', 'k2', 'k3')]}; collectives "
-              f"a step {comms}", flush=True)
-        out[str(axes)] = dict(
-            losses=losses, ms=ms, counts=counts, comms=comms,
-            model={n: t.cpu() for n, t in state["model"].items()})
-        del eng, state
-        torch.cuda.empty_cache()
     if rank == 0:
-        torch.save(out, out_path)
+        ref = torch.load(ref_path, map_location=DEVICE)
+        init = torch.load(init_path, map_location=DEVICE)
+    mant = 23 if dtype == "float32" else 7
+    out = {}
+    for label, axes, kw in meshes:
+        eng = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0),
+                     make_mesh(axes), lr=DIST_LR, clip_norm=1.0, **kw)
+        losses, ms, counts = _dist_steps(torch, ops, eng, batches)
+        # the parameters whole (under pp every rank's copy of each block
+        # takes its stage's values first): a collective call
+        eng.sync_model()
+        got = {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+               .detach().clone() for n, p in eng.model.named_parameters()}
+        exchange.sends = exchange.recvs = 0
+        if "pp" in axes:
+            # a pp stage calls each block once a microbatch, which
+            # CommDebugMode's module tracker cannot follow; its collectives
+            # are c10d's own calls, counted where they are made
+            with _c10d_calls(torch) as comms:
+                eng.step(batches[0], batches[0])
+                sync()
+        else:
+            with CommDebugMode() as comm:
+                eng.step(batches[0], batches[0])
+                sync()
+            comms = {str(k).split(".")[-1]: v
+                     for k, v in comm.get_comm_counts().items()}
+        p2p = dict(sends=exchange.sends, recvs=exchange.recvs)
+        print(f"dist (b) rank {rank} {label} {axes} {kw} {dtype}: step ms "
+              f"{[round(x, 2) for x in ms]}; launches k1_lse/k2/k2_glse/k3 "
+              f"{[counts[k] for k in ('k1_lse', 'k2', 'k2_glse', 'k3')]}; "
+              f"collectives a step {comms}; point-to-point a step {p2p}",
+              flush=True)
+        out[label] = dict(losses=losses, ms=ms, counts=counts, comms=comms,
+                          p2p=p2p)
+        if rank == 0:
+            ulps = (DIST_STEPS if dtype == "float32"
+                    else DIST_SEP_ULPS.get(label))
+            out[label]["params"] = _param_errors(torch, got, ref, init,
+                                                 ulps, mant)
+            frozen = tuple(f"model.layers.{i}."
+                           for i in _stage1_layers(axes, kw, n_layers))
+            planted = {n: init[n] if n.startswith(frozen) else t
+                       for n, t in got.items()}
+            out[label]["planted"] = dict(
+                names=sorted(n for n in got if n.startswith(frozen)),
+                moved=sorted(n for n in got if n.startswith(frozen)
+                             and not torch.equal(ref[n], init[n])),
+                caught=_param_errors(torch, planted, ref, init, ulps,
+                                     mant)["stale"])
+        del eng, got
+        torch.cuda.empty_cache()
+    torch.save(out, f"{out_path}.{rank}")
     destroy_process_group()
 
 
-def phase_dist_dp(torch, np, ops, card):
-    """(b): two processes sharing the card over gloo on each mesh of
-    DIST_GLOO_MESHES, against one process's mesh=None steps over the same
-    global batch."""
+def dist_gloo_run(torch, np, ops, meshes, dtype="bfloat16"):
+    """One process's mesh=None steps at DIST_DP_LAYERS layers of
+    TRAIN_CONFIG in ``dtype``, then two processes sharing the card over
+    gloo on each mesh of ``meshes`` over the same global batch: (mesh=None
+    losses, its step ms, each rank's results from :func:`_dist_rank`)."""
     from paddle_tpu_torch.distributed import Engine, spawn
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=DIST_DP_LAYERS))
-    out = os.path.join(_scratch_dir("dist"), "ranks.pt")
-    spawn(_dist_rank, args=(DIST_GLOO_MESHES, DIST_DP_LAYERS, out),
-          nprocs=2, backend="gloo", timeout=DIST_SPAWN_S)
-    got_all = torch.load(out)
+    cfg = LlamaConfig(**dict(TRAIN_CONFIG, num_hidden_layers=DIST_DP_LAYERS,
+                             dtype=dtype))
     batches = _dist_batches(torch, np, cfg, TRAIN_BATCH, DIST_STEPS)
-    ref = Engine(LlamaForCausalLM(cfg, device=DEVICE, seed=0), lr=DIST_LR,
-                 clip_norm=1.0)
-    losses, ms, counts = _dist_steps(torch, ops, ref, batches)
-    ref_model = {n: p.float().cpu()
-                 for n, p in ref.state_dict()["model"].items()}
-    del ref
+    scratch = _scratch_dir(f"dist_{dtype}")
+    init_path = os.path.join(scratch, "init.pt")
+    ref_path = os.path.join(scratch, "mesh_none.pt")
+    model = LlamaForCausalLM(cfg, device=DEVICE, seed=0)
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               init_path)
+    ref = Engine(model, lr=DIST_LR, clip_norm=1.0)
+    losses, ms, _ = _dist_steps(torch, ops, ref, batches)
+    torch.save({n: p.detach().cpu() for n, p in ref.model.named_parameters()},
+               ref_path)
+    del ref, model
     torch.cuda.empty_cache()
+    out = os.path.join(scratch, "ranks.pt")
+    spawn(_dist_rank, args=(meshes, DIST_DP_LAYERS, dtype, ref_path,
+                            init_path, out),
+          nprocs=2, backend="gloo", timeout=DIST_SPAWN_S)
+    return losses, ms, [torch.load(f"{out}.{r}") for r in range(2)]
+
+
+def phase_dist_dp(torch, np, ops, card):
+    """(b): :func:`dist_gloo_run` over DIST_GLOO_MESHES in bf16. Returns
+    the launches both ranks made (k1_lse, k2, k2_glse, k3), which every
+    mesh checks against ``_dist_need``."""
+    losses, ms, ranks = dist_gloo_run(torch, np, ops, DIST_GLOO_MESHES)
     p_tol = 2 * DIST_LR * DIST_STEPS
-    need = DIST_STEPS * DIST_DP_LAYERS
-    for axes in DIST_GLOO_MESHES:
-        got = got_all[str(axes)]
-        rel = ((got["losses"] - losses).abs() / losses.abs()).max().item()
-        worst, far = (0.0, ""), []
-        for name, want in ref_model.items():
-            err = (got["model"][name].float() - want).abs()
-            worst = max(worst, (err.max().item(), name))
-            if bool((err > p_tol + want.abs() * 2.0 ** -8).any()):
-                far.append(name)
-        print(f"dist (b) [{card}]: {axes} over gloo, two ranks on one card,"
-              f" {DIST_DP_LAYERS} layers at full width, {TRAIN_BATCH} x "
-              f"{TRAIN_SEQ} global, bf16: losses "
+    total = dict(k1_lse=0, k2=0, k2_glse=0, k3=0)
+    keys = tuple(total)
+    for label, axes, kw in DIST_GLOO_MESHES:
+        got = ranks[0][label]
+        pe, pl = got["params"], got["planted"]
+        need = _dist_need(label, DIST_DP_LAYERS)
+        rel = max(((r[label]["losses"] - losses).abs()
+                   / losses.abs()).max().item() for r in ranks)
+        launches = [[r[label]["counts"][k] for k in keys] for r in ranks]
+        bound = (f"{DIST_SEP_ULPS[label]} bf16 ulps" if label in
+                 DIST_SEP_ULPS else "|w| / 256")
+        print(f"dist (b) [{card}]: {label} {axes} {kw} over gloo, two ranks "
+              f"on one card, {DIST_DP_LAYERS} layers at full width, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} global, bf16: losses "
               f"{[round(x, 5) for x in got['losses'].tolist()]} mesh=None "
               f"{[round(x, 5) for x in losses.tolist()]} max_rel={rel:.3e}; "
-              f"params worst abs {worst[0]:.3e} ({worst[1]}; tol {p_tol} + "
-              f"one bf16 ulp); rank 0 step ms "
+              f"params worst abs {pe['worst'][0]:.3e} ({pe['worst'][1]}; tol "
+              f"{p_tol} + {bound}: worst {pe['ratio']:.3f}x; "
+              f"{pe['beyond']} of {pe['total_n']} elements beyond {p_tol} + "
+              f"|w| / 256); updates worst rel {pe['upd'][0]:.3e} "
+              f"({pe['upd'][1]}; tol {DIST_UPDATE_RTOL}); planted fault "
+              f"(stage 1's {len(pl['names'])} block parameters at their "
+              f"initial values): caught {len(pl['caught'])} of the "
+              f"{len(pl['moved'])} that mesh=None moves; rank 0 step ms "
               f"{[round(x, 2) for x in got['ms']]} against mesh=None "
-              f"{[round(x, 2) for x in ms]}; collectives a step "
-              f"{got['comms']}", flush=True)
-        if not (rel <= DIST_LOSS_RTOL and not far and all(
-                got["counts"][k] == need for k in ("k1_lse", "k2", "k3"))):
-            raise AssertionError(f"dist (b) {axes}: losses max_rel {rel}, "
-                                 f"params beyond tolerance {far}, or "
-                                 f"launches {got['counts']} != {need}")
+              f"{[round(x, 2) for x in ms]}; launches k1_lse/k2/k2_glse/k3 "
+              f"by rank {launches} (each {[need[k] for k in keys]}); "
+              f"collectives a step {got['comms']}; point-to-point a step "
+              f"{got['p2p']}", flush=True)
+        if not (rel <= DIST_LOSS_RTOL and not pe["far"] and not pe["stale"]
+                and all(r[label]["counts"][k] == need[k] for r in ranks
+                        for k in keys)):
+            raise AssertionError(f"dist (b) {label}: losses max_rel {rel}, "
+                                 f"params beyond tolerance {pe['far']}, "
+                                 f"updates beyond tolerance {pe['stale']}, "
+                                 f"or launches {launches} != {need}")
+        if not pl["moved"] or set(pl["caught"]) != set(pl["moved"]):
+            raise AssertionError(f"dist (b) {label}: the planted fault "
+                                 f"(stage 1's blocks frozen) caught "
+                                 f"{pl['caught']}, not {pl['moved']}")
+        for r in ranks:
+            for k in keys:
+                total[k] += r[label]["counts"][k]
+    return total
 
 
 # ---- phase 57: the numeric guard and the resilience trainer -------------
@@ -10994,7 +11257,8 @@ def _main(torch, np, F, ops, _build, card, start):
     _phase("55 packages", phase_packages, torch, np, ops, card)
     dist_a = _phase("56a dist one rank", phase_dist_one_rank, torch, np,
                     ops, card)
-    _phase("56b dist dp2", phase_dist_dp, torch, np, ops, card)
+    dist_b = _phase("56b dist gloo meshes", phase_dist_dp, torch, np, ops,
+                    card)
     guard_train = _phase("57a guard", phase_guard, torch, np, ops, card)
     life_train, (k1_life, k4_life) = _phase(
         "57b lifecycle", phase_lifecycle, torch, np, ops, card)
@@ -11003,9 +11267,12 @@ def _main(torch, np, F, ops, _build, card, start):
     k1_launches += k1_deploy + compress_k1 + family_k1
     k1_launches += prof_launches[3]
     k4_launches += prof_launches[4]
+    # phase 56 (b)'s two ranks, dense K2 in k2 and GLSE K2 in glse's row
+    glse["launches"] += dist_b["k2_glse"]
     for path in (gpt_train, bert, opt_train, dygraph_bf16, debug_launches,
                  prof_launches, static_bert, static_prog, compress_train,
-                 dist_a, guard_train, life_train):
+                 dist_a, guard_train, life_train,
+                 (dist_b["k1_lse"], dist_b["k2"], dist_b["k3"])):
         lse_launches += path[0]
         k2_launches += path[1]
         k3_launches += path[2]

@@ -3,14 +3,16 @@
 One process per rank (``init_parallel_env``, ``spawn``): the collectives
 of ``communication``, the process meshes, placements and logical-axis
 rules of ``auto_parallel`` on DTensor, the ``Engine`` over dp/fsdp/tp
-meshes with Megatron sequence parallelism, the tensor- and
-sequence-parallel layers of ``fleet``, and the sharded checkpoints of
-``checkpoint``, which reshard on load, with the generation-fenced
-``LATEST`` pointer, and the numeric guard with its resilience trainer and
-checkpoint publisher (``resilience``). What is left of item 6 raises
-``later_slice`` naming its part: the store (with the collective watchdog
-``CommTaskManager``), ``ps``/``rpc``, ``sharding`` (group_sharded) and the
-MoE ``utils``.
+meshes with Megatron sequence parallelism, over sep (ring attention) and
+over pp (``auto_parallel.pipeline``: GPipe, VPP, zero-bubble), the
+tensor- and sequence-parallel layers, the pipeline layers and
+``SegmentParallel`` of ``fleet``, the differentiable ``ppermute``, and
+the sharded checkpoints of ``checkpoint``, which reshard on load, with
+the generation-fenced ``LATEST`` pointer, and the numeric guard with its
+resilience trainer and checkpoint publisher (``resilience``). What is
+left of item 6 raises ``later_slice`` naming its part: the store (with
+the collective watchdog ``CommTaskManager``), ``ps``/``rpc``,
+``sharding`` (group_sharded) and the MoE ``utils``.
 """
 
 from . import auto_parallel, checkpoint, communication, fleet  # noqa: F401

@@ -6,9 +6,9 @@ from __future__ import annotations
 from .._later import later_slice
 
 #: the parts of item 6 that later slices bring, in ROADMAP order
-RING = "ring attention over sep"
-PP = "pipeline parallelism (pp)"
 EP = "MoE over an ep mesh"
+PP_ZB_SELECTIVE = ("pipeline parallelism (pp): the zero-bubble schedule's "
+                   "selective remat regime")
 FLEET = "fleet and ZeRO (topology, meta_optimizers, group_sharded)"
 STORE = "the store, launch and elastic"
 PS = "ps, rpc and auto_tuner"

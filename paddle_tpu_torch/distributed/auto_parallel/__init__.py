@@ -1,6 +1,6 @@
 """``paddle_tpu.distributed.auto_parallel`` on DTensor: placements,
-process meshes, the logical-axis rules, the semi-automatic API and the
-``Engine``."""
+process meshes, the logical-axis rules, the semi-automatic API, the
+``Engine`` and the pipeline schedules (``pipeline``)."""
 
 from .api import (  # noqa: F401
     ShardingStage1,
@@ -19,6 +19,7 @@ from .api import (  # noqa: F401
     to_static,
     unshard_dtensor,
 )
+from . import pipeline  # noqa: F401
 from .engine import Engine  # noqa: F401
 from .logical_sharding import (  # noqa: F401
     DEFAULT_RULES,
@@ -44,13 +45,10 @@ _GATES = {"comm_programs": "comm_programs", "train_step_comm":
 
 def __getattr__(name):
     from ..._later import later_slice
-    from .._refuse import PP, refuse
 
     if name in _GATES:
         raise later_slice(f"auto_parallel.{_GATES[name]} (the collective "
                           "gate's programs)", "static-gates", "9")
-    if name == "pipeline":
-        raise refuse("auto_parallel.pipeline", PP)
     if name == "serving_sharding":
         raise later_slice("auto_parallel.serving_sharding (the serving "
                           "mesh's rules)", "tp-sharded serving", "7")

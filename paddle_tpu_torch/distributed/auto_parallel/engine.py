@@ -1,6 +1,7 @@
 """The training engine — port of
 ``paddle_tpu/distributed/auto_parallel/engine.py``, on one device
-(``mesh=None``) and over a mesh of ``dp``, ``fsdp`` and ``tp``.
+(``mesh=None``) and over a mesh of ``dp``, ``fsdp``, ``sep``, ``tp`` and
+``pp``.
 
 ``Engine(model).step(ids, labels)`` runs the JAX package's train step
 (``_build_step`` :415-420): the step counter advances first, then the
@@ -73,9 +74,31 @@ applies the same step.
 Batches keep their dtype (JAX :533): integer arrays become int64 token
 ids, floating ones stay floating.
 
-Still refused, each naming its part of item 6: ``sep > 1`` (ring
-attention), ``pp`` and the ``n_micro``/``pp_*`` arguments, an ``ep``
-axis or an MoE model over a mesh.
+A ``sep`` dim shards the sequence: attention over it is ring attention
+(``ops.ring_attention``, through the model's attention route), the
+labels are shifted on the global sequence before each rank takes its
+positions, and replicated parameters' gradients are summed over sep by
+their placements.
+
+A ``pp`` dim of more than one rank pipelines a model with the pipeline
+hooks (``pipeline_blocks``, ``pipeline_loss``, ``pipeline_block_fn``;
+JAX :93-188, :360-383): each stage runs its share of the blocks (under
+``pp_interleave`` its chunks, in ``vpp_layer_order``) over the mesh of the
+other dims, with ``n_micro`` microbatches (default: pp) on the GPipe /
+VPP schedule or ``pp_schedule="zb"`` (``auto_parallel.pipeline``),
+``pp_remat`` (default: the model config's ``recompute``) checkpointing
+each block with ``pp_remat_policy``. The embedding, the final norm and the
+head run on every stage; their gradients are taken from stage 0, which
+holds all of them (a broadcast over pp), and the global norm sums each
+stage's block gradients over pp once. Inside a stage attention keeps the
+flash kernels (JAX's manual pipeline drops to ``_xla_attention``, :334-340)
+and, over a sep dim, the ring. ``state_dict`` gives JAX's pp layout
+(:583-601): every parameter whole by name, the moments of the blocks as
+``blocks.<name>`` stacked in ``_pp_order``; ``set_state_dict`` raises
+under pp, as JAX's does.
+
+Still refused, naming its part of item 6: an ``ep`` axis or an MoE model
+over a mesh.
 """
 
 from __future__ import annotations
@@ -92,7 +115,7 @@ from ...framework import numeric_guard
 from ...nn.clip import ClipGradByGlobalNorm
 from ...optimizer import Optimizer, name_parameters
 from ..resilience.faults import numeric_inject_code
-from .._refuse import EP, PP, RING, refuse
+from .._refuse import EP, refuse
 from .logical_sharding import (DEFAULT_RULES, axis_rules, current_mesh,
                                local_chunk, logical_placements, shard_params)
 from .process_mesh import as_device_mesh
@@ -115,6 +138,11 @@ def _as_batch(x, device):
 
 def _local(t):
     return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _dims(mesh):
+    """{dim name: size} of a DeviceMesh."""
+    return dict(zip(mesh.mesh_dim_names or (), mesh.shape))
 
 
 class _LocalParam:
@@ -162,9 +190,6 @@ class Engine:
         guard=None,
     ):
         mesh = as_device_mesh(mesh) if mesh is not None else current_mesh()
-        if (n_micro is not None or pp_remat is not None or pp_interleave != 1
-                or pp_schedule != "auto" or pp_remat_policy != "auto"):
-            raise refuse("pipeline parallelism (n_micro=, pp_*=)", PP)
         if optimizer is not None and not isinstance(optimizer, Optimizer):
             raise TypeError(f"optimizer= takes a paddle_tpu_torch.optimizer."
                             f"Optimizer, got {type(optimizer).__name__}")
@@ -174,6 +199,15 @@ class Engine:
                 "(pass guard=None with a pluggable optimizer)")
         if mesh is not None:
             self._check_mesh(mesh, model)
+        # the whole mesh (the guard's flags OR over all of it); under pp,
+        # ``mesh`` becomes the other dims, over which each stage runs
+        self._full_mesh = mesh
+        self._pp = (mesh is not None and _dims(mesh).get("pp", 1) > 1
+                    and hasattr(model, "pipeline_blocks"))
+        if self._pp:
+            mesh = self._setup_pp(model, mesh, loss_fn, n_micro, pp_remat,
+                                  pp_interleave, pp_schedule,
+                                  pp_remat_policy)
         self.mesh = mesh
         self.rules = tuple(rules) if rules is not None else DEFAULT_RULES
         self.model = model
@@ -191,6 +225,23 @@ class Engine:
                 shard_params(model, mesh)
         named = [(n, p) for n, p in model.named_parameters()
                  if p.requires_grad]
+        decay_names = [n for n, _ in named]
+        if self._pp:
+            # the parameters outside the blocks, then this stage's blocks'
+            # (JAX :165-197: the "rest" first, then the stacks)
+            block_ids = {id(t) for b in self._blocks
+                         for t in b.parameters()}
+            rest = [(n, p) for n, p in named if id(p) not in block_ids]
+            own = [(f"{self._block_prefix[id(b)]}.{n}", t)
+                   for chunk in self._stage_layers for b in chunk
+                   for n, t in b.named_parameters() if t.requires_grad]
+            self._n_rest = len(rest)
+            named = rest + own
+            # a block's decay decision goes by its name within the block,
+            # as JAX's stacked names (:186-189)
+            decay_names = [n for n, _ in rest] + [
+                n for chunk in self._stage_layers for b in chunk
+                for n, t in b.named_parameters() if t.requires_grad]
         self._param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
         if not self.params:
@@ -199,7 +250,7 @@ class Engine:
         # weight-decay mask: norm gains and biases (ndim <= 1) excluded
         if apply_decay_param_fun is not None:
             self._decay_mask = [bool(apply_decay_param_fun(n))
-                                for n in self._param_names]
+                                for n in decay_names]
         else:
             self._decay_mask = [p.ndim >= 2 for p in self.params]
         # what the update reads and writes: each rank's local shards
@@ -239,11 +290,7 @@ class Engine:
 
     @staticmethod
     def _check_mesh(mesh, model):
-        shape = dict(zip(mesh.mesh_dim_names or (), mesh.shape))
-        if shape.get("sep", 1) > 1:
-            raise refuse("a sep axis over 1 (context parallelism)", RING)
-        if shape.get("pp", 1) > 1:
-            raise refuse("a pp axis over 1", PP)
+        shape = _dims(mesh)
         if shape.get("ep", 1) > 1:
             raise refuse("an ep axis over 1", EP)
         cfg = getattr(model, "config", None)
@@ -253,8 +300,92 @@ class Engine:
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}")
 
+    def _setup_pp(self, model, mesh, loss_fn, n_micro, pp_remat,
+                  pp_interleave, pp_schedule, pp_remat_policy):
+        """Pipeline parallelism (JAX :113-146): this rank's stage, its
+        layers, the schedule's settings; returns the mesh of the other
+        dims (None when pp is the only one), over which the stage runs."""
+        from ..communication.functional import mesh_axis
+        from .pipeline import _checked, vpp_layer_order
+
+        if loss_fn is not None:
+            raise ValueError(
+                "custom loss_fn is not supported with pipeline parallelism "
+                "(pp > 1) — the pp path runs model.pipeline_loss")
+        pp = _dims(mesh)["pp"]
+        self._pp_axis = mesh_axis("pp", mesh)
+        self._blocks = list(model.pipeline_blocks())
+        self._pp_interleave = v = pp_interleave
+        self._pp_schedule = pp_schedule
+        n = len(self._blocks)
+        self._n_micro = n_micro if n_micro is not None else pp
+        lc = _checked(n, pp, self._n_micro, v, pp_schedule)
+        self._pp_remat = (pp_remat if pp_remat is not None else bool(
+            getattr(getattr(model, "config", None), "recompute", False)))
+        pol_fn = getattr(model, "remat_policy", None)
+        model_policy = pol_fn() if callable(pol_fn) else None
+        if pp_remat_policy == "auto":
+            # zb's selective regime keeps each tick's weights' graph: zb
+            # with remat keeps the boundary regime unless asked (:137-145)
+            self._pp_remat_policy = (None if pp_schedule == "zb"
+                                     else model_policy)
+        elif pp_remat_policy == "model":
+            self._pp_remat_policy = model_policy
+        else:
+            self._pp_remat_policy = pp_remat_policy
+        if pp_schedule == "zb" and self._pp_remat:
+            from .pipeline import _refuse_selective_zb
+            _refuse_selective_zb(True, self._pp_remat_policy)
+        # stacked row r holds layer _pp_order[r]; this rank holds rows
+        # [d * L/p, (d+1) * L/p), chunk c the c-th lc of them
+        self._pp_order = (vpp_layer_order(n, pp, v) if v > 1
+                          else list(range(n)))
+        d = self._pp_axis.index
+        rows = self._pp_order[d * lc * v:(d + 1) * lc * v]
+        self._stage_layers = [[self._blocks[i] for i in rows[c * lc:
+                                                          (c + 1) * lc]]
+                              for c in range(v)]
+        names = {id(m): n for n, m in model.named_modules()}
+        self._block_prefix = {id(b): names[id(b)] for b in self._blocks}
+        rest = [n for n in mesh.mesh_dim_names if n != "pp"]
+        if not rest:
+            return None
+        return mesh[rest[0]] if len(rest) == 1 else mesh[tuple(rest)]
+
+    def _run_blocks(self, x, cos, sin):
+        """The pipeline over this rank's blocks (JAX :360-383)."""
+        from .pipeline import run_pipeline
+
+        fn_of = self.model.pipeline_block_fn
+
+        def bind(b):
+            f = fn_of(b)
+            return (lambda ps, h: f(ps, h, cos, sin),
+                    [t for t in b.parameters()])
+
+        layers = [[bind(b) for b in chunk] for chunk in self._stage_layers]
+        return run_pipeline(layers, x, n_micro=self._n_micro,
+                            axis_name=self._pp_axis,
+                            interleave=self._pp_interleave,
+                            schedule=self._pp_schedule,
+                            remat=self._pp_remat,
+                            remat_policy=self._pp_remat_policy)
+
+    def _pp_broadcast(self, t, stage):
+        """``t`` (a local tensor, or a DTensor's local shard) := its value
+        on pipeline stage ``stage`` (over the pp dim, in place)."""
+        axis = self._pp_axis
+        loc = _local(t)
+        buf = loc if loc.is_contiguous() else loc.contiguous()
+        dist.broadcast(buf, src=axis.ranks[stage], group=axis.group)
+        if buf is not loc:
+            loc.copy_(buf)
+
     # ---- the step ----
     def _loss(self, input_ids, labels):
+        if self._pp:
+            return self.model.pipeline_loss(input_ids, labels,
+                                            self._run_blocks)
         fn = self._loss_fn or self.model.loss_fn
         return fn(input_ids, labels)
 
@@ -262,9 +393,18 @@ class Engine:
         if self.clip_norm is None:
             return grads
         if self.mesh is None:
-            gsq = sum(torch.sum(torch.square(g.float())) for g in grads)
+            def sumsq(gs):
+                return sum(torch.sum(torch.square(g.float())) for g in gs)
         else:
-            gsq = self._mesh_sumsq(grads)
+            sumsq = self._mesh_sumsq
+        if self._pp:
+            # the parameters outside the blocks once, each stage's blocks
+            # summed over pp
+            blocks = sumsq(grads[self._n_rest:])
+            dist.all_reduce(blocks, group=self._pp_axis.group)
+            gsq = sumsq(grads[:self._n_rest]) + blocks
+        else:
+            gsq = sumsq(grads)
         gnorm = torch.sqrt(gsq)
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-6),
                             max=1.0)
@@ -418,6 +558,13 @@ class Engine:
             grads = [g if tuple(g.placements) == tuple(p.placements)
                      else g.redistribute(p.device_mesh, p.placements)
                      for g, p in zip(grads, self.params)]
+        if self._pp:
+            # the embedding, final norm and head run on every stage; stage
+            # 0 holds all of their gradients (the embedding's enters the
+            # pipeline there), so every stage takes stage 0's, once
+            with torch.no_grad():
+                for g in grads[:self._n_rest]:
+                    self._pp_broadcast(g, 0)
         loss = self._replicated_value(loss.detach())
         if self.guard is not None:
             self._guarded_update(loss, grads, inject)
@@ -430,10 +577,11 @@ class Engine:
     def _or_ranks(self, flags):
         """``flags`` OR-ed over the mesh's ranks: a MAX all-reduce along
         each axis of more than one rank (the mesh's own groups)."""
-        for dim, n in enumerate(self.mesh.shape):
+        mesh = self._full_mesh
+        for dim, n in enumerate(mesh.shape):
             if n > 1:
                 dist.all_reduce(flags, op=dist.ReduceOp.MAX,
-                                group=self.mesh.get_group(dim))
+                                group=mesh.get_group(dim))
         return flags
 
     @torch.no_grad()
@@ -444,7 +592,8 @@ class Engine:
         word, self.guard_state = numeric_guard.guard_step(
             loss, [_local(g) for g in grads], self.guard_state,
             spike_factor=pol.spike_factor, warmup_steps=pol.warmup_steps,
-            reduce_flags=self._or_ranks if self.mesh is not None else None)
+            reduce_flags=(self._or_ranks if self._full_mesh is not None
+                          else None))
         self.last_health = word
         self._adamw(grads, (word & pol.skip_mask) != 0, self.lr_scale)
 
@@ -467,8 +616,45 @@ class Engine:
 
     # ---- state ----
     def sync_model(self):
-        """The model, whose tensors the engine updates in place."""
+        """The model, whose tensors the engine updates in place. Under pp
+        every rank's copy of each block first takes the values of the
+        stage that trains it (JAX :575-587 writes the stacked rows back;
+        a collective call)."""
+        if self._pp:
+            with torch.no_grad():
+                for i, b in enumerate(self._blocks):
+                    for t in b.parameters():
+                        self._pp_broadcast(t.detach(), self._owner(i))
         return self.model
+
+    def _owner(self, layer):
+        """The pp stage that trains block ``layer``."""
+        per = len(self._blocks) // self._pp_axis.size
+        return self._pp_order.index(layer) // per
+
+    def _pp_state(self, states):
+        """Under pp, ``states`` ({param: local tensor} of this rank's
+        parameters) as JAX's engine names them (:589-601): the parameters
+        outside the blocks by name, the blocks' as ``blocks.<name>``
+        stacked over the layers in ``_pp_order`` (each row broadcast from
+        the stage that trains it), all whole."""
+        out = {n: self._whole(states[id(p)], p)
+               for n, p in zip(self._param_names[:self._n_rest],
+                               self.params[:self._n_rest])}
+        names = [n for n, _ in self._blocks[0].named_parameters()]
+        mine = list(self._stage_layers[0][0].parameters())
+        for j, name in enumerate(names):
+            rows = []
+            for i in self._pp_order:
+                p = list(self._blocks[i].parameters())[j]
+                t = states.get(id(p))
+                # another stage's: a buffer shaped as this rank's own
+                t = (_local(t).clone() if t is not None else
+                     torch.zeros_like(_local(states[id(mine[j])])))
+                self._pp_broadcast(t, self._owner(i))
+                rows.append(self._whole(t, p))
+            out[f"blocks.{name}"] = torch.stack(rows)
+        return out
 
     def _whole(self, t, like=None):
         """A copy of ``t`` whole: a DTensor gathered, a sharded parameter's
@@ -490,6 +676,8 @@ class Engine:
         optimizer's accumulators ``opt`` ({acc: {name: tensor}}). Under a
         mesh every tensor is gathered whole (a collective call)."""
         with torch.no_grad():
+            if self._pp:
+                return self._pp_state_dict()
             out = {"model": {n: self._whole(p.detach())
                              for n, p in zip(self._param_names, self.params)},
                    "step": self.step_count.clone()}
@@ -505,6 +693,27 @@ class Engine:
                 out["v"] = {n: self._whole(a)
                             for n, a in zip(self._param_names, self.v)}
             return out
+
+    def _pp_state_dict(self):
+        """:meth:`state_dict` under pp: every parameter of the model by its
+        name, whole (after :meth:`sync_model`), and the optimizer state in
+        JAX's pp layout (:meth:`_pp_state`)."""
+        self.sync_model()
+        out = {"model": {n: self._whole(p.detach())
+                         for n, p in self.model.named_parameters()
+                         if p.requires_grad},
+               "step": self.step_count.clone()}
+        if self._optimizer is not None:
+            key = {id(k): id(p) for k, p in zip(self._proxies, self.params)}
+            out["opt"] = {acc: self._pp_state({key[id(k)]: a
+                                               for k, a in d.items()})
+                          for acc, d in self.opt_state.items()}
+        else:
+            out["m"] = self._pp_state({id(p): a for p, a in
+                                       zip(self.params, self.m)})
+            out["v"] = self._pp_state({id(p): a for p, a in
+                                       zip(self.params, self.v)})
+        return out
 
     @staticmethod
     def _copy_in(name, dst, src):
@@ -525,7 +734,13 @@ class Engine:
         tensors or numpy arrays (for example a JAX engine's state carried by
         ``paddle_tpu_torch.weights.engine_state_from_jax``). Each tensor is
         whole; under a mesh each rank keeps its chunk, so a snapshot of
-        any mesh resumes on this engine's (JAX :603-640)."""
+        any mesh resumes on this engine's (JAX :603-640). Under pp it
+        raises, as JAX's does."""
+        if self._pp:
+            raise NotImplementedError(
+                "set_state_dict with pipeline-stacked params is not "
+                "supported yet — rebuild the Engine and load via "
+                "model.set_state_dict")
         keys = ("m", "v") if self._optimizer is None else ()
         missing = [n for n in self._param_names
                    if n not in state_dict["model"]

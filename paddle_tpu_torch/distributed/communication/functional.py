@@ -13,9 +13,19 @@ handle; otherwise a finished task.
 
 gloo (the CPU backend) has no ``AVG``: the sum is divided by the group's
 size. ``alltoall`` over a list runs one ``all_to_all_single`` of the
-stacked list, which gloo takes. ``ppermute`` and ``axis_index`` are the
-JAX package's traced forms inside ``shard_map``; their one user is ring
-attention, a later part of item 6, and they raise.
+stacked list, which gloo takes.
+
+``ppermute`` and ``axis_index`` are the JAX package's ``shard_map`` forms
+(``lax.ppermute``, ``lax.axis_index``) over a named dim of a
+``DeviceMesh`` (the active one of ``axis_rules`` unless ``mesh=`` names
+another): ``ppermute`` sends this rank's tensor along (src, dst) pairs of
+coordinates on that dim, a rank that is no pair's destination gets
+zeros, and its gradient is the same exchange along the inverted pairs.
+Ring attention rotates K/V with it and the pipelines move activations
+with it. Its transport is chosen by the dim's backend, once: NCCL takes
+CUDA tensors as they are; gloo's point-to-point calls get host copies of
+CUDA tensors (its collectives take CUDA tensors, its send/recv are not
+relied on for them), and CPU tensors as they are.
 """
 
 from __future__ import annotations
@@ -25,7 +35,6 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from .._refuse import RING, refuse
 from .group import _TORCH_OPS, Group, ReduceOp, get_default_group
 
 
@@ -250,9 +259,161 @@ def barrier(group=None):
     return _Done()
 
 
-def ppermute(x, axis_name, perm):
-    raise refuse("ppermute (a traced ring step)", RING)
+class MeshAxis:
+    """One named dim of a ``DeviceMesh`` as this rank sees it: its process
+    group, the global ranks along it in coordinate order, this rank's
+    coordinate, and whether point-to-point calls stage CUDA tensors
+    through host memory (gloo)."""
+
+    def __init__(self, mesh, name):
+        names = tuple(mesh.mesh_dim_names or ())
+        if name not in names:
+            raise ValueError(f"mesh axes {names} have no {name!r}")
+        dim = names.index(name)
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise RuntimeError("this rank is not on the mesh")
+        # the ranks along `dim` with every other coordinate this rank's
+        idx = list(coord)
+        self.ranks = []
+        for j in range(mesh.size(dim)):
+            idx[dim] = j
+            self.ranks.append(int(mesh.mesh[tuple(idx)]))
+        self.name, self.size, self.index = name, mesh.size(dim), coord[dim]
+        self.group = mesh.get_group(dim)
+        self.device_type = mesh.device_type
+        self.host_staged = dist.get_backend(self.group) == "gloo"
 
 
-def axis_index(axis_name):
-    raise refuse("axis_index (a traced ring step)", RING)
+def mesh_axis(axis_name, mesh=None) -> MeshAxis:
+    """The :class:`MeshAxis` of ``axis_name`` on ``mesh`` (default: the
+    active mesh of ``axis_rules``)."""
+    if isinstance(axis_name, MeshAxis):
+        return axis_name
+    if mesh is None:
+        from ..auto_parallel.logical_sharding import current_mesh
+        mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"no mesh for axis {axis_name!r}: pass mesh= or "
+                         f"call inside axis_rules(mesh)")
+    return MeshAxis(mesh, axis_name)
+
+
+def _check_perm(perm, n):
+    srcs = [s for s, _ in perm]
+    dsts = [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or any(
+            not 0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute pairs {perm} are not a partial "
+                         f"permutation of {n} coordinates")
+
+
+def exchange(x, axis: MeshAxis, perm):
+    """One ``ppermute`` step on a local tensor (no autograd): ``x`` goes to
+    every coordinate this rank is the source of, and the result is what
+    this rank is the destination of, or zeros. Every rank of the dim calls
+    it with the same pairs; a rank named in no pair sends and receives
+    nothing."""
+    me = axis.index
+    to = [d for s, d in perm if s == me]
+    frm = [s for s, d in perm if d == me]
+    if not to and not frm:
+        return torch.zeros_like(x)
+    if to == [me]:
+        return x.clone()
+    stage = axis.host_staged and x.device.type == "cuda"
+    ops, buf = [], None
+    if to:
+        src = x.detach().contiguous()
+        if stage:
+            src = src.cpu()
+        ops.append(dist.P2POp(dist.isend, src, axis.ranks[to[0]],
+                              group=axis.group))
+    if frm:
+        buf = torch.empty(x.shape, dtype=x.dtype,
+                          device="cpu" if stage else x.device)
+        ops.append(dist.P2POp(dist.irecv, buf, axis.ranks[frm[0]],
+                              group=axis.group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    exchange.sends += bool(to)
+    exchange.recvs += bool(frm)
+    if buf is None:
+        return torch.zeros_like(x)
+    return buf.to(x.device, non_blocking=False) if stage else buf
+
+
+#: point-to-point sends and receives ``exchange`` made (a profile reads
+#: them per step)
+exchange.sends = 0
+exchange.recvs = 0
+
+
+class _PPermute(torch.autograd.Function):
+    """``exchange`` with the inverted pairs as its backward (``lax.
+    ppermute``'s transpose). ``links`` (tensors that take no gradient)
+    put the exchange on the path to them: ``torch.autograd.grad`` runs
+    only the nodes that lead to its ``inputs``, and a rank that only
+    receives must still run this backward, which sends the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis, perm, *links):
+        ctx.axis, ctx.perm, ctx.n = axis, perm, len(links)
+        return exchange(x, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = [(d, s) for s, d in ctx.perm]
+        return (exchange(g, ctx.axis, inv), None, None) + (None,) * ctx.n
+
+
+class _Anchor(torch.autograd.Function):
+    """``out`` itself, with ``others`` as inputs whose gradient is zero:
+    in SPMD autograd a rank's backward runs only the exchanges its own
+    output depends on, so an exchange whose result this rank does not use
+    (a sender's, whose value the receiver uses) is anchored to the output
+    to run its backward exchange as its peers do."""
+
+    @staticmethod
+    def forward(ctx, out, *others):
+        ctx.n = len(others)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + (None,) * ctx.n
+
+
+def anchor(out, *others):
+    """``out``, with the unused exchange results ``others`` on its
+    backward path (see :class:`_Anchor`)."""
+    others = [t for t in others if t.requires_grad]
+    return _Anchor.apply(out, *others) if others else out
+
+
+def ppermute(x, axis_name, perm, mesh=None):
+    """``lax.ppermute(x, axis_name, perm)`` (:337) on this rank's tensor:
+    ``perm`` is a list of (src, dst) coordinates on the mesh dim
+    ``axis_name``; differentiable. A DTensor is exchanged by its local
+    tensor and keeps its placements."""
+    from torch.distributed.tensor import DTensor
+
+    axis = mesh_axis(axis_name, mesh)
+    perm = [(int(s), int(d)) for s, d in perm]
+    _check_perm(perm, axis.size)
+    if isinstance(x, DTensor):
+        out = _PPermute.apply(x.to_local(), axis, perm)
+        return DTensor.from_local(out, x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return _PPermute.apply(x, axis, perm)
+
+
+def axis_index(axis_name, mesh=None):
+    """``lax.axis_index(axis_name)`` (:342): this rank's coordinate on the
+    mesh dim, an int32 0-d tensor on the mesh's device."""
+    axis = mesh_axis(axis_name, mesh)
+    from ...device import resolve_device
+    dev = (resolve_device(None) if axis.device_type == "cuda"
+           else torch.device(axis.device_type))
+    return torch.tensor(axis.index, dtype=torch.int32, device=dev)

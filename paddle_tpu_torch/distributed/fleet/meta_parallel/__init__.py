@@ -1,25 +1,34 @@
-"""``distributed.fleet.meta_parallel``: the tensor-parallel layers. The
-pipeline layers and engines, the rng tracker, segment parallelism and
-fleet's sharding and tensor-parallel wrappers are later parts of item 6
+"""``distributed.fleet.meta_parallel``: the tensor-parallel layers, the
+pipeline layers and engine (``PipelineLayer``, ``PipelineParallel``,
+``gpipe_spmd``), the model-parallel RNG tracker and ``SegmentParallel``.
+fleet's sharding and tensor-parallel wrappers are a later part of item 6
 and raise."""
 
-from ..._refuse import FLEET, PP, RING, refuse
+from ..._refuse import FLEET, refuse
 from .parallel_layers.mp_layers import (  # noqa: F401
     ColumnParallelLinear,
     ParallelCrossEntropy,
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from .parallel_layers.pp_layers import (  # noqa: F401
+    LayerDesc,
+    PipelineLayer,
+    SharedLayerDesc,
+)
+from .parallel_layers.random import (  # noqa: F401
+    RNGStatesTracker,
+    get_rng_state_tracker,
+    model_parallel_random_seed,
+)
+from . import pipeline_parallel, segment_parallel  # noqa: F401
+from .pipeline_parallel import PipelineParallel, gpipe_spmd  # noqa: F401
+from .segment_parallel import SegmentParallel  # noqa: F401
 
 #: name -> the part of item 6 that brings it
-_LATER = {n: PP for n in (
-    "LayerDesc", "PipelineLayer", "SharedLayerDesc", "RNGStatesTracker",
-    "get_rng_state_tracker", "model_parallel_random_seed",
-    "PipelineParallel", "pipeline_parallel", "gpipe_spmd")}
-_LATER.update({"SegmentParallel": RING, "segment_parallel": RING})
-_LATER.update({n: FLEET for n in (
+_LATER = {n: FLEET for n in (
     "ShardingParallel", "sharding_parallel", "TensorParallel",
-    "tensor_parallel", "sharding")})
+    "tensor_parallel", "sharding")}
 
 
 def __getattr__(name):

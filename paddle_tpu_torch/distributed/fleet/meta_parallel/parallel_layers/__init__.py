@@ -1,1 +1,2 @@
-"""The tensor-parallel layers."""
+"""The tensor-parallel layers, the pipeline layer descriptions and the
+model-parallel RNG tracker."""

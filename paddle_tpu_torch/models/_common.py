@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..device import resolve_dtype
@@ -60,9 +60,13 @@ def _mesh_attention(q, k, v, fn):
     sharded on another dim, q/k/v are gathered whole and every rank runs
     the same kernels on them (JAX drops to ``_xla_attention`` there; on
     the card the port keeps the kernel), then the output takes q's
-    placements again."""
+    placements again. A sequence sharded over a ``sep`` dim of more than
+    one rank goes to ring attention (JAX :342-346) when ``fn`` is the
+    flash route."""
     mesh = q.device_mesh
     pl = tuple(q.placements)
+    if fn is _flash_causal and _sep_sharded(q):
+        return _ring_route(q, k, v)
     even = all(t.shape[d] % mesh.size(i) == 0
                for t in (q, k, v) for i, p in enumerate(t.placements)
                if p.is_shard() for d in (p.dim,))
@@ -80,6 +84,74 @@ def _mesh_attention(q, k, v, fn):
                     in_grad_placements=(rep, rep, rep),
                     device_mesh=mesh)(*whole)
     return out.redistribute(mesh, pl)
+
+
+def _sep_sharded(q):
+    """Is q's sequence (dim 1) sharded over a ``sep`` dim of size > 1?"""
+    names = tuple(q.device_mesh.mesh_dim_names or ())
+    return any(n == "sep" and q.device_mesh.size(i) > 1 and p.is_shard(1)
+               for i, (n, p) in enumerate(zip(names, q.placements)))
+
+
+def _ring_route(q, k, v):
+    """Ring attention over "sep" on each rank's shards, heads sharded over
+    tp as they are (JAX's ``qspec``/``kspec`` :244-245). Heads that tp does
+    not divide, and any other sharded dim, are made whole first (the ring
+    needs the sequence sharded over "sep" alone); the output takes q's
+    placements."""
+    from ..ops.ring_attention import ring_attention
+
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+
+    def keep(t):
+        return tuple(
+            p if (n == "sep" and p.is_shard(1)) or (
+                p.is_shard() and p.dim in (0, 2) and n != "sep"
+                and all(x.shape[p.dim] % mesh.size(i) == 0
+                        for x in (q, k, v))) else Replicate()
+            for i, (n, p) in enumerate(zip(names, t.placements)))
+
+    want = keep(q)
+    if keep(k) != want:
+        want = tuple(a if a == b else Replicate()
+                     for a, b in zip(want, keep(k)))
+    q2, k2, v2 = (t if tuple(t.placements) == want
+                  else t.redistribute(mesh, want) for t in (q, k, v))
+    out = ring_attention(q2, k2, v2, mesh, axis_name="sep", causal=True)
+    return out if want == tuple(q.placements) else out.redistribute(
+        mesh, q.placements)
+
+
+def mesh_matmul(x, w):
+    """``x @ w`` for a projection ([b, s, k] @ [k, n]). A DTensor ``x``
+    whose sequence (dim 1) is sharded runs the product on each rank's
+    shards under ``local_map``: DTensor's ``matmul`` flattens x's leading
+    dims first, which torch 2.11 refuses for a sharded dim 1. Each mesh dim
+    places the product as DTensor's rules would: a sharded batch or
+    sequence stays sharded (w's gradient partial over it), a column-
+    sharded w shards the output's last dim (x's gradient partial), a
+    sharded contraction (x's last dim, w's rows) makes the output partial.
+    Anything else is DTensor's own product."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor) and x.ndim == 3
+            and any(p.is_shard(1) for p in x.placements)):
+        return x @ w
+    out, gx, gw = [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if a.is_shard() and a.dim in (0, 1) and b.is_replicate():
+            out.append(a), gx.append(a), gw.append(Partial())
+        elif a.is_shard(2) and b.is_shard(0):
+            out.append(Partial()), gx.append(a), gw.append(b)
+        elif a.is_replicate() and b.is_shard(1):
+            out.append(Shard(2)), gx.append(Partial()), gw.append(b)
+        elif a.is_replicate() and b.is_replicate():
+            out.append(a), gx.append(a), gw.append(b)
+        else:
+            return x @ w
+    return local_map(torch.matmul, out_placements=out,
+                     in_placements=(tuple(x.placements), tuple(w.placements)),
+                     in_grad_placements=(tuple(gx), tuple(gw)),
+                     device_mesh=x.device_mesh)(x, w)
 
 
 def _replaying(fn, generators):

@@ -83,7 +83,7 @@ from ...ops.fused_ce import (fused_linear_cross_entropy,
                              fused_linear_cross_entropy_parts)
 from ...ops.paged_attention import (append_paged_kv, paged_decode_attention,
                                     paged_prefill_attention)
-from .._common import _attention, _normal, _replaying
+from .._common import _attention, _normal, _replaying, mesh_matmul
 from ..generation_utils import GenerationMixin, causal_cache_bias
 
 
@@ -223,9 +223,9 @@ class LlamaAttention(nn.Module):
 
     def _qkv(self, x):
         hd = self.config.head_dim
-        q = _split_heads(x @ gather_fsdp(self.q_proj_weight), hd)
-        k = _split_heads(x @ gather_fsdp(self.k_proj_weight), hd)
-        v = _split_heads(x @ gather_fsdp(self.v_proj_weight), hd)
+        q = _split_heads(mesh_matmul(x, gather_fsdp(self.q_proj_weight)), hd)
+        k = _split_heads(mesh_matmul(x, gather_fsdp(self.k_proj_weight)), hd)
+        v = _split_heads(mesh_matmul(x, gather_fsdp(self.v_proj_weight)), hd)
         return q, k, v
 
     def forward(self, hidden, cos, sin):
@@ -247,8 +247,8 @@ class LlamaAttention(nn.Module):
         """Causal attention over the heads, then the output projection
         (under a mesh: its partial sums reduced to the residual stream's
         placements)."""
-        out = (_merge_heads(_attention(q, k, v, self.config))
-               @ gather_fsdp(self.o_proj_weight))
+        out = mesh_matmul(_merge_heads(_attention(q, k, v, self.config)),
+                          gather_fsdp(self.o_proj_weight))
         return constrain(out, *_resid_axes(self.config))
 
     def paged_decode_step(self, x, cos, sin, k_pages, v_pages, tables, pos):
@@ -346,15 +346,15 @@ class LlamaMLP(nn.Module):
         return self.down(self.act(x))
 
     def down(self, act):
-        return constrain(act @ gather_fsdp(self.down_proj_weight),
+        return constrain(mesh_matmul(act, gather_fsdp(self.down_proj_weight)),
                          *_resid_axes(self.config))
 
     def act(self, x):
         """The swiglu product, what the JAX package names ``mlp_act``
         (:387-388)."""
         x = constrain(x, "batch", "seq", "embed")
-        act = (F.silu(x @ gather_fsdp(self.gate_proj_weight))
-               * (x @ gather_fsdp(self.up_proj_weight)))
+        act = (F.silu(mesh_matmul(x, gather_fsdp(self.gate_proj_weight)))
+               * mesh_matmul(x, gather_fsdp(self.up_proj_weight)))
         return constrain(act, "batch", "seq", "mlp")
 
 
@@ -501,13 +501,19 @@ class LlamaModel(nn.Module):
             return F.embedding(ids, gather_fsdp(self.embed_tokens_weight))
         return self.embed_tokens_weight[ids.long()]
 
-    def forward(self, input_ids):
+    def embed_and_rope(self, input_ids):
+        """The embedded ids and the rope tables [s, d] of their (global)
+        positions (Replicate DTensors under a mesh)."""
         x = constrain(self.embed(input_ids), "batch", "seq", "embed")
         cos, sin = self.rope_tables(input_ids.shape[1], x.dtype, x.device)
         if isinstance(x, DTensor):
             cos, sin = (DTensor.from_local(
                 t, x.device_mesh, (Replicate(),) * x.device_mesh.ndim,
                 run_check=False) for t in (cos, sin))
+        return x, cos, sin
+
+    def forward(self, input_ids):
+        x, cos, sin = self.embed_and_rope(input_ids)
         # remat only while autograd records, as JAX applies it only under
         # tracing (:522): serving and no_grad forwards never checkpoint
         remat = torch.is_grad_enabled()
@@ -660,7 +666,7 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
         return self.lm_head_weight
 
     def logits(self, hidden):
-        return hidden @ self._lm_head_w()
+        return mesh_matmul(hidden, self._lm_head_w())
 
     def forward(self, input_ids, labels=None):
         """Logits [b, s, vocab] in the model dtype; with ``labels``, the
@@ -703,6 +709,46 @@ class LlamaForCausalLM(GenerationMixin, nn.Module):
                 hidden, self._lm_head_w(), labels,
                 chunk=self.config.fused_ce_chunk)
         return LlamaPretrainingCriterion.compute(self.logits(hidden), labels)
+
+    # ---- pipeline-parallel protocol (Engine over a pp mesh; :835-880) ----
+    @property
+    def pipeline_with_aux(self) -> bool:
+        """Blocks emit a scalar aux output (MoE gate load-balance loss)."""
+        return self.config.num_experts > 1
+
+    def pipeline_blocks(self):
+        """The homogeneous block stack the pp dim splits."""
+        return list(self.model.layers)
+
+    def pipeline_loss(self, input_ids, labels, run_blocks):
+        """The loss with the decoder stack replaced by ``run_blocks(x, cos,
+        sin)``: the embedding, final norm and head run outside the
+        pipeline, on every stage (replicated over pp). ``run_blocks`` may
+        return ``(x, aux)``, the MoE gate loss averaged per microbatch."""
+        x, cos, sin = self.model.embed_and_rope(input_ids)
+        res = run_blocks(x, cos, sin)
+        x, aux = res if isinstance(res, tuple) else (res, None)
+        loss = self._lm_loss(self.model.norm(x), labels)
+        if aux is not None:
+            loss = loss + self.config.moe_aux_weight * aux
+        return loss
+
+    def pipeline_block_fn(self, block):
+        """``fn(params, x, cos, sin)``: ``block``'s forward with ``params``
+        (its parameters' tensors, in ``named_parameters`` order) in place
+        of its own (``torch.func.functional_call``; JAX's ``_Swap``); the
+        block's own tensors run the block as it is."""
+        names = [n for n, _ in block.named_parameters()]
+        own = [t for _, t in block.named_parameters()]
+
+        def fn(params, x, cos, sin):
+            if len(params) == len(own) and all(
+                    a is b for a, b in zip(params, own)):
+                return block(x, cos, sin)
+            return torch.func.functional_call(
+                block, dict(zip(names, params)), (x, cos, sin))
+
+        return fn
 
     @torch.no_grad()
     def paged_token_step(self, toks, caches, pos_vec):
@@ -843,15 +889,47 @@ def _resid_axes(config):
             "embed")
 
 
+def _shift_labels(labels, ignore_index: int = -100):
+    """``labels`` shifted left by one position on the global sequence, the
+    last position ``ignore_index``: position i then holds the label its
+    hidden state predicts. A sequence sharded over a mesh dim takes each
+    rank's first column from the next rank along that dim (a
+    ``ppermute``), so no pair is lost at a shard boundary."""
+    from ...distributed.communication.functional import exchange, mesh_axis
+
+    mesh = labels.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    seq_dims = [n for n, p in zip(names, labels.placements)
+                if p.is_shard(1) and mesh.size(names.index(n)) > 1]
+    if len(seq_dims) > 1:
+        raise ValueError(f"labels sharded over {seq_dims} along the "
+                         f"sequence: the shift takes one dim")
+    lab = labels.to_local()
+    tail = torch.full_like(lab[:, :1], ignore_index)
+    if seq_dims:
+        axis = mesh_axis(seq_dims[0], mesh)
+        nxt = exchange(lab[:, :1], axis,
+                       [(i, i - 1) for i in range(1, axis.size)])
+        if axis.index < axis.size - 1:
+            tail = nxt
+    out = torch.cat([lab[:, 1:], tail], dim=1)
+    return DTensor.from_local(out, mesh, labels.placements, run_check=False,
+                              shape=labels.shape, stride=labels.stride())
+
+
 def _mesh_lm_loss(hidden, w, labels, config):
     """The shifted CE under a mesh. The fused CE (``_ChunkedNLL``, raw
     pointers) cannot take a DTensor, so it runs under ``local_map`` on each
     rank's rows against the whole lm head (gathered over fsdp and tp); the
     rows' NLL sum and valid count come out as partial sums over the batch's
-    axes, are reduced, and divide. The head's gradient is likewise partial
-    over the batch's axes."""
+    (and the sequence's) axes, are reduced, and divide. The head's
+    gradient is likewise partial over those axes. The labels are shifted
+    on the global sequence first (:func:`_shift_labels`) and every rank
+    takes its positions unshifted: a per-shard shift would drop the pair
+    at each boundary of a sequence sharded over sep."""
     mesh = hidden.device_mesh
     hidden = constrain(hidden, "batch", "seq", "embed")
+    labels = _shift_labels(labels)
     rep = (Replicate(),) * mesh.ndim
     w = w.redistribute(mesh, rep)
     hp = tuple(hidden.placements)
@@ -860,8 +938,8 @@ def _mesh_lm_loss(hidden, w, labels, config):
     def parts(h, wl, lb):
         if config.fused_ce:
             return fused_linear_cross_entropy_parts(
-                h, wl, lb, chunk=config.fused_ce_chunk)
-        return LlamaPretrainingCriterion.parts(h @ wl, lb)
+                h, wl, lb, chunk=config.fused_ce_chunk, shift=False)
+        return LlamaPretrainingCriterion.parts(h @ wl, lb, shift=False)
 
     total, count = local_map(
         parts, out_placements=(part, part),
@@ -884,10 +962,11 @@ class LlamaPretrainingCriterion(nn.Module):
         return total / count.clamp_min(1.0)
 
     @staticmethod
-    def parts(logits, labels, ignore_index: int = -100):
-        """(the summed NLL, the count of valid positions), fp32."""
-        lg = logits[:, :-1, :].float()
-        lb = labels[:, 1:].long()
+    def parts(logits, labels, ignore_index: int = -100, shift: bool = True):
+        """(the summed NLL, the count of valid positions), fp32; with
+        ``shift`` False the labels are already aligned with the logits."""
+        lg = (logits[:, :-1, :] if shift else logits).float()
+        lb = (labels[:, 1:] if shift else labels).long()
         logz = torch.logsumexp(lg, dim=-1)
         mask = lb != ignore_index
         picked = lg.gather(-1, torch.where(mask, lb, 0)[..., None])[..., 0]

@@ -3120,6 +3120,115 @@ def test_dp2_sharing_the_card_matches_mesh_none(card_place, tmp_path):
         assert err <= 2 * 1e-3 * 3, (name, err)
 
 
+@pytest.mark.cuda
+def test_ppermute_on_cuda_tensors_over_gloo(cuda, tmp_path):
+    """ppermute over two gloo ranks sharing the card: gloo's own send/recv
+    fail on CUDA tensors (they write the device pointer through the host:
+    "writev ... Bad address"), so the exchange stages through host copies;
+    the swap and its gradient are exact, the result on the card, one send
+    and one receive each way."""
+    res = _dist_world("cuda_ppermute", tmp_path)
+    for r in range(2):
+        np.testing.assert_array_equal(
+            res[r]["y"], np.arange(8, dtype=np.float32) + (1 - r))
+        np.testing.assert_array_equal(res[r]["grad"],
+                                      np.full(8, 2.0 - r, np.float32))
+        assert res[r]["device"].startswith("cuda")
+        assert res[r]["p2p"] == (2, 2)
+
+
+@pytest.mark.cuda
+def test_ring_attention_two_ranks_on_card_match_plain(card_place, tmp_path):
+    """Ring attention over {"sep": 2}, two ranks sharing the card over
+    gloo (fp32, zigzag, causal, GQA 8/2 heads of 64): each rank's output
+    and q, k, v gradients equal the plain attention's on the whole
+    sequence, cut at the rank's shard (1e-4 x max(1, max |plain|)); each
+    rank launches K1-lse, K2 with l-bar and K3 once for each of its
+    2n + 1 = 5 stripe pairs, and no dense K2."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_dist_worker import _ring_card_inputs
+
+    res = _dist_world("cuda_ring", tmp_path)
+    q, k, v, cot = _ring_card_inputs()
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ref = flash_attention_reference(q, k, v, causal=True)
+    (ref * cot).sum().backward()
+    want = [ref.detach()] + [t.grad for t in (q, k, v)]
+    for r in range(2):
+        got = [res[r]["out"]] + res[r]["grads"]
+        for g, w in zip(got, want):
+            w = w.chunk(2, 1)[r].numpy()
+            err = np.abs(g - w).max() / max(1.0, np.abs(w).max())
+            assert err <= 1e-4, (r, err)
+        assert res[r]["launches"] == (5, 0, 5, 5)
+
+
+@pytest.mark.cuda
+def test_sep2_fp32_parameters_within_the_lr_bound(cuda):
+    """chip_smoke.py's phase 56 (b) sep=2 run (ring attention, zigzag, two
+    ranks sharing the card over gloo, DIST_DP_LAYERS layers of
+    TRAIN_CONFIG at full width, DIST_STEPS steps) in fp32, against the
+    same mesh=None steps in fp32: losses within 1e-4, every parameter
+    within 2 * lr * steps plus DIST_STEPS fp32 ulps, each parameter's
+    update within DIST_UPDATE_RTOL of mesh=None's. Without bf16's rounding
+    the two runs differ by at most Adam's lr a step and element, which is
+    what phase 56 (b)'s wider bf16 bound for sep=2 (DIST_SEP_ULPS) rests
+    on."""
+    import chip_smoke
+    from paddle_tpu_torch import ops
+
+    losses, _, ranks = chip_smoke.dist_gloo_run(
+        torch, np, ops, (("sep2", {"sep": 2}, {}),), dtype="float32")
+    for r in ranks:
+        rel = ((r["sep2"]["losses"] - losses).abs() / losses.abs()).max()
+        assert float(rel) <= 1e-4, float(rel)
+    pe = ranks[0]["sep2"]["params"]
+    print(f"sep2 fp32: params worst abs {pe['worst']} ({pe['ratio']:.3f}x "
+          f"of the bound), {pe['beyond']} of {pe['total_n']} elements "
+          f"beyond 2 lr steps + |w| / 256; updates worst rel {pe['upd']}")
+    assert not pe["far"] and not pe["stale"], (pe["far"], pe["stale"])
+    assert ranks[0]["sep2"]["counts"]["k2_glse"] == (
+        5 * chip_smoke.DIST_DP_LAYERS * chip_smoke.DIST_STEPS)
+
+
+@pytest.mark.cuda
+def test_pipeline_call_two_ranks_on_card_matches_plain(card_place,
+                                                       tmp_path):
+    """pipeline_call over {"pp": 2} (GPipe, 2 microbatches), two ranks
+    sharing the card over gloo, a block with the flash kernels (fp32):
+    the loss and the gradients of the stacked weights (each rank's rows)
+    and of the input (stage 0's) equal the plain blocks run in sequence on
+    the CPU (1e-4 relative); each rank launches K1-lse, K2 and K3 for its
+    2 layers x 2 microbatches."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_dist_worker import _pipe_card_inputs, pipe_card_block
+
+    res = _dist_world("cuda_pipeline", tmp_path)
+    ws, x = (t.requires_grad_() for t in _pipe_card_inputs())
+    h = x
+    for i in range(ws.shape[0]):
+        h = pipe_card_block([ws[i]], h)
+    loss = (h ** 2).mean()
+    loss.backward()
+    half = ws.shape[0] // 2
+    for r in range(2):
+        np.testing.assert_allclose(res[r]["loss"], loss.item(), rtol=1e-4)
+        gw = ws.grad.numpy()
+        rows = slice(r * half, (r + 1) * half)
+        np.testing.assert_allclose(res[r]["gw"][rows], gw[rows], rtol=1e-4,
+                                   atol=1e-4 * np.abs(gw).max())
+        gx = x.grad.numpy() if r == 0 else np.zeros_like(x.grad.numpy())
+        np.testing.assert_allclose(res[r]["gx"], gx, rtol=1e-4,
+                                   atol=1e-4 * np.abs(x.grad.numpy()).max())
+        assert res[r]["launches"] == (4, 4, 4)
+
+
 def _parent_adamw(eng, grads):
     """The unguarded AdamW as it was before the guard came (in place:
     ``mm.mul_(b1).add_(...)``, ``p.copy_(...)``), on ``eng``'s tensors."""

@@ -205,7 +205,9 @@ def test_mesh_refusals_name_their_part(world):
     msgs = world[0]["refusals"]
     # a batch of 6 rows does not divide over dp x fsdp = 4 (as in JAX)
     assert "does not divide over the 4 ranks" in msgs["uneven_batch"]
-    for key, part in (("sep", "ring attention"), ("pp", "pipeline"),
+    # sep and pp train now (tests/test_torch_dist_sep.py,
+    # tests/test_torch_pipeline.py); an MoE model over them still refuses
+    for key, part in (("moe_sep", "ep mesh"), ("moe_pp", "ep mesh"),
                       ("ep", "ep mesh"), ("moe", "ep mesh")):
         assert "item 6" in msgs[key] and part in msgs[key], msgs[key]
 
@@ -214,30 +216,25 @@ def _refusals():
     import paddle_tpu_torch.distributed as D
     from paddle_tpu_torch.distributed import auto_parallel, \
         communication, fleet
-    from paddle_tpu_torch.distributed.communication import functional as cf
     from paddle_tpu_torch.distributed.fleet import meta_parallel
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-
-    def engine(**kw):
-        m = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
-                             device="cpu")
-        return D.Engine(m, **kw)
 
     return [
-        ("n_micro", lambda: engine(n_micro=2), "pipeline parallelism"),
-        ("pp_schedule", lambda: engine(pp_schedule="zb"),
-         "pipeline parallelism"),
+        ("fleet.get_hybrid_communicate_group",
+         lambda: fleet.get_hybrid_communicate_group, "fleet and ZeRO"),
+        ("ShardingParallel", lambda: meta_parallel.ShardingParallel,
+         "fleet and ZeRO"),
         ("ResilientTrainer_elastic",
          lambda: D.ResilientTrainer(None, "unused", elastic=object()),
          "the store, launch and elastic"),
-        ("ppermute", lambda: cf.ppermute(None, "sep", []), "ring attention"),
-        ("axis_index", lambda: cf.axis_index("sep"), "ring attention"),
+        ("TensorParallel", lambda: meta_parallel.TensorParallel,
+         "fleet and ZeRO"),
+        ("launch", lambda: D.launch, "the store, launch and elastic"),
         ("fleet.init", lambda: fleet.init, "fleet and ZeRO"),
         ("fleet.DistributedStrategy", lambda: fleet.DistributedStrategy,
          "fleet and ZeRO"),
         ("sharding", lambda: D.sharding, "fleet and ZeRO"),
-        ("PipelineLayer", lambda: meta_parallel.PipelineLayer,
-         "pipeline parallelism"),
+        ("fleet.elastic", lambda: fleet.elastic,
+         "the store, launch and elastic"),
         ("TCPStore", lambda: D.TCPStore, "the store, launch and elastic"),
         ("CommTaskManager", lambda: D.CommTaskManager,
          "the store, launch and elastic"),
@@ -250,6 +247,9 @@ def _refusals():
         ("utils", lambda: D.utils, "MoE over an ep mesh"),
         ("to_static", lambda: auto_parallel.to_static(None),
          "a compiled mesh step"),
+        ("zb_selective_remat", lambda: auto_parallel.pipeline.zb_schedule(
+            lambda ps, h: h, 2, 1, 1, remat=True, remat_policy=object()),
+         "the zero-bubble schedule's selective remat regime"),
     ]
 
 

@@ -4,7 +4,9 @@ cells and the ``RNN`` wrapper) against the JAX package's ``lax.scan`` of
 
 Every configuration: 2 layers, bidirectional, with and without initial
 states, with and without biases, ``time_major`` both ways. The JAX layer's
-parameters cross by name (``weight_ih_l0``, ``bias_hh_l1_reverse`` ...).
+parameters (drawn from numpy while it is built, ``numpy_draws``) cross
+by name (``weight_ih_l0``, ``bias_hh_l1_reverse`` ...); its side of each
+stacked-layer check runs under one ``jax.jit``.
 Outputs and final states within 1e-5 of max(1, max |jax|), gradients of
 sum(out * cotangent) over every output (for the input, the initial states
 and every parameter) within 1e-5; under ``auto_cast`` O1 bf16 the dtypes
@@ -13,16 +15,19 @@ mode, where the between-layer ``dropout`` (Paddle's, which the JAX layer
 drops) is off; in training it is held to its rate.
 """
 
-import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
+import jax  # (JAX on the CPU, as tests/conftest.py sets it)
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as jp
 import paddle_tpu_torch as pt
+from paddle_tpu.core import autograd_engine
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.jit.api import _Swap
 from paddle_tpu_torch import device as pt_device
 from paddle_tpu_torch.weights import load_jax_state, state_from_jax_layer
-from torch_nn_parity import F, as_np, compare, dtype_name, flat
+from torch_nn_parity import F, as_np, compare, dtype_name, flat, numpy_draws
 
 torch.set_num_threads(1)
 
@@ -39,7 +44,9 @@ B, T, IN, H, L = 3, 5, 4, 6, 2
 
 
 def _pair(make):
-    jm, tm = make(jp), make(pt)
+    with numpy_draws(0):
+        jm = make(jp)
+    tm = make(pt)
     names = [(n, tuple(p.shape)) for n, p in jm.named_parameters()]
     assert [(n, tuple(p.shape)) for n, p in tm.named_parameters()] == names
     load_jax_state(tm, state_from_jax_layer(jm))
@@ -64,17 +71,41 @@ def _backward(P, out, cots):
     loss.backward()
 
 
+def _jax_check(jm, inputs, nstate, cots):
+    """The JAX side of :func:`_check` as one ``jax.jit`` of
+    ``jax.value_and_grad`` over the layer's parameters (swapped in) and
+    the inputs (the eager tape would dispatch every op of every step):
+    (outputs, the inputs' gradients, {name: the parameter's gradient})."""
+    named = list(jm.named_parameters())
+    tensors = [p for _, p in named]
+
+    def loss_fn(params, xs):
+        with autograd_engine.no_grad(), _Swap(tensors, params):
+            ts = [Tensor(x) for x in xs]
+            states = None
+            if nstate:
+                states = ts[1] if nstate == 1 else (ts[1], ts[2])
+            out = [o._data for o in flat(jm(ts[0], states))]
+        return sum((o * c).sum() for o, c in zip(out, cots)), out
+
+    (_, out), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True))(
+            [p._data for p in tensors], [jax.numpy.asarray(x)
+                                         for x in inputs])
+    return out, gx, {n: g for (n, _), g in zip(named, gp)}
+
+
 def _check(make, inputs, nstate, tol=1e-5):
     jm, tm = _pair(make)
-    jts, jout = _run(jp, jm, inputs, nstate)
     tts, tout = _run(pt, tm, inputs, nstate)
-    compare(tout, jout, tol)
+    # the cotangents take the outputs' shapes (compare holds the port's
+    # shapes to JAX's)
     cots = [np.random.default_rng(7).standard_normal(as_np(o).shape)
-            .astype(np.float32) for o in flat(jout)]
-    _backward(jp, jout, cots)
+            .astype(np.float32) for o in flat(tout)]
+    jout, jgx, jg = _jax_check(jm, inputs, nstate, cots)
+    compare(tout, jout, tol)
     _backward(pt, tout, cots)
-    compare([t.grad for t in tts], [t.grad for t in jts], tol)
-    jg = {n: p.grad for n, p in jm.named_parameters()}
+    compare([t.grad for t in tts], jgx, tol)
     for n, p in tm.named_parameters():
         compare(p.grad, jg[n], tol)
 

@@ -13,13 +13,16 @@ the port's own unpacked call. ``RNN`` and ``BiRNN`` (a cell stepped in
 Python) freeze the state past a row's length and output zeros there.
 """
 
-import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
+import jax  # (JAX on the CPU, as tests/conftest.py sets it)
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as jp
 import paddle_tpu_torch as pt
+from paddle_tpu.core import autograd_engine
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.jit.api import _Swap
 from paddle_tpu_torch import device as pt_device
 from paddle_tpu_torch.weights import load_jax_state, state_from_jax_layer
 from torch_nn_parity import F, as_np, compare, flat
@@ -58,8 +61,7 @@ def _cots(shapes, seed):
 
 # the JAX per-row references, shared between cases that differ only in
 # layout (time_major): the same layer, weights, inputs and cotangents give
-# the same rows, kept here in batch-major layout (the eager per-row JAX
-# calls are most of this file's time)
+# the same rows, kept here in batch-major layout
 _JAX_ROWS = {}
 
 
@@ -87,32 +89,42 @@ def _jax_rows(jm, x, st, lens, nstate, time_major, batch_dim, cot_out,
     key = _ref_key(jm, x, st, lens, nstate, batch_dim, cot_out, cot_st)
     if key in _JAX_ROWS:
         return _JAX_ROWS[key]
+    named = list(jm.named_parameters())
+    tensors = [p for _, p in named]
+
+    def row_loss(params, xb, sts, cot_o, cot_s):
+        # one row through the layer with the parameters swapped in, under
+        # jax.jit (the eager tape would dispatch every op of every step)
+        with autograd_engine.no_grad(), _Swap(tensors, params):
+            jout = jm(Tensor(xb), pack([Tensor(a) for a in sts]))
+            o = jout[0]._data
+            states = [s._data for s in _states(jout)]
+        jl = (o * cot_o).sum()
+        for s, c in zip(states, cot_s):
+            jl = jl + (s * c).sum()
+        return jl, (o, states)
+
+    f = jax.jit(jax.value_and_grad(row_loss, argnums=(0, 1, 2),
+                                   has_aux=True))
+    params = [p._data for p in tensors]
     rows = []
-    jgrad = {n: 0.0 for n, _ in jm.named_parameters()}
+    jgrad = {n: 0.0 for n, _ in named}
     for b, n in enumerate(lens):
         xb = x[b:b + 1, :n]
         xb = xb.transpose(1, 0, 2) if time_major else xb
-        jx = jp.to_tensor(xb, stop_gradient=False)
         sl = (slice(None), slice(b, b + 1)) if batch_dim == 1 \
             else (slice(b, b + 1),)
-        jst = [jp.to_tensor(s[sl], stop_gradient=False) for s in st]
-        for p in jm.parameters():
-            p.clear_gradient()
-        jout = jm(jx, pack(jst))
-        o = as_np(jout[0])
-        o = o.transpose(1, 0, 2) if time_major else o
-        jl = (jout[0] * jp.to_tensor(
-            cot_out[b:b + 1, :n].transpose(1, 0, 2) if time_major
-            else cot_out[b:b + 1, :n])).sum()
-        for s, c in zip(_states(jout), cot_st):
-            jl = jl + (s * jp.to_tensor(c[sl])).sum()
-        jl.backward()
-        gjx = as_np(jx.grad)
-        gjx = gjx.transpose(1, 0, 2) if time_major else gjx
-        rows.append({"o": o, "states": [as_np(s) for s in _states(jout)],
-                     "gx": gjx, "gst": [as_np(js.grad) for js in jst]})
-        for name, p in jm.named_parameters():
-            jgrad[name] = jgrad[name] + as_np(p.grad)
+        cot_o = cot_out[b:b + 1, :n]
+        cot_o = cot_o.transpose(1, 0, 2) if time_major else cot_o
+        (_, (o, states)), (gp, gx, gst) = f(
+            params, xb, [s[sl] for s in st], cot_o, [c[sl] for c in cot_st])
+        o, gjx = np.asarray(o), np.asarray(gx)
+        rows.append({"o": o.transpose(1, 0, 2) if time_major else o,
+                     "states": [np.asarray(s) for s in states],
+                     "gx": gjx.transpose(1, 0, 2) if time_major else gjx,
+                     "gst": [np.asarray(g) for g in gst]})
+        for (name, _), g in zip(named, gp):
+            jgrad[name] = jgrad[name] + np.asarray(g)
     _JAX_ROWS[key] = ref = {"rows": rows, "pgrad": jgrad}
     return ref
 

@@ -136,12 +136,14 @@ def test_three_engine_steps_match_jax(tie):
 
 
 def test_unported_training_paths_raise():
-    """What stays refused: pipeline parallelism, naming its part of item
-    6; the guard with a pluggable optimizer (JAX's ValueError; the guard
-    itself is ported: tests/test_torch_numeric_guard.py); a mesh that is
-    not one (meshes are ported: tests/test_torch_dist_engine.py); an
-    optimizer that is not one; invalid remat settings. Remat itself is
-    ported (tests/test_torch_remat.py)."""
+    """What stays refused: the guard with a pluggable optimizer (JAX's
+    ValueError; the guard itself is ported: tests/test_torch_numeric_guard.
+    py); a mesh that is not one (meshes are ported: tests/test_torch_dist_
+    engine.py); an optimizer that is not one; invalid remat settings.
+    Remat itself is ported (tests/test_torch_remat.py), and so is pipeline
+    parallelism (tests/test_torch_pipeline.py): with no pp mesh the
+    engine takes the pipeline's arguments and runs no pipeline, as JAX's
+    does."""
     assert LlamaForCausalLM(LlamaConfig.tiny(recompute=True),
                             device="cpu").remat_policy() is not None
     with pytest.raises(ValueError, match="remat_policy"):
@@ -157,9 +159,7 @@ def test_unported_training_paths_raise():
     from paddle_tpu_torch.optimizer import SGD
     with pytest.raises(ValueError, match="guard supports the built-in"):
         Engine(tm, guard=GuardPolicy(), optimizer=SGD())
-    with pytest.raises(NotImplementedError,
-                       match="pipeline.*item 6's part: pipeline"):
-        Engine(tm, n_micro=2)
+    assert not Engine(tm, n_micro=2, pp_schedule="zb")._pp
 
 
 def test_serving_builds_no_graph(monkeypatch):

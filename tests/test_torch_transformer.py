@@ -19,7 +19,7 @@ Tolerances:
   largest of all: the attention's k biases) against that largest.
 """
 
-import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
+import jax  # (JAX on the CPU, as tests/conftest.py sets it)
 import numpy as np
 import pytest
 import torch
@@ -29,6 +29,9 @@ import paddle_tpu as jp
 import paddle_tpu.nn as jnn
 import paddle_tpu.nn.functional as JF
 import paddle_tpu_torch as pt
+from paddle_tpu.core import autograd_engine
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.jit.api import _Swap
 import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch import device as pt_device
 from paddle_tpu_torch import nn as pnn
@@ -51,7 +54,7 @@ def _x(*s, seed=0):
 
 
 def _np(t):
-    return np.asarray(t.numpy())
+    return np.asarray(t.numpy() if hasattr(t, "numpy") else t)
 
 
 def _close(a, b, tol=1e-5):
@@ -76,30 +79,51 @@ def _pair(make):
     return jl, tl
 
 
+def _jax_check(jl, inputs, run):
+    """The JAX side of :func:`_check` as one ``jax.jit`` of
+    ``jax.value_and_grad`` over the layer's parameters (swapped in) and
+    the inputs (the eager tape would compile every op at every shape):
+    (outputs, the inputs' gradients, {name: the parameter's gradient})."""
+    named = list(jl.named_parameters())
+    tensors = [p for _, p in named]
+
+    def loss_fn(params, xs):
+        with autograd_engine.no_grad(), _Swap(tensors, params):
+            out = [o._data for o in _flat(run(jl, jp, [Tensor(x)
+                                                       for x in xs]))]
+        loss = sum((o * _x(*o.shape, seed=100 + i)).sum()
+                   for i, o in enumerate(out))
+        return loss, out
+
+    (_, out), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss_fn, argnums=(0, 1), has_aux=True))(
+            [p._data for p in tensors], [jax.numpy.asarray(x)
+                                         for x in inputs])
+    return out, gx, {n: g for (n, _), g in zip(named, gp)}
+
+
 def _check(jl, tl, inputs, run):
     """run(layer, P, tensors) in both packages: outputs, then the gradients
-    of every parameter and input."""
-    outs = {}
-    for P, layer in ((jp, jl), (pt, tl)):
-        ts = [P.to_tensor(x, stop_gradient=False) for x in inputs]
-        out = _flat(run(layer, P, ts))
-        loss = None
-        for i, o in enumerate(out):
-            c = P.to_tensor(_x(*o.shape, seed=100 + i))
-            term = (o * c).sum()
-            loss = term if loss is None else loss + term
-        loss.backward()
-        grads = {n: p.grad for n, p in layer.named_parameters()}
-        outs[P] = (out, [t.grad for t in ts], grads)
-    (jo, jg, jpg), (to, tg, tpg) = outs[jp], outs[pt]
+    of every parameter and input (a parameter the outputs do not read has
+    a zero JAX gradient and none, or zeros, on the port)."""
+    ts = [pt.to_tensor(x, stop_gradient=False) for x in inputs]
+    to = _flat(run(tl, pt, ts))
+    loss = None
+    for i, o in enumerate(to):
+        term = (o * pt.to_tensor(_x(*o.shape, seed=100 + i))).sum()
+        loss = term if loss is None else loss + term
+    loss.backward()
+    tg = [t.grad for t in ts]
+    tpg = {n: p.grad for n, p in tl.named_parameters()}
+    jo, jg, jpg = _jax_check(jl, inputs, run)
     for a, b in zip(to, jo):
         _close(a, b)
     for a, b in zip(tg, jg):
         _close(a, b)
     assert sorted(tpg) == sorted(jpg)
     for n in jpg:
-        if jpg[n] is None:
-            assert tpg[n] is None or not np.any(_np(tpg[n])), n
+        if tpg[n] is None:
+            assert not np.any(np.asarray(jpg[n])), n
         else:
             _close(tpg[n], jpg[n])
 

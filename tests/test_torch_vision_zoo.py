@@ -2,7 +2,9 @@
 BatchNorm, MobileNetV1/V2, AlexNet, SqueezeNet) against the JAX package's:
 every factory's eval-mode forward on carried weights (fp32, CPU), at the
 JAX package's own zoo-test sizes (tests/test_audio_text_vision.py:123-139:
-64 px; 96 px for AlexNet and SqueezeNet).
+64 px; 96 px for AlexNet and SqueezeNet). The JAX models' initial weights
+are drawn from numpy (``torch_nn_parity.numpy_draws``), then carried to
+the port.
 
 Tolerance: max abs error of the logits <= 1e-5 x max(1, max |jax|) (fp32,
 only summation orders differ).
@@ -11,9 +13,21 @@ only summation orders differ).
 import pytest
 import torch
 
-from test_torch_vision import _close, _images, _jax_forward, _pair
+import paddle_tpu as paddle
+from test_torch_vision import JV, TV, _close, _images, _jax_forward
+from paddle_tpu_torch.weights import load_jax_state, state_from_jax_layer
+from torch_nn_parity import numpy_draws
 
 torch.set_num_threads(1)
+
+
+def _pair(name, **kw):
+    paddle.seed(7)
+    with numpy_draws(7):
+        jm = getattr(JV, name)(**kw)
+    tm = getattr(TV, name)(device="cpu", seed=7, **kw)
+    load_jax_state(tm, state_from_jax_layer(jm))
+    return jm, tm
 
 ZOO = [("vgg11", 64, {}), ("vgg13", 64, {}), ("vgg16", 64, {}),
        ("vgg19", 64, {}), ("vgg11", 64, dict(batch_norm=True)),

@@ -1,7 +1,8 @@
 """Start a world of gloo ranks for the port's distributed tests.
 
 ``launch(suite, workdir)`` starts ``nprocs`` processes of
-``torch_dist_worker.py``, one rank each, over a TCP rendezvous on a
+``torch_dist_worker.py`` (or of ``script=``, a test file that is its own
+rank script through :func:`rank_main`), one rank each, over a TCP rendezvous on a
 localhost port found free at run time (several pytest workers run
 worlds at once). ``World.wait()`` joins them within their own time limit:
 a rank still running then is killed with the rest and the test fails
@@ -64,7 +65,7 @@ class World:
         return out
 
 
-def launch(suite, workdir, nprocs=4, timeout=150.0):
+def launch(suite, workdir, nprocs=4, timeout=150.0, script=WORKER):
     port = _free_port()
     procs, logs = [], []
     for r in range(nprocs):
@@ -80,6 +81,38 @@ def launch(suite, workdir, nprocs=4, timeout=150.0):
         logs.append(log)
         with open(log, "w") as fh:
             procs.append(subprocess.Popen(
-                [sys.executable, str(WORKER), suite, str(workdir)],
+                [sys.executable, str(script), suite, str(workdir)],
                 env=env, stdout=fh, stderr=subprocess.STDOUT, cwd=ROOT))
     return World(suite, workdir, procs, logs, time.monotonic() + timeout)
+
+
+def rank_main(suites):
+    """The body of a rank script (``python SCRIPT SUITE DIR``): join the
+    world on the CPU, run ``suites[SUITE](workdir, rank, world)`` and
+    pickle its result to ``DIR/SUITE.<rank>.pkl``; a failing rank exits at
+    once (the others may wait in a collective)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as pdist
+
+    suite, workdir = sys.argv[1], sys.argv[2]
+    torch.set_num_threads(1)
+    pt.set_device("cpu")
+    pdist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        out = suites[suite](workdir, rank, world)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+    tmp = os.path.join(workdir, f"{suite}.{rank}.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f)
+    os.replace(tmp, os.path.join(workdir, f"{suite}.{rank}.pkl"))
+    dist.barrier()
+    pdist.destroy_process_group()

@@ -304,7 +304,8 @@ def _refusals(rank, world):
         msgs["uneven_batch"] = "accepted"
     except ValueError as e:
         msgs["uneven_batch"] = str(e)
-    cases = {"sep": ({"sep": 2, "tp": 2}, 1), "pp": ({"pp": 2, "dp": 2}, 1),
+    cases = {"moe_sep": ({"sep": 2, "tp": 2}, 4),
+             "moe_pp": ({"pp": 2, "dp": 2}, 4),
              "ep": ({"ep": 2, "dp": 2}, 1), "moe": ({"dp": 4}, 4)}
     for key, (axes, experts) in cases.items():
         mesh = make_mesh(axes)
@@ -515,6 +516,98 @@ def suite_cuda_gloo(workdir, rank, world):
     return out
 
 
+def suite_cuda_ppermute(workdir, rank, world):
+    """ppermute of CUDA tensors over gloo (host-staged: gloo's own
+    send/recv write a CUDA pointer through the host and fail): the two
+    ranks swap, and the gradient of sum(y * (rank + 1)) comes back."""
+    from paddle_tpu_torch.distributed.communication.functional import (
+        exchange, ppermute)
+
+    mesh = make_mesh({"sep": 2})
+    x = (torch.arange(8, dtype=torch.float32, device="cuda")
+         + rank).requires_grad_()
+    exchange.sends = exchange.recvs = 0
+    y = ppermute(x, "sep", [(0, 1), (1, 0)], mesh=mesh)
+    (y * (rank + 1.0)).sum().backward()
+    return {"y": _np(y), "grad": _np(x.grad), "device": str(y.device),
+            "p2p": (exchange.sends, exchange.recvs)}
+
+
+RING_CARD = dict(b=2, s=512, hq=8, hkv=2, d=64)
+
+
+def _ring_card_inputs():
+    g = torch.Generator().manual_seed(27)
+    c = RING_CARD
+    return [torch.randn(c["b"], c["s"], h, c["d"], generator=g)
+            for h in (c["hq"], c["hkv"], c["hkv"], c["hq"])]
+
+
+def suite_cuda_ring(workdir, rank, world):
+    """Ring attention over {"sep": 2} on the card (fp32, zigzag, causal):
+    each rank's output and q, k, v gradients of sum(out * cot) on its
+    contiguous shard, and its K1-lse / K2 (GLSE) / K3 launches."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.ring_attention import ring_attention
+
+    mesh = make_mesh({"sep": 2})
+    q, k, v, cot = (t.chunk(2, 1)[rank].contiguous().cuda()
+                    for t in _ring_card_inputs())
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    fwd = ops.flash_attention_forward
+    bwd = ops.flash_attention_backward
+    fwd.launches = bwd.launches_glse = bwd.launches_dkv = 0
+    bwd.launches_dq = 0
+    out = ring_attention(q, k, v, mesh, "sep", causal=True)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    return {"out": _np(out), "grads": [_np(t.grad) for t in (q, k, v)],
+            "launches": (fwd.launches, bwd.launches_dq, bwd.launches_glse,
+                         bwd.launches_dkv)}
+
+
+PIPE_CARD = dict(layers=4, b=4, s=256, h=4, d=64, n_micro=2)
+
+
+def _pipe_card_inputs():
+    g = torch.Generator().manual_seed(28)
+    c = PIPE_CARD
+    ws = torch.randn(c["layers"], c["d"], c["d"], generator=g) * 0.1
+    x = torch.randn(c["b"], c["s"], c["h"], c["d"], generator=g)
+    return ws, x
+
+
+def pipe_card_block(params, h):
+    """A block with the flash kernels on the card: h + causal attention of
+    (h @ w, h, h)."""
+    from paddle_tpu_torch.ops import flash_attention
+
+    return h + flash_attention(h @ params[0], h, h, causal=True)
+
+
+def suite_cuda_pipeline(workdir, rank, world):
+    """pipeline_call over {"pp": 2} on the card (GPipe, 2 microbatches,
+    fp32): the loss mean(y ** 2), the gradients of the stacked weights
+    (this rank's rows) and of the input (stage 0's), and the flash
+    launches of the stage's 2 layers x 2 microbatches."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed.auto_parallel.pipeline import \
+        pipeline_call
+
+    mesh = make_mesh({"pp": 2})
+    ws, x = (t.cuda().requires_grad_() for t in _pipe_card_inputs())
+    fwd = ops.flash_attention_forward
+    bwd = ops.flash_attention_backward
+    fwd.launches = bwd.launches_dq = bwd.launches_dkv = 0
+    y = pipeline_call(pipe_card_block, [ws], x, mesh=mesh,
+                      n_micro=PIPE_CARD["n_micro"])
+    loss = (y ** 2).mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "gw": _np(ws.grad), "gx": _np(x.grad),
+            "launches": (fwd.launches, bwd.launches_dq, bwd.launches_dkv)}
+
+
 def suite_cuda_dp(workdir, rank, world):
     """dp=2 on the card (fp32, small): losses, launches, gathered state."""
     from paddle_tpu_torch import ops
@@ -541,7 +634,9 @@ def suite_cuda_dp(workdir, rank, world):
 
 SUITES = {"distributed": suite_distributed, "engine": suite_engine,
           "checkpoint": suite_checkpoint, "cuda_gloo": suite_cuda_gloo,
-          "cuda_dp": suite_cuda_dp}
+          "cuda_dp": suite_cuda_dp, "cuda_ring": suite_cuda_ring,
+          "cuda_ppermute": suite_cuda_ppermute,
+          "cuda_pipeline": suite_cuda_pipeline}
 
 
 def main():

@@ -10,6 +10,10 @@ torch's). Integer outputs are compared by value: with 64-bit mode off the
 JAX package's integers are int32 where the port may give int64.
 """
 
+import contextlib
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -124,3 +128,37 @@ def amp_dtypes(fn, inputs):
         names.append(["int" if n.startswith("int") else n
                        for n in map(dtype_name, flat(out))])
     return names
+
+
+@contextlib.contextmanager
+def numpy_draws(seed):
+    """The JAX package's initializers draw from a seeded numpy generator
+    while a model is built: the weights are carried across to the port,
+    so only their distribution matters, and ``jax.random`` compiles one
+    XLA program for every parameter shape (most of a small layer's build
+    time)."""
+    rng = np.random.default_rng(seed)
+    real = (jax.random.normal, jax.random.uniform,
+            jax.random.truncated_normal)
+
+    def normal(key, shape=(), dtype=jnp.float32):
+        return jnp.asarray(rng.standard_normal(shape), dtype)
+
+    def uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return jnp.asarray(rng.uniform(minval, maxval, shape), dtype)
+
+    def truncated_normal(key, lower, upper, shape=(), dtype=jnp.float32):
+        x = rng.standard_normal(shape)
+        bad = (x < lower) | (x > upper)
+        while bad.any():
+            x[bad] = rng.standard_normal(int(bad.sum()))
+            bad = (x < lower) | (x > upper)
+        return jnp.asarray(x, dtype)
+
+    jax.random.normal, jax.random.uniform = normal, uniform
+    jax.random.truncated_normal = truncated_normal
+    try:
+        yield
+    finally:
+        (jax.random.normal, jax.random.uniform,
+         jax.random.truncated_normal) = real
